@@ -8,22 +8,44 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
 
 1. card and build: the card's name and power limit, then every CUDA source
    compiled (all ``nvcc`` started together) and the build seconds;
-2. kernels against their plain PyTorch versions, on the card: the shape
-   sweep of ``tests/test_kernels.py`` and every real level of the phase-3
-   plans at F in {1, 2, 64}, sum and max, each kernel run twice for
-   bit-equal output; kernel, plain-version and library-call times beside
-   the kernel's bound;
-3. the main path at full width: ``EagrSession`` over an RMAT graph of the
-   repository's reference deployment (100,000 nodes, 800,000 edges, seed 0,
-   tuple window 8, batches of 4096), ``sum``/``max``/``count`` queries, a
-   stream of Zipf(1.5)-drawn writes with a read of every query after each
-   batch (the first batch, which loads the path's kernels, is timed apart
-   and the stream restarted); rates are all events over all the time their
-   calls took; answers held against an independent numpy oracle, the stream
-   replayed from a fresh state to require bit-equal PAOs, and each kernel's
-   launch count on the main path required above zero; then one traced
-   window of writes and one of reads (torch.profiler) for the device time
-   by kernel and the device's busy share.
+2. kernels against their plain PyTorch versions, on the card: the segment
+   kernels on the shape sweep of ``tests/test_kernels.py`` and every real
+   level of the phase-3 plans at F in {1, 2, 64}, sum and max, each kernel
+   run twice for bit-equal output; the flash-attention kernels (prefill and
+   decode) on ``tests/test_kernels.py``'s shapes plus every head dim in fp32
+   (to 2e-5), and at granite-3-2b's serve shapes in bf16 (prefill B 8 x S
+   2,048, causal; decode at the serve path's own shape, B 8 against a
+   2,080-row cache with live lengths 2,049..2,080, and against a 32,768-row
+   cache, B 4, ragged lengths) against the plain version in fp32 on the same
+   bf16 inputs; the embedding-bag kernel on ``tests/test_kernels.py``'s
+   shapes and DIEN's (512 bags x 16 ids, D 18), with empty bags and padding
+   ids, against its plain version on CPU copies of the same inputs (exact on
+   integer tables, 1e-6 on normal ones); kernel, plain-version and
+   library-call times beside each kernel's bound;
+3. the EAGr main path at full width: ``EagrSession`` over an RMAT graph of
+   the repository's reference deployment (100,000 nodes, 800,000 edges,
+   seed 0, tuple window 8, batches of 4096), ``sum``/``max``/``count``
+   queries, a stream of Zipf(1.5)-drawn writes with a read of every query
+   after each batch (the first batch, which loads the path's kernels, is
+   timed apart and the stream restarted); rates are all events over all the
+   time their calls took; answers held against an independent numpy oracle,
+   the stream replayed from a fresh state to require bit-equal PAOs, and
+   each kernel's launch count on the main path required above zero; then
+   one traced window of writes and one of reads (torch.profiler) for the
+   device time by kernel and the device's busy share;
+4. the LM serve path at granite-3-2b's full width (40 layers, d_model 2048,
+   32/8 heads, head dim 64, d_ff 8192, vocab 49155; fp32 parameters drawn
+   from a seeded generator, bf16 compute): ``prefill`` of 8 prompts of 2,048
+   tokens, then 32 greedy ``decode_step``s; the prefill time and decode
+   tokens/s; 40 flash launches per prefill and per decode step required;
+   the prefill logits and the logits of the first and last decode step held
+   against the same model with the plain attention called explicitly
+   (teacher-forced on the kernel run's tokens);
+5. the DIEN serve path at its full ``CFG`` (1M items, 100k profile
+   features, sequence 100) at ``serve_p99`` (batch 512): p50 and p99 batch
+   latency, one embedding-bag launch per batch required, scores held to 1e-5
+   against the same model run on CPU copies of the parameters and batches
+   (where the bag wrapper runs its plain version).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -56,12 +78,53 @@ DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet) for the kernels' bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 KERNELS = {
     "sum": ("segment_agg_sum", "src/repro/kernels/segment_agg/segment_agg.py:41"),
     "max": ("segment_agg_max", "src/repro/kernels/segment_agg/segment_agg.py:59"),
 }
 SOURCE = "src/repro_torch/kernels/segment_agg/csrc/segment_agg.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:34"
+BAG_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
+BAG_REPLACES = "src/repro/kernels/embedding_bag/embedding_bag.py:32"
+
+# the LM serve path: granite-3-2b at full width; 8 prompts of 2,048 tokens
+# and 32 greedy tokens (prefill_32k's B 32 x S 32,768 and decode_32k's
+# B 128 would need more than the card's memory for the cache)
+LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 8, 2048, 32, 0
+# the decode kernel's extra check: a 32,768-row cache (decode_32k's context)
+DEC_BATCH, DEC_CACHE = 4, 32768
+DIEN_BATCHES, DIEN_SEED = 50, 0
+# flash kernels in fp32 against the plain version, to 2e-5: the shapes of
+# tests/test_kernels.py plus head dims 16 and 128 and a causal offset with
+# ragged lengths — (B, Hq, Hkv, Sq, Skv, d, causal, ragged)
+FLASH_SWEEP = [(1, 2, 1, 128, 128, 32, c, False) for c in (True, False)] + [
+    (2, 4, 2, 256, 256, 64, True, False), (2, 4, 2, 256, 256, 64, False, False),
+    (1, 8, 8, 512, 512, 64, True, False), (2, 6, 2, 200, 200, 48, True, False),
+    (2, 6, 2, 200, 200, 48, False, False), (2, 4, 2, 96, 96, 16, True, False),
+    (1, 4, 1, 300, 300, 128, True, False), (2, 4, 2, 70, 200, 64, True, True)]
+DECODE_SWEEP = [(2, 4, 2, 512, 64), (1, 8, 1, 1024, 32), (3, 6, 3, 300, 64),
+                (2, 4, 4, 200, 16), (2, 16, 8, 700, 128), (2, 6, 2, 333, 48)]
+BAG_SWEEP = [(100, 16, 64, 8), (1000, 32, 256, 16), (500, 64, 100, 100),
+             (64, 8, 16, 1)]
+# bf16 flash output against the plain version in fp32 on the same bf16
+# inputs: one rounding of the output to bf16 (unit roundoff 2**-8 =
+# 3.9e-3 relative) on top of fp32 sums taken in another order (~1e-6)
+BF16_RTOL, BF16_ATOL = 4e-3, 1e-5
+BF16_UNIT = 2.0 ** -8
+# the LM's logits, kernel path against the plain path (blocked_attention):
+# in bf16, an attention output whose fp32 value differs in its last bits
+# (another summation order) can round to the neighbouring bf16 value, and 40
+# layers of a random-init model carry such flips up to a few percent of the
+# logits. The floor is the same comparison for the kernels' own plain
+# version (attention_ref, another exact fp32 order) measured in this run;
+# the kernel path must stay within LM_FLOOR_FACTOR times it plus one bf16
+# unit roundoff, and below LM_L2_CAP (a wrong kernel decorrelates the logits:
+# relative L2 ~1.4)
+LM_FLOOR_FACTOR, LM_L2_CAP = 3.0, 0.25
+LM_TRACE_STEPS = 4
 SWEEP = [(100, 8, 17), (1000, 64, 300), (37, 5, 10), (4096, 128, 128),
          (513, 200, 77), (1, 1, 1), (2000, 96, 1000)]
 
@@ -315,54 +378,535 @@ def oracle_check(session, handles, batches, sample) -> None:
                                  f"{want_max}")
 
 
-def profile_main_path(torch, session, handles, batches, out_dir) -> dict:
-    """Device time of the write path and of the read path, each over its own
-    traced window: the time of every CUDA kernel, summed by name
-    (torch.profiler), the window's host wall time, and their ratio (the
-    device's busy share while traced; the tracer's own host cost is in the
-    wall time, so the untraced share is higher). Chrome traces of both
-    windows go to ``out_dir``."""
+def trace_window(torch, name: str, run, n: int, out_dir) -> dict:
+    """One traced window of ``run()`` (after one untraced warm call): the
+    time of every CUDA kernel, summed by name (torch.profiler), the window's
+    host wall time, and their ratio (the device's busy share while traced;
+    the tracer's own host cost is in the wall time, so the untraced share is
+    higher). The Chrome trace goes to ``out_dir``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
+    run()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # host ops: their kernels are listed on their own
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        rows.append((e.key, e.count, dev_us / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    dev_ms = sum(r[2] for r in rows)
+    print(f"profile {name}: {n} batches, wall {wall_ms:.3f} ms, device "
+          f"{dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.4f}", flush=True)
+    for k, c, t in rows[:8]:
+        print(f"    {t:9.3f} ms  {c:6d} calls  {k[:90]}", flush=True)
+    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    return dict(batches=n, wall_ms=wall_ms, device_ms=dev_ms,
+                busy_share=dev_ms / wall_ms,
+                top=[dict(kernel=k, calls=c, ms=t) for k, c, t in rows[:15]])
+
+
+def profile_main_path(torch, session, handles, batches, out_dir) -> dict:
+    """Device time of the write path and of the read path, each over its own
+    traced window (``trace_window``)."""
     phases = {
         "write": lambda: [session.update(ids, vals) for ids, vals, _ in batches],
         "read": lambda: [session.read(h, q) for _, _, q in batches
                          for h in handles],
     }
-    for name, run in phases.items():
-        run()  # warm
+    return {name: trace_window(torch, name, run, len(batches), out_dir)
+            for name, run in phases.items()}
+
+
+# ------------------------------------------------------- flash attention
+def sdpa(torch, q, k, v, *, causal, mask=None):
+    """The library yardstick (timed only; the port never calls it)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)
+
+
+def prefill_bound_ms(B, Hq, Hkv, Sq, Skv, d, causal, esize) -> tuple:
+    """q, k, v read once and out written once; 4 d operations (q.k and p.v)
+    per live query-key pair, at the tensor cores' rate for the input type
+    (bf16; fp32 inputs at the CUDA cores' rate)."""
+    off = Skv - Sq
+    pairs = sum(min(max(i + off + 1, 0), Skv) for i in range(Sq)) \
+        if causal else Sq * Skv
+    nbytes = (2 * B * Hq * Sq * d + 2 * B * Hkv * Skv * d) * esize
+    ops = 4 * d * B * Hq * pairs
+    rate = BF16_OPS_PER_S if esize == 2 else FP32_OPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def decode_bound_ms(Hq, Hkv, d, lengths, esize) -> tuple:
+    """Each live cache row of k and v read once, q read and out written
+    once; 4 d operations per query head and live key."""
+    live = int(sum(lengths))
+    B = len(lengths)
+    nbytes = (2 * Hkv * d * live + 2 * B * Hq * d) * esize
+    ops = 4 * d * Hq * live
+    rate = BF16_OPS_PER_S if esize == 2 else FP32_OPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def phase_flash_sweep(torch, errs) -> None:
+    """Both flash kernels against the plain version in fp32, to 2e-5, and
+    bf16 at internlm2's head dim 128 to the bf16 tolerance."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    dev = torch.device(DEVICE)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for B, Hq, Hkv, Sq, Skv, d, causal, ragged in FLASH_SWEEP:
+        q, k, v = rnd(B, Hq, Sq, d), rnd(B, Hkv, Skv, d), rnd(B, Hkv, Skv, d)
+        lens = torch.randint(1, Skv + 1, (B,), generator=gen, device=dev,
+                             dtype=torch.int32) if ragged else None
+        got = ops.flash_attention(q, k, v, causal=causal, lengths=lens)
+        want = ref.attention_ref(q, k, v, causal=causal, lengths=lens)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue  # host ops: their kernels are listed on their own
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = e.self_cuda_time_total
-            rows.append((e.key, e.count, dev_us / 1e3))
-        rows.sort(key=lambda r: -r[2])
-        dev_ms = sum(r[2] for r in rows)
-        n = len(batches)
-        out[name] = dict(batches=n, wall_ms=wall_ms, device_ms=dev_ms,
-                         busy_share=dev_ms / wall_ms,
-                         top=[dict(kernel=k, calls=c, ms=t)
-                              for k, c, t in rows[:15]])
-        print(f"profile {name}: {n} batches, wall {wall_ms:.3f} ms, device "
-              f"{dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.4f}",
-              flush=True)
-        for k, c, t in rows[:8]:
-            print(f"    {t:9.3f} ms  {c:6d} calls  {k[:90]}", flush=True)
-        prof.export_chrome_trace(os.path.join(out_dir,
-                                              f"trace_{name}.json"))
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        errs["prefill"] = max(errs["prefill"],
+                              (got - want).abs().max().item())
+    for B, Hq, Hkv, S, d in DECODE_SWEEP:
+        q, k, v = rnd(B, Hq, d), rnd(B, Hkv, S, d), rnd(B, Hkv, S, d)
+        lens = torch.randint(1, S, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lens[0] = 0   # a row with no live key gives 0
+        got = ops.flash_decode(q, k, v, lens)
+        want = ref.decode_ref(q, k, v, lens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        if not torch.equal(got[0], torch.zeros_like(got[0])):
+            raise AssertionError("flash_decode: a zero-length row is not 0")
+        errs["decode"] = max(errs["decode"], (got - want).abs().max().item())
+    # bf16 at head dim 128 (internlm2-1.8b's)
+    bf = torch.bfloat16
+    q, k, v = (rnd(1, 16, 256, 128, dtype=bf), rnd(1, 8, 256, 128, dtype=bf),
+               rnd(1, 8, 256, 128, dtype=bf))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=True)
+    torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    got = ops.flash_decode(q[:, :, 0].contiguous(), k, v,
+                           torch.tensor([200], device=dev))
+    want = ref.decode_ref(q[:, :, 0].float(), k.float(), v.float(),
+                          torch.tensor([200], device=dev))
+    torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    print(f"  flash sweep: {len(FLASH_SWEEP)} prefill and "
+          f"{len(DECODE_SWEEP)} decode shapes (head dims 16-128) agree with "
+          f"the plain version to 2e-5 in fp32 (max abs err prefill "
+          f"{errs['prefill']:.3g}, decode {errs['decode']:.3g}); bf16 at head "
+          f"dim 128 within rtol {BF16_RTOL}", flush=True)
+
+
+def phase_flash_serve_shapes(torch, cfg, prompt, gen_len, errs) -> dict:
+    """Both flash kernels at granite-3-2b's serve shapes in bf16, against
+    the plain version in fp32 on the same bf16 inputs; kernel, plain and
+    SDPA times beside the bound. Decode runs at the serve path's own shape
+    (B 8, a cache of prompt + gen_len rows, live lengths spread over the
+    path's prompt + 1 .. prompt + gen_len) and against a 32,768-row cache."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    Hq, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    # prefill: one layer's attention of the serve path's prefill
+    B, S = LM_BATCH, prompt
+    q, k, v = rnd(B, Hq, S, d), rnd(B, Hkv, S, d), rnd(B, Hkv, S, d)
+    got = ops.flash_attention(q, k, v, causal=True)
+    again = ops.flash_attention(q, k, v, causal=True)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("flash_attention is not deterministic")
+    torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    err = (got.float() - want).abs().max().item()
+    errs["prefill"] = max(errs["prefill"], err)
+    del want
+    k_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True),
+                   reps=10)
+    p_ms = cuda_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True),
+                   reps=3)
+    l_ms = cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal=True), reps=10)
+    b_ms, b_by = prefill_bound_ms(B, Hq, Hkv, S, S, d, True, 2)
+    out["prefill"] = dict(B=B, Hq=Hq, Hkv=Hkv, S=S, d=d, dtype="bf16",
+                          max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"  flash prefill B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} bf16 causal: "
+          f"max abs err {err:.3g} vs fp32 plain; kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, SDPA {l_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
+          flush=True)
+    del q, k, v, got, again
+
+    def decode_case(key, B, S, lens):
+        q, k, v = rnd(B, Hq, d), rnd(B, Hkv, S, d), rnd(B, Hkv, S, d)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = ops.flash_decode(q, k, v, lens)
+        again = ops.flash_decode(q, k, v, lens)
+        want = ref.decode_ref(q.float(), k.float(), v.float(), lens)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("flash_decode is not deterministic")
+        torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL,
+                                   atol=BF16_ATOL)
+        err = (got.float() - want).abs().max().item()
+        errs["decode"] = max(errs["decode"], err)
+        k_ms = cuda_ms(torch, lambda: ops.flash_decode(q, k, v, lens))
+        p_ms = cuda_ms(torch, lambda: ref.decode_ref(q, k, v, lens), reps=5)
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[
+            :, None, None, :]
+        l_ms = cuda_ms(torch, lambda: sdpa(torch, q[:, :, None], k, v,
+                                           causal=False, mask=mask))
+        b_ms, b_by = decode_bound_ms(Hq, Hkv, d, lens.tolist(), 2)
+        out[key] = dict(B=B, Hq=Hq, Hkv=Hkv, S=S, d=d, dtype="bf16",
+                        lengths=lens.tolist(), max_abs_err=err, ms=k_ms,
+                        plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                        bound_by=b_by)
+        print(f"  flash decode B={B} Hq={Hq} Hkv={Hkv} cache={S} d={d} bf16 "
+              f"lengths={lens.tolist()}: max abs err {err:.3g} vs fp32 "
+              f"plain; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
+              f"{l_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+
+    # the serve path's decode: every step attends to prompt + 1 .. prompt +
+    # gen_len live rows of a (prompt + gen_len)-row cache
+    B = LM_BATCH
+    live = np.linspace(prompt + 1, prompt + gen_len, B).round().astype(int)
+    decode_case("decode", B, prompt + gen_len, live.tolist())
+    # a 32,768-row cache (decode_32k's context), ragged lengths
+    S = DEC_CACHE
+    decode_case("decode_32k", DEC_BATCH, S,
+                [S, S // 2 + 77, 1, 3 * S // 4][:DEC_BATCH])
     return out
+
+
+# --------------------------------------------------------- embedding bag
+def bag_bound_ms(n_live, n_ids, n_bags, D, weighted) -> tuple:
+    """Each live id's row read once, ids/offsets/weights read once, out
+    written once; a multiply and an add per live id and feature (fp32)."""
+    nbytes = n_live * D * 4 + n_ids * (8 if weighted else 4) + n_bags * 4 \
+        + n_bags * D * 4
+    ops = 2 * D * n_live
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def phase_bag(torch, dien_cfg, errs) -> dict:
+    """The embedding-bag kernel against its plain version on CPU copies of
+    the same inputs (the wrapper's own CPU path): exact on integer-valued
+    tables (sums of small integers are exact in any order), within 1e-6 on
+    normal values, with empty bags and padding ids; then DIEN's shape,
+    timed (the plain version timed on the card)."""
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    dev = torch.device(DEVICE)
+
+    def case(V, D, n_ids, n_bags, integer):
+        table = torch.randint(-50, 51, (V, D), generator=gen, device=dev
+                              ).float() if integer else \
+            torch.randn((V, D), generator=gen, device=dev)
+        ids = torch.randint(0, V, (n_ids,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[torch.rand(n_ids, generator=gen, device=dev) < 0.2] = -1  # padding
+        offs = torch.sort(torch.randint(0, n_ids + 1, (n_bags,),
+                                        generator=gen, device=dev)).values
+        offs[0] = 0
+        offs = offs.to(torch.int32)                   # repeats: empty bags
+        w = torch.randn((n_ids,), generator=gen, device=dev)
+        return table, ids, offs, w
+
+    n_cases = 0
+    for V, D, n_ids, n_bags in BAG_SWEEP + [(dien_cfg.n_profile_feats,
+                                             dien_cfg.embed_dim, 512 * 16,
+                                             512)]:
+        for integer in (True, False):
+            table, ids, offs, w = case(V, D, n_ids, n_bags, integer)
+            for weights in (None, w):
+                got = ops.embedding_bag(table, ids, offs, n_bags=n_bags,
+                                        weights=weights).cpu()
+                want = ops.embedding_bag(
+                    table.cpu(), ids.cpu(), offs.cpu(), n_bags=n_bags,
+                    weights=None if weights is None else weights.cpu())
+                if integer:
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"embedding_bag != plain version on an integer "
+                            f"table (V={V} D={D})")
+                else:
+                    torch.testing.assert_close(got, want, rtol=1e-6,
+                                               atol=1e-6)
+                errs["bag"] = max(errs["bag"],
+                                  (got - want).abs().max().item())
+                n_cases += 1
+    print(f"  embedding bag: {n_cases} cases (empty bags, padding ids, "
+          f"weighted and not) agree with the plain version on CPU copies "
+          f"(exact on integer tables; max abs err {errs['bag']:.3g})",
+          flush=True)
+
+    # DIEN's profile lookup: 512 bags of 16 ids, D 18, mask weights
+    B, nb, D = 512, dien_cfg.profile_bag_size, dien_cfg.embed_dim
+    table = torch.randn((dien_cfg.n_profile_feats, D), generator=gen,
+                        device=dev)
+    ids = torch.randint(0, dien_cfg.n_profile_feats, (B * nb,),
+                        generator=gen, device=dev, dtype=torch.int32)
+    offs = torch.arange(B, dtype=torch.int32, device=dev) * nb
+    w = torch.ones((B * nb,), device=dev)
+    bags = ref.bags_of(offs, B * nb)
+    k_ms = cuda_ms(torch, lambda: ops.embedding_bag(table, ids, offs,
+                                                    n_bags=B, weights=w))
+    p_ms = cuda_ms(torch, lambda: ref.embedding_bag_ref(table, ids, bags, B,
+                                                        weights=w))
+    ids64, offs64 = ids.long(), offs.long()
+    F = torch.nn.functional
+    l_ms = cuda_ms(torch, lambda: F.embedding_bag(
+        ids64, table, offs64, mode="sum", per_sample_weights=w))
+    b_ms, b_by = bag_bound_ms(B * nb, B * nb, B, D, True)
+    print(f"  embedding bag at DIEN's shape ({B} bags x {nb} ids, D={D}, "
+          f"V={dien_cfg.n_profile_feats}): kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, F.embedding_bag {l_ms:.4f} ms, bound {b_ms:.6f} "
+          f"ms ({b_by})", flush=True)
+    return dict(B=B, bag=nb, D=D, V=dien_cfg.n_profile_feats,
+                max_abs_err=errs["bag"], ms=k_ms, plain_ms=p_ms,
+                library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+# ------------------------------------------------------------- LM serve
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def lm_compare(torch, got, want) -> dict:
+    """bf16 logits of one run against another's: the largest difference
+    relative to the second run's largest magnitude, and the relative L2
+    difference, over the real vocab (the padded vocab is -1e9 in both)."""
+    g, w = got.float(), want.float()
+    valid = w > -1e8
+    g, w = g[valid], w[valid]
+    return dict(max_rel=((g - w).abs().max() / w.abs().max()).item(),
+                l2_rel=((g - w).norm() / w.norm()).item())
+
+
+def phase_serve_lm(torch, n_layers, prompt, gen_len, out_dir) -> dict:
+    """granite-3-2b's serve path: prefill, then greedy decode, through the
+    flash kernels, counted; then the same model twice with a plain attention
+    called explicitly, teacher-forced on the kernel run's tokens: the JAX
+    package's ``blocked_attention`` (the comparison) and the kernels' own
+    plain version ``attention_ref`` (the floor: two exact fp32 softmaxes
+    that differ only in summation order, run through the same bf16 model);
+    then a traced window of decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import blocked_attention, init_from_specs
+
+    cfg = granite_3_2b.CFG
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    params = T.serving_params(init_from_specs(T.param_specs(cfg), gen), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, L = LM_BATCH, cfg.n_layers
+    tokens = torch.randint(0, cfg.vocab, (B, prompt), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cache_shape = (L, B, cfg.n_kv_heads, prompt + gen_len, cfg.head_dim)
+
+    def run(attention=None, forced=None):
+        """prefill + gen_len greedy decode steps; per-step launch counts;
+        ``forced`` tokens (teacher forcing) replace the greedy ones."""
+        flash.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, (k, v) = T.prefill(params, tokens, cfg, attention=attention)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(prefill=dict(flash.LAUNCHES), steps=[])
+        kc = torch.zeros(cache_shape, dtype=cfg.compute_dtype, device=dev)
+        vc = torch.zeros(cache_shape, dtype=cfg.compute_dtype, device=dev)
+        kc[:, :, :, :prompt] = k
+        vc[:, :, :, :prompt] = v
+        del k, v
+        lengths = torch.full((B,), prompt, dtype=torch.int32, device=dev)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out = dict(prefill_logits=logits, tokens=[tok], step_logits=[])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(gen_len):
+            if forced is not None:
+                tok = forced[i]
+            before = flash.LAUNCHES["decode"]
+            lg, (kc, vc), lengths = T.decode_step(
+                params, (kc, vc), tok, lengths, cfg, attention=attention)
+            launches["steps"].append(flash.LAUNCHES["decode"] - before)
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            out["tokens"].append(tok)
+            out["step_logits"].append(lg if i in (0, gen_len - 1) else None)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        out.update(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                   launches=launches, total=dict(flash.LAUNCHES))
+        return out
+
+    run()                               # warm: cuBLAS and kernel loading
+    torch.cuda.reset_peak_memory_stats()
+    kern = run()                        # the serve path, counted
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lp = kern["launches"]
+    if lp["prefill"] != {"prefill": L, "decode": 0}:
+        raise AssertionError(f"prefill launched {lp['prefill']}, want "
+                             f"{L} flash prefill launches")
+    if any(n != L for n in lp["steps"]):
+        raise AssertionError(f"decode steps launched {lp['steps']} flash "
+                             f"decode kernels, want {L} each")
+    if max(int(t.max()) for t in kern["tokens"]) >= cfg.vocab:
+        raise AssertionError("greedy decoding picked a padded vocab id")
+    for lg in [kern["prefill_logits"]] + [x for x in kern["step_logits"]
+                                          if x is not None]:
+        if not torch.isfinite(lg).all():
+            raise AssertionError("non-finite logits on the serve path")
+
+    forced = kern["tokens"][:gen_len]
+    plain = run(blocked_attention, forced=forced)
+    floor = run(attention_ref, forced=forced)
+    for r in (plain, floor):
+        if r["total"] != {"prefill": 0, "decode": 0}:
+            raise AssertionError(f"a plain path launched {r['total']}")
+
+    def compare(a):
+        return dict(prefill=lm_compare(torch, a["prefill_logits"],
+                                       plain["prefill_logits"]),
+                    first_step=lm_compare(torch, a["step_logits"][0],
+                                          plain["step_logits"][0]),
+                    last_step=lm_compare(torch, a["step_logits"][-1],
+                                         plain["step_logits"][-1]))
+
+    agree = [float((a == b).float().mean()) for a, b in
+             zip(kern["tokens"][1:], plain["tokens"][1:])]
+
+    # where a decode step's time goes: a traced window of decode steps
+    kc = torch.zeros(cache_shape[:3] + (prompt + LM_TRACE_STEPS,
+                                        cfg.head_dim),
+                     dtype=cfg.compute_dtype, device=dev)
+    vc = torch.zeros_like(kc)
+    lens0 = torch.full((B,), prompt, dtype=torch.int32, device=dev)
+
+    def decode_window():
+        tok, lens = forced[0], lens0
+        for _ in range(LM_TRACE_STEPS):
+            lg, _, lens = T.decode_step(params, (kc, vc), tok, lens, cfg)
+            tok = torch.argmax(lg, -1).to(torch.int32)
+
+    trace = trace_window(torch, "lm_decode", decode_window, LM_TRACE_STEPS,
+                         out_dir)
+    return dict(arch=cfg.name, n_layers=L, batch=B, prompt=prompt,
+                gen=gen_len, init_s=init_s, prefill_ms=kern["prefill_ms"],
+                decode_ms=kern["decode_ms"],
+                decode_tok_s=B * gen_len / (kern["decode_ms"] / 1e3),
+                plain_prefill_ms=plain["prefill_ms"],
+                plain_decode_ms=plain["decode_ms"], peak_gb=peak_gb,
+                launches=dict(prefill=lp["prefill"]["prefill"],
+                              decode=sum(lp["steps"]),
+                              per_decode_step=lp["steps"][0]),
+                logits_vs_plain=compare(kern), logits_floor=compare(floor),
+                greedy_agreement_teacher_forced=agree, decode_trace=trace,
+                param_gb=tree_bytes(params) / 1e9)
+
+
+# ----------------------------------------------------------- DIEN serve
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def phase_serve_dien(torch, n_batches, out_dir) -> dict:
+    """DIEN's full CFG at serve_p99 (batch 512): batch latency through the
+    embedding-bag kernel, one launch per batch, scores against the same
+    model on CPU copies of the parameters and batches (the plain path)."""
+    from repro_torch.configs import dien as dcfg
+    from repro_torch.kernels.embedding_bag import ops as bag
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.models.recsys import dien as m
+
+    cfg = dcfg.CFG
+    B = dcfg.SHAPE_DEFS["serve_p99"]["batch"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(DIEN_SEED)
+    params = init_from_specs(m.param_specs(cfg), gen)
+    batches = [dcfg.rand_rank_batch(gen, cfg, B) for _ in range(n_batches)]
+    # some users with partly masked profiles, one with none
+    for b in batches:
+        b["profile_mask"] = torch.rand(b["profile_mask"].shape, generator=gen,
+                                       device=DEVICE) < 0.7
+        b["profile_mask"][0] = False
+    m.serve(params, batches[0], cfg)     # warm
+    torch.cuda.synchronize()
+    bag.reset_launches()
+    lat, scores = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        scores.append(m.serve(params, b, cfg))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = bag.LAUNCHES["embedding_bag"]
+    if launches != n_batches:
+        raise AssertionError(f"DIEN serve launched embedding_bag {launches} "
+                             f"times for {n_batches} batches")
+    err = 0.0
+    cpu_params = to_cpu(params)
+    for b, sc in zip(batches, scores):
+        sc = sc.cpu()
+        want = m.serve(cpu_params, to_cpu(b), cfg)
+        torch.testing.assert_close(sc, want, rtol=1e-5, atol=1e-5)
+        err = max(err, (sc - want).abs().max().item())
+        if sc.shape != (B,) or not torch.isfinite(sc).all() \
+                or not ((sc > 0) & (sc < 1)).all():
+            raise AssertionError("DIEN scores are not finite CTRs in (0, 1)")
+    if bag.LAUNCHES["embedding_bag"] != n_batches:
+        raise AssertionError("the plain path launched the kernel")
+    trace = trace_window(torch, "dien_serve",
+                         lambda: [m.serve(params, b, cfg) for b in batches[:3]],
+                         3, out_dir)
+    lat = np.asarray(lat)
+    return dict(batch=B, batches=n_batches, trace=trace,
+                p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)),
+                max_ms=float(lat.max()), mean_ms=float(lat.mean()),
+                launches=launches, max_abs_err_vs_plain=err,
+                requests_per_s=B * n_batches / (lat.sum() / 1e3))
 
 
 def main(argv=None) -> int:
@@ -370,6 +914,11 @@ def main(argv=None) -> int:
     ap.add_argument("--nodes", type=int, default=N_NODES)
     ap.add_argument("--edges", type=int, default=N_EDGES)
     ap.add_argument("--batches", type=int, default=20)
+    ap.add_argument("--lm-layers", type=int, default=None,
+                    help="cut granite-3-2b's depth (default: all 40)")
+    ap.add_argument("--prompt", type=int, default=LM_PROMPT)
+    ap.add_argument("--gen", type=int, default=LM_GEN)
+    ap.add_argument("--dien-batches", type=int, default=DIEN_BATCHES)
     args = ap.parse_args(argv)
 
     import torch
@@ -378,11 +927,14 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
-    # no matmul runs on the port's path; keep fp32 products exact if one did
+    # fp32 products in full fp32 (the plain attention's and DIEN's
+    # matmuls), stated both ways; the LM's bf16 products accumulate in fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import EagrSession, Query, WindowSpec
+    from repro_torch.configs import dien as dien_configs
+    from repro_torch.configs import granite_3_2b
     from repro_torch.graphs.generators import rmat_graph
     from repro_torch.kernels import _build
     from repro_torch.kernels.segment_agg import ops, ref
@@ -406,9 +958,15 @@ def main(argv=None) -> int:
             or "spill" in ln), flush=True)
     report.update(card=card, build_s=build_s, build_log=_build.BUILD_LOG)
 
-    # ---- 2a. kernels against their plain version: the shape sweep
-    errs = {"sum": 0.0, "max": 0.0}
+    # ---- 2a. kernels against their plain version: the shape sweeps
+    errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "decode": 0.0,
+            "bag": 0.0}
     phase_kernels_sweep(torch, ops, ref, errs)
+    phase_flash_sweep(torch, errs)
+    flash_rows = phase_flash_serve_shapes(torch, granite_3_2b.CFG,
+                                          args.prompt, args.gen, errs)
+    bag_row = phase_bag(torch, dien_configs.CFG, errs)
+    report.update(flash=flash_rows, embedding_bag=bag_row)
 
     # ---- 3 (set-up). the session of the main path
     t0 = time.perf_counter()
@@ -508,12 +1066,52 @@ def main(argv=None) -> int:
     report.update(main_path=metrics, launches=launches,
                   write_ms=w_ms, read_ms=r_ms)
 
+    # ---- 4. the LM serve path at granite-3-2b's full width
+    n_layers = args.lm_layers or granite_3_2b.CFG.n_layers
+    lm = phase_serve_lm(torch, n_layers, args.prompt, args.gen, out_dir)
+    print(f"LM serve on {card}: {lm['arch']} {lm['n_layers']} layers, "
+          f"{lm['param_gb']:.2f} GB of bf16/fp32 serving parameters: prefill "
+          f"{lm['batch']} x {lm['prompt']} tokens in {lm['prefill_ms']:.3f} "
+          f"ms; {lm['gen']} greedy decode steps in {lm['decode_ms']:.3f} ms = "
+          f"{lm['decode_tok_s']:.1f} tokens/s; peak memory "
+          f"{lm['peak_gb']:.2f} GB; flash launches {lm['launches']}",
+          flush=True)
+    print(f"  logits vs blocked_attention (teacher-forced): kernels "
+          f"{lm['logits_vs_plain']}; floor (attention_ref) "
+          f"{lm['logits_floor']}; greedy agreement per step min "
+          f"{min(lm['greedy_agreement_teacher_forced']):.3f}; plain path "
+          f"prefill {lm['plain_prefill_ms']:.3f} ms, decode "
+          f"{lm['plain_decode_ms']:.3f} ms", flush=True)
+    for k, c in lm["logits_vs_plain"].items():
+        f = lm["logits_floor"][k]
+        for m in ("max_rel", "l2_rel"):
+            tol = LM_FLOOR_FACTOR * f[m] + BF16_UNIT
+            if c[m] > tol or c["l2_rel"] > LM_L2_CAP:
+                raise AssertionError(
+                    f"{k} logits differ from the plain path: {c} against "
+                    f"the floor {f} (tolerance {LM_FLOOR_FACTOR} x floor + "
+                    f"{BF16_UNIT}, l2 cap {LM_L2_CAP})")
+    report["serve_lm"] = lm
+
+    # ---- 5. the DIEN serve path at its full CFG, serve_p99
+    dien = phase_serve_dien(torch, args.dien_batches, out_dir)
+    print(f"DIEN serve on {card}: {dien['batches']} batches of "
+          f"{dien['batch']}: p50 {dien['p50_ms']:.3f} ms, p99 "
+          f"{dien['p99_ms']:.3f} ms, max {dien['max_ms']:.3f} ms "
+          f"({dien['requests_per_s']:.0f} requests/s); embedding_bag "
+          f"launches {dien['launches']}; scores vs plain max abs err "
+          f"{dien['max_abs_err_vs_plain']:.3g}", flush=True)
+    report["serve_dien"] = dien
+
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:
         raise AssertionError(f"the port loaded {bad[:5]}")
 
-    # one entry per kernel: times at the main path's largest level, F=1
+    # one entry per kernel: the segment kernels at the EAGr main path's
+    # largest level, F=1; the flash kernels at the LM serve path's shapes
+    # (decode: B 8 against the path's prompt + gen cache);
+    # the embedding bag at DIEN's; launches from each path's counted run
     kernels = []
     for op, (name, replaces) in KERNELS.items():
         rows = [r for r in level_rows if r["op"] == op and r["F"] == 1]
@@ -523,6 +1121,21 @@ def main(argv=None) -> int:
             launches=launches[op], max_abs_err=errs[op], ms=top["ms"],
             plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"]))
+    for name, key, n in (("flash_attention", "prefill",
+                          lm["launches"]["prefill"]),
+                         ("flash_decode", "decode", lm["launches"]["decode"])):
+        row = flash_rows[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=FLASH_SOURCE,
+            replaces=FLASH_REPLACES, launches=n, max_abs_err=errs[key],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    kernels.append(dict(
+        name="embedding_bag", route="cuda", source=BAG_SOURCE,
+        replaces=BAG_REPLACES, launches=dien["launches"],
+        max_abs_err=errs["bag"], ms=bag_row["ms"],
+        plain_ms=bag_row["plain_ms"], bound_ms=bag_row["bound_ms"],
+        bound_by=bag_row["bound_by"], library_ms=bag_row["library_ms"]))
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

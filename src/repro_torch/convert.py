@@ -1,10 +1,11 @@
-"""Carry a plan and live state from the JAX package into the port.
+"""Carry a plan, live state and model parameters from the JAX package into
+the port.
 
 The JAX package hands its state over as host numpy (``plan_snapshot`` of
-``repro.core.engine`` and ``window_state_to_host`` of ``repro.core.window``);
-these functions turn it into the port's tensors on ``device``, which is CUDA
-unless the caller names another. Nothing here imports the JAX package: the
-caller holds both sides.
+``repro.core.engine``, ``window_state_to_host`` of ``repro.core.window``, and
+a parameter pytree mapped through ``np.asarray``); these functions turn it
+into the port's tensors on ``device``, which is CUDA unless the caller names
+another. Nothing here imports the JAX package: the caller holds both sides.
 """
 from __future__ import annotations
 
@@ -61,3 +62,27 @@ def state_from_reference(window_arrays: dict, pao, now,
     return EngineState(windows, put(pao, np.float32),
                        torch.tensor(float(np.float32(now)),
                                     dtype=torch.float32, device=device))
+
+
+def _param_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact via fp32
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def params_from_reference(tree, device=None):
+    """The port's parameter tree on ``device`` (CUDA unless the caller names
+    another) from the JAX package's parameters as numpy (``jax.tree.map(
+    np.asarray, params)``): the transformer's and DIEN's trees alike. The
+    port keeps the JAX layout, layer-stacked ``(L, ...)`` leaves included,
+    so every leaf travels verbatim in its own dtype."""
+    device = resolve_device(device)
+
+    def put(node):
+        if isinstance(node, dict):
+            return {k: put(v) for k, v in node.items()}
+        return _param_tensor(node, device)
+
+    return put(tree)

@@ -211,7 +211,8 @@ def test_features_outside_the_slice_raise(call):
 
 
 def test_port_loads_no_jax_and_no_repro():
-    """A fresh process imports repro_torch, runs a small session on the CPU
+    """A fresh process imports repro_torch, runs a small session and the
+    serve path (LM prefill and decode, DIEN scoring, the launcher) on the CPU
     and finds neither JAX nor the JAX package in ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
@@ -224,6 +225,20 @@ def test_port_loads_no_jax_and_no_repro():
         m = s.register(Query(agg="max", window=WindowSpec("tuple", 2)))
         s.update(np.asarray(s.writers[:16]), np.ones(16, np.float32))
         s.read(h, s.readers[:8]); s.read(m, s.readers[:8])
+        # the serve path: LM prefill + decode, DIEN scoring, the launcher
+        from repro_torch.configs import get_arch
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as T
+        from repro_torch.models.recsys import dien
+        c = get_arch("granite-3-2b").build_smoke("prefill_32k", device="cpu")
+        logits, cache = T.prefill(c["params"], c["tokens"], c["cfg"])
+        c = get_arch("granite-3-2b").build_smoke("decode_32k", device="cpu")
+        T.decode_step(c["params"], c["cache"], c["tokens"], c["lengths"],
+                      c["cfg"])
+        c = get_arch("dien").build_smoke("serve_p99", device="cpu")
+        dien.serve(c["params"], c["batch"], c["cfg"])
+        serve.main(["--arch", "internlm2-1.8b", "--requests", "2",
+                    "--decode-steps", "1", "--device", "cpu"])
         bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
                or k == "repro" or k.startswith("repro.")]
         print("LOADED", bad)
