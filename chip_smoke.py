@@ -11,17 +11,25 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
 2. kernels against their plain PyTorch versions, on the card: the segment
    kernels on the shape sweep of ``tests/test_kernels.py`` and every real
    level of the phase-3 plans at F in {1, 2, 64}, sum and max, each kernel
-   run twice for bit-equal output; the flash-attention kernels (prefill and
-   decode) on ``tests/test_kernels.py``'s shapes plus every head dim in fp32
-   (to 2e-5), and at granite-3-2b's serve shapes in bf16 (prefill B 8 x S
-   2,048, causal; decode at the serve path's own shape, B 8 against a
-   2,080-row cache with live lengths 2,049..2,080, and against a 32,768-row
-   cache, B 4, ragged lengths) against the plain version in fp32 on the same
-   bf16 inputs; the embedding-bag kernel on ``tests/test_kernels.py``'s
-   shapes and DIEN's (512 bags x 16 ids, D 18), with empty bags and padding
-   ids, against its plain version on CPU copies of the same inputs (exact on
-   integer tables, 1e-6 on normal ones); kernel, plain-version and
-   library-call times beside each kernel's bound;
+   run twice for bit-equal output; the flash-attention kernels: the
+   CUDA-core prefill and the decode kernel on ``tests/test_kernels.py``'s
+   shapes plus every head dim in fp32 (to 2e-5); the tensor-core (wgmma)
+   prefill in bf16 on ragged, offset and non-causal shapes at head dims 64
+   and 128, and at internlm2's and granite-3-2b's serve shapes (B 8 x S
+   2,048, causal), each against the plain version in fp32 on the same bf16
+   inputs to the bf16-probability bar and, at the two serve shapes, to at
+   most twice SDPA's max abs and normwise errors on the same inputs (with a
+   control, P rounded to e4m3, that must break that bar); decode at the
+   serve path's own shape (B 8 against a 2,080-row cache, live lengths
+   2,049..2,080) and against a 32,768-row cache, B 4, ragged lengths; the
+   embedding-bag kernel
+   on ``tests/test_kernels.py``'s shapes and DIEN's (512 bags x 16 ids,
+   D 18), with empty bags and padding ids, against its plain version on CPU
+   copies of the same inputs (exact on integer tables, 1e-6 on normal ones);
+   kernel, plain-version and library-call times beside each kernel's bound
+   (CUDA events over back-to-back calls), and the kernel's and library
+   call's device time (``device_ms``: the kernels alone, without the host's
+   gaps between calls);
 3. the EAGr main path at full width: ``EagrSession`` over an RMAT graph of
    the repository's reference deployment (100,000 nodes, 800,000 edges,
    seed 0, tuple window 8, batches of 4096), ``sum``/``max``/``count``
@@ -37,7 +45,8 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    32/8 heads, head dim 64, d_ff 8192, vocab 49155; fp32 parameters drawn
    from a seeded generator, bf16 compute): ``prefill`` of 8 prompts of 2,048
    tokens, then 32 greedy ``decode_step``s; the prefill time and decode
-   tokens/s; 40 flash launches per prefill and per decode step required;
+   tokens/s; 40 flash launches per prefill, all of them on the tensor-core
+   kernel, and 40 per decode step required;
    the prefill logits and the logits of the first and last decode step held
    against the same model with the plain attention called explicitly
    (teacher-forced on the kernel run's tokens);
@@ -89,6 +98,15 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:34"
 BAG_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 BAG_REPLACES = "src/repro/kernels/embedding_bag/embedding_bag.py:32"
+# each kernel's design, named in the kernels line
+DESIGNS = {
+    "sum": "cuda cores: one CTA per row tile, slot-order scan",
+    "max": "cuda cores: one CTA per row tile, slot-order scan",
+    "prefill": "wgmma: bf16 products on the tensor cores, TMA K/V ring of 2 "
+               "stages, producer + 2 consumer warpgroups, persistent grid",
+    "decode": "cuda cores: one CTA per (head, batch row)",
+    "bag": "one warp per bag, 16 table-row loads in flight",
+}
 
 # the LM serve path: granite-3-2b at full width; 8 prompts of 2,048 tokens
 # and 32 greedy tokens (prefill_32k's B 32 x S 32,768 and decode_32k's
@@ -105,15 +123,39 @@ FLASH_SWEEP = [(1, 2, 1, 128, 128, 32, c, False) for c in (True, False)] + [
     (1, 8, 8, 512, 512, 64, True, False), (2, 6, 2, 200, 200, 48, True, False),
     (2, 6, 2, 200, 200, 48, False, False), (2, 4, 2, 96, 96, 16, True, False),
     (1, 4, 1, 300, 300, 128, True, False), (2, 4, 2, 70, 200, 64, True, True)]
+# the tensor-core prefill in bf16 (head dims 64 and 128): tile edges (S not a
+# multiple of 128), causal offsets both ways, lengths, non-causal
+TC_SWEEP = [(1, 1, 1, 128, 128, 64, False, False),
+            (1, 2, 1, 256, 256, 64, True, False),
+            (2, 4, 2, 200, 200, 64, True, False),
+            (2, 4, 2, 70, 200, 64, True, True),
+            (2, 4, 2, 300, 100, 64, True, False),
+            (2, 4, 4, 1000, 1000, 64, False, True),
+            (1, 1, 1, 128, 128, 128, False, False),
+            (2, 4, 2, 256, 256, 128, True, False),
+            (1, 4, 1, 300, 300, 128, True, True)]
 DECODE_SWEEP = [(2, 4, 2, 512, 64), (1, 8, 1, 1024, 32), (3, 6, 3, 300, 64),
                 (2, 4, 4, 200, 16), (2, 16, 8, 700, 128), (2, 6, 2, 333, 48)]
 BAG_SWEEP = [(100, 16, 64, 8), (1000, 32, 256, 16), (500, 64, 100, 100),
              (64, 8, 16, 1)]
-# bf16 flash output against the plain version in fp32 on the same bf16
-# inputs: one rounding of the output to bf16 (unit roundoff 2**-8 =
-# 3.9e-3 relative) on top of fp32 sums taken in another order (~1e-6)
+# bf16 output of a kernel that rounds only its output (the decode kernel)
+# against the plain version in fp32 on the same bf16 inputs: one rounding of
+# the output to bf16 (unit roundoff 2**-8 = 3.9e-3 relative) on top of fp32
+# sums taken in another order (~1e-6)
 BF16_RTOL, BF16_ATOL = 4e-3, 1e-5
 BF16_UNIT = 2.0 ** -8
+# the tensor-core prefill also rounds its probabilities to bf16 before P.V,
+# as SDPA and every tensor-core flash kernel do: 2**-9 relative on each of
+# ~2,048 probabilities gives ~4e-5 absolute on outputs near 0, above the bar
+# above. It is held elementwise within rtol 4e-3 + atol 2**-8 * max|want|,
+# and at the serve shapes its max abs error and its normwise error
+# ||got - want||_2 / ||want||_2 against fp32 plain to at most TC_SDPA_FACTOR
+# times SDPA's on the same bf16 inputs, measured in the run. The max abs
+# error is set by the few large outputs of the first causal rows; the
+# normwise error by the many small outputs of the later ones, which the
+# elementwise atol (scaled by max|want|) leaves loose. A control with P
+# rounded to e4m3 in the kernel's place must break the bar
+TC_RTOL, TC_ATOL_REL, TC_SDPA_FACTOR = 4e-3, 2.0 ** -8, 2.0
 # the LM's logits, kernel path against the plain path (blocked_attention):
 # in bf16, an attention output whose fp32 value differs in its last bits
 # (another summation order) can round to the neighbouring bf16 value, and 40
@@ -150,6 +192,31 @@ def cuda_ms(torch, fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 50) -> float:
+    """Device time of one call: every CUDA kernel, copy and memset that
+    ``reps`` calls run, summed (torch.profiler), over ``reps``, after one
+    warm-up call. Unlike ``cuda_ms`` it leaves out the gaps in which the
+    device waits for the host, which for a call of a few microseconds are
+    most of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            total_us += e.self_cuda_time_total if us is None else us
+    if total_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total_us / 1e3 / reps
 
 
 def check_kernel(torch, ops, ref, x, seg, tob, fot, n_rows, n_row_tiles, op,
@@ -309,6 +376,28 @@ def phase_kernels_full(torch, ops, ref, session, errs) -> list[dict]:
     return rows
 
 
+def level_device_ms(torch, ops, session, row) -> tuple[float, float]:
+    """Device time (profiler) of the segment kernel and of its library call
+    at one level row of ``phase_kernels_full``, on fresh normal inputs."""
+    g = next(g for g in session._groups.values()
+             if g.agg.name == row["group"])
+    meta = g.engine.plan.meta
+    t = getattr(g.engine.plan.arrays, row["side"])
+    l = row["level"]
+    seg, tob, fot = t.seg[l], t.tile_of_block[l], t.first_of_tile[l]
+    xn = torch.randn((seg.numel(), row["F"]), device=seg.device)
+    dst = torch.where(seg >= 0, seg.long(), meta.n_nodes)
+    lib_out = torch.zeros((meta.n_nodes + 1, row["F"]), device=seg.device)
+    if row["op"] == "sum":
+        lib = lambda: lib_out.index_add_(0, dst, xn)
+    else:
+        lib = lambda: lib_out.index_reduce_(0, dst, xn, "amax")
+    k_dev = device_ms(torch, lambda: ops.segment_agg_level(
+        xn, seg, tob, fot, n_rows=meta.n_nodes,
+        n_row_tiles=meta.n_row_tiles, op=row["op"]))
+    return k_dev, device_ms(torch, lib)
+
+
 def make_stream(writers, readers, n_batches: int, rng, dyadic: bool):
     perm = rng.permutation(len(writers))
     batches = []
@@ -460,9 +549,69 @@ def decode_bound_ms(Hq, Hkv, d, lengths, esize) -> tuple:
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def tc_measure(torch, got, want, floor=None) -> dict:
+    """How a bf16 prefill output stands against the fp32 plain version:
+    its max abs error, its normwise error ||got - want||_2 / ||want||_2, and
+    the limits of the tensor-core bar (see TC_RTOL) that it breaks: the
+    elementwise rule and, given SDPA's (max abs, normwise) error on the same
+    inputs as ``floor``, TC_SDPA_FACTOR times each."""
+    got = got.float()
+    diff = got - want
+    atol = TC_ATOL_REL * want.abs().max().item()
+    m = dict(max_abs_err=diff.abs().max().item(),
+             l2_rel=(diff.norm() / want.norm()).item(), failed=[])
+    if bool((diff.abs() > atol + TC_RTOL * want.abs()).any()):
+        m["failed"].append(f"elementwise (rtol {TC_RTOL}, atol {atol:.4g})")
+    if floor is not None:
+        for key, lim in zip(("max_abs_err", "l2_rel"), floor):
+            if m[key] > TC_SDPA_FACTOR * lim:
+                m["failed"].append(f"{key} {m[key]:.4g} > {TC_SDPA_FACTOR} x "
+                                   f"SDPA's {lim:.4g}")
+    return m
+
+
+def tc_check(torch, got, want, what: str, floor=None) -> dict:
+    """``tc_measure``, raising if any limit is broken."""
+    m = tc_measure(torch, got, want, floor)
+    if m["failed"]:
+        raise AssertionError(f"{what}: breaks {m['failed']}")
+    return m
+
+
+def sdpa_floor(torch, q, k, v, want) -> tuple:
+    """SDPA's max abs and normwise error against the fp32 plain version on
+    the same bf16 inputs (causal, Sq == Skv): the floor the tensor-core
+    prefill is held to."""
+    diff = sdpa(torch, q, k, v, causal=True).float() - want
+    return diff.abs().max().item(), (diff.norm() / want.norm()).item()
+
+
+def attention_p_rounded(torch, q, k, v, p_dtype):
+    """The control of the tensor-core bar: causal attention (Sq == Skv) in
+    fp32 on the bf16 inputs with the probabilities rounded to ``p_dtype``
+    before P.V (max and sum in fp32, the output rounded to bf16), i.e. a
+    tensor-core kernel's numerics with another rounding of P put in its
+    place. One batch row at a time."""
+    B, Hq, S, d = q.shape
+    G = Hq // k.shape[1]
+    above = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
+    out = torch.empty_like(q)
+    for b in range(B):
+        kb = k[b].float().repeat_interleave(G, 0)
+        vb = v[b].float().repeat_interleave(G, 0)
+        s = q[b].float() @ kb.transpose(-1, -2) / d ** 0.5
+        s.masked_fill_(above, float("-inf"))
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        out[b] = ((p.to(p_dtype).float() @ vb) / p.sum(-1, keepdim=True)
+                  ).to(q.dtype)
+    return out
+
+
 def phase_flash_sweep(torch, errs) -> None:
-    """Both flash kernels against the plain version in fp32, to 2e-5, and
-    bf16 at internlm2's head dim 128 to the bf16 tolerance."""
+    """The CUDA-core prefill (fp32) and the decode kernel against the plain
+    version in fp32, to 2e-5; the tensor-core prefill in bf16 on the sweep's
+    edge cases at head dims 64 and 128, to its elementwise bar
+    (``tc_check``); decode in bf16 at head dim 128 to the bf16 tolerance."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     gen = torch.Generator(device=DEVICE)
@@ -480,8 +629,29 @@ def phase_flash_sweep(torch, errs) -> None:
         want = ref.attention_ref(q, k, v, causal=causal, lengths=lens)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-        errs["prefill"] = max(errs["prefill"],
-                              (got - want).abs().max().item())
+        errs["prefill_simt"] = max(errs["prefill_simt"],
+                                   (got - want).abs().max().item())
+    bf = torch.bfloat16
+    for B, Hq, Hkv, Sq, Skv, d, causal, ragged in TC_SWEEP:
+        q, k, v = (rnd(B, Hq, Sq, d, dtype=bf), rnd(B, Hkv, Skv, d, dtype=bf),
+                   rnd(B, Hkv, Skv, d, dtype=bf))
+        lens = torch.randint(1, Skv + 1, (B,), generator=gen, device=dev,
+                             dtype=torch.int32) if ragged else None
+        got = ops.flash_attention(q, k, v, causal=causal, lengths=lens)
+        again = ops.flash_attention(q, k, v, causal=causal, lengths=lens)
+        want = ref.attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal, lengths=lens)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("the tensor-core prefill is not "
+                                 "deterministic")
+        what = f"wgmma prefill {(B, Hq, Hkv, Sq, Skv, d, causal, ragged)}"
+        errs["prefill"] = max(errs["prefill"], tc_check(
+            torch, got, want, what)["max_abs_err"])
+        if causal and Skv < Sq:   # rows before the first key give 0
+            if not torch.equal(got[:, :, :Sq - Skv],
+                               torch.zeros_like(got[:, :, :Sq - Skv])):
+                raise AssertionError(f"{what}: rows without a key are not 0")
     for B, Hq, Hkv, S, d in DECODE_SWEEP:
         q, k, v = rnd(B, Hq, d), rnd(B, Hkv, S, d), rnd(B, Hkv, S, d)
         lens = torch.randint(1, S, (B,), generator=gen, device=dev,
@@ -494,25 +664,22 @@ def phase_flash_sweep(torch, errs) -> None:
         if not torch.equal(got[0], torch.zeros_like(got[0])):
             raise AssertionError("flash_decode: a zero-length row is not 0")
         errs["decode"] = max(errs["decode"], (got - want).abs().max().item())
-    # bf16 at head dim 128 (internlm2-1.8b's)
-    bf = torch.bfloat16
-    q, k, v = (rnd(1, 16, 256, 128, dtype=bf), rnd(1, 8, 256, 128, dtype=bf),
+    # bf16 decode at head dim 128 (internlm2-1.8b's)
+    q, k, v = (rnd(1, 16, 128, dtype=bf), rnd(1, 8, 256, 128, dtype=bf),
                rnd(1, 8, 256, 128, dtype=bf))
-    got = ops.flash_attention(q, k, v, causal=True)
-    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=True)
-    torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL,
-                               atol=BF16_ATOL)
-    got = ops.flash_decode(q[:, :, 0].contiguous(), k, v,
+    got = ops.flash_decode(q, k, v,
                            torch.tensor([200], device=dev))
-    want = ref.decode_ref(q[:, :, 0].float(), k.float(), v.float(),
+    want = ref.decode_ref(q.float(), k.float(), v.float(),
                           torch.tensor([200], device=dev))
     torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL,
                                atol=BF16_ATOL)
-    print(f"  flash sweep: {len(FLASH_SWEEP)} prefill and "
+    print(f"  flash sweep: {len(FLASH_SWEEP)} CUDA-core prefill and "
           f"{len(DECODE_SWEEP)} decode shapes (head dims 16-128) agree with "
           f"the plain version to 2e-5 in fp32 (max abs err prefill "
-          f"{errs['prefill']:.3g}, decode {errs['decode']:.3g}); bf16 at head "
-          f"dim 128 within rtol {BF16_RTOL}", flush=True)
+          f"{errs['prefill_simt']:.3g}, decode {errs['decode']:.3g}); "
+          f"{len(TC_SWEEP)} tensor-core prefill shapes in bf16 within "
+          f"rtol {TC_RTOL} + {TC_ATOL_REL:.4g} max|want| (max abs err "
+          f"{errs['prefill']:.3g}), bit-equal reruns", flush=True)
 
 
 def phase_flash_serve_shapes(torch, cfg, prompt, gen_len, errs) -> dict:
@@ -536,31 +703,83 @@ def phase_flash_serve_shapes(torch, cfg, prompt, gen_len, errs) -> dict:
     # prefill: one layer's attention of the serve path's prefill
     B, S = LM_BATCH, prompt
     q, k, v = rnd(B, Hq, S, d), rnd(B, Hkv, S, d), rnd(B, Hkv, S, d)
+    if ops.prefill_variant(q.dtype, d) != "wgmma":
+        raise AssertionError(f"the serve path's prefill (bf16, d={d}) does "
+                             f"not go to the tensor-core kernel")
     got = ops.flash_attention(q, k, v, causal=True)
     again = ops.flash_attention(q, k, v, causal=True)
     want = ref.attention_ref(q.float(), k.float(), v.float(), causal=True)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError("flash_attention is not deterministic")
-    torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL,
-                               atol=BF16_ATOL)
-    err = (got.float() - want).abs().max().item()
-    errs["prefill"] = max(errs["prefill"], err)
+    floor = sdpa_floor(torch, q, k, v, want)
+    m = tc_check(torch, got, want, "wgmma prefill at the serve shape", floor)
+    errs["prefill"] = max(errs["prefill"], m["max_abs_err"])
+    # the bar's control: the same numerics with P rounded to bf16 (as the
+    # kernel does) and to e4m3 (3 mantissa bits) in the kernel's place; the
+    # coarser rounding must break at least one limit
+    ctl = {}
+    for name, p_dtype in (("p_bf16", bf), ("p_e4m3", torch.float8_e4m3fn)):
+        ctl[name] = tc_measure(torch, attention_p_rounded(
+            torch, q, k, v, p_dtype), want, floor)
+    if not ctl["p_e4m3"]["failed"]:
+        raise AssertionError(f"the tensor-core bar passes P rounded to e4m3: "
+                             f"{ctl['p_e4m3']}")
     del want
     k_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True),
                    reps=10)
     p_ms = cuda_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True),
                    reps=3)
     l_ms = cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal=True), reps=10)
+    k_dev = device_ms(torch, lambda: ops.flash_attention(q, k, v,
+                                                         causal=True), reps=10)
+    l_dev = device_ms(torch, lambda: sdpa(torch, q, k, v, causal=True),
+                      reps=10)
     b_ms, b_by = prefill_bound_ms(B, Hq, Hkv, S, S, d, True, 2)
     out["prefill"] = dict(B=B, Hq=Hq, Hkv=Hkv, S=S, d=d, dtype="bf16",
-                          max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"  flash prefill B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} bf16 causal: "
-          f"max abs err {err:.3g} vs fp32 plain; kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, SDPA {l_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
-          flush=True)
+                          max_abs_err=m["max_abs_err"], l2_rel=m["l2_rel"],
+                          library_max_abs_err=floor[0],
+                          library_l2_rel=floor[1], control=ctl,
+                          ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                          device_ms=k_dev, library_device_ms=l_dev,
+                          bound_ms=b_ms, bound_by=b_by)
+    print(f"  flash prefill (wgmma) B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} bf16 "
+          f"causal: max abs err {m['max_abs_err']:.4g}, normwise "
+          f"{m['l2_rel']:.4g} vs fp32 plain (SDPA {floor[0]:.4g}, "
+          f"{floor[1]:.4g}); control, P rounded to bf16: "
+          f"{ctl['p_bf16']['max_abs_err']:.4g}, {ctl['p_bf16']['l2_rel']:.4g}"
+          f" (breaks {ctl['p_bf16']['failed'] or 'nothing'}), to e4m3: "
+          f"{ctl['p_e4m3']['max_abs_err']:.4g}, {ctl['p_e4m3']['l2_rel']:.4g}"
+          f" (breaks {ctl['p_e4m3']['failed']}); kernel {k_ms:.4f} ms "
+          f"(device {k_dev:.4f}), plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms "
+          f"(device {l_dev:.4f}; {k_ms / l_ms:.3f}x), bound {b_ms:.5f} ms "
+          f"({b_by})", flush=True)
     del q, k, v, got, again
+
+    # the same at internlm2-1.8b's heads (16 / 8, head dim 128)
+    q, k, v = rnd(B, 16, S, 128), rnd(B, 8, S, 128), rnd(B, 8, S, 128)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=True)
+    floor = sdpa_floor(torch, q, k, v, want)
+    m = tc_check(torch, got, want, "wgmma prefill, d 128, B 8 x 2,048", floor)
+    errs["prefill"] = max(errs["prefill"], m["max_abs_err"])
+    del want, got
+    k_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True),
+                   reps=10)
+    l_ms = cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal=True), reps=10)
+    b_ms, b_by = prefill_bound_ms(B, 16, 8, S, S, 128, True, 2)
+    out["prefill_d128"] = dict(B=B, Hq=16, Hkv=8, S=S, d=128, dtype="bf16",
+                               max_abs_err=m["max_abs_err"],
+                               l2_rel=m["l2_rel"],
+                               library_max_abs_err=floor[0],
+                               library_l2_rel=floor[1], ms=k_ms,
+                               library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"  flash prefill (wgmma) B={B} Hq=16 Hkv=8 S={S} d=128 bf16 "
+          f"causal: max abs err {m['max_abs_err']:.4g}, normwise "
+          f"{m['l2_rel']:.4g} (SDPA {floor[0]:.4g}, {floor[1]:.4g}); kernel "
+          f"{k_ms:.4f} ms, SDPA {l_ms:.4f} ms ({k_ms / l_ms:.3f}x), bound "
+          f"{b_ms:.5f} ms ({b_by})", flush=True)
+    del q, k, v
 
     def decode_case(key, B, S, lens):
         q, k, v = rnd(B, Hq, d), rnd(B, Hkv, S, d), rnd(B, Hkv, S, d)
@@ -581,15 +800,20 @@ def phase_flash_serve_shapes(torch, cfg, prompt, gen_len, errs) -> dict:
             :, None, None, :]
         l_ms = cuda_ms(torch, lambda: sdpa(torch, q[:, :, None], k, v,
                                            causal=False, mask=mask))
+        k_dev = device_ms(torch, lambda: ops.flash_decode(q, k, v, lens))
+        l_dev = device_ms(torch, lambda: sdpa(torch, q[:, :, None], k, v,
+                                              causal=False, mask=mask))
         b_ms, b_by = decode_bound_ms(Hq, Hkv, d, lens.tolist(), 2)
         out[key] = dict(B=B, Hq=Hq, Hkv=Hkv, S=S, d=d, dtype="bf16",
                         lengths=lens.tolist(), max_abs_err=err, ms=k_ms,
-                        plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                        plain_ms=p_ms, library_ms=l_ms, device_ms=k_dev,
+                        library_device_ms=l_dev, bound_ms=b_ms,
                         bound_by=b_by)
         print(f"  flash decode B={B} Hq={Hq} Hkv={Hkv} cache={S} d={d} bf16 "
               f"lengths={lens.tolist()}: max abs err {err:.3g} vs fp32 "
-              f"plain; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
-              f"{l_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+              f"plain; kernel {k_ms:.4f} ms (device {k_dev:.4f}), plain "
+              f"{p_ms:.4f} ms, SDPA {l_ms:.4f} ms (device {l_dev:.4f}), "
+              f"bound {b_ms:.5f} ms ({b_by})", flush=True)
 
     # the serve path's decode: every step attends to prompt + 1 .. prompt +
     # gen_len live rows of a (prompt + gen_len)-row cache
@@ -677,22 +901,34 @@ def phase_bag(torch, dien_cfg, errs) -> dict:
     offs = torch.arange(B, dtype=torch.int32, device=dev) * nb
     w = torch.ones((B * nb,), device=dev)
     bags = ref.bags_of(offs, B * nb)
-    k_ms = cuda_ms(torch, lambda: ops.embedding_bag(table, ids, offs,
-                                                    n_bags=B, weights=w))
-    p_ms = cuda_ms(torch, lambda: ref.embedding_bag_ref(table, ids, bags, B,
-                                                        weights=w))
     ids64, offs64 = ids.long(), offs.long()
     F = torch.nn.functional
-    l_ms = cuda_ms(torch, lambda: F.embedding_bag(
-        ids64, table, offs64, mode="sum", per_sample_weights=w))
+    calls = dict(
+        kernel=lambda: ops.embedding_bag(table, ids, offs, n_bags=B,
+                                         weights=w),
+        plain=lambda: ref.embedding_bag_ref(table, ids, bags, B, weights=w),
+        library=lambda: F.embedding_bag(ids64, table, offs64, mode="sum",
+                                        per_sample_weights=w))
+    # the calls are a few microseconds of device work behind tens of host
+    # microseconds each: back-to-back event time (the yardstick of every
+    # kernel's ms, host dispatch included here) and device time (profiler:
+    # the kernels alone) side by side
+    ev = {k: cuda_ms(torch, fn) for k, fn in calls.items()}
+    dev_ms = {k: device_ms(torch, fn) for k, fn in calls.items()}
     b_ms, b_by = bag_bound_ms(B * nb, B * nb, B, D, True)
     print(f"  embedding bag at DIEN's shape ({B} bags x {nb} ids, D={D}, "
-          f"V={dien_cfg.n_profile_feats}): kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, F.embedding_bag {l_ms:.4f} ms, bound {b_ms:.6f} "
-          f"ms ({b_by})", flush=True)
+          f"V={dien_cfg.n_profile_feats}), back-to-back event time: kernel "
+          f"{ev['kernel']:.5f} ms, plain {ev['plain']:.5f} ms, "
+          f"F.embedding_bag {ev['library']:.5f} ms; device time: kernel "
+          f"{dev_ms['kernel']:.5f}, plain {dev_ms['plain']:.5f}, "
+          f"F.embedding_bag {dev_ms['library']:.5f} ms; bound {b_ms:.6f} ms "
+          f"({b_by})", flush=True)
     return dict(B=B, bag=nb, D=D, V=dien_cfg.n_profile_feats,
-                max_abs_err=errs["bag"], ms=k_ms, plain_ms=p_ms,
-                library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=errs["bag"], ms=ev["kernel"],
+                plain_ms=ev["plain"], library_ms=ev["library"],
+                device_ms=dev_ms["kernel"], plain_device_ms=dev_ms["plain"],
+                library_device_ms=dev_ms["library"], bound_ms=b_ms,
+                bound_by=b_by)
 
 
 # ------------------------------------------------------------- LM serve
@@ -785,9 +1021,10 @@ def phase_serve_lm(torch, n_layers, prompt, gen_len, out_dir) -> dict:
     kern = run()                        # the serve path, counted
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lp = kern["launches"]
-    if lp["prefill"] != {"prefill": L, "decode": 0}:
+    if lp["prefill"] != {"prefill": L, "prefill_wgmma": L, "decode": 0}:
         raise AssertionError(f"prefill launched {lp['prefill']}, want "
-                             f"{L} flash prefill launches")
+                             f"{L} flash prefill launches, all on the "
+                             f"tensor-core kernel")
     if any(n != L for n in lp["steps"]):
         raise AssertionError(f"decode steps launched {lp['steps']} flash "
                              f"decode kernels, want {L} each")
@@ -802,7 +1039,7 @@ def phase_serve_lm(torch, n_layers, prompt, gen_len, out_dir) -> dict:
     plain = run(blocked_attention, forced=forced)
     floor = run(attention_ref, forced=forced)
     for r in (plain, floor):
-        if r["total"] != {"prefill": 0, "decode": 0}:
+        if any(r["total"].values()):
             raise AssertionError(f"a plain path launched {r['total']}")
 
     def compare(a):
@@ -838,6 +1075,7 @@ def phase_serve_lm(torch, n_layers, prompt, gen_len, out_dir) -> dict:
                 plain_prefill_ms=plain["prefill_ms"],
                 plain_decode_ms=plain["decode_ms"], peak_gb=peak_gb,
                 launches=dict(prefill=lp["prefill"]["prefill"],
+                              prefill_wgmma=lp["prefill"]["prefill_wgmma"],
                               decode=sum(lp["steps"]),
                               per_decode_step=lp["steps"][0]),
                 logits_vs_plain=compare(kern), logits_floor=compare(floor),
@@ -959,8 +1197,8 @@ def main(argv=None) -> int:
     report.update(card=card, build_s=build_s, build_log=_build.BUILD_LOG)
 
     # ---- 2a. kernels against their plain version: the shape sweeps
-    errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "decode": 0.0,
-            "bag": 0.0}
+    errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "prefill_simt": 0.0,
+            "decode": 0.0, "bag": 0.0}
     phase_kernels_sweep(torch, ops, ref, errs)
     phase_flash_sweep(torch, errs)
     flash_rows = phase_flash_serve_shapes(torch, granite_3_2b.CFG,
@@ -1110,32 +1348,43 @@ def main(argv=None) -> int:
 
     # one entry per kernel: the segment kernels at the EAGr main path's
     # largest level, F=1; the flash kernels at the LM serve path's shapes
-    # (decode: B 8 against the path's prompt + gen cache);
-    # the embedding bag at DIEN's; launches from each path's counted run
+    # (prefill: the tensor-core kernel, its errors beside SDPA's; decode: B 8
+    # against the path's prompt + gen cache); the embedding bag at DIEN's;
+    # launches from each path's counted run. ms, plain_ms and library_ms are
+    # back-to-back CUDA-event times for every kernel; device_ms and
+    # library_device_ms the profiler's device time of the same calls
     kernels = []
     for op, (name, replaces) in KERNELS.items():
         rows = [r for r in level_rows if r["op"] == op and r["F"] == 1]
         top = max(rows, key=lambda r: r["n_live"])
+        k_dev, l_dev = level_device_ms(torch, ops, session, top)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=launches[op], max_abs_err=errs[op], ms=top["ms"],
-            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-            bound_by=top["bound_by"], library_ms=top["library_ms"]))
+            design=DESIGNS[op], launches=launches[op], max_abs_err=errs[op],
+            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=top["library_ms"],
+            device_ms=k_dev, library_device_ms=l_dev))
     for name, key, n in (("flash_attention", "prefill",
-                          lm["launches"]["prefill"]),
+                          lm["launches"]["prefill_wgmma"]),
                          ("flash_decode", "decode", lm["launches"]["decode"])):
         row = flash_rows[key]
         kernels.append(dict(
             name=name, route="cuda", source=FLASH_SOURCE,
-            replaces=FLASH_REPLACES, launches=n, max_abs_err=errs[key],
-            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            replaces=FLASH_REPLACES, design=DESIGNS[key], launches=n,
+            max_abs_err=errs[key], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], device_ms=row["device_ms"],
+            library_device_ms=row["library_device_ms"]))
+    kernels[-2].update({k: flash_rows["prefill"][k] for k in (
+        "l2_rel", "library_max_abs_err", "library_l2_rel")})
     kernels.append(dict(
         name="embedding_bag", route="cuda", source=BAG_SOURCE,
-        replaces=BAG_REPLACES, launches=dien["launches"],
-        max_abs_err=errs["bag"], ms=bag_row["ms"],
+        replaces=BAG_REPLACES, design=DESIGNS["bag"],
+        launches=dien["launches"], max_abs_err=errs["bag"], ms=bag_row["ms"],
         plain_ms=bag_row["plain_ms"], bound_ms=bag_row["bound_ms"],
-        bound_by=bag_row["bound_by"], library_ms=bag_row["library_ms"]))
+        bound_by=bag_row["bound_by"], library_ms=bag_row["library_ms"],
+        device_ms=bag_row["device_ms"],
+        library_device_ms=bag_row["library_device_ms"]))
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file exposes plain C entry points (pointers, sizes and the
 stream as ``void*``/``int``) and is compiled on its own by ``nvcc`` into
 ``build/kernels/<stem>-<hash>.so`` at the repository root (listed in
 ``.gitignore``), then loaded with ``ctypes``. The file name carries a hash of
-the source and the flags, so an edited kernel rebuilds and a stale library is
-never loaded. Nothing here runs at import time: the first wrapper call that
+every file in the source's ``csrc/`` directory (headers included) and the
+flags, so an edited kernel or header rebuilds and a stale library is never
+loaded. Nothing here runs at import time: the first wrapper call that
 needs a kernel builds it; :func:`build_all` starts every ``nvcc`` at once.
 """
 from __future__ import annotations
@@ -51,8 +52,12 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes())
+    """The library's path, named by a hash of every file in the source's
+    ``csrc/`` directory (the ``.cu`` and the headers it includes) and the
+    flags."""
+    h = hashlib.sha256()
+    for f in sorted(p for p in SOURCES[name].parent.iterdir() if p.is_file()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -12,24 +12,30 @@
 // with fp32 accumulation; w[i] = 1 when no weights are given. Negative ids
 // are padding and are skipped; an empty bag gives a row of zeros.
 //
-// Design. One warp per bag, its lanes over the D features (lane, lane + 32,
-// ...). The warp walks its bag's ids in order and adds w[i] * table[ids[i]]
-// into registers, then writes the row once: each bag has one writer, so
-// there are no atomics and the sum's order is fixed: deterministic from run
-// to run. The plain version in ref.py is a segment sum whose order is not
-// fixed on the card, so the two agree exactly on integer-valued tables and
-// to rounding (1e-6) on others. The TPU kernel's tricks are
-// not carried over: it appends a zero-weight sentinel id per bag so that
-// every output block is visited (here the warp of an empty bag simply
-// writes zeros), and it pads D to D_BLK = 512 lanes for its DMA (here a
-// lane past D does nothing: DIEN's D is 18).
-//
 // Bound. The function reads each live id's table row once (4 * D bytes),
 // the ids, offsets and weights once, and writes n_bags * D * 4 bytes; it
-// does 2 * D operations per live id. It is bound by bytes. At DIEN's
-// profile lookup (512 bags of 16 ids, D = 18) that is about 0.65 MB, well
-// under a microsecond at 3.35 TB/s, so the launch itself dominates; a warp
-// of 32 lanes over D = 18 features also leaves 14 lanes idle.
+// does 2 * D operations per live id. It is bound by bytes: at DIEN's profile
+// lookup (512 bags of 16 ids, D = 18) about 0.69 MB, 0.0002 ms at
+// 3.35 TB/s. What sets the time instead is latency: a bag's table rows can
+// only be fetched once its ids have arrived, and its ids once its offsets
+// have.
+//
+// Design. One warp per bag, its lanes over the D features (lane, lane + 32,
+// ...). For 16 ids at a time the warp issues every id and weight load (each
+// lane reads the same address: one broadcast transaction) and then every
+// table-row load before it uses any row, so the 16 rows of a DIEN bag are
+// in flight together and a bag costs three dependent trips to memory
+// (offsets, ids, rows) instead of two per id. Handing the ids out from one
+// coalesced load with __shfl_sync instead was slower (the shuffles sit
+// between the id and row loads). The rows are then added in id order, each
+// product rounded before the add (__fmul_rn, __fadd_rn: no fused
+// multiply-add), so the sum is the plain version's on the CPU bit for bit,
+// and there is one writer per bag: no atomics, the same result on every
+// run. The TPU kernel's
+// tricks are not carried over: it appends a zero-weight sentinel id per bag
+// so that every output block is visited (here the warp of an empty bag
+// simply writes zeros), and it pads D to D_BLK = 512 lanes for its DMA (here
+// a lane past D loads nothing; DIEN's D = 18 leaves 14 lanes idle).
 
 #include <cuda_runtime.h>
 
@@ -37,6 +43,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int BAGS_PER_CTA = THREADS / 32;
+constexpr int IN_FLIGHT = 16;  // table rows a warp loads before it adds them
 
 __global__ void __launch_bounds__(THREADS)
 embedding_bag_kernel(const float* __restrict__ table,
@@ -53,19 +60,28 @@ embedding_bag_kernel(const float* __restrict__ table,
   float* o = out + static_cast<size_t>(bag) * D;
   for (int f0 = 0; f0 < D; f0 += 32) {
     const int f = f0 + lane;
+    const bool has_f = f < D;
     float acc = 0.0f;
-    for (int i = lo; i < hi; ++i) {
-      const int id = ids[i];
-      if (id < 0 || id >= V) continue;  // padding (and ids off the table)
-      const float w = weights != nullptr ? weights[i] : 1.0f;
-      // the product rounded, then added (no fused multiply-add), as the
-      // plain version rounds its products before it sums them
-      if (f < D) {
-        acc = __fadd_rn(acc,
-                        __fmul_rn(w, table[static_cast<size_t>(id) * D + f]));
+    for (int c0 = lo; c0 < hi; c0 += IN_FLIGHT) {
+      float row[IN_FLIGHT], w[IN_FLIGHT];
+      bool live[IN_FLIGHT];
+      // every id, weight and row load of the group is issued before any
+      // row is used (the warp's lanes read one id: a broadcast load)
+#pragma unroll
+      for (int u = 0; u < IN_FLIGHT; ++u) {
+        const int i = c0 + u;
+        const int id = i < hi ? __ldg(ids + i) : -1;
+        w[u] = weights != nullptr && i < hi ? __ldg(weights + i) : 1.0f;
+        live[u] = id >= 0 && id < V;  // padding (and ids off the table)
+        row[u] = live[u] && has_f
+                     ? __ldg(table + static_cast<size_t>(id) * D + f)
+                     : 0.0f;
       }
+#pragma unroll
+      for (int u = 0; u < IN_FLIGHT; ++u)
+        if (live[u]) acc = __fadd_rn(acc, __fmul_rn(w[u], row[u]));
     }
-    if (f < D) o[f] = acc;
+    if (has_f) o[f] = acc;
   }
 }
 

@@ -5,8 +5,13 @@ row and head) take the JAX package's layout: q ``(B, Hq, S, d)`` (decode:
 ``(B, Hq, d)``), k/v ``(B, Hkv, S, d)``, kv head of query head ``h`` =
 ``h // (Hq // Hkv)``. CUDA tensors launch the hand-written kernels in
 ``csrc/flash_attention.cu`` (or raise), CPU tensors run the plain versions in
-``ref.py``; any other device raises. ``LAUNCHES`` counts kernel launches per
-entry point, so a run can show that its path went through the kernels.
+``ref.py``; any other device raises. Prefill has two kernels, picked by
+``prefill_variant`` from the dtype and head dim alone: the tensor-core
+(``wgmma``) kernel for bf16 at head dims 64 and 128, the CUDA-core (``simt``)
+kernel for every other case (fp32 keeps full fp32 products). ``LAUNCHES``
+counts kernel launches per entry point (``prefill`` counts both prefill
+kernels, ``prefill_wgmma`` the tensor-core one), so a run can show that its
+path went through the kernels.
 """
 from __future__ import annotations
 
@@ -19,10 +24,22 @@ from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
 
 HEAD_DIMS = (16, 32, 48, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# head dims of the tensor-core prefill kernel (bf16 only): 128-byte rows of
+# 64 bf16, one or two per swizzled shared-memory row
+WGMMA_HEAD_DIMS = (64, 128)
 
 # kernel launches per entry point since the last reset (the CPU path never
 # counts)
-LAUNCHES = {"prefill": 0, "decode": 0}
+LAUNCHES = {"prefill": 0, "prefill_wgmma": 0, "decode": 0}
+
+
+def prefill_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The prefill kernel a CUDA call with this dtype and head dim launches:
+    ``"wgmma"`` (tensor cores, bf16 at head dims 64 and 128) or ``"simt"``
+    (CUDA cores, fp32 products)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def reset_launches() -> None:
@@ -33,6 +50,8 @@ def reset_launches() -> None:
 _ENTRIES: dict = {}
 _ARGTYPES = {
     "flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_wgmma_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
     "flash_decode_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
@@ -107,18 +126,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Hq, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     lens = _lengths_i32(lengths)
+    variant = prefill_variant(q.dtype, d)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _entry("flash_attention_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if lens is None else lens.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, d, int(causal),
-            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if lens is None else lens.data_ptr(), out.data_ptr())
+        if variant == "wgmma":
+            rc = _entry("flash_attention_wgmma_fwd")(
+                *ptrs, B, Hq, Hkv, Sq, Skv, d, int(causal),
+                1.0 / math.sqrt(d), stream)
+        else:
+            rc = _entry("flash_attention_fwd")(
+                *ptrs, B, Hq, Hkv, Sq, Skv, d, int(causal),
+                int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention ({variant}) kernel launch "
+                           f"failed: error {rc} (negative: a CUresult of "
+                           f"the tensor-map encoding)")
     LAUNCHES["prefill"] += 1
+    if variant == "wgmma":
+        LAUNCHES["prefill_wgmma"] += 1
     return out
 
 

@@ -121,3 +121,33 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         table, ids, offs = (t.to("meta") for t in (table, ids, offs))
     with pytest.raises((ValueError, TypeError)):
         ops.embedding_bag(table, ids, offs, n_bags=4, **kw)
+
+
+def test_plain_version_sums_each_bag_in_id_order():
+    """The kernel adds a bag's rounded products w_i * row_i in id order; the
+    plain version on the CPU does the same, so the two agree bit for bit on
+    normal-valued tables too. Pinned here at DIEN's lookup shape (512 bags
+    of 16 ids, D 18, weighted, a fifth of the ids padding) against a
+    sequential fp32 loop."""
+    rng = np.random.default_rng(21)
+    V, D, n_bags, bag = 1000, 18, 512, 16
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    ids = rng.integers(0, V, n_bags * bag).astype(np.int32)
+    ids[rng.random(ids.size) < 0.2] = -1
+    w = rng.normal(size=ids.size).astype(np.float32)
+    offs = np.arange(0, ids.size, bag, dtype=np.int32)
+    got = ops.embedding_bag(*map(torch.from_numpy, (table, ids, offs)),
+                            n_bags=n_bags, weights=torch.from_numpy(w)).numpy()
+    want = np.zeros((n_bags, D), np.float32)
+    for b, lo in enumerate(offs):
+        for i in range(lo, lo + bag):
+            if ids[i] >= 0:
+                want[b] = want[b] + w[i] * table[ids[i]]   # fp32, in order
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cpu_path_counts_no_launch():
+    ops.reset_launches()
+    table, ids, offs, w = map(torch.from_numpy, _case(50, 18, 64, 4, seed=2))
+    ops.embedding_bag(table, ids, offs, n_bags=4, weights=w)
+    assert ops.LAUNCHES == {"embedding_bag": 0}

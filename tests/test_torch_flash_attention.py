@@ -119,4 +119,95 @@ def test_cpu_path_counts_no_launch():
     q, k, v = _t(*_qkv(1, 2, 1, 8, 8, 16, seed=6))
     ops.flash_attention(q, k, v, causal=True)
     ops.flash_decode(q[:, :, 0], k, v, torch.tensor([8]))
-    assert ops.LAUNCHES == {"prefill": 0, "decode": 0}
+    assert ops.LAUNCHES == {"prefill": 0, "prefill_wgmma": 0, "decode": 0}
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 48, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 48, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt")])
+def test_prefill_variant_choice(dtype, d, want):
+    """The prefill kernel is a function of (dtype, head dim) alone: bf16 at
+    granite's 64 and internlm2's 128 goes to the tensor cores, fp32 keeps
+    full fp32 products on the CUDA cores, and every head dim has a kernel."""
+    assert d in ops.HEAD_DIMS
+    assert ops.prefill_variant(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 64)])
+def test_cpu_path_counts_no_launch_of_either_prefill_variant(dtype, d):
+    """CPU tensors run the plain version whichever kernel their dtype and
+    head dim would pick on the card, and count no launch of it."""
+    ops.reset_launches()
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(1, 4, 2, 24, 24, d, seed=d)))
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert ops.LAUNCHES == {"prefill": 0, "prefill_wgmma": 0, "decode": 0}
+
+
+def _bf16(a):
+    """numpy fp32 values rounded to the nearest bf16 (as the card's bf16
+    inputs hold them), kept in fp32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _attention_p_rounded(q, k, v, p_dtype=torch.bfloat16, causal=True):
+    """``attention_ref`` as a tensor-core kernel computes it: fp32 scores,
+    max and sum, the probabilities rounded to ``p_dtype`` (bf16 on the
+    kernel) before P.V, the output rounded to bf16."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, Sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) / np.sqrt(d)
+    if causal:
+        live = torch.arange(Sq)[:, None] + (Skv - Sq) >= torch.arange(Skv)
+        s = s.masked_fill(~live, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(p_dtype).float(), v)
+    out = out / p.sum(-1, keepdim=True)
+    return out.reshape(B, Hq, Sq, d).bfloat16().float()
+
+
+def test_bf16_probabilities_motivate_the_tensor_core_tolerance():
+    """The tensor-core prefill rounds P to bf16 before P.V. At a granite-like
+    shape (S 512, d 64, G 4) on bf16 inputs that rounding alone breaks the
+    old elementwise bar (rtol 4e-3, atol 1e-5: one bf16 rounding of the
+    output) on outputs near 0, and stays inside the new one (rtol 4e-3, atol
+    2^-8 max|want|) against the exact fp32 reference (the JAX package's)."""
+    q, k, v = (_bf16(a) for a in _qkv(1, 8, 2, 512, 512, 64, seed=13))
+    want = np.array(jax_attn_ref(*map(jnp.asarray, (q, k, v)), causal=True))
+    got = _attention_p_rounded(*_t(q, k, v)).numpy()
+    atol = 2.0 ** -8 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=4e-3, atol=atol)
+    assert (np.abs(got - want) > 1e-5 + 4e-3 * np.abs(want)).any()
+    # rounding only the output (the CUDA-core kernel's numerics) keeps the
+    # old bar
+    out_only = torch.from_numpy(want).bfloat16().float().numpy()
+    np.testing.assert_allclose(out_only, want, rtol=4e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("p_dtype,inside", [
+    (torch.bfloat16, True), (torch.float16, True),
+    (torch.float8_e4m3fn, False)])
+def test_sdpa_floor_rejects_coarser_probabilities(p_dtype, inside):
+    """The tensor-core prefill's max abs and normwise errors against the
+    exact fp32 reference are held to at most twice SDPA's on the same bf16
+    inputs. P rounded to bf16 (the kernel's numerics) or finer stays inside
+    both limits; P rounded to e4m3 (3 mantissa bits) breaks them, the
+    normwise one above all, which the many small outputs of the late causal
+    rows set (S 512, d 64, G 4)."""
+    q, k, v = (_bf16(a) for a in _qkv(1, 8, 2, 512, 512, 64, seed=17))
+    want = np.array(jax_attn_ref(*map(jnp.asarray, (q, k, v)), causal=True))
+    qt, kt, vt = (t.bfloat16() for t in _t(q, k, v))
+    floor = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True).float().numpy() - want
+    got = _attention_p_rounded(*_t(q, k, v), p_dtype=p_dtype).numpy() - want
+    l2 = np.linalg.norm(got) / np.linalg.norm(want)
+    l2_floor = np.linalg.norm(floor) / np.linalg.norm(want)
+    assert (l2 <= 2 * l2_floor) == inside
+    assert (np.abs(got).max() <= 2 * np.abs(floor).max()) == inside
