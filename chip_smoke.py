@@ -9,9 +9,13 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
 1. card and build: the card's name and power limit, then every CUDA source
    compiled (all ``nvcc`` started together) and the build seconds;
 2. kernels against their plain PyTorch versions, on the card: the segment
-   kernels on the shape sweep of ``tests/test_kernels.py`` and every real
-   level of the phase-3 plans at F in {1, 2, 64}, sum and max, each kernel
-   run twice for bit-equal output; the flash-attention kernels: the
+   kernels on the shape sweep of ``tests/test_kernels.py``, on a
+   synthetic hub level (one tile of 1,024 live blocks crossing some 200 of
+   the kernel's windows, dead blocks among them or slots shuffled inside
+   runs, F 1 and 64; sums of normal values there held to the
+   reordered-sum bound) and every real level of the phase-3 plans at F in
+   {1, 2, 64}, sum and max, each kernel run twice for bit-equal output;
+   the flash-attention kernels: the
    CUDA-core prefill and the decode kernel on ``tests/test_kernels.py``'s
    shapes plus every head dim in fp32 (to 2e-5); the tensor-core (wgmma)
    prefill in bf16 on ragged, offset and non-causal shapes at head dims 64
@@ -21,7 +25,9 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    most twice SDPA's max abs and normwise errors on the same inputs (with a
    control, P rounded to e4m3, that must break that bar); decode at the
    serve path's own shape (B 8 against a 2,080-row cache, live lengths
-   2,049..2,080) and against a 32,768-row cache, B 4, ragged lengths; the
+   2,049..2,080), against a 32,768-row cache, B 4, ragged lengths, at
+   internlm2-1.8b's heads (16 / 8, head dim 128) and with one query head a
+   kv head and a zero-length row among long ones; the
    embedding-bag kernel
    on ``tests/test_kernels.py``'s shapes and DIEN's (512 bags x 16 ids,
    D 18), with empty bags and padding ids, against its plain version on CPU
@@ -100,11 +106,17 @@ BAG_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 BAG_REPLACES = "src/repro/kernels/embedding_bag/embedding_bag.py:32"
 # each kernel's design, named in the kernels line
 DESIGNS = {
-    "sum": "cuda cores: one CTA per row tile, slot-order scan",
-    "max": "cuda cores: one CTA per row tile, slot-order scan",
+    "sum": "cuda cores: one CTA per window of 16 blocks, long runs split "
+           "across windows and combined in window order; per block, rows "
+           "grouped by warp shuffles (F <= 4) or lane = feature (F > 4)",
+    "max": "cuda cores: one CTA per window of 16 blocks, long runs split "
+           "across windows and combined in window order; per block, rows "
+           "grouped by warp shuffles (F <= 4) or lane = feature (F > 4)",
     "prefill": "wgmma: bf16 products on the tensor cores, TMA K/V ring of 2 "
                "stages, producer + 2 consumer warpgroups, persistent grid",
-    "decode": "cuda cores: one CTA per (head, batch row)",
+    "decode": "split KV: one CTA per (key chunk, kv head, batch row) "
+              "serving the GQA group, 4 warps on cp.async rings, chunks "
+              "merged in order by a second kernel",
     "bag": "one warp per bag, 16 table-row loads in flight",
 }
 
@@ -134,6 +146,8 @@ TC_SWEEP = [(1, 1, 1, 128, 128, 64, False, False),
             (1, 1, 1, 128, 128, 128, False, False),
             (2, 4, 2, 256, 256, 128, True, False),
             (1, 4, 1, 300, 300, 128, True, True)]
+# the CUDA-core prefill timed at one shape (B, Hq, Hkv, Sq, Skv, d), fp32
+SIMT_TIMED = (2, 16, 8, 2048, 2048, 64)
 DECODE_SWEEP = [(2, 4, 2, 512, 64), (1, 8, 1, 1024, 32), (3, 6, 3, 300, 64),
                 (2, 4, 4, 200, 16), (2, 16, 8, 700, 128), (2, 6, 2, 333, 48)]
 BAG_SWEEP = [(100, 16, 64, 8), (1000, 32, 256, 16), (500, 64, 100, 100),
@@ -169,6 +183,8 @@ LM_FLOOR_FACTOR, LM_L2_CAP = 3.0, 0.25
 LM_TRACE_STEPS = 4
 SWEEP = [(100, 8, 17), (1000, 64, 300), (37, 5, 10), (4096, 128, 128),
          (513, 200, 77), (1, 1, 1), (2000, 96, 1000)]
+# the synthetic hub level: live blocks routed to one tile (hub_level)
+HUB_BLOCKS = 1024
 
 
 def card_line() -> str:
@@ -205,24 +221,29 @@ def device_ms(torch, fn, reps: int = 50) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            total_us += e.self_cuda_time_total if us is None else us
-    if total_us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total_us / 1e3 / reps
+    # the profiler now and then hands back an empty trace: take up to three
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                total_us += e.self_cuda_time_total if us is None else us
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    raise AssertionError("the profiler saw no device time in three traces")
 
 
 def check_kernel(torch, ops, ref, x, seg, tob, fot, n_rows, n_row_tiles, op,
-                 exact: bool) -> float:
+                 exact: bool, reordered: bool = False) -> float:
     """Kernel vs plain version on the rows some slot routes to; the kernel
-    twice for bit-equal output. Returns the max abs difference."""
+    twice for bit-equal output. Sums of normal values within 1e-5, or with
+    ``reordered`` (the hub level, where a row adds ~10^5 values and two
+    summation orders differ by more) within the bound of a reordered sum of
+    n values, n * 2^-24 * sum|x| per row. Returns the max abs difference."""
     a = ops.segment_agg_level(x, seg, tob, fot, n_rows=n_rows,
                               n_row_tiles=n_row_tiles, op=op)
     b = ops.segment_agg_level(x, seg, tob, fot, n_rows=n_rows,
@@ -239,6 +260,15 @@ def check_kernel(torch, ops, ref, x, seg, tob, fot, n_rows, n_row_tiles, op,
         if not torch.equal(a[hit], want[hit]):
             raise AssertionError(f"{op} kernel != plain version (exact), "
                                  f"max abs err {err}")
+    elif reordered:
+        n = torch.zeros(n_rows + 1, device=x.device).index_add_(
+            0, torch.where(seg >= 0, seg.long(), n_rows),
+            torch.ones(seg.shape, device=x.device))[:n_rows, None]
+        lim = n * 2.0 ** -24 * ref.segment_agg_level_ref(x.abs(), seg,
+                                                         n_rows, "sum")
+        if bool(((a - want).abs() > lim)[hit].any()):
+            raise AssertionError(f"sum kernel beyond the reordered-sum "
+                                 f"bound, max abs err {err}")
     else:
         torch.testing.assert_close(a[hit], want[hit], rtol=1e-5, atol=1e-5)
     return err
@@ -269,6 +299,51 @@ def shuffle_within_runs(ops, rng, plan, xp):
         p = lo + rng.permutation(hi - lo)
         seg[lo:hi], x[lo:hi] = seg[p], x[p]
     return seg, x
+
+
+def hub_level(ops, rng, F: int, shuffle: bool,
+              hub_blocks: int = HUB_BLOCKS):
+    """A synthetic level with one hub tile: tile 2 of 5 holds
+    ``hub_blocks`` blocks of live slots (most of them routed to 3 of its
+    rows), with dead blocks mixed in among them, so its run crosses many
+    of the kernel's windows; the other tiles hold a few blocks each and
+    the last run is extended by trailing padding blocks. With ``shuffle``
+    the slots are then shuffled inside each tile's run (which also spreads
+    live slots into the dead blocks). Padding slots carry values the
+    kernel must ignore. Returns numpy (x, seg, tob, fot, n_rows)."""
+    n_rows, R = 5 * ops.R_BLK, ops.R_BLK
+    hub = np.where(rng.random(hub_blocks * ops.E_BLK - 77) < 0.8,
+                   2 * R + rng.integers(0, 3, hub_blocks * ops.E_BLK - 77),
+                   2 * R + rng.integers(0, R, hub_blocks * ops.E_BLK - 77))
+    seg = np.concatenate([rng.integers(0, R, 300), rng.integers(R, 2 * R, 5),
+                          hub, rng.integers(3 * R, 4 * R, 1000),
+                          rng.integers(4 * R, 5 * R, 40)])
+    plan = ops.make_plan(seg, n_rows)
+    blocks = plan.seg_padded.reshape(-1, ops.E_BLK)
+    tob = plan.tile_of_block
+    dead = np.full((1, ops.E_BLK), -1, np.int32)
+    seg_b, tob_b = [], []
+    for t in np.unique(tob):
+        mine = [blocks[i] for i in np.flatnonzero(tob == t)]
+        if t == 2:   # dead blocks among the hub's live ones
+            mine += [dead[0]] * (hub_blocks // 4)
+            mine = [mine[i] for i in rng.permutation(len(mine))]
+        seg_b += mine
+        tob_b += [t] * len(mine)
+    seg_b += [dead[0]] * 333   # trailing padding extends the last run
+    tob_b += [tob_b[-1]] * 333
+    tob_b = np.asarray(tob_b, np.int32)
+    fot_b = np.r_[1, (tob_b[1:] != tob_b[:-1])].astype(np.int32)
+    seg_p = np.concatenate(seg_b).astype(np.int32)
+    x = rng.normal(size=(seg_p.size, F)).astype(np.float32)
+    if not shuffle:
+        return x, seg_p, tob_b, fot_b, n_rows
+    shuffled = ops.SegmentPlan(perm=np.zeros(0, np.int64), seg_padded=seg_p,
+                               tile_of_block=tob_b, first_of_tile=fot_b,
+                               n_rows=n_rows, n_row_tiles=5,
+                               e_pad=seg_p.size)
+    seg_p, x = shuffle_within_runs(ops, rng, shuffled, x)
+    return x, seg_p, tob_b, fot_b, n_rows
 
 
 def phase_kernels_sweep(torch, ops, ref, errs) -> None:
@@ -304,6 +379,54 @@ def phase_kernels_sweep(torch, ops, ref, errs) -> None:
             errs[op] = max(errs[op], e)
         print(f"  sweep E={E} F={F} n_rows={n_rows}: sum/max ok, also with "
               f"slots shuffled inside each tile's run", flush=True)
+
+
+def phase_kernels_hub(torch, ops, ref, errs) -> list[dict]:
+    """The synthetic hub level (``hub_level``: 1,024 live blocks in one
+    tile, crossing some 200 of the kernel's windows) at F 1 and 64, with
+    dead blocks among the live ones or with slots shuffled inside runs:
+    exact on
+    integer values, max exact on normal ones, sums of normal values within
+    the reordered-sum bound, reruns bit-equal; kernel, library-call and
+    bound times (device time for both)."""
+    rng = np.random.default_rng(4)
+    dev = torch.device(DEVICE)
+    rows = []
+    for F in (1, 64):
+        for shuffle in (False, True):
+            x, seg, tob, fot, n_rows = hub_level(ops, rng, F, shuffle)
+            xn, seg, tob, fot = (torch.as_tensor(a, device=dev)
+                                 for a in (x, seg, tob, fot))
+            xi = torch.as_tensor(np.round(x * 4), device=dev)
+            n_tiles = n_rows // ops.R_BLK
+            for op in ("sum", "max"):
+                e = check_kernel(torch, ops, ref, xi, seg, tob, fot, n_rows,
+                                 n_tiles, op, exact=True)
+                e = max(e, check_kernel(torch, ops, ref, xn, seg, tob, fot,
+                                        n_rows, n_tiles, op, exact=False,
+                                        reordered=True))
+                errs[op] = max(errs[op], e)
+                dst = torch.where(seg >= 0, seg.long(), n_rows)
+                lib_out = torch.zeros((n_rows + 1, F), device=dev)
+                lib = (lambda: lib_out.index_add_(0, dst, xn)) \
+                    if op == "sum" else \
+                    (lambda: lib_out.index_reduce_(0, dst, xn, "amax"))
+                k_dev = device_ms(torch, lambda: ops.segment_agg_level(
+                    xn, seg, tob, fot, n_rows=n_rows, n_row_tiles=n_tiles,
+                    op=op), reps=20)
+                l_dev = device_ms(torch, lib, reps=20)
+                b_ms, b_by = level_bound_ms(seg, tob, fot, F, n_rows)
+                rows.append(dict(op=op, F=F, shuffled=shuffle,
+                                 n_blocks=tob.numel(),
+                                 n_live=int((seg >= 0).sum().item()),
+                                 max_abs_err=e, device_ms=k_dev,
+                                 library_device_ms=l_dev, bound_ms=b_ms,
+                                 bound_by=b_by))
+                print(f"  hub level F={F:2d} shuffled={shuffle} {op}: max "
+                      f"abs err {e:.3g} (normal values); kernel {k_dev:.4f} "
+                      f"ms, library {l_dev:.4f} ms (device), bound "
+                      f"{b_ms:.5f} ms ({b_by})", flush=True)
+    return rows
 
 
 def phase_kernels_full(torch, ops, ref, session, errs) -> list[dict]:
@@ -766,6 +889,8 @@ def phase_flash_serve_shapes(torch, cfg, prompt, gen_len, errs) -> dict:
     del want, got
     k_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True),
                    reps=10)
+    p_ms = cuda_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True),
+                   reps=3)
     l_ms = cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal=True), reps=10)
     b_ms, b_by = prefill_bound_ms(B, 16, 8, S, S, 128, True, 2)
     out["prefill_d128"] = dict(B=B, Hq=16, Hkv=8, S=S, d=128, dtype="bf16",
@@ -773,15 +898,44 @@ def phase_flash_serve_shapes(torch, cfg, prompt, gen_len, errs) -> dict:
                                l2_rel=m["l2_rel"],
                                library_max_abs_err=floor[0],
                                library_l2_rel=floor[1], ms=k_ms,
-                               library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+                               plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                               bound_by=b_by)
     print(f"  flash prefill (wgmma) B={B} Hq=16 Hkv=8 S={S} d=128 bf16 "
           f"causal: max abs err {m['max_abs_err']:.4g}, normwise "
           f"{m['l2_rel']:.4g} (SDPA {floor[0]:.4g}, {floor[1]:.4g}); kernel "
-          f"{k_ms:.4f} ms, SDPA {l_ms:.4f} ms ({k_ms / l_ms:.3f}x), bound "
-          f"{b_ms:.5f} ms ({b_by})", flush=True)
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms "
+          f"({k_ms / l_ms:.3f}x), bound {b_ms:.5f} ms ({b_by})", flush=True)
     del q, k, v
 
-    def decode_case(key, B, S, lens):
+    # the CUDA-core prefill (fp32; off the serve path) at one sweep shape,
+    # timed beside SDPA in fp32 (TF32 off) and its bound at the fp32 rate
+    sh = SIMT_TIMED
+    q, k, v = (rnd(sh[0], sh[1], sh[3], sh[5]).float(),
+               rnd(sh[0], sh[2], sh[4], sh[5]).float(),
+               rnd(sh[0], sh[2], sh[4], sh[5]).float())
+    if ops.prefill_variant(q.dtype, sh[5]) != "simt":
+        raise AssertionError("fp32 prefill does not go to the CUDA cores")
+    calls = dict(
+        kernel=lambda: ops.flash_attention(q, k, v, causal=True),
+        plain=lambda: ref.attention_ref(q, k, v, causal=True),
+        library=lambda: sdpa(torch, q, k, v, causal=True))
+    ev = {name: cuda_ms(torch, fn, reps=10) for name, fn in calls.items()}
+    dv = {name: device_ms(torch, fn, reps=10) for name, fn in calls.items()}
+    b_ms, b_by = prefill_bound_ms(*sh, True, 4)
+    out["prefill_simt"] = dict(zip(("B", "Hq", "Hkv", "Sq", "Skv", "d"), sh),
+                               dtype="fp32", ms=ev["kernel"],
+                               plain_ms=ev["plain"], library_ms=ev["library"],
+                               device_ms=dv["kernel"],
+                               plain_device_ms=dv["plain"],
+                               library_device_ms=dv["library"],
+                               bound_ms=b_ms, bound_by=b_by)
+    print(f"  flash prefill (CUDA cores) {sh} fp32 causal: kernel "
+          f"{ev['kernel']:.4f} ms (device {dv['kernel']:.4f}), plain "
+          f"{ev['plain']:.4f} ms, SDPA {ev['library']:.4f} ms (device "
+          f"{dv['library']:.4f}), bound {b_ms:.5f} ms ({b_by})", flush=True)
+    del q, k, v
+
+    def decode_case(key, B, S, lens, Hq=Hq, Hkv=Hkv, d=d):
         q, k, v = rnd(B, Hq, d), rnd(B, Hkv, S, d), rnd(B, Hkv, S, d)
         lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         got = ops.flash_decode(q, k, v, lens)
@@ -792,6 +946,10 @@ def phase_flash_serve_shapes(torch, cfg, prompt, gen_len, errs) -> dict:
             raise AssertionError("flash_decode is not deterministic")
         torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL,
                                    atol=BF16_ATOL)
+        for i, n in enumerate(lens.tolist()):
+            if n == 0 and not torch.equal(got[i], torch.zeros_like(got[i])):
+                raise AssertionError(f"flash_decode ({key}): a zero-length "
+                                     f"row is not 0")
         err = (got.float() - want).abs().max().item()
         errs["decode"] = max(errs["decode"], err)
         k_ms = cuda_ms(torch, lambda: ops.flash_decode(q, k, v, lens))
@@ -824,6 +982,11 @@ def phase_flash_serve_shapes(torch, cfg, prompt, gen_len, errs) -> dict:
     S = DEC_CACHE
     decode_case("decode_32k", DEC_BATCH, S,
                 [S, S // 2 + 77, 1, 3 * S // 4][:DEC_BATCH])
+    # internlm2-1.8b's heads (16 / 8, head dim 128) at the serve shape, and
+    # one query head a kv head (G 1) with a zero-length row among long ones
+    S = prompt + gen_len
+    decode_case("decode_internlm2", B, S, live.tolist(), Hq=16, Hkv=8, d=128)
+    decode_case("decode_g1", DEC_BATCH, S, [S, 0, S - 1, 1], Hq=8, Hkv=8)
     return out
 
 
@@ -1200,6 +1363,7 @@ def main(argv=None) -> int:
     errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "prefill_simt": 0.0,
             "decode": 0.0, "bag": 0.0}
     phase_kernels_sweep(torch, ops, ref, errs)
+    report["hub"] = phase_kernels_hub(torch, ops, ref, errs)
     phase_flash_sweep(torch, errs)
     flash_rows = phase_flash_serve_shapes(torch, granite_3_2b.CFG,
                                           args.prompt, args.gen, errs)

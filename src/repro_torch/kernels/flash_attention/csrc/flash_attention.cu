@@ -15,7 +15,7 @@
 // takes the input type. A row with no live key gives 0, as the Pallas
 // kernel's `_finish` does with its `l > 0` guard.
 //
-// Three kernels; ops.py picks one from (dtype, head dim) alone:
+// Prefill has two kernels; ops.py picks one from (dtype, head dim) alone:
 //
 // Prefill on the tensor cores (`flash_prefill_tc_kernel`: bf16, d 64 or
 // 128; the LM serve path). Bound: at granite-3-2b's prefill (B 8, S 2,048,
@@ -55,12 +55,30 @@
 // staged in shared memory, 4 x 4 register micro-tiles of scores per thread,
 // the same early exit at the causal diagonal.
 //
-// Decode (`flash_decode_kernel`, one query row per (b, head)): one CTA of 128
-// threads per (query head, batch row); each thread scores one key of a
-// 128-key tile (16-byte vector loads), a block reduction updates m and l, and
-// the threads split P.V as d columns x (128 / d) key groups. It reads each
-// live cache row once per query head and is bound by bytes; a split-KV
-// design that reads a kv row once per GQA group is later work.
+// Decode (`flash_decode_kernel` + `flash_decode_combine_kernel`, one query
+// row per (b, head); the LM serve path's decode step). Bound: it must read
+// every live K and V row once, 2 d bytes a key per kv head in bf16, and
+// does 4 d operations a key per query head, ~4 operations a byte at
+// granite-3-2b's GQA group of 4: far below the ~20 the CUDA cores can do
+// per byte, so bytes bound it (34 MB, 0.0101 ms at 3.35 TB/s at the serve
+// path's B 8 against a 2,080-row cache). Design:
+// - Split KV: one CTA per (key chunk, kv head, batch row), serving all
+//   G = Hq / Hkv query heads of the kv head (up to 8 a CTA), so each live
+//   K/V row is read once per GQA group, not once per query head. The chunk
+//   length (ops.decode_split) and the grid follow from the cache's shape
+//   alone; a CTA whose chunk starts at or past lengths[b] exits at once, so
+//   a short row costs one small item and a row of length 0 one CTA that
+//   writes 0. At the serve shape that is 576 CTAs of 256 keys on 132 SMs.
+// - Inside a CTA, each of 4 warps takes every fourth 16-key sub-tile of the
+//   chunk through its own 2-stage cp.async ring (16-byte coalesced loads,
+//   K rows padded against bank conflicts) and keeps fp32 (m, l, acc) for
+//   its heads: two lanes score a key (half the head dim each), one max per
+//   sub-tile across the warp, P.V with a lane on two output columns. No
+//   __syncthreads in the key loop; the 4 warps merge in warp order.
+// - A row that fits one chunk is written by that chunk's CTA. Otherwise
+//   each chunk leaves its partial (m, l, acc) in fp32 scratch, and
+//   `flash_decode_combine_kernel` merges a row's chunks in chunk order and
+//   rounds the output once. Every order is fixed, so reruns are bit-equal.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -710,120 +728,338 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 }  // namespace tc
 
 // ------------------------------------------------------------------- decode
-constexpr int D_THREADS = 128;  // one key per thread in a tile
-constexpr int D_WARPS = D_THREADS / 32;
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_THREADS = DEC_WARPS * 32;
+constexpr int DEC_KT = 16;     // keys of a warp's sub-tile, two lanes a key
+constexpr int DEC_STAGES = 2;  // sub-tiles a warp keeps in flight
 
-// q . row over D elements, sixteen bytes of the row at a time
-template <int D>
-__device__ __forceinline__ float dot_row(const float* qs, const float* row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float acc = 0.0f;
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 x = r4[c];
-    acc = fmaf(qs[4 * c + 0], x.x, acc);
-    acc = fmaf(qs[4 * c + 1], x.y, acc);
-    acc = fmaf(qs[4 * c + 2], x.z, acc);
-    acc = fmaf(qs[4 * c + 3], x.w, acc);
-  }
-  return acc;
-}
-
-template <int D>
-__device__ __forceinline__ float dot_row(const float* qs,
-                                         const __nv_bfloat16* row) {
-  const uint4* r4 = reinterpret_cast<const uint4*>(row);
-  float acc = 0.0f;
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const uint4 x = r4[c];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float2 f = __bfloat1622float2(h[t]);
-      acc = fmaf(qs[8 * c + 2 * t], f.x, acc);
-      acc = fmaf(qs[8 * c + 2 * t + 1], f.y, acc);
-    }
-  }
-  return acc;
-}
-
+// A warp's sub-tile in shared memory: DEC_KT K rows, each padded by 32
+// bytes so that the 8 lanes of a quarter warp (4 keys x 2 halves) read 8
+// distinct 16-byte bank groups, then DEC_KT V rows.
 template <typename T, int D>
-__global__ void __launch_bounds__(D_THREADS)
+struct DecTile {
+  static constexpr int ROW = D * static_cast<int>(sizeof(T));  // bytes
+  static constexpr int KROW = ROW + 32;
+  static constexpr int PIECES = ROW / 16;          // 16-byte pieces a row
+  static constexpr int EP = 16 / static_cast<int>(sizeof(T));  // per piece
+  static constexpr int STAGE = DEC_KT * (KROW + ROW);
+  static constexpr int NPAIR = (D + 63) / 64;  // P.V column pairs a lane
+};
+
+template <typename T, int D, int GT>
+constexpr int decode_smem_bytes() {
+  return (GT * D + DEC_WARPS * DEC_KT * GT) * 4 +
+         DEC_WARPS * DEC_STAGES * DecTile<T, D>::STAGE;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   hopper::smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Programmatic dependent launch: the merge kernel is launched while the
+// split kernel's last CTAs run, and waits here for all of its writes.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void unpack16(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16_bf16(const uint4& u, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const float2 x = __bfloat1622float2(h[t]);
+    f[2 * t] = x.x;
+    f[2 * t + 1] = x.y;
+  }
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// One CTA per (key chunk, kv head and group of up to GT of its query heads,
+// batch row). Warp w takes the chunk's sub-tiles w, w + 4, ... through a
+// cp.async ring of DEC_STAGES sub-tiles and keeps its own (m, l, acc) for
+// each head; the warps are merged in warp order at the end. A row that
+// fits one chunk is written here; a longer row leaves its partial (m, l,
+// acc) in `part` for flash_decode_combine_kernel.
+template <typename T, int D, int GT>
+__global__ void __launch_bounds__(DEC_THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
-                    T* __restrict__ out, int Hq, int Hkv, int S, float scale) {
-  constexpr int G = D_THREADS / D > 0 ? D_THREADS / D : 1;  // P.V key groups
-  __shared__ float qs[D];
-  __shared__ float ps[D_THREADS];
-  __shared__ float red_max[D_WARPS];
-  __shared__ float red_sum[D_WARPS];
-  __shared__ float part[G][D];
+                    T* __restrict__ out, float* __restrict__ part, int Hq,
+                    int Hkv, int S, int chunk, int n_chunks,
+                    float scale_log2) {
+  using L = DecTile<T, D>;
+  static_assert(DEC_WARPS * GT * (D + 2) * 4 <=
+                    DEC_WARPS * DEC_STAGES * L::STAGE,
+                "the warp merge reuses the sub-tile ring");
+  extern __shared__ __align__(16) unsigned char dsm[];
+  float* qs = reinterpret_cast<float*>(dsm);  // GT x D, fp32
+  float* ps_all = qs + GT * D;                // per warp: DEC_KT x GT
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      ps_all + DEC_WARPS * DEC_KT * GT);
 
-  const int hq = blockIdx.x;
-  const int b = blockIdx.y;
-  const int hkv = hq / (Hq / Hkv);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = tid / D, col = tid - g * D;  // P.V role (active if g < G)
-
-  const T* qrow = q + (static_cast<size_t>(b) * Hq + hq) * D;
-  const T* kb = k + (static_cast<size_t>(b) * Hkv + hkv) * S * D;
-  const T* vb = v + (static_cast<size_t>(b) * Hkv + hkv) * S * D;
-  for (int i = tid; i < D; i += D_THREADS) qs[i] = to_f(qrow[i]);
+  const int c = blockIdx.x;
+  const int G = Hq / Hkv;
+  const int n_hg = (G + GT - 1) / GT;
+  const int hkv = blockIdx.y / n_hg;
+  const int g0 = (blockIdx.y - hkv * n_hg) * GT;
+  const int ng = min(GT, G - g0);
+  const int b = blockIdx.z;
+  const int hq0 = hkv * G + g0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = min(max(lengths[b], 0), S);
-  __syncthreads();
-
-  float m = NEG, l = 0.0f, acc = 0.0f;
-  for (int k0 = 0; k0 < n; k0 += D_THREADS) {
-    const int key = k0 + tid;
-    const bool live = key < n;
-    const float s =
-        live ? dot_row<D>(qs, kb + static_cast<size_t>(key) * D) * scale : NEG;
-
-    float mx = s;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    if (lane == 0) red_max[warp] = mx;
-    __syncthreads();
-    mx = red_max[0];
-#pragma unroll
-    for (int w = 1; w < D_WARPS; ++w) mx = fmaxf(mx, red_max[w]);
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    const float p = live ? expf(s - m_new) : 0.0f;
-    ps[tid] = p;
-    float sum = p;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) red_sum[warp] = sum;
-    __syncthreads();  // ps and red_sum complete
-    sum = 0.0f;
-#pragma unroll
-    for (int w = 0; w < D_WARPS; ++w) sum += red_sum[w];
-    l = l * alpha + sum;
-    m = m_new;
-    acc *= alpha;
-    if (g < G) {
-      const int cnt = min(D_THREADS, n - k0);
-      for (int t = g; t < cnt; t += G)
-        acc = fmaf(ps[t], to_f(vb[static_cast<size_t>(k0 + t) * D + col]),
-                   acc);
+  const size_t qrow = static_cast<size_t>(b) * Hq + hq0;
+  if (n == 0) {  // no live key: the row is 0, written by chunk 0
+    if (c == 0) {
+      for (int i = tid; i < ng * D; i += DEC_THREADS) {
+        out[qrow * D + i] = from_f<T>(0.0f);
+      }
     }
-    __syncthreads();  // the tile is done with ps, red_max and red_sum
+    return;
+  }
+  const int k0 = c * chunk;
+  if (k0 >= n) return;  // past the row's live keys: no work
+  const int kend = min(k0 + chunk, n);
+  const int n_sub = (kend - k0 + DEC_KT - 1) / DEC_KT;
+
+  for (int i = tid; i < GT * D; i += DEC_THREADS) {
+    qs[i] = i < ng * D ? to_f(q[qrow * D + i]) : 0.0f;
   }
 
-  if (g < G) part[g][col] = acc;
-  __syncthreads();
-  if (tid < D) {
-    float o = 0.0f;
+  const size_t kv0 = (static_cast<size_t>(b) * Hkv + hkv) * S;
+  const char* kg = reinterpret_cast<const char*>(k + kv0 * D);
+  const char* vg = reinterpret_cast<const char*>(v + kv0 * D);
+  unsigned char* wring = ring + warp * DEC_STAGES * L::STAGE;
+  float* ps = ps_all + warp * DEC_KT * GT;
+  const int n_mine = warp < n_sub ? (n_sub - warp + DEC_WARPS - 1) / DEC_WARPS
+                                  : 0;
+  auto issue = [&](int i) {  // the warp's i-th sub-tile into its ring
+    const int key0 = k0 + (warp + i * DEC_WARPS) * DEC_KT;
+    const int cnt = min(DEC_KT, kend - key0);
+    unsigned char* ks = wring + (i % DEC_STAGES) * L::STAGE;
+    unsigned char* vs = ks + DEC_KT * L::KROW;
+    const size_t g = static_cast<size_t>(key0) * L::ROW;
+    for (int e = lane; e < cnt * L::PIECES; e += 32) {
+      const int r = e / L::PIECES, p = e - r * L::PIECES;
+      cp_async16(ks + r * L::KROW + p * 16, kg + g + e * 16);
+      cp_async16(vs + r * L::ROW + p * 16, vg + g + e * 16);
+    }
+  };
 #pragma unroll
-    for (int gg = 0; gg < G; ++gg) o += part[gg][tid];
-    out[(static_cast<size_t>(b) * Hq + hq) * D + tid] =
-        from_f<T>(l > 0.0f ? o / l : 0.0f);
+  for (int i = 0; i < DEC_STAGES; ++i) {
+    if (i < n_mine) issue(i);
+    cp_async_commit();
   }
+  __syncthreads();  // qs
+
+  const int j = lane >> 1, h = lane & 1;  // scores: key j, half h of d
+  float m[GT], l[GT], acc[GT][L::NPAIR][2];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = NEG;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < L::NPAIR; ++i) acc[g][i][0] = acc[g][i][1] = 0.0f;
+  }
+  for (int i = 0; i < n_mine; ++i) {
+    cp_async_wait<DEC_STAGES - 1>();
+    __syncwarp();  // every lane's copies of sub-tile i have landed
+    const unsigned char* ks = wring + (i % DEC_STAGES) * L::STAGE;
+    const unsigned char* vs = ks + DEC_KT * L::KROW;
+    const int key0 = k0 + (warp + i * DEC_WARPS) * DEC_KT;
+    const int cnt = min(DEC_KT, kend - key0);
+
+    // s = q . k for key j: half h of the 16-byte pieces, interleaved
+    float s[GT];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) s[g] = 0.0f;
+    const unsigned char* krow = ks + j * L::KROW;
+#pragma unroll
+    for (int pc = 0; pc < L::PIECES / 2; ++pc) {
+      const int p = 2 * pc + h;
+      const uint4 u = *reinterpret_cast<const uint4*>(krow + p * 16);
+      float kf[L::EP];
+      if constexpr (sizeof(T) == 2) {
+        unpack16_bf16(u, kf);
+      } else {
+        unpack16(u, kf);
+      }
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        const float4* qg =
+            reinterpret_cast<const float4*>(qs + g * D + p * L::EP);
+#pragma unroll
+        for (int e = 0; e < L::EP / 4; ++e) {
+          const float4 qq = qg[e];
+          s[g] = fmaf(qq.x, kf[4 * e], s[g]);
+          s[g] = fmaf(qq.y, kf[4 * e + 1], s[g]);
+          s[g] = fmaf(qq.z, kf[4 * e + 2], s[g]);
+          s[g] = fmaf(qq.w, kf[4 * e + 3], s[g]);
+        }
+      }
+    }
+    const bool live = j < cnt;
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      s[g] += __shfl_xor_sync(0xffffffffu, s[g], 1);
+      s[g] = live ? s[g] * scale_log2 : NEG;
+      float mt = s[g];
+#pragma unroll
+      for (int o = 2; o < 32; o <<= 1) {
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+      }
+      const float m_new = fmaxf(m[g], mt);
+      const float alpha = exp2f(m[g] - m_new);
+      const float p = live ? exp2f(s[g] - m_new) : 0.0f;
+      l[g] = l[g] * alpha + (h == 0 ? p : 0.0f);
+      m[g] = m_new;
+#pragma unroll
+      for (int pi = 0; pi < L::NPAIR; ++pi) {
+        acc[g][pi][0] *= alpha;
+        acc[g][pi][1] *= alpha;
+      }
+      if (h == 0) ps[j * GT + g] = p;
+    }
+    __syncwarp();  // ps
+
+    // acc += p . v, lane on columns 64 pi + 2 lane, keys in order
+#pragma unroll
+    for (int jj = 0; jj < DEC_KT; ++jj) {
+      if (jj < cnt) {
+        float pv[GT];
+#pragma unroll
+        for (int g = 0; g < GT; ++g) pv[g] = ps[jj * GT + g];
+        const T* vrow = reinterpret_cast<const T*>(vs + jj * L::ROW);
+#pragma unroll
+        for (int pi = 0; pi < L::NPAIR; ++pi) {
+          const int col = 64 * pi + 2 * lane;
+          if (col < D) {
+            const float2 vv = load2(vrow + col);
+#pragma unroll
+            for (int g = 0; g < GT; ++g) {
+              acc[g][pi][0] = fmaf(pv[g], vv.x, acc[g][pi][0]);
+              acc[g][pi][1] = fmaf(pv[g], vv.y, acc[g][pi][1]);
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();  // the sub-tile and ps are free
+    if (i + DEC_STAGES < n_mine) issue(i + DEC_STAGES);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: reuse it
+
+  // merge the warps in warp order: mb[warp][g] = acc[0..D), m, l
+  float* mb = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    float* r = mb + (warp * GT + g) * (D + 2);
+#pragma unroll
+    for (int pi = 0; pi < L::NPAIR; ++pi) {
+      const int col = 64 * pi + 2 * lane;
+      if (col < D) {
+        r[col] = acc[g][pi][0];
+        r[col + 1] = acc[g][pi][1];
+      }
+    }
+    if (lane == 0) {
+      r[D] = m[g];
+      r[D + 1] = l[g];
+    }
+  }
+  __syncthreads();
+  const bool whole = n <= chunk;  // the row's only chunk: write the output
+  float* part_acc = part + static_cast<size_t>(gridDim.z) * Hq * n_chunks * 2;
+  for (int e = tid; e < ng * D; e += DEC_THREADS) {
+    const int g = e / D, d = e - g * D;
+    float M = NEG;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      M = fmaxf(M, mb[(w * GT + g) * (D + 2) + D]);
+    }
+    float Lsum = 0.0f, O = 0.0f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float* r = mb + (w * GT + g) * (D + 2);
+      const float a = exp2f(r[D] - M);
+      Lsum += r[D + 1] * a;
+      O += r[d] * a;
+    }
+    if (whole) {
+      out[(qrow + g) * D + d] = from_f<T>(O / Lsum);
+    } else {
+      const size_t pr = (qrow + g) * n_chunks + c;
+      part_acc[pr * D + d] = O;
+      if (d == 0) {
+        part[pr * 2] = M;
+        part[pr * 2 + 1] = Lsum;
+      }
+    }
+  }
+  launch_dependents();
+}
+
+// One CTA per (query head, batch row) whose row spans several chunks: the
+// chunks' partial (m, l, acc) merged in chunk order, rounded once.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+flash_decode_combine_kernel(const float* __restrict__ part,
+                            const int* __restrict__ lengths,
+                            T* __restrict__ out, int Hq, int S, int chunk,
+                            int n_chunks) {
+  wait_prerequisites();
+  const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int n = min(max(lengths[b], 0), S);
+  const int nc = (n + chunk - 1) / chunk;
+  if (nc <= 1) return;  // written by its only chunk
+  const size_t row = static_cast<size_t>(b) * Hq + hq;
+  const float* ml = part + row * n_chunks * 2;
+  const float* acc = part + static_cast<size_t>(gridDim.y) * Hq * n_chunks * 2 +
+                     row * n_chunks * D;
+  extern __shared__ float s_ml[];  // the row's (m, l) of every chunk
+  for (int i = d; i < 2 * nc; i += D) s_ml[i] = ml[i];
+  __syncthreads();
+  float M = NEG;
+  for (int c = 0; c < nc; ++c) M = fmaxf(M, s_ml[2 * c]);
+  float Lsum = 0.0f, O = 0.0f;
+#pragma unroll 16
+  for (int c = 0; c < nc; ++c) {
+    const float a = exp2f(s_ml[2 * c] - M);
+    Lsum += s_ml[2 * c + 1] * a;
+    O += acc[static_cast<size_t>(c) * D + d] * a;
+  }
+  out[row * D + d] = from_f<T>(O / Lsum);
 }
 
 // ------------------------------------------------------------------ launch
@@ -845,16 +1081,68 @@ int launch_prefill(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_decode(const void* q, const void* k, const void* v,
-                  const void* lengths, void* out, int B, int Hq, int Hkv,
-                  int S, float scale, cudaStream_t st) {
-  const dim3 grid(Hq, B);
-  flash_decode_kernel<T, D><<<grid, D_THREADS, 0, st>>>(
+template <typename T, int D, int GT>
+int launch_decode_gt(const void* q, const void* k, const void* v,
+                     const void* lengths, void* out, void* part, int B,
+                     int Hq, int Hkv, int S, int chunk, int n_chunks,
+                     float scale, cudaStream_t st) {
+  constexpr int smem = decode_smem_bytes<T, D, GT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_decode_kernel<T, D, GT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_hg = (Hq / Hkv + GT - 1) / GT;
+  if (static_cast<long long>(Hkv) * n_hg > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(n_chunks, Hkv * n_hg, B);
+  flash_decode_kernel<T, D, GT><<<grid, DEC_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), Hq, Hkv, S, scale);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<T*>(out), static_cast<float*>(part), Hq, Hkv, S, chunk,
+      n_chunks, scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
+  const size_t ml_bytes = static_cast<size_t>(n_chunks) * 2 * sizeof(float);
+  if (ml_bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Hq, B);
+  cfg.blockDim = dim3(D);
+  cfg.dynamicSmemBytes = ml_bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, flash_decode_combine_kernel<T, D>,
+      static_cast<const float*>(part), static_cast<const int*>(lengths),
+      static_cast<T*>(out), Hq, S, chunk, n_chunks));
+}
+
+// GT, the query heads a CTA serves: the group size G rounded up to a power
+// of two, at most 8 (larger groups take several CTAs per kv head)
+template <typename T, int D>
+int launch_decode(const void* q, const void* k, const void* v,
+                  const void* lengths, void* out, void* part, int B, int Hq,
+                  int Hkv, int S, int chunk, int n_chunks, float scale,
+                  cudaStream_t st) {
+  const int G = Hq / Hkv;
+  if (G == 1) {
+    return launch_decode_gt<T, D, 1>(q, k, v, lengths, out, part, B, Hq, Hkv,
+                                     S, chunk, n_chunks, scale, st);
+  }
+  if (G == 2) {
+    return launch_decode_gt<T, D, 2>(q, k, v, lengths, out, part, B, Hq, Hkv,
+                                     S, chunk, n_chunks, scale, st);
+  }
+  if (G <= 4) {
+    return launch_decode_gt<T, D, 4>(q, k, v, lengths, out, part, B, Hq, Hkv,
+                                     S, chunk, n_chunks, scale, st);
+  }
+  return launch_decode_gt<T, D, 8>(q, k, v, lengths, out, part, B, Hq, Hkv,
+                                   S, chunk, n_chunks, scale, st);
 }
 
 bool shapes_ok(int B, int Hq, int Hkv) {
@@ -937,14 +1225,25 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
 }
 
 // q (B, Hq, D), k/v caches (B, Hkv, S, D), out (B, Hq, D), lengths (B,)
-// int32; the caches' rows must start on 16-byte boundaries.
+// int32; the caches' rows must start on 16-byte boundaries. Keys are cut
+// into ceil(S / chunk) chunks (chunk a positive multiple of 16); when that
+// is more than one, part is fp32 scratch of B * Hq * n_chunks * (D + 2)
+// floats for the chunks' partial (m, l, acc). Launches on `stream`, does
+// not synchronize, and returns cudaGetLastError() of the launches.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
-                                const void* lengths, void* out, int B, int Hq,
-                                int Hkv, int S, int D, int bf16, float scale,
+                                const void* lengths, void* out, void* part,
+                                int B, int Hq, int Hkv, int S, int D,
+                                int bf16, int chunk, float scale,
                                 void* stream) {
-  if (!shapes_ok(B, Hq, Hkv) || S < 0 || lengths == nullptr) {
+  if (!shapes_ok(B, Hq, Hkv) || S < 0 || lengths == nullptr || chunk <= 0 ||
+      chunk % DEC_KT != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_chunks = S > chunk ? (S + chunk - 1) / chunk : 1;
+  if (n_chunks > 1 && part == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(launch_decode, q, k, v, lengths, out, B, Hq, Hkv, S, scale, st)
+  FA_DISPATCH(launch_decode, q, k, v, lengths, out, part, B, Hq, Hkv, S,
+              chunk, n_chunks, scale, st)
 }

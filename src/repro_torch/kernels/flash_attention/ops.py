@@ -42,6 +42,23 @@ def prefill_variant(dtype: torch.dtype, head_dim: int) -> str:
     return "simt"
 
 
+# the decode kernel's key chunks: 256 keys and up, doubled while a cache row
+# would need more than DECODE_MAX_CHUNKS of them, at most 1,024 (a multiple
+# of the kernel's 16-key sub-tile)
+DECODE_CHUNK_MIN, DECODE_CHUNK_MAX, DECODE_MAX_CHUNKS = 256, 1024, 64
+
+
+def decode_split(S: int) -> tuple[int, int]:
+    """``(chunk, n_chunks)`` of the decode kernel's split of a cache of ``S``
+    rows: one work item per (chunk, kv head, batch row), chunk ``c`` holding
+    keys ``[c * chunk, (c + 1) * chunk)``. A function of the cache's shape
+    alone, so a decode step never reads ``lengths`` back to the host."""
+    chunk = DECODE_CHUNK_MIN
+    while chunk < DECODE_CHUNK_MAX and -(-S // chunk) > DECODE_MAX_CHUNKS:
+        chunk *= 2
+    return chunk, max(1, -(-S // chunk))
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -53,7 +70,7 @@ _ARGTYPES = {
     + [ctypes.c_float, ctypes.c_void_p],
     "flash_attention_wgmma_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
-    "flash_decode_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    "flash_decode_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
 }
 
@@ -163,13 +180,20 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     B, Hq, d = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     lens = _lengths_i32(lengths)
+    chunk, n_chunks = decode_split(S)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
+        # the chunks' partial (m, l) and acc, merged by a second kernel
+        part = torch.empty((B * Hq * n_chunks * (d + 2),),
+                           dtype=torch.float32, device=q.device) \
+            if n_chunks > 1 else None
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _entry("flash_decode_fwd")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, d,
-            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
+            lens.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), B, Hq, Hkv, S, d,
+            int(q.dtype == torch.bfloat16), chunk, 1.0 / math.sqrt(d),
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc}")

@@ -24,6 +24,13 @@ from repro_torch.kernels.segment_agg.ref import segment_agg_level_ref
 
 E_BLK = 256     # edges per block
 R_BLK = 128     # output rows per tile
+# blocks per window of the CUDA kernel, which runs one CTA per window of
+# blocks aligned to the absolute block index, so a tile's long run of blocks
+# spreads over one CTA per window (see csrc/segment_agg.cu). Each block of a
+# window takes a copy of its tile's rows in shared memory: FC x 128 floats
+# (FC <= 4) for F <= 4, where a window holds 4 to 16 blocks, at least 256
+# windows a level; 128 x 32 for F > 4, where it holds 4
+RUN_CHUNK_MIN, RUN_CHUNK_MAX, RUN_WINDOWS = 4, 16, 256
 
 # kernel launches per op since the last reset (plain Python ints; the CPU
 # path never counts)
@@ -262,7 +269,21 @@ def make_leveled_plan(segs: list[np.ndarray], n_rows: int, *,
 
 
 # ----------------------------------------------------------------- the kernel
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def run_chunk(n_blocks: int, F: int) -> int:
+    """Blocks per window of the CUDA kernel for a level of ``n_blocks``
+    blocks and ``F`` features a slot."""
+    if F > 4:
+        return RUN_CHUNK_MIN
+    return min(RUN_CHUNK_MAX, max(RUN_CHUNK_MIN, n_blocks // RUN_WINDOWS))
+
+
+def n_windows(n_blocks: int, F: int) -> int:
+    """The CUDA kernel's windows over one level: a function of the block
+    count and F alone."""
+    return -(-n_blocks // run_chunk(n_blocks, F))
 
 
 _ENTRIES: dict = {}
@@ -332,11 +353,17 @@ def segment_agg_level(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
     with torch.cuda.device(x.device):
         out = torch.empty((n_row_tiles * R_BLK, F), dtype=torch.float32,
                           device=x.device)
-        live = torch.empty((n_blocks,), dtype=torch.int32, device=x.device)
+        # per window, the partial rows of its two pieces that may belong to
+        # a run crossing the window's edge, and their live flags
+        n_win = n_windows(n_blocks, F)
+        part = torch.empty((2 * n_win * R_BLK * F,), dtype=torch.float32,
+                           device=x.device)
+        flag = torch.empty((2 * n_win,), dtype=torch.int32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _entry(op)(x.data_ptr(), seg.data_ptr(), tob.data_ptr(),
-                        fot.data_ptr(), live.data_ptr(), out.data_ptr(),
-                        n_blocks, F, n_row_tiles, stream)
+                        fot.data_ptr(), part.data_ptr(), flag.data_ptr(),
+                        out.data_ptr(), n_blocks, F, n_row_tiles,
+                        run_chunk(n_blocks, F), stream)
     if rc != 0:
         raise RuntimeError(f"segment_agg_{op} kernel launch failed: CUDA "
                            f"error {rc}")

@@ -5,6 +5,8 @@ the port's plain ``blocked_attention`` against the JAX package's, at a subset
 of ``tests/test_kernels.py``'s shapes. Inputs are made with numpy from a
 seed and handed to both sides. Tolerance 2e-5 (fp32, the bar of
 ``tests/test_kernels.py``)."""
+import inspect
+
 import numpy as np
 import pytest
 
@@ -211,3 +213,77 @@ def test_sdpa_floor_rejects_coarser_probabilities(p_dtype, inside):
     l2_floor = np.linalg.norm(floor) / np.linalg.norm(want)
     assert (l2 <= 2 * l2_floor) == inside
     assert (np.abs(got).max() <= 2 * np.abs(floor).max()) == inside
+
+
+def _split_decode(q, k, v, lengths, chunk):
+    """The decode kernel's split-KV algorithm in plain PyTorch (fp32): each
+    chunk of ``chunk`` keys gives its partial (m, l, acc), and a row's
+    chunks are merged in chunk order; a row with no live key gives 0."""
+    B, Hq, d = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    out = torch.zeros((B, Hq, d))
+    for b in range(B):
+        n = int(min(max(int(lengths[b]), 0), k.shape[2]))
+        for hq in range(Hq):
+            kk, vv = k[b, hq // G], v[b, hq // G]
+            parts = []
+            for c0 in range(0, n, chunk):
+                s = kk[c0:min(c0 + chunk, n)] @ q[b, hq] / np.sqrt(d)
+                m = s.max()
+                p = torch.exp(s - m)
+                parts.append((m, p.sum(), p @ vv[c0:min(c0 + chunk, n)]))
+            if not parts:
+                continue
+            M = max(m for m, _, _ in parts)
+            L, O = torch.tensor(0.0), torch.zeros(d)
+            for m, l, acc in parts:
+                L = L + l * torch.exp(m - M)
+                O = O + acc * torch.exp(m - M)
+            out[b, hq] = O / L
+    return out
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (8, 2)])
+def test_split_kv_decode_matches_jax(Hq, Hkv):
+    """Split KV with the wrapper's own chunk for a 600-row cache (256):
+    lengths 0, 1, a chunk boundary and one past it either side, and the
+    whole cache, at GQA groups 1, 2 and 4. The chunked merge equals the
+    port's plain version and, on rows with a live key, the JAX package's
+    ``decode_ref`` (2e-5, fp32)."""
+    S, d = 600, 32
+    chunk, n_chunks = ops.decode_split(S)
+    assert (chunk, n_chunks) == (256, 3)
+    lens = np.array([0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, S],
+                    np.int32)
+    B = lens.size
+    rng = np.random.default_rng(Hq * 10 + Hkv)
+    q = rng.normal(size=(B, Hq, d)).astype(np.float32)
+    _, k, v = _qkv(B, Hq, Hkv, 1, S, d, seed=S + Hq)
+    got = _split_decode(*_t(q, k, v, lens), chunk)
+    plain = ops.flash_decode(*_t(q, k, v, lens))
+    torch.testing.assert_close(got, plain, **TOL)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    ref = np.asarray(jax_decode_ref(*map(jnp.asarray, (q, k, v, lens))))
+    np.testing.assert_allclose(got.numpy()[1:], ref[1:], **TOL)
+
+
+@pytest.mark.parametrize("S", [0, 1, 255, 256, 257, 2080, 16384, 16385,
+                               32768, 65536, 100_000])
+def test_decode_split_gives_each_live_key_one_item(S):
+    """The decode kernel's work items, (chunk c, kv head, batch row) for c
+    below ``n_chunks``, come from the cache's row count alone: the wrapper
+    passes ``decode_split(S)`` and never reads ``lengths``. Every live key
+    of any length up to S falls in exactly one item, the chunk is a
+    multiple of the kernel's 16-key sub-tile in 256..1,024, and no chunk
+    lies wholly past the cache."""
+    assert list(inspect.signature(ops.decode_split).parameters) == ["S"]
+    chunk, n_chunks = ops.decode_split(S)
+    assert chunk % 16 == 0 and 256 <= chunk <= 1024
+    assert n_chunks == max(1, -(-S // chunk))
+    for n in sorted({0, 1, S // 3, max(S - 1, 0), S}):
+        hits = np.zeros(n, np.int64)
+        for c in range(n_chunks):
+            lo, hi = c * chunk, min((c + 1) * chunk, n)
+            hits[lo:hi] += 1
+        assert (hits == 1).all()
