@@ -44,7 +44,8 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    timed apart and the stream restarted); rates are all events over all the
    time their calls took; answers held against an independent numpy oracle,
    the stream replayed from a fresh state to require bit-equal PAOs, and
-   each kernel's launch count on the main path required above zero; then
+   each segment op launched on the main path (its dense or its active
+   entry: the default ``auto`` mode picks per step); then
    one traced window of writes and one of reads (torch.profiler) for the
    device time by kernel and the device's busy share;
 4. the LM serve path at granite-3-2b's full width (40 layers, d_model 2048,
@@ -60,7 +61,26 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    features, sequence 100) at ``serve_p99`` (batch 512): p50 and p99 batch
    latency, one embedding-bag launch per batch required, scores held to 1e-5
    against the same model run on CPU copies of the parameters and batches
-   (where the bag wrapper runs its plain version).
+   (where the bag wrapper runs its plain version);
+6. the dynamic path on phase 3's session (headroom 2.0): the segment
+   kernel's active entry held, at every real level of the sum and max plans
+   and the active sets of a 256-writer batch, bit-equal on the rows it
+   covers to the dense kernel with the inactive blocks set to the identity,
+   and to its plain version (exact on integer values and for max, sums of
+   normal values within the reordered-sum bound); one write stream run
+   twice from one starting state, frontier-sparse (``EAGR_SPARSE_WRITE=1``)
+   and dense (``=0``), at batches of 256 and 4,096 Zipf(1.5) writers each
+   followed by reads of 256 readers, PAOs and answers required bit-equal and
+   both active launch counts above zero on writes and on reads; a
+   steady-state sparse window run under
+   ``torch.cuda.set_sync_debug_mode("error")``; 10 churn bursts at 0.1% and
+   10 at 1% of the readers (70% ``add_edge``, 30% ``delete_edge``), each
+   flushed, then a write batch and a read, the plan tables required to keep
+   their storage across in-capacity bursts, the answers held to the oracle
+   on 256 sampled readers, sparse against dense replayed bit-equal on the
+   churned plans from copies of one state; then one ``adapt()`` and the
+   oracle again. Phase 3 runs under the default ``auto`` mode and prints how
+   many of its steps went sparse.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -99,6 +119,11 @@ KERNELS = {
     "sum": ("segment_agg_sum", "src/repro/kernels/segment_agg/segment_agg.py:41"),
     "max": ("segment_agg_max", "src/repro/kernels/segment_agg/segment_agg.py:59"),
 }
+# the active entry serves the same TPU kernels on the frontier-sparse steps
+ACTIVE_KERNELS = {
+    "sum_active": ("segment_agg_sum_active", KERNELS["sum"][1]),
+    "max_active": ("segment_agg_max_active", KERNELS["max"][1]),
+}
 SOURCE = "src/repro_torch/kernels/segment_agg/csrc/segment_agg.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:34"
@@ -118,7 +143,17 @@ DESIGNS = {
               "serving the GQA group, 4 warps on cp.async rings, chunks "
               "merged in order by a second kernel",
     "bag": "one warp per bag, 16 table-row loads in flight",
+    "active": "the dense template over the active blocks only: one CTA per "
+              "window holding an active block, windows cut by the blocks' "
+              "own indices, other blocks skipped as padding, a run's pieces "
+              "combined in window order by its first active block",
 }
+# phase 6: the dynamic path
+DYN_BATCHES = 8            # batches of each sparse/dense run
+DYN_SIZES = (256, BATCH)   # writers a batch (benchmarks/dynamic_bench.py's
+DYN_READS = 256            # 256, and phase 3's 4,096); readers a read
+CHURN = ((0.001, 10), (0.01, 10))  # (share of readers a burst, bursts)
+SYNC_WINDOW = 4            # sparse batches under the sync check
 
 # the LM serve path: granite-3-2b at full width; 8 prompts of 2,048 tokens
 # and 32 greedy tokens (prefill_32k's B 32 x S 32,768 and decode_32k's
@@ -562,17 +597,34 @@ def reset_engines(session) -> None:
         eng.adopt_state(eng.init_state(), now_host=0.0, last_eval_now=0.0)
 
 
-def oracle_check(session, handles, batches, sample) -> None:
-    """Independent numpy oracle: replay the stream into per-writer tuple
-    windows of the last WINDOW values, then reduce each sampled reader's
-    neighborhood. Sum and count to 1e-4, max exactly."""
-    win: dict[int, collections.deque] = {}
-    for ids, vals, _ in batches:
+class Oracle:
+    """Independent numpy oracle: per-writer tuple windows of the last
+    WINDOW values, fed in stream order; a reader's answer reduces its
+    current neighbourhood's windows."""
+
+    def __init__(self, batches=()):
+        self.win: dict[int, collections.deque] = {}
+        for ids, vals, _ in batches:
+            self.feed(ids, vals)
+
+    def feed(self, ids, vals) -> None:
         for w, v in zip(ids.tolist(), vals.tolist()):
-            d = win.get(w)
+            d = self.win.get(w)
             if d is None:
-                d = win[w] = collections.deque(maxlen=WINDOW)
+                d = self.win[w] = collections.deque(maxlen=WINDOW)
             d.append(np.float32(v))
+
+    def check(self, session, handles, sample) -> None:
+        check_answers(session, handles, self.win, sample)
+
+
+def oracle_check(session, handles, batches, sample) -> None:
+    """Replay the stream into the oracle's windows, then reduce each sampled
+    reader's neighborhood. Sum and count to 1e-4, max exactly."""
+    Oracle(batches).check(session, handles, sample)
+
+
+def check_answers(session, handles, win, sample) -> None:
     got = {h.agg.name: np.asarray(session.read(h, sample)).reshape(len(sample), -1)[:, 0]
            for h in handles}
     for i, r in enumerate(sample.tolist()):
@@ -637,6 +689,430 @@ def profile_main_path(torch, session, handles, batches, out_dir) -> dict:
     }
     return {name: trace_window(torch, name, run, len(batches), out_dir)
             for name, run in phases.items()}
+
+
+# ---------------------------------------------------------- dynamic path
+def set_sparse(mode: str) -> None:
+    """The engines read EAGR_SPARSE_WRITE per call: '1' sparse, '0' dense,
+    'auto' (the default) by batch size and frontier density."""
+    os.environ["EAGR_SPARSE_WRITE"] = mode
+
+
+def dyn_stream(writers, readers, n_batches: int, size: int, rng):
+    """Zipf(1.5)-drawn writers as in benchmarks/dynamic_bench.py, normal
+    values, and DYN_READS readers a batch."""
+    perm = rng.permutation(len(writers))
+    out = []
+    for _ in range(n_batches):
+        rank = rng.zipf(ZIPF_A, size)
+        out.append((writers[perm[(rank - 1) % len(writers)]],
+                    rng.normal(size=size).astype(np.float32),
+                    rng.choice(readers, DYN_READS)))
+    return out
+
+
+def drive_counted(torch, ops, session, handles, batches) -> dict:
+    """``drive`` with the kernel launches of the writes and of the reads
+    counted apart (each set to 0 just before and read just after)."""
+    out = dict(w_ms=[], r_ms=[], answers=[],
+               write_launches=dict.fromkeys(ops.LAUNCHES, 0),
+               read_launches=dict.fromkeys(ops.LAUNCHES, 0))
+    for ids, vals, q in batches:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        session.update(ids, vals)
+        torch.cuda.synchronize()
+        out["w_ms"].append((time.perf_counter() - t0) * 1e3)
+        for k, v in ops.LAUNCHES.items():
+            out["write_launches"][k] += v
+        ops.reset_launches()
+        for h in handles:
+            t0 = time.perf_counter()
+            out["answers"].append(session.read(h, q))  # host numpy: synced
+            out["r_ms"].append((time.perf_counter() - t0) * 1e3)
+        for k, v in ops.LAUNCHES.items():
+            out["read_launches"][k] += v
+    return out
+
+
+def snapshot_states(session):
+    return [(g.engine.state, g.engine._now_host, g.engine._last_eval_now)
+            for g in session._groups.values()]
+
+
+def restore_states(session, states) -> None:
+    """Put copies of saved engine states back (the step bodies never write
+    a state in place, but the copies keep each run's start identical)."""
+    for g, (st, now, last) in zip(session._groups.values(), states):
+        copy = type(st)(type(st.windows)(*(t.clone() for t in st.windows)),
+                        st.pao.clone(), st.now.clone())
+        g.engine.adopt_state(copy, now_host=now, last_eval_now=last)
+
+
+def sparse_vs_dense(torch, ops, session, handles, batches, start) -> dict:
+    """One stream from one starting state twice, sparse then dense: PAOs
+    and answers bit-equal; per-mode write/read times and launches."""
+    runs = {}
+    for mode in ("1", "0"):
+        set_sparse(mode)
+        restore_states(session, start)
+        drive(torch, session, handles, batches[:1])  # warm (index builds)
+        restore_states(session, start)
+        runs[mode] = drive_counted(torch, ops, session, handles, batches)
+        runs[mode]["paos"] = [g.engine.state.pao.clone()
+                              for g in session._groups.values()]
+    set_sparse("auto")
+    for a, b in zip(runs["1"]["paos"], runs["0"]["paos"]):
+        if not torch.equal(a, b):
+            raise AssertionError("sparse and dense PAOs differ")
+    for a, b in zip(runs["1"]["answers"], runs["0"]["answers"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("sparse and dense answers differ")
+    return runs
+
+
+def rates(run, size: int) -> dict:
+    w, r = run["w_ms"], run["r_ms"]
+    return dict(write_events_per_s=size * len(w) / (np.sum(w) / 1e3),
+                write_p50_ms=float(np.median(w)),
+                write_max_ms=float(np.max(w)),
+                read_p50_ms=float(np.median(r)), read_max_ms=float(np.max(r)),
+                write_launches=run["write_launches"],
+                read_launches=run["read_launches"])
+
+
+def active_bound_ms(seg_c, tob, act, F: int) -> tuple[float, str]:
+    """Least time for one active-entry call: the active blocks' seg and
+    block tables read once, x read for each live slot of the active blocks,
+    output written for each row of a tile an active block routes to; one
+    add/max per live slot and feature."""
+    n_live = int((seg_c >= 0).sum().item())
+    nb = tob.numel()
+    real = act[act < nb].long()
+    tiles = int(tob[real].unique().numel())
+    nbytes = seg_c.numel() * 4 + real.numel() * 12 + n_live * 4 * F \
+        + tiles * 128 * 4 * F
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_live * F / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def active_sets(session, batch):
+    """The push (write) and pull (read) active tuples the engines expand for
+    one batch of writers and readers, per group."""
+    out = {}
+    ids, _, q = batch
+    for g in session._groups.values():
+        eng = g.engine
+        rows, mask = eng.plan.routes.writer_rows(ids)
+        push = eng.frontier_active(rows, mask)
+        nodes, _ = eng.plan.routes.reader_nodes(q)
+        rd = eng._reader_active(nodes)
+        out[g.agg.name] = (push, None if rd is None else rd[1])
+    return out
+
+
+def check_active(torch, ops, ref, session, batch, errs) -> list[dict]:
+    """The active entry at the phase-6 shapes: every real level of the sum
+    and max plans with the active blocks of one 256-writer batch (push) and
+    256 readers (pull), F in {1, 2, 64}: bit-equal on the covered rows to
+    the dense kernel over the level with the inactive blocks' values set to
+    the op's identity, exact against the plain version on integer values
+    and for max, sums of normal values within the reordered-sum bound
+    n * 2^-24 * sum|x| per row (the plain version adds by atomics in no
+    fixed order, and a hub row adds thousands of active slots), reruns
+    bit-equal; times beside the bound and ``index_add_`` on the same
+    compacted data."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    set_sparse("1")
+    sets = active_sets(session, batch)
+    set_sparse("auto")
+    rows = []
+    E = ops.E_BLK
+    for g in session._groups.values():
+        if g.agg.name not in ("sum", "max"):
+            continue
+        op = "sum" if g.agg.name == "sum" else "max"
+        plan, meta = g.engine.plan, g.engine.plan.meta
+        for side, acts in zip(("push", "pull"), sets[g.agg.name]):
+            if acts is None:
+                continue
+            t = getattr(plan.arrays, side)
+            for l in range(plan.depth):
+                if acts[l].shape[0] == 0:
+                    continue
+                seg, tob, fot = t.seg[l], t.tile_of_block[l], \
+                    t.first_of_tile[l]
+                nb = tob.numel()
+                act = torch.as_tensor(acts[l], device=dev)
+                a = act.long()
+                real = a[a < nb]
+                seg_c = torch.where((a < nb)[:, None],
+                                    seg.view(nb, E)[a.clamp(max=nb - 1)],
+                                    -1).reshape(-1)
+                n_live = int((seg_c >= 0).sum().item())
+                if n_live == 0:
+                    continue
+                cov = torch.zeros(meta.n_nodes + 1, dtype=torch.bool,
+                                  device=dev)
+                cov[torch.where(seg_c >= 0, seg_c.long(), meta.n_nodes)] = True
+                cov = cov[: meta.n_nodes]
+                # active live slots a row adds: the reordered-sum bound's n
+                n_in = torch.zeros(meta.n_nodes + 1, device=dev).index_add_(
+                    0, torch.where(seg_c >= 0, seg_c.long(), meta.n_nodes),
+                    torch.ones(seg_c.shape, device=dev))[: meta.n_nodes, None]
+                ident = 0.0 if op == "sum" else -3.0e38
+                for F in (1, 2, 64):
+                    for integer in (True, False):
+                        xf = (torch.randint(-8, 9, (seg.numel(), F),
+                                            generator=gen, device=dev)
+                              .to(torch.float32) if integer else
+                              torch.randn((seg.numel(), F), generator=gen,
+                                          device=dev))
+                        xb = xf.view(nb, E, F)
+                        xc = xb[a.clamp(max=nb - 1)].reshape(-1, F) \
+                            .contiguous()
+                        kw = dict(n_rows=meta.n_nodes,
+                                  n_row_tiles=meta.n_row_tiles, op=op)
+                        got = [ops.segment_agg_active(xc, seg, tob, fot, act,
+                                                      **kw)
+                               for _ in range(2)]
+                        xi = torch.full_like(xb, ident)
+                        xi[real] = xb[real]
+                        dense = ops.segment_agg_level(
+                            xi.reshape(-1, F).contiguous(), seg, tob, fot,
+                            **kw)
+                        plain = ref.segment_agg_active_ref(xc, seg, act,
+                                                           meta.n_nodes, op)
+                        if not torch.equal(got[0][cov], got[1][cov]):
+                            raise AssertionError("active entry is not "
+                                                 "deterministic")
+                        if not torch.equal(got[0][cov], dense[cov]):
+                            raise AssertionError(
+                                f"active {op} != dense kernel with identity "
+                                f"({side} l={l} F={F})")
+                        err = (got[0][cov] - plain[cov]).abs().max().item()
+                        if integer or op == "max":
+                            if not torch.equal(got[0][cov], plain[cov]):
+                                raise AssertionError(
+                                    f"active {op} != plain version (exact), "
+                                    f"max abs err {err}")
+                        else:
+                            lim = n_in * 2.0 ** -24 * \
+                                ref.segment_agg_active_ref(
+                                    xc.abs(), seg, act, meta.n_nodes, "sum")
+                            if bool(((got[0] - plain).abs() > lim)[cov]
+                                    .any()):
+                                raise AssertionError(
+                                    f"active sum beyond the reordered-sum "
+                                    f"bound ({side} l={l} F={F}), max abs "
+                                    f"err {err}")
+                        errs[f"{op}_active"] = max(errs[f"{op}_active"], err)
+                    k_ms = cuda_ms(torch, lambda: ops.segment_agg_active(
+                        xc, seg, tob, fot, act, **kw))
+                    k_dev = device_ms(torch, lambda: ops.segment_agg_active(
+                        xc, seg, tob, fot, act, **kw), reps=20)
+                    p_ms = cuda_ms(torch, lambda: ref.segment_agg_active_ref(
+                        xc, seg, act, meta.n_nodes, op))
+                    dst = torch.where(seg_c >= 0, seg_c.long(), meta.n_nodes)
+                    lib_out = torch.zeros((meta.n_nodes + 1, F), device=dev)
+                    lib = (lambda: lib_out.index_add_(0, dst, xc)) \
+                        if op == "sum" else \
+                        (lambda: lib_out.index_reduce_(0, dst, xc, "amax"))
+                    l_ms = cuda_ms(torch, lib)
+                    l_dev = device_ms(torch, lib, reps=20)
+                    b_ms, b_by = active_bound_ms(seg_c, tob, act, F)
+                    rows.append(dict(
+                        op=op, side=side, level=l, n_blocks=nb,
+                        active=int(real.numel()), K=int(act.numel()),
+                        n_live=n_live, F=F, ms=k_ms, device_ms=k_dev,
+                        plain_ms=p_ms, library_ms=l_ms,
+                        library_device_ms=l_dev, bound_ms=b_ms,
+                        bound_by=b_by))
+                    print(f"  active {op:3s} {side:4s} l={l} blocks "
+                          f"{int(real.numel())}/{nb} live={n_live} F={F:2d}: "
+                          f"kernel {k_ms:.4f} ms ({k_dev:.5f} device), plain "
+                          f"{p_ms:.4f} ms, index_add_/reduce "
+                          f"{l_ms:.4f} ms ({l_dev:.5f} device), bound "
+                          f"{b_ms:.6f} ms ({b_by})", flush=True)
+    return rows
+
+
+def plan_ptrs(session) -> list[dict]:
+    """Each group's plan tables by name: where their storage lives."""
+    from repro_torch.core.engine import _plan_array_leaves
+
+    return [{k: v.data_ptr() for k, v in
+             _plan_array_leaves(g.engine.plan.arrays)}
+            for g in session._groups.values()]
+
+
+def churn_burst(session, rng, readers, n_base: int, n_ops: int) -> None:
+    """One burst as benchmarks/dynamic_bench.py draws it: a reader at
+    random, then an edge add (70%) or a delete of one of its inputs."""
+    for _ in range(n_ops):
+        r = int(rng.choice(readers))
+        nb = session.neighborhood(r)
+        if rng.random() < 0.7 or not nb:
+            session.add_edge(int(rng.integers(0, n_base)), r)
+        else:
+            session.delete_edge(int(next(iter(nb))), r)
+
+
+def phase_dynamic(torch, ops, ref, session, handles, errs, out_dir) -> dict:
+    """Phase 6 (see the module docstring)."""
+    report: dict = {"seconds_by_part": {}}
+    clock = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        report["seconds_by_part"][part] = now - clock[0]
+        clock[0] = now
+
+    rng = np.random.default_rng(SEED + 6)
+    writers = np.asarray(session.writers, np.int64)
+    readers = np.asarray(session.readers, np.int64)
+    reset_engines(session)
+    start = snapshot_states(session)
+
+    # ---- 6a. the active entry at this path's shapes
+    probe = dyn_stream(writers, readers, 1, DYN_SIZES[0], rng)[0]
+    report["active_levels"] = check_active(torch, ops, ref, session, probe,
+                                           errs)
+    lap("active_entry_checks")
+
+    # ---- 6b. sparse against dense on one stream, both batch sizes
+    runs = {}
+    for size in DYN_SIZES:
+        batches = dyn_stream(writers, readers, DYN_BATCHES, size, rng)
+        r = sparse_vs_dense(torch, ops, session, handles, batches, start)
+        runs[size] = {m: rates(r[m], size) for m in ("1", "0")}
+        for where in ("write_launches", "read_launches"):
+            for mode, k in (("1", "sum_active"), ("1", "max_active"),
+                            ("0", "sum"), ("0", "max")):
+                if r[mode][where][k] <= 0:
+                    raise AssertionError(
+                        f"{k} not launched on the {where.split('_')[0]} "
+                        f"path with EAGR_SPARSE_WRITE={mode} (batch {size})")
+        print(f"sparse vs dense, batches of {size}: PAOs and answers "
+              f"bit-equal over {DYN_BATCHES} batches; sparse "
+              f"{runs[size]['1']['write_events_per_s']:.0f} writes/s (p50 "
+              f"{runs[size]['1']['write_p50_ms']:.3f} ms), dense "
+              f"{runs[size]['0']['write_events_per_s']:.0f} writes/s (p50 "
+              f"{runs[size]['0']['write_p50_ms']:.3f} ms); read p50 sparse "
+              f"{runs[size]['1']['read_p50_ms']:.3f} ms, dense "
+              f"{runs[size]['0']['read_p50_ms']:.3f} ms; sparse launches "
+              f"writes {r['1']['write_launches']}, reads "
+              f"{r['1']['read_launches']}", flush=True)
+        if size == DYN_SIZES[0]:
+            # the kernels line's counts: the main path's writes and reads
+            # of this batch size, the active entries' from the sparse run,
+            # the dense entries' from the dense run
+            report["launches"] = {
+                k: r[m]["write_launches"][k] + r[m]["read_launches"][k]
+                for k in ops.LAUNCHES
+                for m in ["1" if k.endswith("_active") else "0"]}
+            # steady state: sparse batches with no implicit host sync
+            set_sparse("1")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            for ids, vals, _ in batches[:SYNC_WINDOW]:
+                session.update(ids, vals)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            set_sparse("auto")
+            print(f"sync check: {SYNC_WINDOW} sparse write batches ran under "
+                  f"set_sync_debug_mode('error')", flush=True)
+    report["sparse_vs_dense"] = runs
+    lap("sparse_vs_dense")
+    blocks = {}
+    set_sparse("1")
+    for name, acts in active_sets(session, probe).items():
+        g = next(g for g in session._groups.values() if g.agg.name == name)
+        depth = g.engine.plan.depth
+        nbs = [getattr(g.engine.plan.arrays, side).tile_of_block.shape[1]
+               for side in ("push", "pull")]
+        blocks[name] = {side: None if a is None else
+                        [int((x < nb).sum()) for x in a[:depth]]
+                        for side, a, nb in zip(("push", "pull"), acts, nbs)}
+        blocks[name].update(push_blocks=nbs[0], pull_blocks=nbs[1])
+    set_sparse("auto")
+    print(f"active blocks per level (one batch of {DYN_SIZES[0]} writers, "
+          f"{DYN_READS} readers) against the level's blocks: {blocks}",
+          flush=True)
+    report["active_blocks"] = blocks
+
+    # ---- 6c. churn bursts, each flushed, then a write batch and a read
+    reset_engines(session)
+    oracle = Oracle()
+    n_base = int(max(writers.max(), readers.max())) + 1
+    patch_ms, kinds = [], collections.Counter()
+    log = []
+    for share, n_bursts in CHURN:
+        n_ops = max(1, int(share * len(readers)))
+        for _ in range(n_bursts):
+            churn_burst(session, rng, readers, n_base, n_ops)
+            ptrs = plan_ptrs(session)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = session.flush()
+            torch.cuda.synchronize()
+            patch_ms.append((time.perf_counter() - t0) * 1e3)
+            for k in ("patched", "relayout", "recompiled"):
+                kinds[k] += getattr(rep, k)
+            for res, before, after in zip(rep, ptrs, plan_ptrs(session)):
+                if res is not None and not res.recompiled and before != after:
+                    raise AssertionError("an in-capacity patch reallocated "
+                                         "a plan table")
+            cur = np.asarray(session.writers, np.int64)
+            (batch,) = dyn_stream(cur, np.asarray(session.readers), 1,
+                                  DYN_SIZES[0], rng)
+            session.update(batch[0], batch[1])
+            oracle.feed(batch[0], batch[1])
+            for h in handles:
+                session.read(h, batch[2])
+            log.append(dict(share=share, ops=n_ops, ms=patch_ms[-1],
+                            patched=rep.patched, relayout=rep.relayout,
+                            recompiled=rep.recompiled,
+                            journal_nodes=rep.journal_nodes))
+    readers = np.asarray(session.readers, np.int64)
+    sample = rng.choice(readers, size=min(256, len(readers)), replace=False)
+    oracle.check(session, handles, sample)
+    print(f"churn: {sum(n for _, n in CHURN)} bursts ({CHURN}) on {card_line()}"
+          f": patch p50 {np.median(patch_ms):.3f} ms, max "
+          f"{np.max(patch_ms):.3f} ms a burst (3 groups); {dict(kinds)}; "
+          f"tables kept their storage across in-capacity bursts; oracle: "
+          f"{len(sample)} sampled readers agree", flush=True)
+    lap("churn")
+    report.update(churn=log, patch_p50_ms=float(np.median(patch_ms)),
+                  patch_max_ms=float(np.max(patch_ms)), churn_kinds=dict(kinds))
+
+    # ---- 6d. sparse == dense on the churned plans, from copies of a state
+    writers = np.asarray(session.writers, np.int64)
+    after = snapshot_states(session)
+    batches = dyn_stream(writers, readers, 4, DYN_SIZES[0], rng)
+    sparse_vs_dense(torch, ops, session, handles, batches, after)
+    restore_states(session, after)
+    print("sparse vs dense after churn: PAOs and answers bit-equal on the "
+          "churned plans", flush=True)
+    lap("sparse_vs_dense_after_churn")
+
+    # ---- 6e. one adapt(), then the oracle again
+    flips = session.adapt()
+    batches = dyn_stream(writers, readers, 2, DYN_SIZES[0], rng)
+    for ids, vals, _ in batches:
+        session.update(ids, vals)
+        oracle.feed(ids, vals)
+    oracle.check(session, handles, sample)
+    print(f"adapt: {flips!r}; oracle: {len(sample)} sampled readers agree",
+          flush=True)
+    report["adapt_flips"] = list(flips.per_group)
+    lap("adapt")
+    print(f"phase 6 seconds by part: {report['seconds_by_part']}",
+          flush=True)
+    return report
 
 
 # ------------------------------------------------------- flash attention
@@ -1361,7 +1837,7 @@ def main(argv=None) -> int:
 
     # ---- 2a. kernels against their plain version: the shape sweeps
     errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "prefill_simt": 0.0,
-            "decode": 0.0, "bag": 0.0}
+            "decode": 0.0, "bag": 0.0, "sum_active": 0.0, "max_active": 0.0}
     phase_kernels_sweep(torch, ops, ref, errs)
     report["hub"] = phase_kernels_hub(torch, ops, ref, errs)
     phase_flash_sweep(torch, errs)
@@ -1412,11 +1888,16 @@ def main(argv=None) -> int:
     ops.reset_launches()
     w_ms, r_ms, _ = drive(torch, session, handles, stream)
     launches = dict(ops.LAUNCHES)
-    print(f"main path launches: {launches}", flush=True)
-    for op, n in launches.items():
-        if n <= 0:
+    steps = [k for g in session._groups.values()
+             for k in g.engine.frontier_log[-len(stream):]]
+    print(f"main path launches: {launches}; under the default auto mode "
+          f"{sum(k >= 0 for k in steps)} of {len(steps)} write steps went "
+          f"sparse", flush=True)
+    # under auto a step runs the dense or the active entry of an op
+    for op in KERNELS:
+        if launches[op] + launches[f"{op}_active"] <= 0:
             raise AssertionError(f"kernel segment_agg_{op} was not launched "
-                                 f"on the main path")
+                                 f"on the main path (dense or active)")
     sample = rng.choice(readers, size=min(256, len(readers)), replace=False)
     oracle_check(session, handles, stream, sample)
     print(f"oracle: {len(sample)} sampled readers agree (sum, count to 1e-4, "
@@ -1505,13 +1986,23 @@ def main(argv=None) -> int:
           f"{dien['max_abs_err_vs_plain']:.3g}", flush=True)
     report["serve_dien"] = dien
 
+    # ---- 6. the dynamic path on phase 3's session
+    t0 = time.perf_counter()
+    dynamic = phase_dynamic(torch, ops, ref, session, handles, errs, out_dir)
+    dynamic["seconds"] = time.perf_counter() - t0
+    print(f"dynamic path: {dynamic['seconds']:.1f} s", flush=True)
+    report["dynamic"] = dynamic
+
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:
         raise AssertionError(f"the port loaded {bad[:5]}")
 
     # one entry per kernel: the segment kernels at the EAGr main path's
-    # largest level, F=1; the flash kernels at the LM serve path's shapes
+    # largest level, F=1 (their active entries at phase 6's; launches of
+    # both from phase 6's dense and sparse runs of the main path: phase 3's
+    # auto mode picks per step); the flash kernels at the LM serve path's
+    # shapes
     # (prefill: the tensor-core kernel, its errors beside SDPA's; decode: B 8
     # against the path's prompt + gen cache); the embedding bag at DIEN's;
     # launches from each path's counted run. ms, plain_ms and library_ms are
@@ -1524,7 +2015,8 @@ def main(argv=None) -> int:
         k_dev, l_dev = level_device_ms(torch, ops, session, top)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
-            design=DESIGNS[op], launches=launches[op], max_abs_err=errs[op],
+            design=DESIGNS[op], launches=dynamic["launches"][op],
+            max_abs_err=errs[op],
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
             device_ms=k_dev, library_device_ms=l_dev))
@@ -1549,6 +2041,20 @@ def main(argv=None) -> int:
         bound_by=bag_row["bound_by"], library_ms=bag_row["library_ms"],
         device_ms=bag_row["device_ms"],
         library_device_ms=bag_row["library_device_ms"]))
+    # the active entry at the largest level of the phase-6 batch, F=1;
+    # launches from phase 6's counted sparse run
+    for key, (name, replaces) in ACTIVE_KERNELS.items():
+        op = key.split("_")[0]
+        rows = [r for r in dynamic["active_levels"]
+                if r["op"] == op and r["F"] == 1]
+        top = max(rows, key=lambda r: r["n_live"])
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=replaces,
+            design=DESIGNS["active"], launches=dynamic["launches"][key],
+            max_abs_err=errs[key], ms=top["ms"], plain_ms=top["plain_ms"],
+            bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+            library_ms=top["library_ms"], device_ms=top["device_ms"],
+            library_device_ms=top["library_device_ms"]))
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -30,7 +30,11 @@ _BACKEND_FIELDS = ("backend", "interpret", "unroll_levels", "bf16")
 def plan_from_reference(arrays: dict, objs: dict, device=None) -> ExecPlan:
     """An ``ExecPlan`` on ``device`` (CUDA unless the caller names another)
     from the output of the JAX package's ``plan_snapshot(plan)``: the tables
-    travel verbatim."""
+    travel verbatim. A plan the JAX package has patched under churn carries
+    over too: its unpruned id space (decisions and levels from its patch
+    bookkeeping), appended and retired writer rows and its real depth. The
+    port rebuilds its own patch bookkeeping on the first patch, from the
+    unpruned overlay the caller passes the engine."""
     meta = dict(objs["meta"])
     if meta.get("bf16"):
         raise not_ported("EAGR_SEGAGG_BF16 (bf16 edge values)", "12")

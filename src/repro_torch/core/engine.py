@@ -28,6 +28,12 @@ Read path (the *pull* sweep):
     demand up-sweep from requested pull readers through pull ancestors ->
     per-level masked compute down-sweep -> gather + FINALIZE at readers.
 
+Given an ``active`` tuple, the write and read bodies run frontier-sparse:
+each level over only the edge blocks the batch can reach (``core/
+frontier.py`` expands them on the host), through the segment kernel's active
+entry, bit-equal to the dense sweep (the JAX package's ``*_sparse`` twins).
+Structural churn patches the plan tables in place (``core/plan_patch.py``).
+
 Every step is deterministic on the card: float values are only combined by
 the segment kernel (fixed slot order) and by ``index_put_(accumulate=True)``
 (sorted indices, lane order); the other scatters write unique indices or
@@ -54,6 +60,8 @@ from repro_torch.core.window import (
     WindowState,
     apply_writes,
     init_windows,
+    pad_window_rows,
+    reset_window_rows,
     stale_rows,
     window_pao,
 )
@@ -63,6 +71,7 @@ from repro_torch.kernels.segment_agg.ops import (
     R_BLK,
     leveled_plan_blocks,
     make_leveled_plan,
+    segment_agg_active,
     segment_agg_level,
 )
 
@@ -85,8 +94,10 @@ class BaseRoutes:
 
     The steady-state event routing path: :meth:`writer_rows` /
     :meth:`reader_nodes` are O(B) vectorized numpy (clip + gather + validity
-    mask) with zero Python work per event. Capacity grows in power-of-two
-    buckets; absent entries are ``-1``.
+    mask) with zero Python work per event. The ``ExecPlan`` dicts stay
+    authoritative for churn bookkeeping; ``plan_patch`` mirrors each of
+    their edits here (one table edit per delta entry). Capacity grows in
+    power-of-two buckets; absent entries are ``-1``.
     """
 
     __slots__ = ("writer_row", "reader_node")
@@ -117,6 +128,34 @@ class BaseRoutes:
                     np.fromiter(m.values(), np.int64, len(m))
         return routes
 
+    def _grow(self, top: int) -> None:
+        if top < self.cap:
+            return
+        cap = self._bucket(top + 1)
+        for name in ("writer_row", "reader_node"):
+            old = getattr(self, name)
+            new = np.full(cap, -1, np.int32)
+            new[: len(old)] = old
+            setattr(self, name, new)
+
+    # ------------------------------------------- churn maintenance (per delta)
+    def set_writer(self, base: int, row: int) -> None:
+        self._grow(int(base))
+        self.writer_row[int(base)] = row
+
+    def clear_writer(self, base: int) -> None:
+        if 0 <= int(base) < self.cap:
+            self.writer_row[int(base)] = -1
+
+    def set_reader(self, base: int, node: int) -> None:
+        self._grow(int(base))
+        self.reader_node[int(base)] = node
+
+    def clear_reader(self, base: int) -> None:
+        if 0 <= int(base) < self.cap:
+            self.reader_node[int(base)] = -1
+
+    # ------------------------------------------------- hot path (per batch)
     def writer_rows(self, base_ids) -> tuple[np.ndarray, np.ndarray]:
         """Route one batch: ``(rows, mask)`` with masked lanes pinned to row
         0 — the padding pattern the masked write bodies drop."""
@@ -189,7 +228,13 @@ class ExecPlan:
     routes: "BaseRoutes | None" = None   # dense mirror of the two dicts
     n_push_edges: int = 0
     n_pull_edges: int = 0
+    host: object | None = None           # plan_patch.PlanHost (lazy); owned
+                                         # by the incremental patch path
     patches_applied: int = 0
+    frontier: object | None = None       # frontier.FrontierIndex, built on
+                                         # the first sparse write
+    reader_frontier: object | None = None  # frontier.ReaderFrontierIndex;
+                                           # dropped by any structural patch
 
     @property
     def n_nodes(self) -> int:
@@ -436,12 +481,89 @@ def _scatter_rows(n_rows: int, idx: torch.Tensor, vals: torch.Tensor,
     return ext[:n_rows]
 
 
+# ------------------------------------------------------- frontier-sparse levels
+# A step runs each real level either densely (every slot of the level's
+# tables) or frontier-sparse: over only the batch frontier's active edge
+# blocks (``active`` is the ragged per-level tuple of (K,) int32 ascending
+# block indices padded with the level's block count, expanded on the host by
+# ``core/frontier.py``). The segment kernel's active entry adds an active
+# row's values in the dense pass's order, and the index guarantees every
+# block that matters is active, so a sparse step is bit-equal to the dense
+# one. Levels with no active block cost nothing; no step reads a device
+# value back to the host.
+def _gather_active(tables: LevelTables, l: int, active_l: torch.Tensor):
+    """One level's source rows, signs and destinations of its K active
+    blocks, in active order. Pad entries gather the level's last block;
+    their destinations read -1 (the padding pattern), and the kernel never
+    reads their values."""
+    nb = tables.tile_of_block.shape[1]
+    a = active_l.to(torch.int64)
+    ab = torch.clamp(a, max=nb - 1)
+    src_c = tables.src[l].view(nb, E_BLK)[ab].reshape(-1)
+    sign_c = tables.sign[l].view(nb, E_BLK)[ab].reshape(-1)
+    seg_c = torch.where((a < nb)[:, None],
+                        tables.seg[l].view(nb, E_BLK)[ab], -1).reshape(-1)
+    return src_c, sign_c, seg_c
+
+
+def _level_reduce_active(meta: PlanMeta, tables: LevelTables, l: int,
+                         active_l: torch.Tensor, src_c, sign_c,
+                         val: torch.Tensor, op: str) -> torch.Tensor:
+    """``_level_reduce`` over a level's active blocks: the gather shrinks to
+    K*E_BLK slots and the kernel's active entry visits only their windows.
+    Rows no active block routes to are undefined — callers mask."""
+    x = val.index_select(0, src_c)
+    if op == "sum":
+        x = x * sign_c[:, None]
+    elif op == "min":
+        x = -x
+    out = segment_agg_active(
+        x, tables.seg[l], tables.tile_of_block[l], tables.first_of_tile[l],
+        active_l, n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles,
+        op="sum" if op == "sum" else "max")
+    return -out if op == "min" else out
+
+
+def _row_active(meta: PlanMeta, seg_c: torch.Tensor) -> torch.Tensor:
+    """(n_nodes,) bool: destinations with at least one active slot this
+    level — the sparse twin of ``touched``. The index guarantees any
+    destination with a nonzero or changed contribution has every slot
+    active, so masking to these rows is exact."""
+    n = meta.n_nodes
+    out = torch.zeros(n + 1, dtype=torch.bool, device=seg_c.device)
+    # index_fill_ takes the value as a scalar argument: unlike
+    # ``out[idx] = True`` no host tensor is copied to the device
+    out.index_fill_(0, torch.where(seg_c >= 0, seg_c.to(torch.int64), n),
+                    True)
+    return out[:n]
+
+
+def _levels(meta: PlanMeta, tables: LevelTables, active=None):
+    """The real levels in ascending order, each as ``(reduce, rows)``:
+    ``reduce(val, op)`` is the level's reduce-by-destination of ``val``
+    (whose rows outside ``rows`` are undefined), ``rows`` the (n_nodes,)
+    destinations it recomputes. Dense with ``active=None``; otherwise over
+    the level's active blocks, skipping levels with none."""
+    for l in range(meta.depth):
+        if active is None:
+            yield (lambda val, op, l=l: _level_reduce(meta, tables, l, val,
+                                                      op)), tables.touched[l]
+        elif active[l].shape[0]:
+            src_c, sign_c, seg_c = _gather_active(tables, l, active[l])
+            yield (lambda val, op, l=l, src_c=src_c, sign_c=sign_c:
+                   _level_reduce_active(meta, tables, l, active[l], src_c,
+                                        sign_c, val, op)), \
+                tables.touched[l] & _row_active(meta, seg_c)
+
+
 # ---------------------------------------------------------------- step bodies
 # The write/read bodies are functions of ``(meta, agg, spec, arrays, state,
 # batch) -> state`` with no per-engine Python state; they return new state
-# tensors and leave their inputs unchanged.
+# tensors and leave their inputs unchanged. ``active=None`` runs the dense
+# sweep, a per-level active tuple the frontier-sparse one (bit-equal).
 def write_step_sum(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
-                   arrays: PlanArrays, state: EngineState, rows, vals, mask):
+                   arrays: PlanArrays, state: EngineState, rows, vals, mask,
+                   active=None):
     windows, evicted, evicted_valid = apply_writes(
         state.windows, spec, rows, vals, state.now.expand(rows.shape), mask)
     delta_w = agg.lift(vals) * mask[:, None].to(torch.float32)
@@ -456,18 +578,17 @@ def write_step_sum(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
     delta = delta_w.new_zeros((meta.n_nodes + 1, delta_w.shape[1]))
     delta = delta.index_put_((node,), delta_w, accumulate=True)[:meta.n_nodes]
 
-    for l in range(meta.depth):
-        contrib = _level_reduce(meta, arrays.push, l, delta, "sum")
-        # untouched rows are undefined kernel output (unwritten tiles) —
-        # only the level's destinations may accumulate
-        delta = delta + torch.where(arrays.push.touched[l][:, None],
-                                    contrib, 0.0)
+    for reduce, rows_l in _levels(meta, arrays.push, active):
+        # rows the level does not recompute are undefined kernel output
+        # (unwritten tiles) — only its destinations may accumulate
+        delta = delta + torch.where(rows_l[:, None], reduce(delta, "sum"),
+                                    0.0)
     return EngineState(windows, state.pao + delta, state.now + 1.0)
 
 
 def write_step_extremal(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
                         arrays: PlanArrays, state: EngineState, rows, vals,
-                        mask, prev_now):
+                        mask, prev_now, active=None):
     """Non-invertible write path, restricted to the *touched* writer set: the
     rows written this batch plus (time windows) the rows with an entry that
     expired since ``prev_now``. Untouched rows keep their stored PAO, and the
@@ -478,7 +599,8 @@ def write_step_extremal(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
     wp = window_pao(windows, spec, agg, now=state.now)
     n_w, n = meta.n_writers, meta.n_nodes
     written = torch.zeros(n_w + 1, dtype=torch.uint8, device=rows.device)
-    written[torch.where(mask, rows.to(torch.int64), n_w)] = 1  # OR: one value
+    written.index_fill_(0, torch.where(mask, rows.to(torch.int64), n_w),
+                        1)  # OR: one value
     touched_w = written[:n_w].bool()
     if spec.kind == "time":
         touched_w = touched_w | stale_rows(state.windows, spec, prev_now,
@@ -491,12 +613,11 @@ def write_step_extremal(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
     changed = _scatter_rows(n, wnode, touched_w.to(torch.float32)[:, None],
                             base=pao.new_zeros((n, 1)))
 
-    for l in range(meta.depth):
-        new = _level_reduce(meta, arrays.push, l, pao, agg.combine)
+    for reduce, rows_l in _levels(meta, arrays.push, active):
+        new = reduce(pao, agg.combine)
         # a destination is recomputed when one of its sources changed: the
         # max of the sources' flags, over the same tables by the same kernel
-        ch = _level_reduce(meta, arrays.push, l, changed, "max")
-        upd = arrays.push.touched[l][:, None] & (ch > 0)
+        upd = rows_l[:, None] & (reduce(changed, "max") > 0)
         pao = torch.where(upd, new, pao)
         changed = torch.where(upd, 1.0, changed)
     return EngineState(windows, pao, state.now + 1.0)
@@ -512,14 +633,20 @@ def refresh_pao_step(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
     pao = agg.init_pao(meta.n_nodes, device=wp.device)
     pao = _scatter_rows(meta.n_nodes, arrays.writer_node,
                         wp[: meta.n_writers], base=pao)
-    for l in range(meta.depth):
-        new = _level_reduce(meta, arrays.push, l, pao, agg.combine)
-        pao = torch.where(arrays.push.touched[l][:, None], new, pao)
+    for reduce, rows_l in _levels(meta, arrays.push):
+        pao = torch.where(rows_l[:, None], reduce(pao, agg.combine), pao)
     return pao
 
 
+DEM_CHUNK = 256  # demand slots per active chunk (d_pad is a multiple of 256)
+
+
 def read_step(meta: PlanMeta, agg: Aggregate, arrays: PlanArrays,
-              state: EngineState, reader_nodes, mask):
+              state: EngineState, reader_nodes, mask, active=None):
+    """The pull sweep. ``active=None`` runs it densely; ``active =
+    (dem_active, pull_active)`` (expanded on the host from
+    ``ReaderFrontierIndex``) restricts the demand up-sweep to active
+    DEM_CHUNK-slot chunks and the pull down-sweep to active edge blocks."""
     n = meta.n_nodes
     decision = arrays.decision
     nodes = reader_nodes.to(torch.int64)
@@ -529,15 +656,27 @@ def read_step(meta: PlanMeta, agg: Aggregate, arrays: PlanArrays,
     is_pull_target = mask & (decision[nodes] == PULL)
     demand.scatter_reduce_(0, nodes, is_pull_target.to(torch.uint8),
                            reduce="amax")
+    nc = arrays.demand_dst.shape[1] // DEM_CHUNK
     for l in range(meta.depth - 1, -1, -1):  # dst level descending
-        demand.scatter_reduce_(0, arrays.demand_src[l].to(torch.int64),
-                               demand[arrays.demand_dst[l]], reduce="amax")
+        dsts, srcs = arrays.demand_dst[l], arrays.demand_src[l]
+        if active is not None:
+            # d_pad below one chunk: the plan has no demand pair at all
+            if nc == 0 or active[0][l].shape[0] == 0:
+                continue
+            a = active[0][l].to(torch.int64)
+            ac, valid = torch.clamp(a, max=nc - 1), (a < nc)[:, None]
+            dsts = torch.where(valid, dsts.view(nc, DEM_CHUNK)[ac],
+                               n).reshape(-1)
+            srcs = torch.where(valid, srcs.view(nc, DEM_CHUNK)[ac],
+                               n).reshape(-1)
+        demand.scatter_reduce_(0, srcs.to(torch.int64), demand[dsts],
+                               reduce="amax")
     take = ((demand[:n] > 0) & (decision == PULL))[:, None]
     val = state.pao
-    for l in range(meta.depth):  # level ascending
-        computed = _level_reduce(meta, arrays.pull, l, val, agg.combine)
+    for reduce, rows_l in _levels(meta, arrays.pull,
+                                  None if active is None else active[1]):
         # only overwrite rows that this level actually computed
-        val = torch.where(take & arrays.pull.touched[l][:, None], computed,
+        val = torch.where(take & rows_l[:, None], reduce(val, agg.combine),
                           val)
     answers = val[nodes]
     return agg.finalize(answers), answers
@@ -568,12 +707,20 @@ def _map_to_pairs(m: dict[int, int]) -> np.ndarray:
 def plan_snapshot(plan: ExecPlan) -> tuple[dict, dict]:
     """Serialize a live ``ExecPlan`` to ``(arrays, objs)``: a flat dict of
     host numpy arrays plus a JSON-safe object dict. Derived caches (the
-    routes LUT) are rebuilt on the other side."""
+    routes LUT, ``PlanHost``, frontier indices) are rebuilt on the other
+    side."""
     arrays = {f"pa.{name}": leaf.cpu().numpy()
               for name, leaf in _plan_array_leaves(plan.arrays)}
+    host = plan.host
+    if host is not None:  # the patch bookkeeping's, churn since compile in
+        decision = np.asarray(host.decision[: host.n_real], np.int64)
+        level = np.asarray(host.level[: host.n_real], np.int64)
+    else:
+        decision = np.asarray(plan.decision, np.int64)
+        level = np.asarray(plan.level, np.int64)
     arrays.update({
-        "decision": np.asarray(plan.decision, np.int64),
-        "level": np.asarray(plan.level, np.int64),
+        "decision": decision,
+        "level": level,
         "writer_node": np.asarray(plan.writer_node, np.int64),
         "wrob": _map_to_pairs(plan.writer_row_of_base),
         "rnob": _map_to_pairs(plan.reader_node_of_base),
@@ -619,6 +766,17 @@ def plan_from_snapshot(arrays: dict, objs: dict, device=None) -> ExecPlan:
 
 
 # ----------------------------------------------------------------------- API
+def upload(arr: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
+    """One host array onto ``device`` as an explicit copy. To a CUDA device
+    it goes through pinned host memory with ``non_blocking=True``, so the
+    host never waits on the device (no implicit sync: steady-state steps run
+    clean under ``torch.cuda.set_sync_debug_mode("error")``)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, dtype))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class EagrEngine:
     """Runtime for one compiled ego-centric aggregate query, on one device
     (CUDA unless the caller passes ``device="cpu"``)."""
@@ -640,6 +798,9 @@ class EagrEngine:
             plan = compile_plan(overlay, decisions, pad=pad,
                                 device=self.device)
         self.plan = plan
+        # continuous groups pin every churn-added node PUSH through patches
+        # (always-fresh readers)
+        self.pin_push = False
         self.state = self.init_state()
         # host-side logical clock mirror + extremal-path eviction bookkeeping:
         # `_expiry` holds the eval times of batches whose entries are still
@@ -648,6 +809,9 @@ class EagrEngine:
         self._now_host = 0.0
         self._last_eval_now = 0.0
         self._expiry: list[float] = []
+        # per write step: the active-block count for sparse steps, -1 for
+        # dense — the frontier-size distribution (frontier_summary)
+        self.frontier_log: list[int] = []
 
     def init_state(self) -> EngineState:
         windows = init_windows(self.plan.meta.n_writers, self.spec,
@@ -719,28 +883,73 @@ class EagrEngine:
                 [values, np.zeros((pad,) + values.shape[1:], np.float32)])
         self.write_rows(rows, values, mask, n_live=n_live)
 
-    def write_rows(self, rows: np.ndarray, vals: np.ndarray,
-                   mask: np.ndarray, *, n_live: int | None = None,
-                   active=None) -> None:
-        """Pre-routed write dispatch: ``rows`` are window rows (see
-        ``ExecPlan.routes``), masked lanes carry row 0 / value 0 and the
-        batch is already padded. The step is queued on the device and the
-        call returns without waiting for it. Only the dense sweep is ported
-        (``active`` must be ``None``)."""
-        if active is not None:
-            raise not_ported("frontier-sparse write steps", "5")
+    def frontier_active(self, rows: np.ndarray, mask: np.ndarray,
+                        n_live: int | None = None):
+        """Decide and expand this batch's frontier: the ragged per-level
+        active-block tuple for the sparse write bodies, or ``None`` for the
+        dense sweep. ``None`` whenever sparseness can't be exact (an
+        extremal time window with entries expiring outside the batch) or
+        can't pay (EAGR_SPARSE_WRITE=0; auto mode with a large batch or a
+        frontier past the density threshold). Builds the plan's
+        ``FrontierIndex`` on first use."""
+        from repro_torch.core import frontier as F
+
+        mode = F.sparse_mode()
+        meta = self.plan.meta
+        if mode == "0":
+            return None
+        if self.agg.combine != "sum" and self.spec.kind == "time" and \
+                self._expiry and \
+                self._expiry[0] < self._now_host - self.spec.size:
+            # rows expire at this eval instant: the touched set exceeds the
+            # batch frontier, only the dense sweep sees all of it
+            return None
         if n_live is None:
             n_live = int(np.count_nonzero(mask))
+        if n_live == 0:
+            return None
+        density = None
+        if mode == "auto":
+            nb = self.plan.arrays.push.tile_of_block.shape[1]
+            if nb < 8 or n_live > F.sparse_rowfrac() * meta.n_writers:
+                return None  # frontier ~ overlay: expansion can't win
+            density = F.sparse_density()
+        exact = self.agg.combine == "sum"
+        if self.plan.frontier is None or self.plan.frontier.exact != exact:
+            self.plan.frontier = F.FrontierIndex.build(self.plan,
+                                                       exact=exact)
+        rows_u = np.unique(np.asarray(rows)[np.asarray(mask, bool)])
+        return self.plan.frontier.expand(rows_u, density=density)
+
+    def write_rows(self, rows: np.ndarray, vals: np.ndarray,
+                   mask: np.ndarray, *, n_live: int | None = None,
+                   active="auto") -> None:
+        """Pre-routed write dispatch: ``rows`` are window rows (see
+        ``ExecPlan.routes``), masked lanes carry row 0 / value 0 and the
+        batch is already padded. The batch (and the active tuple) travel as
+        explicit copies and the step is queued on the device; the call
+        returns without waiting for it. ``active`` selects the step:
+        ``"auto"`` asks :meth:`frontier_active`, ``None`` forces the dense
+        sweep, and a per-level active-block tuple runs the frontier-sparse
+        bodies over exactly those edge blocks."""
+        if n_live is None:
+            n_live = int(np.count_nonzero(mask))
+        if isinstance(active, str):
+            active = self.frontier_active(rows, mask, n_live=n_live)
+        self.frontier_log.append(
+            -1 if active is None else sum(a.shape[0] for a in active))
+        if len(self.frontier_log) > (1 << 20):
+            del self.frontier_log[: (1 << 19)]
         dev = self.device
-        rows_d = torch.as_tensor(np.ascontiguousarray(rows, np.int32),
-                                 device=dev)
-        vals_d = torch.as_tensor(np.ascontiguousarray(vals, np.float32),
-                                 device=dev)
-        mask_d = torch.as_tensor(np.ascontiguousarray(mask, bool), device=dev)
-        meta, arrays = self.plan.meta, self.plan.arrays
+        rows_d = upload(rows, np.int32, dev)
+        vals_d = upload(vals, np.float32, dev)
+        mask_d = upload(mask, bool, dev)
+        act_d = None if active is None else \
+            tuple(upload(a, np.int32, dev) for a in active)
+        args = (self.plan.meta, self.agg, self.spec, self.plan.arrays,
+                self.state, rows_d, vals_d, mask_d)
         if self.agg.combine == "sum":
-            self.state = write_step_sum(meta, self.agg, self.spec, arrays,
-                                        self.state, rows_d, vals_d, mask_d)
+            self.state = write_step_sum(*args, active=act_d)
         else:
             if self.spec.kind == "time":
                 if n_live:
@@ -748,18 +957,18 @@ class EagrEngine:
                 boundary = self._now_host - self.spec.size
                 while self._expiry and self._expiry[0] < boundary:
                     heapq.heappop(self._expiry)  # reflected by this refresh
-            prev = torch.tensor(self._last_eval_now, dtype=torch.float32,
-                                device=dev)
+            # a fill, not a copy from the host
+            prev = torch.full((), self._last_eval_now, dtype=torch.float32,
+                              device=dev)
             self._last_eval_now = self._now_host
-            self.state = write_step_extremal(meta, self.agg, self.spec,
-                                             arrays, self.state, rows_d,
-                                             vals_d, mask_d, prev)
+            self.state = write_step_extremal(*args, prev, active=act_d)
         self._now_host += 1.0
 
     def read_batch(self, base_ids: np.ndarray, batch_size: int | None = None):
         """Answer a batch of reads. Returns finalized answers (B, ...) as
         numpy. The batch pads to the ``bucket_batch`` bucket unless
-        ``batch_size`` pins the shape."""
+        ``batch_size`` pins the shape; small reader batches run the
+        frontier-sparse read (:meth:`_reader_active`)."""
         base_ids = np.asarray(base_ids)
         nodes, known = self.plan.routes.reader_nodes(base_ids)
         if not known.all():
@@ -770,22 +979,105 @@ class EagrEngine:
         B = batch_size or bucket_batch(len(nodes))
         if B < len(nodes):
             raise ValueError(f"batch_size={B} < batch of {len(nodes)}")
+        act = self._reader_active(nodes)
         pad = B - len(nodes)
         mask = np.concatenate([np.ones(len(nodes), bool), np.zeros(pad, bool)])
         nodes = np.concatenate([nodes, np.zeros(pad, np.int32)])
+        dev = self.device
+        nodes_d, mask_d = upload(nodes, np.int32, dev), upload(mask, bool, dev)
+        act_d = None if act is None else tuple(
+            tuple(upload(a, np.int32, dev) for a in side) for side in act)
         ans, _ = read_step(self.plan.meta, self.agg, self.plan.arrays,
-                           self.state,
-                           torch.as_tensor(nodes, device=self.device),
-                           torch.as_tensor(mask, device=self.device))
+                           self.state, nodes_d, mask_d, active=act_d)
         return ans.cpu().numpy()[: len(base_ids)]
 
-    # ------------------------------------------------ outside this slice
+    def _reader_active(self, nodes: np.ndarray):
+        """Read-path twin of :meth:`frontier_active`: ``(dem_active,
+        pull_active)`` chunk/block arrays for the sparse demand and pull
+        sweeps, or ``None`` for the dense read. Auto mode only pays for the
+        expansion on small reader batches."""
+        from repro_torch.core import frontier as F
+
+        mode = F.sparse_mode()
+        if mode == "0":
+            return None
+        density = None
+        if mode == "auto":
+            if len(nodes) > F.sparse_rowfrac() * self.plan.meta.n_nodes:
+                return None
+            density = F.sparse_density()
+        if self.plan.reader_frontier is None:
+            self.plan.reader_frontier = F.ReaderFrontierIndex.build(self.plan)
+        return self.plan.reader_frontier.expand(np.unique(nodes),
+                                                density=density)
+
+    # -------------------------------------------------- structural updates
+    def _refresh(self, windows: WindowState) -> None:
+        """Adopt resized windows and recompute every PAO through the current
+        push tables (the state repair after a patch or a plan swap)."""
+        pao = refresh_pao_step(self.plan.meta, self.agg, self.spec,
+                               self.plan.arrays, windows, self.state.now)
+        self.state = EngineState(windows, pao, self.state.now)
+        self._last_eval_now = self._now_host
+
     def apply_delta(self, delta, *, growth: float = 2.0):
-        raise not_ported("structural churn (apply_delta / plan_patch)", "6")
+        """Apply a ``DynamicOverlay.drain_delta()`` mutation log to the live
+        plan (§3.3 end to end). In-capacity updates lower the delta to a
+        ``plan_patch.PatchProgram`` whose edits are written into the live
+        ``PlanArrays`` tensors in place (their storage is kept); a
+        tile/level/capacity overflow falls back to ``compile_plan`` with
+        ``growth`` headroom. Engine state is migrated: new writer rows are
+        live immediately, retired writer windows are zeroed, and all push
+        PAOs are refreshed. Returns the ``plan_patch.PatchResult``."""
+        from repro_torch.core.plan_patch import patch_plan
 
-    def adopt_decisions(self, decisions: np.ndarray):
-        raise not_ported("adaptive re-decision (adopt_decisions)", "6")
+        res = patch_plan(self.plan, delta, overlay=self.overlay,
+                         growth=growth, pin_push=self.pin_push)
+        if res.reason == "empty delta":
+            return res  # nothing changed: skip the state refresh entirely
+        self.plan = res.plan
+        if res.recompiled and res.overlay is not None:
+            self.overlay = res.overlay
+        windows = pad_window_rows(self.state.windows, self.plan.meta.n_writers)
+        if res.retired_writer_rows:
+            windows = reset_window_rows(windows, res.retired_writer_rows)
+        self._refresh(windows)
+        return res
 
+    def adopt_decisions(self, decisions: np.ndarray) -> ExecPlan:
+        """Recompile the live plan with new push/pull decisions (§4.8
+        adaptive re-decision) and migrate engine state: the overlay is
+        unchanged, so writer rows keep their positions and the windows
+        survive untouched; PAOs are refreshed for the new push set. Padded
+        dims are floored at the current plan's and grown where the new
+        decisions need more. Host patch bookkeeping is re-seeded so
+        structural churn keeps patching in place afterwards. Returns the
+        adopted plan."""
+        from repro_torch.core.plan_patch import carry_plan_bookkeeping
+
+        host = self.plan.host
+        ov = host.export_overlay() if host is not None else self.overlay
+        decisions = np.asarray(decisions, dtype=np.int64)
+        # floored at the current plan's dims, grown where the new push/pull
+        # split needs more (the JAX package passes the current dims alone,
+        # and its compile raises when a level then needs more blocks)
+        cur, need = plan_dims(self.plan), measure_plan(ov, decisions)
+        pad = PlanPad(**{f: max(getattr(cur, f), getattr(need, f))
+                         for f in PlanPad.__dataclass_fields__})
+        new = compile_plan(ov, decisions, pad=pad, device=self.device)
+        carry_plan_bookkeeping(new, self.plan, ov)
+        self.overlay = ov
+        self.adopt_plan(new)
+        return new
+
+    def adopt_plan(self, plan: ExecPlan) -> None:
+        """Swap in a structurally equivalent recompiled plan and migrate
+        engine state: windows resize to the new writer capacity, PAOs are
+        refreshed."""
+        self.plan = plan
+        self._refresh(pad_window_rows(self.state.windows, plan.meta.n_writers))
+
+    # ------------------------------------------------ outside this slice
     def attach_alerts(self, alerts) -> None:
         raise not_ported("standing alerts", "8")
 

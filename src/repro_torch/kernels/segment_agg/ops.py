@@ -6,11 +6,18 @@ levels) that plan is built once on the host (``make_plan``) and reused every
 step; only the edge *values* are runtime data. The builders are numpy and
 produce tables bit-equal to the JAX package's (same E_BLK / R_BLK).
 
-``segment_agg_level`` is the one entry point the engine calls per level. It
-picks the implementation by the tensors' device: CUDA tensors launch the
-hand-written kernel in ``csrc/segment_agg.cu`` (or raise), CPU tensors run
-the plain PyTorch version in ``ref.py``. ``LAUNCHES`` counts kernel launches
-per op, so a run can show that its main path went through the kernel.
+``segment_agg_level`` is the entry point the engine calls per level, and
+``segment_agg_active`` its twin over a level's active blocks (the
+frontier-sparse steps). Each picks the implementation by the tensors'
+device: CUDA tensors launch the hand-written kernel in
+``csrc/segment_agg.cu`` (or raise), CPU tensors run the plain PyTorch
+version in ``ref.py``. ``LAUNCHES`` counts kernel launches per entry, so a
+run can show that its path went through the kernel.
+
+``patch_level``, ``scatter_slots``, ``scatter_rows`` and ``tile_occupancy``
+edit and measure the stacked level tables in place, for the plan patch path
+(``core/plan_patch.py``): churn inside the plan's capacity never reallocates
+a table.
 """
 from __future__ import annotations
 
@@ -20,7 +27,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.segment_agg.ref import segment_agg_level_ref
+from repro_torch.kernels.segment_agg.ref import (
+    segment_agg_active_ref,
+    segment_agg_level_ref,
+)
 
 E_BLK = 256     # edges per block
 R_BLK = 128     # output rows per tile
@@ -34,7 +44,7 @@ RUN_CHUNK_MIN, RUN_CHUNK_MAX, RUN_WINDOWS = 4, 16, 256
 
 # kernel launches per op since the last reset (plain Python ints; the CPU
 # path never counts)
-LAUNCHES = {"sum": 0, "max": 0}
+LAUNCHES = {"sum": 0, "max": 0, "sum_active": 0, "max_active": 0}
 
 
 def reset_launches() -> None:
@@ -66,15 +76,14 @@ def make_plan(seg: np.ndarray, n_rows: int) -> SegmentPlan:
     order = np.argsort(seg, kind="stable")
     n_row_tiles = max(1, -(-n_rows // R_BLK))
 
-    tile = seg[order] // R_BLK
+    tile = seg[order] // R_BLK   # ascending: each tile's edges are a run
+    bounds = np.searchsorted(tile, np.arange(n_row_tiles + 1))
     slots = []
     seg_chunks = []
     tob, fot = [], []
     e_cursor = 0
-    for t in range(n_row_tiles):
-        idx = order[tile == t]
-        if idx.size == 0:
-            continue
+    for t in np.flatnonzero(np.diff(bounds)).tolist():
+        idx = order[bounds[t]: bounds[t + 1]]
         n_blocks = -(-idx.size // E_BLK)
         padded = n_blocks * E_BLK
         slots.append((idx, e_cursor))
@@ -169,11 +178,11 @@ def tile_slot_ranges(tob_row: np.ndarray, n_row_tiles: int) -> np.ndarray:
     """
     tob_row = np.asarray(tob_row, dtype=np.int64)
     out = np.zeros((n_row_tiles, 2), dtype=np.int32)
-    for t in range(n_row_tiles):
-        hit = np.flatnonzero(tob_row == t)
-        if hit.size:
-            out[t, 0] = hit[0] * E_BLK
-            out[t, 1] = (hit[-1] + 1) * E_BLK
+    tiles, first = np.unique(tob_row, return_index=True)
+    _, back = np.unique(tob_row[::-1], return_index=True)
+    keep = (tiles >= 0) & (tiles < n_row_tiles)
+    out[tiles[keep], 0] = first[keep] * E_BLK
+    out[tiles[keep], 1] = (len(tob_row) - back[keep]) * E_BLK
     return out
 
 
@@ -203,6 +212,88 @@ def relayout_level(dst: np.ndarray, src: np.ndarray, sign: np.ndarray,
     if k == 0:
         fot_row[0] = 1  # empty level: init tile 0, aggregate nothing
     return seg_row, src_row, sign_row, tob_row, fot_row
+
+
+def patch_level(seg: torch.Tensor, src: torch.Tensor, sign: torch.Tensor,
+                level: int, slots, seg_vals, src_vals, sign_vals):
+    """Rewrite individual edge slots of one level of the stacked tables, in
+    place. Retiring an edge writes ``seg=-1, src=0, sign=0`` (the padding
+    pattern the kernel drops); a new edge claims a free slot inside the
+    owning tile's block range. ``slots`` must be unique. Returns the three
+    (same) tables."""
+    dev = seg.device
+    sl = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
+    lv = torch.full_like(sl, int(level))
+    seg.index_put_((lv, sl), torch.as_tensor(
+        np.asarray(seg_vals, np.int32), device=dev))
+    src.index_put_((lv, sl), torch.as_tensor(
+        np.asarray(src_vals, np.int32), device=dev))
+    sign.index_put_((lv, sl), torch.as_tensor(
+        np.asarray(sign_vals, np.float32), device=dev))
+    return seg, src, sign
+
+
+def _anchor_pads(table: torch.Tensor, lvl: torch.Tensor, *idx):
+    """Shape-bucket padding of an edit list carries a level past the table
+    (``lvl >= L``). CUDA's ``index_put_`` writes duplicates in no fixed
+    order, so each pad is pointed at the list's first entry, writing its
+    value again — or, when the list holds no real edit, at the table's
+    first element, writing the value it already holds. Every duplicate then
+    writes one value. Real edits come first and are unique. Returns the pad
+    mask, whether the first entry is a real edit, and the [level, column
+    indices...] to write; no host sync."""
+    L = table.shape[0]
+    lvl = lvl.to(torch.int64)
+    pad = lvl >= L
+    real0 = lvl[:1] < L
+    a_lvl = torch.where(real0, lvl[:1], 0)
+    out = [torch.where(pad, a_lvl, lvl)]
+    for ix in idx:
+        ix = ix.to(torch.int64)
+        out.append(torch.where(pad, torch.where(real0, ix[:1], 0), ix))
+    return pad, real0, out
+
+
+def scatter_slots(table: torch.Tensor, lvl: torch.Tensor, slot: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """Scatter individual (level, column) edits into one stacked (L, X)
+    table, in place. Padding entries carry an out-of-bounds level and write
+    nothing new (``_anchor_pads``). Returns ``table``."""
+    if lvl.numel() == 0:
+        return table
+    pad, real0, (lv, sl) = _anchor_pads(table, lvl, slot)
+    first = torch.where(real0, vals[:1].to(table.dtype), table[0, :1])
+    table.index_put_((lv, sl), torch.where(pad, first, vals.to(table.dtype)))
+    return table
+
+
+def scatter_rows(table: torch.Tensor, lvl: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """Replace whole level rows of a stacked table (the relayout tier), or
+    single entries of a 1-D table, in place. Out-of-bounds ``lvl`` entries (shape-bucket padding) write
+    nothing new (``_anchor_pads``). Returns ``table``."""
+    if lvl.numel() == 0:
+        return table
+    pad, real0, (lv,) = _anchor_pads(table, lvl)
+    first = torch.where(real0, rows[:1].to(table.dtype), table[:1])
+    pad = pad.view((-1,) + (1,) * (rows.ndim - 1))
+    table.index_put_((lv,), torch.where(pad, first, rows.to(table.dtype)))
+    return table
+
+
+def tile_occupancy(seg: torch.Tensor, tile_of_block: torch.Tensor,
+                   n_row_tiles: int) -> torch.Tensor:
+    """Per-(level, row-tile) count of live edge slots, computed on the
+    tables' device: the occupancy counters the patch path keeps on the host
+    (a tile whose occupancy plus an incoming claim exceeds its slot range
+    forces a level relayout). Integer scatter-adds: exact in any order."""
+    L = seg.shape[0]
+    tob = tile_of_block.to(torch.int64).repeat_interleave(E_BLK, dim=1)
+    t = torch.where(seg >= 0, tob, n_row_tiles)
+    out = torch.zeros((L, n_row_tiles + 1), dtype=torch.int32,
+                      device=seg.device)
+    out.scatter_add_(1, t, torch.ones_like(t, dtype=torch.int32))
+    return out[:, :n_row_tiles]
 
 
 def count_blocks(seg: np.ndarray) -> int:
@@ -301,11 +392,13 @@ def _entry(op: str):
     return fn
 
 
-def _check(x, seg, tob, fot, n_rows, n_row_tiles, op) -> None:
+def _check(x, seg, tob, fot, n_rows, n_row_tiles, op, n_x_blocks=None):
+    """The wrappers' argument checks: x (n_x_blocks*E_BLK, F) float32, by
+    default one row per slot of the level (seg, tob, fot)."""
     if op not in ("sum", "max"):
         raise ValueError(f"unknown op {op!r}; choose 'sum' or 'max'")
     if x.dtype != torch.float32:
-        raise TypeError(f"segment_agg_level takes float32 edge values, got "
+        raise TypeError(f"segment_agg takes float32 edge values, got "
                         f"{x.dtype}")
     for name, t in (("seg", seg), ("tile_of_block", tob),
                     ("first_of_tile", fot)):
@@ -322,11 +415,13 @@ def _check(x, seg, tob, fot, n_rows, n_row_tiles, op) -> None:
         raise ValueError(f"x must be (E_pad, F) with F >= 1, got "
                          f"{tuple(x.shape)}")
     n_blocks = tob.shape[0]
-    if n_blocks < 1 or x.shape[0] != n_blocks * E_BLK \
-            or seg.shape[0] != x.shape[0] or fot.shape[0] != n_blocks:
+    n_x = n_blocks if n_x_blocks is None else n_x_blocks
+    if n_blocks < 1 or x.shape[0] != n_x * E_BLK \
+            or seg.shape[0] != n_blocks * E_BLK or fot.shape[0] != n_blocks:
         raise ValueError(
-            f"shape mismatch: x {tuple(x.shape)}, seg {tuple(seg.shape)}, "
-            f"{n_blocks} blocks of {E_BLK} slots, fot {tuple(fot.shape)}")
+            f"shape mismatch: x {tuple(x.shape)} for {n_x} blocks, seg "
+            f"{tuple(seg.shape)}, {n_blocks} blocks of {E_BLK} slots, fot "
+            f"{tuple(fot.shape)}")
     if not 0 < n_rows <= n_row_tiles * R_BLK:
         raise ValueError(f"n_rows={n_rows} outside (0, {n_row_tiles}*{R_BLK}]")
 
@@ -368,4 +463,79 @@ def segment_agg_level(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
         raise RuntimeError(f"segment_agg_{op} kernel launch failed: CUDA "
                            f"error {rc}")
     LAUNCHES[op] += 1
+    return out[:n_rows]
+
+
+def _check_active(x, seg, tob, fot, active, n_rows, n_row_tiles, op) -> None:
+    if active.dtype != torch.int32 or active.ndim != 1 \
+            or active.shape[0] < 1:
+        raise TypeError(f"active must be a non-empty 1-D int32 tensor, got "
+                        f"{active.dtype} {tuple(active.shape)}")
+    if active.device != x.device or not active.is_contiguous():
+        raise ValueError(f"active must be contiguous on {x.device}")
+    _check(x, seg, tob, fot, n_rows, n_row_tiles, op,
+           n_x_blocks=active.shape[0])
+
+
+def _active_entry(op: str):
+    key = f"{op}_active"
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        from repro_torch.kernels import _build
+
+        fn = getattr(_build.library("segment_agg"),
+                     f"segment_agg_{op}_active_f32")
+        fn.argtypes = _ACTIVE_ARGTYPES
+        fn.restype = ctypes.c_int
+        _ENTRIES[key] = fn
+    return fn
+
+
+_ACTIVE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p])
+
+
+def segment_agg_active(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
+                       fot: torch.Tensor, active: torch.Tensor, *,
+                       n_rows: int, n_row_tiles: int,
+                       op: str = "sum") -> torch.Tensor:
+    """Run the reduce on the active blocks of one level.
+
+    ``seg`` (e_pad,), ``tob``/``fot`` (n_blocks,) are the whole level's
+    tables; ``active`` (K,) int32 holds the active blocks' indices in
+    ascending order, padded at the end with ``n_blocks`` (pads are
+    ignored); ``x`` (K*E_BLK, F) float32 holds the active blocks' slot
+    values in that order (a pad's rows are never read). Returns (n_rows, F)
+    float32: on every row an active block routes to, bit-equal to
+    ``segment_agg_level`` over the whole level with the other blocks'
+    values set to the op's identity; rows of tiles with no active block
+    are undefined on the card (unwritten), so callers mask. CUDA tensors
+    launch the kernel's active entry, CPU tensors run the plain version.
+    """
+    _check_active(x, seg, tob, fot, active, n_rows, n_row_tiles, op)
+    if x.device.type == "cpu":
+        return segment_agg_active_ref(x, seg, active, n_rows, op)
+    if x.device.type != "cuda":
+        raise ValueError(f"segment_agg_active runs on cuda or cpu tensors, "
+                         f"got {x.device}")
+    n_blocks, F, K = tob.shape[0], x.shape[1], active.shape[0]
+    with torch.cuda.device(x.device):
+        out = torch.empty((n_row_tiles * R_BLK, F), dtype=torch.float32,
+                          device=x.device)
+        # two partial-row slots and two flags per active entry (the window
+        # an entry opens)
+        part = torch.empty((2 * K * R_BLK * F,), dtype=torch.float32,
+                           device=x.device)
+        flag = torch.empty((2 * K,), dtype=torch.int32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _active_entry(op)(
+            x.data_ptr(), seg.data_ptr(), tob.data_ptr(), fot.data_ptr(),
+            active.data_ptr(), K, part.data_ptr(), flag.data_ptr(),
+            out.data_ptr(), n_blocks, F, n_row_tiles, run_chunk(n_blocks, F),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_agg_{op}_active kernel launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES[f"{op}_active"] += 1
     return out[:n_rows]

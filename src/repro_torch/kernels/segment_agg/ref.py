@@ -41,3 +41,21 @@ def segment_agg_level_ref(x: torch.Tensor, seg: torch.Tensor, n_rows: int,
     out.scatter_reduce_(0, dst[:, None].expand(-1, F), x,
                         reduce="sum" if op == "sum" else "amax")
     return out[:n_rows]
+
+
+def segment_agg_active_ref(x: torch.Tensor, seg: torch.Tensor,
+                           active: torch.Tensor, n_rows: int,
+                           op: str = "sum") -> torch.Tensor:
+    """One level's reduce over its active blocks: ``x`` (K*256, F) holds
+    the values of the blocks ``active`` (K,) names, in that order (entries
+    past the level's block count are padding: their slots are dropped);
+    ``seg`` is the whole level's. Each row adds its active slots in slot
+    order from the op's identity, which on the rows an active block routes
+    to is bit-equal to ``segment_agg_level_ref`` with every other block's
+    values set to the identity. Returns (n_rows, F)."""
+    E_BLK = 256
+    nb = seg.shape[0] // E_BLK
+    a = active.long()
+    seg_c = seg.reshape(nb, E_BLK)[torch.clamp(a, max=nb - 1)]
+    seg_c = torch.where((a < nb)[:, None], seg_c, -1).reshape(-1)
+    return segment_agg_level_ref(x, seg_c, n_rows, op)

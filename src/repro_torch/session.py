@@ -13,11 +13,15 @@ compiled plan, one window/PAO state — the paper's aggregate sharing expressed
 in the API. Distinct specs get their own group over the *same* overlay
 construction (the expensive VNM pass runs exactly once per session).
 
+Graph mutations (``add_edge``/``delete_edge``/``add_node``/
+``delete_node``) are journaled per group and land on the live plans at
+``flush()`` through the in-place patch path (§3.3); ``adapt()`` re-runs the
+§4.8 push/pull decision against observed traffic.
+
 The session runs on CUDA unless the caller passes ``device="cpu"``; without
-a card and without that argument it raises. Graph churn, adaptation,
-streaming ingest, alerts, checkpoints and shards are later slices of the
-port: their entry points raise ``NotImplementedError`` naming the
-ROADMAP.md item.
+a card and without that argument it raises. Streaming ingest, alerts,
+checkpoints and shards are later slices of the port: their entry points
+raise ``NotImplementedError`` naming the ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from repro_torch.core.window import WindowSpec
 from repro_torch.device import resolve_device
 
 __all__ = ["Query", "QueryHandle", "EagrSession", "bucket_batch",
-           "SessionStats"]
+           "SessionStats", "FlushReport", "AdaptReport"]
 
 
 # ------------------------------------------------------------------- queries
@@ -127,6 +131,50 @@ class QueryHandle:
         raise not_ported("standing alerts (on_threshold)", "8")
 
 
+class FlushReport(list):
+    """Typed result of :meth:`EagrSession.flush`: the list of per-group
+    patch results (``PatchResult``, or ``None`` for a group with an empty
+    journal), plus counters over them:
+
+    * ``patched`` — plans updated in place through the §3.3 patch path
+    * ``relayout`` — patches that rebuilt level tables within capacity
+    * ``recompiled`` — genuine capacity overflows (a fresh compile)
+    * ``journal_nodes`` — overlay nodes the drained journals carried
+    """
+
+    def __init__(self, results, *, patched: int = 0, recompiled: int = 0,
+                 relayout: int = 0, journal_nodes: int = 0):
+        super().__init__(results)
+        self.patched = patched
+        self.recompiled = recompiled
+        self.relayout = relayout
+        self.journal_nodes = journal_nodes
+
+    def __repr__(self) -> str:
+        return (f"FlushReport(groups={len(self)}, patched={self.patched}, "
+                f"relayout={self.relayout}, recompiled={self.recompiled}, "
+                f"journal_nodes={self.journal_nodes})")
+
+
+class AdaptReport(int):
+    """Typed result of :meth:`EagrSession.adapt`: the total §4.8
+    decision-flip count as an ``int``, plus the per-group breakdown."""
+
+    per_group: tuple
+
+    def __new__(cls, per_group=()):
+        self = super().__new__(cls, sum(per_group))
+        self.per_group = tuple(int(f) for f in per_group)
+        return self
+
+    @property
+    def flips(self) -> int:
+        return int(self)
+
+    def __repr__(self) -> str:
+        return f"AdaptReport(flips={int(self)}, per_group={self.per_group})"
+
+
 @dataclasses.dataclass
 class SessionStats:
     """Counter snapshot of a session (:meth:`EagrSession.stats`)."""
@@ -135,14 +183,18 @@ class SessionStats:
     n_engine_groups: int
     n_shards: int                   # always 0: one engine per group
     updates: int                    # update() batches applied
+    pending_mutations: bool
+    journal_nodes: int              # overlay nodes awaiting the next flush
+    patches_applied: int            # in-place patches, all plans
+    frontier: dict                  # frontier-size distribution (writes)
     construction: "object | None"   # core.vnm.ConstructionStats
 
 
 # ------------------------------------------------------------- engine groups
 class _EngineGroup:
     """One (aggregate, window, continuous) equivalence class of queries: a
-    decision vector and an engine, shared by every query registered with the
-    compatible spec."""
+    decision vector, an engine and its churn journal, shared by every query
+    registered with the compatible spec."""
 
     def __init__(self, session: "EagrSession", key: tuple,
                  agg: Aggregate, spec: WindowSpec, continuous: bool):
@@ -154,9 +206,10 @@ class _EngineGroup:
         self.handles: list[int] = []
         self.window_int = int(max(1, spec.capacity or spec.size))
         self.cost = session._cost_model(agg, self.window_int)
-        # the unpruned export of the master journal: the id space later
-        # churn slices patch in place
-        basis = session._master.to_overlay(prune=False)
+        # the group's own churn journal, forked from the master; its
+        # unpruned export is the id space the patch path works in
+        self.dyn = session._master.fork()
+        basis = self.dyn.to_overlay(prune=False)
         if continuous:
             decisions = np.full(basis.n_nodes, D.PUSH, np.int64)
         else:
@@ -166,6 +219,36 @@ class _EngineGroup:
         self.engine = EagrEngine(basis, decisions, agg, spec,
                                  device=session.device,
                                  headroom=session.headroom)
+        # churn-added nodes of a continuous group stay push-maintained
+        self.engine.pin_push = bool(continuous)
+
+    # ------------------------------------------------------------- mutations
+    def journal_nodes(self) -> int:
+        """Overlay nodes the next flush() will drain."""
+        return self.dyn.pending_nodes
+
+    def flush(self, growth: float):
+        delta = self.dyn.drain_delta()
+        if delta.empty:
+            return None
+        return self.engine.apply_delta(delta, growth=growth)
+
+    # ------------------------------------------------------------ adaptation
+    def adapt(self) -> int:
+        """§4.8 frontier re-decision against observed frequencies;
+        recompiles and re-adopts only when a flip happened. Continuous
+        groups are pinned all-push and never adapt."""
+        if self.continuous:
+            return 0
+        plan = self.engine.plan
+        ov = plan.host.export_overlay() if plan.host is not None \
+            else self.engine.overlay
+        obs_w, obs_r = self.session._observed(ov)
+        dec, flips = D.adapt_decisions(ov, plan.decision, obs_w, obs_r,
+                                       self.cost, window=self.window_int)
+        if flips:
+            self.engine.adopt_decisions(dec)
+        return flips
 
 
 # ----------------------------------------------------------------------- API
@@ -184,21 +267,26 @@ class EagrSession:
         Where plans and state live; ``None`` means CUDA and raises when no
         CUDA device is present. Pass ``"cpu"`` to run on the CPU.
     headroom : float
-        Slot/node/level padding growth at first compile (the capacity later
-        churn slices patch into).
+        Slot/node/level padding growth at first compile, so structural churn
+        patches in place (§3.3) instead of recompiling.
+    growth : float
+        Padding growth of a recompile after a capacity overflow.
     write_freq, read_freq : np.ndarray | None
         Per-base-id frequencies for ``decide_mincut``. Default: observed
         session traffic when any exists, else uniform.
     calibrate : bool
         Learn the cost model by timing the aggregate on ``device`` (§4.2)
         instead of the analytic model.
-    shards, adapt_every, ingest_depth, ckpt_dir :
+    adapt_every : int
+        Re-run §4.8 frontier adaptation every N ``update``/``read`` calls
+        (0 disables).
+    shards, ingest_depth, ckpt_dir :
         Not ported yet; anything but the default raises
         ``NotImplementedError``.
     """
 
     def __init__(self, graph, *, device=None, headroom: float = 2.0,
-                 variant: str = "vnm_a", max_iterations: int = 3,
+                 growth: float = 2.0, variant: str = "vnm_a", max_iterations: int = 3,
                  seed: int = 0, threshold: int = 4, split_limit: int = 5,
                  hops: int = 1, pred=None, neighborhood=None,
                  write_freq=None, read_freq=None, calibrate: bool = False,
@@ -207,8 +295,6 @@ class EagrSession:
                  ckpt_dir: str | None = None):
         if shards:
             raise not_ported("sharded sessions (shards=N)", "10")
-        if adapt_every:
-            raise not_ported("adaptive re-decision (adapt_every)", "6")
         if ingest_depth:
             raise not_ported("streaming ingest (ingest_depth)", "7")
         if ckpt_dir is not None:
@@ -219,6 +305,8 @@ class EagrSession:
         self.bipartite = bp
         self.n_base = bp.n_base
         self.headroom = headroom
+        self.growth = growth
+        self.adapt_every = int(adapt_every)
         self.calibrate = calibrate
         self.write_freq = None if write_freq is None \
             else np.asarray(write_freq, np.float64)
@@ -235,6 +323,8 @@ class EagrSession:
         self._value_dim: int | None = None
         self._wcount = np.zeros(self.n_base, np.float64)
         self._rcount = np.zeros(self.n_base, np.float64)
+        self._ops_since_adapt = 0
+        self._pending = False
         self._seq = 0
 
     # ------------------------------------------------------------- lifecycle
@@ -307,6 +397,8 @@ class EagrSession:
         if not self._groups:
             raise ValueError("no queries registered — register() one before "
                              "streaming updates")
+        if self._pending:
+            self.flush()
         ids = np.asarray(src_ids, np.int64).reshape(-1)
         if len(ids) and ids.min() < 0:
             raise ValueError("negative base ids in update batch")
@@ -324,6 +416,7 @@ class EagrSession:
         if len(ids):
             self._grow_counts(int(ids.max()))
             np.add.at(self._wcount, ids, 1.0)
+        self._tick()
         self._seq += 1
 
     def read(self, handle: QueryHandle, ids) -> np.ndarray:
@@ -331,6 +424,8 @@ class EagrSession:
         Raises for ids outside the query's ``readers`` scope or unknown to
         the overlay."""
         self._check_handle(handle)
+        if self._pending:
+            self.flush()
         ids = np.asarray(ids, np.int64).reshape(-1)
         if handle.readers is not None:
             arr = handle._reader_arr
@@ -350,36 +445,88 @@ class EagrSession:
         if len(ids):
             self._grow_counts(int(ids.max()))
             np.add.at(self._rcount, ids, 1.0)
+        self._tick()
         return out
 
+    # --------------------------------------------------------------- mutations
+    def add_edge(self, u: int, v: int, *, affected=None) -> None:
+        """Data-graph edge u -> v appeared (reader v's neighborhood gains
+        writer u for 1-hop queries; pass ``affected={reader: {writers}}`` for
+        custom neighborhoods). Journaled; lands on the plans at flush()."""
+        self._touch(u, v)
+        self._master.add_edge(u, v, affected=affected)
+        for group in self._groups.values():
+            group.dyn.add_edge(u, v, affected=affected)
+
+    def delete_edge(self, u: int, v: int, *, affected=None) -> None:
+        self._touch(u, v)
+        self._master.delete_edge(u, v, affected=affected)
+        for group in self._groups.values():
+            group.dyn.delete_edge(u, v, affected=affected)
+
+    def add_node(self, u: int, in_neighbors: Iterable[int] = (),
+                 out_readers: Iterable[int] = ()) -> None:
+        """New base node u: a writer feeding ``out_readers`` and a reader
+        over ``in_neighbors``."""
+        ins, outs = set(map(int, in_neighbors)), set(map(int, out_readers))
+        self._touch(u, *ins, *outs)
+        self._master.add_node(u, ins, outs)
+        for group in self._groups.values():
+            group.dyn.add_node(u, ins, outs)
+
+    def delete_node(self, u: int) -> None:
+        self._touch(u)
+        self._master.delete_node(u)
+        for group in self._groups.values():
+            group.dyn.delete_node(u)
+
+    def flush(self) -> FlushReport:
+        """Drain every group's mutation journal into its live plan through
+        the §3.3 patch path (in-place table edits; recompile only on a
+        genuine capacity overflow). Called by the next ``update``/``read``
+        after a mutation; explicit calls let callers batch churn bursts.
+        Returns a :class:`FlushReport`."""
+        self._master.drain_delta()  # the master only snapshots for register
+        journal = sum(g.journal_nodes() for g in self._groups.values())
+        results = [group.flush(self.growth)
+                   for group in self._groups.values()]
+        self._pending = False
+        counts = {"patched": 0, "recompiled": 0, "relayout": 0}
+        for res in results:
+            if res is not None and res.kind in counts:
+                counts[res.kind] += 1
+        return FlushReport(results, journal_nodes=journal, **counts)
+
+    def adapt(self) -> AdaptReport:
+        """Re-run the §4.8 frontier adaptation on every group against
+        observed frequencies now (also triggered every ``adapt_every``
+        operations). Returns an :class:`AdaptReport`."""
+        if self._pending:
+            self.flush()
+        return AdaptReport([group.adapt()
+                            for group in self._groups.values()])
+
     def stats(self) -> SessionStats:
+        from repro_torch.core.frontier import frontier_summary
+
+        logs: list[int] = []
+        for g in self._groups.values():
+            logs.extend(g.engine.frontier_log)
         return SessionStats(
             n_queries=len(self._handles),
             n_engine_groups=len(self._groups),
             n_shards=0,
             updates=self._seq,
+            pending_mutations=self._pending,
+            journal_nodes=sum(g.journal_nodes()
+                              for g in self._groups.values()),
+            patches_applied=sum(g.engine.plan.patches_applied
+                                for g in self._groups.values()),
+            frontier=frontier_summary(logs),
             construction=self.overlay_stats,
         )
 
     # ------------------------------------------------ outside this slice
-    def add_edge(self, u: int, v: int, *, affected=None) -> None:
-        raise not_ported("graph churn (add_edge)", "6")
-
-    def delete_edge(self, u: int, v: int, *, affected=None) -> None:
-        raise not_ported("graph churn (delete_edge)", "6")
-
-    def add_node(self, u: int, in_neighbors=(), out_readers=()) -> None:
-        raise not_ported("graph churn (add_node)", "6")
-
-    def delete_node(self, u: int) -> None:
-        raise not_ported("graph churn (delete_node)", "6")
-
-    def flush(self):
-        raise not_ported("graph churn (flush)", "6")
-
-    def adapt(self):
-        raise not_ported("adaptive re-decision (adapt)", "6")
-
     def register_alert(self, handle, spec=None, **_):
         raise not_ported("standing alerts (register_alert)", "8")
 
@@ -397,6 +544,18 @@ class EagrSession:
             raise ValueError("unknown query handle (not registered with this "
                              "session, or already unregistered)")
 
+    def _tick(self) -> None:
+        self._ops_since_adapt += 1
+        if self.adapt_every and self._ops_since_adapt >= self.adapt_every:
+            self._ops_since_adapt = 0
+            self.adapt()
+
+    def _touch(self, *ids) -> None:
+        self._pending = True
+        top = max((int(i) for i in ids), default=-1)
+        if top >= 0:
+            self._grow_counts(top)
+
     def _grow_counts(self, top: int) -> None:
         if top < len(self._wcount):
             return
@@ -407,6 +566,14 @@ class EagrSession:
     def _need(self, overlay) -> int:
         top = max((o for o in overlay.origin if o >= 0), default=0)
         return max(self.n_base, top + 1, len(self._wcount))
+
+    def _observed(self, overlay) -> tuple[np.ndarray, np.ndarray]:
+        """Raw observed per-base-id frequencies, sized to cover the overlay's
+        origin space (zeros for never-seen ids)."""
+        need = self._need(overlay)
+        pad = lambda a: np.concatenate([a, np.zeros(need - len(a))]) \
+            if need > len(a) else a[:need]
+        return pad(self._wcount), pad(self._rcount)
 
     def _frequencies(self, overlay) -> tuple[np.ndarray, np.ndarray]:
         """Decision-time frequencies: explicit constructor arrays win, then

@@ -22,6 +22,7 @@ from repro.session import EagrSession as RSession  # noqa: E402
 from repro.session import Query as RQuery  # noqa: E402
 from repro_torch import EagrSession, Query, WindowSpec, convert  # noqa: E402
 from repro_torch.core import dataflow as TD  # noqa: E402
+from repro.core import engine as RE  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.core.window import init_windows  # noqa: E402
 from repro_torch.graphs.generators import rmat_graph, small_example_graph  # noqa: E402
@@ -190,20 +191,26 @@ def test_no_silent_cpu_in_entry_points(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda s, h: s.add_edge(0, 1), lambda s, h: s.delete_edge(0, 1),
-    lambda s, h: s.add_node(9), lambda s, h: s.delete_node(0),
-    lambda s, h: s.flush(), lambda s, h: s.adapt(),
+    lambda s, h: h.group.engine.attach_alerts(None),
+    lambda s, h: s.save(),
+    lambda s, h: EagrSession(small_example_graph(), device="cpu", shards=1),
+    lambda s, h: EagrSession(small_example_graph(), device="cpu",
+                             ingest_depth=1),
+    lambda s, h: EagrSession.restore("y", step=3),
+    lambda s, h: s.register_alert(h, None, above=2.0),
+    lambda s, h: h.on_threshold(below=0),
     lambda s, h: s.register_alert(h), lambda s, h: h.on_threshold(above=1),
     lambda s, h: s.save("x"), lambda s, h: EagrSession.restore("x"),
     lambda s, h: EagrSession(small_example_graph(), device="cpu", shards=2),
     lambda s, h: EagrSession(small_example_graph(), device="cpu",
-                             adapt_every=4),
-    lambda s, h: EagrSession(small_example_graph(), device="cpu",
-                             ingest_depth=2),
+                             ingest_depth=4),
     lambda s, h: EagrSession(small_example_graph(), device="cpu",
                              ckpt_dir="x"),
 ])
 def test_features_outside_the_slice_raise(call):
+    """Alerts (item 8), ingest (7), checkpoints (9) and shards (10) still
+    raise; churn, flush and adaptation (items 5 and 6) are ported and
+    checked against the reference below."""
     s = EagrSession(small_example_graph(), device="cpu")
     h = s.register(Query(agg="sum"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -211,9 +218,10 @@ def test_features_outside_the_slice_raise(call):
 
 
 def test_port_loads_no_jax_and_no_repro():
-    """A fresh process imports repro_torch, runs a small session and the
-    serve path (LM prefill and decode, DIEN scoring, the launcher) on the CPU
-    and finds neither JAX nor the JAX package in ``sys.modules``."""
+    """A fresh process imports repro_torch, runs a small session (with a
+    churn burst, a sparse write and read, and an adaptation) and the serve
+    path (LM prefill and decode, DIEN scoring, the launcher) on the CPU and
+    finds neither JAX nor the JAX package in ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -225,6 +233,19 @@ def test_port_loads_no_jax_and_no_repro():
         m = s.register(Query(agg="max", window=WindowSpec("tuple", 2)))
         s.update(np.asarray(s.writers[:16]), np.ones(16, np.float32))
         s.read(h, s.readers[:8]); s.read(m, s.readers[:8])
+        # one churn burst and a sparse write and read after it
+        s.add_edge(s.writers[0], s.readers[3])
+        s.delete_edge(min(s.neighborhood(s.readers[4])), s.readers[4])
+        s.add_node(900, [s.writers[1]], [s.readers[5]])
+        rep = s.flush()
+        assert rep.patched + rep.relayout + rep.recompiled == 2, rep
+        import os
+        os.environ["EAGR_SPARSE_WRITE"] = "1"
+        s.update(np.asarray(s.writers[:4]), np.ones(4, np.float32))
+        s.read(h, s.readers[:4]); s.read(m, s.readers[:4])
+        eng = h.group.engine
+        assert eng.frontier_log[-1] >= 0 and eng.plan.reader_frontier
+        s.adapt()
         # the serve path: LM prefill + decode, DIEN scoring, the launcher
         from repro_torch.configs import get_arch
         from repro_torch.launch import serve
@@ -249,3 +270,96 @@ def test_port_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+# ----------------------------------------------------------- churn, adapt
+def _port_spec(w):
+    return WindowSpec(w.kind, w.size, w.capacity, w.value_dim)
+
+
+@pytest.mark.parametrize("adapt_every", [0, 5])
+def test_churn_and_adapt_match_reference(adapt_every):
+    """add_edge / delete_edge / add_node / delete_node journaled into both
+    sessions, flushed into the plans: the same FlushReport counters, the
+    same churned neighbourhoods, bit-equal plan tables, answers of every
+    query against the reference's (exact but for sums), then one adapt()
+    with the same flips; ``adapt_every`` triggers it on the same ops."""
+    ref = RSession(r_rmat(150, 900, seed=5), backend="xla",
+                   adapt_every=adapt_every)
+    port = EagrSession(rmat_graph(150, 900, seed=5), device="cpu",
+                       adapt_every=adapt_every)
+    hs = [(ref.register(RQuery(agg=a, agg_kwargs=kw, window=rs)),
+           port.register(Query(agg=a, agg_kwargs=kw, window=_port_spec(rs))),
+           a) for a, kw, rs, _ in QUERIES[:4]]
+    rng = np.random.default_rng(11)
+    writers = np.asarray(port.writers)
+    for step in range(8):
+        ids = rng.choice(writers, 32)
+        vals = rng.integers(0, 8, 32).astype(np.float32)
+        ref.update(ids, vals)
+        port.update(ids, vals)
+        for _ in range(3):
+            r = int(rng.choice(port.readers))
+            nb = port.neighborhood(r)
+            if rng.random() < 0.3 and nb:
+                ref.delete_edge(min(nb), r)
+                port.delete_edge(min(nb), r)
+            else:
+                w = int(rng.choice(writers))
+                if w != r and w not in nb:
+                    ref.add_edge(w, r)
+                    port.add_edge(w, r)
+        if step == 2:
+            ref.add_node(600, {int(writers[0])}, {port.readers[0]})
+            port.add_node(600, {int(writers[0])}, {port.readers[0]})
+        if step == 5:
+            ref.delete_node(600)
+            port.delete_node(600)
+        assert port.stats().pending_mutations
+        fr, ft = ref.flush(), port.flush()
+        assert (ft.patched, ft.relayout, ft.recompiled, ft.journal_nodes) \
+            == (fr.patched, fr.relayout, fr.recompiled, fr.journal_nodes)
+        assert port.readers == ref.readers
+        q = rng.choice(np.asarray(port.readers), 16)
+        for r in q:
+            assert port.neighborhood(r) == ref.neighborhood(r)
+        for hr, ht, a in hs:
+            want, got = np.asarray(ref.read(hr, q)), port.read(ht, q)
+            if a in ("sum", "avg"):
+                np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+            else:
+                np.testing.assert_array_equal(got, want)
+    for gr, gt in zip(ref._groups.values(), port._groups.values()):
+        ar, _ = RE.plan_snapshot(gr.engine.plan)
+        at, _ = TE.plan_snapshot(gt.engine.plan)
+        for k in ar:
+            np.testing.assert_array_equal(np.asarray(ar[k]), at[k],
+                                          err_msg=k)
+    fl_r, fl_t = ref.adapt(), port.adapt()
+    assert fl_t.per_group == fl_r.per_group and fl_t.flips == int(fl_r)
+    q = np.asarray(port.readers)[:24]
+    for hr, ht, a in hs:
+        want, got = np.asarray(ref.read(hr, q)), port.read(ht, q)
+        if a in ("sum", "avg"):
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            np.testing.assert_array_equal(got, want)
+    st = port.stats()
+    assert st.patches_applied > 0 and not st.pending_mutations
+    assert st.frontier["steps"] == 4 * 8
+
+
+def test_reports_and_continuous_pin():
+    """FlushReport stays a list of per-group results; an empty journal
+    flushes to None; a continuous group keeps churn-added nodes PUSH and
+    never adapts."""
+    s = EagrSession(rmat_graph(120, 600, seed=2), device="cpu")
+    h = s.register(Query(agg="sum", continuous=True))
+    rep = s.flush()
+    assert list(rep) == [None] and rep.patched == 0
+    s.add_node(500, [s.writers[0]], [s.readers[0]])
+    (res,) = s.flush()
+    assert res.kind in ("patched", "relayout") and "patched=" in repr(rep)
+    plan = h.group.engine.plan
+    assert (plan.decision == TD.PUSH).all()
+    assert s.adapt() == 0 and s.adapt().per_group == (0,)
