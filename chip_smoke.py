@@ -37,8 +37,9 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    call's device time (``device_ms``: the kernels alone, without the host's
    gaps between calls);
 3. the EAGr main path at full width: ``EagrSession`` over an RMAT graph of
-   the repository's reference deployment (100,000 nodes, 800,000 edges,
-   seed 0, tuple window 8, batches of 4096), ``sum``/``max``/``count``
+   the repository's reference deployment (``repro_torch.configs.eagr.CFG``:
+   100,000 nodes, 800,000 edges, seed 0, tuple window 8, batches of 4096;
+   the session's own ``vnm_a`` overlay), ``sum``/``max``/``count``
    queries, a stream of Zipf(1.5)-drawn writes with a read of every query
    after each batch (the first batch, which loads the path's kernels, is
    timed apart and the stream restarted); rates are all events over all the
@@ -47,7 +48,11 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    each segment op launched on the main path (its dense or its active
    entry: the default ``auto`` mode picks per step); then
    one traced window of writes and one of reads (torch.profiler) for the
-   device time by kernel and the device's busy share;
+   device time by kernel and the device's busy share; then the F1 gate: the
+   same stream under ``auto``, forced dense and forced sparse in lockstep
+   (a state copy per mode, every batch under each mode in turn), 7 rounds,
+   ``auto``'s write p50 and read p50 over them each required within 1.10x
+   of the better forced mode;
 4. the LM serve path at granite-3-2b's full width (40 layers, d_model 2048,
    32/8 heads, head dim 64, d_ff 8192, vocab 49155; fp32 parameters drawn
    from a seeded generator, bf16 compute): ``prefill`` of 8 prompts of 2,048
@@ -66,13 +71,16 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    kernel's active entry held, at every real level of the sum and max plans
    and the active sets of a 256-writer batch, bit-equal on the rows it
    covers to the dense kernel with the inactive blocks set to the identity,
-   and to its plain version (exact on integer values and for max, sums of
-   normal values within the reordered-sum bound); one write stream run
+   and to its plain version (exact on integer values and for max), sums of
+   normal values within n * 2^-24 * sum|x| per row of an fp64 sum on CPU
+   copies; one write stream run
    twice from one starting state, frontier-sparse (``EAGR_SPARSE_WRITE=1``)
    and dense (``=0``), at batches of 256 and 4,096 Zipf(1.5) writers each
    followed by reads of 256 readers, PAOs and answers required bit-equal and
-   both active launch counts above zero on writes and on reads; a
-   steady-state sparse window run under
+   both active launch counts above zero on writes and on reads; the sparse
+   write step's host work by part (unique rows, frontier keys, packing, the
+   staged upload beside a copy per array); a steady-state sparse window
+   run under
    ``torch.cuda.set_sync_debug_mode("error")``; 10 churn bursts at 0.1% and
    10 at 1% of the readers (70% ``add_edge``, 30% ``delete_edge``), each
    flushed, then a write batch and a read, the plan tables required to keep
@@ -80,7 +88,22 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    on 256 sampled readers, sparse against dense replayed bit-equal on the
    churned plans from copies of one state; then one ``adapt()`` and the
    oracle again. Phase 3 runs under the default ``auto`` mode and prints how
-   many of its steps went sparse.
+   many of its steps went sparse;
+7. the streaming path on phase 3's deployment: an ``EagrSession`` with an
+   ingest ring (``ingest_depth=2``, device batches of 8,192 coalesced from
+   arrival batches of 1,024 Zipf(1.5) writes of integer values from the
+   port's ``generate_trace``), continuous ``sum`` and ``max`` queries, and
+   one standing alert on every reader of ``sum`` whose per-reader ``above``
+   sits over the warmed-up sum at a ~0.1% fired share per batch; the stream
+   pipelined, then through the synchronous session at the same device
+   batches (states, answers and fired sets required bit-equal), the poll
+   oracle after every device batch (fired sets required equal, batch by
+   batch), a cap of 8 that must overflow and still give the exact sets, a
+   window of pipelined writes, reads and drains under
+   ``set_sync_debug_mode("error")``, and one traced window; events/s of the
+   ring against the synchronous session, the ring's stall and barrier time,
+   detection latency p50/p99 (dispatch into the ring to the fired set on the
+   host), and segment launches on the ring's steps required above zero.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -92,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -103,9 +127,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# the reference deployment of repro.configs.eagr.CFG, copied as literals
-N_NODES, N_EDGES, SEED = 100_000, 800_000, 0
-WINDOW, BATCH, ZIPF_A = 8, 4096, 1.5
+# the reference deployment: the port's configs/eagr.py CFG (graph, window,
+# batch and Zipf exponent; the session builds its own overlay, ``vnm_a``
+# with 3 iterations, where CFG's engine builds ``vnm_n`` with 4 and splits
+# nodes)
+from repro_torch.configs.eagr import CFG as EAGR_CFG  # noqa: E402
+
+N_NODES, N_EDGES, SEED = EAGR_CFG.n_nodes, EAGR_CFG.n_edges, EAGR_CFG.seed
+WINDOW, BATCH, ZIPF_A = EAGR_CFG.window, EAGR_CFG.write_batch, \
+    EAGR_CFG.zipf_a
 PROFILE_BATCHES = 5   # update batches and read rounds in each traced window
 
 DEVICE = "cuda"
@@ -154,6 +184,20 @@ DYN_SIZES = (256, BATCH)   # writers a batch (benchmarks/dynamic_bench.py's
 DYN_READS = 256            # 256, and phase 3's 4,096); readers a read
 CHURN = ((0.001, 10), (0.01, 10))  # (share of readers a burst, bursts)
 SYNC_WINDOW = 4            # sparse batches under the sync check
+# F1: phase 3's stream under auto against both forced modes
+F1_ROUNDS, F1_FACTOR = 7, 1.10
+# phase 7: the streaming path (an ingest ring of 2 slots, device batches of
+# 8,192 coalesced from arrival batches of 1,024; one standing alert tuned
+# to the 0.1% fired share per batch of benchmarks/alerts_bench.py's
+# GATE_FRAC)
+INGEST_DEPTH, ARRIVAL, COALESCE = 2, 1024, 8
+STREAM_BATCHES = 32        # device batches of the parity stream
+STREAM_WARMUP = 8          # device batches before the thresholds are set
+STREAM_CALIB = 4           # device batches the thresholds are set from
+GATE_FRAC = 0.001          # alerts_bench.py's fired share per batch
+OVERFLOW_CAP, OVERFLOW_BATCHES = 8, 4
+STREAM_ROUNDS = 3          # timed rounds of the ring and the sync session
+STREAM_SYNC_WINDOW = 4     # device batches under the sync check
 
 # the LM serve path: granite-3-2b at full width; 8 prompts of 2,048 tokens
 # and 32 greedy tokens (prefill_32k's B 32 x S 32,768 and decode_32k's
@@ -691,6 +735,88 @@ def profile_main_path(torch, session, handles, batches, out_dir) -> dict:
             for name, run in phases.items()}
 
 
+def f1_gate(torch, ops, session, handles, stream) -> dict:
+    """Phase 3's stream under ``auto``, forced dense (``0``) and forced
+    sparse (``1``) in lockstep: each mode keeps its own copy of the engine
+    states, and every batch is written (then read by every query) under
+    each mode in turn, the order rotated batch by batch, so the host's
+    spread between moments falls on every mode alike. F1_ROUNDS rounds of
+    the stream, each from a copy of one starting state; each mode's write
+    p50 and read p50 over all its rounds' calls, where ``auto`` must be
+    within F1_FACTOR of the better forced mode on both (each round's p50s
+    are kept too). Also the write steps that went sparse and the
+    active-entry launches (sparse steps of either kind) under each mode,
+    and auto's measured costs."""
+    modes = ("auto", "0", "1")
+    reset_engines(session)
+    start = snapshot_states(session)
+    for mode in modes:  # warm each mode (index builds, auto's timing)
+        set_sparse(mode)
+        restore_states(session, start)
+        drive(torch, session, handles, stream[:2])
+    per = {m: dict(write_p50_ms=[], read_p50_ms=[], sparse_steps=[],
+                   active_launches=[]) for m in modes}
+    calls = {m: dict(write_p50_ms=[], read_p50_ms=[]) for m in modes}
+    k = 0
+    for _ in range(F1_ROUNDS):
+        states = {}
+        for mode in modes:
+            restore_states(session, start)   # a copy per mode
+            states[mode] = snapshot_states(session)
+        w = {m: [] for m in modes}
+        rd = {m: [] for m in modes}
+        sparse = dict.fromkeys(modes, 0)
+        active = dict.fromkeys(modes, 0)
+        for ids, vals, q in stream:
+            for mode in modes[k % 3:] + modes[: k % 3]:
+                set_sparse(mode)
+                for g, (st, now, last) in zip(session._groups.values(),
+                                              states[mode]):
+                    g.engine.adopt_state(st, now_host=now,
+                                         last_eval_now=last)
+                ops.reset_launches()
+                ws, rs, _ = drive(torch, session, handles, [(ids, vals, q)])
+                w[mode].extend(ws)
+                rd[mode].extend(rs)
+                sparse[mode] += sum(g.engine.frontier_log[-1] >= 0
+                                    for g in session._groups.values())
+                active[mode] += ops.LAUNCHES["sum_active"] + \
+                    ops.LAUNCHES["max_active"]
+                states[mode] = snapshot_states(session)
+            k += 1
+        for m in modes:
+            calls[m]["write_p50_ms"].extend(w[m])
+            calls[m]["read_p50_ms"].extend(rd[m])
+            per[m]["write_p50_ms"].append(float(np.median(w[m])))
+            per[m]["read_p50_ms"].append(float(np.median(rd[m])))
+            per[m]["sparse_steps"].append(sparse[m])
+            per[m]["active_launches"].append(active[m])
+    set_sparse("auto")
+    reset_engines(session)
+    med = {m: {k: float(np.median(calls[m][k] if k in calls[m] else v))
+               for k, v in per[m].items()} for m in modes}
+    costs = {g.agg.name: {side: None if c is None else dataclasses.asdict(c)
+                          for side, c in (("write", g.engine.plan.write_costs),
+                                          ("read", g.engine.plan.read_costs))}
+             for g in session._groups.values()}
+    out = dict(rounds=F1_ROUNDS, factor=F1_FACTOR, per_round=per,
+               median=med, write_steps=len(stream) * len(session._groups),
+               auto_costs_s=costs)
+    print(f"auto's measured costs (s): {costs}", flush=True)
+    print(f"F1 gate per round: {per}", flush=True)
+    print(f"F1 gate on {card_line()}: p50s over {F1_ROUNDS} rounds of "
+          f"phase 3's stream, the modes in lockstep: {med}; under auto "
+          f"{med['auto']['sparse_steps']:.0f} of {out['write_steps']} write "
+          f"steps went sparse", flush=True)
+    for key in ("write_p50_ms", "read_p50_ms"):
+        best = min(med["0"][key], med["1"][key])
+        if med["auto"][key] > F1_FACTOR * best:
+            raise AssertionError(
+                f"auto's {key} {med['auto'][key]:.3f} ms is above "
+                f"{F1_FACTOR} x the better forced mode's {best:.3f} ms")
+    return out
+
+
 # ---------------------------------------------------------- dynamic path
 def set_sparse(mode: str) -> None:
     """The engines read EAGR_SPARSE_WRITE per call: '1' sparse, '0' dense,
@@ -781,6 +907,19 @@ def rates(run, size: int) -> dict:
                 read_launches=run["read_launches"])
 
 
+def plain_sum_fp64(x, seg_c, n_rows: int):
+    """Reduce-by-destination of ``x`` over slots ``seg_c`` in fp64 on CPU
+    copies (slot order, one thread): the deterministic plain sum the
+    active entry's normal-valued sums are held to. (n_rows, F) fp64."""
+    import torch
+
+    xc = x.detach().cpu().double()
+    dst = seg_c.detach().cpu().long()
+    dst = torch.where(dst >= 0, dst, n_rows)
+    out = torch.zeros((n_rows + 1, xc.shape[1]), dtype=torch.float64)
+    return out.index_add_(0, dst, xc)[:n_rows]
+
+
 def active_bound_ms(seg_c, tob, act, F: int) -> tuple[float, str]:
     """Least time for one active-entry call: the active blocks' seg and
     block tables read once, x read for each live slot of the active blocks,
@@ -818,9 +957,10 @@ def check_active(torch, ops, ref, session, batch, errs) -> list[dict]:
     256 readers (pull), F in {1, 2, 64}: bit-equal on the covered rows to
     the dense kernel over the level with the inactive blocks' values set to
     the op's identity, exact against the plain version on integer values
-    and for max, sums of normal values within the reordered-sum bound
-    n * 2^-24 * sum|x| per row (the plain version adds by atomics in no
-    fixed order, and a hub row adds thousands of active slots), reruns
+    and for max, sums of normal values within n * 2^-24 * sum|x| per row
+    (n the row's active live slots) of an exact-order plain sum in fp64 on
+    CPU copies (``plain_sum_fp64``: deterministic, where the fp32 plain
+    version on the card adds by atomics in no fixed order), reruns
     bit-equal; times beside the bound and ``index_add_`` on the same
     compacted data."""
     dev = torch.device(DEVICE)
@@ -900,15 +1040,17 @@ def check_active(torch, ops, ref, session, batch, errs) -> list[dict]:
                                     f"active {op} != plain version (exact), "
                                     f"max abs err {err}")
                         else:
-                            lim = n_in * 2.0 ** -24 * \
-                                ref.segment_agg_active_ref(
-                                    xc.abs(), seg, act, meta.n_nodes, "sum")
-                            if bool(((got[0] - plain).abs() > lim)[cov]
-                                    .any()):
+                            exact = plain_sum_fp64(xc, seg_c, meta.n_nodes)
+                            lim = n_in.cpu().double() * 2.0 ** -24 * \
+                                plain_sum_fp64(xc.abs(), seg_c, meta.n_nodes)
+                            dev64 = (got[0].cpu().double() - exact).abs()
+                            cov_c = cov.cpu()
+                            err = dev64[cov_c].max().item()
+                            if bool((dev64 > lim)[cov_c].any()):
                                 raise AssertionError(
-                                    f"active sum beyond the reordered-sum "
-                                    f"bound ({side} l={l} F={F}), max abs "
-                                    f"err {err}")
+                                    f"active sum beyond n * 2^-24 * sum|x| "
+                                    f"of the fp64 sum ({side} l={l} F={F}), "
+                                    f"max abs err {err}")
                         errs[f"{op}_active"] = max(errs[f"{op}_active"], err)
                     k_ms = cuda_ms(torch, lambda: ops.segment_agg_active(
                         xc, seg, tob, fot, act, **kw))
@@ -938,6 +1080,55 @@ def check_active(torch, ops, ref, session, batch, errs) -> list[dict]:
                           f"{l_ms:.4f} ms ({l_dev:.5f} device), bound "
                           f"{b_ms:.6f} ms ({b_by})", flush=True)
     return rows
+
+
+def sparse_host_parts(torch, session, batch, reps: int = 7) -> dict:
+    """The sparse write step's host work by part for one batch, per group
+    (host milliseconds, median of ``reps``): ``np.unique`` of the routed
+    rows, ``FrontierIndex.keys``, the packing (``_pack_active``), and the
+    uploads of rows, values, mask and active lists as one staged copy
+    (``engine.stage``) beside one pinned copy per array."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import frontier as F
+
+    ids, vals, _ = batch
+    dev = torch.device(DEVICE)
+    out = {}
+    for g in session._groups.values():
+        eng = g.engine
+        fi = eng.plan.frontier
+        if fi is None:
+            continue
+        rows, mask = eng.plan.routes.writer_rows(ids)
+        t = collections.defaultdict(list)
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            rows_u = np.unique(rows[mask])
+            t1 = time.perf_counter()
+            keys = fi.keys(rows_u)
+            t2 = time.perf_counter()
+            act = F._pack_active(keys, fi.n_levels, fi.n_blocks, None)
+            t3 = time.perf_counter()
+            parts = [(rows, np.int32), (vals, np.float32), (mask, bool)] + \
+                [(a, np.int32) for a in act]
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            E.stage(parts, dev)
+            t5 = time.perf_counter()
+            torch.cuda.synchronize()
+            t6 = time.perf_counter()
+            for a, dt in parts:
+                E.stage([(a, dt)], dev)
+            t7 = time.perf_counter()
+            torch.cuda.synchronize()
+            for k, v in (("unique", t1 - t0), ("keys", t2 - t1),
+                         ("pack", t3 - t2), ("stage_one_copy", t5 - t4),
+                         ("per_array_uploads", t7 - t6)):
+                t[k].append(v * 1e3)
+        out[g.agg.name] = dict({k: float(np.median(v)) for k, v in t.items()},
+                               n_rows=int(len(rows_u)),
+                               arrays=len(parts))
+    return out
 
 
 def plan_ptrs(session) -> list[dict]:
@@ -1006,6 +1197,10 @@ def phase_dynamic(torch, ops, ref, session, handles, errs, out_dir) -> dict:
               f"{runs[size]['0']['read_p50_ms']:.3f} ms; sparse launches "
               f"writes {r['1']['write_launches']}, reads "
               f"{r['1']['read_launches']}", flush=True)
+        parts = sparse_host_parts(torch, session, batches[0])
+        report.setdefault("sparse_host_ms", {})[size] = parts
+        print(f"sparse write step host work by part, batches of {size} "
+              f"(ms, median): {parts}", flush=True)
         if size == DYN_SIZES[0]:
             # the kernels line's counts: the main path's writes and reads
             # of this batch size, the active entries' from the sparse run,
@@ -1112,6 +1307,308 @@ def phase_dynamic(torch, ops, ref, session, handles, errs, out_dir) -> dict:
     lap("adapt")
     print(f"phase 6 seconds by part: {report['seconds_by_part']}",
           flush=True)
+    return report
+
+
+# -------------------------------------------------------- streaming path
+def stream_of(writers, readers, n_device_batches: int, seed: int):
+    """Arrival batches of ``ARRIVAL`` Zipf(ZIPF_A) writes with integer
+    values 0..63 (every sum exact in fp32, so a threshold cannot flip on
+    rounding), from the port's ``generate_trace``/``batched_playback``."""
+    from repro_torch.streams import batched_playback, generate_trace
+
+    n = n_device_batches * ARRIVAL * COALESCE
+    tr = generate_trace(writers, readers, n, write_read_ratio=1e9,
+                        alpha=ZIPF_A, value_domain=64, seed=seed)
+    return [(ids, vals) for kind, ids, vals in batched_playback(tr, ARRIVAL)
+            if kind == "write"]
+
+
+def device_batches(arrivals):
+    """The same events cut at the ring's device-batch boundaries."""
+    ids = np.concatenate([i for i, _ in arrivals])
+    vals = np.concatenate([v for _, v in arrivals])
+    B = ARRIVAL * COALESCE
+    return [(ids[o: o + B], vals[o: o + B]) for o in range(0, len(ids), B)]
+
+
+def fired_map(batches) -> dict:
+    """now -> (base ids, values, overflow) of a list of FiredBatch es."""
+    out = {}
+    for b in batches:
+        if len(b):
+            out[float(b.now)] = (b.base_ids.tolist(),
+                                 np.asarray(b.values, np.float32).tolist(),
+                                 bool(b.overflow))
+    return out
+
+
+def alert_eval_cost(torch, eng, al, reps: int = 20) -> dict:
+    """One step's alert evaluation on the ring's engine, on a copy of the
+    alert columns: its CUDA kernels (torch.profiler: launches and device
+    time) and its host time a call (the mean of ``reps`` enqueues)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.streams.alerts import alert_eval
+
+    st = type(al.state)(*(t.clone() for t in al.state))
+    now = eng.state.now - 1.0
+    alert_eval(eng.agg, st, eng.state.pao, now, al.cap)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        alert_eval(eng.agg, st, eng.state.pao, now, al.cap)
+        torch.cuda.synchronize()
+    launches, dev_us = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            dev_us += e.self_cuda_time_total if us is None else us
+            launches += e.count
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        alert_eval(eng.agg, st, eng.state.pao, now, al.cap)
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dict(launches=launches, device_ms=dev_us / 1e3, host_ms=host_ms)
+
+
+def phase_streaming(torch, ops, graph, out_dir) -> dict:
+    """Phase 7 (see the module docstring)."""
+    from repro_torch import EagrSession, Query, WindowSpec
+    from repro_torch.streams import PollOracle
+
+    report: dict = {"seconds_by_part": {}}
+    clock = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        report["seconds_by_part"][part] = now - clock[0]
+        clock[0] = now
+
+    B = ARRIVAL * COALESCE
+    session = EagrSession(graph, device=DEVICE, ingest_depth=INGEST_DEPTH,
+                          ingest_batch=B)
+    spec = WindowSpec("tuple", WINDOW)
+    hs = session.register(Query(agg="sum", window=spec, continuous=True))
+    hm = session.register(Query(agg="max", window=spec, continuous=True))
+    handles = [hs, hm]
+    eng = hs.group.engine
+    writers = np.asarray(session.writers, np.int64)
+    readers = np.asarray(session.readers, np.int64)
+    lap("session")
+
+    # ---- 7a. warm up, then per-reader thresholds at ~GATE_FRAC per batch:
+    # above = the warmed-up sum + the (1 - GATE_FRAC) quantile of the sums'
+    # rises over the next batches (alerts_bench.py sets per-reader headroom
+    # over the warmed-up measure the same way)
+    warm = stream_of(writers, readers, STREAM_WARMUP + STREAM_CALIB, SEED + 7)
+    for ids, vals in warm[: STREAM_WARMUP * COALESCE]:
+        session.update(ids, vals)
+    m0 = session.read(hs, readers).reshape(len(readers))
+    rises = []
+    for k in range(STREAM_CALIB):
+        lo = (STREAM_WARMUP + k) * COALESCE
+        for ids, vals in warm[lo: lo + COALESCE]:
+            session.update(ids, vals)
+        rises.append(session.read(hs, readers).reshape(len(readers)) - m0)
+    head = max(1.0, float(np.ceil(np.quantile(np.concatenate(rises),
+                                              1.0 - GATE_FRAC))))
+    above = (m0 + head).astype(np.float32)
+    alert = hs.on_threshold(above=above, readers=readers.tolist())
+    al = eng.alerts
+    session._retire_pipeline()
+    al.collect()
+    al.pop_fired()
+    start = snapshot_states(session)
+    start_alerts = [t.clone() for t in al.state]
+    print(f"streaming: {len(readers)} readers alerted, above = warmed-up "
+          f"sum + {head:.0f} (the {1 - GATE_FRAC} quantile of its rises)",
+          flush=True)
+    lap("warmup_and_thresholds")
+
+    def restart(depth: int = INGEST_DEPTH) -> None:
+        session._retire_pipeline()
+        al.collect()
+        al.pop_fired()
+        restore_states(session, start)
+        for t, c in zip(al.state, start_alerts):
+            t.copy_(c)
+        session.ingest_depth = depth
+        torch.cuda.synchronize()
+
+    def state_copy():
+        return [[t.clone() for t in g.engine.state.windows] +
+                [g.engine.state.pao.clone(), g.engine.state.now.clone()]
+                for g in session._groups.values()]
+
+    stream = stream_of(writers, readers, STREAM_BATCHES, SEED + 8)
+    dev_batches = device_batches(stream)
+    n_events = sum(len(i) for i, _ in stream)
+    sample = np.random.default_rng(SEED + 7).choice(readers, 4096)
+
+    # ---- 7b-d. the ring against the synchronous session, in rounds (the
+    # modes' order rotated each round): the ring; the synchronous session
+    # at the ring's device batches (states, answers and fired sets required
+    # bit-equal to the ring's); the synchronous session one arrival batch a
+    # step. Launches counted on the first ring run
+    modes = ("ring", "sync_device", "sync_arrival")
+    secs = {m: [] for m in modes}
+    detect_ms, ring, launches, first = [], {}, None, {}
+    for r in range(STREAM_ROUNDS):
+        for mode in modes[r % 3:] + modes[: r % 3]:
+            restart(INGEST_DEPTH if mode == "ring" else 0)
+            batches = dev_batches if mode == "sync_device" else stream
+            if mode == "ring":
+                before = session.stats().ingest.as_dict()
+                al.detect_s.clear()
+                if launches is None:
+                    ops.reset_launches()
+            t0 = time.perf_counter()
+            for ids, vals in batches:
+                session.update(ids, vals)
+            if mode == "ring":
+                session._pipeline.flush()
+            torch.cuda.synchronize()
+            secs[mode].append(time.perf_counter() - t0)
+            if mode == "ring":
+                if launches is None:
+                    launches = dict(ops.LAUNCHES)
+                detect_ms.extend(np.asarray(al.detect_s) * 1e3)
+                after = session.stats().ingest.as_dict()
+                for k, v in after.items():
+                    ring.setdefault(k, []).append(
+                        v if k == "max_in_flight" else v - before[k])
+            if mode not in first and mode != "sync_arrival":
+                first[mode] = (state_copy(),
+                               [session.read(h, sample) for h in handles],
+                               fired_map(session.drain_fired()))
+    for op in ("sum", "max"):
+        if launches[op] + launches[f"{op}_active"] <= 0:
+            raise AssertionError(f"segment_agg_{op} was not launched on the "
+                                 f"ring's steps")
+    (state_p, answers_p, fired_p), (state_s, answers_s, fired_s) = \
+        first["ring"], first["sync_device"]
+    for a, b in zip(state_p, state_s):
+        for x, y in zip(a, b):
+            if not torch.equal(x, y):
+                raise AssertionError("pipelined and synchronous states "
+                                     "differ")
+    for a, b in zip(answers_p, answers_s):
+        if not np.array_equal(a, b):
+            raise AssertionError("pipelined and synchronous answers differ")
+    if fired_p != fired_s:
+        raise AssertionError("pipelined and synchronous fired sets differ")
+    ring = {k: (max(v) if k == "max_in_flight" else float(np.median(v)))
+            for k, v in ring.items()}
+    detect_ms = np.asarray(detect_ms)
+    lap("ring_against_sync")
+
+    # ---- 7e. the poll oracle after every device batch, batch by batch
+    def polled_run(batches):
+        oracle = PollOracle(al)
+        oracle.resync(eng)
+        polled = []
+        for ids, vals in batches:
+            session.update(ids, vals)
+            polled.append(oracle.poll(eng, eng._now_host - 1.0))
+        return polled, session.drain_fired()
+
+    restart(depth=0)
+    polled, fired_o = polled_run(dev_batches)
+    if fired_map(polled) != fired_map(fired_o) or \
+            fired_map(fired_o) != fired_p:
+        raise AssertionError("fired sets differ from the poll oracle's")
+    n_fired = sum(len(v[0]) for v in fired_p.values())
+    lap("oracle")
+
+    # ---- 7f. overflow: a cap of OVERFLOW_CAP, the exact set recovered
+    restart(depth=0)
+    cap = al.cap
+    al.cap = OVERFLOW_CAP
+    try:
+        polled, fired_v = polled_run(dev_batches[:OVERFLOW_BATCHES])
+    finally:
+        al.cap = cap
+    n_over = sum(b.overflow for b in fired_v)
+    if n_over == 0:
+        raise AssertionError(f"no batch overflowed a cap of {OVERFLOW_CAP}")
+    got = {k: v[:2] for k, v in fired_map(fired_v).items()}
+    if got != {k: v[:2] for k, v in fired_map(polled).items()}:
+        raise AssertionError("overflowed fired sets differ from the oracle's")
+    lap("overflow")
+
+    # ---- 7g. steady state with no implicit sync: pipelined writes with
+    # the alert, reads of both queries and the fired-set drain
+    restart()
+    window = stream_of(writers, readers, 2 + STREAM_SYNC_WINDOW, SEED + 9)
+    for ids, vals in window[: 2 * COALESCE]:
+        session.update(ids, vals)
+    for h in handles:
+        session.read(h, sample)
+    session.drain_fired()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ids, vals in window[2 * COALESCE:]:
+            session.update(ids, vals)
+        for h in handles:
+            session.read(h, sample)
+        session.drain_fired()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    lap("sync_check")
+
+    # ---- 7h. one traced window of the ring
+    restart()
+    traced = stream[: 4 * COALESCE]
+
+    def run():
+        for ids, vals in traced:
+            session.update(ids, vals)
+        session._pipeline.flush()
+
+    report["profile"] = trace_window(torch, "stream", run,
+                                     len(traced) // COALESCE, out_dir)
+    report["alert_eval"] = alert_eval_cost(torch, eng, al)
+    print(f"alert evaluation, one step: {report['alert_eval']}", flush=True)
+    lap("trace")
+
+    p50, p99 = (float(np.percentile(detect_ms, q)) for q in (50, 99))
+    report.update(
+        readers_alerted=int(len(readers)), head=head,
+        device_batches=len(dev_batches), events=n_events,
+        rounds=STREAM_ROUNDS, seconds_per_round={m: v for m, v in secs.items()},
+        pipelined_events_per_s=n_events / float(np.median(secs["ring"])),
+        sync_device_batch_events_per_s=n_events / float(
+            np.median(secs["sync_device"])),
+        sync_arrival_batch_events_per_s=n_events / float(
+            np.median(secs["sync_arrival"])),
+        ring=ring, detect_p50_ms=p50, detect_p99_ms=p99,
+        fired=n_fired, fired_share_per_batch=n_fired / len(dev_batches)
+        / len(readers), overflow_batches=int(n_over), launches=launches,
+        write_steps_sparse=sum(k >= 0 for k in eng.frontier_log))
+    print(f"streaming on {card_line()}: medians of {STREAM_ROUNDS} rounds: "
+          f"pipelined {report['pipelined_events_per_s']:.0f} events/s against"
+          f" the "
+          f"synchronous session's {report['sync_device_batch_events_per_s']:.0f}"
+          f" (same device batches of {B}) and "
+          f"{report['sync_arrival_batch_events_per_s']:.0f} (a step per "
+          f"arrival batch of {ARRIVAL}); {n_events} events in "
+          f"{len(dev_batches)} device batches; stall {ring['stall_s']:.4f} s,"
+          f" barrier {ring['barrier_s']:.4f} s, max in flight "
+          f"{ring['max_in_flight']}; detection p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; {n_fired} fired ({report['fired_share_per_batch']:.5f}"
+          f" of the readers a batch), {n_over} of {OVERFLOW_BATCHES} batches "
+          f"overflowed a cap of {OVERFLOW_CAP} and were recovered exactly; "
+          f"pipelined == synchronous (states, answers, fired sets) and fired "
+          f"sets == the poll oracle's; launches {launches}; no implicit sync "
+          f"in {STREAM_SYNC_WINDOW} device batches with reads and drains",
+          flush=True)
+    print(f"phase 7 seconds by part: {report['seconds_by_part']}",
+          flush=True)
+    session.unregister_alert(alert)
     return report
 
 
@@ -1926,6 +2423,8 @@ def main(argv=None) -> int:
 
     report["profile"] = profile_main_path(torch, session, handles,
                                           stream_n[:PROFILE_BATCHES], out_dir)
+    # F1: auto against both forced modes on phase 3's stream
+    report["f1_gate"] = f1_gate(torch, ops, session, handles, stream)
 
     # rates: every event of the run over all the time its calls took, so a
     # stall inside the window lowers them; latencies as quantiles beside them
@@ -1992,6 +2491,13 @@ def main(argv=None) -> int:
     dynamic["seconds"] = time.perf_counter() - t0
     print(f"dynamic path: {dynamic['seconds']:.1f} s", flush=True)
     report["dynamic"] = dynamic
+
+    # ---- 7. the streaming path on phase 3's deployment
+    t0 = time.perf_counter()
+    streaming = phase_streaming(torch, ops, graph, out_dir)
+    streaming["seconds"] = time.perf_counter() - t0
+    print(f"streaming path: {streaming['seconds']:.1f} s", flush=True)
+    report["streaming"] = streaming
 
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]

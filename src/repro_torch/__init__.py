@@ -9,7 +9,9 @@ JAX). Its public surface in this slice:
     group on one device;
   * :class:`WindowSpec`, :func:`make_aggregate` / :class:`Aggregate`;
   * the low-level tier: ``EagrEngine``, ``compile_plan``,
-    ``build_bipartite``, ``construct_vnm``, ``decide_mincut``.
+    ``build_bipartite``, ``construct_vnm``, ``decide_mincut``;
+  * ``repro_torch.streams``: Zipf traces, the ingest ring and standing
+    alerts (``EagrSession(ingest_depth=...)``, ``register_alert``).
 
 Everything runs on CUDA unless the caller passes ``device="cpu"``::
 

@@ -1,7 +1,7 @@
 """Architecture registry: ``get_arch(arch_id)`` -> the arch's config module
 (``FAMILY``, ``CFG``, ``SHAPE_DEFS``, ``build_smoke(shape, device=None)``),
 over the archs the port serves (the dense LMs granite-3-2b and
-internlm2-1.8b, and DIEN).
+internlm2-1.8b, DIEN, and the paper's own system, eagr).
 The JAX package's other archs raise ``NotImplementedError`` naming their
 ROADMAP item; an id the JAX package does not know raises ``KeyError``."""
 from __future__ import annotations
@@ -14,6 +14,7 @@ _MODULES = {
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "dien": "repro_torch.configs.dien",
+    "eagr": "repro_torch.configs.eagr",
 }
 
 # the JAX package's archs the port does not serve yet, with their ROADMAP item
@@ -25,7 +26,6 @@ _WAITING = {
     "gat-cora": "13",
     "nequip": "13",
     "gatedgcn": "13",
-    "eagr": "13",
 }
 
 

@@ -235,6 +235,8 @@ class ExecPlan:
                                          # the first sparse write
     reader_frontier: object | None = None  # frontier.ReaderFrontierIndex;
                                            # dropped by any structural patch
+    write_costs: "StepCosts | None" = None  # auto's measured costs on the
+    read_costs: "StepCosts | None" = None   # card, one set per plan
 
     @property
     def n_nodes(self) -> int:
@@ -766,15 +768,142 @@ def plan_from_snapshot(arrays: dict, objs: dict, device=None) -> ExecPlan:
 
 
 # ----------------------------------------------------------------------- API
-def upload(arr: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
-    """One host array onto ``device`` as an explicit copy. To a CUDA device
-    it goes through pinned host memory with ``non_blocking=True``, so the
-    host never waits on the device (no implicit sync: steady-state steps run
-    clean under ``torch.cuda.set_sync_debug_mode("error")``)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr, dtype))
+def stage(arrays, device: torch.device) -> list[torch.Tensor]:
+    """Host arrays onto ``device`` as explicit copies: ``arrays`` is a list
+    of ``(array, dtype)``. To a CUDA device they travel packed in ONE pinned
+    host buffer by ONE non-blocking copy (a step's rows, mask, values and
+    active-block lists; a patch's edits), and come back as views of the
+    device buffer: the host never waits on the device (no implicit sync:
+    steady-state steps run clean under
+    ``torch.cuda.set_sync_debug_mode("error")``). Elsewhere each becomes a
+    tensor on ``device``."""
+    arrays = [np.ascontiguousarray(a, dt) for a, dt in arrays]
     if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+        return [torch.from_numpy(a).to(device) for a in arrays]
+    offs, off = [], 0
+    for a in arrays:
+        offs.append(off)
+        off += -(-a.nbytes // 16) * 16   # 16-byte aligned views
+    buf = torch.empty(max(off, 16), dtype=torch.uint8, pin_memory=True)
+    host = buf.numpy()
+    for o, a in zip(offs, arrays):
+        host[o: o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = buf.to(device, non_blocking=True)
+    return [dev[o: o + a.nbytes]
+            .view(torch.from_numpy(np.empty(0, a.dtype)).dtype).view(a.shape)
+            for o, a in zip(offs, arrays)]
+
+
+# ------------------------------------------------------ auto's step choice
+SLEEP_CYCLES = 50_000_000   # ~25 ms of the card held while a timed step
+                            # is enqueued, so its events time the device only
+SPARSE_MARGIN = 0.8         # sparse only where predicted 20% below dense:
+                            # a near tie goes to the step with no expansion
+
+
+@dataclasses.dataclass(frozen=True)
+class StepCosts:
+    """What one step of a plan costs on its card, measured once (seconds):
+    the frontier expansion's host time per row; the dense step's host
+    dispatch and device time; the sparse step's host dispatch (expansion
+    excluded) and device time at ``blocks`` active blocks. A step costs the
+    larger of its host and device times (the host enqueues while the card
+    runs). ``auto`` then decides by a fixed function of the batch's live
+    rows and active blocks, so one run's choices are reproducible; sparse
+    must come out below ``SPARSE_MARGIN`` times the dense step."""
+
+    per_row: float
+    dense_host: float
+    dense_dev: float
+    sparse_host: float
+    sparse_dev: float
+    blocks: int
+
+    @property
+    def dense(self) -> float:
+        return max(self.dense_host, self.dense_dev)
+
+    def worth_expanding(self, n: int) -> bool:
+        """Can a sparse step of ``n`` rows win at all (expansion and its
+        host dispatch below the dense step)?"""
+        return self.per_row * n + self.sparse_host < \
+            SPARSE_MARGIN * self.dense
+
+    def sparse_wins(self, n: int, k: int) -> bool:
+        """Sparse for ``n`` rows over ``k`` active blocks against dense."""
+        dev = self.sparse_dev * k / max(1, self.blocks)
+        return max(self.per_row * n + self.sparse_host, dev) < \
+            SPARSE_MARGIN * self.dense
+
+
+TIMED_REPS = 5               # timed rounds of each step (after one warm)
+
+
+def _timed(device, *runs) -> list[tuple[float, float]]:
+    """For each of ``runs``: (host seconds to enqueue ``run()``, device
+    seconds it ran), the card held by a sleep kernel while the host enqueues
+    so that the events time the device work alone. The runs take turns
+    round by round, so a slow moment of the host falls on all of them;
+    each value is the median of TIMED_REPS rounds after a warm one (which
+    loads the kernels)."""
+    import time
+
+    samples = [[] for _ in runs]
+    for rep in range(TIMED_REPS + 1):
+        for out, run in zip(samples, runs):
+            torch.cuda.synchronize(device)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            t0 = time.perf_counter()
+            run()
+            host = time.perf_counter() - t0
+            ev1.record()
+            ev1.synchronize()
+            if rep:
+                out.append((host, ev0.elapsed_time(ev1) / 1e3))
+    return [tuple(float(np.median(col)) for col in zip(*out))
+            for out in samples]
+
+
+def _host_median(run):
+    """(median host seconds of TIMED_REPS calls of ``run()``, its last
+    result)."""
+    import time
+
+    secs = []
+    for _ in range(TIMED_REPS):
+        t0 = time.perf_counter()
+        out = run()
+        secs.append(time.perf_counter() - t0)
+    return float(np.median(secs)), out
+
+
+def _real_blocks(active, n_units: int) -> int:
+    return int(sum(np.count_nonzero(a < n_units) for a in active))
+
+
+def _reader_blocks(rf, act) -> int:
+    """Active demand chunks plus pull blocks of a read's active pair."""
+    return _real_blocks(act[0], rf.n_chunks) + \
+        _real_blocks(act[1], rf.n_blocks)
+
+
+def to_host(*tensors) -> list[np.ndarray]:
+    """Device tensors as host numpy copies. From a CUDA device through
+    pinned buffers by non-blocking copies behind one event that the host
+    waits on: an explicit wait, never an implicit sync."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.detach().cpu().numpy().copy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    ev.synchronize()
+    return [h.numpy() for h in host]
 
 
 class EagrEngine:
@@ -799,8 +928,11 @@ class EagrEngine:
                                 device=self.device)
         self.plan = plan
         # continuous groups pin every churn-added node PUSH through patches
-        # (always-fresh readers)
+        # (always-fresh readers; alert evaluation depends on it)
         self.pin_push = False
+        # standing alerts (streams.alerts.AlertSet); None keeps the plain
+        # write bodies
+        self.alerts = None
         self.state = self.init_state()
         # host-side logical clock mirror + extremal-path eviction bookkeeping:
         # `_expiry` holds the eval times of batches whose entries are still
@@ -889,8 +1021,11 @@ class EagrEngine:
         active-block tuple for the sparse write bodies, or ``None`` for the
         dense sweep. ``None`` whenever sparseness can't be exact (an
         extremal time window with entries expiring outside the batch) or
-        can't pay (EAGR_SPARSE_WRITE=0; auto mode with a large batch or a
-        frontier past the density threshold). Builds the plan's
+        can't pay (EAGR_SPARSE_WRITE=0; under auto, a step the rule says
+        the dense sweep does faster). Auto's rule on CPU tensors is the JAX
+        package's (a large batch or a frontier past the density threshold
+        goes dense); on the card it compares the plan's measured
+        :class:`StepCosts` (see :meth:`_auto_write`). Builds the plan's
         ``FrontierIndex`` on first use."""
         from repro_torch.core import frontier as F
 
@@ -909,29 +1044,85 @@ class EagrEngine:
         if n_live == 0:
             return None
         density = None
+        on_card = self.device.type == "cuda"
         if mode == "auto":
             nb = self.plan.arrays.push.tile_of_block.shape[1]
-            if nb < 8 or n_live > F.sparse_rowfrac() * meta.n_writers:
+            if nb < 8 or (not on_card and
+                          n_live > F.sparse_rowfrac() * meta.n_writers):
                 return None  # frontier ~ overlay: expansion can't win
-            density = F.sparse_density()
+            if not on_card:
+                density = F.sparse_density()
         exact = self.agg.combine == "sum"
         if self.plan.frontier is None or self.plan.frontier.exact != exact:
             self.plan.frontier = F.FrontierIndex.build(self.plan,
                                                        exact=exact)
+        if mode == "auto" and on_card:
+            return self._auto_write(rows, mask, n_live)
         rows_u = np.unique(np.asarray(rows)[np.asarray(mask, bool)])
         return self.plan.frontier.expand(rows_u, density=density)
 
-    def write_rows(self, rows: np.ndarray, vals: np.ndarray,
-                   mask: np.ndarray, *, n_live: int | None = None,
-                   active="auto") -> None:
+    def _auto_write(self, rows, mask, n_live: int):
+        """Auto's write-step choice on the card: the plan's ``write_costs``
+        (measured on this batch the first time) say whether a sparse step
+        of ``n_live`` rows over the batch's active blocks beats the dense
+        one. EAGR_SPARSE_ROWFRAC and EAGR_SPARSE_DENSITY, where set, cap it
+        as on the CPU."""
+        from repro_torch.core import frontier as F
+
+        fi = self.plan.frontier
+        if self.plan.write_costs is None:
+            self.plan.write_costs = self._calibrate_write(rows, mask, n_live)
+        costs = self.plan.write_costs
+        if not costs.worth_expanding(n_live):
+            return None
+        if "EAGR_SPARSE_ROWFRAC" in os.environ and \
+                n_live > F.sparse_rowfrac() * self.plan.meta.n_writers:
+            return None
+        rows_u = np.unique(np.asarray(rows)[np.asarray(mask, bool)])
+        act = fi.expand(rows_u, density=F.sparse_density()
+                        if "EAGR_SPARSE_DENSITY" in os.environ else None)
+        if act is None or not costs.sparse_wins(
+                n_live, _real_blocks(act, fi.n_blocks)):
+            return None
+        return act
+
+    def _calibrate_write(self, rows, mask, n_live: int) -> StepCosts:
+        """Time this batch's expansion on the host, then its dense and its
+        sparse step (results dropped: the step bodies are pure)."""
+        sec, act = _host_median(lambda: self.plan.frontier.expand(
+            np.unique(np.asarray(rows)[np.asarray(mask, bool)]),
+            density=None))
+        per_row = sec / max(1, n_live)
+        vals = np.zeros((len(rows),) + ((self.spec.value_dim,)
+                                        if self.spec.value_dim > 1 else ()),
+                        np.float32)
+        prev = self._last_eval_now
+        dense = lambda: self._write_body(rows, vals, mask, n_live, None,
+                                         prev)
+        if act is None:  # a row the index cannot bound: never sparse
+            ((dh, dd),) = _timed(self.device, dense)
+            return StepCosts(per_row, dh, dd, float("inf"), 0.0, 1)
+        (dh, dd), (sh, sd) = _timed(self.device, dense, lambda: (
+            self._write_body(rows, vals, mask, n_live, act, prev)))
+        return StepCosts(per_row, dh, dd, sh, sd,
+                         _real_blocks(act, self.plan.frontier.n_blocks))
+
+    def write_rows(self, rows: np.ndarray, vals, mask: np.ndarray, *,
+                   n_live: int | None = None, active="auto") -> None:
         """Pre-routed write dispatch: ``rows`` are window rows (see
-        ``ExecPlan.routes``), masked lanes carry row 0 / value 0 and the
-        batch is already padded. The batch (and the active tuple) travel as
-        explicit copies and the step is queued on the device; the call
-        returns without waiting for it. ``active`` selects the step:
-        ``"auto"`` asks :meth:`frontier_active`, ``None`` forces the dense
-        sweep, and a per-level active-block tuple runs the frontier-sparse
-        bodies over exactly those edge blocks."""
+        ``ExecPlan.routes``), masked lanes carry row 0 and the batch is
+        already padded. ``vals`` is a host array (dead lanes already 0) or
+        a tensor, pinned on the host or on the device, whose dead lanes are
+        zeroed on the device (the ingest ring passes its pinned slot). The
+        rows, mask, host values and active tuple travel as one explicit
+        copy and the step is queued on the device; the call returns without
+        waiting for it. ``active`` selects the step: ``"auto"`` asks
+        :meth:`frontier_active`, ``None`` forces the dense sweep, and a
+        per-level active-block tuple runs the frontier-sparse bodies over
+        exactly those edge blocks. With standing alerts attached, their
+        evaluation runs right after the step on the device (fused
+        write-and-evaluate) and the step's fired buffers wait for
+        readback."""
         if n_live is None:
             n_live = int(np.count_nonzero(mask))
         if isinstance(active, str):
@@ -940,35 +1131,66 @@ class EagrEngine:
             -1 if active is None else sum(a.shape[0] for a in active))
         if len(self.frontier_log) > (1 << 20):
             del self.frontier_log[: (1 << 19)]
-        dev = self.device
-        rows_d = upload(rows, np.int32, dev)
-        vals_d = upload(vals, np.float32, dev)
-        mask_d = upload(mask, bool, dev)
-        act_d = None if active is None else \
-            tuple(upload(a, np.int32, dev) for a in active)
-        args = (self.plan.meta, self.agg, self.spec, self.plan.arrays,
-                self.state, rows_d, vals_d, mask_d)
-        if self.agg.combine == "sum":
-            self.state = write_step_sum(*args, active=act_d)
-        else:
+        prev = None
+        if self.agg.combine != "sum":
             if self.spec.kind == "time":
                 if n_live:
                     heapq.heappush(self._expiry, self._now_host)
                 boundary = self._now_host - self.spec.size
                 while self._expiry and self._expiry[0] < boundary:
                     heapq.heappop(self._expiry)  # reflected by this refresh
-            # a fill, not a copy from the host
-            prev = torch.full((), self._last_eval_now, dtype=torch.float32,
-                              device=dev)
+            prev = self._last_eval_now
             self._last_eval_now = self._now_host
-            self.state = write_step_extremal(*args, prev, active=act_d)
+        self.state = self._write_body(rows, vals, mask, n_live, active, prev)
+        al = self.alerts
+        if al is not None and al.enabled and al.n_placed:
+            from repro_torch.streams.alerts import alert_eval
+
+            # the post-step PAO at the step's own eval instant (the step
+            # advanced the clock); the alert columns update in place
+            out = alert_eval(self.agg, al.state, self.state.pao,
+                             self.state.now - 1.0, al.cap)
+            al.push_pending(self._now_host, *out)
         self._now_host += 1.0
+
+    def _write_body(self, rows, vals, mask, n_live: int, active, prev):
+        """Stage one pre-routed batch and queue its step body; returns the
+        new ``EngineState`` (``self.state`` is left as it is). ``prev`` is
+        the extremal path's previous eval instant."""
+        dev = self.device
+        host = [(rows, np.int32), (mask, bool)]
+        given = torch.is_tensor(vals)
+        if not given:
+            host.append((vals, np.float32))
+        if active is not None:
+            host.extend((a, np.int32) for a in active)
+        staged = stage(host, dev)
+        rows_d, mask_d, rest = staged[0], staged[1], staged[2:]
+        if given:
+            vals_d = vals.to(dev, non_blocking=True)
+            if n_live < mask_d.shape[0]:
+                # dead lanes to 0, as write_batch does on the host: keeps
+                # non-finite garbage out of the masked multiply
+                vals_d = torch.where(
+                    mask_d.view((-1,) + (1,) * (vals_d.dim() - 1)), vals_d,
+                    0.0)
+        else:
+            vals_d, rest = rest[0], rest[1:]
+        act_d = None if active is None else tuple(rest)
+        args = (self.plan.meta, self.agg, self.spec, self.plan.arrays,
+                self.state, rows_d, vals_d, mask_d)
+        if self.agg.combine == "sum":
+            return write_step_sum(*args, active=act_d)
+        # a fill, not a copy from the host
+        prev_d = torch.full((), prev, dtype=torch.float32, device=dev)
+        return write_step_extremal(*args, prev_d, active=act_d)
 
     def read_batch(self, base_ids: np.ndarray, batch_size: int | None = None):
         """Answer a batch of reads. Returns finalized answers (B, ...) as
         numpy. The batch pads to the ``bucket_batch`` bucket unless
         ``batch_size`` pins the shape; small reader batches run the
-        frontier-sparse read (:meth:`_reader_active`)."""
+        frontier-sparse read (:meth:`_reader_active`). The answers come back
+        through pinned memory behind one event: no implicit sync."""
         base_ids = np.asarray(base_ids)
         nodes, known = self.plan.routes.reader_nodes(base_ids)
         if not known.all():
@@ -979,37 +1201,85 @@ class EagrEngine:
         B = batch_size or bucket_batch(len(nodes))
         if B < len(nodes):
             raise ValueError(f"batch_size={B} < batch of {len(nodes)}")
-        act = self._reader_active(nodes)
         pad = B - len(nodes)
-        mask = np.concatenate([np.ones(len(nodes), bool), np.zeros(pad, bool)])
-        nodes = np.concatenate([nodes, np.zeros(pad, np.int32)])
-        dev = self.device
-        nodes_d, mask_d = upload(nodes, np.int32, dev), upload(mask, bool, dev)
-        act_d = None if act is None else tuple(
-            tuple(upload(a, np.int32, dev) for a in side) for side in act)
-        ans, _ = read_step(self.plan.meta, self.agg, self.plan.arrays,
-                           self.state, nodes_d, mask_d, active=act_d)
-        return ans.cpu().numpy()[: len(base_ids)]
+        mask_p = np.concatenate([np.ones(len(nodes), bool),
+                                 np.zeros(pad, bool)])
+        nodes_p = np.concatenate([nodes, np.zeros(pad, np.int32)])
+        act = self._reader_active(nodes, (nodes_p, mask_p))
+        ans, _ = self._read_body(nodes_p, mask_p, act)
+        (out,) = to_host(ans)
+        return out[: len(base_ids)]
 
-    def _reader_active(self, nodes: np.ndarray):
+    def _read_body(self, nodes, mask, act):
+        """Stage one padded reader batch (and its active tuple) as one copy
+        and queue the read step; returns ``read_step``'s output."""
+        host = [(nodes, np.int32), (mask, bool)]
+        if act is not None:
+            host.extend((a, np.int32) for side in act for a in side)
+        staged = stage(host, self.device)
+        act_d = None
+        if act is not None:
+            n_dem = len(act[0])
+            act_d = (tuple(staged[2: 2 + n_dem]), tuple(staged[2 + n_dem:]))
+        return read_step(self.plan.meta, self.agg, self.plan.arrays,
+                         self.state, staged[0], staged[1], active=act_d)
+
+    def _reader_active(self, nodes: np.ndarray, padded=None):
         """Read-path twin of :meth:`frontier_active`: ``(dem_active,
         pull_active)`` chunk/block arrays for the sparse demand and pull
-        sweeps, or ``None`` for the dense read. Auto mode only pays for the
-        expansion on small reader batches."""
+        sweeps, or ``None`` for the dense read. Auto on CPU tensors expands
+        only small reader batches (the JAX package's rule); on the card it
+        compares the plan's measured ``read_costs``, timed the first time
+        on this batch (``padded``: the batch's padded nodes and mask)."""
         from repro_torch.core import frontier as F
 
         mode = F.sparse_mode()
         if mode == "0":
             return None
+        on_card = self.device.type == "cuda"
         density = None
-        if mode == "auto":
+        if mode == "auto" and not on_card:
             if len(nodes) > F.sparse_rowfrac() * self.plan.meta.n_nodes:
                 return None
             density = F.sparse_density()
         if self.plan.reader_frontier is None:
             self.plan.reader_frontier = F.ReaderFrontierIndex.build(self.plan)
-        return self.plan.reader_frontier.expand(np.unique(nodes),
-                                                density=density)
+        rf = self.plan.reader_frontier
+        if mode != "auto" or not on_card:
+            return rf.expand(np.unique(nodes), density=density)
+        n = len(nodes)
+        if self.plan.read_costs is None:
+            if padded is None:
+                B = bucket_batch(n)
+                padded = (np.concatenate([nodes, np.zeros(B - n, np.int32)]),
+                          np.arange(B) < n)
+            self.plan.read_costs = self._calibrate_read(nodes, padded)
+        costs = self.plan.read_costs
+        if not costs.worth_expanding(n):
+            return None
+        if "EAGR_SPARSE_ROWFRAC" in os.environ and \
+                n > F.sparse_rowfrac() * self.plan.meta.n_nodes:
+            return None
+        act = rf.expand(np.unique(nodes), density=F.sparse_density()
+                        if "EAGR_SPARSE_DENSITY" in os.environ else None)
+        if act is None or not costs.sparse_wins(n, _reader_blocks(rf, act)):
+            return None
+        return act
+
+    def _calibrate_read(self, nodes, padded) -> StepCosts:
+        """Time this batch's reader expansion on the host, then its dense
+        and its sparse read step."""
+        rf = self.plan.reader_frontier
+        sec, act = _host_median(lambda: rf.expand(np.unique(nodes),
+                                                  density=None))
+        per_row = sec / max(1, len(nodes))
+        dense = lambda: self._read_body(*padded, None)
+        if act is None:  # the index stayed dense-only
+            ((dh, dd),) = _timed(self.device, dense)
+            return StepCosts(per_row, dh, dd, float("inf"), 0.0, 1)
+        (dh, dd), (sh, sd) = _timed(self.device, dense,
+                                    lambda: self._read_body(*padded, act))
+        return StepCosts(per_row, dh, dd, sh, sd, _reader_blocks(rf, act))
 
     # -------------------------------------------------- structural updates
     def _refresh(self, windows: WindowState) -> None:
@@ -1042,6 +1312,10 @@ class EagrEngine:
         if res.retired_writer_rows:
             windows = reset_window_rows(windows, res.retired_writer_rows)
         self._refresh(windows)
+        if self.alerts is not None:
+            # carry alert rows through churn: retired readers drop, moved
+            # readers follow their node, query-wide alerts adopt new readers
+            self.alerts.sync(self, retired=res.retired_reader_bases)
         return res
 
     def adopt_decisions(self, decisions: np.ndarray) -> ExecPlan:
@@ -1076,10 +1350,19 @@ class EagrEngine:
         refreshed."""
         self.plan = plan
         self._refresh(pad_window_rows(self.state.windows, plan.meta.n_writers))
+        if self.alerts is not None:
+            self.alerts.sync(self)
 
-    # ------------------------------------------------ outside this slice
     def attach_alerts(self, alerts) -> None:
-        raise not_ported("standing alerts", "8")
+        """Attach an ``AlertSet``: resolve its reader rows against the live
+        plan; from the next write on every step carries its alert
+        evaluation (see :meth:`write_rows`)."""
+        self.alerts = alerts
+        try:
+            alerts.sync(self)
+        except Exception:
+            self.alerts = None
+            raise
 
     # --------------------------------------------------------------- oracle
     def oracle_read(self, base_id: int, reader_inputs: dict[int, set[int]]):

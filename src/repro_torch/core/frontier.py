@@ -66,6 +66,8 @@ Env knobs (read per call so tests can flip them):
                        back to the dense sweep (default 0.25)
   EAGR_SPARSE_ROWFRAC  touched-writer fraction above which auto mode skips
                        expansion entirely (default 0.05)
+On the card ``auto`` decides from each plan's measured step costs instead
+(``engine.StepCosts``); the two thresholds cap it there only where set.
 """
 from __future__ import annotations
 
@@ -201,6 +203,18 @@ def _dest_spans(d_s: np.ndarray, b_s: np.ndarray):
     return uniq_d, lo, hi + 1
 
 
+def _gather_csr(indptr: np.ndarray, flat: np.ndarray,
+                rows: np.ndarray) -> np.ndarray:
+    """The concatenated CSR ranges of ``rows``, in one vectorized gather."""
+    lens = indptr[rows + 1] - indptr[rows]
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    offs = np.repeat(indptr[rows] - (np.cumsum(lens) - lens), lens) \
+        + np.arange(total, dtype=np.int64)
+    return flat[offs]
+
+
 @dataclasses.dataclass
 class FrontierIndex:
     """Writer-row -> per-level push-block reachability (see module doc)."""
@@ -327,13 +341,10 @@ class FrontierIndex:
             row_of_node={int(wn[i]): int(i) for i in real}, exact=exact)
 
     # ----------------------------------------------------------------- expand
-    def expand(self, rows: np.ndarray,
-               density: float | None = 0.25) \
-            -> tuple[np.ndarray, ...] | None:
-        """Expand a batch's (unique, live) writer rows into the ragged
-        per-level active-block tuple (see ``_pack_active``), or ``None`` for
-        dense fallback (frontier too dense, or a row the index cannot
-        bound)."""
+    def keys(self, rows: np.ndarray) -> np.ndarray | None:
+        """The sorted unique ``level * n_blocks + block`` keys a batch's
+        (unique, live) writer rows reach, or ``None`` for a row the index
+        cannot bound. :meth:`expand` packs them."""
         rows = np.asarray(rows, np.int64).reshape(-1)
         nb = self.n_blocks
         keys: list[np.ndarray] = []
@@ -371,11 +382,22 @@ class FrontierIndex:
             for l, blks in self.overrides[int(r)].items():
                 if len(blks):
                     keys.append(l * nb + blks.astype(np.int64))
-        all_keys = np.unique(np.concatenate(keys)) if keys \
+        return np.unique(np.concatenate(keys)) if keys \
             else np.zeros(0, np.int64)
+
+    def expand(self, rows: np.ndarray,
+               density: float | None = 0.25) \
+            -> tuple[np.ndarray, ...] | None:
+        """Expand a batch's (unique, live) writer rows into the ragged
+        per-level active-block tuple (see ``_pack_active``), or ``None`` for
+        dense fallback (frontier too dense, or a row the index cannot
+        bound)."""
+        keys = self.keys(rows)
+        if keys is None:
+            return None
         if self.k_floor is None:
             self.k_floor = np.zeros(self.n_levels, np.int64)
-        return _pack_active(all_keys, self.n_levels, nb, density,
+        return _pack_active(keys, self.n_levels, self.n_blocks, density,
                             floors=self.k_floor)
 
     # ------------------------------------------------------------ maintenance
@@ -511,6 +533,21 @@ def maintain_frontier(fi: FrontierIndex, plan, host, seeds: set[int],
 
 
 # ---------------------------------------------------------------- read side
+def _csr(keys: dict[int, set[int]], rows: np.ndarray) -> tuple:
+    """``(indptr, flat)`` of the sorted key sets of ``rows`` (in order);
+    a row absent from ``keys`` gets an empty range."""
+    lens = np.fromiter((len(keys.get(int(v), ())) for v in rows), np.int64,
+                       len(rows))
+    indptr = np.zeros(len(rows) + 1, np.int64)
+    indptr[1:] = np.cumsum(lens)
+    flat = np.empty(int(indptr[-1]), np.int64)
+    for i, v in enumerate(rows):
+        k = keys.get(int(v))
+        if k:
+            flat[indptr[i]: indptr[i + 1]] = sorted(k)
+    return indptr, flat
+
+
 @dataclasses.dataclass
 class ReaderFrontierIndex:
     """Reader node -> (demand chunks, pull blocks) of its demand down-set.
@@ -521,18 +558,39 @@ class ReaderFrontierIndex:
     its destination; a pull destination's whole slot block range is needed by
     every reader demanding it. Push readers get (correctly) empty entries —
     their answer is a PAO gather. ``dense_only`` marks graphs whose down-sets
-    exceeded the build budget."""
+    exceeded the build budget.
+
+    The keys are stored as CSR over index rows (``row_of_node`` maps an
+    overlay node to its row, -1 for a node with no key), so ``expand`` is
+    one vectorized gather per side plus ``np.unique``, with no Python work
+    per reader. ``dem_keys``/``pull_keys`` give the dict view (node -> sorted
+    keys) the JAX package stores."""
 
     n_levels: int
     n_chunks: int                  # d_pad // DEM_CHUNK
     n_blocks: int                  # per-level padded pull block count
-    dem_keys: dict[int, np.ndarray]   # node -> sorted level*n_chunks+chunk
-    pull_keys: dict[int, np.ndarray]  # node -> sorted level*n_blocks+block
+    row_of_node: np.ndarray        # (n_nodes,) int64 index row, -1 = none
+    dem_indptr: np.ndarray         # (rows + 1,) int64
+    dem_flat: np.ndarray           # sorted level*n_chunks+chunk per row
+    pull_indptr: np.ndarray        # (rows + 1,) int64
+    pull_flat: np.ndarray          # sorted level*n_blocks+block per row
     dense_only: bool = False
     # sticky per-level width high-water marks (see _pack_active)
     dem_floor: np.ndarray | None = dataclasses.field(default=None, repr=False)
     pull_floor: np.ndarray | None = dataclasses.field(default=None,
                                                       repr=False)
+
+    @staticmethod
+    def _from_sets(L: int, n_chunks: int, nb: int, n_nodes: int,
+                   dem: dict[int, set[int]], pull: dict[int, set[int]],
+                   dense_only: bool = False) -> "ReaderFrontierIndex":
+        nodes = np.array(sorted(set(dem) | set(pull)), np.int64)
+        row_of = np.full(n_nodes, -1, np.int64)
+        row_of[nodes] = np.arange(len(nodes))
+        di, df = _csr(dem, nodes)
+        pi, pf = _csr(pull, nodes)
+        return ReaderFrontierIndex(L, n_chunks, nb, row_of, di, df, pi, pf,
+                                   dense_only=dense_only)
 
     @staticmethod
     def build(plan) -> "ReaderFrontierIndex":
@@ -560,8 +618,8 @@ class ReaderFrontierIndex:
                     src_set |= add
                     total += len(add)
                     if total > _READER_BUILD_CAP:
-                        return ReaderFrontierIndex(
-                            L, n_chunks, nb, {}, {}, dense_only=True)
+                        return ReaderFrontierIndex._from_sets(
+                            L, n_chunks, nb, n, {}, {}, dense_only=True)
         dem: dict[int, set[int]] = {}
         pull: dict[int, set[int]] = {}
         for l in range(depth):
@@ -580,25 +638,36 @@ class ReaderFrontierIndex:
                 for v in above.get(int(d), ()):
                     pull.setdefault(v, set()).update(
                         l * nb + b for b in range(int(lo), int(hi)))
-        return ReaderFrontierIndex(
-            n_levels=L, n_chunks=n_chunks, n_blocks=nb,
-            dem_keys={v: np.fromiter(sorted(k), np.int64, len(k))
-                      for v, k in dem.items()},
-            pull_keys={v: np.fromiter(sorted(k), np.int64, len(k))
-                       for v, k in pull.items()})
+        return ReaderFrontierIndex._from_sets(L, n_chunks, nb, n, dem, pull)
+
+    def _view(self, indptr, flat) -> dict[int, np.ndarray]:
+        nodes = np.flatnonzero(self.row_of_node >= 0)
+        rows = self.row_of_node[nodes]
+        return {int(v): flat[indptr[r]: indptr[r + 1]]
+                for v, r in zip(nodes, rows) if indptr[r + 1] > indptr[r]}
+
+    @property
+    def dem_keys(self) -> dict[int, np.ndarray]:
+        """node -> sorted level*n_chunks+chunk keys (nodes with any)."""
+        return self._view(self.dem_indptr, self.dem_flat)
+
+    @property
+    def pull_keys(self) -> dict[int, np.ndarray]:
+        """node -> sorted level*n_blocks+block keys (nodes with any)."""
+        return self._view(self.pull_indptr, self.pull_flat)
 
     def expand(self, nodes: np.ndarray, density: float | None = 0.25):
         """(dem_active, pull_active) for a batch of reader nodes, or ``None``
         for dense fallback."""
         if self.dense_only:
             return None
-        dk = [self.dem_keys[int(v)] for v in nodes if int(v) in self.dem_keys]
-        pk = [self.pull_keys[int(v)] for v in nodes
-              if int(v) in self.pull_keys]
-        dem_keys = np.unique(np.concatenate(dk)) if dk \
-            else np.zeros(0, np.int64)
-        pull_keys = np.unique(np.concatenate(pk)) if pk \
-            else np.zeros(0, np.int64)
+        nodes = np.asarray(nodes, np.int64).reshape(-1)
+        rows = self.row_of_node[nodes]
+        rows = rows[rows >= 0]
+        dem_keys = np.unique(_gather_csr(self.dem_indptr, self.dem_flat,
+                                         rows))
+        pull_keys = np.unique(_gather_csr(self.pull_indptr, self.pull_flat,
+                                          rows))
         if self.dem_floor is None:
             self.dem_floor = np.zeros(self.n_levels, np.int64)
             self.pull_floor = np.zeros(self.n_levels, np.int64)

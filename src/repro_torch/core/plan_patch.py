@@ -60,7 +60,7 @@ from repro_torch.core.engine import (
     compile_plan,
     grow_pad,
     measure_plan,
-    upload,
+    stage,
 )
 from repro_torch.core.overlay import Overlay
 from repro_torch.kernels.segment_agg.ops import (
@@ -167,15 +167,15 @@ def apply_patch_step(meta: PlanMeta, arrays: PlanArrays,
     writes it into the live ``PlanArrays`` tensors in place (no table is
     reallocated or copied through the host). Returns ``arrays``."""
     del meta  # the tables carry their own shapes
-    dev = arrays.decision.device
-
-    def put(a):
-        return upload(a, a.dtype, dev)
-
+    rest = PatchProgram._fields[2:]
+    host = list(prog.push) + list(prog.pull) + [getattr(prog, f)
+                                                for f in rest]
+    dev = iter(stage([(a, a.dtype) for a in host], arrays.decision.device))
+    n = len(TablePatch._fields)
     apply_patch_program(arrays, PatchProgram(
-        push=TablePatch(*map(put, prog.push)),
-        pull=TablePatch(*map(put, prog.pull)),
-        **{f: put(getattr(prog, f)) for f in PatchProgram._fields[2:]}))
+        push=TablePatch(*(next(dev) for _ in range(n))),
+        pull=TablePatch(*(next(dev) for _ in range(n))),
+        **{f: next(dev) for f in rest}))
     return arrays
 
 

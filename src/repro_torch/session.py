@@ -18,14 +18,21 @@ Graph mutations (``add_edge``/``delete_edge``/``add_node``/
 ``flush()`` through the in-place patch path (§3.3); ``adapt()`` re-runs the
 §4.8 push/pull decision against observed traffic.
 
+With ``ingest_depth=N`` updates flow through a pipelined ring of N pinned
+slots (``streams/ingest.py``), coalesced into device batches of
+``ingest_batch`` events; standing alerts (``register_alert`` /
+``QueryHandle.on_threshold``) are evaluated on the device after every write
+step and drained with ``drain_fired`` (``streams/alerts.py``).
+
 The session runs on CUDA unless the caller passes ``device="cpu"``; without
-a card and without that argument it raises. Streaming ingest, alerts,
-checkpoints and shards are later slices of the port: their entry points
-raise ``NotImplementedError`` naming the ROADMAP.md item.
+a card and without that argument it raises. Checkpoints and shards are
+later slices of the port: their entry points raise ``NotImplementedError``
+naming the ROADMAP.md item.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Iterable, Mapping
 
 import numpy as np
@@ -40,7 +47,7 @@ from repro_torch.core.window import WindowSpec
 from repro_torch.device import resolve_device
 
 __all__ = ["Query", "QueryHandle", "EagrSession", "bucket_batch",
-           "SessionStats", "FlushReport", "AdaptReport"]
+           "SessionStats", "FlushReport", "AdaptReport", "AlertHandle"]
 
 
 # ------------------------------------------------------------------- queries
@@ -127,8 +134,34 @@ class QueryHandle:
     def read(self, ids) -> np.ndarray:
         return self.session.read(self, ids)
 
-    def on_threshold(self, **_):
-        raise not_ported("standing alerts (on_threshold)", "8")
+    def on_threshold(self, *, above=None, below=None, delta=None,
+                     hysteresis: float = 0.0, debounce: float = 0.0,
+                     component: int = 0, readers=None) -> "AlertHandle":
+        """Register a standing alert on this query — sugar for
+        :meth:`EagrSession.register_alert`. Thresholds may be scalars or
+        per-reader arrays (matched against the sorted reader list)."""
+        from repro_torch.streams.alerts import AlertSpec
+        return self.session.register_alert(
+            self, AlertSpec(above=above, below=below, delta=delta,
+                            hysteresis=hysteresis, debounce=debounce,
+                            component=component),
+            readers=readers)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AlertHandle:
+    """Registered standing alert: the ticket fired batches are attributed to
+    and drained with (:meth:`EagrSession.drain_fired`)."""
+
+    aid: int
+    spec: "object"           # streams.alerts.AlertSpec
+    query: QueryHandle
+    session: "EagrSession"
+
+    def fired(self) -> list:
+        """Drain this alert's :class:`~repro_torch.streams.alerts.FiredBatch`
+        es."""
+        return self.session.drain_fired(self)
 
 
 class FlushReport(list):
@@ -187,6 +220,7 @@ class SessionStats:
     journal_nodes: int              # overlay nodes awaiting the next flush
     patches_applied: int            # in-place patches, all plans
     frontier: dict                  # frontier-size distribution (writes)
+    ingest: "object | None"         # streams.ingest.IngestStats
     construction: "object | None"   # core.vnm.ConstructionStats
 
 
@@ -240,6 +274,10 @@ class _EngineGroup:
         groups are pinned all-push and never adapt."""
         if self.continuous:
             return 0
+        if self.engine.alerts:
+            # standing alerts predicate on push-maintained reader PAOs; a
+            # pull flip would silence them — alerted groups never adapt
+            return 0
         plan = self.engine.plan
         ov = plan.host.export_overlay() if plan.host is not None \
             else self.engine.overlay
@@ -280,7 +318,15 @@ class EagrSession:
     adapt_every : int
         Re-run §4.8 frontier adaptation every N ``update``/``read`` calls
         (0 disables).
-    shards, ingest_depth, ckpt_dir :
+    ingest_depth : int | None
+        ``0`` keeps the synchronous write path (one dispatch and one tick
+        per ``update``); ``N >= 1`` routes ``update`` through an
+        :class:`~repro_torch.streams.ingest.IngestPipeline` ring of N slots.
+        Defaults to ``EAGR_INGEST_DEPTH`` (0).
+    ingest_batch : int | None
+        Events per device batch of the ring (its coalescing factor and clock
+        tick). Defaults to ``EAGR_INGEST_BATCH``, else 8192.
+    shards, ckpt_dir, ckpt_every, ckpt_keep :
         Not ported yet; anything but the default raises
         ``NotImplementedError``.
     """
@@ -292,13 +338,15 @@ class EagrSession:
                  write_freq=None, read_freq=None, calibrate: bool = False,
                  shards: int | None = None, adapt_every: int = 0,
                  ingest_depth: int | None = None,
-                 ckpt_dir: str | None = None):
+                 ingest_batch: int | None = None,
+                 ckpt_dir: str | None = None,
+                 ckpt_every: int | None = None,
+                 ckpt_keep: int | None = None):
         if shards:
             raise not_ported("sharded sessions (shards=N)", "10")
-        if ingest_depth:
-            raise not_ported("streaming ingest (ingest_depth)", "7")
-        if ckpt_dir is not None:
-            raise not_ported("checkpoints (ckpt_dir)", "9")
+        if ckpt_dir is not None or ckpt_every or ckpt_keep is not None:
+            raise not_ported("checkpoints (ckpt_dir, ckpt_every, ckpt_keep)",
+                             "9")
         self.device = resolve_device(device)
         bp = graph if isinstance(graph, Bipartite) else build_bipartite(
             graph, hops=hops, pred=pred, neighborhood=neighborhood)
@@ -326,6 +374,18 @@ class EagrSession:
         self._ops_since_adapt = 0
         self._pending = False
         self._seq = 0
+        self._alerts: dict[int, AlertHandle] = {}
+        self._next_aid = 0
+        # streaming ingest: depth 0 keeps the synchronous write path; depth
+        # >= 1 routes `update` through the ring (streams/ingest.py)
+        if ingest_depth is None:
+            ingest_depth = int(os.environ.get("EAGR_INGEST_DEPTH", "0") or 0)
+        if ingest_batch is None:
+            ingest_batch = int(os.environ.get("EAGR_INGEST_BATCH", "0") or 0)
+        self.ingest_depth = max(0, int(ingest_depth))
+        self.ingest_batch = int(ingest_batch) or 8192
+        self._pipeline = None
+        self._carry_ingest = None  # IngestStats across pipeline rebuilds
 
     # ------------------------------------------------------------- lifecycle
     def register(self, query: Query) -> QueryHandle:
@@ -347,6 +407,7 @@ class EagrSession:
         key = (agg, spec, bool(query.continuous))
         group = self._groups.get(key)
         if group is None:
+            self._retire_pipeline()  # the engine set is about to change
             group = _EngineGroup(self, key, agg, spec, bool(query.continuous))
             self._groups[key] = group
         handle = QueryHandle(qid=self._next_qid, query=query, agg=agg,
@@ -359,12 +420,123 @@ class EagrSession:
     def unregister(self, handle: QueryHandle) -> None:
         """Retire one query; the last query of a group releases its engine."""
         self._check_handle(handle)
+        for ah in [a for a in self._alerts.values() if a.query is handle]:
+            self.unregister_alert(ah)
         del self._handles[handle.qid]
         handle.group.handles.remove(handle.qid)
         if not handle.group.handles:
+            self._retire_pipeline()  # the engine set is about to change
             del self._groups[handle.group.key]
         if not self._groups:
             self._value_dim = None  # nothing constrains the stream anymore
+
+    # ---------------------------------------------------------- standing alerts
+    def register_alert(self, handle: QueryHandle, spec=None, *,
+                       readers=None, **predicates) -> AlertHandle:
+        """Register a standing alert against a registered query: the
+        predicate (``AlertSpec``, or keyword thresholds ``above``/``below``/
+        ``delta`` + ``hysteresis``/``debounce``/``component``) is evaluated
+        **on the device after the query's write step** from then on, and
+        only the readers that fired come back per batch
+        (:meth:`drain_fired`).
+
+        ``readers`` scopes the alert (defaults to the query's own scope;
+        ``None`` on an unscoped query tracks every reader through churn).
+        Requires push-maintained readers — register the query with
+        ``continuous=True``. Thresholds may be per-reader arrays, matched
+        positionally against the sorted reader list."""
+        from repro_torch.streams.alerts import (
+            AlertSet,
+            AlertSpec,
+            check_alert_aggregate,
+        )
+
+        self._check_handle(handle)
+        if spec is None:
+            spec = AlertSpec(**predicates)
+        elif predicates:
+            raise ValueError("pass an AlertSpec OR keyword thresholds, "
+                             "not both")
+        md = check_alert_aggregate(handle.agg)
+        if not (0 <= int(spec.component) < md):
+            raise ValueError(f"component={spec.component} out of range for "
+                             f"{handle.agg.name!r} (measure dim {md})")
+        # alerts resolve against the live plan — land pending churn first
+        # and quiesce the ingest ring so the attach sees settled state
+        if self._pending:
+            self.flush()
+        elif self._pipeline is not None:
+            self._pipeline.flush()
+        scope = handle.readers
+        if readers is None:
+            readers = scope  # None + unscoped query = dynamic (all readers)
+        elif scope is not None:
+            outside = [int(r) for r in readers if int(r) not in scope]
+            if outside:
+                raise ValueError(f"alert readers {sorted(outside)[:8]} are "
+                                 "outside the query's readers scope")
+        engine = handle.group.engine
+        alerts = engine.alerts
+        if alerts is None:
+            alerts = AlertSet()
+        aid = self._next_aid
+        alerts.register(aid, spec, () if readers is None else readers,
+                        dynamic=readers is None,
+                        engine=engine if engine.alerts is alerts else None)
+        if engine.alerts is not alerts:
+            engine.attach_alerts(alerts)
+        self._next_aid += 1
+        ahandle = AlertHandle(aid=aid, spec=spec, query=handle, session=self)
+        self._alerts[aid] = ahandle
+        return ahandle
+
+    def unregister_alert(self, ahandle: AlertHandle) -> None:
+        """Retire one standing alert; the last alert of an engine detaches
+        alert evaluation from its write path entirely."""
+        if self._alerts.get(getattr(ahandle, "aid", -1)) is not ahandle:
+            raise ValueError("unknown alert handle")
+        del self._alerts[ahandle.aid]
+        engine = ahandle.query.group.engine
+        alerts = engine.alerts
+        if alerts is None:
+            return
+        if self._pipeline is not None:
+            self._pipeline.flush()  # quiesce in-flight evaluated steps
+        alerts.collect()
+        alerts.unregister(ahandle.aid, engine)
+        if not alerts:
+            engine.alerts = None
+
+    @property
+    def alerts(self) -> list[AlertHandle]:
+        return list(self._alerts.values())
+
+    def drain_fired(self, ahandle: AlertHandle | None = None) -> list:
+        """Collect every fired batch produced since the last drain — the
+        compact readback of all standing alerts (optionally filtered to one
+        :class:`AlertHandle`). With a pipelined session the ring has already
+        collected completed slots at its boundaries; this adds a partial-slot
+        dispatch so every submitted event is observed."""
+        if self._pipeline is not None:
+            self._pipeline.drain()
+        out = []
+        for g in self._groups.values():
+            alerts = g.engine.alerts
+            if alerts is None:
+                continue
+            alerts.collect()
+            out.extend(alerts.pop_fired())
+        out.sort(key=lambda b: b.now)
+        if ahandle is not None:
+            keep = []
+            for b in out:
+                sel = b.aids == ahandle.aid
+                if sel.any():
+                    keep.append(dataclasses.replace(
+                        b, base_ids=b.base_ids[sel], values=b.values[sel],
+                        aids=b.aids[sel]))
+            return keep
+        return out
 
     @property
     def queries(self) -> list[QueryHandle]:
@@ -410,9 +582,12 @@ class EagrSession:
         if vals.shape != want:
             raise ValueError(f"update values shape {vals.shape} != {want} "
                              f"(session value_dim={self._value_dim})")
-        B = bucket_batch(len(ids))
-        for group in self._groups.values():
-            group.engine.write_batch(ids, vals, batch_size=B)
+        if self.ingest_depth:
+            self._ingest().submit(ids, vals)
+        else:
+            B = bucket_batch(len(ids))
+            for group in self._groups.values():
+                group.engine.write_batch(ids, vals, batch_size=B)
         if len(ids):
             self._grow_counts(int(ids.max()))
             np.add.at(self._wcount, ids, 1.0)
@@ -426,6 +601,10 @@ class EagrSession:
         self._check_handle(handle)
         if self._pending:
             self.flush()
+        if self._pipeline is not None:
+            # reads must observe every submitted event: dispatch the partial
+            # slot (no barrier — the read is queued after every write step)
+            self._pipeline.drain()
         ids = np.asarray(ids, np.int64).reshape(-1)
         if handle.readers is not None:
             arr = handle._reader_arr
@@ -486,6 +665,10 @@ class EagrSession:
         genuine capacity overflow). Called by the next ``update``/``read``
         after a mutation; explicit calls let callers batch churn bursts.
         Returns a :class:`FlushReport`."""
+        if self._pipeline is not None:
+            # pipeline barrier BEFORE patches land: writes submitted so far
+            # hit the plans they were routed against
+            self._pipeline.flush()
         self._master.drain_delta()  # the master only snapshots for register
         journal = sum(g.journal_nodes() for g in self._groups.values())
         results = [group.flush(self.growth)
@@ -501,6 +684,8 @@ class EagrSession:
         """Re-run the §4.8 frontier adaptation on every group against
         observed frequencies now (also triggered every ``adapt_every``
         operations). Returns an :class:`AdaptReport`."""
+        if self._pipeline is not None:
+            self._pipeline.flush()  # plans may swap underneath the ring
         if self._pending:
             self.flush()
         return AdaptReport([group.adapt()
@@ -523,15 +708,17 @@ class EagrSession:
             patches_applied=sum(g.engine.plan.patches_applied
                                 for g in self._groups.values()),
             frontier=frontier_summary(logs),
+            ingest=self._pipeline.stats if self._pipeline is not None
+            else self._carry_ingest,
             construction=self.overlay_stats,
         )
 
     # ------------------------------------------------ outside this slice
-    def register_alert(self, handle, spec=None, **_):
-        raise not_ported("standing alerts (register_alert)", "8")
-
     def save(self, directory: str | None = None, **_) -> int:
         raise not_ported("checkpoints (save)", "9")
+
+    def wait_for_checkpoint(self) -> None:
+        raise not_ported("checkpoints (wait_for_checkpoint)", "9")
 
     @classmethod
     def restore(cls, directory: str, **_) -> "EagrSession":
@@ -543,6 +730,24 @@ class EagrSession:
                 or self._handles.get(getattr(handle, "qid", -1)) is not handle:
             raise ValueError("unknown query handle (not registered with this "
                              "session, or already unregistered)")
+
+    def _ingest(self):
+        if self._pipeline is None:
+            from repro_torch.streams.ingest import IngestPipeline
+            self._pipeline = IngestPipeline(
+                [g.engine for g in self._groups.values()],
+                depth=self.ingest_depth, device_batch=self.ingest_batch,
+                value_dim=self._value_dim or 1, stats=self._carry_ingest)
+            # lifetime counters survive pipeline retirement
+            self._carry_ingest = self._pipeline.stats
+        return self._pipeline
+
+    def _retire_pipeline(self) -> None:
+        """Barrier and drop the pipeline: the next pipelined update
+        rebuilds it over the current engine set."""
+        if self._pipeline is not None:
+            self._pipeline.flush()
+            self._pipeline = None
 
     def _tick(self) -> None:
         self._ops_since_adapt += 1

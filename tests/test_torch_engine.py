@@ -273,12 +273,16 @@ def test_convert_rejects_unrolled_plans(world):
 
 # ------------------------------------------------------------ out of slice
 def test_features_outside_the_slice_raise(world, monkeypatch):
-    """Alerts (item 8) and bf16 edge values (item 12) still raise; sparse
-    steps, apply_delta and adopt_decisions (items 5 and 6) are ported and
-    checked in tests/test_torch_frontier.py and test_torch_plan_patch.py."""
-    _, port = _engines(world, "sum", {}, "tuple", 1, headroom=None)
+    """bf16 edge values (item 12) still raise, in a plan the JAX package
+    made and in a compile; sparse steps, apply_delta and adopt_decisions
+    (items 5 and 6) are checked in tests/test_torch_frontier.py and
+    test_torch_plan_patch.py, alerts (item 8) in test_torch_alerts.py."""
+    ref, port = _engines(world, "sum", {}, "tuple", 1, headroom=None)
+    arrays, objs = RE.plan_snapshot(ref.plan)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.attach_alerts(None)
+        convert.plan_from_reference(
+            arrays, {**objs, "meta": {**objs["meta"], "bf16": True}},
+            device="cpu")
     monkeypatch.setenv("EAGR_SEGAGG_BF16", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TE.compile_plan(world["ov_t"], port.plan.decision)

@@ -416,3 +416,136 @@ def test_reader_spans_cover_slots_churn_left_unsorted(bases):
                                  if d in need)
     assert missing["port"] == 0
     assert missing["reference"] > 0
+
+
+# ------------------------------------------- the reader index's CSR storage
+def _dict_expand(idx, nodes, density=0.25):
+    """The reader expansion as the JAX package computes it: a dict lookup
+    per reader node over ``dem_keys``/``pull_keys``, then the same packing
+    (with its own sticky widths)."""
+    dk, pk = idx.dem_keys, idx.pull_keys
+    d = [dk[int(v)] for v in nodes if int(v) in dk]
+    p = [pk[int(v)] for v in nodes if int(v) in pk]
+    dem_keys = np.unique(np.concatenate(d)) if d else np.zeros(0, np.int64)
+    pull_keys = np.unique(np.concatenate(p)) if p else np.zeros(0, np.int64)
+    floors = getattr(idx, "_test_floors", None)
+    if floors is None:
+        floors = idx._test_floors = (np.zeros(idx.n_levels, np.int64),
+                                     np.zeros(idx.n_levels, np.int64))
+    dem = TF._pack_active(dem_keys, idx.n_levels, idx.n_chunks, density,
+                          floors=floors[0])
+    pull = TF._pack_active(pull_keys, idx.n_levels, idx.n_blocks, density,
+                           floors=floors[1])
+    return None if dem is None or pull is None else (dem, pull)
+
+
+@pytest.mark.parametrize("churned", [False, True])
+def test_reader_csr_expand_equals_dict_expand(bases, churned):
+    """``ReaderFrontierIndex.expand`` (one CSR gather per side) is array-equal
+    to the per-reader dict expansion, batch after batch (sticky widths
+    included), on a fresh plan and on a plan patched by churn."""
+    if churned:
+        from repro_torch import EagrSession, Query
+
+        sess = EagrSession(t_rmat(150, 900, seed=3), device="cpu")
+        h = sess.register(Query(agg="sum", window=TSpec("tuple", 4)))
+        rng = np.random.default_rng(4)
+        for _ in range(12):
+            r = int(rng.choice(sess.readers))
+            nb = sess.neighborhood(r)
+            if rng.random() < 0.4 and nb:
+                sess.delete_edge(min(nb), r)
+            else:
+                sess.add_edge(int(rng.choice(sess.writers)), r)
+        sess.add_node(700, [sess.writers[0]], [sess.readers[1]])
+        assert sess.flush().journal_nodes > 0
+        plan = h.group.engine.plan
+        assert plan.patches_applied > 0
+    else:
+        plan = _port(bases[1]).plan
+    csr, ref = TF.ReaderFrontierIndex.build(plan), \
+        TF.ReaderFrontierIndex.build(plan)
+    assert not csr.dense_only and csr.pull_keys
+    for v, keys in csr.pull_keys.items():
+        assert keys.dtype == np.int64 and (np.diff(keys) > 0).all()
+        assert csr.row_of_node[v] >= 0
+    nodes = plan.routes.reader_node[plan.routes.reader_node >= 0]
+    rng = np.random.default_rng(5)
+    for k in (1, 4, 16, 64, len(nodes)):
+        q = np.unique(rng.choice(nodes, k))
+        for density in (0.25, None):
+            a, b = csr.expand(q, density=density), \
+                _dict_expand(ref, q, density=density)
+            assert (a is None) == (b is None)
+            if a is not None:
+                for x, y in zip(a[0] + a[1], b[0] + b[1]):
+                    assert x.dtype == y.dtype
+                    np.testing.assert_array_equal(x, y)
+
+
+def test_step_costs_rule():
+    """Auto's rule on the card: a sparse step wins only when its expansion
+    plus host dispatch, and its device time at the batch's active blocks,
+    are both below ``SPARSE_MARGIN`` times the dense step's cost (the larger
+    of its host and device times); the same inputs give the same choice."""
+    c = TE.StepCosts(per_row=1e-6, dense_host=2e-3, dense_dev=5e-3,
+                     sparse_host=1e-3, sparse_dev=3e-3, blocks=100)
+    assert c.dense == 5e-3 and TE.SPARSE_MARGIN == 0.8
+    # 0.8 x 5 ms = 4 ms: the expansion and sparse dispatch must fit below
+    assert c.worth_expanding(2900) and not c.worth_expanding(3100)
+    assert c.sparse_wins(1000, 130) and not c.sparse_wins(1000, 140)
+    assert not c.sparse_wins(3100, 1)
+    host_bound = TE.StepCosts(1e-6, 2.5e-3, 3e-4, 3.5e-3, 4e-4, 600)
+    assert not host_bound.worth_expanding(1)
+    assert all(c.sparse_wins(1000, 100) for _ in range(3))
+
+
+def test_stage_returns_equal_tensors():
+    arrs = [(np.arange(5), np.int32), (np.array([True, False]), bool),
+            (np.ones((3, 2)), np.float32), (np.zeros(0), np.int32)]
+    out = TE.stage(arrs, torch.device("cpu"))
+    for (a, dt), t in zip(arrs, out):
+        assert t.numpy().dtype == np.dtype(dt)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(a, dt))
+
+
+def test_auto_on_card_follows_measured_costs(bases, monkeypatch):
+    """``auto``'s choice on the card, driven on the CPU with the timings
+    given: the first batch times the plan's steps once (dense and sparse
+    taking turns), later batches reuse the costs; a host-bound dense step
+    keeps writes and reads dense, a device-bound one sends them sparse;
+    the two caps still apply where set."""
+    import types
+
+    monkeypatch.setenv("EAGR_SPARSE_WRITE", "auto")
+    eng = _port(bases[1], all_push=False)
+    eng.device = types.SimpleNamespace(type="cuda")   # take the card's path
+    calls = []
+
+    def timed(dense, sparse):
+        def fake(device, *runs):
+            calls.append(len(runs))
+            return [dense, sparse][: len(runs)]
+        return fake
+
+    writers = np.flatnonzero(eng.plan.routes.writer_row >= 0)
+    rows, mask = eng.plan.routes.writer_rows(writers[:8])
+    nodes = eng.plan.routes.reader_node[eng.plan.routes.reader_node >= 0][:8]
+    # host-bound dense step (3 ms of dispatch): sparse dispatch 4 ms loses
+    monkeypatch.setattr(TE, "_timed", timed((3e-3, 5e-4), (4e-3, 1e-4)))
+    assert eng.frontier_active(rows, mask) is None
+    assert eng._reader_active(nodes) is None
+    assert calls == [2, 2] and eng.plan.write_costs.dense == 3e-3
+    assert eng.frontier_active(rows, mask) is None and calls == [2, 2]
+    # a device-bound dense step (50 ms on the card): sparse wins
+    eng.plan.write_costs = eng.plan.read_costs = None
+    monkeypatch.setattr(TE, "_timed", timed((1e-3, 5e-2), (1e-3, 1e-3)))
+    act = eng.frontier_active(rows, mask)
+    assert act is not None and len(act) == eng.plan.meta.n_levels
+    assert eng._reader_active(nodes) is not None
+    monkeypatch.setenv("EAGR_SPARSE_ROWFRAC", "0.0")
+    assert eng.frontier_active(rows, mask) is None
+    assert eng._reader_active(nodes) is None
+    monkeypatch.delenv("EAGR_SPARSE_ROWFRAC")
+    monkeypatch.setenv("EAGR_SPARSE_WRITE", "0")
+    assert eng.frontier_active(rows, mask) is None

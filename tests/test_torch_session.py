@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from repro.core import engine as RE  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.core.window import init_windows  # noqa: E402
 from repro_torch.graphs.generators import rmat_graph, small_example_graph  # noqa: E402
+from repro_torch.streams import IngestPipeline  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 NAMES = "abcdefg"
@@ -191,26 +193,29 @@ def test_no_silent_cpu_in_entry_points(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda s, h: h.group.engine.attach_alerts(None),
+    lambda s, h: IngestPipeline([types.SimpleNamespace(plan=None)]),
     lambda s, h: s.save(),
     lambda s, h: EagrSession(small_example_graph(), device="cpu", shards=1),
-    lambda s, h: EagrSession(small_example_graph(), device="cpu",
+    lambda s, h: EagrSession(small_example_graph(), device="cpu", shards=1,
                              ingest_depth=1),
     lambda s, h: EagrSession.restore("y", step=3),
-    lambda s, h: s.register_alert(h, None, above=2.0),
-    lambda s, h: h.on_threshold(below=0),
-    lambda s, h: s.register_alert(h), lambda s, h: h.on_threshold(above=1),
+    lambda s, h: s.wait_for_checkpoint(),
+    lambda s, h: EagrSession(small_example_graph(), device="cpu",
+                             ckpt_every=5),
+    lambda s, h: s.save(blocking=True),
+    lambda s, h: EagrSession(small_example_graph(), device="cpu",
+                             ckpt_keep=2),
     lambda s, h: s.save("x"), lambda s, h: EagrSession.restore("x"),
     lambda s, h: EagrSession(small_example_graph(), device="cpu", shards=2),
-    lambda s, h: EagrSession(small_example_graph(), device="cpu",
-                             ingest_depth=4),
+    lambda s, h: EagrSession.restore("x", shards=2),
     lambda s, h: EagrSession(small_example_graph(), device="cpu",
                              ckpt_dir="x"),
 ])
 def test_features_outside_the_slice_raise(call):
-    """Alerts (item 8), ingest (7), checkpoints (9) and shards (10) still
-    raise; churn, flush and adaptation (items 5 and 6) are ported and
-    checked against the reference below."""
+    """Checkpoints (item 9), shards and stacked engines in the ingest ring
+    (10) still raise; churn, flush and adaptation (items 5 and 6) are
+    checked against the reference below, ingest and alerts (items 7 and 8)
+    in tests/test_torch_ingest.py and tests/test_torch_alerts.py."""
     s = EagrSession(small_example_graph(), device="cpu")
     h = s.register(Query(agg="sum"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -219,9 +224,11 @@ def test_features_outside_the_slice_raise(call):
 
 def test_port_loads_no_jax_and_no_repro():
     """A fresh process imports repro_torch, runs a small session (with a
-    churn burst, a sparse write and read, and an adaptation) and the serve
-    path (LM prefill and decode, DIEN scoring, the launcher) on the CPU and
-    finds neither JAX nor the JAX package in ``sys.modules``."""
+    churn burst, a sparse write and read, and an adaptation), a pipelined
+    session (``ingest_depth=2``) with a standing alert, the streams and the
+    eagr config, and the serve path (LM prefill and decode, DIEN scoring,
+    the launcher) on the CPU and finds neither JAX nor the JAX package in
+    ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -246,8 +253,25 @@ def test_port_loads_no_jax_and_no_repro():
         eng = h.group.engine
         assert eng.frontier_log[-1] >= 0 and eng.plan.reader_frontier
         s.adapt()
-        # the serve path: LM prefill + decode, DIEN scoring, the launcher
+        # the streaming path: a pipelined session with a standing alert
+        from repro_torch.streams import batched_playback, generate_trace
+        p = EagrSession(rmat_graph(120, 600, seed=1), device="cpu",
+                        ingest_depth=2, ingest_batch=32)
+        c = p.register(Query(agg="sum", window=WindowSpec("tuple", 2),
+                             continuous=True))
+        a = c.on_threshold(above=2.0)
+        tr = generate_trace(np.asarray(p.writers), np.asarray(p.readers),
+                            400, alpha=1.5, value_domain=4, seed=0)
+        for kind, ids, vals in batched_playback(tr, 16):
+            if kind == "write":
+                p.update(ids, vals)
+            else:
+                p.read(c, ids)
+        p.flush()
+        assert p.stats().ingest.batches > 0 and a.fired()
         from repro_torch.configs import get_arch
+        get_arch("eagr").build_smoke("stream_mixed", device="cpu")
+        # the serve path: LM prefill + decode, DIEN scoring, the launcher
         from repro_torch.launch import serve
         from repro_torch.models import transformer as T
         from repro_torch.models.recsys import dien
