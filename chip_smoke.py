@@ -103,7 +103,30 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    ``set_sync_debug_mode("error")``, and one traced window; events/s of the
    ring against the synchronous session, the ring's stall and barrier time,
    detection latency p50/p99 (dispatch into the ring to the fired set on the
-   host), and segment launches on the ring's steps required above zero.
+   host), and segment launches on the ring's steps required above zero;
+8. shards and checkpoints on phase 3's graph: ``EagrSession(shards=4)``
+   with ``sum`` and ``max`` (tuple window 8), its cold build timed; 10
+   write batches of 4,096 Zipf(1.5) writers (5 forced dense, 5 forced
+   sparse) required bit-equal to a host loop of 4 single-shard engines
+   over copies of the aligned plans (windows, PAOs, clocks and answers),
+   the dense steps to launch the stacked entry exactly once a level and
+   reduce, and 256 sampled readers to agree with the stream oracle; the
+   shard-batched kernel at the phase's largest level (dense) and largest
+   active push level, sum at F=1 and max, bit-equal to 4 launches of the
+   single-shard entry and held to its plain version (exact on integers and
+   for max, normal-valued sums within n * 2^-24 * sum|x| of an fp64 sum),
+   its device time beside 4 single-shard launches, ``index_add_`` over the
+   flattened shards and the bound; stacked write/read p50 and throughput
+   beside phase 3's, and a traced write window's busy share; a window of
+   stacked writes and reads under ``set_sync_debug_mode("error")``; 3 churn
+   bursts at 0.1% of the readers, the stacked tables and owner maps
+   required to keep their storage, answers held to the owning shards'
+   window oracle; then, in a temporary directory removed at exit, a save
+   (blocking part, total, bytes, MB/s), a same-layout restore (seconds
+   against the cold build's, first read bit-identical), reshards 4 -> 2
+   and 4 -> single (sums within 1e-4, max exact) and
+   ``SessionRecoveryDriver`` with one injected failure required
+   bit-identical to an uninterrupted run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -173,6 +196,10 @@ DESIGNS = {
               "serving the GQA group, 4 warps on cp.async rings, chunks "
               "merged in order by a second kernel",
     "bag": "one warp per bag, 16 table-row loads in flight",
+    "stacked": "the single-shard kernel with a third grid axis over S "
+               "shards: each CTA offsets its pointers to its shard's slice "
+               "and runs the single-shard code; one launch a level for all "
+               "shards (dense or active entry)",
     "active": "the dense template over the active blocks only: one CTA per "
               "window holding an active block, windows cut by the blocks' "
               "own indices, other blocks skipped as padding, a run's pieces "
@@ -198,6 +225,13 @@ GATE_FRAC = 0.001          # alerts_bench.py's fired share per batch
 OVERFLOW_CAP, OVERFLOW_BATCHES = 8, 4
 STREAM_ROUNDS = 3          # timed rounds of the ring and the sync session
 STREAM_SYNC_WINDOW = 4     # device batches under the sync check
+# phase 8: shards and checkpoints (4 shards: the reference's checkpoint
+# bench reshards to 4, and its sharded bench peaked at 4)
+SHARDS = 4
+PARITY_BATCHES = 10        # write batches of the stack-vs-host-loop check
+SPEED_BATCHES = 10         # write batches (each with reads) of the timing
+SHARD_CHURN_BURSTS = 3     # bursts at CHURN[0]'s 0.1% of the readers
+RECOVERY_BATCHES, RECOVERY_EVERY = 6, 2  # the recovery driver's run
 
 # the LM serve path: granite-3-2b at full width; 8 prompts of 2,048 tokens
 # and 32 greedy tokens (prefill_32k's B 32 x S 32,768 and decode_32k's
@@ -314,6 +348,27 @@ def device_ms(torch, fn, reps: int = 50) -> float:
         if total_us > 0:
             return total_us / 1e3 / reps
     raise AssertionError("the profiler saw no device time in three traces")
+
+
+def held_ms(torch, fn, reps: int = 50) -> float:
+    """Device time of one call, by CUDA events around ``reps`` back-to-back
+    calls that the host enqueues while a sleep kernel holds the card (as
+    ``auto``'s timing does): the events then time the device work alone,
+    with no host gap between calls, and need no profiler. After one warm
+    call."""
+    from repro_torch.core.engine import SLEEP_CYCLES
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def check_kernel(torch, ops, ref, x, seg, tob, fot, n_rows, n_row_tiles, op,
@@ -678,7 +733,7 @@ def check_answers(session, handles, win, sample) -> None:
         if abs(got["sum"][i] - want_sum) > 1e-4 + 1e-4 * abs(want_sum):
             raise AssertionError(f"sum of reader {r}: {got['sum'][i]} != "
                                  f"{want_sum}")
-        if abs(got["count"][i] - len(vals)) > 1e-4:
+        if "count" in got and abs(got["count"][i] - len(vals)) > 1e-4:
             raise AssertionError(f"count of reader {r}: {got['count'][i]} "
                                  f"!= {len(vals)}")
         if np.float32(got["max"][i]) != want_max:
@@ -1612,6 +1667,568 @@ def phase_streaming(torch, ops, graph, out_dir) -> dict:
     return report
 
 
+# ------------------------------------------------- shards and checkpoints
+def stacked_window_oracle(torch, session, handles, sample) -> None:
+    """The single engine's window oracle applied to the stacked deployment
+    (as the JAX package's stacked churn test does): each sampled reader's
+    answer reduced in fp64 from the raw window values its owning shard
+    holds for the writers of its shard's neighbourhood, independent of the
+    overlay and its plan. After churn a shard that newly follows a writer
+    holds its window from then on only (the documented backfill gap), so
+    this, not the stream oracle, is the ground truth. Sum to 1e-4, max
+    exactly."""
+    from repro_torch.core.engine import to_host
+
+    for h in handles:
+        g = h.group
+        vals, count = to_host(g.engine.state.windows.values,
+                              g.engine.state.windows.count)
+        got = np.asarray(session.read(h, sample)).reshape(len(sample), -1)
+        for i, r in enumerate(sample.tolist()):
+            s = g.sharded.reader_shard[r]
+            rows = g.sharded.shard_plans[s].writer_row_of_base
+            win = [vals[s, rows[w], : count[s, rows[w]]]
+                   for w in g.sdyn.dynamics[s].reader_inputs[r]]
+            win = np.concatenate(win) if win else np.zeros(0, np.float32)
+            if h.agg.name == "sum":
+                want = float(np.sum(win.astype(np.float64)))
+                if abs(got[i, 0] - want) > 1e-4 + 1e-4 * abs(want):
+                    raise AssertionError(f"stacked sum of reader {r}: "
+                                         f"{got[i, 0]} != {want}")
+            else:
+                want = np.float32(win.max()) if len(win) else \
+                    np.float32(-3.0e38)
+                if np.float32(got[i, 0]) != want:
+                    raise AssertionError(f"stacked max of reader {r}: "
+                                         f"{got[i, 0]} != {want}")
+
+
+def stacked_state(group) -> list:
+    st = group.engine.state
+    return [t.clone() for t in (*st.windows, st.pao, st.now)]
+
+
+def stacked_ptrs(group) -> dict:
+    from repro_torch.core.engine import _plan_array_leaves
+
+    eng = group.engine
+    out = {k: v.data_ptr() for k, v in _plan_array_leaves(eng.arrays)}
+    out.update(writer_map=eng.writer_map.data_ptr(),
+               reader_map=eng.reader_map.data_ptr())
+    return out
+
+
+def stacked_level_bound_ms(seg, tob, fot, F: int, n_rows: int):
+    """``level_bound_ms`` of every shard's slice of one stacked level,
+    summed: the bytes and operations of S levels."""
+    t_b = t_o = 0.0
+    for s in range(seg.shape[0]):
+        n_live = int((seg[s] >= 0).sum().item())
+        rows_out = min(int(fot[s].sum().item()) * 128, n_rows)
+        t_b += (seg[s].numel() * 4 + tob[s].numel() * 8 + n_live * 4 * F
+                + rows_out * 4 * F) / HBM_BYTES_PER_S * 1e3
+        t_o += n_live * F / FP32_OPS_PER_S * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def check_stacked_kernel(torch, ops, ref, group, errs, act_sets) -> list:
+    """The shard-batched entries at this phase's largest level (the stacked
+    push or pull level with the most live slots over all shards), sum at
+    F=1 and max: each shard bit-equal to a launch of the single-shard entry
+    on its slice; exact against the plain version on integer values and
+    for max, normal-valued sums within n * 2^-24 * sum|x| per row of an
+    fp64 sum on CPU copies (``plain_sum_fp64``); then the same for the
+    active entries over the stacked active lists of one batch. Times: the
+    stacked launch, S launches of the single-shard entry, the plain
+    version (shard by shard) and ``index_add_``/``index_reduce_`` over the
+    flattened shards, each beside the bound."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    eng = group.engine
+    op = "sum" if group.agg.name == "sum" else "max"
+    meta, S, E = eng.meta, eng.n_shards, ops.E_BLK
+    n = meta.n_nodes
+    # the dense entry at the level with the most live slots, push or pull;
+    # the active entry at the push level whose active blocks hold the most
+    best, best_a = None, None
+    for side in ("push", "pull"):
+        t = getattr(eng.arrays, side)
+        for l in range(meta.depth):
+            live = int((t.seg[:, l] >= 0).sum().item())
+            if best is None or live > best[0]:
+                best = (live, side, l)
+            acts = act_sets[side]
+            if acts is not None and l < len(acts) and acts[l].shape[1]:
+                a = torch.as_tensor(acts[l], device=dev).long()
+                nb_l = t.tile_of_block.shape[2]
+                sid = torch.arange(S, device=dev)[:, None]
+                blk = t.seg[:, l].reshape(S, nb_l, E)[sid, a.clamp(
+                    max=nb_l - 1)]
+                live = int(((blk >= 0) & (a < nb_l)[..., None]).sum().item())
+                if best_a is None or live > best_a[0]:
+                    best_a = (live, side, l)
+    kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles, op=op)
+    rows = []
+    for entry, pick in (("dense", best), ("active", best_a)):
+        if pick is None:
+            continue
+        _, side, l = pick
+        t = getattr(eng.arrays, side)
+        seg, tob = t.seg[:, l], t.tile_of_block[:, l]
+        fot = t.first_of_tile[:, l]
+        nb = tob.shape[1]
+        if entry == "dense":
+            act, seg_c = None, seg
+            K = nb
+        else:
+            act = torch.as_tensor(act_sets[side][l], device=dev)
+            K = act.shape[1]
+            a = act.long()
+            sid = torch.arange(S, device=dev)[:, None]
+            seg_c = torch.where(
+                (a < nb)[..., None],
+                seg.reshape(S, nb, E)[sid, a.clamp(max=nb - 1)],
+                -1).reshape(S, -1)
+        hit = torch.zeros((S, n + 1), dtype=torch.bool, device=dev)
+        hit.scatter_(1, torch.where(seg_c >= 0, seg_c.long(), n),
+                     torch.ones_like(seg_c, dtype=torch.bool))
+        hit = hit[:, :n]
+        n_live = int((seg_c >= 0).sum().item())
+        name = "stacked" if entry == "dense" else "active_stacked"
+
+        def launch(x):
+            if act is None:
+                return ops.segment_agg_level_stacked(x, seg, tob, fot, **kw)
+            return ops.segment_agg_active_stacked(x, seg, tob, fot, act,
+                                                  **kw)
+
+        def singles(x):
+            if act is None:
+                return [ops.segment_agg_level(x[s], seg[s], tob[s], fot[s],
+                                              **kw) for s in range(S)]
+            return [ops.segment_agg_active(x[s], seg[s], tob[s], fot[s],
+                                           act[s], **kw) for s in range(S)]
+
+        def plain(x):
+            if act is None:
+                return ref.segment_agg_level_stacked_ref(x, seg, n, op)
+            return ref.segment_agg_active_stacked_ref(x, seg, act, n, op)
+
+        F = 1
+        err = 0.0
+        for integer in (True, False):
+            shape = (S, K * E, F)
+            x = (torch.randint(-8, 9, shape, generator=gen, device=dev)
+                 .to(torch.float32) if integer else
+                 torch.randn(shape, generator=gen, device=dev))
+            got = launch(x)
+            again = launch(x)
+            one = singles(x)
+            want = plain(x)
+            torch.cuda.synchronize()
+            for s in range(S):
+                h = hit[s]
+                if not torch.equal(got[s][h], again[s][h]):
+                    raise AssertionError(f"{op}_{name} is not deterministic")
+                if not torch.equal(got[s][h], one[s][h]):
+                    raise AssertionError(
+                        f"{op}_{name} shard {s} != the single-shard entry "
+                        f"({side} l={l})")
+                e = (got[s][h] - want[s][h]).abs().max().item() \
+                    if h.any() else 0.0
+                if integer or op == "max":
+                    if not torch.equal(got[s][h], want[s][h]):
+                        raise AssertionError(
+                            f"{op}_{name} != plain version (exact), shard "
+                            f"{s}, max abs err {e}")
+                else:
+                    xs = x[s].reshape(-1, F)
+                    exact = plain_sum_fp64(xs, seg_c[s], n)
+                    cnt = torch.zeros(n + 1).index_add_(
+                        0, torch.where(seg_c[s] >= 0, seg_c[s].long(), n)
+                        .cpu(), torch.ones(seg_c[s].numel()))[:n, None]
+                    lim = cnt.double() * 2.0 ** -24 * \
+                        plain_sum_fp64(xs.abs(), seg_c[s], n)
+                    d64 = (got[s].cpu().double() - exact).abs()
+                    hc = h.cpu()
+                    e = d64[hc].max().item() if hc.any() else 0.0
+                    if bool((d64 > lim)[hc].any()):
+                        raise AssertionError(
+                            f"{op}_{name} beyond n * 2^-24 * sum|x| of the "
+                            f"fp64 sum, shard {s}, max abs err {e}")
+                err = max(err, e)
+        errs[f"{op}_{name}"] = max(errs.get(f"{op}_{name}", 0.0), err)
+        k_ms = cuda_ms(torch, lambda: launch(x))
+        k_dev = device_ms(torch, lambda: launch(x), reps=20)
+        s_dev = device_ms(torch, lambda: singles(x), reps=20)
+        k_held = held_ms(torch, lambda: launch(x))
+        s_held = held_ms(torch, lambda: singles(x))
+        p_ms = cuda_ms(torch, lambda: plain(x), reps=5)
+        dst = (torch.where(seg_c >= 0, seg_c.long(), n)
+               + torch.arange(S, device=dev)[:, None] * (n + 1)).reshape(-1)
+        xf = x.reshape(-1, F)
+        lib_out = torch.zeros((S * (n + 1), F), device=dev)
+        lib = (lambda: lib_out.index_add_(0, dst, xf)) if op == "sum" else \
+            (lambda: lib_out.index_reduce_(0, dst, xf, "amax"))
+        l_ms = cuda_ms(torch, lib)
+        l_dev = device_ms(torch, lib, reps=20)
+        if act is None:
+            b_ms, b_by = stacked_level_bound_ms(seg, tob, fot, F, n)
+        else:
+            # each shard's active-entry bound, summed (all bound by bytes
+            # at F=1: one add per live slot against 4 bytes read for it)
+            b_ms = sum(active_bound_ms(seg_c[s], tob[s], act[s], F)[0]
+                       for s in range(S))
+            b_by = active_bound_ms(seg_c[0], tob[0], act[0], F)[1]
+        rows.append(dict(op=op, entry=name, side=side, level=l, shards=S,
+                         n_blocks=nb, K=K, n_live=n_live, F=F,
+                         max_abs_err=err, ms=k_ms, device_ms=k_dev,
+                         single_x_S_device_ms=s_dev, held_ms=k_held,
+                         single_x_S_held_ms=s_held, plain_ms=p_ms,
+                         library_ms=l_ms, library_device_ms=l_dev,
+                         bound_ms=b_ms, bound_by=b_by))
+        print(f"  {op}_{name} {side} l={l} S={S} blocks {K}/{nb} "
+              f"live={n_live} F=1: bit-equal to {S} single-shard launches, "
+              f"plain version held (max abs err {err:.3g}); kernel "
+              f"{k_ms:.4f} ms ({k_dev:.5f} device, {k_held:.5f} held) vs "
+              f"{S} single-shard launches {s_dev:.5f} device, {s_held:.5f} "
+              f"held; plain {p_ms:.4f} ms; "
+              f"index_add_/reduce over the flattened shards {l_ms:.4f} ms "
+              f"({l_dev:.5f} device); bound {b_ms:.6f} ms ({b_by})",
+              flush=True)
+    return rows
+
+
+def stacked_active_sets(group, ids):
+    """The stacked engine's per-level (S, K) active lists for one batch
+    (forced sparse), push side; the stacked read has no sparse path."""
+    set_sparse("1")
+    try:
+        push = group.engine._frontier_active(ids)
+    finally:
+        set_sparse("auto")
+    return {"push": push, "pull": None}
+
+
+def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
+    """Phase 8 (see the module docstring)."""
+    import tempfile
+
+    from repro_torch import EagrSession, Query, WindowSpec
+    from repro_torch.core.engine import EagrEngine, plan_from_snapshot
+    from repro_torch.core.engine import plan_snapshot
+    from repro_torch.distributed import (
+        SessionRecoveryDriver,
+        host_loop_read,
+        host_loop_write,
+    )
+
+    report: dict = {"seconds_by_part": {}}
+    clock = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        report["seconds_by_part"][part] = now - clock[0]
+        clock[0] = now
+
+    # ---- set-up: the cold build of a sharded session over phase 3's graph
+    t0 = time.perf_counter()
+    session = EagrSession(graph, device=DEVICE, shards=SHARDS)
+    spec = WindowSpec("tuple", WINDOW)
+    handles = [session.register(Query(agg=a, window=spec))
+               for a in ("sum", "max")]
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    groups = [h.group for h in handles]
+    shapes = {g.agg.name: dict(
+        shards=g.engine.n_shards, n_nodes=g.engine.meta.n_nodes,
+        depth=g.engine.meta.depth, n_writers=g.engine.meta.n_writers,
+        push_slots=g.engine.arrays.push.seg.shape[2],
+        pull_slots=g.engine.arrays.pull.seg.shape[2],
+        replication=g.sharded.replication_factor()) for g in groups}
+    print(f"shards: EagrSession(shards={SHARDS}) with sum and max built in "
+          f"{cold_s:.2f} s (construction, min-cut, partition, compile); "
+          f"{shapes}", flush=True)
+    writers = np.asarray(session.writers, np.int64)
+    readers = np.asarray(session.readers, np.int64)
+    rng = np.random.default_rng(SEED + 8)
+    report.update(cold_build_s=cold_s, shapes=shapes)
+    lap("cold_build")
+
+    # ---- 8a. parity: the stack against a host loop of single-shard
+    # engines over copies of the aligned plans, and the answers against the
+    # stream oracle; the launches counted over the stream, dense batches
+    # first (one launch per level and reduce, whatever S is), then sparse
+    hosts = {}
+    for g in groups:
+        engs = []
+        for s, p in enumerate(g.sharded.shard_plans):
+            plan = plan_from_snapshot(*plan_snapshot(p), device=DEVICE)
+            engs.append(EagrEngine(g.sharded.shards[s], plan.decision,
+                                   g.agg, g.spec, plan=plan, device=DEVICE))
+        hosts[g.agg.name] = engs
+    stream = make_stream(writers, readers, PARITY_BATCHES, rng, dyadic=False)
+    drive(torch, session, handles, stream[:1])   # warm: kernels, indices
+    for g in groups:
+        g.engine.adopt_state(g.engine.init_state(), now_host=0.0,
+                             last_eval_now=np.zeros(SHARDS, np.float32))
+    half = PARITY_BATCHES // 2
+    expect = {"sum_stacked": half * groups[0].engine.meta.depth,
+              "max_stacked": half * 2 * groups[1].engine.meta.depth}
+    # the stack's launches only: each call counted from 0, the host loop's
+    # single-shard launches left out
+    counted = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def count(call):
+        ops.reset_launches()
+        out = call()
+        for key, v in ops.LAUNCHES.items():
+            counted[key] += v
+        return out
+
+    for k, (ids, vals, q) in enumerate(stream):
+        set_sparse("0" if k < half else "1")
+        count(lambda: session.update(ids, vals))
+        for g in groups:
+            host_loop_write(g.sharded, hosts[g.agg.name], ids, vals)
+        if k == half - 1:
+            dense = dict(counted)
+    set_sparse("auto")
+    torch.cuda.synchronize()
+    writes = dict(counted)
+    for k, v in expect.items():
+        if dense[k] != v:
+            raise AssertionError(f"{k}: {dense[k]} launches over {half} "
+                                 f"dense write steps, expected {v} (one a "
+                                 f"level and reduce)")
+    if any(dense[k] for k in ("sum", "max", "sum_active", "max_active")):
+        raise AssertionError(f"single-shard entries launched by the stack: "
+                             f"{dense}")
+    for k in ("sum_active_stacked", "max_active_stacked"):
+        top = groups[0 if k.startswith("sum") else 1].engine.meta.depth * \
+            (1 if k.startswith("sum") else 2)
+        if not 0 < writes[k] <= top * (PARITY_BATCHES - half):
+            raise AssertionError(f"{k}: {writes[k]} launches over "
+                                 f"{PARITY_BATCHES - half} sparse steps "
+                                 f"(at most {top} a step)")
+    sample = rng.choice(readers, size=min(256, len(readers)), replace=False)
+    for g, h in zip(groups, handles):
+        st = g.engine.state
+        for i, name in enumerate(("values", "stamps", "head", "count")):
+            host = torch.stack([e.state.windows[i] for e in hosts[g.agg.name]])
+            if not torch.equal(st.windows[i], host):
+                raise AssertionError(f"stacked {g.agg.name} windows.{name} "
+                                     f"!= the host loop's")
+        for name in ("pao", "now"):
+            host = torch.stack([getattr(e.state, name)
+                                for e in hosts[g.agg.name]])
+            if not torch.equal(getattr(st, name), host):
+                raise AssertionError(f"stacked {g.agg.name} {name} != the "
+                                     f"host loop's")
+        got = count(lambda: session.read(h, sample))
+        loop = host_loop_read(g.sharded, hosts[g.agg.name], sample)
+        if not np.array_equal(got, loop):
+            raise AssertionError(f"stacked {g.agg.name} answers != the host "
+                                 f"loop's")
+    torch.cuda.synchronize()
+    launches = dict(counted)
+    Oracle(stream).check(session, handles, sample)
+    del hosts
+    print(f"8a parity: {PARITY_BATCHES} write batches ({half} dense, "
+          f"{PARITY_BATCHES - half} sparse) of {BATCH}: stacked state == a "
+          f"host loop of {SHARDS} single-shard engines bit for bit (windows, "
+          f"PAOs, clocks, answers); {len(sample)} sampled readers agree with "
+          f"the stream oracle (sum to 1e-4, max exactly); launches on the "
+          f"writes {writes} (dense half {dense}: one a level and reduce, "
+          f"expected {expect}); with the reads {launches}", flush=True)
+    report.update(launches=launches, dense_write_launches=dense,
+                  write_launches=writes)
+    lap("parity")
+
+    # ---- 8b. the shard-batched kernel at this phase's largest level
+    probe = make_stream(writers, readers, 1, rng, dyadic=False)[0]
+    krows = []
+    for g in groups:
+        krows += check_stacked_kernel(torch, ops, ref, g, errs,
+                                      stacked_active_sets(g, probe[0]))
+    report["kernel"] = krows
+    lap("kernel")
+
+    # ---- 8c. speed (printed, not gated): the stacked main path beside
+    # phase 3's single engine on the same graph; one traced write window
+    for g in groups:
+        g.engine.adopt_state(g.engine.init_state(), now_host=0.0,
+                             last_eval_now=np.zeros(SHARDS, np.float32))
+    speed = make_stream(writers, readers, SPEED_BATCHES, rng, dyadic=False)
+    w_ms, r_ms, _ = drive(torch, session, handles, speed)
+    metrics = dict(write_p50_ms=float(np.median(w_ms)),
+                   write_events_per_s=BATCH * len(w_ms) / (np.sum(w_ms) / 1e3),
+                   read_p50_ms=float(np.median(r_ms)),
+                   read_events_per_s=BATCH * len(r_ms) / (np.sum(r_ms) / 1e3))
+    report["profile"] = trace_window(
+        torch, "stacked_write",
+        lambda: [session.update(i, v) for i, v, _ in speed[:PROFILE_BATCHES]],
+        PROFILE_BATCHES, out_dir)
+    print(f"8c speed on {card_line()}: stacked ({SHARDS} shards, sum + max): "
+          f"write p50 {metrics['write_p50_ms']:.3f} ms, "
+          f"{metrics['write_events_per_s']:.0f} writes/s, read p50 "
+          f"{metrics['read_p50_ms']:.3f} ms; phase 3's single engine (sum + "
+          f"max + count): write p50 {single['write_p50_ms']:.3f} ms, "
+          f"{single['write_events_per_s']:.0f} writes/s, read p50 "
+          f"{single['read_p50_ms']:.3f} ms; stacked write busy share "
+          f"{report['profile']['busy_share']:.4f}", flush=True)
+    report["speed"] = metrics
+    lap("speed")
+
+    # ---- 8d. no implicit host sync in a window of stacked writes and reads
+    window = make_stream(writers, readers, 3, rng, dyadic=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ids, vals, q in window:
+            session.update(ids, vals)
+            for h in handles:
+                session.read(h, q[:256])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"8d sync check: {len(window)} stacked write batches and "
+          f"{len(window) * len(handles)} reads ran under "
+          f"set_sync_debug_mode('error')", flush=True)
+    lap("sync_check")
+
+    # ---- 8e. churn bursts at 0.1% of the readers, each flushed: the
+    # patched slices keep their storage, answers against the window oracle
+    n_base = int(max(writers.max(), readers.max())) + 1
+    n_ops = max(1, int(CHURN[0][0] * len(readers)))
+    kinds = collections.Counter()
+    churn_ms = []
+    for _ in range(SHARD_CHURN_BURSTS):
+        churn_burst(session, rng, readers, n_base, n_ops)
+        before = [stacked_ptrs(g) for g in groups]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = session.flush()
+        torch.cuda.synchronize()
+        churn_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in ("patched", "relayout", "recompiled"):
+            kinds[k] += getattr(rep, k)
+        for g, res, b in zip(groups, rep, before):
+            if not any(r is not None and r.recompiled for r in res) \
+                    and stacked_ptrs(g) != b:
+                raise AssertionError("an in-capacity slice patch "
+                                     "reallocated a stacked table")
+        (ids, vals, q), = make_stream(np.asarray(session.writers), readers,
+                                      1, rng, dyadic=False)
+        session.update(ids, vals)
+    stacked_window_oracle(torch, session, handles, sample)
+    print(f"8e churn: {SHARD_CHURN_BURSTS} bursts of {n_ops} ops (0.1% of "
+          f"the readers): flush p50 {np.median(churn_ms):.3f} ms; "
+          f"{dict(kinds)}; stacked tables and owner maps kept their storage; "
+          f"{len(sample)} sampled readers agree with the window oracle",
+          flush=True)
+    report.update(churn_ms=churn_ms, churn_kinds=dict(kinds))
+    lap("churn")
+
+    # ---- 8f. checkpoints in a temporary directory, removed at exit
+    q = sample
+    want = [session.read(h, q) for h in handles]
+    with tempfile.TemporaryDirectory(prefix="eagr_ckpt_",
+                                     dir=os.path.join(ROOT, "build")) as d:
+        os.makedirs(d, exist_ok=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = session.save(os.path.join(d, "main"), blocking=False)
+        block_s = time.perf_counter() - t0
+        session.wait_for_checkpoint()
+        total_s = time.perf_counter() - t0
+        sdir = os.path.join(d, "main", f"step_{step:08d}")
+        nbytes = sum(os.path.getsize(os.path.join(sdir, f))
+                     for f in os.listdir(sdir))
+        t0 = time.perf_counter()
+        same = EagrSession.restore(os.path.join(d, "main"), device=DEVICE)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = [same.read(h, q) for h in same.queries]
+        for a, b in zip(got, want):
+            if not np.array_equal(a, b):
+                raise AssertionError("the restored session's first read "
+                                     "differs from the saved session's")
+        del same
+        reshard = {}
+        for m in (2, 0):
+            t0 = time.perf_counter()
+            r = EagrSession.restore(os.path.join(d, "main"), shards=m,
+                                    device=DEVICE)
+            torch.cuda.synchronize()
+            reshard[m] = time.perf_counter() - t0
+            got = [r.read(h, q) for h in r.queries]
+            for h, a, b in zip(handles, got, want):
+                if h.agg.name == "max":
+                    if not np.array_equal(a, b):
+                        raise AssertionError(f"reshard {SHARDS} -> {m}: max "
+                                             f"answers differ")
+                elif not np.allclose(a, b, rtol=1e-4, atol=1e-4):
+                    raise AssertionError(f"reshard {SHARDS} -> {m}: sum "
+                                         f"answers beyond 1e-4")
+            del r
+        print(f"8f checkpoints on {card_line()}: save {nbytes} bytes, "
+              f"blocking part {block_s:.3f} s, total {total_s:.3f} s "
+              f"({nbytes / total_s / 1e6:.1f} MB/s); restore to the same "
+              f"layout {restore_s:.3f} s against the cold build's "
+              f"{cold_s:.3f} s, first read bit-identical; reshard "
+              f"{SHARDS} -> 2 {reshard[2]:.3f} s, {SHARDS} -> single "
+              f"{reshard[0]:.3f} s (sums within 1e-4, max exact)", flush=True)
+        report.update(save_bytes=nbytes, save_block_s=block_s,
+                      save_total_s=total_s,
+                      save_mb_s=nbytes / total_s / 1e6,
+                      restore_s=restore_s, reshard_s=reshard)
+        lap("save_restore_reshard")
+
+        # the recovery driver: a run with one injected failure against an
+        # uninterrupted one, both from this checkpoint ("cold" = restore)
+        base = os.path.join(d, "main")
+        seq0 = session._seq
+        feed = make_stream(writers, readers, RECOVERY_BATCHES, rng,
+                           dyadic=False)
+        make_batch = lambda seq: feed[seq - seq0][:2]
+        make = lambda: EagrSession.restore(base, device=DEVICE)
+        ends = []
+        for name, fail in (("fault", {seq0 + RECOVERY_BATCHES // 2 + 1}),
+                           ("clean", None)):
+            drv = SessionRecoveryDriver(make, make_batch,
+                                        os.path.join(d, name),
+                                        ckpt_every=RECOVERY_EVERY,
+                                        device=DEVICE)
+            t0 = time.perf_counter()
+            s_end = drv.run(seq0 + RECOVERY_BATCHES, fail_at=fail)
+            ends.append((s_end, drv.report, time.perf_counter() - t0))
+        (sf, rf, tf), (sc, rc, tc) = ends
+        if rf.restarts != 1 or rc.restarts != 0:
+            raise AssertionError(f"recovery restarts {rf.restarts}, "
+                                 f"{rc.restarts}")
+        for gf, gc in zip(sf._groups.values(), sc._groups.values()):
+            for a, b in zip(stacked_state(gf), stacked_state(gc)):
+                if not torch.equal(a, b):
+                    raise AssertionError("the recovered run's state differs "
+                                         "from the uninterrupted run's")
+        for hf, hc in zip(sf.queries, sc.queries):
+            if not np.array_equal(sf.read(hf, q), sc.read(hc, q)):
+                raise AssertionError("the recovered run's answers differ")
+        print(f"8f recovery: {RECOVERY_BATCHES} batches, checkpoint every "
+              f"{RECOVERY_EVERY}, one injected failure: restarts "
+              f"{rf.restarts}, state and answers bit-identical to the "
+              f"uninterrupted run ({tf:.2f} s against {tc:.2f} s)",
+              flush=True)
+        report.update(recovery_s=tf, recovery_clean_s=tc)
+        del sf, sc
+        lap("recovery")
+    print(f"phase 8 seconds by part: {report['seconds_by_part']}",
+          flush=True)
+    return report
+
+
 # ------------------------------------------------------- flash attention
 def sdpa(torch, q, k, v, *, causal, mask=None):
     """The library yardstick (timed only; the port never calls it)."""
@@ -2499,6 +3116,13 @@ def main(argv=None) -> int:
     print(f"streaming path: {streaming['seconds']:.1f} s", flush=True)
     report["streaming"] = streaming
 
+    # ---- 8. shards and checkpoints on phase 3's graph
+    t0 = time.perf_counter()
+    shards = phase_shards(torch, ops, ref, graph, metrics, out_dir, errs)
+    shards["seconds"] = time.perf_counter() - t0
+    print(f"shards and checkpoints: {shards['seconds']:.1f} s", flush=True)
+    report["shards"] = shards
+
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:
@@ -2561,6 +3185,32 @@ def main(argv=None) -> int:
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             library_ms=top["library_ms"], device_ms=top["device_ms"],
             library_device_ms=top["library_device_ms"]))
+    # the shard-batched entries at phase 8's largest level, F=1; launches
+    # from phase 8's counted stream (dense, then sparse, then the reads)
+    for row in shards["kernel"]:
+        key = f"{row['op']}_{row['entry']}"
+        kernels.append(dict(
+            name=f"segment_agg_{key}", route="cuda", source=SOURCE,
+            replaces=KERNELS[row["op"]][1], design=DESIGNS["stacked"],
+            launches=shards["launches"][key], max_abs_err=errs[key],
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], device_ms=row["device_ms"],
+            library_device_ms=row["library_device_ms"],
+            single_x_S_device_ms=row["single_x_S_device_ms"],
+            held_ms=row["held_ms"],
+            single_x_S_held_ms=row["single_x_S_held_ms"],
+            shards=row["shards"]))
+    missing = {f"{op}_{e}" for op in KERNELS
+               for e in ("stacked", "active_stacked")} - \
+        {f"{r['op']}_{r['entry']}" for r in shards["kernel"]}
+    if missing:
+        raise AssertionError(f"no phase-8 check of {sorted(missing)}")
+    for k in ("sum_stacked", "max_stacked", "sum_active_stacked",
+              "max_active_stacked"):
+        if shards["launches"][k] <= 0:
+            raise AssertionError(f"segment_agg_{k} was not launched on "
+                                 f"phase 8's path")
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

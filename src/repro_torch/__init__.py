@@ -5,13 +5,17 @@ The package mirrors ``repro`` module for module and imports none of it (nor
 JAX). Its public surface in this slice:
 
   * :class:`EagrSession` / :class:`Query` / :class:`QueryHandle` /
-    :class:`SessionStats` — the declarative front door, one engine per query
-    group on one device;
+    :class:`SessionStats` — the declarative front door, one engine (or one
+    stack of shards) per query group on one device;
   * :class:`WindowSpec`, :func:`make_aggregate` / :class:`Aggregate`;
   * the low-level tier: ``EagrEngine``, ``compile_plan``,
     ``build_bipartite``, ``construct_vnm``, ``decide_mincut``;
   * ``repro_torch.streams``: Zipf traces, the ingest ring and standing
-    alerts (``EagrSession(ingest_depth=...)``, ``register_alert``).
+    alerts (``EagrSession(ingest_depth=...)``, ``register_alert``);
+  * ``repro_torch.distributed``: reader-partitioned shards stacked on the
+    card (``EagrSession(shards=N)``), checkpoints in the JAX package's
+    format (``save``, ``EagrSession.restore``, resharding) and the
+    recovery drivers.
 
 Everything runs on CUDA unless the caller passes ``device="cpu"``::
 

@@ -15,17 +15,10 @@ import torch
 from repro_torch.core.engine import (
     EngineState,
     ExecPlan,
-    PlanMeta,
-    not_ported,
     plan_from_snapshot,
 )
 from repro_torch.core.window import WindowState
 from repro_torch.device import resolve_device
-
-# PlanMeta fields of the JAX package that choose its backend; the port picks
-# its kernel by the tensors' device instead
-_BACKEND_FIELDS = ("backend", "interpret", "unroll_levels", "bf16")
-
 
 def plan_from_reference(arrays: dict, objs: dict, device=None) -> ExecPlan:
     """An ``ExecPlan`` on ``device`` (CUDA unless the caller names another)
@@ -34,21 +27,10 @@ def plan_from_reference(arrays: dict, objs: dict, device=None) -> ExecPlan:
     over too: its unpruned id space (decisions and levels from its patch
     bookkeeping), appended and retired writer rows and its real depth. The
     port rebuilds its own patch bookkeeping on the first patch, from the
-    unpruned overlay the caller passes the engine."""
-    meta = dict(objs["meta"])
-    if meta.get("bf16"):
-        raise not_ported("EAGR_SEGAGG_BF16 (bf16 edge values)", "12")
-    if meta.get("unroll_levels"):
-        raise ValueError("plans of the 'xla_unrolled' backend have no "
-                         "counterpart in the port; compile with 'xla' or "
-                         "'pallas'")
-    for f in _BACKEND_FIELDS:
-        meta.pop(f, None)
-    known = {f for f in PlanMeta.__dataclass_fields__}
-    extra = set(meta) - known
-    if extra:
-        raise ValueError(f"unknown PlanMeta fields {sorted(extra)}")
-    return plan_from_snapshot(arrays, {**objs, "meta": meta}, device=device)
+    unpruned overlay the caller passes the engine. The backend fields of
+    the JAX package's ``PlanMeta`` are dropped; bf16 edge values and the
+    'xla_unrolled' backend have no counterpart and raise."""
+    return plan_from_snapshot(arrays, objs, device=device)
 
 
 def state_from_reference(window_arrays: dict, pao, now,

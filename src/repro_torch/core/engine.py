@@ -34,6 +34,12 @@ frontier.py`` expands them on the host), through the segment kernel's active
 entry, bit-equal to the dense sweep (the JAX package's ``*_sparse`` twins).
 Structural churn patches the plan tables in place (``core/plan_patch.py``).
 
+Stacked shards (``distributed/stacked.py``): aligned per-shard plans stack
+along a leading shard axis (``stack_plan_arrays``), and the ``*_stacked``
+step bodies run every shard at once, each level one launch of the segment
+kernel's stacked entry over all shards; per shard they compute exactly what
+the single-engine bodies compute on that shard's slice.
+
 Every step is deterministic on the card: float values are only combined by
 the segment kernel (fixed slot order) and by ``index_put_(accumulate=True)``
 (sorted indices, lane order); the other scatters write unique indices or
@@ -59,10 +65,12 @@ from repro_torch.core.window import (
     WindowSpec,
     WindowState,
     apply_writes,
+    flat_windows,
     init_windows,
     pad_window_rows,
     reset_window_rows,
     stale_rows,
+    unflat_windows,
     window_pao,
 )
 from repro_torch.device import resolve_device
@@ -72,7 +80,9 @@ from repro_torch.kernels.segment_agg.ops import (
     leveled_plan_blocks,
     make_leveled_plan,
     segment_agg_active,
+    segment_agg_active_stacked,
     segment_agg_level,
+    segment_agg_level_stacked,
 )
 
 
@@ -684,6 +694,219 @@ def read_step(meta: PlanMeta, agg: Aggregate, arrays: PlanArrays,
     return agg.finalize(answers), answers
 
 
+# ------------------------------------------------------------ stacked shards
+def _map_arrays(fn, *arrays: PlanArrays) -> PlanArrays:
+    """``fn`` applied leaf by leaf across ``PlanArrays`` of one structure."""
+    out = []
+    for vals in zip(*arrays):
+        if isinstance(vals[0], LevelTables):
+            out.append(LevelTables._make(fn(*xs) for xs in zip(*vals)))
+        else:
+            out.append(fn(*vals))
+    return PlanArrays._make(out)
+
+
+def stack_plan_arrays(arrays: list[PlanArrays]) -> PlanArrays:
+    """Stack aligned per-shard ``PlanArrays`` along a new leading shard axis.
+    All inputs must share one table shape (``align_shard_plans``)."""
+    shapes = {tuple(tuple(x.shape) for _, x in _plan_array_leaves(a))
+              for a in arrays}
+    if len(shapes) != 1:
+        raise ValueError(f"cannot stack misaligned plan arrays: {shapes}")
+    return _map_arrays(lambda *xs: torch.stack(xs), *arrays)
+
+
+def plan_arrays_shard(stacked: PlanArrays, s: int) -> PlanArrays:
+    """One shard's slice of stacked ``PlanArrays``: views of the stack, so
+    an in-place patch of the slice patches the stack."""
+    return _map_arrays(lambda x: x[s], stacked)
+
+
+def _offsets(S: int, n: int, device) -> torch.Tensor:
+    """(S, 1) int64 row offsets of S shards of ``n`` rows each."""
+    return (torch.arange(S, dtype=torch.int64, device=device) * n)[:, None]
+
+
+def _stacked_levels(meta: PlanMeta, tables: LevelTables, active=None):
+    """``_levels`` over stacked (S, L, ...) tables: each real level as
+    ``(reduce, rows)``, ``reduce(val, op)`` the level's reduce-by-
+    destination of ``val`` (S, n, F) for every shard in one launch of the
+    stacked kernel entry, ``rows`` the (S, n) destinations it recomputes.
+    Sources gather from the flattened (S * n, F) values with shard-offset
+    indices. ``active``, when given, is the per-level tuple of (S, K)
+    active-block lists (each shard's padded with the level's block count);
+    levels no shard has an active block in are skipped."""
+    S = tables.seg.shape[0]
+    n = meta.n_nodes
+    dev = tables.seg.device
+    off = _offsets(S, n, dev)
+    nb = tables.tile_of_block.shape[2]
+    for l in range(meta.depth):
+        if active is None:
+            src, sign, act = tables.src[:, l], tables.sign[:, l], None
+            rows = tables.touched[:, l]
+        else:
+            act = active[l]
+            if act.shape[1] == 0:
+                continue
+            a = act.to(torch.int64)
+            ab = torch.clamp(a, max=nb - 1)
+            sid = torch.arange(S, device=dev)[:, None]
+            src = tables.src[:, l].view(S, nb, E_BLK)[sid, ab].reshape(S, -1)
+            sign = tables.sign[:, l].view(S, nb, E_BLK)[sid, ab] \
+                .reshape(S, -1)
+            seg_c = torch.where((a < nb)[..., None],
+                                tables.seg[:, l].view(S, nb, E_BLK)[sid, ab],
+                                -1).reshape(S, -1)
+            hit = torch.zeros(S * (n + 1), dtype=torch.bool, device=dev)
+            hit.index_fill_(0, (torch.where(seg_c >= 0, seg_c.to(torch.int64),
+                                            n) + _offsets(S, n + 1, dev))
+                            .reshape(-1), True)
+            rows = tables.touched[:, l] & hit.view(S, n + 1)[:, :n]
+
+        def reduce(val, op, l=l, src=src, sign=sign, act=act):
+            F = val.shape[-1]
+            x = val.reshape(S * n, F).index_select(
+                0, (src.to(torch.int64) + off).reshape(-1)).view(S, -1, F)
+            if op == "sum":
+                x = x * sign[..., None]
+            elif op == "min":
+                x = -x
+            kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles,
+                      op="sum" if op == "sum" else "max")
+            if act is None:
+                out = segment_agg_level_stacked(
+                    x, tables.seg[:, l], tables.tile_of_block[:, l],
+                    tables.first_of_tile[:, l], **kw)
+            else:
+                out = segment_agg_active_stacked(
+                    x, tables.seg[:, l], tables.tile_of_block[:, l],
+                    tables.first_of_tile[:, l], act, **kw)
+            return -out if op == "min" else out
+
+        yield reduce, rows
+
+
+def _stacked_batch(state: EngineState, n_writers: int, rows, vals, mask):
+    """A global batch as the flat single-engine batch over the stacked
+    windows' (S * n_writers) rows: every shard sees every lane (write
+    replication), shard s's lanes at s * B + i, its rows offset by
+    s * n_writers and stamped with its own clock."""
+    S, B = rows.shape
+    rows_f = (rows.to(torch.int64) + _offsets(S, n_writers, rows.device)
+              ).reshape(-1)
+    vals_f = vals.unsqueeze(0).expand((S,) + tuple(vals.shape)) \
+        .reshape((S * B,) + tuple(vals.shape[1:]))
+    stamps = state.now[:, None].expand(S, B).reshape(-1)
+    return rows_f, vals_f, mask.reshape(-1), stamps
+
+
+def write_step_sum_stacked(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
+                           arrays: PlanArrays, state: EngineState, rows,
+                           vals, mask, active=None) -> EngineState:
+    """``write_step_sum`` for S stacked shards: ``rows``/``mask`` (S, B) are
+    each shard's routing of one global batch ``vals`` (B[, d]), ``state``
+    the stacked state (windows (S, n_writers, cap), pao (S, n, d), now
+    (S,)). The duplicate-writer scatter totals over the flattened (shard,
+    node) index with ``index_put_(accumulate=True)`` (lane order, as the
+    single engine); per shard the result equals the single-engine step."""
+    S = rows.shape[0]
+    n, nw = meta.n_nodes, meta.n_writers
+    rows_f, vals_f, mask_f, stamps = _stacked_batch(state, nw, rows, vals,
+                                                    mask)
+    windows, evicted, evicted_valid = apply_writes(
+        flat_windows(state.windows), spec, rows_f, vals_f, stamps, mask_f)
+    delta_w = agg.lift(vals_f) * mask_f[:, None].to(torch.float32)
+    delta_w = delta_w - agg.lift(evicted) \
+        * evicted_valid[:, None].to(torch.float32)
+    wn = arrays.writer_node.gather(1, rows.to(torch.int64)).to(torch.int64)
+    node = torch.where(mask, wn + _offsets(S, n, rows.device), S * n) \
+        .reshape(-1)
+    d = delta_w.shape[1]
+    delta = delta_w.new_zeros((S * n + 1, d))
+    delta = delta.index_put_((node,), delta_w, accumulate=True)[: S * n] \
+        .view(S, n, d)
+    for reduce, rows_l in _stacked_levels(meta, arrays.push, active):
+        delta = delta + torch.where(rows_l[..., None], reduce(delta, "sum"),
+                                    0.0)
+    return EngineState(unflat_windows(windows, S), state.pao + delta,
+                       state.now + 1.0)
+
+
+def write_step_extremal_stacked(meta: PlanMeta, agg: Aggregate,
+                                spec: WindowSpec, arrays: PlanArrays,
+                                state: EngineState, rows, vals, mask,
+                                prev_now, active=None) -> EngineState:
+    """``write_step_extremal`` for S stacked shards (``prev_now`` (S,) each
+    shard's previous eval instant); per shard the result equals the
+    single-engine step."""
+    S = rows.shape[0]
+    n, nw = meta.n_nodes, meta.n_writers
+    rows_f, vals_f, mask_f, stamps = _stacked_batch(state, nw, rows, vals,
+                                                    mask)
+    old = flat_windows(state.windows)
+    windows, _, _ = apply_writes(old, spec, rows_f, vals_f, stamps, mask_f)
+    now_r = state.now.repeat_interleave(nw)[:, None]
+    wp = window_pao(windows, spec, agg, now=now_r)
+    written = torch.zeros(S * nw + 1, dtype=torch.uint8, device=rows.device)
+    written.index_fill_(0, torch.where(mask_f, rows_f, S * nw), 1)
+    touched_w = written[: S * nw].bool()
+    if spec.kind == "time":
+        touched_w = touched_w | stale_rows(
+            old, spec, prev_now.repeat_interleave(nw)[:, None], now_r)
+    wnode = arrays.writer_node.to(torch.int64)
+    wflat = torch.where(wnode < n, wnode + _offsets(S, n, rows.device),
+                        S * n).reshape(-1)
+    pao_f = state.pao.reshape(S * n, -1)
+    old_w = pao_f[torch.clamp(wflat, max=S * n - 1)]
+    new_w = torch.where(touched_w[:, None], wp, old_w)
+    pao = _scatter_rows(S * n, wflat, new_w, base=pao_f).view(S, n, -1)
+    changed = _scatter_rows(S * n, wflat,
+                            touched_w.to(torch.float32)[:, None],
+                            base=pao.new_zeros((S * n, 1))).view(S, n, 1)
+    for reduce, rows_l in _stacked_levels(meta, arrays.push, active):
+        new = reduce(pao, agg.combine)
+        upd = rows_l[..., None] & (reduce(changed, "max") > 0)
+        pao = torch.where(upd, new, pao)
+        changed = torch.where(upd, 1.0, changed)
+    return EngineState(unflat_windows(windows, S), pao, state.now + 1.0)
+
+
+def read_step_stacked(meta: PlanMeta, agg: Aggregate, arrays: PlanArrays,
+                      state: EngineState, nodes, own):
+    """The pull sweep over S stacked shards, then the gather by owner:
+    ``nodes``/``own`` (S, B) route each lane of a global batch to its
+    reader node on the one shard that owns it. Returns ``(finalized,
+    answers)`` (B, ...): lane i is the owning shard's answer, which is the
+    JAX package's sum over shards of the answers masked to zero. Lanes no
+    shard owns (padding) hold shard 0's value at node 0."""
+    S, B = nodes.shape
+    n = meta.n_nodes
+    dev = nodes.device
+    off1 = _offsets(S, n + 1, dev)
+    idx = nodes.to(torch.int64)
+    decision = arrays.decision
+    demand = torch.zeros(S * (n + 1), dtype=torch.uint8, device=dev)
+    is_pull = own & (decision.gather(1, idx) == PULL)
+    demand.scatter_reduce_(0, (idx + off1).reshape(-1),
+                           is_pull.to(torch.uint8).reshape(-1), reduce="amax")
+    for l in range(meta.depth - 1, -1, -1):
+        dsts = (arrays.demand_dst[:, l].to(torch.int64) + off1).reshape(-1)
+        srcs = (arrays.demand_src[:, l].to(torch.int64) + off1).reshape(-1)
+        demand.scatter_reduce_(0, srcs, demand[dsts], reduce="amax")
+    take = ((demand.view(S, n + 1)[:, :n] > 0) & (decision == PULL))[..., None]
+    val = state.pao
+    for reduce, rows_l in _stacked_levels(meta, arrays.pull):
+        val = torch.where(take & rows_l[..., None], reduce(val, agg.combine),
+                          val)
+    d = val.shape[-1]
+    answers = val.gather(1, idx[..., None].expand(S, B, d))
+    owner = (own.to(torch.int64)
+             * torch.arange(S, dtype=torch.int64, device=dev)[:, None]).sum(0)
+    answers = answers[owner, torch.arange(B, device=dev)]
+    return agg.finalize(answers), answers
+
+
 # ------------------------------------------------------------ serialization
 def _plan_array_leaves(arrays: PlanArrays):
     """Deterministic (name, leaf) walk of ``PlanArrays`` with dotted names
@@ -706,13 +929,51 @@ def _map_to_pairs(m: dict[int, int]) -> np.ndarray:
     return out
 
 
-def plan_snapshot(plan: ExecPlan) -> tuple[dict, dict]:
-    """Serialize a live ``ExecPlan`` to ``(arrays, objs)``: a flat dict of
-    host numpy arrays plus a JSON-safe object dict. Derived caches (the
-    routes LUT, ``PlanHost``, frontier indices) are rebuilt on the other
-    side."""
-    arrays = {f"pa.{name}": leaf.cpu().numpy()
-              for name, leaf in _plan_array_leaves(plan.arrays)}
+# PlanMeta fields of the JAX package that choose its backend. The port picks
+# its kernel by the tensors' device; a snapshot carries the values of the
+# JAX package's looped 'xla' backend, which its restore accepts anywhere.
+REFERENCE_BACKEND_META = {"unroll_levels": 0, "backend": "xla",
+                          "interpret": False, "bf16": False}
+
+
+def _meta_to_snapshot(meta: PlanMeta) -> dict:
+    """``PlanMeta`` in the JAX package's key set (its real depth travels as
+    the snapshot's ``depth``)."""
+    return {"n_nodes": meta.n_nodes, "n_writers": meta.n_writers,
+            "n_levels": meta.n_levels,
+            "unroll_levels": REFERENCE_BACKEND_META["unroll_levels"],
+            "n_row_tiles": meta.n_row_tiles,
+            **{k: v for k, v in REFERENCE_BACKEND_META.items()
+               if k != "unroll_levels"}}
+
+
+def _meta_from_snapshot(meta: dict, depth: int) -> PlanMeta:
+    """A snapshot's meta dict, in the JAX package's key set or the port's,
+    as a ``PlanMeta``: the backend fields are dropped (bf16 edge values and
+    the unrolled backend have no counterpart and raise)."""
+    meta = dict(meta)
+    if meta.get("bf16"):
+        raise not_ported("EAGR_SEGAGG_BF16 (bf16 edge values)", "12")
+    if meta.get("unroll_levels"):
+        raise ValueError("plans of the 'xla_unrolled' backend have no "
+                         "counterpart in the port; compile with 'xla' or "
+                         "'pallas'")
+    for f in REFERENCE_BACKEND_META:
+        meta.pop(f, None)
+    meta["depth"] = int(depth)
+    extra = set(meta) - set(PlanMeta.__dataclass_fields__)
+    if extra:
+        raise ValueError(f"unknown PlanMeta fields {sorted(extra)}")
+    return PlanMeta(**meta)
+
+
+def plan_snapshot_parts(plan: ExecPlan) -> tuple[dict, dict, dict]:
+    """:func:`plan_snapshot` before its readback: ``(tensors, arrays,
+    objs)``, the device tables by snapshot key, the host arrays and the
+    object dict. A caller snapshotting many plans copies every table to
+    the host behind one wait (``to_host``)."""
+    tensors = {f"pa.{name}": leaf
+               for name, leaf in _plan_array_leaves(plan.arrays)}
     host = plan.host
     if host is not None:  # the patch bookkeeping's, churn since compile in
         decision = np.asarray(host.decision[: host.n_real], np.int64)
@@ -720,28 +981,41 @@ def plan_snapshot(plan: ExecPlan) -> tuple[dict, dict]:
     else:
         decision = np.asarray(plan.decision, np.int64)
         level = np.asarray(plan.level, np.int64)
-    arrays.update({
+    arrays = {
         "decision": decision,
         "level": level,
         "writer_node": np.asarray(plan.writer_node, np.int64),
         "wrob": _map_to_pairs(plan.writer_row_of_base),
         "rnob": _map_to_pairs(plan.reader_node_of_base),
-    })
+    }
     objs = {
-        "meta": dataclasses.asdict(plan.meta),
+        "meta": _meta_to_snapshot(plan.meta),
         "depth": int(plan.depth),
         "n_push_edges": int(plan.n_push_edges),
         "n_pull_edges": int(plan.n_pull_edges),
         "patches_applied": int(plan.patches_applied),
     }
-    return arrays, objs
+    return tensors, arrays, objs
+
+
+def plan_snapshot(plan: ExecPlan) -> tuple[dict, dict]:
+    """Serialize a live ``ExecPlan`` to ``(arrays, objs)``: a flat dict of
+    host numpy arrays plus a JSON-safe object dict, in the JAX package's
+    format (its ``plan_from_snapshot`` restores it). Derived caches (the
+    routes LUT, ``PlanHost``, frontier indices) are rebuilt on the other
+    side."""
+    tensors, arrays, objs = plan_snapshot_parts(plan)
+    out = dict(zip(tensors, to_host(*tensors.values())))
+    out.update(arrays)
+    return out, objs
 
 
 def plan_from_snapshot(arrays: dict, objs: dict, device=None) -> ExecPlan:
     """Rebuild an ``ExecPlan`` on ``device`` (CUDA unless the caller names
-    another) from :func:`plan_snapshot` output without compiling anything."""
+    another) from :func:`plan_snapshot` output, the port's or the JAX
+    package's, without compiling anything."""
+    meta = _meta_from_snapshot(objs["meta"], objs["depth"])
     device = resolve_device(device)
-    meta = PlanMeta(**{**objs["meta"], "depth": int(objs["depth"])})
 
     def put(name):
         return torch.as_tensor(np.array(arrays[f"pa.{name}"]), device=device)

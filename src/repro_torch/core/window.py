@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.aggregates import Aggregate
@@ -230,3 +231,80 @@ def window_pao(state: WindowState, spec: WindowSpec, agg: Aggregate,
     if agg.combine == "sum":
         return lifted.sum(dim=1)
     return lifted.amax(dim=1) if agg.combine == "max" else lifted.amin(dim=1)
+
+
+# ----------------------------------------------------------------- shard axis
+# A stacked engine keeps every shard's window state in one WindowState with a
+# leading shard axis: values (S, n_writers, cap[, value_dim]), etc. The
+# helpers above work on axis 0 = writer rows, so the stacked step bodies run
+# them on the (S * n_writers, ...) view of the stack.
+def window_state_to_host(state: WindowState) -> dict:
+    """One window state as a ``{field: numpy}`` dict (the checkpoint codec):
+    values travel verbatim, ring heads and partial occupancy included."""
+    from repro_torch.core.engine import to_host
+
+    return dict(zip(WindowState._fields, to_host(*state)))
+
+
+def window_state_from_host(arrs: dict, device=None) -> WindowState:
+    """The inverse of :func:`window_state_to_host`, on ``device`` (CUDA
+    unless the caller names another); fields keep the JAX package's dtypes
+    (values/stamps fp32, head/count int32)."""
+    device = resolve_device(device)
+    dtypes = (torch.float32, torch.float32, torch.int32, torch.int32)
+    return WindowState(*(
+        torch.as_tensor(np.ascontiguousarray(arrs[f]), device=device)
+        .to(dt) for f, dt in zip(WindowState._fields, dtypes)))
+
+
+def take_window_rows(arrs: dict, rows) -> dict:
+    """Host-side row gather of a window snapshot: output row i is input row
+    ``rows[i]``, or an empty ring for ``rows[i] < 0`` (a padding or fresh
+    writer row). The reshard primitive: write replication keeps a writer's
+    ring identical on every shard that owns it, so any layout reassembles
+    into any other by base id."""
+    idx = np.asarray(rows, np.int64).reshape(-1)
+    live = idx >= 0
+    out = {}
+    for f in WindowState._fields:
+        src = np.asarray(arrs[f])
+        fill = -np.inf if f == "stamps" else 0
+        dst = np.full((len(idx),) + src.shape[1:], fill, src.dtype)
+        dst[live] = src[idx[live]]
+        out[f] = dst
+    return out
+
+
+def stack_windows(states: list[WindowState]) -> WindowState:
+    """Stack aligned per-shard window states along a new leading axis."""
+    shapes = {tuple(tuple(x.shape) for x in s) for s in states}
+    if len(shapes) != 1:
+        raise ValueError(f"cannot stack misaligned window states: {shapes}")
+    return WindowState(*[torch.stack(xs) for xs in zip(*states)])
+
+
+def window_shard(state: WindowState, s: int) -> WindowState:
+    """One shard's slice of a stacked window state (views, no copy)."""
+    return WindowState(*[x[s] for x in state])
+
+
+def place_window_shard(state: WindowState, s: int,
+                       sub: WindowState) -> WindowState:
+    """Write one shard's window state into the stack, in place; returns the
+    stack."""
+    for st, x in zip(state, sub):
+        st[s].copy_(x)
+    return state
+
+
+def flat_windows(state: WindowState) -> WindowState:
+    """A stacked (S, n_writers, ...) window state as one (S * n_writers, ...)
+    state of views: the stacked steps run the single-engine window helpers
+    on it, shard s owning rows [s * n_writers, (s + 1) * n_writers)."""
+    return WindowState(*[x.reshape((-1,) + tuple(x.shape[2:]))
+                         for x in state])
+
+
+def unflat_windows(state: WindowState, n_shards: int) -> WindowState:
+    return WindowState(*[x.reshape((n_shards, -1) + tuple(x.shape[1:]))
+                         for x in state])

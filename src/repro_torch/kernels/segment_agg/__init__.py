@@ -6,7 +6,9 @@ from repro_torch.kernels.segment_agg.ops import (
     make_plan,
     reset_launches,
     segment_agg,
+    segment_agg_active_stacked,
     segment_agg_level,
+    segment_agg_level_stacked,
 )
 from repro_torch.kernels.segment_agg.ref import (
     segment_agg_level_ref,
@@ -21,7 +23,9 @@ __all__ = [
     "make_plan",
     "reset_launches",
     "segment_agg",
+    "segment_agg_active_stacked",
     "segment_agg_level",
+    "segment_agg_level_stacked",
     "segment_agg_level_ref",
     "segment_agg_ref",
 ]

@@ -73,6 +73,17 @@
 // values set to the identity. Only the windows holding an active block,
 // and the runs holding one, do any work: the cost follows the active set,
 // not the level.
+//
+// The stacked entries (segment_agg_{sum,max}[_active]_stacked_f32) run S
+// shards' levels of one shape in one launch, the counterpart of the TPU
+// kernel under `vmap` over a shard axis: the grid's third axis is the
+// shard, and each CTA first moves every pointer to its shard's slice (seg,
+// tob and fot by the tables' shard strides, which may exceed one level's
+// size; x, out, active, part and flag by their own sizes). A shard's CTAs
+// then do exactly what the single-shard entry does on that slice, so each
+// shard's output is bit-equal to a launch of the single-shard entry on it.
+// Ragged active lists are padded to the widest shard with n_blocks; a pad
+// entry never starts a window nor reaches the combine.
 
 #include <cuda_runtime.h>
 
@@ -92,6 +103,13 @@ __device__ __forceinline__ void launch_dependents() {
 __device__ __forceinline__ void wait_prerequisites() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
+
+// A CTA's shard is blockIdx.z. Each kernel first moves its pointers to the
+// shard's slice: tables by their shard strides, x by its blocks, out by its
+// tiles, part and flag by the grid's two slots a CTA (shard 0 stays put).
+struct Shard {
+  long long seg_stride, blk_stride;
+};
 
 template <bool MAX>
 __device__ __forceinline__ float combine(float a, float b) {
@@ -325,7 +343,18 @@ segment_agg_kernel(const float* __restrict__ x, const int* __restrict__ seg,
                    const int* __restrict__ active, int n_active,
                    float* __restrict__ out, float* __restrict__ part,
                    int* __restrict__ flag, int n_blocks, int F,
-                   int n_row_tiles, int win) {
+                   int n_row_tiles, int win, Shard sh) {
+  {
+    const size_t z = blockIdx.z, g = gridDim.x;
+    x += z * (SPARSE ? n_active : n_blocks) * E_BLK * F;
+    seg += z * sh.seg_stride;
+    tob += z * sh.blk_stride;
+    fot += z * sh.blk_stride;
+    if (SPARSE) active += z * n_active;
+    out += z * n_row_tiles * R_BLK * F;
+    part += z * 2 * g * R_BLK * F;
+    flag += z * 2 * g;
+  }
   constexpr bool FEAT = FC == 32;
   constexpr int NWK = FEAT ? FEAT_WARPS : SLOT_WARPS;
   constexpr int COPY = FC * R_BLK;  // floats a block
@@ -465,7 +494,15 @@ segment_agg_combine_kernel(const int* __restrict__ tob,
                            const float* __restrict__ part,
                            const int* __restrict__ flag,
                            float* __restrict__ out, int n_blocks, int F,
-                           int n_row_tiles, int win) {
+                           int n_row_tiles, int win, Shard sh) {
+  {
+    const size_t z = blockIdx.z, g = gridDim.x;
+    tob += z * sh.blk_stride;
+    fot += z * sh.blk_stride;
+    out += z * n_row_tiles * R_BLK * F;
+    part += z * 2 * g * R_BLK * F;
+    flag += z * 2 * g;
+  }
   __shared__ int s_last, s_stop;
   __shared__ int s_cnt[R_BLK / 32];
   __shared__ int s_list[R_BLK];
@@ -544,7 +581,16 @@ segment_agg_combine_active_kernel(const int* __restrict__ tob,
                                   int n_active, const float* __restrict__ part,
                                   const int* __restrict__ flag,
                                   float* __restrict__ out, int n_blocks,
-                                  int F, int n_row_tiles, int win) {
+                                  int F, int n_row_tiles, int win, Shard sh) {
+  {
+    const size_t z = blockIdx.z, g = gridDim.x;
+    tob += z * sh.blk_stride;
+    fot += z * sh.blk_stride;
+    active += z * n_active;
+    out += z * n_row_tiles * R_BLK * F;
+    part += z * 2 * g * R_BLK * F;
+    flag += z * 2 * g;
+  }
   __shared__ int s_p0, s_p1, s_e, s_stop;
   __shared__ int s_cnt[R_BLK / 32];
   __shared__ int s_list[R_BLK];
@@ -624,7 +670,7 @@ cudaError_t launch_window(int grid, cudaStream_t st, const float* x,
                           const int* seg, const int* tob, const int* fot,
                           const int* active, int n_active, float* out,
                           float* part, int* flag, int n_blocks, int F,
-                          int n_row_tiles, int win) {
+                          int n_row_tiles, int win, int n_shards, Shard sh) {
   constexpr bool FEAT = FC == 32;
   constexpr int NWK = FEAT ? FEAT_WARPS : SLOT_WARPS;
   const int smem = win * FC * R_BLK * 4 +
@@ -633,23 +679,26 @@ cudaError_t launch_window(int grid, cudaStream_t st, const float* x,
       segment_agg_kernel<FC, MAX, SPARSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  segment_agg_kernel<FC, MAX, SPARSE><<<grid, NWK * 32, smem, st>>>(
-      x, seg, tob, fot, active, n_active, out, part, flag, n_blocks, F,
-      n_row_tiles, win);
+  segment_agg_kernel<FC, MAX, SPARSE>
+      <<<dim3(grid, 1, n_shards), NWK * 32, smem, st>>>(
+          x, seg, tob, fot, active, n_active, out, part, flag, n_blocks, F,
+          n_row_tiles, win, sh);
   return cudaGetLastError();
 }
 
 // The window kernel, then (unless every run lies in one window) the
 // combine as a programmatic dependent. Dense: one window CTA per window;
-// sparse (active != nullptr): one per active entry.
+// sparse (active != nullptr): one per active entry; n_shards of each.
 template <bool MAX>
 int launch(const void* x, const void* seg, const void* tob, const void* fot,
            const void* active, int n_active, void* part, void* flag,
            void* out, int n_blocks, int F, int n_row_tiles, int win,
+           int n_shards, long long seg_stride, long long blk_stride,
            void* stream) {
   const bool sparse = active != nullptr;
   if (n_blocks <= 0 || F <= 0 || n_row_tiles <= 0 || win <= 0 ||
-      win > MAX_WIN || (sparse && n_active <= 0)) {
+      win > MAX_WIN || (sparse && n_active <= 0) || n_shards <= 0 ||
+      n_shards > 65535 || seg_stride < 0 || blk_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -663,9 +712,10 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
   int* fl = static_cast<int*>(flag);
   const int n_win = (n_blocks + win - 1) / win;
   const int grid = sparse ? n_active : n_win;
+  const Shard sh{seg_stride, blk_stride};
   cudaError_t err;
 #define SEGAGG_ARGS grid, st, xf, s, t, f, ac, n_active, o, p, fl, n_blocks, \
-                    F, n_row_tiles, win
+                    F, n_row_tiles, win, n_shards, sh
 #define SEGAGG_LAUNCH(FC)                                                   \
   err = sparse ? launch_window<FC, MAX, true>(SEGAGG_ARGS)                  \
                : launch_window<FC, MAX, false>(SEGAGG_ARGS)
@@ -683,7 +733,7 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_win == 1) return 0;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid, (F + CF - 1) / CF);
+  cfg.gridDim = dim3(grid, (F + CF - 1) / CF, n_shards);
   cfg.blockDim = dim3(R_BLK);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -696,11 +746,11 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
   if (sparse) {
     return static_cast<int>(cudaLaunchKernelEx(
         &cfg, segment_agg_combine_active_kernel<MAX>, t, f, ac, n_active, pc,
-        flc, o, n_blocks, F, n_row_tiles, win));
+        flc, o, n_blocks, F, n_row_tiles, win, sh));
   }
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, segment_agg_combine_kernel<MAX>, t, f, pc, flc, o, n_blocks, F,
-      n_row_tiles, win));
+      n_row_tiles, win, sh));
 }
 
 }  // namespace
@@ -716,7 +766,7 @@ extern "C" int segment_agg_sum_f32(const void* x, const void* seg,
                                    int n_blocks, int F, int n_row_tiles,
                                    int win, void* stream) {
   return launch<false>(x, seg, tob, fot, nullptr, 0, part, flag, out,
-                       n_blocks, F, n_row_tiles, win, stream);
+                       n_blocks, F, n_row_tiles, win, 1, 0, 0, stream);
 }
 
 extern "C" int segment_agg_max_f32(const void* x, const void* seg,
@@ -725,7 +775,7 @@ extern "C" int segment_agg_max_f32(const void* x, const void* seg,
                                    int n_blocks, int F, int n_row_tiles,
                                    int win, void* stream) {
   return launch<true>(x, seg, tob, fot, nullptr, 0, part, flag, out,
-                      n_blocks, F, n_row_tiles, win, stream);
+                      n_blocks, F, n_row_tiles, win, 1, 0, 0, stream);
 }
 
 // The active entries: the same level's seg, tob and fot (n_blocks each, as
@@ -740,7 +790,7 @@ extern "C" int segment_agg_sum_active_f32(
     const void* active, int n_active, void* part, void* flag, void* out,
     int n_blocks, int F, int n_row_tiles, int win, void* stream) {
   return launch<false>(x, seg, tob, fot, active, n_active, part, flag, out,
-                       n_blocks, F, n_row_tiles, win, stream);
+                       n_blocks, F, n_row_tiles, win, 1, 0, 0, stream);
 }
 
 extern "C" int segment_agg_max_active_f32(
@@ -748,5 +798,53 @@ extern "C" int segment_agg_max_active_f32(
     const void* active, int n_active, void* part, void* flag, void* out,
     int n_blocks, int F, int n_row_tiles, int win, void* stream) {
   return launch<true>(x, seg, tob, fot, active, n_active, part, flag, out,
-                      n_blocks, F, n_row_tiles, win, stream);
+                      n_blocks, F, n_row_tiles, win, 1, 0, 0, stream);
+}
+
+// The stacked entries: S shards' levels of one shape in one launch. Shard
+// z's seg starts at seg + z * seg_stride, its tob and fot at
+// + z * blk_stride (elements: a level of stacked (S, L, ...) tables has
+// strides L * n_blocks * 256 and L * n_blocks); x is (S, n_blocks*256, F)
+// (dense) or (S, n_active*256, F) (active), active (S, n_active), out
+// (S, n_row_tiles*128, F), part (S * 2 * G * 128 * F,) and flag
+// (S * 2 * G,) with G = n_win (dense) or n_active (active); all contiguous.
+// Each shard's output is bit-equal to the single-shard entry's on its slice.
+extern "C" int segment_agg_sum_stacked_f32(
+    const void* x, const void* seg, const void* tob, const void* fot,
+    void* part, void* flag, void* out, int n_blocks, int F, int n_row_tiles,
+    int win, int n_shards, long long seg_stride, long long blk_stride,
+    void* stream) {
+  return launch<false>(x, seg, tob, fot, nullptr, 0, part, flag, out,
+                       n_blocks, F, n_row_tiles, win, n_shards, seg_stride,
+                       blk_stride, stream);
+}
+
+extern "C" int segment_agg_max_stacked_f32(
+    const void* x, const void* seg, const void* tob, const void* fot,
+    void* part, void* flag, void* out, int n_blocks, int F, int n_row_tiles,
+    int win, int n_shards, long long seg_stride, long long blk_stride,
+    void* stream) {
+  return launch<true>(x, seg, tob, fot, nullptr, 0, part, flag, out,
+                      n_blocks, F, n_row_tiles, win, n_shards, seg_stride,
+                      blk_stride, stream);
+}
+
+extern "C" int segment_agg_sum_active_stacked_f32(
+    const void* x, const void* seg, const void* tob, const void* fot,
+    const void* active, int n_active, void* part, void* flag, void* out,
+    int n_blocks, int F, int n_row_tiles, int win, int n_shards,
+    long long seg_stride, long long blk_stride, void* stream) {
+  return launch<false>(x, seg, tob, fot, active, n_active, part, flag, out,
+                       n_blocks, F, n_row_tiles, win, n_shards, seg_stride,
+                       blk_stride, stream);
+}
+
+extern "C" int segment_agg_max_active_stacked_f32(
+    const void* x, const void* seg, const void* tob, const void* fot,
+    const void* active, int n_active, void* part, void* flag, void* out,
+    int n_blocks, int F, int n_row_tiles, int win, int n_shards,
+    long long seg_stride, long long blk_stride, void* stream) {
+  return launch<true>(x, seg, tob, fot, active, n_active, part, flag, out,
+                      n_blocks, F, n_row_tiles, win, n_shards, seg_stride,
+                      blk_stride, stream);
 }

@@ -8,7 +8,9 @@ produce tables bit-equal to the JAX package's (same E_BLK / R_BLK).
 
 ``segment_agg_level`` is the entry point the engine calls per level, and
 ``segment_agg_active`` its twin over a level's active blocks (the
-frontier-sparse steps). Each picks the implementation by the tensors'
+frontier-sparse steps); ``segment_agg_level_stacked`` and
+``segment_agg_active_stacked`` run one level of S aligned shards in one
+launch (the stacked shard engine, ``distributed/stacked.py``). Each picks the implementation by the tensors'
 device: CUDA tensors launch the hand-written kernel in
 ``csrc/segment_agg.cu`` (or raise), CPU tensors run the plain PyTorch
 version in ``ref.py``. ``LAUNCHES`` counts kernel launches per entry, so a
@@ -29,7 +31,9 @@ import torch
 
 from repro_torch.kernels.segment_agg.ref import (
     segment_agg_active_ref,
+    segment_agg_active_stacked_ref,
     segment_agg_level_ref,
+    segment_agg_level_stacked_ref,
 )
 
 E_BLK = 256     # edges per block
@@ -44,7 +48,9 @@ RUN_CHUNK_MIN, RUN_CHUNK_MAX, RUN_WINDOWS = 4, 16, 256
 
 # kernel launches per op since the last reset (plain Python ints; the CPU
 # path never counts)
-LAUNCHES = {"sum": 0, "max": 0, "sum_active": 0, "max_active": 0}
+LAUNCHES = {"sum": 0, "max": 0, "sum_active": 0, "max_active": 0,
+            "sum_stacked": 0, "max_stacked": 0, "sum_active_stacked": 0,
+            "max_active_stacked": 0}
 
 
 def reset_launches() -> None:
@@ -380,15 +386,18 @@ def n_windows(n_blocks: int, F: int) -> int:
 _ENTRIES: dict = {}
 
 
-def _entry(op: str):
-    fn = _ENTRIES.get(op)
+def _entry(key: str, argtypes=None):
+    """The library's C entry ``segment_agg_{key}_f32`` (``key``: op, then
+    ``_active`` and/or ``_stacked``), bound with its argument types on
+    first use (which builds the library)."""
+    fn = _ENTRIES.get(key)
     if fn is None:
         from repro_torch.kernels import _build
 
-        fn = getattr(_build.library("segment_agg"), f"segment_agg_{op}_f32")
-        fn.argtypes = _ARGTYPES
+        fn = getattr(_build.library("segment_agg"), f"segment_agg_{key}_f32")
+        fn.argtypes = argtypes or _ARGTYPES
         fn.restype = ctypes.c_int
-        _ENTRIES[op] = fn
+        _ENTRIES[key] = fn
     return fn
 
 
@@ -477,20 +486,6 @@ def _check_active(x, seg, tob, fot, active, n_rows, n_row_tiles, op) -> None:
            n_x_blocks=active.shape[0])
 
 
-def _active_entry(op: str):
-    key = f"{op}_active"
-    fn = _ENTRIES.get(key)
-    if fn is None:
-        from repro_torch.kernels import _build
-
-        fn = getattr(_build.library("segment_agg"),
-                     f"segment_agg_{op}_active_f32")
-        fn.argtypes = _ACTIVE_ARGTYPES
-        fn.restype = ctypes.c_int
-        _ENTRIES[key] = fn
-    return fn
-
-
 _ACTIVE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
                     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                     + [ctypes.c_void_p])
@@ -529,7 +524,7 @@ def segment_agg_active(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
                            device=x.device)
         flag = torch.empty((2 * K,), dtype=torch.int32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _active_entry(op)(
+        rc = _entry(f"{op}_active", _ACTIVE_ARGTYPES)(
             x.data_ptr(), seg.data_ptr(), tob.data_ptr(), fot.data_ptr(),
             active.data_ptr(), K, part.data_ptr(), flag.data_ptr(),
             out.data_ptr(), n_blocks, F, n_row_tiles, run_chunk(n_blocks, F),
@@ -539,3 +534,114 @@ def segment_agg_active(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
                            f"CUDA error {rc}")
     LAUNCHES[f"{op}_active"] += 1
     return out[:n_rows]
+
+
+# ------------------------------------------------------------ stacked shards
+_STACKED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                     + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+_ACTIVE_STACKED_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+
+
+def _check_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op,
+                   active=None) -> None:
+    """The stacked wrappers' checks: every argument carries the shard axis
+    first; x and active are contiguous, the tables only along their last
+    axis (a level of (S, L, ...) tables is a strided view). Each shard's
+    slice passes the single-shard checks."""
+    S = x.shape[0] if x.ndim == 3 else -1
+    if S < 1:
+        raise ValueError(f"x must be (S, E, F), got {tuple(x.shape)}")
+    for name, t in (("seg", seg), ("tile_of_block", tob),
+                    ("first_of_tile", fot)):
+        if t.ndim != 2 or t.shape[0] != S or t.stride(1) != 1:
+            raise ValueError(f"{name} must be (S={S}, n) with a unit last "
+                             f"stride, got {tuple(t.shape)} strides "
+                             f"{t.stride()}")
+    if tob.stride(0) != fot.stride(0):
+        raise ValueError("tile_of_block and first_of_tile must share their "
+                         "shard stride")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if active is None:
+        _check(x[0], seg[0], tob[0], fot[0], n_rows, n_row_tiles, op)
+    else:
+        if active.ndim != 2 or active.shape[0] != S \
+                or not active.is_contiguous():
+            raise ValueError(f"active must be contiguous (S={S}, K), got "
+                             f"{tuple(active.shape)}")
+        _check_active(x[0], seg[0], tob[0], fot[0], active[0], n_rows,
+                      n_row_tiles, op)
+
+
+def _launch_stacked(x, seg, tob, fot, active, n_rows, n_row_tiles, op):
+    S, F, n_blocks = x.shape[0], x.shape[2], tob.shape[1]
+    sparse = active is not None
+    grid = active.shape[1] if sparse else n_windows(n_blocks, F)
+    with torch.cuda.device(x.device):
+        out = torch.empty((S, n_row_tiles * R_BLK, F), dtype=torch.float32,
+                          device=x.device)
+        part = torch.empty((S * 2 * grid * R_BLK * F,), dtype=torch.float32,
+                           device=x.device)
+        flag = torch.empty((S * 2 * grid,), dtype=torch.int32,
+                           device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        tail = (n_blocks, F, n_row_tiles, run_chunk(n_blocks, F), S,
+                seg.stride(0), tob.stride(0), stream)
+        if sparse:
+            key = f"{op}_active_stacked"
+            rc = _entry(key, _ACTIVE_STACKED_ARGTYPES)(
+                x.data_ptr(), seg.data_ptr(), tob.data_ptr(), fot.data_ptr(),
+                active.data_ptr(), grid, part.data_ptr(), flag.data_ptr(),
+                out.data_ptr(), *tail)
+        else:
+            key = f"{op}_stacked"
+            rc = _entry(key, _STACKED_ARGTYPES)(
+                x.data_ptr(), seg.data_ptr(), tob.data_ptr(), fot.data_ptr(),
+                part.data_ptr(), flag.data_ptr(), out.data_ptr(), *tail)
+    if rc != 0:
+        raise RuntimeError(f"segment_agg_{key} kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES[key] += 1
+    return out[:, :n_rows]
+
+
+def segment_agg_level_stacked(x: torch.Tensor, seg: torch.Tensor,
+                              tob: torch.Tensor, fot: torch.Tensor, *,
+                              n_rows: int, n_row_tiles: int,
+                              op: str = "sum") -> torch.Tensor:
+    """``segment_agg_level`` over one level of S aligned shards at once:
+    ``x`` (S, e_pad, F) float32, ``seg`` (S, e_pad), ``tob``/``fot``
+    (S, n_blocks) int32 (a level of stacked (S, L, ...) tables, strided
+    along the shard axis). Returns (S, n_rows, F); shard s equals
+    ``segment_agg_level`` on shard s's slices, bit for bit. CUDA tensors
+    launch the kernel's stacked entry (one launch for all S shards), CPU
+    tensors run the plain version shard by shard."""
+    _check_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op)
+    if x.device.type == "cpu":
+        return segment_agg_level_stacked_ref(x, seg, n_rows, op)
+    if x.device.type != "cuda":
+        raise ValueError(f"segment_agg_level_stacked runs on cuda or cpu "
+                         f"tensors, got {x.device}")
+    return _launch_stacked(x, seg, tob, fot, None, n_rows, n_row_tiles, op)
+
+
+def segment_agg_active_stacked(x: torch.Tensor, seg: torch.Tensor,
+                               tob: torch.Tensor, fot: torch.Tensor,
+                               active: torch.Tensor, *, n_rows: int,
+                               n_row_tiles: int,
+                               op: str = "sum") -> torch.Tensor:
+    """``segment_agg_active`` over one level of S aligned shards at once:
+    ``active`` (S, K) int32, each shard's ascending active blocks padded at
+    the end with ``n_blocks`` to the widest shard's K; ``x`` (S, K*E_BLK,
+    F). Returns (S, n_rows, F); shard s equals ``segment_agg_active`` on
+    shard s's slices, bit for bit. CUDA tensors launch the kernel's stacked
+    active entry, CPU tensors run the plain version shard by shard."""
+    _check_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op, active=active)
+    if x.device.type == "cpu":
+        return segment_agg_active_stacked_ref(x, seg, active, n_rows, op)
+    if x.device.type != "cuda":
+        raise ValueError(f"segment_agg_active_stacked runs on cuda or cpu "
+                         f"tensors, got {x.device}")
+    return _launch_stacked(x, seg, tob, fot, active, n_rows, n_row_tiles, op)

@@ -59,3 +59,22 @@ def segment_agg_active_ref(x: torch.Tensor, seg: torch.Tensor,
     seg_c = seg.reshape(nb, E_BLK)[torch.clamp(a, max=nb - 1)]
     seg_c = torch.where((a < nb)[:, None], seg_c, -1).reshape(-1)
     return segment_agg_level_ref(x, seg_c, n_rows, op)
+
+
+def segment_agg_level_stacked_ref(x: torch.Tensor, seg: torch.Tensor,
+                                  n_rows: int, op: str = "sum"
+                                  ) -> torch.Tensor:
+    """``segment_agg_level_ref`` shard by shard: x (S, e_pad, F), seg
+    (S, e_pad). Returns (S, n_rows, F)."""
+    return torch.stack([segment_agg_level_ref(x[s], seg[s], n_rows, op)
+                        for s in range(x.shape[0])])
+
+
+def segment_agg_active_stacked_ref(x: torch.Tensor, seg: torch.Tensor,
+                                   active: torch.Tensor, n_rows: int,
+                                   op: str = "sum") -> torch.Tensor:
+    """``segment_agg_active_ref`` shard by shard: x (S, K*256, F), seg
+    (S, e_pad), active (S, K). Returns (S, n_rows, F)."""
+    return torch.stack([
+        segment_agg_active_ref(x[s], seg[s], active[s], n_rows, op)
+        for s in range(x.shape[0])])

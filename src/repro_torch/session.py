@@ -24,10 +24,22 @@ slots (``streams/ingest.py``), coalesced into device batches of
 ``QueryHandle.on_threshold``) are evaluated on the device after every write
 step and drained with ``drain_fired`` (``streams/alerts.py``).
 
+Deployment shape is a constructor argument, not a different API:
+``EagrSession(graph)`` runs each group on an :class:`EagrEngine`;
+``EagrSession(graph, shards=N)`` stands up ``partition_overlay ->
+align_shard_plans -> StackedShardedEngine`` (paper §7's reader-partitioned
+shards, stacked on one card) behind the same methods, with churn journaled
+per shard (``ShardedDynamic``).
+
+Sessions are durable: ``save`` checkpoints every group's plans, windows,
+PAOs and clocks (two-phase commit, written by a background thread),
+``EagrSession.restore`` brings a session back without construction or
+compilation, or reshards it (``shards=M``), and ``ckpt_dir``/``ckpt_every``
+checkpoint automatically; ``distributed.fault.SessionRecoveryDriver``
+replays a stream after a crash. The on-disk format is the JAX package's.
+
 The session runs on CUDA unless the caller passes ``device="cpu"``; without
-a card and without that argument it raises. Checkpoints and shards are
-later slices of the port: their entry points raise ``NotImplementedError``
-naming the ROADMAP.md item.
+a card and without that argument it raises.
 """
 from __future__ import annotations
 
@@ -41,7 +53,7 @@ from repro_torch.core import dataflow as D
 from repro_torch.core.aggregates import Aggregate, make_aggregate
 from repro_torch.core.bipartite import Bipartite, build_bipartite
 from repro_torch.core.dynamic import DynamicOverlay
-from repro_torch.core.engine import EagrEngine, bucket_batch, not_ported
+from repro_torch.core.engine import EagrEngine, bucket_batch
 from repro_torch.core.vnm import construct_vnm
 from repro_torch.core.window import WindowSpec
 from repro_torch.device import resolve_device
@@ -214,21 +226,23 @@ class SessionStats:
 
     n_queries: int
     n_engine_groups: int
-    n_shards: int                   # always 0: one engine per group
-    updates: int                    # update() batches applied
+    n_shards: int                   # shards per group (0: one engine)
+    updates: int                    # update() batches applied (= checkpoint
+                                    # sequence number: replay resumes here)
     pending_mutations: bool
     journal_nodes: int              # overlay nodes awaiting the next flush
     patches_applied: int            # in-place patches, all plans
     frontier: dict                  # frontier-size distribution (writes)
     ingest: "object | None"         # streams.ingest.IngestStats
     construction: "object | None"   # core.vnm.ConstructionStats
+    last_checkpoint_step: "int | None"
 
 
 # ------------------------------------------------------------- engine groups
 class _EngineGroup:
     """One (aggregate, window, continuous) equivalence class of queries: a
-    decision vector, an engine and its churn journal, shared by every query
-    registered with the compatible spec."""
+    decision vector, an engine (single or stacked-sharded) and its churn
+    journal, shared by every query registered with the compatible spec."""
 
     def __init__(self, session: "EagrSession", key: tuple,
                  agg: Aggregate, spec: WindowSpec, continuous: bool):
@@ -240,28 +254,84 @@ class _EngineGroup:
         self.handles: list[int] = []
         self.window_int = int(max(1, spec.capacity or spec.size))
         self.cost = session._cost_model(agg, self.window_int)
-        # the group's own churn journal, forked from the master; its
-        # unpruned export is the id space the patch path works in
-        self.dyn = session._master.fork()
-        basis = self.dyn.to_overlay(prune=False)
+        # single-engine groups journal churn in their own fork of the
+        # master (its unpruned export is the id space the patch path works
+        # in); sharded groups journal per shard inside ShardedDynamic
+        basis_dyn = None if session.n_shards else session._master.fork()
+        basis = (basis_dyn or session._master).to_overlay(prune=False)
         if continuous:
             decisions = np.full(basis.n_nodes, D.PUSH, np.int64)
         else:
             wf, rf = session._frequencies(basis)
             decisions, _ = D.decide_mincut(basis, wf, rf, self.cost,
                                            window=self.window_int)
-        self.engine = EagrEngine(basis, decisions, agg, spec,
-                                 device=session.device,
-                                 headroom=session.headroom)
+        if session.n_shards:
+            from repro_torch.distributed.eagr_shard import (
+                ShardedDynamic,
+                partition_overlay,
+            )
+            from repro_torch.distributed.stacked import StackedShardedEngine
+
+            self.dyn = None
+            # creation-time global decisions over the basis id space: the
+            # repartition key a checkpoint needs to reshard N -> M
+            self.dec_global = decisions
+            self.sharded = partition_overlay(
+                basis, decisions, n_shards=session.n_shards,
+                seed=session.seed, device=session.device,
+                headroom=session.headroom)
+            self.engine = StackedShardedEngine(
+                self.sharded, agg, spec, base_capacity=session.n_base)
+            self.sdyn = ShardedDynamic(self.sharded, self.engine,
+                                       growth=session.growth)
+        else:
+            self.dyn = basis_dyn
+            self.sdyn = None
+            self.engine = EagrEngine(basis, decisions, agg, spec,
+                                     device=session.device,
+                                     headroom=session.headroom)
         # churn-added nodes of a continuous group stay push-maintained
         self.engine.pin_push = bool(continuous)
 
+    @property
+    def _journal(self):
+        return self.sdyn if self.sdyn is not None else self.dyn
+
+    def ensure_journal(self) -> None:
+        """Materialize the churn journal of a restored group. Restored
+        groups come up journal-less (rebuilding every group's
+        DynamicOverlay at restore would cost more than the restore itself);
+        the session calls this before the first post-restore mutation, so
+        the journal forks the master in its pre-mutation state."""
+        if self.dyn is not None or self.sdyn is not None:
+            return
+        if self.session.n_shards:
+            from repro_torch.distributed.checkpoint import scrub_dead_writers
+            from repro_torch.distributed.eagr_shard import ShardedDynamic
+
+            self.sdyn = ShardedDynamic(self.sharded, self.engine,
+                                       growth=self.session.growth)
+            # the saved per-shard overlays are unpruned exports: deleted
+            # writer nodes linger with their 'W' label and must not be
+            # re-registered as live by the rebuilt journal
+            for s, dyn in enumerate(self.sdyn.dynamics):
+                scrub_dead_writers(
+                    dyn, set(self.sharded.shard_plans[s].writer_row_of_base))
+        else:
+            self.dyn = self.session._master.fork()
+
     # ------------------------------------------------------------- mutations
     def journal_nodes(self) -> int:
-        """Overlay nodes the next flush() will drain."""
-        return self.dyn.pending_nodes
+        """Overlay nodes the next flush() will drain across this group."""
+        if self.sdyn is not None:
+            return sum(d.pending_nodes for d in self.sdyn.dynamics)
+        return self.dyn.pending_nodes if self.dyn is not None else 0
 
     def flush(self, growth: float):
+        if self.sdyn is not None:
+            return self.sdyn.apply()
+        if self.dyn is None:
+            return None  # restored group, no churn since restore
         delta = self.dyn.drain_delta()
         if delta.empty:
             return None
@@ -278,15 +348,30 @@ class _EngineGroup:
             # standing alerts predicate on push-maintained reader PAOs; a
             # pull flip would silence them — alerted groups never adapt
             return 0
-        plan = self.engine.plan
-        ov = plan.host.export_overlay() if plan.host is not None \
-            else self.engine.overlay
-        obs_w, obs_r = self.session._observed(ov)
-        dec, flips = D.adapt_decisions(ov, plan.decision, obs_w, obs_r,
-                                       self.cost, window=self.window_int)
-        if flips:
-            self.engine.adopt_decisions(dec)
-        return flips
+        if self.sdyn is None and not self.session.n_shards:
+            plan = self.engine.plan
+            ov = plan.host.export_overlay() if plan.host is not None \
+                else self.engine.overlay
+            obs_w, obs_r = self.session._observed(ov)
+            dec, flips = D.adapt_decisions(ov, plan.decision, obs_w, obs_r,
+                                           self.cost, window=self.window_int)
+            if flips:
+                self.engine.adopt_decisions(dec)
+            return flips
+        self.ensure_journal()
+        decs: list[np.ndarray | None] = []
+        total = 0
+        for s, plan in enumerate(self.sharded.shard_plans):
+            ov = plan.host.export_overlay() if plan.host is not None \
+                else self.sharded.shards[s]
+            obs_w, obs_r = self.session._observed(ov)
+            dec, flips = D.adapt_decisions(ov, plan.decision, obs_w, obs_r,
+                                           self.cost, window=self.window_int)
+            decs.append(dec if flips else None)
+            total += flips
+        if total:
+            self.sdyn.readopt_decisions(decs)
+        return total
 
 
 # ----------------------------------------------------------------------- API
@@ -326,9 +411,15 @@ class EagrSession:
     ingest_batch : int | None
         Events per device batch of the ring (its coalescing factor and clock
         tick). Defaults to ``EAGR_INGEST_BATCH``, else 8192.
-    shards, ckpt_dir, ckpt_every, ckpt_keep :
-        Not ported yet; anything but the default raises
-        ``NotImplementedError``.
+    shards : int | None
+        ``None`` runs each engine group on one :class:`EagrEngine`; ``N``
+        reader-partitions the overlay into N shards stacked on the device
+        (:class:`~repro_torch.distributed.stacked.StackedShardedEngine`).
+    ckpt_dir, ckpt_every, ckpt_keep :
+        Auto-checkpointing: every ``ckpt_every`` updates the session saves
+        to ``ckpt_dir`` in the background, keeping the newest ``ckpt_keep``
+        checkpoints. Default to ``EAGR_CKPT_DIR`` / ``EAGR_CKPT_EVERY`` (0:
+        off) / ``EAGR_CKPT_KEEP`` (3).
     """
 
     def __init__(self, graph, *, device=None, headroom: float = 2.0,
@@ -342,18 +433,19 @@ class EagrSession:
                  ckpt_dir: str | None = None,
                  ckpt_every: int | None = None,
                  ckpt_keep: int | None = None):
-        if shards:
-            raise not_ported("sharded sessions (shards=N)", "10")
-        if ckpt_dir is not None or ckpt_every or ckpt_keep is not None:
-            raise not_ported("checkpoints (ckpt_dir, ckpt_every, ckpt_keep)",
-                             "9")
         self.device = resolve_device(device)
+        self.n_shards = int(shards) if shards else 0
+        if shards is not None and self.n_shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
         bp = graph if isinstance(graph, Bipartite) else build_bipartite(
             graph, hops=hops, pred=pred, neighborhood=neighborhood)
         self.bipartite = bp
         self.n_base = bp.n_base
         self.headroom = headroom
         self.growth = growth
+        self.seed = seed
+        self.threshold = int(threshold)
+        self.split_limit = int(split_limit)
         self.adapt_every = int(adapt_every)
         self.calibrate = calibrate
         self.write_freq = None if write_freq is None \
@@ -362,9 +454,11 @@ class EagrSession:
             else np.asarray(read_freq, np.float64)
         overlay, self.overlay_stats = construct_vnm(
             bp, variant=variant, max_iterations=max_iterations, seed=seed)
-        self._master = DynamicOverlay.from_overlay(
+        self._master_obj = DynamicOverlay.from_overlay(
             overlay, bp.reader_input_sets(),
-            threshold=int(threshold), split_limit=int(split_limit))
+            threshold=self.threshold, split_limit=self.split_limit)
+        self._master_src = None  # restored sessions carry the payload instead
+        self._master_dup = bool(overlay.dup_insensitive)
         self._groups: dict[tuple, _EngineGroup] = {}
         self._handles: dict[int, QueryHandle] = {}
         self._next_qid = 0
@@ -386,6 +480,33 @@ class EagrSession:
         self.ingest_batch = int(ingest_batch) or 8192
         self._pipeline = None
         self._carry_ingest = None  # IngestStats across pipeline rebuilds
+        # durable sessions: the update-batch sequence number doubles as the
+        # checkpoint step — replay resumes the event stream from it
+        if ckpt_dir is None:
+            ckpt_dir = os.environ.get("EAGR_CKPT_DIR") or None
+        if ckpt_every is None:
+            ckpt_every = int(os.environ.get("EAGR_CKPT_EVERY", "0") or 0)
+        if ckpt_keep is None:
+            ckpt_keep = int(os.environ.get("EAGR_CKPT_KEEP", "3") or 3)
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = max(0, int(ckpt_every))
+        self.ckpt_keep = max(1, int(ckpt_keep))
+        self._ckpt_mgrs: dict = {}
+        self._last_ckpt_step: int | None = None
+
+    @property
+    def _master(self) -> DynamicOverlay:
+        """The session-wide master overlay journal. Restored sessions carry
+        the checkpoint payload instead and materialize the DynamicOverlay
+        only when something needs it (a mutation, a late register, a
+        neighborhood query): a same-layout restore followed by pure
+        update/read traffic never pays the O(nodes) rebuild."""
+        if self._master_obj is None:
+            from repro_torch.distributed.checkpoint import master_from_arrays
+            self._master_obj = master_from_arrays(
+                self._master_src, threshold=self.threshold,
+                split_limit=self.split_limit, dup=self._master_dup)
+        return self._master_obj
 
     # ------------------------------------------------------------- lifecycle
     def register(self, query: Query) -> QueryHandle:
@@ -593,6 +714,9 @@ class EagrSession:
             np.add.at(self._wcount, ids, 1.0)
         self._tick()
         self._seq += 1
+        if self.ckpt_dir and self.ckpt_every \
+                and self._seq % self.ckpt_every == 0:
+            self.save(blocking=False)
 
     def read(self, handle: QueryHandle, ids) -> np.ndarray:
         """Answer one batch of ego-centric reads for a registered query.
@@ -633,15 +757,17 @@ class EagrSession:
         writer u for 1-hop queries; pass ``affected={reader: {writers}}`` for
         custom neighborhoods). Journaled; lands on the plans at flush()."""
         self._touch(u, v)
+        self._ensure_journals()
         self._master.add_edge(u, v, affected=affected)
         for group in self._groups.values():
-            group.dyn.add_edge(u, v, affected=affected)
+            group._journal.add_edge(u, v, affected=affected)
 
     def delete_edge(self, u: int, v: int, *, affected=None) -> None:
         self._touch(u, v)
+        self._ensure_journals()
         self._master.delete_edge(u, v, affected=affected)
         for group in self._groups.values():
-            group.dyn.delete_edge(u, v, affected=affected)
+            group._journal.delete_edge(u, v, affected=affected)
 
     def add_node(self, u: int, in_neighbors: Iterable[int] = (),
                  out_readers: Iterable[int] = ()) -> None:
@@ -649,15 +775,17 @@ class EagrSession:
         over ``in_neighbors``."""
         ins, outs = set(map(int, in_neighbors)), set(map(int, out_readers))
         self._touch(u, *ins, *outs)
+        self._ensure_journals()
         self._master.add_node(u, ins, outs)
         for group in self._groups.values():
-            group.dyn.add_node(u, ins, outs)
+            group._journal.add_node(u, ins, outs)
 
     def delete_node(self, u: int) -> None:
         self._touch(u)
+        self._ensure_journals()
         self._master.delete_node(u)
         for group in self._groups.values():
-            group.dyn.delete_node(u)
+            group._journal.delete_node(u)
 
     def flush(self) -> FlushReport:
         """Drain every group's mutation journal into its live plan through
@@ -669,15 +797,25 @@ class EagrSession:
             # pipeline barrier BEFORE patches land: writes submitted so far
             # hit the plans they were routed against
             self._pipeline.flush()
-        self._master.drain_delta()  # the master only snapshots for register
+        if self._master_obj is not None:
+            # the master only snapshots for register; a restored session
+            # with an unmaterialized master has nothing to drain
+            self._master_obj.drain_delta()
         journal = sum(g.journal_nodes() for g in self._groups.values())
         results = [group.flush(self.growth)
                    for group in self._groups.values()]
         self._pending = False
         counts = {"patched": 0, "recompiled": 0, "relayout": 0}
-        for res in results:
-            if res is not None and res.kind in counts:
+
+        def count(res):
+            # sharded groups report one result per shard
+            if isinstance(res, (list, tuple)):
+                for r in res:
+                    count(r)
+            elif res is not None and res.kind in counts:
                 counts[res.kind] += 1
+
+        count(results)
         return FlushReport(results, journal_nodes=journal, **counts)
 
     def adapt(self) -> AdaptReport:
@@ -695,34 +833,101 @@ class EagrSession:
         from repro_torch.core.frontier import frontier_summary
 
         logs: list[int] = []
+        patches = 0
         for g in self._groups.values():
-            logs.extend(g.engine.frontier_log)
+            logs.extend(getattr(g.engine, "frontier_log", []))
+            if self.n_shards:
+                patches += sum(p.patches_applied
+                               for p in g.sharded.shard_plans)
+            else:
+                patches += g.engine.plan.patches_applied
         return SessionStats(
             n_queries=len(self._handles),
             n_engine_groups=len(self._groups),
-            n_shards=0,
+            n_shards=self.n_shards,
             updates=self._seq,
             pending_mutations=self._pending,
             journal_nodes=sum(g.journal_nodes()
                               for g in self._groups.values()),
-            patches_applied=sum(g.engine.plan.patches_applied
-                                for g in self._groups.values()),
+            patches_applied=patches,
             frontier=frontier_summary(logs),
-            ingest=self._pipeline.stats if self._pipeline is not None
-            else self._carry_ingest,
+            ingest=self._ingest_stats(),
             construction=self.overlay_stats,
+            last_checkpoint_step=self._last_ckpt_step,
         )
 
-    # ------------------------------------------------ outside this slice
-    def save(self, directory: str | None = None, **_) -> int:
-        raise not_ported("checkpoints (save)", "9")
+    def _ingest_stats(self):
+        if self._pipeline is not None:
+            return self._pipeline.stats
+        return self._carry_ingest
+
+    # ------------------------------------------------------------ durability
+    def save(self, directory: str | None = None, *, step: int | None = None,
+             blocking: bool = False, keep: int | None = None) -> int:
+        """Checkpoint the live session; returns the committed step number.
+
+        Quiesces first — pending structural churn lands through
+        :meth:`flush`, the ingest ring drains — then copies every group's
+        plan, window and PAO state to host memory (pinned, behind one event
+        wait) and hands the files to the checkpoint thread
+        (``blocking=False``), so updates resume while they are written. The
+        commit is atomic (two-phase manifest + rename): a crash mid-save
+        leaves the previous committed checkpoint restorable.
+
+        ``directory`` defaults to the session's ``ckpt_dir``; ``step``
+        defaults to the update-batch sequence number, which is what
+        :class:`repro_torch.distributed.fault.SessionRecoveryDriver`
+        replays from."""
+        directory = directory or self.ckpt_dir
+        if directory is None:
+            raise ValueError("no checkpoint directory — pass save(dir) or "
+                             "construct with ckpt_dir=/EAGR_CKPT_DIR")
+        if self._pending:
+            self.flush()
+        elif self._pipeline is not None:
+            self._pipeline.flush()
+        from repro_torch.distributed.checkpoint import snapshot_session
+        arrays, objs = snapshot_session(self)
+        step = self._seq if step is None else int(step)
+        self._ckpt_manager(directory, keep).save_payload(
+            step, arrays, objs, blocking=blocking)
+        self._last_ckpt_step = step
+        return step
 
     def wait_for_checkpoint(self) -> None:
-        raise not_ported("checkpoints (wait_for_checkpoint)", "9")
+        """Block until every in-flight background save committed."""
+        for mgr in self._ckpt_mgrs.values():
+            mgr.wait()
 
     @classmethod
-    def restore(cls, directory: str, **_) -> "EagrSession":
-        raise not_ported("checkpoints (restore)", "9")
+    def restore(cls, directory: str, *, step: int | None = None,
+                graph=None, shards: int | None = None,
+                device=None) -> "EagrSession":
+        """Rebuild a session from a checkpoint directory (the latest
+        committed step unless ``step=`` pins one), on ``device`` (CUDA
+        unless the caller names another).
+
+        ``shards=None`` restores the saved deployment shape bit for bit —
+        compiled plans, window rings, PAOs and clocks adopt verbatim, with
+        no construction, min-cut or compilation. ``shards=M`` (``M >= 1``,
+        or ``0`` for a single engine) reshards: plans recompile over the
+        saved master overlay and window rings redistribute by base writer
+        id. A checkpoint the JAX package wrote restores here, and the
+        reverse."""
+        from repro_torch.distributed.checkpoint import restore_session
+        return restore_session(directory, step=step, graph=graph,
+                               shards=shards, device=device)
+
+    def _ckpt_manager(self, directory: str, keep: int | None = None):
+        from repro_torch.distributed.checkpoint import CheckpointManager
+        mgr = self._ckpt_mgrs.get(directory)
+        if mgr is None:
+            mgr = CheckpointManager(
+                directory, keep=self.ckpt_keep if keep is None else keep)
+            self._ckpt_mgrs[directory] = mgr
+        elif keep is not None:
+            mgr.keep = keep
+        return mgr
 
     # ---------------------------------------------------------------- internal
     def _check_handle(self, handle) -> None:
@@ -730,6 +935,12 @@ class EagrSession:
                 or self._handles.get(getattr(handle, "qid", -1)) is not handle:
             raise ValueError("unknown query handle (not registered with this "
                              "session, or already unregistered)")
+
+    def _ensure_journals(self) -> None:
+        """Materialize restored groups' churn journals before a mutation
+        touches the master, so each fork snapshots pre-mutation state."""
+        for group in self._groups.values():
+            group.ensure_journal()
 
     def _ingest(self):
         if self._pipeline is None:

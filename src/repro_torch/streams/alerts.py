@@ -32,9 +32,13 @@ Semantics (canonical — the poll oracle replicates them bit for bit):
 Unset thresholds default to the never-trip identities (``+inf`` / ``-inf``),
 so a spec may use any subset of the three predicates.
 
-The JAX package's version of this module also serves stacked shard engines
-and the checkpoint codec; the port's serves one engine per alert set
-(stacked engines are ROADMAP.md item 10, checkpoints item 9).
+A stacked shard engine (``distributed/stacked.py``) keeps (S, n_rows)
+columns, one row of columns per shard: each reader is owned by exactly one
+shard, so the per-shard compact fired buffers are disjoint
+(:func:`alert_eval_stacked`), and the count that comes back carries the
+batch's total first. :meth:`AlertSet.snapshot` / :meth:`AlertSet.
+from_snapshot` are the checkpoint codec's view: per-base columns keyed by
+base id, not row, so a restore places them on any shard layout.
 """
 from __future__ import annotations
 
@@ -53,7 +57,7 @@ from repro_torch.core.engine import to_host
 
 __all__ = ["AlertSet", "AlertSpec", "AlertState", "FiredBatch", "PollOracle",
            "alert_cap", "alert_eval", "alert_eval_enabled",
-           "check_alert_aggregate"]
+           "alert_eval_stacked", "check_alert_aggregate"]
 
 # Aggregates whose finalize output is value-shaped (comparable against a
 # threshold). topk finalizes to *indices* — order predicates on it are
@@ -100,6 +104,31 @@ class AlertSpec:
         arr = np.broadcast_to(np.asarray(v, np.float32), (n,))
         return np.ascontiguousarray(arr)
 
+    def to_json(self) -> dict:
+        out = {"hysteresis": float(self.hysteresis),
+               "debounce": float(self.debounce),
+               "component": int(self.component)}
+        for f in ("above", "below", "delta"):
+            v = getattr(self, f)
+            if v is None:
+                out[f] = None
+            elif np.ndim(v) == 0:
+                out[f] = float(v)
+            else:
+                out[f] = np.asarray(v, np.float32).tolist()
+        return out
+
+    @classmethod
+    def from_json(cls, d: dict) -> "AlertSpec":
+        kw = {}
+        for f in ("above", "below", "delta"):
+            v = d.get(f)
+            kw[f] = None if v is None else (
+                float(v) if np.ndim(v) == 0 else np.asarray(v, np.float32))
+        return cls(hysteresis=float(d.get("hysteresis", 0.0)),
+                   debounce=float(d.get("debounce", 0.0)),
+                   component=int(d.get("component", 0)), **kw)
+
     def tables(self, n: int) -> dict[str, np.ndarray]:
         """Dense per-reader threshold columns for ``n`` registered readers."""
         return {
@@ -113,10 +142,11 @@ class AlertSpec:
 
 
 class AlertState(NamedTuple):
-    """Device half of the alert set: dense (n_rows,) columns over the
-    overlay's node axis, so evaluation indexes them with no gather. Rows
-    without an alert are ``active=False`` and carry never-trip thresholds.
-    Evaluation updates the dynamic columns in place."""
+    """Device half of the alert set: dense columns over the overlay's node
+    axis ((n_rows,) for one engine, (S, n_rows) for a stacked one), so
+    evaluation indexes them with no gather. Rows without an alert are
+    ``active=False`` and carry never-trip thresholds. Evaluation updates
+    the dynamic columns in place."""
 
     active: torch.Tensor      # bool — row has a registered alert
     armed: torch.Tensor       # bool — eligible to fire
@@ -168,10 +198,32 @@ def alert_eval(agg: Aggregate, astate: AlertState, pao: torch.Tensor,
     idx, vals, fired, m)``: ``idx``/``vals`` the compact (cap,) fired
     buffer (-1 padded, ascending row order), ``fired``/``m`` fresh dense
     tensors of this step that the collector falls back to when the count
-    exceeds ``cap``."""
-    m = _measure(agg, pao, astate.comp)
-    # only rows whose *measure* changed this batch are evaluated — untouched
-    # rows compare equal by construction
+    exceeds ``cap``. One engine is a stack of one shard
+    (:func:`alert_eval_stacked` on views of the columns)."""
+    count, idx, vals, fired, m = alert_eval_stacked(
+        agg, AlertState(*(c[None] for c in astate)), pao[None],
+        now.reshape(1), cap)
+    return count[0], idx[0], vals[0], fired[0], m[0]
+
+
+def alert_eval_stacked(agg: Aggregate, astate: AlertState, pao: torch.Tensor,
+                       now: torch.Tensor, cap: int):
+    """Evaluate every alerted row of a stacked engine against its
+    post-write PAO at eval time ``now``: ``astate`` columns (S, n_rows),
+    ``pao`` (S, n_rows, d), ``now`` (S,); the dynamic columns update in
+    place and no step reads a device value on the host. Only rows whose
+    *measure* changed this batch are evaluated (untouched rows compare
+    equal by construction). Each shard compacts its own fired rows into its
+    own (cap,) buffer (disjoint: a reader lives on one shard) with no host
+    sync (nonzero and mask indexing both sync): a fired row's position
+    among its shard's fired rows, the first ``cap`` of them scattered in
+    row order into a (cap + 1,) buffer whose last slot takes every other
+    row and is cut off. Returns ``(count, idx, vals, fired, m)``, ``count``
+    (S + 1,) the batch's total first, then each shard's."""
+    S, n = astate.active.shape
+    m = _measure(agg, pao.reshape(S * n, pao.shape[-1]),
+                 astate.comp.reshape(-1)).view(S, n)
+    now = now[:, None]
     changed = astate.active & (m != astate.last_m)
     trip = (m > astate.hi) | (m < astate.lo) | \
         (torch.abs(m - astate.ref) > astate.dthr)
@@ -183,29 +235,27 @@ def alert_eval(agg: Aggregate, astate: AlertState, pao: torch.Tensor,
     astate.last_fire.copy_(torch.where(fired, now, astate.last_fire))
     astate.ref.copy_(torch.where(fired, m, astate.ref))
     astate.last_m.copy_(torch.where(changed, m, astate.last_m))
-    # compaction with no host sync (nonzero and mask indexing both sync):
-    # a fired row's position among the fired rows, the first ``cap`` of them
-    # scattered in row order into a (cap + 1,) buffer whose last slot takes
-    # every other row and is cut off
-    n = fired.shape[0]
-    pos = torch.cumsum(fired, 0, dtype=torch.int32) - 1
+    pos = torch.cumsum(fired, 1, dtype=torch.int32) - 1
     dst = torch.where(fired & (pos < cap), pos, cap).to(torch.int64)
-    idx = torch.full((cap + 1,), -1, dtype=torch.int32, device=m.device)
-    idx.scatter_(0, dst, torch.arange(n, dtype=torch.int32, device=m.device))
-    idx = idx[:cap]
-    count = fired.sum(dtype=torch.int32)
-    vals = torch.where(idx >= 0, m[torch.clamp(idx, min=0).to(torch.int64)],
+    idx = torch.full((S, cap + 1), -1, dtype=torch.int32, device=m.device)
+    idx.scatter_(1, dst, torch.arange(n, dtype=torch.int32, device=m.device)
+                 .expand(S, n).contiguous())
+    idx = idx[:, :cap].contiguous()
+    per = fired.sum(dim=1, dtype=torch.int32)
+    count = torch.cat([per.sum(dtype=torch.int32)[None], per])
+    vals = torch.where(idx >= 0,
+                       m.gather(1, torch.clamp(idx, min=0).to(torch.int64)),
                        0.0)
     return count, idx, vals, fired, m
 
 
 # --------------------------------------------------------------- host manager
 class AlertSet:
-    """Host bookkeeping for the alerts attached to one engine: the
-    registered specs as per-base SoA columns, the device :class:`AlertState`,
-    row placement (base id -> overlay node), the in-flight fired buffers
-    awaiting readback, and the host-side queue of collected
-    :class:`FiredBatch` es.
+    """Host bookkeeping for the alerts attached to one engine (single or
+    stacked): the registered specs as per-base SoA columns, the device
+    :class:`AlertState`, row placement (base id -> (shard, overlay node)),
+    the in-flight fired buffers awaiting readback, and the host-side queue
+    of collected :class:`FiredBatch` es.
 
     Lifecycle: ``register``/``unregister`` edit the SoA and rebuild the
     device columns via :meth:`sync`; the engine calls ``sync`` again after
@@ -231,10 +281,12 @@ class AlertSet:
         self._specs: dict[int, AlertSpec] = {}
         self._dynamic_aids: set[int] = set()  # readers=None registrations
         # ------------------------- placement (rebuilt by sync)
+        self._shard = np.zeros(0, np.int32)   # owner shard per base (0 single)
         self._node = np.zeros(0, np.int32)    # overlay node per base
         self._placed = np.zeros(0, bool)      # base resolved to a live row
-        self._row_base: np.ndarray | None = None  # (n_rows,) node -> base
-        self._row_aid: np.ndarray | None = None   # (n_rows,) node -> aid
+        self._row_base: np.ndarray | None = None  # (S, n_rows) node -> base
+        self._row_aid: np.ndarray | None = None   # (S, n_rows) node -> aid
+        self._stacked = False
         self.state: AlertState | None = None
         # ------------------------- fired-set plumbing
         self._pending: collections.deque = collections.deque()
@@ -323,6 +375,7 @@ class AlertSet:
         for d in (self._static, self._dyn):
             for f in d:
                 d[f] = d[f][keep]
+        self._shard = self._shard[: len(self._base)]
         self._node = self._node[: len(self._base)]
         self._placed = np.zeros(len(self._base), bool)  # sync re-resolves
 
@@ -340,7 +393,13 @@ class AlertSet:
         # column with the shorter mask and raises on a second registration)
         p = self._placed
         for f in DYNAMIC_FIELDS:
-            self._dyn[f][: len(p)][p] = host[f][self._node[p]]
+            col = host[f] if self._stacked else host[f][None]
+            self._dyn[f][: len(p)][p] = col[self._shard[p], self._node[p]]
+
+    @staticmethod
+    def _plans(engine) -> list:
+        sp = getattr(engine, "shard_plans", None)
+        return list(sp) if sp is not None else [engine.plan]
 
     def sync(self, engine, retired=()) -> None:
         """(Re)build placement and device columns against the engine's
@@ -350,8 +409,9 @@ class AlertSet:
         speeds the common case; a full re-resolve catches the rest), and
         dynamic registrations pick up readers that churn added."""
         self._pull_dynamic()
-        plan = engine.plan
-        n_rows = plan.meta.n_nodes
+        plans = self._plans(engine)
+        self._stacked = getattr(engine, "shard_plans", None) is not None
+        S, n_rows = len(plans), plans[0].meta.n_nodes
 
         if retired is not None and len(retired):
             gone = np.isin(self._base, np.asarray(list(retired), np.int64))
@@ -361,7 +421,7 @@ class AlertSet:
         # dynamic registrations: adopt any reader base not yet alerted
         for aid in sorted(self._dynamic_aids):
             have = set(self._base.tolist())
-            fresh = sorted(b for b in plan.reader_node_of_base
+            fresh = sorted(b for p in plans for b in p.reader_node_of_base
                            if b not in have)
             if fresh:
                 spec = self._specs[aid]
@@ -374,30 +434,39 @@ class AlertSet:
                     self._dynamic_aids.add(aid)
 
         # ---------------------------------------------------- row placement
-        if len(self._base):
-            node, placed = plan.routes.reader_nodes(self._base)
-        else:
-            node, placed = np.zeros(0, np.int32), np.zeros(0, bool)
+        M = len(self._base)
+        shard = np.zeros(M, np.int32)
+        node = np.full(M, -1, np.int32)
+        for s, p in enumerate(plans):
+            if not M:
+                break
+            rn, ok = p.routes.reader_nodes(self._base)
+            place = ok & (node < 0)
+            shard[place] = s
+            node[place] = rn[place]
+        placed = node >= 0
         lost = ~placed
         if lost.any():
             self.dropped_bases += int(np.count_nonzero(lost))
             self._take(placed)
-            node, placed = node[placed], placed[placed]
+            shard, node, placed = shard[placed], node[placed], placed[placed]
         # alerts predicate on PAO currency: only PUSH-decided readers are
         # always current after a write step
-        if placed.any() and (plan.decision[node] != PUSH).any():
-            bad = self._base[plan.decision[node] != PUSH]
-            raise ValueError(
-                f"alerted readers {bad[:8].tolist()} are PULL-decided — "
-                "alerts need push-maintained readers (register the query "
-                "with continuous=True)")
-        self._node, self._placed = node.astype(np.int32), placed
+        for s, p in enumerate(plans):
+            mine = placed & (shard == s)
+            if mine.any() and (p.decision[node[mine]] != PUSH).any():
+                bad = self._base[mine][p.decision[node[mine]] != PUSH]
+                raise ValueError(
+                    f"alerted readers {bad[:8].tolist()} are PULL-decided — "
+                    "alerts need push-maintained readers (register the "
+                    "query with continuous=True)")
+        self._shard, self._node, self._placed = shard, node, placed
 
         # ------------------------------------------- node -> base/aid LUTs
-        self._row_base = np.full(n_rows, -1, np.int64)
-        self._row_aid = np.full(n_rows, -1, np.int64)
-        self._row_base[self._node] = self._base
-        self._row_aid[self._node] = self._aid
+        self._row_base = np.full((S, n_rows), -1, np.int64)
+        self._row_aid = np.full((S, n_rows), -1, np.int64)
+        self._row_base[shard, node] = self._base
+        self._row_aid[shard, node] = self._aid
 
         # ------------------------------------------------ measure seeding
         nan = np.isnan(self._dyn["last_m"]) | np.isnan(self._dyn["ref"])
@@ -408,24 +477,26 @@ class AlertSet:
                 col[np.isnan(col)] = m[np.isnan(col)]
 
         # ------------------------------------------------- device columns
+        shape = (S, n_rows) if self._stacked else (n_rows,)
         cols = {
-            "active": np.zeros(n_rows, bool),
-            "armed": np.zeros(n_rows, bool),
-            "hi": np.full(n_rows, np.inf, np.float32),
-            "lo": np.full(n_rows, -np.inf, np.float32),
-            "dthr": np.full(n_rows, np.inf, np.float32),
-            "hys": np.zeros(n_rows, np.float32),
-            "deb": np.zeros(n_rows, np.float32),
-            "comp": np.zeros(n_rows, np.int32),
-            "last_fire": np.full(n_rows, -np.inf, np.float32),
-            "ref": np.zeros(n_rows, np.float32),
-            "last_m": np.zeros(n_rows, np.float32),
+            "active": np.zeros(shape, bool),
+            "armed": np.zeros(shape, bool),
+            "hi": np.full(shape, np.inf, np.float32),
+            "lo": np.full(shape, -np.inf, np.float32),
+            "dthr": np.full(shape, np.inf, np.float32),
+            "hys": np.zeros(shape, np.float32),
+            "deb": np.zeros(shape, np.float32),
+            "comp": np.zeros(shape, np.int32),
+            "last_fire": np.full(shape, -np.inf, np.float32),
+            "ref": np.zeros(shape, np.float32),
+            "last_m": np.zeros(shape, np.float32),
         }
-        cols["active"][self._node] = True
+        at = (shard, node) if self._stacked else (node,)
+        cols["active"][at] = True
         for f, col in self._static.items():
-            cols[f][self._node] = col
+            cols[f][at] = col
         for f, col in self._dyn.items():
-            cols[f][self._node] = col
+            cols[f][at] = col
         self.state = AlertState(**{
             f: torch.as_tensor(c, device=engine.device)
             for f, c in cols.items()})
@@ -434,10 +505,12 @@ class AlertSet:
         """Current finalized measure per registered base (one readback;
         only at registration / churn barriers, never per batch)."""
         (pao,) = to_host(engine.state.pao)
-        fin = np.asarray(engine.agg.FINALIZE(pao), np.float32)
-        fin = fin.reshape(pao.shape[0], -1)
+        if not self._stacked:
+            pao = pao[None]
+        fin = np.asarray(engine.agg.FINALIZE(pao.reshape(-1, pao.shape[-1])),
+                         np.float32).reshape(pao.shape[0], pao.shape[1], -1)
         comp = np.clip(self._static["comp"], 0, fin.shape[-1] - 1)
-        return fin[self._node, comp]
+        return fin[self._shard, self._node, comp]
 
     # --------------------------------------------------------- fired plumbing
     def push_pending(self, now: float, count, idx, vals, fired, m) -> None:
@@ -476,27 +549,43 @@ class AlertSet:
                 ev.synchronize()
             count, idx, vals = (np.asarray(h.numpy()) for h in host)
             self.detect_s.append(time.perf_counter() - t_disp)
-            if int(count) == 0:
+            if int(count.reshape(-1)[0]) == 0:
                 continue
-            batch = self._to_batch(now, idx, vals, int(count), fired, m)
+            batch = self._to_batch(now, idx, vals, count, fired, m)
             if len(batch):
                 self.fired.append(batch)
                 out += 1
         return out
 
     def _to_batch(self, now, idx, vals, count, fired, m) -> FiredBatch:
-        overflow = count > self.cap
-        if overflow:
-            # the compact buffer truncated — recover the exact set from the
-            # dense fired vector (rare path, one readback)
-            fired_h, m_h = to_host(fired, m)
-            nodes = np.flatnonzero(fired_h)
-            vv = m_h[nodes].astype(np.float32)
+        """One step's fired set from its compact buffers: per shard, the
+        (cap,) index/value buffer, or — when that shard fired more than
+        ``cap`` rows — its dense fired vector (rare path, one readback)."""
+        count = count.reshape(-1)
+        if self._stacked:
+            counts = count[1:]
         else:
-            live = idx >= 0
-            nodes, vv = idx[live], vals[live]
-        bases = self._row_base[nodes]
-        aids = self._row_aid[nodes]
+            idx, vals, counts = idx[None], vals[None], count[:1]
+        dense = None
+        sh, nd, vv = [], [], []
+        for s, c in enumerate(counts):
+            if c > self.cap:
+                if dense is None:
+                    dense = to_host(fired, m)
+                    if not self._stacked:
+                        dense = [d[None] for d in dense]
+                nodes = np.flatnonzero(dense[0][s])
+                v = dense[1][s][nodes].astype(np.float32)
+            else:
+                live = idx[s] >= 0
+                nodes, v = idx[s][live], vals[s][live]
+            sh.append(np.full(len(nodes), s, np.int64))
+            nd.append(nodes.astype(np.int64))
+            vv.append(v)
+        overflow = dense is not None
+        sh, nd, vv = np.concatenate(sh), np.concatenate(nd), np.concatenate(vv)
+        bases = self._row_base[sh, nd]
+        aids = self._row_aid[sh, nd]
         live = bases >= 0
         order = np.argsort(bases[live], kind="stable")
         return FiredBatch(now=now, base_ids=bases[live][order],
@@ -524,6 +613,38 @@ class AlertSet:
             for f, col in d.items():
                 arrays[f] = col.copy()
         return arrays
+
+    # ------------------------------------------------------------ checkpoint
+    def snapshot(self) -> tuple[dict, list]:
+        """Per-base packed arrays + JSON spec descriptors, in the JAX
+        package's format. The packed layout is placement-free (base ids,
+        not rows), so a reshard restore places the same armed/debounce
+        state onto whatever layout the restored session compiles."""
+        specs = [{"aid": int(a), "dynamic": a in self._dynamic_aids,
+                  "spec": self._specs[a].to_json()}
+                 for a in sorted(self._specs)]
+        return self.per_base(), specs
+
+    @classmethod
+    def from_snapshot(cls, arrays: dict, specs: list, *,
+                      cap: int | None = None) -> "AlertSet":
+        alerts = cls(cap)
+        alerts._base = np.asarray(arrays["base"], np.int64)
+        alerts._aid = np.asarray(arrays["aid"], np.int64)
+        M = len(alerts._base)
+        for f in alerts._static:
+            alerts._static[f] = np.asarray(
+                arrays[f], alerts._static[f].dtype).copy()
+        for f in alerts._dyn:
+            alerts._dyn[f] = np.asarray(arrays[f], alerts._dyn[f].dtype).copy()
+        alerts._shard = np.zeros(M, np.int32)
+        alerts._node = np.full(M, -1, np.int32)
+        alerts._placed = np.zeros(M, bool)
+        for s in specs:
+            alerts._specs[int(s["aid"])] = AlertSpec.from_json(s["spec"])
+            if s.get("dynamic"):
+                alerts._dynamic_aids.add(int(s["aid"]))
+        return alerts
 
 
 # ----------------------------------------------------------------- validation

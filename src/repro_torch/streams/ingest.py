@@ -54,7 +54,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.engine import bucket_batch, not_ported
+from repro_torch.core.engine import bucket_batch
 
 __all__ = ["IngestPipeline", "IngestStats"]
 
@@ -85,9 +85,10 @@ class IngestPipeline:
     Parameters
     ----------
     engines : list
-        ``EagrEngine`` instances on one device; each dispatches through the
-        pre-routed ``write_rows`` entry. Stacked shard engines are not
-        ported yet and raise ``NotImplementedError``.
+        ``EagrEngine`` and/or ``StackedShardedEngine`` instances on one
+        device. Single engines dispatch through the pre-routed
+        ``write_rows`` entry; stacked engines route on the device and go
+        through ``write_batch``.
     depth : int
         Ring slots (>= 1). ``depth=1`` degenerates to synchronous-but-
         coalesced; ``depth=2`` is classic double buffering.
@@ -103,10 +104,6 @@ class IngestPipeline:
                  stats: "IngestStats | None" = None):
         if not engines:
             raise ValueError("IngestPipeline needs at least one engine")
-        for eng in engines:
-            if getattr(getattr(eng, "plan", None), "routes", None) is None:
-                raise not_ported("stacked shard engines in the ingest ring",
-                                 "10")
         self.engines = list(engines)
         self.device = self.engines[0].device
         self.depth = max(1, int(depth))
@@ -172,7 +169,14 @@ class IngestPipeline:
         vals_d = self._vals_t[s].to(self.device, non_blocking=True)
         dropped = n
         for eng in self.engines:
-            rows, mask = eng.plan.routes.writer_rows(ids)
+            routes = getattr(getattr(eng, "plan", None), "routes", None)
+            if routes is None:
+                # stacked shard engine: ids route on the device through its
+                # owner maps; its staging copies the slot's values
+                eng.write_batch(ids[:n], vals[:n], batch_size=B)
+                dropped = 0
+                continue
+            rows, mask = routes.writer_rows(ids)
             n_live = int(np.count_nonzero(mask))
             dropped = min(dropped, n - n_live)
             # expand this coalesced device batch's frontier here (host side,

@@ -205,8 +205,20 @@ def test_pipeline_rejects_bad_input_and_stacked_engines(bases):
         pipe.submit([1, 2], [1.0])
     with pytest.raises(ValueError, match="at least one"):
         IngestPipeline([])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        IngestPipeline([types.SimpleNamespace(plan=None)])
+    # a stacked shard engine (no plan.routes) is accepted: it routes on
+    # the device and the ring dispatches its whole slot to write_batch
+    calls = []
+    stacked = types.SimpleNamespace(
+        plan=None, device=torch.device("cpu"), alerts=None,
+        spec=types.SimpleNamespace(value_dim=1),
+        write_batch=lambda ids, vals, batch_size: calls.append(
+            (ids.copy(), vals.copy(), batch_size)))
+    ring = IngestPipeline([stacked], depth=1, device_batch=4)
+    ring.submit([3, 4, 5], [1.0, 2.0, 3.0])
+    ring.flush()
+    ((ids, vals, B),) = calls
+    assert ids.tolist() == [3, 4, 5] and vals.tolist() == [1.0, 2.0, 3.0]
+    assert B == 16 and ring.stats.events_dropped == 0
     assert IngestStats().as_dict()["batches"] == 0
 
 

@@ -9,7 +9,6 @@ import os
 import subprocess
 import sys
 import textwrap
-import types
 
 import numpy as np
 import pytest
@@ -27,7 +26,7 @@ from repro.core import engine as RE  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.core.window import init_windows  # noqa: E402
 from repro_torch.graphs.generators import rmat_graph, small_example_graph  # noqa: E402
-from repro_torch.streams import IngestPipeline  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 NAMES = "abcdefg"
@@ -192,43 +191,63 @@ def test_no_silent_cpu_in_entry_points(entry, monkeypatch):
         call()
 
 
+def _bf16(mp):
+    mp.setenv("EAGR_SEGAGG_BF16", "1")
+
+
+def _bf16_meta(s, h):
+    arrays, objs = TE.plan_snapshot(h.group.engine.plan)
+    return arrays, {**objs, "meta": {**objs["meta"], "bf16": True}}
+
+
 @pytest.mark.parametrize("call", [
-    lambda s, h: IngestPipeline([types.SimpleNamespace(plan=None)]),
-    lambda s, h: s.save(),
-    lambda s, h: EagrSession(small_example_graph(), device="cpu", shards=1),
-    lambda s, h: EagrSession(small_example_graph(), device="cpu", shards=1,
-                             ingest_depth=1),
-    lambda s, h: EagrSession.restore("y", step=3),
-    lambda s, h: s.wait_for_checkpoint(),
-    lambda s, h: EagrSession(small_example_graph(), device="cpu",
-                             ckpt_every=5),
-    lambda s, h: s.save(blocking=True),
-    lambda s, h: EagrSession(small_example_graph(), device="cpu",
-                             ckpt_keep=2),
-    lambda s, h: s.save("x"), lambda s, h: EagrSession.restore("x"),
-    lambda s, h: EagrSession(small_example_graph(), device="cpu", shards=2),
-    lambda s, h: EagrSession.restore("x", shards=2),
-    lambda s, h: EagrSession(small_example_graph(), device="cpu",
-                             ckpt_dir="x"),
+    lambda s, h, d, mp: (_bf16(mp), s.register(Query(agg="max"))),
+    lambda s, h, d, mp: (_bf16(mp), EagrSession(
+        small_example_graph(), device="cpu", shards=2).register(
+            Query(agg="sum"))),
+    lambda s, h, d, mp: (_bf16(mp), EagrSession.restore(d, shards=2,
+                                                        device="cpu")),
+    lambda s, h, d, mp: TE.plan_from_snapshot(*_bf16_meta(s, h),
+                                              device="cpu"),
+    lambda s, h, d, mp: convert.plan_from_reference(*_bf16_meta(s, h),
+                                                    device="cpu"),
+    lambda s, h, d, mp: get_arch("command-r-plus-104b"),
+    lambda s, h, d, mp: get_arch("arctic-480b"),
+    lambda s, h, d, mp: get_arch("dbrx-132b"),
+    lambda s, h, d, mp: get_arch("graphcast"),
+    lambda s, h, d, mp: get_arch("gat-cora"),
+    lambda s, h, d, mp: get_arch("nequip"),
+    lambda s, h, d, mp: get_arch("gatedgcn"),
+    lambda s, h, d, mp: get_arch("granite-3-2b").build_smoke("train_4k",
+                                                             device="cpu"),
+    lambda s, h, d, mp: get_arch("dien").build_smoke("train_batch",
+                                                     device="cpu"),
 ])
-def test_features_outside_the_slice_raise(call):
-    """Checkpoints (item 9), shards and stacked engines in the ingest ring
-    (10) still raise; churn, flush and adaptation (items 5 and 6) are
-    checked against the reference below, ingest and alerts (items 7 and 8)
-    in tests/test_torch_ingest.py and tests/test_torch_alerts.py."""
+def test_features_outside_the_slice_raise(call, tmp_path, monkeypatch):
+    """bf16 edge values (item 12) raise in a compile — a session's, a
+    sharded session's, a resharding restore's — and in a plan snapshot
+    that asks for them; the archs and training shapes of item 13 raise.
+    Shards and checkpoints (items 10 and 9) work now: they are checked in
+    tests/test_torch_{stacked,checkpoint,fault}.py; churn, flush and
+    adaptation (items 5 and 6) against the reference below, ingest and
+    alerts (items 7 and 8) in tests/test_torch_ingest.py and
+    tests/test_torch_alerts.py."""
     s = EagrSession(small_example_graph(), device="cpu")
     h = s.register(Query(agg="sum"))
+    s.update(np.arange(7), np.ones(7, np.float32))
+    s.save(str(tmp_path), blocking=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(s, h)
+        call(s, h, str(tmp_path), monkeypatch)
 
 
 def test_port_loads_no_jax_and_no_repro():
     """A fresh process imports repro_torch, runs a small session (with a
     churn burst, a sparse write and read, and an adaptation), a pipelined
-    session (``ingest_depth=2``) with a standing alert, the streams and the
-    eagr config, and the serve path (LM prefill and decode, DIEN scoring,
-    the launcher) on the CPU and finds neither JAX nor the JAX package in
-    ``sys.modules``."""
+    session (``ingest_depth=2``) with a standing alert, a sharded session
+    with churn, a save, a restore and a reshard, the recovery driver, the
+    streams and the eagr config, and the serve path (LM prefill and decode,
+    DIEN scoring, the launcher) on the CPU and finds neither JAX nor the
+    JAX package in ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -269,6 +288,30 @@ def test_port_loads_no_jax_and_no_repro():
                 p.read(c, ids)
         p.flush()
         assert p.stats().ingest.batches > 0 and a.fired()
+        # shards and checkpoints: a sharded session with churn, a save, a
+        # same-layout restore and a reshard, the recovery driver
+        import tempfile
+        from repro_torch.distributed import SessionRecoveryDriver
+        d = tempfile.mkdtemp()
+        sh = EagrSession(rmat_graph(120, 600, seed=1), device="cpu",
+                         shards=2)
+        hs = sh.register(Query(agg="sum", window=WindowSpec("tuple", 2)))
+        sh.update(np.asarray(sh.writers[:16]), np.ones(16, np.float32))
+        sh.add_edge(sh.writers[0], sh.readers[3])
+        sh.flush()
+        want = sh.read(hs, sh.readers[:8])
+        sh.save(d + "/c", blocking=True)
+        back = EagrSession.restore(d + "/c", device="cpu")
+        assert (back.read(back.queries[0], sh.readers[:8]) == want).all()
+        one = EagrSession.restore(d + "/c", shards=0, device="cpu")
+        assert one.read(one.queries[0], sh.readers[:8]).shape == want.shape
+        def make():
+            x = EagrSession(rmat_graph(120, 600, seed=1), device="cpu")
+            x.register(Query(agg="sum"))
+            return x
+        SessionRecoveryDriver(
+            make, lambda i: (np.asarray([i % 7]), np.ones(1, np.float32)),
+            d + "/r", ckpt_every=2, device="cpu").run(5, fail_at={3})
         from repro_torch.configs import get_arch
         get_arch("eagr").build_smoke("stream_mixed", device="cpu")
         # the serve path: LM prefill + decode, DIEN scoring, the launcher
