@@ -68,12 +68,17 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    against the same model run on CPU copies of the parameters and batches
    (where the bag wrapper runs its plain version);
 6. the dynamic path on phase 3's session (headroom 2.0): the segment
-   kernel's active entry held, at every real level of the sum and max plans
-   and the active sets of a 256-writer batch, bit-equal on the rows it
-   covers to the dense kernel with the inactive blocks set to the identity,
-   and to its plain version (exact on integer values and for max), sums of
-   normal values within n * 2^-24 * sum|x| per row of an fp64 sum on CPU
-   copies; one write stream run
+   kernel's fused active entry (one launch a sparse level: gather by src,
+   sign, reduce and row mask) held, at every real level of the sum and max
+   plans and the active sets of a 256-writer batch, for sum, max and min,
+   bit-equal on the rows it covers to the dense kernel over the level's
+   gathered values with the inactive blocks set to the identity, its row
+   mask equal to its plain version's, its values exact against the plain
+   version on integer values and for max and min, sums of normal values
+   within n * 2^-24 * sum|x| per row of an fp64 sum on CPU copies; its
+   time beside the bound and the library composition (``index_select``,
+   the sign's multiply, ``index_add_`` / ``index_reduce_``); the device
+   operations of one traced sparse level; one write stream run
    twice from one starting state, frontier-sparse (``EAGR_SPARSE_WRITE=1``)
    and dense (``=0``), at batches of 256 and 4,096 Zipf(1.5) writers each
    followed by reads of 256 readers, PAOs and answers required bit-equal and
@@ -112,11 +117,14 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    the dense steps to launch the stacked entry exactly once a level and
    reduce, and 256 sampled readers to agree with the stream oracle; the
    shard-batched kernel at the phase's largest level (dense) and largest
-   active push level, sum at F=1 and max, bit-equal to 4 launches of the
-   single-shard entry and held to its plain version (exact on integers and
-   for max, normal-valued sums within n * 2^-24 * sum|x| of an fp64 sum),
-   its device time beside 4 single-shard launches, ``index_add_`` over the
-   flattened shards and the bound; stacked write/read p50 and throughput
+   active push level, sum at F=1 and max (the fused active entry also
+   min), bit-equal to 4 launches of the single-shard entry and held to its
+   plain version (exact on integers and for max and min, normal-valued sums
+   within n * 2^-24 * sum|x| of an fp64 sum; the active row masks equal to
+   the active slots' rows), its device time beside 4 single-shard
+   launches, the library call (``index_add_`` over the flattened shards,
+   after ``index_select`` and the sign's multiply for the active entry)
+   and the bound; stacked write/read p50 and throughput
    beside phase 3's, and a traced write window's busy share; a window of
    stacked writes and reads under ``set_sync_debug_mode("error")``; 3 churn
    bursts at 0.1% of the readers, the stacked tables and owner maps
@@ -199,11 +207,15 @@ DESIGNS = {
     "stacked": "the single-shard kernel with a third grid axis over S "
                "shards: each CTA offsets its pointers to its shard's slice "
                "and runs the single-shard code; one launch a level for all "
-               "shards (dense or active entry)",
-    "active": "the dense template over the active blocks only: one CTA per "
-              "window holding an active block, windows cut by the blocks' "
-              "own indices, other blocks skipped as padding, a run's pieces "
-              "combined in window order by its first active block",
+               "shards (dense or fused active entry)",
+    "active": "one launch a frontier-sparse level: one CTA per window "
+              "holding an active block, a warp per active block (16 slot-lane "
+              "or 4 feature-lane warps), only those blocks' seg/src/sign rows "
+              "staged by cp.async, val gathered into registers (sign "
+              "multiplied, min negated), a block's 8 slot rounds overlapped, "
+              "the row mask written; a run crossing windows combined in "
+              "window order by the last of its pieces to take an integer "
+              "ticket",
 }
 # phase 6: the dynamic path
 DYN_BATCHES = 8            # batches of each sparse/dense run
@@ -975,20 +987,54 @@ def plain_sum_fp64(x, seg_c, n_rows: int):
     return out.index_add_(0, dst, xc)[:n_rows]
 
 
-def active_bound_ms(seg_c, tob, act, F: int) -> tuple[float, str]:
-    """Least time for one active-entry call: the active blocks' seg and
-    block tables read once, x read for each live slot of the active blocks,
-    output written for each row of a tile an active block routes to; one
-    add/max per live slot and feature."""
-    n_live = int((seg_c >= 0).sum().item())
+def active_bound_ms(seg_c, src_c, tob, act, F: int, n_rows: int, op: str
+                    ) -> tuple[float, str]:
+    """Least time for one call of the fused active entry: each active
+    block's seg and src rows (8 B a slot; sum also reads its sign row, 4 B
+    more), its active entry and tob/fot (12 B) read once, the ``val`` row of
+    each distinct source among the active live slots (``src_c`` beside
+    ``seg_c``) read once, the output written for each row of a tile an
+    active block routes to, and the row mask (n_rows bytes) written once;
+    per live slot and feature one add or max, and for sum one multiply by
+    the sign."""
+    live = seg_c >= 0
+    n_live = int(live.sum().item())
+    n_src = int(src_c[live].unique().numel())
     nb = tob.numel()
     real = act[act < nb].long()
     tiles = int(tob[real].unique().numel())
-    nbytes = seg_c.numel() * 4 + real.numel() * 12 + n_live * 4 * F \
-        + tiles * 128 * 4 * F
+    slot_b = 12 if op == "sum" else 8
+    nbytes = real.numel() * (256 * slot_b + 12) + n_src * 4 * F \
+        + tiles * 128 * 4 * F + n_rows
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_live * F / FP32_OPS_PER_S * 1e3
+    t_ops = n_live * F * (2 if op == "sum" else 1) / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def trace_launches(torch, fn) -> tuple[int, list]:
+    """The device operations one call of ``fn`` enqueues (kernels, memsets,
+    copies), from torch.profiler traces after one warm call: how many, and
+    their names in order. The profiler now and then drops events or hands
+    back an empty trace, never adds one: the fullest of 5 traces."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best: list = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if len(evs) > len(best):
+            best = evs
+    if not best:
+        raise AssertionError("the profiler saw no device operation in five "
+                             "traces")
+    return len(best), [e.name for e in best]
 
 
 def active_sets(session, batch):
@@ -1006,18 +1052,79 @@ def active_sets(session, batch):
     return out
 
 
+def active_checked(torch, ops, ref, args, seg_c, cov, n_in, tob, kw,
+                   integer: bool) -> float:
+    """One fused active call against its bars (see ``check_active``):
+    ``args`` (val, seg, src, sign, tob, fot, active) on the card, ``seg_c``
+    the active slots' rows, ``cov`` their (n_rows,) mask, ``n_in`` each
+    row's count of them. Returns the max abs error against the plain
+    version (the fp64 plain sum for normal-valued sums)."""
+    val, seg, src, sign, _, fot, act = args
+    op, n = kw["op"], kw["n_rows"]
+    E, F = ops.E_BLK, val.shape[1]
+    nb = tob.numel()
+    got = [ops.segment_agg_active(*args, **kw) for _ in range(2)]
+    # the dense kernel over the level's gathered values, the inactive
+    # blocks at the op's identity
+    x = val.index_select(0, src.long())
+    x = x * sign[:, None] if op == "sum" else (-x if op == "min" else x)
+    a = act.long()
+    real = a[a < nb]
+    xi = torch.full_like(x.view(nb, E, F), 0.0 if op == "sum" else -3.0e38)
+    xi[real] = x.view(nb, E, F)[real]
+    dense = ops.segment_agg_level(xi.reshape(-1, F).contiguous(), seg, tob,
+                                  fot, n_rows=n, n_row_tiles=kw["n_row_tiles"],
+                                  op="sum" if op == "sum" else "max")
+    dense = -dense if op == "min" else dense
+    plain, plain_hit = ref.segment_agg_active_ref(val, seg, src, sign, act,
+                                                  n, op)
+    torch.cuda.synchronize()
+    where = f"({op} F={F} {'integer' if integer else 'normal'})"
+    if not (torch.equal(got[0][0][cov], got[1][0][cov])
+            and torch.equal(got[0][1], got[1][1])):
+        raise AssertionError(f"active entry is not deterministic {where}")
+    if not torch.equal(got[0][1], plain_hit) or \
+            not torch.equal(got[0][1], cov):
+        raise AssertionError(f"active row mask != plain version's {where}")
+    out = got[0][0]
+    if not torch.equal(out[cov], dense[cov]):
+        raise AssertionError(f"active {op} != dense kernel with identity "
+                             f"{where}")
+    err = (out[cov] - plain[cov]).abs().max().item()
+    if integer or op != "sum":
+        if not torch.equal(out[cov], plain[cov]):
+            raise AssertionError(f"active {op} != plain version (exact) "
+                                 f"{where}, max abs err {err}")
+        return err
+    xc = x.view(nb, E, F)[a.clamp(max=nb - 1)].reshape(-1, F)
+    exact = plain_sum_fp64(xc, seg_c, n)
+    lim = n_in.cpu().double() * 2.0 ** -24 * \
+        plain_sum_fp64(xc.abs(), seg_c, n)
+    dev64 = (out.cpu().double() - exact).abs()
+    cov_c = cov.cpu()
+    err = dev64[cov_c].max().item()
+    if bool((dev64 > lim)[cov_c].any()):
+        raise AssertionError(f"active sum beyond n * 2^-24 * sum|x| of the "
+                             f"fp64 sum {where}, max abs err {err}")
+    return err
+
+
 def check_active(torch, ops, ref, session, batch, errs) -> list[dict]:
-    """The active entry at the phase-6 shapes: every real level of the sum
-    and max plans with the active blocks of one 256-writer batch (push) and
-    256 readers (pull), F in {1, 2, 64}: bit-equal on the covered rows to
-    the dense kernel over the level with the inactive blocks' values set to
-    the op's identity, exact against the plain version on integer values
-    and for max, sums of normal values within n * 2^-24 * sum|x| per row
-    (n the row's active live slots) of an exact-order plain sum in fp64 on
-    CPU copies (``plain_sum_fp64``: deterministic, where the fp32 plain
-    version on the card adds by atomics in no fixed order), reruns
-    bit-equal; times beside the bound and ``index_add_`` on the same
-    compacted data."""
+    """The fused active entry at the phase-6 shapes: every real level of
+    the sum and max plans with the active blocks of one 256-writer batch
+    (push) and 256 readers (pull), F in {1, 2, 64}, sum on the sum plan and
+    max and min on the max plan, values ``val`` (n_nodes, F) gathered by
+    the level's own src and sign: reruns bit-equal; on the covered rows
+    bit-equal to the dense kernel over the level's gathered values with the
+    inactive blocks' values set to the op's identity; exact against the
+    plain version on integer values and for max and min, sums of normal
+    values within n * 2^-24 * sum|x| per row (n the row's active live
+    slots) of an exact-order plain sum in fp64 on CPU copies
+    (``plain_sum_fp64``: deterministic, where the fp32 plain version on the
+    card adds by atomics in no fixed order); the row mask equal to the
+    plain version's. Times beside the bound, the plain version and the
+    library composition (``index_select``, the sign's multiply and
+    ``index_add_`` / ``index_reduce_`` on the active slots)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1029,8 +1136,9 @@ def check_active(torch, ops, ref, session, batch, errs) -> list[dict]:
     for g in session._groups.values():
         if g.agg.name not in ("sum", "max"):
             continue
-        op = "sum" if g.agg.name == "sum" else "max"
+        kops = ("sum",) if g.agg.name == "sum" else ("max", "min")
         plan, meta = g.engine.plan, g.engine.plan.meta
+        n = meta.n_nodes
         for side, acts in zip(("push", "pull"), sets[g.agg.name]):
             if acts is None:
                 continue
@@ -1038,103 +1146,119 @@ def check_active(torch, ops, ref, session, batch, errs) -> list[dict]:
             for l in range(plan.depth):
                 if acts[l].shape[0] == 0:
                     continue
-                seg, tob, fot = t.seg[l], t.tile_of_block[l], \
-                    t.first_of_tile[l]
+                seg, src, sign = t.seg[l], t.src[l], t.sign[l]
+                tob, fot = t.tile_of_block[l], t.first_of_tile[l]
                 nb = tob.numel()
                 act = torch.as_tensor(acts[l], device=dev)
                 a = act.long()
+                ab = a.clamp(max=nb - 1)
                 real = a[a < nb]
-                seg_c = torch.where((a < nb)[:, None],
-                                    seg.view(nb, E)[a.clamp(max=nb - 1)],
+                seg_c = torch.where((a < nb)[:, None], seg.view(nb, E)[ab],
                                     -1).reshape(-1)
                 n_live = int((seg_c >= 0).sum().item())
                 if n_live == 0:
                     continue
-                cov = torch.zeros(meta.n_nodes + 1, dtype=torch.bool,
-                                  device=dev)
-                cov[torch.where(seg_c >= 0, seg_c.long(), meta.n_nodes)] = True
-                cov = cov[: meta.n_nodes]
+                dst = torch.where(seg_c >= 0, seg_c.long(), n)
+                cov = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+                cov[dst] = True
+                cov = cov[:n]
                 # active live slots a row adds: the reordered-sum bound's n
-                n_in = torch.zeros(meta.n_nodes + 1, device=dev).index_add_(
-                    0, torch.where(seg_c >= 0, seg_c.long(), meta.n_nodes),
-                    torch.ones(seg_c.shape, device=dev))[: meta.n_nodes, None]
-                ident = 0.0 if op == "sum" else -3.0e38
+                n_in = torch.zeros(n + 1, device=dev).index_add_(
+                    0, dst, torch.ones(seg_c.shape, device=dev))[:n, None]
+                src_c = src.view(nb, E)[ab].reshape(-1).long()
+                sign_c = sign.view(nb, E)[ab].reshape(-1)[:, None]
                 for F in (1, 2, 64):
                     for integer in (True, False):
-                        xf = (torch.randint(-8, 9, (seg.numel(), F),
-                                            generator=gen, device=dev)
-                              .to(torch.float32) if integer else
-                              torch.randn((seg.numel(), F), generator=gen,
-                                          device=dev))
-                        xb = xf.view(nb, E, F)
-                        xc = xb[a.clamp(max=nb - 1)].reshape(-1, F) \
-                            .contiguous()
-                        kw = dict(n_rows=meta.n_nodes,
-                                  n_row_tiles=meta.n_row_tiles, op=op)
-                        got = [ops.segment_agg_active(xc, seg, tob, fot, act,
-                                                      **kw)
-                               for _ in range(2)]
-                        xi = torch.full_like(xb, ident)
-                        xi[real] = xb[real]
-                        dense = ops.segment_agg_level(
-                            xi.reshape(-1, F).contiguous(), seg, tob, fot,
-                            **kw)
-                        plain = ref.segment_agg_active_ref(xc, seg, act,
-                                                           meta.n_nodes, op)
-                        if not torch.equal(got[0][cov], got[1][cov]):
-                            raise AssertionError("active entry is not "
-                                                 "deterministic")
-                        if not torch.equal(got[0][cov], dense[cov]):
-                            raise AssertionError(
-                                f"active {op} != dense kernel with identity "
-                                f"({side} l={l} F={F})")
-                        err = (got[0][cov] - plain[cov]).abs().max().item()
-                        if integer or op == "max":
-                            if not torch.equal(got[0][cov], plain[cov]):
-                                raise AssertionError(
-                                    f"active {op} != plain version (exact), "
-                                    f"max abs err {err}")
+                        val = (torch.randint(-8, 9, (n, F), generator=gen,
+                                             device=dev).to(torch.float32)
+                               if integer else
+                               torch.randn((n, F), generator=gen, device=dev))
+                        args = (val, seg, src, sign, tob, fot, act)
+                        for op in kops:
+                            kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles,
+                                      op=op)
+                            err = active_checked(torch, ops, ref, args, seg_c,
+                                                 cov, n_in, tob, kw, integer)
+                            key = "sum_active" if op == "sum" else \
+                                "max_active"
+                            errs[key] = max(errs[key], err)
+                    for op in kops:
+                        kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles,
+                                  op=op)
+
+                        def fused(kw=kw):
+                            return ops.segment_agg_active(*args, **kw)
+
+                        k_ms = cuda_ms(torch, fused)
+                        k_dev = device_ms(torch, fused, reps=20)
+                        k_held = held_ms(torch, fused)
+                        p_ms = cuda_ms(torch, lambda op=op: ref
+                                       .segment_agg_active_ref(
+                                           val, seg, src, sign, act, n, op))
+                        lib_out = torch.zeros((n + 1, F), device=dev)
+                        if op == "sum":
+                            def lib():
+                                return lib_out.index_add_(
+                                    0, dst, val.index_select(0, src_c)
+                                    * sign_c)
                         else:
-                            exact = plain_sum_fp64(xc, seg_c, meta.n_nodes)
-                            lim = n_in.cpu().double() * 2.0 ** -24 * \
-                                plain_sum_fp64(xc.abs(), seg_c, meta.n_nodes)
-                            dev64 = (got[0].cpu().double() - exact).abs()
-                            cov_c = cov.cpu()
-                            err = dev64[cov_c].max().item()
-                            if bool((dev64 > lim)[cov_c].any()):
-                                raise AssertionError(
-                                    f"active sum beyond n * 2^-24 * sum|x| "
-                                    f"of the fp64 sum ({side} l={l} F={F}), "
-                                    f"max abs err {err}")
-                        errs[f"{op}_active"] = max(errs[f"{op}_active"], err)
-                    k_ms = cuda_ms(torch, lambda: ops.segment_agg_active(
-                        xc, seg, tob, fot, act, **kw))
-                    k_dev = device_ms(torch, lambda: ops.segment_agg_active(
-                        xc, seg, tob, fot, act, **kw), reps=20)
-                    p_ms = cuda_ms(torch, lambda: ref.segment_agg_active_ref(
-                        xc, seg, act, meta.n_nodes, op))
-                    dst = torch.where(seg_c >= 0, seg_c.long(), meta.n_nodes)
-                    lib_out = torch.zeros((meta.n_nodes + 1, F), device=dev)
-                    lib = (lambda: lib_out.index_add_(0, dst, xc)) \
-                        if op == "sum" else \
-                        (lambda: lib_out.index_reduce_(0, dst, xc, "amax"))
-                    l_ms = cuda_ms(torch, lib)
-                    l_dev = device_ms(torch, lib, reps=20)
-                    b_ms, b_by = active_bound_ms(seg_c, tob, act, F)
-                    rows.append(dict(
-                        op=op, side=side, level=l, n_blocks=nb,
-                        active=int(real.numel()), K=int(act.numel()),
-                        n_live=n_live, F=F, ms=k_ms, device_ms=k_dev,
-                        plain_ms=p_ms, library_ms=l_ms,
-                        library_device_ms=l_dev, bound_ms=b_ms,
-                        bound_by=b_by))
-                    print(f"  active {op:3s} {side:4s} l={l} blocks "
-                          f"{int(real.numel())}/{nb} live={n_live} F={F:2d}: "
-                          f"kernel {k_ms:.4f} ms ({k_dev:.5f} device), plain "
-                          f"{p_ms:.4f} ms, index_add_/reduce "
-                          f"{l_ms:.4f} ms ({l_dev:.5f} device), bound "
-                          f"{b_ms:.6f} ms ({b_by})", flush=True)
+                            def lib(how="amax" if op == "max" else "amin"):
+                                return lib_out.index_reduce_(
+                                    0, dst, val.index_select(0, src_c), how)
+                        l_ms = cuda_ms(torch, lib)
+                        l_dev = device_ms(torch, lib, reps=20)
+                        b_ms, b_by = active_bound_ms(seg_c, src_c, tob, act,
+                                                     F, n, op)
+                        rows.append(dict(
+                            op=op, side=side, level=l, n_blocks=nb,
+                            active=int(real.numel()), K=int(act.numel()),
+                            n_live=n_live, F=F, ms=k_ms, device_ms=k_dev,
+                            held_ms=k_held, plain_ms=p_ms, library_ms=l_ms,
+                            library_device_ms=l_dev, bound_ms=b_ms,
+                            bound_by=b_by))
+                        print(f"  active {op:3s} {side:4s} l={l} blocks "
+                              f"{int(real.numel())}/{nb} live={n_live} "
+                              f"F={F:2d}: fused {k_ms:.4f} ms ({k_dev:.5f} "
+                              f"device, {k_held:.5f} held), plain "
+                              f"{p_ms:.4f} ms, library composition "
+                              f"{l_ms:.4f} ms ({l_dev:.5f} device), bound "
+                              f"{b_ms:.6f} ms ({b_by})", flush=True)
     return rows
+
+
+def sparse_level_launches(torch, session, batch) -> dict:
+    """The device operations one sparse level of the engine enqueues (the
+    fused active entry and the row mask's ``&``), traced at the sum plan's
+    busiest push level for the active blocks of one batch, through the
+    engine's own ``_levels``; ``launches`` None where the profiler returned
+    no trace."""
+    from repro_torch.core import engine as E
+
+    set_sparse("1")
+    sets = active_sets(session, batch)
+    set_sparse("auto")
+    g = next(g for g in session._groups.values() if g.agg.name == "sum")
+    push = sets["sum"][0]
+    nb = g.engine.plan.arrays.push.tile_of_block.shape[1]
+    l = max(range(g.engine.plan.depth),
+            key=lambda i: int((np.asarray(push[i]) < nb).sum()))
+    dev = torch.device(DEVICE)
+    act = tuple(torch.as_tensor(push[i] if i == l else push[i][:0],
+                                device=dev)
+                for i in range(g.engine.plan.depth))
+    val = torch.randn((g.engine.plan.meta.n_nodes, 1), device=dev)
+
+    def level():
+        for reduce in E._levels(g.engine.plan.meta, g.engine.plan.arrays.push,
+                                act):
+            return reduce(val, "sum")
+
+    try:
+        n, names = trace_launches(torch, level)
+    except AssertionError:  # the profiler returned no trace: not measured
+        n, names = None, []
+    return dict(level=l, active=int((np.asarray(push[l]) < nb).sum()),
+                n_blocks=nb, launches=n, names=names)
 
 
 def sparse_host_parts(torch, session, batch, reps: int = 7) -> dict:
@@ -1227,6 +1351,12 @@ def phase_dynamic(torch, ops, ref, session, handles, errs, out_dir) -> dict:
     probe = dyn_stream(writers, readers, 1, DYN_SIZES[0], rng)[0]
     report["active_levels"] = check_active(torch, ops, ref, session, probe,
                                            errs)
+    traced = sparse_level_launches(torch, session, probe)
+    report["sparse_level_launches"] = traced
+    print(f"one traced sparse level (sum plan, push level {traced['level']}, "
+          f"{traced['active']} of {traced['n_blocks']} blocks active): "
+          f"{traced['launches']} device operations {traced['names']}",
+          flush=True)
     lap("active_entry_checks")
 
     # ---- 6b. sparse against dense on one stream, both batch sizes
@@ -1738,10 +1868,13 @@ def check_stacked_kernel(torch, ops, ref, group, errs, act_sets) -> list:
     on its slice; exact against the plain version on integer values and
     for max, normal-valued sums within n * 2^-24 * sum|x| per row of an
     fp64 sum on CPU copies (``plain_sum_fp64``); then the same for the
-    active entries over the stacked active lists of one batch. Times: the
-    stacked launch, S launches of the single-shard entry, the plain
-    version (shard by shard) and ``index_add_``/``index_reduce_`` over the
-    flattened shards, each beside the bound."""
+    fused active entries (values gathered by the level's src and sign; min
+    beside max; row masks equal to the active slots' rows) over the
+    stacked active lists of one batch. Times: the stacked launch, S
+    launches of the single-shard entry, the plain version (shard by shard)
+    and ``index_add_``/``index_reduce_`` over the flattened shards (after
+    ``index_select`` and the sign's multiply for the active entry), each
+    beside the bound."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
@@ -1796,68 +1929,97 @@ def check_stacked_kernel(torch, ops, ref, group, errs, act_sets) -> list:
         hit = hit[:, :n]
         n_live = int((seg_c >= 0).sum().item())
         name = "stacked" if entry == "dense" else "active_stacked"
+        src, sign = t.src[:, l], t.sign[:, l]
+        if act is not None:  # the active slots' sources and signs
+            src_c = src.reshape(S, nb, E)[sid, a.clamp(max=nb - 1)] \
+                .reshape(S, -1).long()
+            sign_c = sign.reshape(S, nb, E)[sid, a.clamp(max=nb - 1)] \
+                .reshape(S, -1)
 
-        def launch(x):
+        # the dense entry takes gathered values x (S, K*E, F), the active
+        # entry the values val (S, n, F) it gathers itself; both give
+        # (out, hit) here, the dense entry's hit the level's rows
+        def launch(x, op=op):
             if act is None:
-                return ops.segment_agg_level_stacked(x, seg, tob, fot, **kw)
-            return ops.segment_agg_active_stacked(x, seg, tob, fot, act,
-                                                  **kw)
+                return ops.segment_agg_level_stacked(x, seg, tob, fot,
+                                                     **kw), hit
+            return ops.segment_agg_active_stacked(x, seg, src, sign, tob,
+                                                  fot, act, **dict(kw, op=op))
 
-        def singles(x):
+        def singles(x, op=op):
             if act is None:
-                return [ops.segment_agg_level(x[s], seg[s], tob[s], fot[s],
-                                              **kw) for s in range(S)]
-            return [ops.segment_agg_active(x[s], seg[s], tob[s], fot[s],
-                                           act[s], **kw) for s in range(S)]
+                return [(ops.segment_agg_level(x[s], seg[s], tob[s], fot[s],
+                                               **kw), hit[s])
+                        for s in range(S)]
+            return [ops.segment_agg_active(x[s], seg[s], src[s], sign[s],
+                                           tob[s], fot[s], act[s],
+                                           **dict(kw, op=op))
+                    for s in range(S)]
 
-        def plain(x):
+        def plain(x, op=op):
             if act is None:
-                return ref.segment_agg_level_stacked_ref(x, seg, n, op)
-            return ref.segment_agg_active_stacked_ref(x, seg, act, n, op)
+                return ref.segment_agg_level_stacked_ref(x, seg, n, op), hit
+            return ref.segment_agg_active_stacked_ref(x, seg, src, sign, act,
+                                                      n, op)
+
+        def gathered(x, s, op):
+            """Shard s's reduced values, slot by slot (K*E, F)."""
+            if act is None:
+                return x[s]
+            v = x[s].index_select(0, src_c[s])
+            return v * sign_c[s][:, None] if op == "sum" else v
 
         F = 1
         err = 0.0
-        for integer in (True, False):
-            shape = (S, K * E, F)
-            x = (torch.randint(-8, 9, shape, generator=gen, device=dev)
-                 .to(torch.float32) if integer else
-                 torch.randn(shape, generator=gen, device=dev))
-            got = launch(x)
-            again = launch(x)
-            one = singles(x)
-            want = plain(x)
-            torch.cuda.synchronize()
-            for s in range(S):
-                h = hit[s]
-                if not torch.equal(got[s][h], again[s][h]):
-                    raise AssertionError(f"{op}_{name} is not deterministic")
-                if not torch.equal(got[s][h], one[s][h]):
-                    raise AssertionError(
-                        f"{op}_{name} shard {s} != the single-shard entry "
-                        f"({side} l={l})")
-                e = (got[s][h] - want[s][h]).abs().max().item() \
-                    if h.any() else 0.0
-                if integer or op == "max":
-                    if not torch.equal(got[s][h], want[s][h]):
+        # the active entry of the max group also runs min: -max(-x)
+        for cop in (op, "min") if act is not None and op == "max" else (op,):
+            for integer in (True, False):
+                shape = (S, K * E, F) if act is None else (S, n, F)
+                x = (torch.randint(-8, 9, shape, generator=gen, device=dev)
+                     .to(torch.float32) if integer else
+                     torch.randn(shape, generator=gen, device=dev))
+                got, got_hit = launch(x, cop)
+                again, again_hit = launch(x, cop)
+                one = singles(x, cop)
+                want, want_hit = plain(x, cop)
+                torch.cuda.synchronize()
+                if not (torch.equal(got_hit, hit) and torch.equal(
+                        again_hit, hit) and torch.equal(want_hit, hit)):
+                    raise AssertionError(f"{cop}_{name}: row mask != the "
+                                         f"active slots' rows")
+                for s in range(S):
+                    h = hit[s]
+                    if not torch.equal(got[s][h], again[s][h]):
+                        raise AssertionError(f"{cop}_{name} is not "
+                                             f"deterministic")
+                    if not torch.equal(got[s][h], one[s][0][h]) or \
+                            not torch.equal(one[s][1], h):
                         raise AssertionError(
-                            f"{op}_{name} != plain version (exact), shard "
-                            f"{s}, max abs err {e}")
-                else:
-                    xs = x[s].reshape(-1, F)
-                    exact = plain_sum_fp64(xs, seg_c[s], n)
-                    cnt = torch.zeros(n + 1).index_add_(
-                        0, torch.where(seg_c[s] >= 0, seg_c[s].long(), n)
-                        .cpu(), torch.ones(seg_c[s].numel()))[:n, None]
-                    lim = cnt.double() * 2.0 ** -24 * \
-                        plain_sum_fp64(xs.abs(), seg_c[s], n)
-                    d64 = (got[s].cpu().double() - exact).abs()
-                    hc = h.cpu()
-                    e = d64[hc].max().item() if hc.any() else 0.0
-                    if bool((d64 > lim)[hc].any()):
-                        raise AssertionError(
-                            f"{op}_{name} beyond n * 2^-24 * sum|x| of the "
-                            f"fp64 sum, shard {s}, max abs err {e}")
-                err = max(err, e)
+                            f"{cop}_{name} shard {s} != the single-shard "
+                            f"entry ({side} l={l})")
+                    e = (got[s][h] - want[s][h]).abs().max().item() \
+                        if h.any() else 0.0
+                    if integer or cop != "sum":
+                        if not torch.equal(got[s][h], want[s][h]):
+                            raise AssertionError(
+                                f"{cop}_{name} != plain version (exact), "
+                                f"shard {s}, max abs err {e}")
+                    else:
+                        xs = gathered(x, s, cop).reshape(-1, F)
+                        exact = plain_sum_fp64(xs, seg_c[s], n)
+                        cnt = torch.zeros(n + 1).index_add_(
+                            0, torch.where(seg_c[s] >= 0, seg_c[s].long(), n)
+                            .cpu(), torch.ones(seg_c[s].numel()))[:n, None]
+                        lim = cnt.double() * 2.0 ** -24 * \
+                            plain_sum_fp64(xs.abs(), seg_c[s], n)
+                        d64 = (got[s].cpu().double() - exact).abs()
+                        hc = h.cpu()
+                        e = d64[hc].max().item() if hc.any() else 0.0
+                        if bool((d64 > lim)[hc].any()):
+                            raise AssertionError(
+                                f"{cop}_{name} beyond n * 2^-24 * sum|x| of "
+                                f"the fp64 sum, shard {s}, max abs err {e}")
+                    err = max(err, e)
         errs[f"{op}_{name}"] = max(errs.get(f"{op}_{name}", 0.0), err)
         k_ms = cuda_ms(torch, lambda: launch(x))
         k_dev = device_ms(torch, lambda: launch(x), reps=20)
@@ -1867,20 +2029,33 @@ def check_stacked_kernel(torch, ops, ref, group, errs, act_sets) -> list:
         p_ms = cuda_ms(torch, lambda: plain(x), reps=5)
         dst = (torch.where(seg_c >= 0, seg_c.long(), n)
                + torch.arange(S, device=dev)[:, None] * (n + 1)).reshape(-1)
-        xf = x.reshape(-1, F)
         lib_out = torch.zeros((S * (n + 1), F), device=dev)
-        lib = (lambda: lib_out.index_add_(0, dst, xf)) if op == "sum" else \
-            (lambda: lib_out.index_reduce_(0, dst, xf, "amax"))
+        if act is None:
+            xf = x.reshape(-1, F)
+            lib = (lambda: lib_out.index_add_(0, dst, xf)) if op == "sum" \
+                else (lambda: lib_out.index_reduce_(0, dst, xf, "amax"))
+        else:
+            # the library composition: gather over the flattened shards,
+            # the sign's multiply, then one scatter
+            src_f = (src_c + torch.arange(S, device=dev)[:, None] * n) \
+                .reshape(-1)
+            sign_f = sign_c.reshape(-1, 1)
+            xv = x.reshape(-1, F)
+            lib = (lambda: lib_out.index_add_(
+                0, dst, xv.index_select(0, src_f) * sign_f)) \
+                if op == "sum" else (lambda: lib_out.index_reduce_(
+                    0, dst, xv.index_select(0, src_f), "amax"))
         l_ms = cuda_ms(torch, lib)
         l_dev = device_ms(torch, lib, reps=20)
         if act is None:
             b_ms, b_by = stacked_level_bound_ms(seg, tob, fot, F, n)
         else:
-            # each shard's active-entry bound, summed (all bound by bytes
-            # at F=1: one add per live slot against 4 bytes read for it)
-            b_ms = sum(active_bound_ms(seg_c[s], tob[s], act[s], F)[0]
-                       for s in range(S))
-            b_by = active_bound_ms(seg_c[0], tob[0], act[0], F)[1]
+            # each shard's fused-entry bound, summed (all bound by bytes at
+            # F=1)
+            b_ms = sum(active_bound_ms(seg_c[s], src_c[s], tob[s], act[s],
+                                       F, n, op)[0] for s in range(S))
+            b_by = active_bound_ms(seg_c[0], src_c[0], tob[0], act[0], F, n,
+                                   op)[1]
         rows.append(dict(op=op, entry=name, side=side, level=l, shards=S,
                          n_blocks=nb, K=K, n_live=n_live, F=F,
                          max_abs_err=err, ms=k_ms, device_ms=k_dev,
@@ -3171,8 +3346,10 @@ def main(argv=None) -> int:
         bound_by=bag_row["bound_by"], library_ms=bag_row["library_ms"],
         device_ms=bag_row["device_ms"],
         library_device_ms=bag_row["library_device_ms"]))
-    # the active entry at the largest level of the phase-6 batch, F=1;
-    # launches from phase 6's counted sparse run
+    # the fused active entry at the largest level of the phase-6 batch,
+    # F=1 (its library_ms: index_select, the sign's multiply and
+    # index_add_ / index_reduce_); launches from phase 6's counted sparse
+    # run
     for key, (name, replaces) in ACTIVE_KERNELS.items():
         op = key.split("_")[0]
         rows = [r for r in dynamic["active_levels"]
@@ -3184,6 +3361,7 @@ def main(argv=None) -> int:
             max_abs_err=errs[key], ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
             library_ms=top["library_ms"], device_ms=top["device_ms"],
+            held_ms=top["held_ms"],
             library_device_ms=top["library_device_ms"]))
     # the shard-batched entries at phase 8's largest level, F=1; launches
     # from phase 8's counted stream (dense, then sparse, then the reads)

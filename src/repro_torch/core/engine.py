@@ -498,74 +498,40 @@ def _scatter_rows(n_rows: int, idx: torch.Tensor, vals: torch.Tensor,
 # tables) or frontier-sparse: over only the batch frontier's active edge
 # blocks (``active`` is the ragged per-level tuple of (K,) int32 ascending
 # block indices padded with the level's block count, expanded on the host by
-# ``core/frontier.py``). The segment kernel's active entry adds an active
-# row's values in the dense pass's order, and the index guarantees every
-# block that matters is active, so a sparse step is bit-equal to the dense
-# one. Levels with no active block cost nothing; no step reads a device
-# value back to the host.
-def _gather_active(tables: LevelTables, l: int, active_l: torch.Tensor):
-    """One level's source rows, signs and destinations of its K active
-    blocks, in active order. Pad entries gather the level's last block;
-    their destinations read -1 (the padding pattern), and the kernel never
-    reads their values."""
-    nb = tables.tile_of_block.shape[1]
-    a = active_l.to(torch.int64)
-    ab = torch.clamp(a, max=nb - 1)
-    src_c = tables.src[l].view(nb, E_BLK)[ab].reshape(-1)
-    sign_c = tables.sign[l].view(nb, E_BLK)[ab].reshape(-1)
-    seg_c = torch.where((a < nb)[:, None],
-                        tables.seg[l].view(nb, E_BLK)[ab], -1).reshape(-1)
-    return src_c, sign_c, seg_c
-
-
+# ``core/frontier.py``). A sparse level is one call of the segment kernel's
+# active entry, which gathers, signs and reduces the active blocks' slots
+# and marks the destinations it reaches; it adds an active row's values in
+# the dense pass's order, and the index guarantees every block that matters
+# is active, so a sparse step is bit-equal to the dense one. Levels with no
+# active block cost nothing; no step reads a device value back to the host.
 def _level_reduce_active(meta: PlanMeta, tables: LevelTables, l: int,
-                         active_l: torch.Tensor, src_c, sign_c,
-                         val: torch.Tensor, op: str) -> torch.Tensor:
-    """``_level_reduce`` over a level's active blocks: the gather shrinks to
-    K*E_BLK slots and the kernel's active entry visits only their windows.
-    Rows no active block routes to are undefined — callers mask."""
-    x = val.index_select(0, src_c)
-    if op == "sum":
-        x = x * sign_c[:, None]
-    elif op == "min":
-        x = -x
-    out = segment_agg_active(
-        x, tables.seg[l], tables.tile_of_block[l], tables.first_of_tile[l],
-        active_l, n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles,
-        op="sum" if op == "sum" else "max")
-    return -out if op == "min" else out
-
-
-def _row_active(meta: PlanMeta, seg_c: torch.Tensor) -> torch.Tensor:
-    """(n_nodes,) bool: destinations with at least one active slot this
-    level — the sparse twin of ``touched``. The index guarantees any
-    destination with a nonzero or changed contribution has every slot
-    active, so masking to these rows is exact."""
-    n = meta.n_nodes
-    out = torch.zeros(n + 1, dtype=torch.bool, device=seg_c.device)
-    # index_fill_ takes the value as a scalar argument: unlike
-    # ``out[idx] = True`` no host tensor is copied to the device
-    out.index_fill_(0, torch.where(seg_c >= 0, seg_c.to(torch.int64), n),
-                    True)
-    return out[:n]
+                         active_l: torch.Tensor, val: torch.Tensor, op: str):
+    """``_level_reduce`` over a level's active blocks, with the rows it
+    recomputes: ``(out, rows)``, ``rows`` the level's touched destinations
+    with at least one active slot (the sparse twin of ``touched``; the index
+    guarantees any destination with a nonzero or changed contribution has
+    every slot active, so masking to these rows is exact). Rows outside
+    ``rows`` are undefined — callers mask."""
+    out, hit = segment_agg_active(
+        val.contiguous(), tables.seg[l], tables.src[l], tables.sign[l],
+        tables.tile_of_block[l], tables.first_of_tile[l], active_l,
+        n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles, op=op)
+    return out, tables.touched[l] & hit
 
 
 def _levels(meta: PlanMeta, tables: LevelTables, active=None):
-    """The real levels in ascending order, each as ``(reduce, rows)``:
-    ``reduce(val, op)`` is the level's reduce-by-destination of ``val``
-    (whose rows outside ``rows`` are undefined), ``rows`` the (n_nodes,)
-    destinations it recomputes. Dense with ``active=None``; otherwise over
-    the level's active blocks, skipping levels with none."""
+    """The real levels in ascending order, each as a ``reduce(val, op) ->
+    (out, rows)``: the level's reduce-by-destination of ``val`` (whose rows
+    outside ``rows`` are undefined) and the (n_nodes,) destinations it
+    recomputes. Dense with ``active=None``; otherwise over the level's
+    active blocks, skipping levels with none."""
     for l in range(meta.depth):
         if active is None:
-            yield (lambda val, op, l=l: _level_reduce(meta, tables, l, val,
-                                                      op)), tables.touched[l]
+            yield lambda val, op, l=l: (
+                _level_reduce(meta, tables, l, val, op), tables.touched[l])
         elif active[l].shape[0]:
-            src_c, sign_c, seg_c = _gather_active(tables, l, active[l])
-            yield (lambda val, op, l=l, src_c=src_c, sign_c=sign_c:
-                   _level_reduce_active(meta, tables, l, active[l], src_c,
-                                        sign_c, val, op)), \
-                tables.touched[l] & _row_active(meta, seg_c)
+            yield lambda val, op, l=l: _level_reduce_active(
+                meta, tables, l, active[l], val, op)
 
 
 # ---------------------------------------------------------------- step bodies
@@ -590,11 +556,11 @@ def write_step_sum(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
     delta = delta_w.new_zeros((meta.n_nodes + 1, delta_w.shape[1]))
     delta = delta.index_put_((node,), delta_w, accumulate=True)[:meta.n_nodes]
 
-    for reduce, rows_l in _levels(meta, arrays.push, active):
+    for reduce in _levels(meta, arrays.push, active):
         # rows the level does not recompute are undefined kernel output
         # (unwritten tiles) — only its destinations may accumulate
-        delta = delta + torch.where(rows_l[:, None], reduce(delta, "sum"),
-                                    0.0)
+        contrib, rows_l = reduce(delta, "sum")
+        delta = delta + torch.where(rows_l[:, None], contrib, 0.0)
     return EngineState(windows, state.pao + delta, state.now + 1.0)
 
 
@@ -625,11 +591,11 @@ def write_step_extremal(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
     changed = _scatter_rows(n, wnode, touched_w.to(torch.float32)[:, None],
                             base=pao.new_zeros((n, 1)))
 
-    for reduce, rows_l in _levels(meta, arrays.push, active):
-        new = reduce(pao, agg.combine)
+    for reduce in _levels(meta, arrays.push, active):
+        new, rows_l = reduce(pao, agg.combine)
         # a destination is recomputed when one of its sources changed: the
         # max of the sources' flags, over the same tables by the same kernel
-        upd = rows_l[:, None] & (reduce(changed, "max") > 0)
+        upd = rows_l[:, None] & (reduce(changed, "max")[0] > 0)
         pao = torch.where(upd, new, pao)
         changed = torch.where(upd, 1.0, changed)
     return EngineState(windows, pao, state.now + 1.0)
@@ -645,8 +611,9 @@ def refresh_pao_step(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
     pao = agg.init_pao(meta.n_nodes, device=wp.device)
     pao = _scatter_rows(meta.n_nodes, arrays.writer_node,
                         wp[: meta.n_writers], base=pao)
-    for reduce, rows_l in _levels(meta, arrays.push):
-        pao = torch.where(rows_l[:, None], reduce(pao, agg.combine), pao)
+    for reduce in _levels(meta, arrays.push):
+        new, rows_l = reduce(pao, agg.combine)
+        pao = torch.where(rows_l[:, None], new, pao)
     return pao
 
 
@@ -685,11 +652,11 @@ def read_step(meta: PlanMeta, agg: Aggregate, arrays: PlanArrays,
                                reduce="amax")
     take = ((demand[:n] > 0) & (decision == PULL))[:, None]
     val = state.pao
-    for reduce, rows_l in _levels(meta, arrays.pull,
-                                  None if active is None else active[1]):
+    for reduce in _levels(meta, arrays.pull,
+                          None if active is None else active[1]):
         # only overwrite rows that this level actually computed
-        val = torch.where(take & rows_l[:, None], reduce(val, agg.combine),
-                          val)
+        new, rows_l = reduce(val, agg.combine)
+        val = torch.where(take & rows_l[:, None], new, val)
     answers = val[nodes]
     return agg.finalize(answers), answers
 
@@ -728,63 +695,48 @@ def _offsets(S: int, n: int, device) -> torch.Tensor:
 
 
 def _stacked_levels(meta: PlanMeta, tables: LevelTables, active=None):
-    """``_levels`` over stacked (S, L, ...) tables: each real level as
-    ``(reduce, rows)``, ``reduce(val, op)`` the level's reduce-by-
-    destination of ``val`` (S, n, F) for every shard in one launch of the
-    stacked kernel entry, ``rows`` the (S, n) destinations it recomputes.
-    Sources gather from the flattened (S * n, F) values with shard-offset
-    indices. ``active``, when given, is the per-level tuple of (S, K)
-    active-block lists (each shard's padded with the level's block count);
-    levels no shard has an active block in are skipped."""
+    """``_levels`` over stacked (S, L, ...) tables: each real level as a
+    ``reduce(val, op) -> (out, rows)``, the level's reduce-by-destination
+    of ``val`` (S, n, F) for every shard in one launch of the stacked
+    kernel entry and the (S, n) destinations it recomputes. Dense sources
+    gather from the flattened (S * n, F) values with shard-offset indices.
+    ``active``, when given, is the per-level tuple of (S, K) active-block
+    lists (each shard's padded with the level's block count), each level
+    one call of the fused active entry; levels no shard has an active
+    block in are skipped."""
     S = tables.seg.shape[0]
     n = meta.n_nodes
-    dev = tables.seg.device
-    off = _offsets(S, n, dev)
-    nb = tables.tile_of_block.shape[2]
+    # the dense gather's shard offsets (the fused active entry needs none)
+    off = _offsets(S, n, tables.seg.device) if active is None else None
+    kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles)
     for l in range(meta.depth):
-        if active is None:
-            src, sign, act = tables.src[:, l], tables.sign[:, l], None
-            rows = tables.touched[:, l]
-        else:
-            act = active[l]
-            if act.shape[1] == 0:
+        seg, tob, fot = tables.seg[:, l], tables.tile_of_block[:, l], \
+            tables.first_of_tile[:, l]
+        if active is not None:
+            if active[l].shape[1] == 0:
                 continue
-            a = act.to(torch.int64)
-            ab = torch.clamp(a, max=nb - 1)
-            sid = torch.arange(S, device=dev)[:, None]
-            src = tables.src[:, l].view(S, nb, E_BLK)[sid, ab].reshape(S, -1)
-            sign = tables.sign[:, l].view(S, nb, E_BLK)[sid, ab] \
-                .reshape(S, -1)
-            seg_c = torch.where((a < nb)[..., None],
-                                tables.seg[:, l].view(S, nb, E_BLK)[sid, ab],
-                                -1).reshape(S, -1)
-            hit = torch.zeros(S * (n + 1), dtype=torch.bool, device=dev)
-            hit.index_fill_(0, (torch.where(seg_c >= 0, seg_c.to(torch.int64),
-                                            n) + _offsets(S, n + 1, dev))
-                            .reshape(-1), True)
-            rows = tables.touched[:, l] & hit.view(S, n + 1)[:, :n]
 
-        def reduce(val, op, l=l, src=src, sign=sign, act=act):
-            F = val.shape[-1]
-            x = val.reshape(S * n, F).index_select(
-                0, (src.to(torch.int64) + off).reshape(-1)).view(S, -1, F)
-            if op == "sum":
-                x = x * sign[..., None]
-            elif op == "min":
-                x = -x
-            kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles,
-                      op="sum" if op == "sum" else "max")
-            if act is None:
+            def reduce(val, op, l=l, seg=seg, tob=tob, fot=fot):
+                out, hit = segment_agg_active_stacked(
+                    val.contiguous(), seg, tables.src[:, l],
+                    tables.sign[:, l], tob, fot, active[l], op=op, **kw)
+                return out, tables.touched[:, l] & hit
+        else:
+            def reduce(val, op, l=l, seg=seg, tob=tob, fot=fot):
+                F = val.shape[-1]
+                x = val.reshape(S * n, F).index_select(
+                    0, (tables.src[:, l].to(torch.int64) + off).reshape(-1)
+                ).view(S, -1, F)
+                if op == "sum":
+                    x = x * tables.sign[:, l][..., None]
+                elif op == "min":
+                    x = -x
                 out = segment_agg_level_stacked(
-                    x, tables.seg[:, l], tables.tile_of_block[:, l],
-                    tables.first_of_tile[:, l], **kw)
-            else:
-                out = segment_agg_active_stacked(
-                    x, tables.seg[:, l], tables.tile_of_block[:, l],
-                    tables.first_of_tile[:, l], act, **kw)
-            return -out if op == "min" else out
+                    x, seg, tob, fot, op="sum" if op == "sum" else "max",
+                    **kw)
+                return (-out if op == "min" else out), tables.touched[:, l]
 
-        yield reduce, rows
+        yield reduce
 
 
 def _stacked_batch(state: EngineState, n_writers: int, rows, vals, mask):
@@ -826,9 +778,9 @@ def write_step_sum_stacked(meta: PlanMeta, agg: Aggregate, spec: WindowSpec,
     delta = delta_w.new_zeros((S * n + 1, d))
     delta = delta.index_put_((node,), delta_w, accumulate=True)[: S * n] \
         .view(S, n, d)
-    for reduce, rows_l in _stacked_levels(meta, arrays.push, active):
-        delta = delta + torch.where(rows_l[..., None], reduce(delta, "sum"),
-                                    0.0)
+    for reduce in _stacked_levels(meta, arrays.push, active):
+        contrib, rows_l = reduce(delta, "sum")
+        delta = delta + torch.where(rows_l[..., None], contrib, 0.0)
     return EngineState(unflat_windows(windows, S), state.pao + delta,
                        state.now + 1.0)
 
@@ -864,9 +816,9 @@ def write_step_extremal_stacked(meta: PlanMeta, agg: Aggregate,
     changed = _scatter_rows(S * n, wflat,
                             touched_w.to(torch.float32)[:, None],
                             base=pao.new_zeros((S * n, 1))).view(S, n, 1)
-    for reduce, rows_l in _stacked_levels(meta, arrays.push, active):
-        new = reduce(pao, agg.combine)
-        upd = rows_l[..., None] & (reduce(changed, "max") > 0)
+    for reduce in _stacked_levels(meta, arrays.push, active):
+        new, rows_l = reduce(pao, agg.combine)
+        upd = rows_l[..., None] & (reduce(changed, "max")[0] > 0)
         pao = torch.where(upd, new, pao)
         changed = torch.where(upd, 1.0, changed)
     return EngineState(unflat_windows(windows, S), pao, state.now + 1.0)
@@ -896,9 +848,9 @@ def read_step_stacked(meta: PlanMeta, agg: Aggregate, arrays: PlanArrays,
         demand.scatter_reduce_(0, srcs, demand[dsts], reduce="amax")
     take = ((demand.view(S, n + 1)[:, :n] > 0) & (decision == PULL))[..., None]
     val = state.pao
-    for reduce, rows_l in _stacked_levels(meta, arrays.pull):
-        val = torch.where(take & rows_l[..., None], reduce(val, agg.combine),
-                          val)
+    for reduce in _stacked_levels(meta, arrays.pull):
+        new, rows_l = reduce(val, agg.combine)
+        val = torch.where(take & rows_l[..., None], new, val)
     d = val.shape[-1]
     answers = val.gather(1, idx[..., None].expand(S, B, d))
     owner = (own.to(torch.int64)

@@ -61,39 +61,116 @@
 // blocks are live: reruns are bit-equal. Scalar aggregates (F = 1), avg
 // (F = 2) and top-k (F = domain) are not padded to 128 lanes.
 //
-// The active entries (segment_agg_{sum,max}_active_f32) run the same
-// function over a subset of a level's blocks, the frontier-sparse steps'
-// active set: x holds only the active blocks' values, seg/tob/fot stay the
-// whole level's. The windows are cut by each active block's own index in
-// the level, exactly as the dense pass cuts them, a block that is not
-// active is skipped as an all-padding block is, and a run's pieces are
-// combined in window order. A skipped block adds the op's identity to
-// nothing, so on every row an active block routes to, the output is
-// bit-equal to the dense pass over the level with the inactive blocks'
-// values set to the identity. Only the windows holding an active block,
-// and the runs holding one, do any work: the cost follows the active set,
-// not the level.
+// The active entry (segment_agg_active_f32) computes a whole frontier-sparse
+// level in one launch: over a subset of a level's blocks (the steps'
+// active set, `active` ascending block indices padded with n_blocks), for
+// each live slot e of an active block
 //
-// The stacked entries (segment_agg_{sum,max}[_active]_stacked_f32) run S
-// shards' levels of one shape in one launch, the counterpart of the TPU
-// kernel under `vmap` over a shard axis: the grid's third axis is the
-// shard, and each CTA first moves every pointer to its shard's slice (seg,
-// tob and fot by the tables' shard strides, which may exceed one level's
-// size; x, out, active, part and flag by their own sizes). A shard's CTAs
-// then do exactly what the single-shard entry does on that slice, so each
-// shard's output is bit-equal to a launch of the single-shard entry on it.
-// Ragged active lists are padded to the widest shard with n_blocks; a pad
-// entry never starts a window nor reaches the combine.
+//   sum: out[seg[e]] += val[src[e]] * sign[e]
+//   max: out[seg[e]]  = max(out[seg[e]], val[src[e]])
+//   min: the max of -val[src[e]], negated on store (the engine's -max(-x)),
+//
+// and the level's row mask hit[seg[e]] = 1 (the entry clears the mask with
+// an async memset first). The JAX package gathers
+// x = val[src] * sign in XLA and runs the same TPU kernel on it
+// (src/repro/core/engine.py, `_level_reduce_active`); here the gather, the
+// sign and the mask move into the kernel, so x never reaches device memory.
+// - Grid: one CTA per active entry; the entry that opens its window (the
+//   first active block of it) works the window, the others and the pads
+//   exit. Windows are cut by each block's own index, exactly as the dense
+//   pass cuts them.
+// - A CTA touches only its window's active blocks, a warp each (16
+//   slot-lane warps, or 4 feature-lane warps for a window of 4): their seg
+//   and src rows, and for sum their sign rows (contiguous 1 KB rows), are
+//   staged into shared memory by cp.async, every block's copies in flight
+//   at once (a warp with a second block reduces its first while the second
+//   lands);
+//   values are gathered from `val` straight into registers (all of a
+//   block's slots' loads in flight) and reduced in the dense pass's order
+//   (feature_block, or slot_block_overlapped: slot_block's additions in
+//   slot_block's order), so each block's partial rows are bit-equal to the
+//   dense kernel's on the gathered values. A block that is not active
+//   costs nothing: no staging, no shared-memory copy, no fold.
+// - One launch, deterministic. A piece whose run lies wholly in the window
+//   is written to `out` directly as v (not identity (+) v). Every other
+//   piece writes its partial rows to `part` and its live flag, and then
+//   takes an integer ticket on its run's tile: each piece adds its count c
+//   of the run's active entries, the run's first piece also adds the
+//   index of its first entry and the run's last piece subtracts the index
+//   past its last one. The sum of any strict subset of a run's pieces is
+//   nonzero and the sum of all of them is zero, so the CTA whose
+//   atomicAdd brings the ticket to zero is the last to arrive, and the
+//   ticket is back at zero for the next launch without a memset. That CTA
+//   combines the run's pieces in window order from the op's identity,
+//   skipping the dead ones, exactly as the dense combine does; a run with
+//   one piece is combined by its own CTA without a ticket. A barrier orders
+//   the CTA's part and flag writes before thread 0's ticket, an atomic add
+//   with release and acquire semantics at GPU scope, so the combiner sees
+//   every piece's writes; it reads `part`, `flag` and the run's first/last
+//   entries (`run`, written by the first and last pieces) through L2. No
+//   float atomics.
+// - Latency, not bytes, bounds a sparse level: a CTA is a chain of
+//   dependent steps (entries, then the window's tables and the staged rows,
+//   then the gathered values, the block reduce, the fold, the ticket). The
+//   entries around the window come in one load; the piece table is built by
+//   one warp in parallel while the rows land; a block's 8 rounds of slot
+//   shuffles run overlapped (slot_block_overlapped) before their heads add
+//   in order.
+// So on every row an active block routes to, the output is bit-equal to
+// the dense pass over the level's gathered values with the inactive
+// blocks' values set to the identity, and to the JAX package's composition
+// up to the order of a row's additions.
+//
+// The stacked entries (segment_agg_{sum,max}_stacked_f32, and the active
+// entry with n_shards > 1) run S shards' levels of one shape in one launch,
+// the counterpart of the TPU kernel under `vmap` over a shard axis: the
+// grid's third axis is the shard, and each CTA first moves every pointer to
+// its shard's slice (seg, src, sign, tob and fot by the tables' shard
+// strides, which may exceed one level's size; x, val, out, hit, active,
+// part, flag, the tickets and the run table by their own sizes). A shard's
+// CTAs then do exactly what the single-shard entry does on that slice, so
+// each shard's output is bit-equal to a launch of the single-shard entry on
+// it. Ragged active lists are padded to the widest shard with n_blocks; a
+// pad entry never opens a window nor counts in a run.
 
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 namespace {
 
 constexpr int E_BLK = 256;  // slots per edge block
 constexpr int R_BLK = 128;  // rows per tile
 constexpr int MAX_WIN = 64;
+constexpr int ACT_MAX_WIN = 16;  // the active entry's widest window
 constexpr int CF = 8;       // features per combine CTA
 constexpr int PIPE = 8;     // pieces a combine thread loads at a time
+constexpr int MAX_DEVICES = 64;
+
+constexpr int OP_SUM = 0, OP_MAX = 1, OP_MIN = 2;  // the active entry's ops
+
+// A kernel's dynamic shared-memory limit, raised on each device only when a
+// launch needs more than was set there before (the attribute call is not
+// repeated on every launch); one per kernel instance.
+struct SmemLimit {
+  std::mutex m;
+  int set[MAX_DEVICES] = {};
+};
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, SmemLimit& lim) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(lim.m);
+  if (lim.set[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) lim.set[dev] = bytes;
+  return err;
+}
 
 // Programmatic dependent launch: the combine kernel is launched while the
 // window kernel's last CTAs run, and waits here for all of their writes.
@@ -102,6 +179,20 @@ __device__ __forceinline__ void launch_dependents() {
 }
 __device__ __forceinline__ void wait_prerequisites() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // A CTA's shard is blockIdx.z. Each kernel first moves its pointers to the
@@ -121,15 +212,58 @@ __device__ __forceinline__ float identity() {
   return MAX ? -3.0e38f : 0.0f;  // the TPU kernel's identities
 }
 
+// A block's slots as the dense pass reads them: seg in device memory at
+// the block's own position, slot s's values at xb + s * F.
+struct DenseSlots {
+  const float* __restrict__ xb;
+  const int* __restrict__ sg;
+  int F;
+  __device__ __forceinline__ int seg(int s) const { return sg[s]; }
+  __device__ __forceinline__ float at(int s, int j) const {
+    return xb[static_cast<size_t>(s) * F + j];
+  }
+  __device__ __forceinline__ void mark(int, const int (&)[E_BLK / 32]) const {
+  }
+};
+
+// An active block's slots: its seg, src and sign rows staged in shared
+// memory (st: seg at [0, 256), src at [256, 512), sign's bits at
+// [512, 768)); slot s's feature j is val[src[s]] * sign[s] (sum; an
+// unfused multiply, as the engine's gather rounds it), val[src[s]] (max)
+// or -val[src[s]] (min). mark() sets the row mask of the block's live
+// slots when hit is given.
+template <int OP>
+struct GatherSlots {
+  const float* __restrict__ val;
+  const int* st;
+  unsigned char* hit;
+  int F;
+  __device__ __forceinline__ int seg(int s) const { return st[s]; }
+  __device__ __forceinline__ float at(int s, int j) const {
+    const float v = __ldg(val + static_cast<size_t>(st[E_BLK + s]) * F + j);
+    if (OP == OP_SUM) return __fmul_rn(v, __int_as_float(st[2 * E_BLK + s]));
+    return OP == OP_MIN ? -v : v;
+  }
+  __device__ __forceinline__ void mark(int row0,
+                                       const int (&loc)[E_BLK / 32]) const {
+    if (hit == nullptr) return;
+#pragma unroll
+    for (int r = 0; r < E_BLK / 32; ++r) {
+      if (loc[r] >= 0) hit[row0 + loc[r]] = 1;
+    }
+  }
+};
+
 // The block's seg, as row offsets in the tile (-1: padding or another
 // tile), slot r * 32 + lane in loc[r]; returns whether any slot is live.
-__device__ __forceinline__ bool block_rows(const int* __restrict__ seg,
-                                           size_t e0, int row0, int lane,
+template <class Slots>
+__device__ __forceinline__ bool block_rows(const Slots& sl, int row0,
+                                           int lane,
                                            int (&loc)[E_BLK / 32]) {
   bool any = false;
 #pragma unroll
   for (int r = 0; r < E_BLK / 32; ++r) {
-    const int s = seg[e0 + r * 32 + lane];
+    const int s = sl.seg(r * 32 + lane);
     loc[r] = (s >= 0 && static_cast<unsigned>(s - row0) < R_BLK) ? s - row0
                                                                  : -1;
     any |= loc[r] >= 0;
@@ -138,27 +272,25 @@ __device__ __forceinline__ bool block_rows(const int* __restrict__ seg,
 }
 
 // Slot lanes (F <= 4): one block's slots, lane = slot, into the warp's
-// accumulators wacc[j * 128 + row]; xb points at the block's first slot's
-// values (seg at the block's own position e0 = b * E_BLK). Every live slot's values are loaded
+// accumulators wacc[j * 128 + row]. Every live slot's values are loaded
 // first (one round trip); then per round of 32 slots, a stretch of lanes
 // with one row (the sorted case) is reduced by a shuffle tree so its first
 // lane holds the total, and the first lanes that share a row (seg unsorted
 // inside the tile) are added in lane order by the lowest of them. Returns
 // whether the block held a live slot.
-template <int FC, bool MAX>
-__device__ bool slot_block(const float* __restrict__ xb,
-                           const int* __restrict__ seg, size_t b, int row0,
-                           int F, float* wacc, float* xs, int lane) {
-  const size_t e0 = b * E_BLK;
+template <int FC, bool MAX, class Slots>
+__device__ bool slot_block(const Slots& sl, int row0, int F, float* wacc,
+                           float* xs, int lane) {
   int loc[E_BLK / 32];
-  if (!block_rows(seg, e0, row0, lane, loc)) return false;
+  if (!block_rows(sl, row0, lane, loc)) return false;
+  sl.mark(row0, loc);
   float v[E_BLK / 32][FC];
 #pragma unroll
   for (int r = 0; r < E_BLK / 32; ++r) {
-    const float* xr = xb + static_cast<size_t>(r * 32 + lane) * F;
 #pragma unroll
     for (int j = 0; j < FC; ++j) {
-      v[r][j] = loc[r] >= 0 && j < F ? xr[j] : identity<MAX>();
+      v[r][j] = loc[r] >= 0 && j < F ? sl.at(r * 32 + lane, j)
+                                     : identity<MAX>();
     }
   }
 #pragma unroll
@@ -206,20 +338,103 @@ __device__ bool slot_block(const float* __restrict__ xb,
   return true;
 }
 
-// Feature lanes (F > 4): lane = feature f of the warp's 32 (xb as in
-// slot_block), the block's slots walked in order (rows in sl, the warp's 256 ints of shared memory),
+// slot_block for the active entry, the same additions in the same order
+// with the rounds overlapped: every round's stretches are reduced first
+// (independent shuffle trees, so their latencies overlap), then the heads
+// add into wacc in round order, each row's heads in lane order. A round
+// whose heads all have rows of their own adds straight from registers; one
+// where a row has several heads (seg unsorted in the tile) stages them in
+// xs as slot_block does.
+template <int FC, bool MAX, class Slots>
+__device__ bool slot_block_overlapped(const Slots& sl, int row0, int F,
+                                      float* wacc, float* xs, int lane) {
+  constexpr int NR = E_BLK / 32;
+  int loc[NR];
+  if (!block_rows(sl, row0, lane, loc)) return false;
+  sl.mark(row0, loc);
+  float v[NR][FC];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+#pragma unroll
+    for (int j = 0; j < FC; ++j) {
+      v[r][j] = loc[r] >= 0 && j < F ? sl.at(r * 32 + lane, j)
+                                     : identity<MAX>();
+    }
+  }
+  unsigned same[NR];
+  bool head[NR];
+  unsigned multi = 0;  // bit r: round r has a row with several heads
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int lc = loc[r];
+    const bool valid = lc >= 0;
+    const int nxt = __shfl_down_sync(0xffffffffu, lc, 1);
+    const int prv = __shfl_up_sync(0xffffffffu, lc, 1);
+    const unsigned tails =
+        __ballot_sync(0xffffffffu, valid && (lane == 31 || nxt != lc));
+    head[r] = valid && (lane == 0 || prv != lc);
+    const int end = valid ? lane + __ffs(tails >> lane) - 1 : lane;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+      for (int j = 0; j < FC; ++j) {
+        const float t = __shfl_down_sync(0xffffffffu, v[r][j], o);
+        if (lane + o <= end) v[r][j] = combine<MAX>(v[r][j], t);
+      }
+    }
+    const unsigned heads = __ballot_sync(0xffffffffu, head[r]);
+    same[r] = __match_any_sync(0xffffffffu, head[r] ? lc : -1) & heads;
+    multi |= (__any_sync(0xffffffffu, head[r] && (same[r] & (same[r] - 1)))
+                  ? 1u
+                  : 0u)
+             << r;
+  }
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int lc = loc[r];
+    if ((multi >> r) & 1u) {
+      if (head[r]) {
+#pragma unroll
+        for (int j = 0; j < FC; ++j) xs[lane * (FC + 1) + j] = v[r][j];
+      }
+      __syncwarp();
+      if (head[r] && lane == __ffs(same[r]) - 1) {
+#pragma unroll
+        for (int j = 0; j < FC; ++j) {
+          if (j < F) {
+            float a = wacc[j * R_BLK + lc];
+            for (unsigned m = same[r]; m; m &= m - 1) {
+              a = combine<MAX>(a, xs[(__ffs(m) - 1) * (FC + 1) + j]);
+            }
+            wacc[j * R_BLK + lc] = a;
+          }
+        }
+      }
+    } else if (head[r]) {
+#pragma unroll
+      for (int j = 0; j < FC; ++j) {
+        if (j < F) {
+          wacc[j * R_BLK + lc] = combine<MAX>(wacc[j * R_BLK + lc], v[r][j]);
+        }
+      }
+    }
+    __syncwarp();  // a row's next head may be another lane's, next round
+  }
+  return true;
+}
+
+// Feature lanes (F > 4): lane = feature f of the warp's 32, the block's
+// slots walked in order (rows in sl, the warp's 256 ints of shared memory),
 // rounds of 32 padding slots skipped; round r + 1's 32 values are loaded
 // while round r's are added, and a
 // stretch of slots with one row is combined in a register and added to
 // wacc[row * 32 + lane] when the row changes.
-template <bool MAX>
-__device__ bool feature_block(const float* __restrict__ xb,
-                              const int* __restrict__ seg, size_t b,
-                              int row0, int F, int f, float* wacc, int* sl,
-                              int lane) {
-  const size_t e0 = b * E_BLK;
+template <bool MAX, class Slots>
+__device__ bool feature_block(const Slots& slots, int row0, int F, int f,
+                              float* wacc, int* sl, int lane) {
   int loc[E_BLK / 32];
-  if (!block_rows(seg, e0, row0, lane, loc)) return false;
+  if (!block_rows(slots, row0, lane, loc)) return false;
+  slots.mark(row0, loc);
 #pragma unroll
   for (int r = 0; r < E_BLK / 32; ++r) sl[r * 32 + lane] = loc[r];
   __syncwarp();
@@ -229,12 +444,10 @@ __device__ bool feature_block(const float* __restrict__ xb,
     rounds |= (__ballot_sync(0xffffffffu, loc[r] >= 0) ? 1u : 0u) << r;
   }
   const bool fok = f < F;
-  const float* xf = xb + f;
   float cur_x[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    cur_x[i] = sl[i] >= 0 && fok ? xf[static_cast<size_t>(i) * F]
-                                 : identity<MAX>();
+    cur_x[i] = sl[i] >= 0 && fok ? slots.at(i, f) : identity<MAX>();
   }
   int cur = -1;
   float acc = identity<MAX>();
@@ -245,8 +458,7 @@ __device__ bool feature_block(const float* __restrict__ xb,
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int s = rn * 32 + i;
-      nxt_x[i] = sl[s] >= 0 && fok ? xf[static_cast<size_t>(s) * F]
-                                   : identity<MAX>();
+      nxt_x[i] = sl[s] >= 0 && fok ? slots.at(s, f) : identity<MAX>();
     }
     if (((rounds >> r) & 1u) == 0) {  // all padding: nothing to add
 #pragma unroll
@@ -279,6 +491,9 @@ __device__ bool feature_block(const float* __restrict__ xb,
 
 constexpr int SLOT_WARPS = 8;  // slot-lane window kernel
 constexpr int FEAT_WARPS = 4;  // feature-lane window kernel: 16 KB a warp
+// the active kernel's slot-lane warps: one per block of its widest window,
+// so no warp reduces two blocks in turn
+constexpr int ACT_SLOT_WARPS = 16;
 
 // A run's piece in a window: blocks [p0, p1) of the window, where p0 is
 // the start of a run (first_of_tile) or the window's first block.
@@ -327,30 +542,19 @@ __device__ __forceinline__ void load_window(const int* __restrict__ tob,
 // features. Then each piece folds its live blocks' copies in block order
 // into its rows. flag[2 w + s] of a piece written to part: bit 0, it held a
 // live slot; bit 1, its run goes on into the next window.
-//
-// SPARSE (the active entry): the grid runs over the level's active blocks
-// instead, `active` (n_active,) ascending block indices padded with
-// n_blocks, x holding only their values (active[k]'s slots at rows
-// k * E_BLK). CTA k works the window of active[k] when it is that window's
-// first active entry (and exits otherwise, as pads do); the window is cut
-// as in the dense pass, and a block that is not active is skipped as an
-// all-padding block is, so an active row's values are added in the dense
-// pass's order. Its part/flag slots are 2 k and 2 k + 1.
-template <int FC, bool MAX, bool SPARSE>
+template <int FC, bool MAX>
 __global__ void __launch_bounds__((FC == 32 ? FEAT_WARPS : SLOT_WARPS) * 32)
 segment_agg_kernel(const float* __restrict__ x, const int* __restrict__ seg,
                    const int* __restrict__ tob, const int* __restrict__ fot,
-                   const int* __restrict__ active, int n_active,
                    float* __restrict__ out, float* __restrict__ part,
                    int* __restrict__ flag, int n_blocks, int F,
                    int n_row_tiles, int win, Shard sh) {
   {
     const size_t z = blockIdx.z, g = gridDim.x;
-    x += z * (SPARSE ? n_active : n_blocks) * E_BLK * F;
+    x += z * n_blocks * E_BLK * F;
     seg += z * sh.seg_stride;
     tob += z * sh.blk_stride;
     fot += z * sh.blk_stride;
-    if (SPARSE) active += z * n_active;
     out += z * n_row_tiles * R_BLK * F;
     part += z * 2 * g * R_BLK * F;
     flag += z * 2 * g;
@@ -360,27 +564,11 @@ segment_agg_kernel(const float* __restrict__ x, const int* __restrict__ seg,
   constexpr int COPY = FC * R_BLK;  // floats a block
   extern __shared__ float smem[];   // win copies, then the warps' staging
   __shared__ int s_tob[MAX_WIN + 1], s_fot[MAX_WIN + 1], s_live[MAX_WIN];
-  __shared__ int s_cmp[SPARSE ? MAX_WIN : 1];  // block -> row of x, or -1
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int w = blockIdx.x;
-  if (SPARSE) {
-    const int a = active[blockIdx.x];
-    if (a < 0 || a >= n_blocks) return;  // a pad entry
-    w = a / win;
-    if (blockIdx.x > 0 && active[blockIdx.x - 1] / win == w) return;
-  }
+  const int w = blockIdx.x;
   const int w0 = w * win;
   const int nw = min(win, n_blocks - w0);
   load_window(tob, fot, w0, nw, n_blocks, s_tob, s_fot);
-  if (SPARSE) {
-    if (tid < nw) s_cmp[tid] = -1;
-    __syncthreads();
-    const int k = blockIdx.x + tid;
-    if (tid < nw && k < n_active) {
-      const int a = active[k];
-      if (a >= w0 && a < w0 + nw) s_cmp[a - w0] = k;
-    }
-  }
   __syncthreads();
   float* xs = smem + win * COPY + warp * 32 * (FC + 1);           // slots
   int* sl = reinterpret_cast<int*>(smem + win * COPY) + warp * E_BLK;  // feat
@@ -392,17 +580,14 @@ segment_agg_kernel(const float* __restrict__ x, const int* __restrict__ seg,
       __syncwarp();
       const int tile = s_tob[bi];
       bool live = false;
-      const size_t xrow = SPARSE ? static_cast<size_t>(s_cmp[bi]) * E_BLK
-                                 : static_cast<size_t>(w0 + bi) * E_BLK;
-      if (tile >= 0 && tile < n_row_tiles && (!SPARSE || s_cmp[bi] >= 0)) {
-        const size_t b = static_cast<size_t>(w0 + bi);
-        const float* xb = x + xrow * F;
+      if (tile >= 0 && tile < n_row_tiles) {
+        const size_t e0 = static_cast<size_t>(w0 + bi) * E_BLK;
+        const DenseSlots slots{x + e0 * F, seg + e0, F};
         if (FEAT) {
-          live = feature_block<MAX>(xb, seg, b, tile * R_BLK, F, f0 + lane,
-                                    copy, sl, lane);
+          live = feature_block<MAX>(slots, tile * R_BLK, F, f0 + lane, copy,
+                                    sl, lane);
         } else {
-          live = slot_block<FC, MAX>(xb, seg, b, tile * R_BLK, F, copy, xs,
-                                     lane);
+          live = slot_block<FC, MAX>(slots, tile * R_BLK, F, copy, xs, lane);
         }
       }
       if (lane == 0 && f0 == 0) s_live[bi] = live;
@@ -466,8 +651,9 @@ __device__ __forceinline__ void add_pieces(const float* pr, size_t piece,
   }
 }
 
-// Compacts, in thread order, the part slots of the threads with `live`
-// into s_list; returns how many there are.
+// Compacts, in thread order, the part slots of the threads (NT of them)
+// with `live` into s_list; returns how many there are.
+template <int NT>
 __device__ __forceinline__ int compact_live(bool live, int slot, int* s_cnt,
                                             int* s_list) {
   const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
@@ -476,7 +662,7 @@ __device__ __forceinline__ int compact_live(bool live, int slot, int* s_cnt,
   __syncthreads();
   int off = 0, n = 0;
 #pragma unroll
-  for (int q = 0; q < R_BLK / 32; ++q) {
+  for (int q = 0; q < NT / 32; ++q) {
     off += q < wp ? s_cnt[q] : 0;
     n += s_cnt[q];
   }
@@ -549,7 +735,8 @@ segment_agg_combine_kernel(const int* __restrict__ tob,
     if (c < n_win && !(fl & 2)) atomicMin(&s_stop, tid);  // its last window
     __syncthreads();
     const int stop = s_stop;
-    const int n = compact_live(tid <= stop && (fl & 1), c * 2, s_cnt, s_list);
+    const int n = compact_live<R_BLK>(tid <= stop && (fl & 1), c * 2, s_cnt,
+                                      s_list);
     add_pieces<MAX>(pr, piece, s_list, n, nf, acc);
     __syncthreads();  // s_list, s_cnt and s_stop are rewritten next step
     if (stop < R_BLK) break;
@@ -561,144 +748,381 @@ segment_agg_combine_kernel(const int* __restrict__ tob,
   }
 }
 
-// The active entry's combine: one CTA per (active entry, CF features).
-// Entry i works the run of block active[i] when it is the run's first
-// active block and the run does not lie wholly in that block's window (a
-// run inside one window was written by the window kernel). The run's
-// pieces that hold an active block are those of its active entries'
-// windows: the first one at slot 2 e + s (e the window's first active
-// entry; s = 0 if the run holds the window's first block), every later one
-// at 2 c (c its window's first active entry, which is the run's, the run
-// having started before it). They are added in window order, dead ones
-// skipped; a piece without an active block is the identity, as in the
-// dense combine. Runs are the layouts' own: a tile's blocks are
-// consecutive and only its first carries first_of_tile.
-template <bool MAX>
-__global__ void __launch_bounds__(R_BLK)
-segment_agg_combine_active_kernel(const int* __restrict__ tob,
-                                  const int* __restrict__ fot,
-                                  const int* __restrict__ active,
-                                  int n_active, const float* __restrict__ part,
-                                  const int* __restrict__ flag,
-                                  float* __restrict__ out, int n_blocks,
-                                  int F, int n_row_tiles, int win, Shard sh) {
-  {
-    const size_t z = blockIdx.z, g = gridDim.x;
-    tob += z * sh.blk_stride;
-    fot += z * sh.blk_stride;
-    active += z * n_active;
-    out += z * n_row_tiles * R_BLK * F;
-    part += z * 2 * g * R_BLK * F;
-    flag += z * 2 * g;
+// ------------------------------------------------------- the active entry
+// An integer add with release and acquire semantics at GPU scope: the
+// CTA's writes ordered before it by a barrier are released with it, and the
+// writes released by the adds before it are visible after it.
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// A window's piece (see piece_at) with its active blocks, compact [i0, i1)
+struct PieceRec {
+  int p0, p1, i0, i1, tile, slot;
+  bool skip, direct, goes_on, starts;
+};
+
+// One warp builds the window's piece table in parallel, lane = block: a
+// piece starts at block 0 and wherever first_of_tile is 1 or the tile
+// changes (where piece_at stops), and ends at the next start; its active
+// blocks are counted from the window's active-block mask. Only the pieces
+// that are not skipped and hold an active block are listed, in window
+// order. Returns whether one of them is not direct (a run of the window
+// crosses its edge).
+__device__ __forceinline__ bool piece_table(const int* s_tob, const int* s_fot,
+                                            const int* s_ent, int w0, int nw,
+                                            int na, int n_row_tiles,
+                                            int base, PieceRec* s_pc,
+                                            int* s_npc,
+                                            int lane) {
+  const unsigned act = __reduce_or_sync(
+      0xffffffffu, lane < na ? 1u << (s_ent[lane] - w0) : 0u);
+  const bool start = lane < nw && (lane == 0 || s_fot[lane] == 1 ||
+                                   s_tob[lane] != s_tob[lane - 1]);
+  const unsigned starts = __ballot_sync(0xffffffffu, start);
+  PieceRec pc;
+  bool keep = false;
+  if (start) {
+    const unsigned later = starts & ~((2u << lane) - 1u);
+    pc.p0 = lane;
+    pc.p1 = later ? __ffs(later) - 1 : nw;
+    pc.i0 = __popc(act & ((1u << lane) - 1u));
+    pc.i1 = __popc(act & ((1u << pc.p1) - 1u));
+    pc.tile = s_tob[lane];
+    pc.starts = s_fot[lane] == 1;
+    pc.goes_on = pc.p1 == nw && s_fot[nw] == 0 && s_tob[nw] == pc.tile;
+    pc.skip = (!pc.starts && lane != 0) || pc.tile < 0 ||
+              pc.tile >= n_row_tiles;
+    pc.direct = pc.starts && !pc.goes_on;
+    pc.slot = base * 2 + (lane == 0 ? 0 : 1);
+    keep = !pc.skip && pc.i1 > pc.i0;
   }
-  __shared__ int s_p0, s_p1, s_e, s_stop;
-  __shared__ int s_cnt[R_BLK / 32];
-  __shared__ int s_list[R_BLK];
-  wait_prerequisites();
+  const unsigned kept = __ballot_sync(0xffffffffu, keep);
+  if (keep) s_pc[__popc(kept & ((1u << lane) - 1u))] = pc;
+  if (lane == 0) *s_npc = __popc(kept);
+  return __any_sync(0xffffffffu, keep && !pc.direct);
+}
+
+struct ActiveArgs {
+  const float* val;  // (S, n_val, F)
+  const int* seg;    // the level's seg, src and sign: shard stride
+  const int* src;    //   seg_stride, n_blocks * 256 each
+  const float* sign;
+  const int* tob;  // (n_blocks,) a shard, shard stride blk_stride
+  const int* fot;
+  const int* active;   // (S, n_active) ascending, padded with n_blocks
+  float* out;          // (S, n_row_tiles * 128, F)
+  unsigned char* hit;  // (S, n_row_tiles * 128), cleared before the launch
+  float* part;         // (S, 2 * n_slot, 128, F) scratch
+  int* flag;           // (S, 2 * n_slot) scratch
+  int* ticket;         // (S, n_row_tiles), zero before and after a launch
+  int* run;            // (S, n_row_tiles, 3) scratch: first entry and part
+                       // slot of a run's first piece, end of its last
+  long long n_val, seg_stride, blk_stride;
+  int n_active, n_blocks, F, n_row_tiles, win;
+  // a window opener's part/flag slots are 2 b and 2 b + 1, b its window
+  // (by_window: fewer windows than entries) or else its entry; n_slot is
+  // the smaller of the two counts
+  int n_slot, by_window;
+};
+
+// Combines a run's pieces into its tile's rows, in window order from the
+// op's identity, skipping dead pieces: the first piece at part slot slot0,
+// then the first piece of every entry c in (lo, hi) that opens a new
+// window (a run that started before a window holds its first block, so its
+// entry there is the window's first). Entries are scanned NT at a time; a
+// round's result stays in out (un-negated) for the next one, and min
+// negates on the last store. All NT threads call it.
+template <int OP, int NT>
+__device__ void combine_run(const ActiveArgs& p, const int* active,
+                            const int* flag, const float* part, float* out,
+                            int tile, int lo, int slot0, int hi, int* s_cnt,
+                            int* s_list) {
+  constexpr bool MX = OP != OP_SUM;
   const int tid = threadIdx.x;
-  const int i = blockIdx.x;
-  const int a = active[i];
-  if (a < 0 || a >= n_blocks) return;
-  const int tile = tob[a];
-  if (tile < 0 || tile >= n_row_tiles) return;
-  if (i > 0 && tob[active[i - 1]] == tile) return;  // not the run's first
-  const int w = a / win, w0 = w * win;
-  const int nw = min(win, n_blocks - w0);
-  if (tid == 0) {
-    s_p0 = nw;
-    s_p1 = 0;
-    s_e = i;
-  }
-  __syncthreads();
-  if (tid < nw && tob[w0 + tid] == tile) {
-    atomicMin(&s_p0, tid);
-    atomicMax(&s_p1, tid + 1);
-  }
-  if (tid >= 1 && tid <= win && i - tid >= 0 &&
-      active[i - tid] / win == w) {
-    atomicMin(&s_e, i - tid);
-  }
-  __syncthreads();
-  const int p0 = s_p0, p1 = s_p1;
-  const bool starts = fot[w0 + p0] == 1;
-  const int nb = w0 + nw;
-  const bool goes_on = p1 == nw && nb < n_blocks && fot[nb] == 0 &&
-                       tob[nb] == tile;
-  if (starts && !goes_on) return;  // direct: written by the window kernel
-  const int first = s_e * 2 + (p0 == 0 ? 0 : 1);
-
-  const int f0 = blockIdx.y * CF;
-  const int nf = min(CF, F - f0);
-  const float* pr = part + static_cast<size_t>(tid) * F + f0;  // row tid
-  const size_t piece = static_cast<size_t>(R_BLK) * F;
-  float acc[CF];
-#pragma unroll
-  for (int j = 0; j < CF; ++j) acc[j] = identity<MAX>();
-  if (flag[first] & 1) {
-#pragma unroll
-    for (int j = 0; j < CF; ++j) {
-      if (j < nf) acc[j] = combine<MAX>(acc[j], pr[first * piece + j]);
-    }
-  }
-  for (int c0 = i + 1; c0 < n_active; c0 += R_BLK) {
-    // the next R_BLK active entries: the run's while they stay in its
-    // tile; an entry in a new window holds that window's piece
+  const size_t piece = static_cast<size_t>(R_BLK) * p.F;
+  float* o = out + static_cast<size_t>(tile) * piece;
+  const bool live0 = (__ldcg(flag + slot0) & 1) != 0;
+  const float* p0 = part + static_cast<size_t>(slot0) * piece;
+  for (int c0 = lo + 1, round = 0;; c0 += NT, ++round) {
     const int c = c0 + tid;
-    const int ac = c < n_active ? active[c] : n_blocks;
-    const bool in_run = ac < n_blocks && tob[ac] == tile;
-    if (tid == 0) s_stop = R_BLK;
-    __syncthreads();
-    if (!in_run) atomicMin(&s_stop, tid);
-    __syncthreads();
-    const int stop = s_stop;
-    const bool opens = in_run && tid < stop && ac / win != active[c - 1] / win;
-    const int n = compact_live(opens && (flag[c * 2] & 1), c * 2, s_cnt,
-                               s_list);
-    add_pieces<MAX>(pr, piece, s_list, n, nf, acc);
-    __syncthreads();  // s_list, s_cnt and s_stop are rewritten next step
-    if (stop < R_BLK) break;
-  }
-  float* o = out + (static_cast<size_t>(tile) * R_BLK + tid) * F + f0;
+    const bool in = c < hi;
+    const int ac = in ? active[c] : 0;
+    const bool opens = in && ac / p.win != active[c - 1] / p.win;
+    const int sc = 2 * (p.by_window ? ac / p.win : c);
+    const int fl = opens ? __ldcg(flag + sc) : 0;
+    const int n = compact_live<NT>(opens && (fl & 1), sc, s_cnt, s_list);
+    const bool end = c0 + NT >= hi;
+    for (int e = tid; e < R_BLK * p.F; e += NT) {
+      float acc = round == 0 ? identity<MX>() : o[e];
+      if (round == 0 && live0) acc = combine<MX>(acc, __ldcg(p0 + e));
+      for (int q0 = 0; q0 < n; q0 += PIPE) {
+        float buf[PIPE];
 #pragma unroll
-  for (int j = 0; j < CF; ++j) {
-    if (j < nf) o[j] = acc[j];
+        for (int q = 0; q < PIPE; ++q) {
+          buf[q] = q0 + q < n ? __ldcg(part + s_list[q0 + q] * piece + e)
+                              : identity<MX>();
+        }
+#pragma unroll
+        for (int q = 0; q < PIPE; ++q) {
+          if (q0 + q < n) acc = combine<MX>(acc, buf[q]);
+        }
+      }
+      o[e] = OP == OP_MIN && end ? -acc : acc;
+    }
+    __syncthreads();  // s_list and s_cnt are rewritten next round
+    if (end) break;
   }
 }
 
-template <int FC, bool MAX, bool SPARSE>
+// One CTA per active entry (grid x), shard blockIdx.z. The entry that opens
+// its window works the window's active blocks (slot lanes for F <= 4, FC =
+// 1, 2, 4: 8 warps, compact block i to warp i % 8; feature lanes for F > 4,
+// FC = 32: 4 warps, one pass per 32 features), folds each piece's live
+// active blocks in block order, writes a direct piece to out and every
+// other piece to part (its window's two slots, see ActiveArgs), then
+// settles the tickets of its at most two non-direct pieces and combines
+// the runs it completes (see the header).
+template <int FC, int OP>
+__global__ void __launch_bounds__((FC == 32 ? FEAT_WARPS : ACT_SLOT_WARPS) *
+                                  32)
+segment_agg_active_kernel(const ActiveArgs p) {
+  constexpr bool FEAT = FC == 32;
+  constexpr bool MX = OP != OP_SUM;
+  constexpr int NWK = FEAT ? FEAT_WARPS : ACT_SLOT_WARPS;
+  constexpr int NT = NWK * 32;
+  constexpr int COPY = FC * R_BLK;  // floats a block
+  constexpr int STAGE = 3 * E_BLK;  // ints a block: seg, src, sign
+  const size_t z = blockIdx.z;
+  const int F = p.F, n_blocks = p.n_blocks, n_row_tiles = p.n_row_tiles;
+  const int win = p.win, n_active = p.n_active;
+  const float* val = p.val + z * p.n_val * F;
+  const int* seg = p.seg + z * p.seg_stride;
+  const int* src = p.src + z * p.seg_stride;
+  const int* sign = reinterpret_cast<const int*>(p.sign) + z * p.seg_stride;
+  const int* tob = p.tob + z * p.blk_stride;
+  const int* fot = p.fot + z * p.blk_stride;
+  const int* active = p.active + z * n_active;
+  float* out = p.out + z * n_row_tiles * R_BLK * F;
+  unsigned char* hit = p.hit + z * n_row_tiles * R_BLK;
+  float* part = p.part + z * 2 * p.n_slot * R_BLK * F;
+  int* flag = p.flag + z * 2 * p.n_slot;
+  int* ticket = p.ticket + z * n_row_tiles;
+  int* run = p.run + z * 3 * n_row_tiles;
+
+  // win copies, then the staged rows of win blocks, then the warps' scratch
+  extern __shared__ __align__(16) float asmem[];
+  __shared__ int s_tob[ACT_MAX_WIN + 1], s_fot[ACT_MAX_WIN + 1];
+  __shared__ int s_e[ACT_MAX_WIN + 2];
+  __shared__ unsigned s_live;  // bit i: compact block i held a live slot
+  __shared__ int s_run[2][4], s_nrun, s_npc, s_crossing;
+  __shared__ PieceRec s_pc[ACT_MAX_WIN];
+  __shared__ int s_cnt[NT / 32], s_list[NT];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k = blockIdx.x;
+  // entries k - 1 .. k + win in one round trip: s_e[1 + i] is entry k + i
+  // (-1 before the list, n_blocks past it)
+  if (tid <= win + 1) {
+    const int c = k - 1 + tid;
+    s_e[tid] = c < 0 ? -1 : c < n_active ? active[c] : n_blocks;
+  }
+  if (tid == 0) s_live = 0;
+  __syncthreads();
+  const int a = s_e[1], a_prev = s_e[0];
+  if (a < 0 || a >= n_blocks) return;  // a pad entry
+  const int w = a / win;
+  if (a_prev >= 0 && a_prev / win == w) return;  // not the window's opener
+  const int w0 = w * win;
+  const int nw = min(win, n_blocks - w0);
+  const int* s_ent = s_e + 1;  // the window's active entries: a prefix
+  int na = 0;
+  while (na < nw && s_ent[na] < w0 + nw) ++na;
+
+  int* stage = reinterpret_cast<int*>(asmem + win * COPY);
+  float* xs = reinterpret_cast<float*>(stage + win * STAGE) +
+              warp * 32 * (FC + 1);                               // slots
+  int* sl = stage + win * STAGE + warp * E_BLK;                   // feat
+  // stage every active block's seg and src rows, and for sum its sign row,
+  // one cp.async group a block, each warp its own blocks; the window's
+  // tables load meanwhile
+  constexpr int ROWS = MX ? 2 : 3;  // max and min never read the sign
+  int mine = 0;
+  for (int i = warp; i < na; i += NWK, ++mine) {
+    const size_t e0 = static_cast<size_t>(s_ent[i]) * E_BLK;
+    int* st = stage + i * STAGE;
+    for (int c = lane; c < ROWS * E_BLK / 4; c += 32) {
+      const int row = c / (E_BLK / 4), q = c % (E_BLK / 4);
+      const int* g = (row == 0 ? seg : row == 1 ? src : sign) + e0 + q * 4;
+      cp_async16(st + row * E_BLK + q * 4, g);
+    }
+    cp_async_commit();
+  }
+  load_window(tob, fot, w0, nw, n_blocks, s_tob, s_fot);
+  // the tiles of the entries just before and just after the window's: does
+  // a run's piece here have others before or after it? Loaded by the last
+  // thread, whose warp has the fewest blocks to reduce, for the tickets
+  int prev_tile = -1, next_tile = -1;
+  if (tid == NT - 1) {
+    if (a_prev >= 0) prev_tile = tob[a_prev];
+    if (s_ent[na] < n_blocks) next_tile = tob[s_ent[na]];
+  }
+  __syncthreads();
+  if (warp == NWK - 1) {  // the piece table, while the blocks land
+    const bool crossing =
+        piece_table(s_tob, s_fot, s_ent, w0, nw, na, n_row_tiles,
+                    p.by_window ? w : k, s_pc, &s_npc, lane);
+    if (lane == 0) s_crossing = crossing;
+  }
+  for (int f0 = 0; f0 < F; f0 += FEAT ? 32 : F) {
+    const int nf = FEAT ? min(32, F - f0) : F;
+    int m = 0;
+    for (int i = warp; i < na; i += NWK, ++m) {
+      if (f0 == 0) {  // block i's rows have landed (later groups may not)
+        if (m + 1 < mine) {
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncwarp();
+      }
+      float* copy = asmem + i * COPY;
+      for (int j = lane; j < COPY; j += 32) copy[j] = identity<MX>();
+      __syncwarp();
+      const int tile = s_tob[s_ent[i] - w0];
+      bool live = false;
+      if (tile >= 0 && tile < n_row_tiles) {
+        const GatherSlots<OP> slots{val, stage + i * STAGE,
+                                    f0 == 0 ? hit : nullptr, F};
+        if (FEAT) {
+          live = feature_block<MX>(slots, tile * R_BLK, F, f0 + lane, copy,
+                                   sl, lane);
+        } else {
+          live = slot_block_overlapped<FC, MX>(slots, tile * R_BLK, F, copy,
+                                               xs, lane);
+        }
+      }
+      if (lane == 0 && f0 == 0 && live) atomicOr(&s_live, 1u << i);
+    }
+    __syncthreads();
+    const unsigned lives = s_live;
+    for (int q = 0; q < s_npc; ++q) {
+      const PieceRec pc = s_pc[q];
+      const unsigned mine_live =
+          lives & ((1u << pc.i1) - 1u) & ~((1u << pc.i0) - 1u);
+      if (!pc.direct && f0 == 0 && tid == 0) flag[pc.slot] = mine_live != 0;
+      if (!pc.direct && mine_live == 0) continue;
+      float* dst = pc.direct ? out + static_cast<size_t>(pc.tile) * R_BLK * F
+                             : part + static_cast<size_t>(pc.slot) * R_BLK * F;
+      // element e: row e / 32 and feature e % 32 of the pass (feature
+      // lanes), or row e % 128 and feature e / 128 (slot lanes)
+      for (int e = tid; e < R_BLK * (FEAT ? 32 : FC); e += NT) {
+        const int r = FEAT ? e >> 5 : e & (R_BLK - 1);
+        const int j = FEAT ? e & 31 : e >> 7;
+        if (j >= nf) continue;
+        float v = identity<MX>();
+        for (unsigned m = mine_live; m; m &= m - 1) {
+          v = combine<MX>(v, asmem[(__ffs(m) - 1) * COPY + e]);
+        }
+        dst[static_cast<size_t>(r) * F + f0 + j] =
+            OP == OP_MIN && pc.direct ? -v : v;
+      }
+    }
+    __syncthreads();  // the copies are read before the next pass resets them
+  }
+
+  if (!s_crossing) return;
+  // tickets: the barrier orders every part and flag write of the CTA
+  // before thread 0's release
+  if (tid == NT - 1) {
+    s_run[0][0] = prev_tile;
+    s_run[0][1] = next_tile;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const int prev = s_run[0][0], next = s_run[0][1];
+    int nrun = 0;
+    for (int q = 0; q < s_npc; ++q) {
+      const PieceRec pc = s_pc[q];
+      if (pc.direct) continue;
+      const int c = pc.i1 - pc.i0, lo = k + pc.i0, hi = lo + c;
+      // a piece that does not start its run holds the window's first block
+      // (else it is skipped), so its entry before is k - 1; a piece whose
+      // run goes on ends the window, so its entry after is the first past
+      // the window's
+      const bool first = pc.starts || prev != pc.tile;
+      const bool last = !pc.goes_on || next != pc.tile;
+      int* ri = run + 3 * pc.tile;
+      bool done = first && last;  // the run's only piece
+      int r_lo = lo, r_slot = pc.slot, r_hi = hi;
+      if (!done) {
+        if (first) {
+          ri[0] = lo;
+          ri[1] = pc.slot;
+        }
+        if (last) ri[2] = hi;
+        const int d = c + (first ? lo : 0) - (last ? hi : 0);
+        done = atom_add_acq_rel(ticket + pc.tile, d) + d == 0;
+        if (done) {
+          if (!first) {
+            r_lo = __ldcg(ri);
+            r_slot = __ldcg(ri + 1);
+          }
+          if (!last) r_hi = __ldcg(ri + 2);
+        }
+      }
+      if (done) {  // s_run[0] is read above before it is overwritten
+        s_run[nrun][0] = pc.tile;
+        s_run[nrun][1] = r_lo;
+        s_run[nrun][2] = r_slot;
+        s_run[nrun][3] = r_hi;
+        ++nrun;
+      }
+    }
+    s_nrun = nrun;
+  }
+  __syncthreads();
+  for (int q = 0; q < s_nrun; ++q) {
+    combine_run<OP, NT>(p, active, flag, part, out, s_run[q][0], s_run[q][1],
+                        s_run[q][2], s_run[q][3], s_cnt, s_list);
+  }
+}
+
+template <int FC, bool MAX>
 cudaError_t launch_window(int grid, cudaStream_t st, const float* x,
                           const int* seg, const int* tob, const int* fot,
-                          const int* active, int n_active, float* out,
-                          float* part, int* flag, int n_blocks, int F,
-                          int n_row_tiles, int win, int n_shards, Shard sh) {
+                          float* out, float* part, int* flag, int n_blocks,
+                          int F, int n_row_tiles, int win, int n_shards,
+                          Shard sh) {
   constexpr bool FEAT = FC == 32;
   constexpr int NWK = FEAT ? FEAT_WARPS : SLOT_WARPS;
+  static SmemLimit lim;
   const int smem = win * FC * R_BLK * 4 +
                    (FEAT ? NWK * E_BLK * 4 : NWK * 32 * (FC + 1) * 4);
-  const cudaError_t err = cudaFuncSetAttribute(
-      segment_agg_kernel<FC, MAX, SPARSE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = allow_smem(segment_agg_kernel<FC, MAX>, smem, lim);
   if (err != cudaSuccess) return err;
-  segment_agg_kernel<FC, MAX, SPARSE>
+  segment_agg_kernel<FC, MAX>
       <<<dim3(grid, 1, n_shards), NWK * 32, smem, st>>>(
-          x, seg, tob, fot, active, n_active, out, part, flag, n_blocks, F,
-          n_row_tiles, win, sh);
+          x, seg, tob, fot, out, part, flag, n_blocks, F, n_row_tiles, win,
+          sh);
   return cudaGetLastError();
 }
 
 // The window kernel, then (unless every run lies in one window) the
-// combine as a programmatic dependent. Dense: one window CTA per window;
-// sparse (active != nullptr): one per active entry; n_shards of each.
+// combine as a programmatic dependent: one window CTA per window, n_shards
+// of each.
 template <bool MAX>
 int launch(const void* x, const void* seg, const void* tob, const void* fot,
-           const void* active, int n_active, void* part, void* flag,
-           void* out, int n_blocks, int F, int n_row_tiles, int win,
-           int n_shards, long long seg_stride, long long blk_stride,
-           void* stream) {
-  const bool sparse = active != nullptr;
+           void* part, void* flag, void* out, int n_blocks, int F,
+           int n_row_tiles, int win, int n_shards, long long seg_stride,
+           long long blk_stride, void* stream) {
   if (n_blocks <= 0 || F <= 0 || n_row_tiles <= 0 || win <= 0 ||
-      win > MAX_WIN || (sparse && n_active <= 0) || n_shards <= 0 ||
-      n_shards > 65535 || seg_stride < 0 || blk_stride < 0) {
+      win > MAX_WIN || n_shards <= 0 || n_shards > 65535 || seg_stride < 0 ||
+      blk_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -706,19 +1130,15 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
   const int* s = static_cast<const int*>(seg);
   const int* t = static_cast<const int*>(tob);
   const int* f = static_cast<const int*>(fot);
-  const int* ac = static_cast<const int*>(active);
   float* o = static_cast<float*>(out);
   float* p = static_cast<float*>(part);
   int* fl = static_cast<int*>(flag);
   const int n_win = (n_blocks + win - 1) / win;
-  const int grid = sparse ? n_active : n_win;
   const Shard sh{seg_stride, blk_stride};
   cudaError_t err;
-#define SEGAGG_ARGS grid, st, xf, s, t, f, ac, n_active, o, p, fl, n_blocks, \
-                    F, n_row_tiles, win, n_shards, sh
 #define SEGAGG_LAUNCH(FC)                                                   \
-  err = sparse ? launch_window<FC, MAX, true>(SEGAGG_ARGS)                  \
-               : launch_window<FC, MAX, false>(SEGAGG_ARGS)
+  err = launch_window<FC, MAX>(n_win, st, xf, s, t, f, o, p, fl, n_blocks,  \
+                               F, n_row_tiles, win, n_shards, sh)
   if (F == 1) {
     SEGAGG_LAUNCH(1);
   } else if (F == 2) {
@@ -729,11 +1149,10 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
     SEGAGG_LAUNCH(32);
   }
 #undef SEGAGG_LAUNCH
-#undef SEGAGG_ARGS
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_win == 1) return 0;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid, (F + CF - 1) / CF, n_shards);
+  cfg.gridDim = dim3(n_win, (F + CF - 1) / CF, n_shards);
   cfg.blockDim = dim3(R_BLK);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -743,14 +1162,34 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
   cfg.numAttrs = 1;
   const float* pc = p;
   const int* flc = fl;
-  if (sparse) {
-    return static_cast<int>(cudaLaunchKernelEx(
-        &cfg, segment_agg_combine_active_kernel<MAX>, t, f, ac, n_active, pc,
-        flc, o, n_blocks, F, n_row_tiles, win, sh));
-  }
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, segment_agg_combine_kernel<MAX>, t, f, pc, flc, o, n_blocks, F,
       n_row_tiles, win, sh));
+}
+
+template <int FC, int OP>
+cudaError_t launch_active(const ActiveArgs& a, int n_shards,
+                          cudaStream_t st) {
+  constexpr bool FEAT = FC == 32;
+  constexpr int NWK = FEAT ? FEAT_WARPS : ACT_SLOT_WARPS;
+  static SmemLimit lim;
+  const int smem = a.win * (FC * R_BLK + 3 * E_BLK) * 4 +
+                   (FEAT ? NWK * E_BLK * 4 : NWK * 32 * (FC + 1) * 4);
+  const cudaError_t err =
+      allow_smem(segment_agg_active_kernel<FC, OP>, smem, lim);
+  if (err != cudaSuccess) return err;
+  segment_agg_active_kernel<FC, OP>
+      <<<dim3(a.n_active, 1, n_shards), NWK * 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int OP>
+cudaError_t launch_active_op(const ActiveArgs& a, int n_shards,
+                             cudaStream_t st) {
+  if (a.F == 1) return launch_active<1, OP>(a, n_shards, st);
+  if (a.F == 2) return launch_active<2, OP>(a, n_shards, st);
+  if (a.F <= 4) return launch_active<4, OP>(a, n_shards, st);
+  return launch_active<32, OP>(a, n_shards, st);
 }
 
 }  // namespace
@@ -765,8 +1204,8 @@ extern "C" int segment_agg_sum_f32(const void* x, const void* seg,
                                    void* part, void* flag, void* out,
                                    int n_blocks, int F, int n_row_tiles,
                                    int win, void* stream) {
-  return launch<false>(x, seg, tob, fot, nullptr, 0, part, flag, out,
-                       n_blocks, F, n_row_tiles, win, 1, 0, 0, stream);
+  return launch<false>(x, seg, tob, fot, part, flag, out, n_blocks, F,
+                       n_row_tiles, win, 1, 0, 0, stream);
 }
 
 extern "C" int segment_agg_max_f32(const void* x, const void* seg,
@@ -774,49 +1213,25 @@ extern "C" int segment_agg_max_f32(const void* x, const void* seg,
                                    void* part, void* flag, void* out,
                                    int n_blocks, int F, int n_row_tiles,
                                    int win, void* stream) {
-  return launch<true>(x, seg, tob, fot, nullptr, 0, part, flag, out,
-                      n_blocks, F, n_row_tiles, win, 1, 0, 0, stream);
+  return launch<true>(x, seg, tob, fot, part, flag, out, n_blocks, F,
+                      n_row_tiles, win, 1, 0, 0, stream);
 }
 
-// The active entries: the same level's seg, tob and fot (n_blocks each, as
-// above), `active` (n_active,) i32 ascending block indices padded with
-// n_blocks, x (n_active*256, F) f32 the active blocks' values in that
-// order, part (2*n_active*128*F,) f32 and flag (2*n_active,) i32 scratch.
-// Rows of tiles with no active block are left unwritten; on every row an
-// active block routes to, out is bit-equal to the dense entry's over the
-// whole level with the other blocks' values set to the op's identity.
-extern "C" int segment_agg_sum_active_f32(
-    const void* x, const void* seg, const void* tob, const void* fot,
-    const void* active, int n_active, void* part, void* flag, void* out,
-    int n_blocks, int F, int n_row_tiles, int win, void* stream) {
-  return launch<false>(x, seg, tob, fot, active, n_active, part, flag, out,
-                       n_blocks, F, n_row_tiles, win, 1, 0, 0, stream);
-}
-
-extern "C" int segment_agg_max_active_f32(
-    const void* x, const void* seg, const void* tob, const void* fot,
-    const void* active, int n_active, void* part, void* flag, void* out,
-    int n_blocks, int F, int n_row_tiles, int win, void* stream) {
-  return launch<true>(x, seg, tob, fot, active, n_active, part, flag, out,
-                      n_blocks, F, n_row_tiles, win, 1, 0, 0, stream);
-}
-
-// The stacked entries: S shards' levels of one shape in one launch. Shard
-// z's seg starts at seg + z * seg_stride, its tob and fot at
+// The stacked dense entries: S shards' levels of one shape in one launch.
+// Shard z's seg starts at seg + z * seg_stride, its tob and fot at
 // + z * blk_stride (elements: a level of stacked (S, L, ...) tables has
-// strides L * n_blocks * 256 and L * n_blocks); x is (S, n_blocks*256, F)
-// (dense) or (S, n_active*256, F) (active), active (S, n_active), out
-// (S, n_row_tiles*128, F), part (S * 2 * G * 128 * F,) and flag
-// (S * 2 * G,) with G = n_win (dense) or n_active (active); all contiguous.
-// Each shard's output is bit-equal to the single-shard entry's on its slice.
+// strides L * n_blocks * 256 and L * n_blocks); x is (S, n_blocks*256, F),
+// out (S, n_row_tiles*128, F), part (S * 2 * n_win * 128 * F,) and flag
+// (S * 2 * n_win,); all contiguous. Each shard's output is bit-equal to the
+// single-shard entry's on its slice.
 extern "C" int segment_agg_sum_stacked_f32(
     const void* x, const void* seg, const void* tob, const void* fot,
     void* part, void* flag, void* out, int n_blocks, int F, int n_row_tiles,
     int win, int n_shards, long long seg_stride, long long blk_stride,
     void* stream) {
-  return launch<false>(x, seg, tob, fot, nullptr, 0, part, flag, out,
-                       n_blocks, F, n_row_tiles, win, n_shards, seg_stride,
-                       blk_stride, stream);
+  return launch<false>(x, seg, tob, fot, part, flag, out, n_blocks, F,
+                       n_row_tiles, win, n_shards, seg_stride, blk_stride,
+                       stream);
 }
 
 extern "C" int segment_agg_max_stacked_f32(
@@ -824,27 +1239,77 @@ extern "C" int segment_agg_max_stacked_f32(
     void* part, void* flag, void* out, int n_blocks, int F, int n_row_tiles,
     int win, int n_shards, long long seg_stride, long long blk_stride,
     void* stream) {
-  return launch<true>(x, seg, tob, fot, nullptr, 0, part, flag, out,
-                      n_blocks, F, n_row_tiles, win, n_shards, seg_stride,
-                      blk_stride, stream);
+  return launch<true>(x, seg, tob, fot, part, flag, out, n_blocks, F,
+                      n_row_tiles, win, n_shards, seg_stride, blk_stride,
+                      stream);
 }
 
-extern "C" int segment_agg_sum_active_stacked_f32(
-    const void* x, const void* seg, const void* tob, const void* fot,
-    const void* active, int n_active, void* part, void* flag, void* out,
-    int n_blocks, int F, int n_row_tiles, int win, int n_shards,
-    long long seg_stride, long long blk_stride, void* stream) {
-  return launch<false>(x, seg, tob, fot, active, n_active, part, flag, out,
-                       n_blocks, F, n_row_tiles, win, n_shards, seg_stride,
-                       blk_stride, stream);
-}
-
-extern "C" int segment_agg_max_active_stacked_f32(
-    const void* x, const void* seg, const void* tob, const void* fot,
-    const void* active, int n_active, void* part, void* flag, void* out,
-    int n_blocks, int F, int n_row_tiles, int win, int n_shards,
-    long long seg_stride, long long blk_stride, void* stream) {
-  return launch<true>(x, seg, tob, fot, active, n_active, part, flag, out,
-                      n_blocks, F, n_row_tiles, win, n_shards, seg_stride,
-                      blk_stride, stream);
+// The active entry, S = n_shards shards in one launch (1: single shard).
+// op 0 sum, 1 max, 2 min. val (S, n_val, F) f32; seg, src (i32) and sign
+// (f32) n_blocks*256 a shard, shard z's at + z * seg_stride, 16-byte
+// aligned (seg_stride a multiple of 4); tob/fot n_blocks a shard at
+// + z * blk_stride; active (S, n_active) i32 ascending block indices padded
+// with n_blocks; out (S, n_row_tiles*128, F) f32; hit (S, n_row_tiles*128)
+// u8, cleared here (an async memset) before the one kernel launch; scratch
+// part (S * 2 * n_slot * 128 * F,) f32, flag (S * 2 * n_slot,) i32, run
+// (S * n_row_tiles * 3,) i32 and ticket (S * n_row_tiles,) i32 all zero (a
+// launch leaves them zero), n_slot = min(n_active, ceil(n_blocks / win)):
+// the windows the active list can open. win <= 16.
+// Rows of tiles with no active block are left unwritten; on every row an
+// active block routes to, out is bit-equal to the dense entry's over the
+// level's gathered values with the other blocks' set to the op's identity,
+// and hit is 1 exactly on those rows. Launches on `stream`, does not
+// synchronize, and returns cudaGetLastError() (0 on success).
+extern "C" int segment_agg_active_f32(
+    int op, const void* val, long long n_val, const void* seg,
+    const void* src, const void* sign, const void* tob, const void* fot,
+    const void* active, int n_active, int n_slot, void* out, void* hit,
+    void* part, void* flag, void* ticket, void* run, int n_blocks, int F,
+    int n_row_tiles, int win, int n_shards, long long seg_stride,
+    long long blk_stride, void* stream) {
+  if (op < OP_SUM || op > OP_MIN || n_val <= 0 || n_active <= 0 ||
+      n_blocks <= 0 || F <= 0 || n_row_tiles <= 0 || win <= 0 ||
+      win > ACT_MAX_WIN || n_shards <= 0 || n_shards > 65535 ||
+      seg_stride < 0 || seg_stride % 4 != 0 || blk_stride < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_win = (n_blocks + win - 1) / win;
+  if (n_slot != (n_active < n_win ? n_active : n_win)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ActiveArgs a{static_cast<const float*>(val),
+                     static_cast<const int*>(seg),
+                     static_cast<const int*>(src),
+                     static_cast<const float*>(sign),
+                     static_cast<const int*>(tob),
+                     static_cast<const int*>(fot),
+                     static_cast<const int*>(active),
+                     static_cast<float*>(out),
+                     static_cast<unsigned char*>(hit),
+                     static_cast<float*>(part),
+                     static_cast<int*>(flag),
+                     static_cast<int*>(ticket),
+                     static_cast<int*>(run),
+                     n_val,
+                     seg_stride,
+                     blk_stride,
+                     n_active,
+                     n_blocks,
+                     F,
+                     n_row_tiles,
+                     win,
+                     n_slot,
+                     n_win < n_active ? 1 : 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      hit, 0, static_cast<size_t>(n_shards) * n_row_tiles * R_BLK, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (op == OP_SUM) {
+    err = launch_active_op<OP_SUM>(a, n_shards, st);
+  } else if (op == OP_MAX) {
+    err = launch_active_op<OP_MAX>(a, n_shards, st);
+  } else {
+    err = launch_active_op<OP_MIN>(a, n_shards, st);
+  }
+  return static_cast<int>(err);
 }

@@ -6,14 +6,15 @@ levels) that plan is built once on the host (``make_plan``) and reused every
 step; only the edge *values* are runtime data. The builders are numpy and
 produce tables bit-equal to the JAX package's (same E_BLK / R_BLK).
 
-``segment_agg_level`` is the entry point the engine calls per level, and
-``segment_agg_active`` its twin over a level's active blocks (the
-frontier-sparse steps); ``segment_agg_level_stacked`` and
+``segment_agg_level`` is the entry point the engine calls per level on
+gathered edge values, and ``segment_agg_active`` computes a whole
+frontier-sparse level (gather, sign, reduce and row mask over the level's
+active blocks) in one launch; ``segment_agg_level_stacked`` and
 ``segment_agg_active_stacked`` run one level of S aligned shards in one
-launch (the stacked shard engine, ``distributed/stacked.py``). Each picks the implementation by the tensors'
-device: CUDA tensors launch the hand-written kernel in
-``csrc/segment_agg.cu`` (or raise), CPU tensors run the plain PyTorch
-version in ``ref.py``. ``LAUNCHES`` counts kernel launches per entry, so a
+launch (the stacked shard engine, ``distributed/stacked.py``). Each picks
+the implementation by the tensors' device: CUDA tensors launch the
+hand-written kernel in ``csrc/segment_agg.cu`` (or raise), CPU tensors run
+the plain PyTorch version in ``ref.py``. ``LAUNCHES`` counts kernel launches per entry, so a
 run can show that its path went through the kernel.
 
 ``patch_level``, ``scatter_slots``, ``scatter_rows`` and ``tile_occupancy``
@@ -401,9 +402,9 @@ def _entry(key: str, argtypes=None):
     return fn
 
 
-def _check(x, seg, tob, fot, n_rows, n_row_tiles, op, n_x_blocks=None):
-    """The wrappers' argument checks: x (n_x_blocks*E_BLK, F) float32, by
-    default one row per slot of the level (seg, tob, fot)."""
+def _check(x, seg, tob, fot, n_rows, n_row_tiles, op):
+    """The dense wrappers' argument checks: x (n_blocks*E_BLK, F) float32,
+    one row per slot of the level (seg, tob, fot)."""
     if op not in ("sum", "max"):
         raise ValueError(f"unknown op {op!r}; choose 'sum' or 'max'")
     if x.dtype != torch.float32:
@@ -424,11 +425,10 @@ def _check(x, seg, tob, fot, n_rows, n_row_tiles, op, n_x_blocks=None):
         raise ValueError(f"x must be (E_pad, F) with F >= 1, got "
                          f"{tuple(x.shape)}")
     n_blocks = tob.shape[0]
-    n_x = n_blocks if n_x_blocks is None else n_x_blocks
-    if n_blocks < 1 or x.shape[0] != n_x * E_BLK \
+    if n_blocks < 1 or x.shape[0] != n_blocks * E_BLK \
             or seg.shape[0] != n_blocks * E_BLK or fot.shape[0] != n_blocks:
         raise ValueError(
-            f"shape mismatch: x {tuple(x.shape)} for {n_x} blocks, seg "
+            f"shape mismatch: x {tuple(x.shape)} for {n_blocks} blocks, seg "
             f"{tuple(seg.shape)}, {n_blocks} blocks of {E_BLK} slots, fot "
             f"{tuple(fot.shape)}")
     if not 0 < n_rows <= n_row_tiles * R_BLK:
@@ -475,110 +475,177 @@ def segment_agg_level(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
     return out[:n_rows]
 
 
-def _check_active(x, seg, tob, fot, active, n_rows, n_row_tiles, op) -> None:
-    if active.dtype != torch.int32 or active.ndim != 1 \
-            or active.shape[0] < 1:
-        raise TypeError(f"active must be a non-empty 1-D int32 tensor, got "
-                        f"{active.dtype} {tuple(active.shape)}")
-    if active.device != x.device or not active.is_contiguous():
-        raise ValueError(f"active must be contiguous on {x.device}")
-    _check(x, seg, tob, fot, n_rows, n_row_tiles, op,
-           n_x_blocks=active.shape[0])
+# ------------------------------------------------------------ the active entry
+# op codes of the C entry ``segment_agg_active_f32``; min runs the max
+# kernel's arithmetic on negated values, so it counts as a max launch
+_ACTIVE_OPS = {"sum": 0, "max": 1, "min": 2}
+_ACTIVE_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+# the active entry's scratch, per (device, stream): part (float32) and flag
+# (a run's pieces: two slots for each window the active list can open),
+# ticket (zero before and after every launch, so made with zeros) and run;
+# each grown to the largest call and never shrunk, so a call allocates only
+# its outputs
+_SCRATCH: dict = {}
 
 
-_ACTIVE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                    + [ctypes.c_void_p])
+def _active_scratch(device, stream: int, *sizes: int) -> list:
+    bufs = _SCRATCH.setdefault((device, stream), [None] * 4)
+    for i, n in enumerate(sizes):
+        if bufs[i] is None or bufs[i].numel() < n:
+            make = torch.zeros if i == 2 else torch.empty
+            bufs[i] = make(n, dtype=torch.float32 if i == 0 else torch.int32,
+                           device=device)
+    return bufs
 
 
-def segment_agg_active(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
-                       fot: torch.Tensor, active: torch.Tensor, *,
-                       n_rows: int, n_row_tiles: int,
-                       op: str = "sum") -> torch.Tensor:
-    """Run the reduce on the active blocks of one level.
+def _check_active(val, seg, src, sign, tob, fot, active, n_rows,
+                  n_row_tiles, op) -> None:
+    """The active wrappers' checks on one shard's slices: val (n_val, F)
+    float32, the level's seg/src (int32) and sign (float32) tables of
+    n_blocks * E_BLK slots and its tob/fot, active (K,) int32, all on
+    val's device, the tables' rows contiguous."""
+    if op not in _ACTIVE_OPS:
+        raise ValueError(f"unknown op {op!r}; choose 'sum', 'max' or 'min'")
+    if val.dtype != torch.float32:
+        raise TypeError(f"segment_agg_active takes float32 values, got "
+                        f"{val.dtype}")
+    if val.ndim != 2 or val.shape[0] < 1 or val.shape[1] < 1:
+        raise ValueError(f"val must be (n, F) with n, F >= 1, got "
+                         f"{tuple(val.shape)}")
+    for name, t, dt in (("seg", seg, torch.int32), ("src", src, torch.int32),
+                        ("sign", sign, torch.float32),
+                        ("tile_of_block", tob, torch.int32),
+                        ("first_of_tile", fot, torch.int32),
+                        ("active", active, torch.int32)):
+        if t.dtype != dt or t.ndim != 1 or t.shape[0] < 1:
+            raise TypeError(f"{name} must be a non-empty 1-D {dt} tensor, "
+                            f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != val.device:
+            raise ValueError(f"{name} is on {t.device}, val on {val.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n_blocks = tob.shape[0]
+    if any(t.shape[0] != n_blocks * E_BLK for t in (seg, src, sign)) \
+            or fot.shape[0] != n_blocks:
+        raise ValueError(
+            f"shape mismatch: seg/src/sign {tuple(seg.shape)}/"
+            f"{tuple(src.shape)}/{tuple(sign.shape)} for {n_blocks} blocks "
+            f"of {E_BLK} slots, fot {tuple(fot.shape)}")
+    if not 0 < n_rows <= n_row_tiles * R_BLK:
+        raise ValueError(f"n_rows={n_rows} outside (0, {n_row_tiles}*{R_BLK}]")
 
-    ``seg`` (e_pad,), ``tob``/``fot`` (n_blocks,) are the whole level's
-    tables; ``active`` (K,) int32 holds the active blocks' indices in
-    ascending order, padded at the end with ``n_blocks`` (pads are
-    ignored); ``x`` (K*E_BLK, F) float32 holds the active blocks' slot
-    values in that order (a pad's rows are never read). Returns (n_rows, F)
-    float32: on every row an active block routes to, bit-equal to
-    ``segment_agg_level`` over the whole level with the other blocks'
-    values set to the op's identity; rows of tiles with no active block
-    are undefined on the card (unwritten), so callers mask. CUDA tensors
-    launch the kernel's active entry, CPU tensors run the plain version.
-    """
-    _check_active(x, seg, tob, fot, active, n_rows, n_row_tiles, op)
-    if x.device.type == "cpu":
-        return segment_agg_active_ref(x, seg, active, n_rows, op)
-    if x.device.type != "cuda":
-        raise ValueError(f"segment_agg_active runs on cuda or cpu tensors, "
-                         f"got {x.device}")
-    n_blocks, F, K = tob.shape[0], x.shape[1], active.shape[0]
-    with torch.cuda.device(x.device):
-        out = torch.empty((n_row_tiles * R_BLK, F), dtype=torch.float32,
-                          device=x.device)
-        # two partial-row slots and two flags per active entry (the window
-        # an entry opens)
-        part = torch.empty((2 * K * R_BLK * F,), dtype=torch.float32,
-                           device=x.device)
-        flag = torch.empty((2 * K,), dtype=torch.int32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _entry(f"{op}_active", _ACTIVE_ARGTYPES)(
-            x.data_ptr(), seg.data_ptr(), tob.data_ptr(), fot.data_ptr(),
-            active.data_ptr(), K, part.data_ptr(), flag.data_ptr(),
-            out.data_ptr(), n_blocks, F, n_row_tiles, run_chunk(n_blocks, F),
-            stream)
+
+def _launch_active(val, seg, src, sign, tob, fot, active, n_rows,
+                   n_row_tiles, op, strides=(0, 0)):
+    """One launch of the fused active entry: one shard (1-D tables), or S
+    shards (val (S, n, F), active (S, K), the tables' shard ``strides``
+    (seg/src/sign, tob/fot) in elements). Returns (out, hit) with a leading
+    shard axis."""
+    S = val.shape[0] if val.ndim == 3 else 1
+    n_val, F = val.shape[-2], val.shape[-1]
+    K, n_blocks = active.shape[-1], tob.shape[-1]
+    for t in (seg, src, sign):
+        if t.data_ptr() % 16:
+            raise ValueError("seg, src and sign must be 16-byte aligned")
+    dev = val.device
+    with torch.cuda.device(dev):
+        out = torch.empty((S, n_row_tiles * R_BLK, F), dtype=torch.float32,
+                          device=dev)
+        # cleared by the entry (an async memset before its kernel)
+        hit = torch.empty((S, n_row_tiles * R_BLK), dtype=torch.bool,
+                          device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        win = run_chunk(n_blocks, F)
+        n_slot = min(K, n_windows(n_blocks, F))  # windows K entries open
+        part, flag, ticket, run = _active_scratch(
+            dev, stream, S * 2 * n_slot * R_BLK * F, S * 2 * n_slot,
+            S * n_row_tiles, S * 3 * n_row_tiles)
+        rc = _entry("active", _ACTIVE_ARGTYPES)(
+            _ACTIVE_OPS[op], val.data_ptr(), n_val, seg.data_ptr(),
+            src.data_ptr(), sign.data_ptr(), tob.data_ptr(), fot.data_ptr(),
+            active.data_ptr(), K, n_slot, out.data_ptr(), hit.data_ptr(),
+            part.data_ptr(), flag.data_ptr(), ticket.data_ptr(),
+            run.data_ptr(), n_blocks, F, n_row_tiles, win,
+            S, *strides, stream)
     if rc != 0:
-        raise RuntimeError(f"segment_agg_{op}_active kernel launch failed: "
+        raise RuntimeError(f"segment_agg_active ({op}) kernel launch failed: "
                            f"CUDA error {rc}")
-    LAUNCHES[f"{op}_active"] += 1
-    return out[:n_rows]
+    return out[:, :n_rows], hit[:, :n_rows]
+
+
+def segment_agg_active(val: torch.Tensor, seg: torch.Tensor,
+                       src: torch.Tensor, sign: torch.Tensor,
+                       tob: torch.Tensor, fot: torch.Tensor,
+                       active: torch.Tensor, *, n_rows: int,
+                       n_row_tiles: int, op: str = "sum"):
+    """One frontier-sparse level in one call: over the level's active
+    blocks, each live slot's value gathered from ``val`` (n_val, F) float32
+    by ``src``, times ``sign`` for sum, reduced by ``seg``; op ``"sum"``,
+    ``"max"`` or ``"min"`` (``-max(-x)``, as the engine takes min).
+
+    ``seg``, ``src`` (int32), ``sign`` (float32) (e_pad,) and
+    ``tob``/``fot`` (n_blocks,) are the whole level's tables; ``active``
+    (K,) int32 holds the active blocks' indices in ascending order, padded
+    at the end with ``n_blocks`` (pads are ignored). Returns ``(out, hit)``:
+    ``out`` (n_rows, F) float32, on every row an active block routes to
+    bit-equal to ``segment_agg_level`` over the level's gathered values
+    with the other blocks' set to the op's identity, rows of tiles with no
+    active block undefined on the card (unwritten), so callers mask; ``hit``
+    (n_rows,) bool, the rows with an active live slot. CUDA tensors launch
+    the fused kernel (one launch; ``LAUNCHES["sum_active"]``, or
+    ``["max_active"]`` for max and min), CPU tensors run the plain
+    version."""
+    _check_active(val, seg, src, sign, tob, fot, active, n_rows, n_row_tiles,
+                  op)
+    if val.device.type == "cpu":
+        return segment_agg_active_ref(val, seg, src, sign, active, n_rows, op)
+    if val.device.type != "cuda":
+        raise ValueError(f"segment_agg_active runs on cuda or cpu tensors, "
+                         f"got {val.device}")
+    out, hit = _launch_active(val, seg, src, sign, tob, fot, active, n_rows,
+                              n_row_tiles, op)
+    LAUNCHES["sum_active" if op == "sum" else "max_active"] += 1
+    return out[0], hit[0]
 
 
 # ------------------------------------------------------------ stacked shards
 _STACKED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                      + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
-_ACTIVE_STACKED_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
 
 
-def _check_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op,
-                   active=None) -> None:
-    """The stacked wrappers' checks: every argument carries the shard axis
-    first; x and active are contiguous, the tables only along their last
-    axis (a level of (S, L, ...) tables is a strided view). Each shard's
-    slice passes the single-shard checks."""
-    S = x.shape[0] if x.ndim == 3 else -1
-    if S < 1:
-        raise ValueError(f"x must be (S, E, F), got {tuple(x.shape)}")
-    for name, t in (("seg", seg), ("tile_of_block", tob),
-                    ("first_of_tile", fot)):
+def _check_shard_axis(S: int, tables) -> None:
+    """Every (name, table) carries the shard axis first and a unit last
+    stride (a level of stacked (S, L, ...) tables is a strided view)."""
+    for name, t in tables:
         if t.ndim != 2 or t.shape[0] != S or t.stride(1) != 1:
             raise ValueError(f"{name} must be (S={S}, n) with a unit last "
                              f"stride, got {tuple(t.shape)} strides "
                              f"{t.stride()}")
+
+
+def _check_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op) -> None:
+    """The stacked dense wrapper's checks: x is contiguous, the tables only
+    along their last axis. Each shard's slice passes the single-shard
+    checks."""
+    S = x.shape[0] if x.ndim == 3 else -1
+    if S < 1:
+        raise ValueError(f"x must be (S, E, F), got {tuple(x.shape)}")
+    _check_shard_axis(S, (("seg", seg), ("tile_of_block", tob),
+                          ("first_of_tile", fot)))
     if tob.stride(0) != fot.stride(0):
         raise ValueError("tile_of_block and first_of_tile must share their "
                          "shard stride")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if active is None:
-        _check(x[0], seg[0], tob[0], fot[0], n_rows, n_row_tiles, op)
-    else:
-        if active.ndim != 2 or active.shape[0] != S \
-                or not active.is_contiguous():
-            raise ValueError(f"active must be contiguous (S={S}, K), got "
-                             f"{tuple(active.shape)}")
-        _check_active(x[0], seg[0], tob[0], fot[0], active[0], n_rows,
-                      n_row_tiles, op)
+    _check(x[0], seg[0], tob[0], fot[0], n_rows, n_row_tiles, op)
 
 
-def _launch_stacked(x, seg, tob, fot, active, n_rows, n_row_tiles, op):
+def _launch_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op):
     S, F, n_blocks = x.shape[0], x.shape[2], tob.shape[1]
-    sparse = active is not None
-    grid = active.shape[1] if sparse else n_windows(n_blocks, F)
+    grid = n_windows(n_blocks, F)
     with torch.cuda.device(x.device):
         out = torch.empty((S, n_row_tiles * R_BLK, F), dtype=torch.float32,
                           device=x.device)
@@ -587,19 +654,12 @@ def _launch_stacked(x, seg, tob, fot, active, n_rows, n_row_tiles, op):
         flag = torch.empty((S * 2 * grid,), dtype=torch.int32,
                            device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        tail = (n_blocks, F, n_row_tiles, run_chunk(n_blocks, F), S,
-                seg.stride(0), tob.stride(0), stream)
-        if sparse:
-            key = f"{op}_active_stacked"
-            rc = _entry(key, _ACTIVE_STACKED_ARGTYPES)(
-                x.data_ptr(), seg.data_ptr(), tob.data_ptr(), fot.data_ptr(),
-                active.data_ptr(), grid, part.data_ptr(), flag.data_ptr(),
-                out.data_ptr(), *tail)
-        else:
-            key = f"{op}_stacked"
-            rc = _entry(key, _STACKED_ARGTYPES)(
-                x.data_ptr(), seg.data_ptr(), tob.data_ptr(), fot.data_ptr(),
-                part.data_ptr(), flag.data_ptr(), out.data_ptr(), *tail)
+        key = f"{op}_stacked"
+        rc = _entry(key, _STACKED_ARGTYPES)(
+            x.data_ptr(), seg.data_ptr(), tob.data_ptr(), fot.data_ptr(),
+            part.data_ptr(), flag.data_ptr(), out.data_ptr(), n_blocks, F,
+            n_row_tiles, run_chunk(n_blocks, F), S, seg.stride(0),
+            tob.stride(0), stream)
     if rc != 0:
         raise RuntimeError(f"segment_agg_{key} kernel launch failed: CUDA "
                            f"error {rc}")
@@ -624,24 +684,50 @@ def segment_agg_level_stacked(x: torch.Tensor, seg: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"segment_agg_level_stacked runs on cuda or cpu "
                          f"tensors, got {x.device}")
-    return _launch_stacked(x, seg, tob, fot, None, n_rows, n_row_tiles, op)
+    return _launch_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op)
 
 
-def segment_agg_active_stacked(x: torch.Tensor, seg: torch.Tensor,
+def segment_agg_active_stacked(val: torch.Tensor, seg: torch.Tensor,
+                               src: torch.Tensor, sign: torch.Tensor,
                                tob: torch.Tensor, fot: torch.Tensor,
                                active: torch.Tensor, *, n_rows: int,
-                               n_row_tiles: int,
-                               op: str = "sum") -> torch.Tensor:
+                               n_row_tiles: int, op: str = "sum"):
     """``segment_agg_active`` over one level of S aligned shards at once:
-    ``active`` (S, K) int32, each shard's ascending active blocks padded at
-    the end with ``n_blocks`` to the widest shard's K; ``x`` (S, K*E_BLK,
-    F). Returns (S, n_rows, F); shard s equals ``segment_agg_active`` on
-    shard s's slices, bit for bit. CUDA tensors launch the kernel's stacked
-    active entry, CPU tensors run the plain version shard by shard."""
-    _check_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op, active=active)
-    if x.device.type == "cpu":
-        return segment_agg_active_stacked_ref(x, seg, active, n_rows, op)
-    if x.device.type != "cuda":
+    ``val`` (S, n_val, F) contiguous, ``seg``/``src``/``sign`` (S, e_pad)
+    and ``tob``/``fot`` (S, n_blocks) a level of the stacked tables
+    (strided along the shard axis; seg, src and sign sharing one shard
+    stride), ``active`` (S, K) int32, each shard's ascending active blocks
+    padded at the end with ``n_blocks`` to the widest shard's K. Returns
+    ``(out (S, n_rows, F), hit (S, n_rows))``; shard s equals
+    ``segment_agg_active`` on shard s's slices, bit for bit. CUDA tensors
+    launch the fused kernel once for all shards
+    (``LAUNCHES["{sum,max}_active_stacked"]``), CPU tensors run the plain
+    version shard by shard."""
+    S = val.shape[0] if val.ndim == 3 else -1
+    if S < 1:
+        raise ValueError(f"val must be (S, n, F), got {tuple(val.shape)}")
+    _check_shard_axis(S, (("seg", seg), ("src", src), ("sign", sign),
+                          ("tile_of_block", tob), ("first_of_tile", fot)))
+    if src.stride(0) != seg.stride(0) or sign.stride(0) != seg.stride(0) \
+            or fot.stride(0) != tob.stride(0):
+        raise ValueError("seg, src and sign must share their shard stride, "
+                         "and so must tile_of_block and first_of_tile")
+    if not val.is_contiguous():
+        raise ValueError("val must be contiguous")
+    if active.ndim != 2 or active.shape[0] != S \
+            or not active.is_contiguous():
+        raise ValueError(f"active must be contiguous (S={S}, K), got "
+                         f"{tuple(active.shape)}")
+    _check_active(val[0], seg[0], src[0], sign[0], tob[0], fot[0], active[0],
+                  n_rows, n_row_tiles, op)
+    if val.device.type == "cpu":
+        return segment_agg_active_stacked_ref(val, seg, src, sign, active,
+                                              n_rows, op)
+    if val.device.type != "cuda":
         raise ValueError(f"segment_agg_active_stacked runs on cuda or cpu "
-                         f"tensors, got {x.device}")
-    return _launch_stacked(x, seg, tob, fot, active, n_rows, n_row_tiles, op)
+                         f"tensors, got {val.device}")
+    out = _launch_active(val, seg, src, sign, tob, fot, active, n_rows,
+                         n_row_tiles, op, (seg.stride(0), tob.stride(0)))
+    LAUNCHES["sum_active_stacked" if op == "sum"
+             else "max_active_stacked"] += 1
+    return out

@@ -43,22 +43,38 @@ def segment_agg_level_ref(x: torch.Tensor, seg: torch.Tensor, n_rows: int,
     return out[:n_rows]
 
 
-def segment_agg_active_ref(x: torch.Tensor, seg: torch.Tensor,
+def segment_agg_active_ref(val: torch.Tensor, seg: torch.Tensor,
+                           src: torch.Tensor, sign: torch.Tensor,
                            active: torch.Tensor, n_rows: int,
-                           op: str = "sum") -> torch.Tensor:
-    """One level's reduce over its active blocks: ``x`` (K*256, F) holds
-    the values of the blocks ``active`` (K,) names, in that order (entries
-    past the level's block count are padding: their slots are dropped);
-    ``seg`` is the whole level's. Each row adds its active slots in slot
-    order from the op's identity, which on the rows an active block routes
-    to is bit-equal to ``segment_agg_level_ref`` with every other block's
-    values set to the identity. Returns (n_rows, F)."""
+                           op: str = "sum"):
+    """One frontier-sparse level, fused: over the blocks ``active`` (K,)
+    names (entries past the level's block count are padding, their slots
+    dropped), gather each slot's values ``val[src]`` (n_val, F), times
+    ``sign`` for sum, negated for min, and reduce them by ``seg``; ``seg``,
+    ``src`` and ``sign`` are the whole level's (e_pad,). Each row adds its
+    active slots in slot order from the op's identity, which on the rows an
+    active block routes to is bit-equal to ``segment_agg_level_ref`` over
+    the level's gathered values with every other block's set to the
+    identity; min is ``-max(-x)``. Returns ``(out (n_rows, F), hit
+    (n_rows,) bool)``, ``hit`` the rows with an active live slot."""
+    if op not in ("sum", "max", "min"):
+        raise ValueError(f"unknown op {op!r}; choose 'sum', 'max' or 'min'")
     E_BLK = 256
     nb = seg.shape[0] // E_BLK
     a = active.long()
-    seg_c = seg.reshape(nb, E_BLK)[torch.clamp(a, max=nb - 1)]
-    seg_c = torch.where((a < nb)[:, None], seg_c, -1).reshape(-1)
-    return segment_agg_level_ref(x, seg_c, n_rows, op)
+    ab = torch.clamp(a, max=nb - 1)
+    seg_c = torch.where((a < nb)[:, None], seg.view(nb, E_BLK)[ab],
+                        -1).reshape(-1)
+    x = val.index_select(0, src.view(nb, E_BLK)[ab].reshape(-1).long())
+    if op == "sum":
+        x = x * sign.view(nb, E_BLK)[ab].reshape(-1)[:, None]
+    elif op == "min":
+        x = -x
+    out = segment_agg_level_ref(x, seg_c, n_rows,
+                                "sum" if op == "sum" else "max")
+    hit = torch.zeros(n_rows + 1, dtype=torch.bool, device=val.device)
+    hit.index_fill_(0, torch.where(seg_c >= 0, seg_c.long(), n_rows), True)
+    return (-out if op == "min" else out), hit[:n_rows]
 
 
 def segment_agg_level_stacked_ref(x: torch.Tensor, seg: torch.Tensor,
@@ -70,11 +86,15 @@ def segment_agg_level_stacked_ref(x: torch.Tensor, seg: torch.Tensor,
                         for s in range(x.shape[0])])
 
 
-def segment_agg_active_stacked_ref(x: torch.Tensor, seg: torch.Tensor,
+def segment_agg_active_stacked_ref(val: torch.Tensor, seg: torch.Tensor,
+                                   src: torch.Tensor, sign: torch.Tensor,
                                    active: torch.Tensor, n_rows: int,
-                                   op: str = "sum") -> torch.Tensor:
-    """``segment_agg_active_ref`` shard by shard: x (S, K*256, F), seg
-    (S, e_pad), active (S, K). Returns (S, n_rows, F)."""
-    return torch.stack([
-        segment_agg_active_ref(x[s], seg[s], active[s], n_rows, op)
-        for s in range(x.shape[0])])
+                                   op: str = "sum"):
+    """``segment_agg_active_ref`` shard by shard: val (S, n_val, F), seg,
+    src and sign (S, e_pad), active (S, K). Returns ``(out (S, n_rows, F),
+    hit (S, n_rows))``."""
+    outs, hits = zip(*(
+        segment_agg_active_ref(val[s], seg[s], src[s], sign[s], active[s],
+                               n_rows, op)
+        for s in range(val.shape[0])))
+    return torch.stack(outs), torch.stack(hits)

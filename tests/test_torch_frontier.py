@@ -3,9 +3,10 @@
 indices and their expansions array for array, the superset oracle
 (``verify``), sparse writes and reads bit-equal to dense inside the port for
 every aggregate x tuple/time window, the same answers as the reference's
-sparse engine, and the segment kernel's active entry (its plain version)
-bit-equal on the rows it covers to the dense level with the inactive blocks
-set to the identity."""
+sparse engine, and the segment kernel's fused active entry (its plain
+version: gather, sign, reduce and row mask) bit-equal on the rows it covers
+to the dense level over the gathered values with the inactive blocks set to
+the identity."""
 import numpy as np
 import pytest
 
@@ -255,14 +256,16 @@ def test_sparse_answers_match_reference(bases, monkeypatch, agg, kw,
 
 # ------------------------------------------------------ the active entry
 @pytest.mark.parametrize("F", [1, 2, 3, 40])
-@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
 def test_active_ref_bit_equal_to_level_with_identity(op, F):
-    """On every row an active block routes to, the active plain version over
-    the compacted blocks equals the dense plain version over the whole level
-    with every inactive block's values set to the op's identity — also with
-    pad entries (== n_blocks) and slots shuffled inside each tile's run."""
+    """On every row an active block routes to, the fused active plain
+    version (gather, sign, reduce) equals the dense plain version over the
+    level's gathered values with every inactive block's values set to the
+    op's identity, and its row mask is exactly those rows — also with pad
+    entries (== n_blocks), slots shuffled inside each tile's run, and a
+    NaN at the source row padding slots point to (never reduced)."""
     rng = np.random.default_rng(F)
-    n_rows = 700
+    n_rows, n_val = 700, 400
     plan = T.make_plan(rng.integers(0, n_rows, 9000), n_rows)
     nb = plan.tile_of_block.size
     seg = plan.seg_padded.copy()
@@ -270,49 +273,60 @@ def test_active_ref_bit_equal_to_level_with_identity(op, F):
         b = np.flatnonzero(plan.tile_of_block == t)
         lo, hi = b[0] * T.E_BLK, (b[-1] + 1) * T.E_BLK
         seg[lo:hi] = seg[lo + rng.permutation(hi - lo)]
-    x = rng.normal(size=(seg.size, F)).astype(np.float32)
-    x[seg < 0] = np.nan  # padding slots must never be read
+    live = seg >= 0
+    src = np.where(live, rng.integers(1, n_val, seg.size), 0).astype(np.int32)
+    sign = np.where(live, rng.choice([-1.0, 1.0], seg.size),
+                    0.0).astype(np.float32)
+    val = rng.normal(size=(n_val, F)).astype(np.float32)
+    val[0] = np.nan  # the padding slots' source
     act = np.sort(rng.choice(nb, 9, replace=False))
     a = np.full(16, nb, np.int32)
     a[: act.size] = act
-    xb = x.reshape(nb, T.E_BLK, F)
-    xc = xb[np.minimum(a, nb - 1)].reshape(-1, F)
+    x = val[src] * (sign[:, None] if op == "sum" else 1.0)
+    x = -x if op == "min" else x
     ident = np.float32(0.0 if op == "sum" else NEG)
+    xb = x.reshape(nb, T.E_BLK, F)
     xf = np.where(seg.reshape(nb, T.E_BLK, 1) >= 0, ident, np.nan)
     xf = np.broadcast_to(xf, xb.shape).copy().astype(np.float32)
     xf[act] = xb[act]
     seg_t = torch.as_tensor(seg)
-    got = T.segment_agg_active(
-        torch.as_tensor(xc), seg_t, torch.as_tensor(plan.tile_of_block),
-        torch.as_tensor(plan.first_of_tile), torch.as_tensor(a),
-        n_rows=n_rows, n_row_tiles=plan.n_row_tiles, op=op)
+    args = [torch.as_tensor(v) for v in (val, seg, src, sign,
+                                         plan.tile_of_block,
+                                         plan.first_of_tile, a)]
+    got, hit = T.segment_agg_active(*args, n_rows=n_rows,
+                                    n_row_tiles=plan.n_row_tiles, op=op)
     want = segment_agg_level_ref(torch.as_tensor(xf.reshape(-1, F)), seg_t,
-                                 n_rows, op)
+                                 n_rows, "sum" if op == "sum" else "max")
+    want = -want if op == "min" else want
     cov = np.zeros(n_rows + 1, bool)
     s_act = seg.reshape(nb, T.E_BLK)[act].ravel()
     cov[np.where(s_act >= 0, s_act, n_rows)] = True
     cov = torch.as_tensor(cov[:n_rows])
     assert int(cov.sum()) > 0
+    assert torch.equal(hit, cov)
     assert torch.equal(got[cov], want[cov])
-    assert torch.equal(segment_agg_active_ref(
-        torch.as_tensor(xc), seg_t, torch.as_tensor(a), n_rows, op), got)
+    got_r, hit_r = segment_agg_active_ref(*args[:4], args[6], n_rows, op)
+    assert torch.equal(got_r, got) and torch.equal(hit_r, hit)
 
 
 def test_active_entry_checks_its_arguments():
     plan = T.make_plan(np.arange(300) % 200, 200)
-    args = [torch.as_tensor(v) for v in (plan.seg_padded, plan.tile_of_block,
-                                         plan.first_of_tile)]
-    x = torch.zeros((T.E_BLK, 1))
+    E = plan.seg_padded.size
+    tabs = [torch.as_tensor(plan.seg_padded), torch.zeros(E, dtype=torch.int32),
+            torch.zeros(E), torch.as_tensor(plan.tile_of_block),
+            torch.as_tensor(plan.first_of_tile)]
+    val = torch.zeros((10, 1))
+    act = torch.zeros(1, dtype=torch.int32)
     kw = dict(n_rows=200, n_row_tiles=plan.n_row_tiles)
     with pytest.raises(TypeError, match="active"):
-        T.segment_agg_active(x, *args, torch.zeros(1, dtype=torch.int64),
-                             **kw)
+        T.segment_agg_active(val, *tabs, act.long(), **kw)
     with pytest.raises(ValueError, match="shape mismatch"):
-        T.segment_agg_active(torch.zeros((3, 1)), *args,
-                             torch.zeros(1, dtype=torch.int32), **kw)
+        T.segment_agg_active(val, tabs[0][:-1], *tabs[1:], act, **kw)
+    with pytest.raises(TypeError, match="sign"):
+        T.segment_agg_active(val, *tabs[:2], tabs[2].double(), *tabs[3:],
+                             act, **kw)
     with pytest.raises(ValueError, match="unknown op"):
-        T.segment_agg_active(x, *args, torch.zeros(1, dtype=torch.int32),
-                             op="mean", **kw)
+        T.segment_agg_active(val, *tabs, act, op="mean", **kw)
 
 
 def test_sparse_parity_across_churn(monkeypatch):

@@ -1,8 +1,10 @@
 """The port's segment_agg layer against the JAX package's: plan builders bit
 for bit, and the wrapper's plain PyTorch version (what a CPU tensor runs)
 against the JAX oracle and the interpret-mode Pallas kernel, across the
-shape sweep of ``tests/test_kernels.py``. Inputs are made with numpy from a
-seed and handed to both sides."""
+shape sweep of ``tests/test_kernels.py``, and the fused active entry's
+plain version against the JAX package's frontier-sparse level (gather,
+sign, reduce, row mask). Inputs are made with numpy from a seed and handed
+to both sides."""
 import numpy as np
 import pytest
 
@@ -346,3 +348,74 @@ def test_kernel_windows_follow_the_block_count(F):
         assert 4 <= win <= 16
         assert T.n_windows(nb, F) == -(-nb // win)
         assert (T.n_windows(nb, F) - 1) * win < nb
+
+
+# ------------------------------------------------ the fused active entry
+def _active_level(rng, n_rows=700, n_val=500, n_act=11):
+    """One level's tables with slots shuffled inside each tile's run, live
+    slots' sources and signs (padding: source 0, sign 0), and an ascending
+    active list padded with the block count."""
+    plan = T.make_plan(rng.integers(0, n_rows, 9000), n_rows)
+    nb = plan.tile_of_block.size
+    seg = plan.seg_padded.copy()
+    for t in np.unique(plan.tile_of_block):
+        b = np.flatnonzero(plan.tile_of_block == t)
+        lo, hi = b[0] * T.E_BLK, (b[-1] + 1) * T.E_BLK
+        seg[lo:hi] = seg[lo + rng.permutation(hi - lo)]
+    live = seg >= 0
+    src = np.where(live, rng.integers(0, n_val, seg.size), 0).astype(np.int32)
+    sign = np.where(live, rng.choice([-1.0, 1.0], seg.size),
+                    0.0).astype(np.float32)
+    a = np.full(16, nb, np.int32)
+    a[:n_act] = np.sort(rng.choice(nb, n_act, replace=False))
+    return plan, seg, src, sign, a
+
+
+def _jax_active(plan, seg, src, sign, a, val, op):
+    """The JAX package's frontier-sparse level with ``backend="xla"``:
+    ``_gather_active``, ``_level_reduce_active`` and ``_row_active``."""
+    from repro.core import engine as RE
+
+    n_rows = plan.n_rows
+    meta = RE.PlanMeta(n_nodes=n_rows, n_writers=1, n_levels=1,
+                       unroll_levels=0, n_row_tiles=plan.n_row_tiles,
+                       backend="xla", interpret=False)
+    tables = RE.LevelTables(
+        seg=jnp.asarray(seg[None]), src=jnp.asarray(src[None]),
+        sign=jnp.asarray(sign[None]),
+        tile_of_block=jnp.asarray(plan.tile_of_block[None]),
+        first_of_tile=jnp.asarray(plan.first_of_tile[None]),
+        touched=jnp.ones((1, n_rows), bool))
+    seg_c, src_c, sign_c, tob_c = RE._gather_active(meta, tables, 0,
+                                                    jnp.asarray(a))
+    out = RE._level_reduce_active(meta, seg_c, src_c, sign_c, tob_c,
+                                  jnp.asarray(val), op)
+    return np.asarray(out), np.asarray(RE._row_active(meta, seg_c))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("F", [1, 2, 40])
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+def test_active_plain_version_matches_jax_composition(op, F, integer):
+    """The fused active entry's plain version (what a CPU tensor runs)
+    against the JAX package's gather + sign + reduce of the same level's
+    active blocks: its row mask equal to ``_row_active``'s, the values on
+    those rows exact on integers and for max/min, sums of normal values
+    within rtol/atol 1e-4 (another summation order)."""
+    rng = np.random.default_rng(10 * F + integer)
+    plan, seg, src, sign, a = _active_level(rng)
+    val = (rng.integers(-8, 9, (500, F)) if integer
+           else rng.normal(size=(500, F))).astype(np.float32)
+    got, hit = T.segment_agg_active(
+        *(torch.as_tensor(v) for v in (val, seg, src, sign,
+                                       plan.tile_of_block,
+                                       plan.first_of_tile, a)),
+        n_rows=plan.n_rows, n_row_tiles=plan.n_row_tiles, op=op)
+    want, want_hit = _jax_active(plan, seg, src, sign, a, val, op)
+    np.testing.assert_array_equal(hit.numpy(), want_hit)
+    assert want_hit.any()
+    got, want = got.numpy()[want_hit], want[want_hit]
+    if integer or op != "sum":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

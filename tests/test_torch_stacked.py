@@ -401,16 +401,39 @@ def _stacked_level(rng, S=3, n_rows=700, L=3):
         lps[0].n_row_tiles, nb
 
 
+def _stacked_sources(rng, seg, n_val):
+    """Sources and signs for stacked seg tables: live slots draw a source
+    row below ``n_val`` and a sign of +-1, padding slots 0 and 0."""
+    live = seg.numpy() >= 0
+    src = np.where(live, rng.integers(0, n_val, live.shape), 0)
+    sign = np.where(live, rng.choice([-1.0, 1.0], live.shape), 0.0)
+    return (torch.as_tensor(src.astype(np.int32)),
+            torch.as_tensor(sign.astype(np.float32)))
+
+
+def _ragged_active(rng, S, nb):
+    """Each shard's ascending active blocks, padded with ``nb`` to the
+    widest shard's count (at least 1)."""
+    acts = [np.sort(rng.choice(nb, int(rng.integers(0, nb)), replace=False))
+            for _ in range(S)]
+    K = max(1, max(len(a) for a in acts))
+    return torch.as_tensor(np.stack([
+        np.pad(a, (0, K - len(a)), constant_values=nb) for a in acts])
+        .astype(np.int32))
+
+
 @pytest.mark.parametrize("op", ["sum", "max"])
 @pytest.mark.parametrize("F", [1, 3, 40])
 def test_stacked_entries_equal_per_shard_plain(op, F):
     """On CPU tensors the stacked entries run the plain version shard by
     shard: each shard's output equals the single-shard wrapper's on its
-    slice (a strided level of the (S, L, ...) tables), dense and active
-    with ragged sentinel-padded lists; no launch is counted."""
+    slice (a strided level of the (S, L, ...) tables), dense, and the fused
+    active entry (values gathered by src, min beside max) with ragged
+    sentinel-padded lists, its row mask too; no launch is counted."""
     rng = np.random.default_rng(F)
     seg, tob, fot, nrt, nb = _stacked_level(rng)
-    S, n_rows = seg.shape[0], 700
+    S, n_rows, n_val = seg.shape[0], 700, 600
+    src, sign = _stacked_sources(rng, seg, n_val)
     SA.reset_launches()
     for l in range(3):
         s_l, t_l, f_l = seg[:, l], tob[:, l], fot[:, l]
@@ -425,23 +448,65 @@ def test_stacked_entries_equal_per_shard_plain(op, F):
                                         n_rows=n_rows, n_row_tiles=nrt,
                                         op=op)
             assert torch.equal(out[s], want)
-        acts = [np.sort(rng.choice(nb, int(rng.integers(0, nb)),
-                                   replace=False)) for _ in range(S)]
-        K = max(1, max(len(a) for a in acts))
-        act = torch.as_tensor(np.stack([
-            np.pad(a, (0, K - len(a)), constant_values=nb) for a in acts])
-            .astype(np.int32))
-        xa = torch.as_tensor(rng.standard_normal((S, K * SA.E_BLK, F)),
-                             dtype=torch.float32)
-        out = SA.segment_agg_active_stacked(xa, s_l, t_l, f_l, act,
-                                            n_rows=n_rows, n_row_tiles=nrt,
-                                            op=op)
-        for s in range(S):
-            want = SA.segment_agg_active(xa[s], s_l[s], t_l[s], f_l[s],
-                                         act[s], n_rows=n_rows,
-                                         n_row_tiles=nrt, op=op)
-            assert torch.equal(out[s], want)
+        act = _ragged_active(rng, S, nb)
+        val = torch.as_tensor(rng.standard_normal((S, n_val, F)),
+                              dtype=torch.float32)
+        tabs = (s_l, src[:, l], sign[:, l], t_l, f_l)
+        for aop in (op, "min") if op == "max" else (op,):
+            out, hit = SA.segment_agg_active_stacked(
+                val, *tabs, act, n_rows=n_rows, n_row_tiles=nrt, op=aop)
+            assert out.shape == (S, n_rows, F) and hit.shape == (S, n_rows)
+            for s in range(S):
+                want, want_hit = SA.segment_agg_active(
+                    val[s], *(t[s] for t in tabs), act[s], n_rows=n_rows,
+                    n_row_tiles=nrt, op=aop)
+                assert torch.equal(out[s], want)
+                assert torch.equal(hit[s], want_hit)
     assert sum(SA.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+def test_stacked_active_plain_matches_jax_composition(op):
+    """The stacked fused plain version against the JAX package's
+    frontier-sparse level (``_gather_active`` + ``_level_reduce_active`` +
+    ``_row_active``, ``backend="xla"``) on each shard's slice: row masks
+    equal; values on those rows exact on integers (every op), sums of
+    normal values within rtol/atol 1e-4, max and min exact."""
+    import jax.numpy as jnp
+    from repro.core import engine as RE
+
+    rng = np.random.default_rng(7)
+    seg, tob, fot, nrt, nb = _stacked_level(rng)
+    S, n_rows, n_val, F = seg.shape[0], 700, 600, 2
+    src, sign = _stacked_sources(rng, seg, n_val)
+    meta = RE.PlanMeta(n_nodes=n_rows, n_writers=1, n_levels=4,
+                       unroll_levels=0, n_row_tiles=nrt, backend="xla",
+                       interpret=False)
+    act = _ragged_active(rng, S, nb)
+    for integer in (True, False):
+        val = (rng.integers(-8, 9, (S, n_val, F)) if integer
+               else rng.normal(size=(S, n_val, F))).astype(np.float32)
+        for l in range(3):
+            out, hit = SA.segment_agg_active_stacked(
+                torch.as_tensor(val), seg[:, l], src[:, l], sign[:, l],
+                tob[:, l], fot[:, l], act, n_rows=n_rows, n_row_tiles=nrt,
+                op=op)
+            for s in range(S):
+                tables = RE.LevelTables(*(jnp.asarray(t[s].numpy()) for t in (
+                    seg, src, sign, tob, fot)),
+                    touched=jnp.ones((4, n_rows), bool))
+                g = RE._gather_active(meta, tables, l,
+                                      jnp.asarray(act[s].numpy()))
+                want = np.asarray(RE._level_reduce_active(
+                    meta, *g, jnp.asarray(val[s]), op))
+                want_hit = np.asarray(RE._row_active(meta, g[0]))
+                np.testing.assert_array_equal(hit[s].numpy(), want_hit)
+                got = out[s].numpy()[want_hit]
+                if integer or op != "sum":
+                    np.testing.assert_array_equal(got, want[want_hit])
+                else:
+                    np.testing.assert_allclose(got, want[want_hit],
+                                               rtol=1e-4, atol=1e-4)
 
 
 def test_stacked_entries_check_their_arguments():
@@ -460,10 +525,17 @@ def test_stacked_entries_check_their_arguments():
         SA.segment_agg_level_stacked(
             torch.zeros((S, nb * SA.E_BLK, 2))[..., :1], seg[:, 0],
             tob[:, 0], fot[:, 0], **kw)
+    src = torch.zeros_like(seg)[:, 0]
+    sign = torch.zeros(seg.shape)[:, 0]
     with pytest.raises(ValueError, match="active must be"):
         SA.segment_agg_active_stacked(
-            torch.zeros((S, SA.E_BLK, 1)), seg[:, 0], tob[:, 0], fot[:, 0],
-            torch.zeros((S, 2), dtype=torch.int32)[:, :1], **kw)
+            torch.zeros((S, 10, 1)), seg[:, 0], src, sign, tob[:, 0],
+            fot[:, 0], torch.zeros((S, 2), dtype=torch.int32)[:, :1], **kw)
+    with pytest.raises(ValueError, match="share their shard stride"):
+        SA.segment_agg_active_stacked(
+            torch.zeros((S, 10, 1)), seg[:, 0], src.contiguous(), sign,
+            tob[:, 0], fot[:, 0], torch.zeros((S, 1), dtype=torch.int32),
+            **kw)
     with pytest.raises(ValueError, match="unknown op"):
         SA.segment_agg_level_stacked(x, seg[:, 0], tob[:, 0], fot[:, 0],
                                      op="mean", **kw)
