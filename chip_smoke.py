@@ -78,7 +78,8 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    within n * 2^-24 * sum|x| per row of an fp64 sum on CPU copies; its
    time beside the bound and the library composition (``index_select``,
    the sign's multiply, ``index_add_`` / ``index_reduce_``); the device
-   operations of one traced sparse level; one write stream run
+   operations of one sparse level, from a CUDA graph capture; one write
+   stream run
    twice from one starting state, frontier-sparse (``EAGR_SPARSE_WRITE=1``)
    and dense (``=0``), at batches of 256 and 4,096 Zipf(1.5) writers each
    followed by reads of 256 readers, PAOs and answers required bit-equal and
@@ -116,16 +117,23 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    over copies of the aligned plans (windows, PAOs, clocks and answers),
    the dense steps to launch the stacked entry exactly once a level and
    reduce, and 256 sampled readers to agree with the stream oracle; the
-   shard-batched kernel at the phase's largest level (dense) and largest
-   active push level, sum at F=1 and max (the fused active entry also
-   min), bit-equal to 4 launches of the single-shard entry and held to its
-   plain version (exact on integers and for max and min, normal-valued sums
-   within n * 2^-24 * sum|x| of an fp64 sum; the active row masks equal to
-   the active slots' rows), its device time beside 4 single-shard
-   launches, the library call (``index_add_`` over the flattened shards,
-   after ``index_select`` and the sign's multiply for the active entry)
-   and the bound; stacked write/read p50 and throughput
-   beside phase 3's, and a traced write window's busy share; a window of
+   shard-batched fused entries (each gathers, signs and reduces a level of
+   all shards in one launch) at the phase's largest level (dense) and
+   largest active push level, F in {1, 2, 64}, sum on the sum group and
+   max and min on the max group, bit-equal to the 4 single-shard levels
+   they replace (the dense entry on each shard's gathered values, or the
+   single-shard active entry) and held to their plain version (exact on
+   integers and for max and min, normal-valued sums within n * 2^-24 *
+   sum|x| of an fp64 sum; the active row masks equal to the active slots'
+   rows), one dense stacked level's CUDA graph capture required to be the
+   one fused kernel and nothing else, their device time at F=1 beside the
+   4 single-shard levels, the library composition over the flattened
+   shards (the dense level's shard offsets, ``index_select``, the sign's
+   multiply, ``index_add_`` / ``index_reduce_``) and the bound; the dense
+   entry under the same bars on a synthetic hub level in each shard (rows
+   of ~70,000 slots) at F 1, 2, 3, 40 and 64; stacked
+   write/read p50 and throughput beside phase 3's, and a traced write
+   window's busy share; a window of
    stacked writes and reads under ``set_sync_debug_mode("error")``; 3 churn
    bursts at 0.1% of the readers, the stacked tables and owner maps
    required to keep their storage, answers held to the owning shards'
@@ -149,6 +157,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -204,10 +213,18 @@ DESIGNS = {
               "serving the GQA group, 4 warps on cp.async rings, chunks "
               "merged in order by a second kernel",
     "bag": "one warp per bag, 16 table-row loads in flight",
-    "stacked": "the single-shard kernel with a third grid axis over S "
-               "shards: each CTA offsets its pointers to its shard's slice "
-               "and runs the single-shard code; one launch a level for all "
-               "shards (dense or fused active entry)",
+    "stacked": "one launch a dense level for all S shards: one CTA per "
+               "(window of 16 blocks, shard), a warp per block; the seg "
+               "rows staged first and blocks with no live slot skipped, the "
+               "live blocks' src/sign rows staged by cp.async, val gathered "
+               "into registers (sign multiplied, min negated), a block's 8 "
+               "slot rounds overlapped; a run crossing windows combined in "
+               "window order by the last of its pieces to take an integer "
+               "ticket",
+    "active_stacked": "the fused active entry with a third grid axis over "
+                      "S shards: each CTA offsets its pointers to its "
+                      "shard's slice; one launch a sparse level for all "
+                      "shards",
     "active": "one launch a frontier-sparse level: one CTA per window "
               "holding an active block, a warp per active block (16 slot-lane "
               "or 4 feature-lane warps), only those blocks' seg/src/sign rows "
@@ -310,6 +327,7 @@ SWEEP = [(100, 8, 17), (1000, 64, 300), (37, 5, 10), (4096, 128, 128),
          (513, 200, 77), (1, 1, 1), (2000, 96, 1000)]
 # the synthetic hub level: live blocks routed to one tile (hub_level)
 HUB_BLOCKS = 1024
+HUB_STACKED_F = (1, 2, 3, 40, 64)  # phase 8's stacked hub level
 
 
 def card_line() -> str:
@@ -360,6 +378,18 @@ def device_ms(torch, fn, reps: int = 50) -> float:
         if total_us > 0:
             return total_us / 1e3 / reps
     raise AssertionError("the profiler saw no device time in three traces")
+
+
+def device_ms_or_none(torch, fn, reps: int = 20):
+    """``device_ms``, or None where the profiler saw no device time."""
+    try:
+        return device_ms(torch, fn, reps=reps)
+    except AssertionError:
+        return None
+
+
+def ms_or_not(t) -> str:
+    return "not measured" if t is None else f"{t:.5f}"
 
 
 def held_ms(torch, fn, reps: int = 50) -> float:
@@ -1011,30 +1041,41 @@ def active_bound_ms(seg_c, src_c, tob, act, F: int, n_rows: int, op: str
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def trace_launches(torch, fn) -> tuple[int, list]:
-    """The device operations one call of ``fn`` enqueues (kernels, memsets,
-    copies), from torch.profiler traces after one warm call: how many, and
-    their names in order. The profiler now and then drops events or hands
-    back an empty trace, never adds one: the fullest of 5 traces."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def captured_ops(torch, fn) -> list:
+    """The device operations one call of ``fn`` enqueues, read from a CUDA
+    graph captured around it and dumped as DOT: one entry per graph node,
+    its type and, for a kernel, its mangled name. No profiler is involved:
+    a capture records every kernel, memset and copy enqueued on the
+    capturing stream. The call is warmed on that stream first, so that the
+    per-stream scratch of the fused entries already exists."""
+    import tempfile
 
-    fn()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
     torch.cuda.synchronize()
-    best: list = []
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        if len(evs) > len(best):
-            best = evs
-    if not best:
-        raise AssertionError("the profiler saw no device operation in five "
-                             "traces")
-    return len(best), [e.name for e in best]
+    g = torch.cuda.CUDAGraph(keep_graph=True)  # kept for its dump only
+    g.enable_debug_mode()
+    with torch.cuda.graph(g, stream=stream):
+        fn()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "level.dot")
+        g.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    del g
+    ops = []
+    # node statements only: an edge statement starts with its tail node
+    for body in re.findall(r'^\s*"graph_\d+_node_\d+"\s*\[(.*?)\];', dot,
+                           re.S | re.M):
+        kind = re.search(r'label="\{?\s*(\w+)', body)
+        name = re.search(r"_Z\w+|\w*segment_agg\w*", body)
+        ops.append(" ".join(x.group(x.lastindex or 0)
+                            for x in (kind, name) if x) or body[:80])
+    if not ops:
+        raise AssertionError(f"no node read from the captured graph's DOT "
+                             f"dump: {dot[:1500]!r}")
+    return ops
 
 
 def active_sets(session, batch):
@@ -1228,10 +1269,10 @@ def check_active(torch, ops, ref, session, batch, errs) -> list[dict]:
 
 def sparse_level_launches(torch, session, batch) -> dict:
     """The device operations one sparse level of the engine enqueues (the
-    fused active entry and the row mask's ``&``), traced at the sum plan's
-    busiest push level for the active blocks of one batch, through the
-    engine's own ``_levels``; ``launches`` None where the profiler returned
-    no trace."""
+    fused active entry's memset and kernel and the row mask's ``&``), at
+    the sum plan's busiest push level for the active blocks of one batch,
+    through the engine's own ``_levels``, from a CUDA graph capture
+    (``captured_ops``)."""
     from repro_torch.core import engine as E
 
     set_sparse("1")
@@ -1253,12 +1294,9 @@ def sparse_level_launches(torch, session, batch) -> dict:
                                 act):
             return reduce(val, "sum")
 
-    try:
-        n, names = trace_launches(torch, level)
-    except AssertionError:  # the profiler returned no trace: not measured
-        n, names = None, []
+    names = captured_ops(torch, level)
     return dict(level=l, active=int((np.asarray(push[l]) < nb).sum()),
-                n_blocks=nb, launches=n, names=names)
+                n_blocks=nb, launches=len(names), names=names)
 
 
 def sparse_host_parts(torch, session, batch, reps: int = 7) -> dict:
@@ -1351,12 +1389,12 @@ def phase_dynamic(torch, ops, ref, session, handles, errs, out_dir) -> dict:
     probe = dyn_stream(writers, readers, 1, DYN_SIZES[0], rng)[0]
     report["active_levels"] = check_active(torch, ops, ref, session, probe,
                                            errs)
-    traced = sparse_level_launches(torch, session, probe)
-    report["sparse_level_launches"] = traced
-    print(f"one traced sparse level (sum plan, push level {traced['level']}, "
-          f"{traced['active']} of {traced['n_blocks']} blocks active): "
-          f"{traced['launches']} device operations {traced['names']}",
-          flush=True)
+    caught = sparse_level_launches(torch, session, probe)
+    report["sparse_level_launches"] = caught
+    print(f"one captured sparse level (sum plan, push level "
+          f"{caught['level']}, {caught['active']} of {caught['n_blocks']} "
+          f"blocks active): {caught['launches']} device operations "
+          f"{caught['names']}", flush=True)
     lap("active_entry_checks")
 
     # ---- 6b. sparse against dense on one stream, both batch sizes
@@ -1848,32 +1886,246 @@ def stacked_ptrs(group) -> dict:
     return out
 
 
-def stacked_level_bound_ms(seg, tob, fot, F: int, n_rows: int):
-    """``level_bound_ms`` of every shard's slice of one stacked level,
-    summed: the bytes and operations of S levels."""
+def stacked_level_bound_ms(seg, src, tob, fot, F: int, n_rows: int, op: str
+                           ) -> tuple[float, str]:
+    """Least time for one call of the fused stacked dense entry, summed over
+    the shards: every slot's seg (4 B), the src rows (and for sum the sign
+    rows) of the blocks holding a live slot (1 or 2 KB a block), the ``val``
+    row of each distinct source among the live slots once, tob and fot (8 B
+    a block) and the output of each row of a visited tile; per live slot and
+    feature one add or max, and for sum one multiply by the sign."""
     t_b = t_o = 0.0
+    row_b = 2 * 256 * 4 if op == "sum" else 256 * 4
     for s in range(seg.shape[0]):
-        n_live = int((seg[s] >= 0).sum().item())
+        nb = tob[s].numel()
+        live = seg[s] >= 0
+        n_live = int(live.sum().item())
+        live_blocks = int(live.view(nb, -1).any(1).sum().item())
+        n_src = int(src[s][live].unique().numel())
         rows_out = min(int(fot[s].sum().item()) * 128, n_rows)
-        t_b += (seg[s].numel() * 4 + tob[s].numel() * 8 + n_live * 4 * F
-                + rows_out * 4 * F) / HBM_BYTES_PER_S * 1e3
-        t_o += n_live * F / FP32_OPS_PER_S * 1e3
+        t_b += (seg[s].numel() * 4 + live_blocks * row_b + n_src * 4 * F
+                + nb * 8 + rows_out * 4 * F) / HBM_BYTES_PER_S * 1e3
+        t_o += n_live * F * (2 if op == "sum" else 1) / FP32_OPS_PER_S * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def stacked_level_launches(torch, meta, tables, l: int, op: str) -> list:
+    """The device operations of one dense stacked level through the
+    engine's own ``_stacked_levels`` (level ``l``, F=1), from a CUDA graph
+    capture (``captured_ops``)."""
+    from repro_torch.core import engine as E
+
+    S = tables.seg.shape[0]
+    val = torch.randn((S, meta.n_nodes, 1), device=torch.device(DEVICE))
+
+    def level():
+        for i, reduce in enumerate(E._stacked_levels(meta, tables)):
+            if i == l:
+                return reduce(val, op)
+
+    return captured_ops(torch, level)
+
+
+def stacked_checked(torch, calls, x, op: str, hit, seg_c, n: int,
+                    integer: bool, where: str) -> tuple:
+    """One shard-batched call on values ``x`` (S, n, F) against its bars
+    (see ``check_stacked_kernel``): ``calls`` are its launch, the S
+    single-shard levels, its plain version and a shard's gathered slot
+    values. Returns the max abs error against the plain version (the fp64
+    sum for normal-valued sums), the largest share of the n * 2^-24 *
+    sum|x| bar a row used, and, for normal-valued sums, the rows beyond
+    rtol = atol = 1e-4 of the fp32 plain version, the fp32 plain version's
+    own rows beyond that of the fp64 sum, and the rows checked: a relative
+    bar that sums reordered in fp32 need not meet where a row's terms
+    cancel."""
+    launch, singles, plain, gathered = calls
+    S, F = x.shape[0], x.shape[2]
+    where = f"{where} F={F} {'integer' if integer else 'normal'}"
+    got, got_hit = launch(x, op)
+    again, again_hit = launch(x, op)
+    one = singles(x, op)
+    want, want_hit = plain(x, op)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_hit, hit) and torch.equal(again_hit, hit)
+            and torch.equal(want_hit, hit)):
+        raise AssertionError(f"{where}: row mask != the active slots' rows")
+    err = share = 0.0
+    loose = [0, 0, 0]
+    for s in range(S):
+        h = hit[s]
+        if not torch.equal(got[s][h], again[s][h]):
+            raise AssertionError(f"{where} is not deterministic")
+        if not torch.equal(got[s][h], one[s][0][h]) or \
+                not torch.equal(one[s][1], h):
+            raise AssertionError(f"{where}: shard {s} != the single-shard "
+                                 f"level")
+        e = (got[s][h] - want[s][h]).abs().max().item() if h.any() else 0.0
+        if integer or op != "sum":
+            if not torch.equal(got[s][h], want[s][h]):
+                raise AssertionError(f"{where} != plain version (exact), "
+                                     f"shard {s}, max abs err {e}")
+            err = max(err, e)
+            continue
+        xs = gathered(x, s, op).reshape(-1, F)
+        exact = plain_sum_fp64(xs, seg_c[s], n)
+        cnt = torch.zeros(n + 1).index_add_(
+            0, torch.where(seg_c[s] >= 0, seg_c[s].long(), n).cpu(),
+            torch.ones(seg_c[s].numel()))[:n, None]
+        lim = cnt.double() * 2.0 ** -24 * plain_sum_fp64(xs.abs(), seg_c[s],
+                                                         n)
+        d64 = (got[s].cpu().double() - exact).abs()
+        hc = h.cpu()
+        e = d64[hc].max().item() if hc.any() else 0.0
+        if bool((d64 > lim)[hc].any()):
+            raise AssertionError(f"{where} beyond n * 2^-24 * sum|x| of the "
+                                 f"fp64 sum, shard {s}, max abs err {e}")
+        err = max(err, e)
+        if hc.any():
+            share = max(share, (d64 / lim.clamp_min(1e-300))[hc].max().item())
+        w32 = want[s].cpu().double()
+        loose[0] += int(((got[s].cpu().double() - w32).abs()
+                         > 1e-4 + 1e-4 * w32.abs())[hc].any(1).sum())
+        loose[1] += int(((w32 - exact).abs() > 1e-4 + 1e-4 * exact.abs())
+                        [hc].any(1).sum())
+        loose[2] += int(hc.sum())
+    return err, share, loose
+
+
+def stacked_calls(ops, ref, level, act, hit, src_c, sign_c, kw) -> tuple:
+    """A shard-batched entry on one stacked level (``level`` = (seg, src,
+    sign, tob, fot), each (S, ...)), as ``stacked_checked`` takes it:
+    its launch, the S single-shard levels it replaces, its plain version
+    and a shard's gathered slot values; each launch (but the gather) gives
+    (out, hit), the dense entry's hit the level's rows. The dense entry
+    when ``act`` is None, else the fused active entry on the (S, K) lists
+    ``act``; ``src_c`` / ``sign_c`` are the slots' sources and signs."""
+    seg, src, sign, tob, fot = level
+    S, n = seg.shape[0], kw["n_rows"]
+
+    def gathered(x, s, op):
+        """Shard s's slot values as its single-shard level reduces them
+        (min: negated, the max kernel's input)."""
+        v = x[s].index_select(0, src_c[s])
+        return v * sign_c[s][:, None] if op == "sum" else \
+            (-v if op == "min" else v)
+
+    def launch(x, op):
+        if act is None:
+            return ops.segment_agg_level_stacked(
+                x, seg, src, sign, tob, fot, **kw, op=op), hit
+        return ops.segment_agg_active_stacked(x, seg, src, sign, tob, fot,
+                                              act, **kw, op=op)
+
+    def singles(x, op):
+        """The dense entry on each shard's gathered values (as
+        ``_level_reduce`` runs it), or the single-shard active entry."""
+        if act is not None:
+            return [ops.segment_agg_active(x[s], seg[s], src[s], sign[s],
+                                           tob[s], fot[s], act[s], **kw,
+                                           op=op)
+                    for s in range(S)]
+        outs = []
+        for s in range(S):
+            o = ops.segment_agg_level(gathered(x, s, op), seg[s], tob[s],
+                                      fot[s], **kw,
+                                      op="sum" if op == "sum" else "max")
+            outs.append((-o if op == "min" else o, hit[s]))
+        return outs
+
+    def plain(x, op):
+        if act is None:
+            return ref.segment_agg_level_stacked_ref(x, seg, src, sign, n,
+                                                     op), hit
+        return ref.segment_agg_active_stacked_ref(x, seg, src, sign, act, n,
+                                                  op)
+
+    return launch, singles, plain, gathered
+
+
+def stacked_hub_check(torch, ops, ref, errs) -> dict:
+    """The fused stacked dense entry on a synthetic hub level in each of
+    ``SHARDS`` shards (``hub_level``: a hub tile of 1,024 live blocks, most
+    of its slots routed to 3 rows, dead blocks among them; a shard's own
+    draw each), sources drawn from 4,096 values and signs +-1, at F in {1,
+    2, 3, 40, 64} (every slot-lane instance, and feature passes full and
+    partial), sum, max and min, under ``stacked_checked``'s bars. Its rows
+    beyond rtol = atol = 1e-4 of the fp32 plain version show what such a
+    relative bar does on rows of ~10^5 cancelling terms."""
+    rng = np.random.default_rng(9)
+    dev = torch.device(DEVICE)
+    lv = [hub_level(ops, rng, 1, False) for _ in range(SHARDS)]
+    seg, tob, fot = (torch.as_tensor(np.stack([v[i] for v in lv]),
+                                     device=dev) for i in (1, 2, 3))
+    n, n_val = lv[0][4], 4096
+    live = seg >= 0
+    src = torch.where(live, torch.as_tensor(
+        rng.integers(0, n_val, seg.shape), dtype=torch.int32, device=dev), 0)
+    sign = torch.where(live, torch.as_tensor(
+        rng.choice([-1.0, 1.0], seg.shape), dtype=torch.float32,
+        device=dev), 0.0)
+    hit = torch.zeros((SHARDS, n + 1), dtype=torch.bool, device=dev)
+    hit.scatter_(1, torch.where(live, seg.long(), n),
+                 torch.ones_like(live))
+    hit = hit[:, :n]
+    kw = dict(n_rows=n, n_row_tiles=n // ops.R_BLK)
+    calls = stacked_calls(ops, ref, (seg, src, sign, tob, fot), None, hit,
+                          src.long(), sign, kw)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    err = {"sum": 0.0, "max": 0.0}
+    share, loose = 0.0, [0, 0, 0]
+    for F in HUB_STACKED_F:
+        for op in ("sum", "max", "min"):
+            for integer in (True, False):
+                x = (torch.randint(-8, 9, (SHARDS, n_val, F), generator=gen,
+                                   device=dev).to(torch.float32)
+                     if integer else
+                     torch.randn((SHARDS, n_val, F), generator=gen,
+                                 device=dev))
+                e, sh, lo = stacked_checked(torch, calls, x, op, hit, seg, n,
+                                            integer, f"{op}_stacked hub")
+                key = "sum" if op == "sum" else "max"
+                err[key], share = max(err[key], e), max(share, sh)
+                loose = [a + b for a, b in zip(loose, lo)]
+    for key, e in err.items():
+        errs[f"{key}_stacked"] = max(errs.get(f"{key}_stacked", 0.0), e)
+    seg0 = lv[0][1]
+    hub_n = int(np.bincount(seg0[seg0 >= 0]).max())
+    print(f"  dense stacked hub level: S={SHARDS} blocks {tob.shape[1]} a "
+          f"shard, {hub_n} slots on shard 0's largest row, F "
+          f"{'/'.join(map(str, HUB_STACKED_F))} "
+          f"(sum/max/min): bit-equal to {SHARDS} single-shard levels, plain "
+          f"version held (max abs err sum {err['sum']:.3g}, max/min "
+          f"{err['max']:.3g}); normal sums used {share:.3g} of the fp64 bar "
+          f"at most, {loose[0]} of {loose[2]} rows beyond rtol = atol = "
+          f"1e-4 of the fp32 plain version (that version's own beyond it "
+          f"of the fp64 sum: {loose[1]})", flush=True)
+    return dict(shards=SHARDS, n_blocks=int(tob.shape[1]), n_rows=n,
+                largest_row_slots=hub_n, checked_F=list(HUB_STACKED_F),
+                max_abs_err=err, fp64_bar_share=share,
+                beyond_1e4_rows=loose[0], plain_beyond_1e4_rows=loose[1],
+                float_sum_rows=loose[2])
 
 
 def check_stacked_kernel(torch, ops, ref, group, errs, act_sets) -> list:
     """The shard-batched entries at this phase's largest level (the stacked
-    push or pull level with the most live slots over all shards), sum at
-    F=1 and max: each shard bit-equal to a launch of the single-shard entry
-    on its slice; exact against the plain version on integer values and
-    for max, normal-valued sums within n * 2^-24 * sum|x| per row of an
-    fp64 sum on CPU copies (``plain_sum_fp64``); then the same for the
-    fused active entries (values gathered by the level's src and sign; min
-    beside max; row masks equal to the active slots' rows) over the
-    stacked active lists of one batch. Times: the stacked launch, S
-    launches of the single-shard entry, the plain version (shard by shard)
-    and ``index_add_``/``index_reduce_`` over the flattened shards (after
-    ``index_select`` and the sign's multiply for the active entry), each
+    push or pull level with the most live slots over all shards; the fused
+    active entry at the push level whose active blocks hold the most),
+    values ``val`` (S, n, F) gathered by the level's src and sign at F in
+    {1, 2, 64}: sum on the sum group, max and min on the max group. Each
+    shard bit-equal to the single-shard level it replaces and on a rerun:
+    for the dense entry the single-shard dense entry on the shard's
+    gathered values (``val[src] * sign``, or ``-val[src]`` negated back for
+    min), for the active entry the single-shard active entry; exact against
+    the plain version on integer values and for max and min, normal-valued
+    sums within n * 2^-24 * sum|x| per row of an fp64 sum on CPU copies
+    (``plain_sum_fp64``); the active row masks equal to the active slots'
+    rows (``stacked_checked``). The device operations of one dense stacked
+    level, from a CUDA graph capture: one kernel and nothing else. Times at
+    F=1: the stacked launch, the S single-shard levels, the plain version
+    (shard by shard) and the library composition over the flattened shards
+    (the shard offsets' cast and add for the dense entry, ``index_select``,
+    the sign's multiply, then ``index_add_`` / ``index_reduce_``), each
     beside the bound."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
@@ -1901,154 +2153,102 @@ def check_stacked_kernel(torch, ops, ref, group, errs, act_sets) -> list:
                 live = int(((blk >= 0) & (a < nb_l)[..., None]).sum().item())
                 if best_a is None or live > best_a[0]:
                     best_a = (live, side, l)
-    kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles, op=op)
+    kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles)
+    cops = (op, "min") if op == "max" else (op,)
     rows = []
     for entry, pick in (("dense", best), ("active", best_a)):
         if pick is None:
             continue
         _, side, l = pick
         t = getattr(eng.arrays, side)
-        seg, tob = t.seg[:, l], t.tile_of_block[:, l]
-        fot = t.first_of_tile[:, l]
+        seg, src, sign = t.seg[:, l], t.src[:, l], t.sign[:, l]
+        tob, fot = t.tile_of_block[:, l], t.first_of_tile[:, l]
         nb = tob.shape[1]
+        sid = torch.arange(S, device=dev)[:, None]
         if entry == "dense":
-            act, seg_c = None, seg
-            K = nb
+            act, K = None, nb
+            seg_c, src_c, sign_c = seg, src.long(), sign
         else:
             act = torch.as_tensor(act_sets[side][l], device=dev)
             K = act.shape[1]
             a = act.long()
-            sid = torch.arange(S, device=dev)[:, None]
-            seg_c = torch.where(
-                (a < nb)[..., None],
-                seg.reshape(S, nb, E)[sid, a.clamp(max=nb - 1)],
-                -1).reshape(S, -1)
+            ab = a.clamp(max=nb - 1)
+            # the active slots' rows, sources and signs
+            seg_c = torch.where((a < nb)[..., None],
+                                seg.reshape(S, nb, E)[sid, ab],
+                                -1).reshape(S, -1)
+            src_c = src.reshape(S, nb, E)[sid, ab].reshape(S, -1).long()
+            sign_c = sign.reshape(S, nb, E)[sid, ab].reshape(S, -1)
         hit = torch.zeros((S, n + 1), dtype=torch.bool, device=dev)
         hit.scatter_(1, torch.where(seg_c >= 0, seg_c.long(), n),
                      torch.ones_like(seg_c, dtype=torch.bool))
         hit = hit[:, :n]
         n_live = int((seg_c >= 0).sum().item())
         name = "stacked" if entry == "dense" else "active_stacked"
-        src, sign = t.src[:, l], t.sign[:, l]
-        if act is not None:  # the active slots' sources and signs
-            src_c = src.reshape(S, nb, E)[sid, a.clamp(max=nb - 1)] \
-                .reshape(S, -1).long()
-            sign_c = sign.reshape(S, nb, E)[sid, a.clamp(max=nb - 1)] \
-                .reshape(S, -1)
 
-        # the dense entry takes gathered values x (S, K*E, F), the active
-        # entry the values val (S, n, F) it gathers itself; both give
-        # (out, hit) here, the dense entry's hit the level's rows
-        def launch(x, op=op):
-            if act is None:
-                return ops.segment_agg_level_stacked(x, seg, tob, fot,
-                                                     **kw), hit
-            return ops.segment_agg_active_stacked(x, seg, src, sign, tob,
-                                                  fot, act, **dict(kw, op=op))
+        calls = stacked_calls(ops, ref, (seg, src, sign, tob, fot), act, hit,
+                              src_c, sign_c, kw)
+        launch, singles, plain, _ = calls
 
-        def singles(x, op=op):
-            if act is None:
-                return [(ops.segment_agg_level(x[s], seg[s], tob[s], fot[s],
-                                               **kw), hit[s])
-                        for s in range(S)]
-            return [ops.segment_agg_active(x[s], seg[s], src[s], sign[s],
-                                           tob[s], fot[s], act[s],
-                                           **dict(kw, op=op))
-                    for s in range(S)]
-
-        def plain(x, op=op):
-            if act is None:
-                return ref.segment_agg_level_stacked_ref(x, seg, n, op), hit
-            return ref.segment_agg_active_stacked_ref(x, seg, src, sign, act,
-                                                      n, op)
-
-        def gathered(x, s, op):
-            """Shard s's reduced values, slot by slot (K*E, F)."""
-            if act is None:
-                return x[s]
-            v = x[s].index_select(0, src_c[s])
-            return v * sign_c[s][:, None] if op == "sum" else v
-
-        F = 1
-        err = 0.0
-        # the active entry of the max group also runs min: -max(-x)
-        for cop in (op, "min") if act is not None and op == "max" else (op,):
-            for integer in (True, False):
-                shape = (S, K * E, F) if act is None else (S, n, F)
-                x = (torch.randint(-8, 9, shape, generator=gen, device=dev)
-                     .to(torch.float32) if integer else
-                     torch.randn(shape, generator=gen, device=dev))
-                got, got_hit = launch(x, cop)
-                again, again_hit = launch(x, cop)
-                one = singles(x, cop)
-                want, want_hit = plain(x, cop)
-                torch.cuda.synchronize()
-                if not (torch.equal(got_hit, hit) and torch.equal(
-                        again_hit, hit) and torch.equal(want_hit, hit)):
-                    raise AssertionError(f"{cop}_{name}: row mask != the "
-                                         f"active slots' rows")
-                for s in range(S):
-                    h = hit[s]
-                    if not torch.equal(got[s][h], again[s][h]):
-                        raise AssertionError(f"{cop}_{name} is not "
-                                             f"deterministic")
-                    if not torch.equal(got[s][h], one[s][0][h]) or \
-                            not torch.equal(one[s][1], h):
-                        raise AssertionError(
-                            f"{cop}_{name} shard {s} != the single-shard "
-                            f"entry ({side} l={l})")
-                    e = (got[s][h] - want[s][h]).abs().max().item() \
-                        if h.any() else 0.0
-                    if integer or cop != "sum":
-                        if not torch.equal(got[s][h], want[s][h]):
-                            raise AssertionError(
-                                f"{cop}_{name} != plain version (exact), "
-                                f"shard {s}, max abs err {e}")
-                    else:
-                        xs = gathered(x, s, cop).reshape(-1, F)
-                        exact = plain_sum_fp64(xs, seg_c[s], n)
-                        cnt = torch.zeros(n + 1).index_add_(
-                            0, torch.where(seg_c[s] >= 0, seg_c[s].long(), n)
-                            .cpu(), torch.ones(seg_c[s].numel()))[:n, None]
-                        lim = cnt.double() * 2.0 ** -24 * \
-                            plain_sum_fp64(xs.abs(), seg_c[s], n)
-                        d64 = (got[s].cpu().double() - exact).abs()
-                        hc = h.cpu()
-                        e = d64[hc].max().item() if hc.any() else 0.0
-                        if bool((d64 > lim)[hc].any()):
-                            raise AssertionError(
-                                f"{cop}_{name} beyond n * 2^-24 * sum|x| of "
-                                f"the fp64 sum, shard {s}, max abs err {e}")
-                    err = max(err, e)
+        # F 1, 2 and 64: the slot-lane (FC 1, 2) and feature-lane (FC 32)
+        # instances a sharded session runs (avg has 2 features, topk 64)
+        err = share = 0.0
+        loose = [0, 0, 0]  # float-sum rows: kernel, plain, rows checked
+        for F in (1, 2, 64):
+            for cop in cops:
+                for integer in (True, False):
+                    x = (torch.randint(-8, 9, (S, n, F), generator=gen,
+                                       device=dev).to(torch.float32)
+                         if integer else
+                         torch.randn((S, n, F), generator=gen, device=dev))
+                    e, sh, lo = stacked_checked(
+                        torch, calls, x, cop, hit, seg_c, n, integer,
+                        f"{cop}_{name} {side} l={l}")
+                    err, share = max(err, e), max(share, sh)
+                    loose = [a + b for a, b in zip(loose, lo)]
         errs[f"{op}_{name}"] = max(errs.get(f"{op}_{name}", 0.0), err)
-        k_ms = cuda_ms(torch, lambda: launch(x))
-        k_dev = device_ms(torch, lambda: launch(x), reps=20)
-        s_dev = device_ms(torch, lambda: singles(x), reps=20)
-        k_held = held_ms(torch, lambda: launch(x))
-        s_held = held_ms(torch, lambda: singles(x))
-        p_ms = cuda_ms(torch, lambda: plain(x), reps=5)
+        F = 1  # the timed values
+        x = torch.randn((S, n, F), generator=gen, device=dev)
+        launched = None
+        if act is None:  # one dense stacked level: one kernel, nothing else
+            launched = stacked_level_launches(torch, meta, t, l, op)
+            if len(launched) != 1 or "dense_stacked" not in launched[0]:
+                raise AssertionError(f"a dense stacked {op} level ran "
+                                     f"{len(launched)} device operations "
+                                     f"{launched}, expected the one fused "
+                                     f"kernel")
+        k_ms = cuda_ms(torch, lambda: launch(x, op))
+        # late in this process the profiler has seen only part of the
+        # stacked launches, or none: held_ms is their device time, and a
+        # profiler reading that fails is not measured (None)
+        k_dev = device_ms_or_none(torch, lambda: launch(x, op))
+        s_dev = device_ms_or_none(torch, lambda: singles(x, op))
+        k_held = held_ms(torch, lambda: launch(x, op))
+        s_held = held_ms(torch, lambda: singles(x, op))
+        p_ms = cuda_ms(torch, lambda: plain(x, op), reps=5)
+        # the library composition over the flattened shards: gather, the
+        # sign's multiply, then one scatter; for the dense entry the whole
+        # level as the engine composed it before the fused entry, the
+        # sources' shard offsets (cast and add) included
         dst = (torch.where(seg_c >= 0, seg_c.long(), n)
-               + torch.arange(S, device=dev)[:, None] * (n + 1)).reshape(-1)
+               + sid * (n + 1)).reshape(-1)
         lib_out = torch.zeros((S * (n + 1), F), device=dev)
-        if act is None:
-            xf = x.reshape(-1, F)
-            lib = (lambda: lib_out.index_add_(0, dst, xf)) if op == "sum" \
-                else (lambda: lib_out.index_reduce_(0, dst, xf, "amax"))
-        else:
-            # the library composition: gather over the flattened shards,
-            # the sign's multiply, then one scatter
-            src_f = (src_c + torch.arange(S, device=dev)[:, None] * n) \
-                .reshape(-1)
-            sign_f = sign_c.reshape(-1, 1)
-            xv = x.reshape(-1, F)
-            lib = (lambda: lib_out.index_add_(
-                0, dst, xv.index_select(0, src_f) * sign_f)) \
-                if op == "sum" else (lambda: lib_out.index_reduce_(
-                    0, dst, xv.index_select(0, src_f), "amax"))
+        xv = x.reshape(-1, F)
+        src_f = (src_c + sid * n).reshape(-1)
+
+        def lib():
+            g = xv.index_select(0, src_f if act is not None else (
+                src.to(torch.int64) + sid * n).reshape(-1))
+            if op == "sum":
+                return lib_out.index_add_(
+                    0, dst, (g.view(S, -1, F) * sign_c[..., None])
+                    .reshape(-1, F))
+            return lib_out.index_reduce_(0, dst, g, "amax")
+
         l_ms = cuda_ms(torch, lib)
-        l_dev = device_ms(torch, lib, reps=20)
+        l_dev = device_ms_or_none(torch, lib)
         if act is None:
-            b_ms, b_by = stacked_level_bound_ms(seg, tob, fot, F, n)
+            b_ms, b_by = stacked_level_bound_ms(seg, src, tob, fot, F, n, op)
         else:
             # each shard's fused-entry bound, summed (all bound by bytes at
             # F=1)
@@ -2062,16 +2262,28 @@ def check_stacked_kernel(torch, ops, ref, group, errs, act_sets) -> list:
                          single_x_S_device_ms=s_dev, held_ms=k_held,
                          single_x_S_held_ms=s_held, plain_ms=p_ms,
                          library_ms=l_ms, library_device_ms=l_dev,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by,
+                         level_launches=launched, checked_F=[1, 2, 64],
+                         fp64_bar_share=share, beyond_1e4_rows=loose[0],
+                         plain_beyond_1e4_rows=loose[1],
+                         float_sum_rows=loose[2]))
+        bars = "" if op != "sum" else (
+            f"; normal sums used {share:.3g} of the fp64 bar at most, "
+            f"{loose[0]} of {loose[2]} rows beyond rtol = atol = 1e-4 of "
+            f"the fp32 plain version (that version's own beyond it of the "
+            f"fp64 sum: {loose[1]})")
         print(f"  {op}_{name} {side} l={l} S={S} blocks {K}/{nb} "
-              f"live={n_live} F=1: bit-equal to {S} single-shard launches, "
-              f"plain version held (max abs err {err:.3g}); kernel "
-              f"{k_ms:.4f} ms ({k_dev:.5f} device, {k_held:.5f} held) vs "
-              f"{S} single-shard launches {s_dev:.5f} device, {s_held:.5f} "
-              f"held; plain {p_ms:.4f} ms; "
-              f"index_add_/reduce over the flattened shards {l_ms:.4f} ms "
-              f"({l_dev:.5f} device); bound {b_ms:.6f} ms ({b_by})",
-              flush=True)
+              f"live={n_live} F 1/2/64 ({'/'.join(cops)}): bit-equal to {S} "
+              f"single-shard levels, plain version held (max abs err "
+              f"{err:.3g}{bars}); at F=1 kernel {k_ms:.4f} ms "
+              f"({ms_or_not(k_dev)} device, "
+              f"{k_held:.5f} held) vs {S} single-shard levels "
+              f"{ms_or_not(s_dev)} device, {s_held:.5f} held; plain "
+              f"{p_ms:.4f} ms; library composition over the flattened "
+              f"shards {l_ms:.4f} ms ({ms_or_not(l_dev)} device); bound "
+              f"{b_ms:.6f} ms ({b_by})"
+              + ("" if launched is None else
+                 f"; one captured level: {launched}"), flush=True)
     return rows
 
 
@@ -2228,6 +2440,7 @@ def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
         krows += check_stacked_kernel(torch, ops, ref, g, errs,
                                       stacked_active_sets(g, probe[0]))
     report["kernel"] = krows
+    report["kernel_hub"] = stacked_hub_check(torch, ops, ref, errs)
     lap("kernel")
 
     # ---- 8c. speed (printed, not gated): the stacked main path beside
@@ -3369,7 +3582,7 @@ def main(argv=None) -> int:
         key = f"{row['op']}_{row['entry']}"
         kernels.append(dict(
             name=f"segment_agg_{key}", route="cuda", source=SOURCE,
-            replaces=KERNELS[row["op"]][1], design=DESIGNS["stacked"],
+            replaces=KERNELS[row["op"]][1], design=DESIGNS[row["entry"]],
             launches=shards["launches"][key], max_abs_err=errs[key],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],

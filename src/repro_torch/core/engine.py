@@ -697,44 +697,29 @@ def _offsets(S: int, n: int, device) -> torch.Tensor:
 def _stacked_levels(meta: PlanMeta, tables: LevelTables, active=None):
     """``_levels`` over stacked (S, L, ...) tables: each real level as a
     ``reduce(val, op) -> (out, rows)``, the level's reduce-by-destination
-    of ``val`` (S, n, F) for every shard in one launch of the stacked
-    kernel entry and the (S, n) destinations it recomputes. Dense sources
-    gather from the flattened (S * n, F) values with shard-offset indices.
-    ``active``, when given, is the per-level tuple of (S, K) active-block
-    lists (each shard's padded with the level's block count), each level
-    one call of the fused active entry; levels no shard has an active
-    block in are skipped."""
-    S = tables.seg.shape[0]
-    n = meta.n_nodes
-    # the dense gather's shard offsets (the fused active entry needs none)
-    off = _offsets(S, n, tables.seg.device) if active is None else None
-    kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles)
+    of ``val`` (S, n, F) for every shard in one launch and the (S, n)
+    destinations it recomputes. Dense, each level is one call of the fused
+    stacked dense entry, which gathers each shard's sources from its own
+    slice of ``val``. ``active``, when given, is the per-level tuple of
+    (S, K) active-block lists (each shard's padded with the level's block
+    count), each level one call of the fused active entry; levels no shard
+    has an active block in are skipped."""
+    kw = dict(n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles)
     for l in range(meta.depth):
-        seg, tob, fot = tables.seg[:, l], tables.tile_of_block[:, l], \
-            tables.first_of_tile[:, l]
-        if active is not None:
-            if active[l].shape[1] == 0:
-                continue
-
-            def reduce(val, op, l=l, seg=seg, tob=tob, fot=fot):
-                out, hit = segment_agg_active_stacked(
-                    val.contiguous(), seg, tables.src[:, l],
-                    tables.sign[:, l], tob, fot, active[l], op=op, **kw)
-                return out, tables.touched[:, l] & hit
+        tabs = (tables.seg[:, l], tables.src[:, l], tables.sign[:, l],
+                tables.tile_of_block[:, l], tables.first_of_tile[:, l])
+        if active is None:
+            def reduce(val, op, l=l, tabs=tabs):
+                return (segment_agg_level_stacked(val.contiguous(), *tabs,
+                                                  op=op, **kw),
+                        tables.touched[:, l])
+        elif active[l].shape[1] == 0:
+            continue
         else:
-            def reduce(val, op, l=l, seg=seg, tob=tob, fot=fot):
-                F = val.shape[-1]
-                x = val.reshape(S * n, F).index_select(
-                    0, (tables.src[:, l].to(torch.int64) + off).reshape(-1)
-                ).view(S, -1, F)
-                if op == "sum":
-                    x = x * tables.sign[:, l][..., None]
-                elif op == "min":
-                    x = -x
-                out = segment_agg_level_stacked(
-                    x, seg, tob, fot, op="sum" if op == "sum" else "max",
-                    **kw)
-                return (-out if op == "min" else out), tables.touched[:, l]
+            def reduce(val, op, l=l, tabs=tabs):
+                out, hit = segment_agg_active_stacked(
+                    val.contiguous(), *tabs, active[l], op=op, **kw)
+                return out, tables.touched[:, l] & hit
 
         yield reduce
 

@@ -119,19 +119,50 @@
 // So on every row an active block routes to, the output is bit-equal to
 // the dense pass over the level's gathered values with the inactive
 // blocks' values set to the identity, and to the JAX package's composition
-// up to the order of a row's additions.
+// up to the order of a row's additions. With n_shards > 1 it runs S
+// shards' levels in one launch, grid z the shard, its pointers moved as the
+// stacked dense entry's are (below); ragged active lists are padded to the
+// widest shard with n_blocks, and a pad entry never opens a window nor
+// counts in a run.
 //
-// The stacked entries (segment_agg_{sum,max}_stacked_f32, and the active
-// entry with n_shards > 1) run S shards' levels of one shape in one launch,
-// the counterpart of the TPU kernel under `vmap` over a shard axis: the
-// grid's third axis is the shard, and each CTA first moves every pointer to
-// its shard's slice (seg, src, sign, tob and fot by the tables' shard
-// strides, which may exceed one level's size; x, val, out, hit, active,
-// part, flag, the tickets and the run table by their own sizes). A shard's
-// CTAs then do exactly what the single-shard entry does on that slice, so
-// each shard's output is bit-equal to a launch of the single-shard entry on
-// it. Ragged active lists are padded to the widest shard with n_blocks; a
-// pad entry never opens a window nor counts in a run.
+// The stacked dense entry (segment_agg_dense_stacked_f32) computes a whole
+// dense level of S aligned shards in one launch, the counterpart of the
+// TPU kernel under `vmap` over a shard axis (src/repro/distributed/
+// stacked.py) applied to the values the JAX package's `_level_reduce`
+// gathers: for each shard z and each live slot e of the level
+//
+//   sum: out[z, seg[z,e]] += val[z, src[z,e]] * sign[z,e]
+//   max: out[z, seg[z,e]]  = max(out[z, seg[z,e]], val[z, src[z,e]])
+//   min: the max of -val[z, src[z,e]], negated on store.
+//
+// Bound: per shard every slot's seg (4 B), the src rows (and for sum the
+// sign rows) of the blocks holding a live slot (1 or 2 KB a block), `val`
+// once per distinct source (4 * F B), tob and fot (8 B a block) and the
+// visited tiles' rows (4 * F B a row); one add or max per live slot and
+// feature (and a multiply for sum): bound by bytes. About three quarters
+// of a level's padded slots are dead at the plans' 2x headroom.
+// - Grid: one CTA per window of `win` blocks (windows cut as the dense pass
+//   cuts them), grid z the shard; each CTA first moves every pointer to its
+//   shard's slice (seg, src, sign, tob and fot by the tables' shard strides,
+//   which may exceed one level's size; val, out, part, flag, the tickets and
+//   the run table by their own sizes).
+// - A warp a block (16 slot-lane warps, or 4 feature-lane warps for a
+//   window of 4). The window's seg rows are staged by cp.async while its
+//   tob/fot load; a block with no live slot of its tile stops there, and
+//   only the live blocks' src rows (and sign rows for sum) are staged, all
+//   of the window's in flight at once; values are gathered from `val`
+//   straight into registers and reduced as the active entry reduces them,
+//   so each block's partial rows equal the dense kernel's on the gathered
+//   values bit for bit.
+// - Pieces fold in block order and a run crossing windows is combined in
+//   the same launch by the last of its pieces to take an integer ticket, as
+//   in the active entry, with windows for entries: each piece adds 1, the
+//   run's first piece also the index of its window and its last piece
+//   subtracts the index past its own.
+// So shard z's output is bit-equal to the single-shard dense entry's on its
+// gathered values (val[src] * sign for sum, val[src] for max, -val[src]
+// then negated for min), which is what the engine's single-shard level
+// computes.
 
 #include <cuda_runtime.h>
 
@@ -142,12 +173,12 @@ namespace {
 constexpr int E_BLK = 256;  // slots per edge block
 constexpr int R_BLK = 128;  // rows per tile
 constexpr int MAX_WIN = 64;
-constexpr int ACT_MAX_WIN = 16;  // the active entry's widest window
+constexpr int ACT_MAX_WIN = 16;  // the fused entries' widest window
 constexpr int CF = 8;       // features per combine CTA
 constexpr int PIPE = 8;     // pieces a combine thread loads at a time
 constexpr int MAX_DEVICES = 64;
 
-constexpr int OP_SUM = 0, OP_MAX = 1, OP_MIN = 2;  // the active entry's ops
+constexpr int OP_SUM = 0, OP_MAX = 1, OP_MIN = 2;  // the fused entries' ops
 
 // A kernel's dynamic shared-memory limit, raised on each device only when a
 // launch needs more than was set there before (the attribute call is not
@@ -194,13 +225,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-
-// A CTA's shard is blockIdx.z. Each kernel first moves its pointers to the
-// shard's slice: tables by their shard strides, x by its blocks, out by its
-// tiles, part and flag by the grid's two slots a CTA (shard 0 stays put).
-struct Shard {
-  long long seg_stride, blk_stride;
-};
 
 template <bool MAX>
 __device__ __forceinline__ float combine(float a, float b) {
@@ -491,7 +515,7 @@ __device__ bool feature_block(const Slots& slots, int row0, int F, int f,
 
 constexpr int SLOT_WARPS = 8;  // slot-lane window kernel
 constexpr int FEAT_WARPS = 4;  // feature-lane window kernel: 16 KB a warp
-// the active kernel's slot-lane warps: one per block of its widest window,
+// the fused kernels' slot-lane warps: one per block of its widest window,
 // so no warp reduces two blocks in turn
 constexpr int ACT_SLOT_WARPS = 16;
 
@@ -548,17 +572,7 @@ segment_agg_kernel(const float* __restrict__ x, const int* __restrict__ seg,
                    const int* __restrict__ tob, const int* __restrict__ fot,
                    float* __restrict__ out, float* __restrict__ part,
                    int* __restrict__ flag, int n_blocks, int F,
-                   int n_row_tiles, int win, Shard sh) {
-  {
-    const size_t z = blockIdx.z, g = gridDim.x;
-    x += z * n_blocks * E_BLK * F;
-    seg += z * sh.seg_stride;
-    tob += z * sh.blk_stride;
-    fot += z * sh.blk_stride;
-    out += z * n_row_tiles * R_BLK * F;
-    part += z * 2 * g * R_BLK * F;
-    flag += z * 2 * g;
-  }
+                   int n_row_tiles, int win) {
   constexpr bool FEAT = FC == 32;
   constexpr int NWK = FEAT ? FEAT_WARPS : SLOT_WARPS;
   constexpr int COPY = FC * R_BLK;  // floats a block
@@ -680,15 +694,7 @@ segment_agg_combine_kernel(const int* __restrict__ tob,
                            const float* __restrict__ part,
                            const int* __restrict__ flag,
                            float* __restrict__ out, int n_blocks, int F,
-                           int n_row_tiles, int win, Shard sh) {
-  {
-    const size_t z = blockIdx.z, g = gridDim.x;
-    tob += z * sh.blk_stride;
-    fot += z * sh.blk_stride;
-    out += z * n_row_tiles * R_BLK * F;
-    part += z * 2 * g * R_BLK * F;
-    flag += z * 2 * g;
-  }
+                           int n_row_tiles, int win) {
   __shared__ int s_last, s_stop;
   __shared__ int s_cnt[R_BLK / 32];
   __shared__ int s_list[R_BLK];
@@ -770,18 +776,16 @@ struct PieceRec {
 // One warp builds the window's piece table in parallel, lane = block: a
 // piece starts at block 0 and wherever first_of_tile is 1 or the tile
 // changes (where piece_at stops), and ends at the next start; its active
-// blocks are counted from the window's active-block mask. Only the pieces
-// that are not skipped and hold an active block are listed, in window
-// order. Returns whether one of them is not direct (a run of the window
-// crosses its edge).
+// blocks are counted from the window's active-block mask `act` (bit i:
+// block i of the window; the dense entry's are all active). Only the
+// pieces that are not skipped and hold an active block are listed, in
+// window order. Returns whether one of them is not direct (a run of the
+// window crosses its edge).
 __device__ __forceinline__ bool piece_table(const int* s_tob, const int* s_fot,
-                                            const int* s_ent, int w0, int nw,
-                                            int na, int n_row_tiles,
-                                            int base, PieceRec* s_pc,
-                                            int* s_npc,
+                                            unsigned act, int nw,
+                                            int n_row_tiles, int base,
+                                            PieceRec* s_pc, int* s_npc,
                                             int lane) {
-  const unsigned act = __reduce_or_sync(
-      0xffffffffu, lane < na ? 1u << (s_ent[lane] - w0) : 0u);
   const bool start = lane < nw && (lane == 0 || s_fot[lane] == 1 ||
                                    s_tob[lane] != s_tob[lane - 1]);
   const unsigned starts = __ballot_sync(0xffffffffu, start);
@@ -831,34 +835,49 @@ struct ActiveArgs {
   int n_slot, by_window;
 };
 
+// The part slot of a run's piece at scan entry c of combine_run, or -1 where
+// entry c holds none. The active entry scans its active entries: a piece
+// opens at each entry whose block opens a new window (a run that started
+// before a window holds its first block, so its entry there is the
+// window's first).
+struct ActivePieces {
+  const int* active;
+  int win, by_window;
+  __device__ __forceinline__ int slot(int c) const {
+    const int ac = active[c];
+    if (ac / win == active[c - 1] / win) return -1;
+    return 2 * (by_window ? ac / win : c);
+  }
+};
+
+// The stacked dense entry scans windows: every window after a crossing
+// run's first holds a piece of it at its first block.
+struct WindowPieces {
+  __device__ __forceinline__ int slot(int c) const { return 2 * c; }
+};
+
 // Combines a run's pieces into its tile's rows, in window order from the
 // op's identity, skipping dead pieces: the first piece at part slot slot0,
-// then the first piece of every entry c in (lo, hi) that opens a new
-// window (a run that started before a window holds its first block, so its
-// entry there is the window's first). Entries are scanned NT at a time; a
-// round's result stays in out (un-negated) for the next one, and min
-// negates on the last store. All NT threads call it.
-template <int OP, int NT>
-__device__ void combine_run(const ActiveArgs& p, const int* active,
-                            const int* flag, const float* part, float* out,
-                            int tile, int lo, int slot0, int hi, int* s_cnt,
-                            int* s_list) {
+// then the pieces at the scan entries in (lo, hi) (`pcs`). Entries are
+// scanned NT at a time; a round's result stays in out (un-negated) for the
+// next one, and min negates on the last store. All NT threads call it.
+template <int OP, int NT, class Pieces>
+__device__ void combine_run(const Pieces& pcs, int F, const int* flag,
+                            const float* part, float* out, int tile, int lo,
+                            int slot0, int hi, int* s_cnt, int* s_list) {
   constexpr bool MX = OP != OP_SUM;
   const int tid = threadIdx.x;
-  const size_t piece = static_cast<size_t>(R_BLK) * p.F;
+  const size_t piece = static_cast<size_t>(R_BLK) * F;
   float* o = out + static_cast<size_t>(tile) * piece;
   const bool live0 = (__ldcg(flag + slot0) & 1) != 0;
   const float* p0 = part + static_cast<size_t>(slot0) * piece;
   for (int c0 = lo + 1, round = 0;; c0 += NT, ++round) {
     const int c = c0 + tid;
-    const bool in = c < hi;
-    const int ac = in ? active[c] : 0;
-    const bool opens = in && ac / p.win != active[c - 1] / p.win;
-    const int sc = 2 * (p.by_window ? ac / p.win : c);
-    const int fl = opens ? __ldcg(flag + sc) : 0;
-    const int n = compact_live<NT>(opens && (fl & 1), sc, s_cnt, s_list);
+    const int sc = c < hi ? pcs.slot(c) : -1;
+    const int fl = sc >= 0 ? __ldcg(flag + sc) : 0;
+    const int n = compact_live<NT>(sc >= 0 && (fl & 1), sc, s_cnt, s_list);
     const bool end = c0 + NT >= hi;
-    for (int e = tid; e < R_BLK * p.F; e += NT) {
+    for (int e = tid; e < R_BLK * F; e += NT) {
       float acc = round == 0 ? identity<MX>() : o[e];
       if (round == 0 && live0) acc = combine<MX>(acc, __ldcg(p0 + e));
       for (int q0 = 0; q0 < n; q0 += PIPE) {
@@ -880,11 +899,83 @@ __device__ void combine_run(const ActiveArgs& p, const int* active,
   }
 }
 
+// A non-direct piece's ticket, taken by thread 0 of its CTA after a
+// barrier that orders the CTA's part and flag writes before it: each of a
+// run's pieces adds its count c of the run's scan entries, the run's first
+// piece (first) also the index lo of its first entry, and its last piece
+// (last) subtracts the index hi past its last one. The sum of a strict
+// subset of a run's pieces is nonzero and the sum of all of them zero, so
+// the add that brings the ticket to zero is the last, and the ticket is
+// zero again for the next launch. The first piece records lo and its part
+// slot, the last piece hi, in the run's record ri (3 ints). Returns whether
+// this piece completes the run, with the run's (lo, first piece's slot, hi)
+// in rec.
+__device__ __forceinline__ bool settle(int* ticket, int* ri, int slot, int c,
+                                       int lo, int hi, bool first, bool last,
+                                       int (&rec)[3]) {
+  rec[0] = lo;
+  rec[1] = slot;
+  rec[2] = hi;
+  if (first && last) return true;  // the run's only piece
+  if (first) {
+    ri[0] = lo;
+    ri[1] = slot;
+  }
+  if (last) ri[2] = hi;
+  const int d = c + (first ? lo : 0) - (last ? hi : 0);
+  if (atom_add_acq_rel(ticket, d) + d != 0) return false;
+  if (!first) {
+    rec[0] = __ldcg(ri);
+    rec[1] = __ldcg(ri + 1);
+  }
+  if (!last) rec[2] = __ldcg(ri + 2);
+  return true;
+}
+
+// Folds each listed piece's live blocks' copies (asmem, COPY floats a
+// block, `lives` bit i: compact block i held a live slot) in block order
+// into its rows for features [f0, f0 + nf): a direct piece into out (min
+// negated), any other into its part slot (un-negated), with its live flag
+// on the first pass. All NT threads call it.
+template <int FC, int OP, int NT>
+__device__ __forceinline__ void fold_pieces(const PieceRec* s_pc, int npc,
+                                            unsigned lives, const float* asmem,
+                                            float* out, float* part,
+                                            int* flag, int F, int f0,
+                                            int nf) {
+  constexpr bool FEAT = FC == 32;
+  constexpr bool MX = OP != OP_SUM;
+  constexpr int COPY = FC * R_BLK;
+  const int tid = threadIdx.x;
+  for (int q = 0; q < npc; ++q) {
+    const PieceRec pc = s_pc[q];
+    const unsigned mine_live =
+        lives & ((1u << pc.i1) - 1u) & ~((1u << pc.i0) - 1u);
+    if (!pc.direct && f0 == 0 && tid == 0) flag[pc.slot] = mine_live != 0;
+    if (!pc.direct && mine_live == 0) continue;
+    float* dst = pc.direct ? out + static_cast<size_t>(pc.tile) * R_BLK * F
+                           : part + static_cast<size_t>(pc.slot) * R_BLK * F;
+    // element e: row e / 32 and feature e % 32 of the pass (feature
+    // lanes), or row e % 128 and feature e / 128 (slot lanes)
+    for (int e = tid; e < R_BLK * (FEAT ? 32 : FC); e += NT) {
+      const int r = FEAT ? e >> 5 : e & (R_BLK - 1);
+      const int j = FEAT ? e & 31 : e >> 7;
+      if (j >= nf) continue;
+      float v = identity<MX>();
+      for (unsigned m = mine_live; m; m &= m - 1) {
+        v = combine<MX>(v, asmem[(__ffs(m) - 1) * COPY + e]);
+      }
+      dst[static_cast<size_t>(r) * F + f0 + j] =
+          OP == OP_MIN && pc.direct ? -v : v;
+    }
+  }
+}
+
 // One CTA per active entry (grid x), shard blockIdx.z. The entry that opens
 // its window works the window's active blocks (slot lanes for F <= 4, FC =
-// 1, 2, 4: 8 warps, compact block i to warp i % 8; feature lanes for F > 4,
-// FC = 32: 4 warps, one pass per 32 features), folds each piece's live
-// active blocks in block order, writes a direct piece to out and every
+// 1, 2, 4: 16 warps, compact block i to warp i % 16; feature lanes for
+// F > 4, FC = 32: 4 warps, one pass per 32 features), folds each piece's
+// live active blocks in block order, writes a direct piece to out and every
 // other piece to part (its window's two slots, see ActiveArgs), then
 // settles the tickets of its at most two non-direct pieces and combines
 // the runs it completes (see the header).
@@ -973,9 +1064,11 @@ segment_agg_active_kernel(const ActiveArgs p) {
   }
   __syncthreads();
   if (warp == NWK - 1) {  // the piece table, while the blocks land
-    const bool crossing =
-        piece_table(s_tob, s_fot, s_ent, w0, nw, na, n_row_tiles,
-                    p.by_window ? w : k, s_pc, &s_npc, lane);
+    const unsigned act = __reduce_or_sync(
+        0xffffffffu, lane < na ? 1u << (s_ent[lane] - w0) : 0u);
+    const bool crossing = piece_table(s_tob, s_fot, act, nw, n_row_tiles,
+                                      p.by_window ? w : k, s_pc, &s_npc,
+                                      lane);
     if (lane == 0) s_crossing = crossing;
   }
   for (int f0 = 0; f0 < F; f0 += FEAT ? 32 : F) {
@@ -1009,29 +1102,8 @@ segment_agg_active_kernel(const ActiveArgs p) {
       if (lane == 0 && f0 == 0 && live) atomicOr(&s_live, 1u << i);
     }
     __syncthreads();
-    const unsigned lives = s_live;
-    for (int q = 0; q < s_npc; ++q) {
-      const PieceRec pc = s_pc[q];
-      const unsigned mine_live =
-          lives & ((1u << pc.i1) - 1u) & ~((1u << pc.i0) - 1u);
-      if (!pc.direct && f0 == 0 && tid == 0) flag[pc.slot] = mine_live != 0;
-      if (!pc.direct && mine_live == 0) continue;
-      float* dst = pc.direct ? out + static_cast<size_t>(pc.tile) * R_BLK * F
-                             : part + static_cast<size_t>(pc.slot) * R_BLK * F;
-      // element e: row e / 32 and feature e % 32 of the pass (feature
-      // lanes), or row e % 128 and feature e / 128 (slot lanes)
-      for (int e = tid; e < R_BLK * (FEAT ? 32 : FC); e += NT) {
-        const int r = FEAT ? e >> 5 : e & (R_BLK - 1);
-        const int j = FEAT ? e & 31 : e >> 7;
-        if (j >= nf) continue;
-        float v = identity<MX>();
-        for (unsigned m = mine_live; m; m &= m - 1) {
-          v = combine<MX>(v, asmem[(__ffs(m) - 1) * COPY + e]);
-        }
-        dst[static_cast<size_t>(r) * F + f0 + j] =
-            OP == OP_MIN && pc.direct ? -v : v;
-      }
-    }
+    fold_pieces<FC, OP, NT>(s_pc, s_npc, s_live, asmem, out, part, flag, F,
+                            f0, nf);
     __syncthreads();  // the copies are read before the next pass resets them
   }
 
@@ -1049,37 +1121,21 @@ segment_agg_active_kernel(const ActiveArgs p) {
     for (int q = 0; q < s_npc; ++q) {
       const PieceRec pc = s_pc[q];
       if (pc.direct) continue;
-      const int c = pc.i1 - pc.i0, lo = k + pc.i0, hi = lo + c;
       // a piece that does not start its run holds the window's first block
       // (else it is skipped), so its entry before is k - 1; a piece whose
       // run goes on ends the window, so its entry after is the first past
       // the window's
+      const int c = pc.i1 - pc.i0, lo = k + pc.i0;
       const bool first = pc.starts || prev != pc.tile;
       const bool last = !pc.goes_on || next != pc.tile;
-      int* ri = run + 3 * pc.tile;
-      bool done = first && last;  // the run's only piece
-      int r_lo = lo, r_slot = pc.slot, r_hi = hi;
-      if (!done) {
-        if (first) {
-          ri[0] = lo;
-          ri[1] = pc.slot;
-        }
-        if (last) ri[2] = hi;
-        const int d = c + (first ? lo : 0) - (last ? hi : 0);
-        done = atom_add_acq_rel(ticket + pc.tile, d) + d == 0;
-        if (done) {
-          if (!first) {
-            r_lo = __ldcg(ri);
-            r_slot = __ldcg(ri + 1);
-          }
-          if (!last) r_hi = __ldcg(ri + 2);
-        }
-      }
-      if (done) {  // s_run[0] is read above before it is overwritten
+      int rec[3];
+      if (settle(ticket + pc.tile, run + 3 * pc.tile, pc.slot, c, lo, lo + c,
+                 first, last, rec)) {
+        // s_run[0] is read above before it is overwritten
         s_run[nrun][0] = pc.tile;
-        s_run[nrun][1] = r_lo;
-        s_run[nrun][2] = r_slot;
-        s_run[nrun][3] = r_hi;
+        s_run[nrun][1] = rec[0];
+        s_run[nrun][2] = rec[1];
+        s_run[nrun][3] = rec[2];
         ++nrun;
       }
     }
@@ -1087,8 +1143,184 @@ segment_agg_active_kernel(const ActiveArgs p) {
   }
   __syncthreads();
   for (int q = 0; q < s_nrun; ++q) {
-    combine_run<OP, NT>(p, active, flag, part, out, s_run[q][0], s_run[q][1],
-                        s_run[q][2], s_run[q][3], s_cnt, s_list);
+    combine_run<OP, NT>(ActivePieces{active, win, p.by_window}, F, flag,
+                        part, out, s_run[q][0], s_run[q][1], s_run[q][2],
+                        s_run[q][3], s_cnt, s_list);
+  }
+}
+
+// ------------------------------------------- the fused stacked dense entry
+struct DenseArgs {
+  const float* val;  // (S, n_val, F)
+  const int* seg;    // the level's seg, src and sign: shard stride
+  const int* src;    //   seg_stride, n_blocks * 256 each
+  const float* sign;
+  const int* tob;  // (n_blocks,) a shard, shard stride blk_stride
+  const int* fot;
+  float* out;   // (S, n_row_tiles * 128, F)
+  float* part;  // (S, 2 * n_win, 128, F) scratch: a window's two pieces
+  int* flag;    // (S, 2 * n_win) scratch
+  int* ticket;  // (S, n_row_tiles), zero before and after a launch
+  int* run;     // (S, n_row_tiles, 3) scratch: first window and part slot
+                // of a run's first piece, the window past its last
+  long long n_val, seg_stride, blk_stride;
+  int n_blocks, F, n_row_tiles, win;
+};
+
+// One CTA per window of win blocks (grid x), shard blockIdx.z (see the
+// header): slot lanes for F <= 4 (FC = 1, 2, 4: 16 warps, block i to warp
+// i % 16), feature lanes for F > 4 (FC = 32: 4 warps, one pass per 32
+// features). The window's seg rows land first; the blocks holding a live
+// slot of their tile then stage their src (and for sum sign) rows and are
+// reduced, each piece folds its live blocks in block order, and the CTA
+// settles the tickets of its at most two non-direct pieces and combines
+// the runs it completes.
+template <int FC, int OP>
+__global__ void __launch_bounds__((FC == 32 ? FEAT_WARPS : ACT_SLOT_WARPS) *
+                                  32)
+segment_agg_dense_stacked_kernel(const DenseArgs p) {
+  constexpr bool FEAT = FC == 32;
+  constexpr bool MX = OP != OP_SUM;
+  constexpr int NWK = FEAT ? FEAT_WARPS : ACT_SLOT_WARPS;
+  constexpr int NT = NWK * 32;
+  constexpr int COPY = FC * R_BLK;  // floats a block
+  constexpr int STAGE = 3 * E_BLK;  // ints a block: seg, src, sign
+  constexpr int ROWS = MX ? 1 : 2;  // rows staged after seg: src (and sign)
+  const size_t z = blockIdx.z;
+  const int F = p.F, n_blocks = p.n_blocks, n_row_tiles = p.n_row_tiles;
+  const int win = p.win;
+  const int n_win = (n_blocks + win - 1) / win;
+  const float* val = p.val + z * p.n_val * F;
+  const int* seg = p.seg + z * p.seg_stride;
+  const int* src = p.src + z * p.seg_stride;
+  const int* sign = reinterpret_cast<const int*>(p.sign) + z * p.seg_stride;
+  const int* tob = p.tob + z * p.blk_stride;
+  const int* fot = p.fot + z * p.blk_stride;
+  float* out = p.out + z * n_row_tiles * R_BLK * F;
+  float* part = p.part + z * 2 * n_win * R_BLK * F;
+  int* flag = p.flag + z * 2 * n_win;
+  int* ticket = p.ticket + z * n_row_tiles;
+  int* run = p.run + z * 3 * n_row_tiles;
+
+  // win copies, then the staged rows of win blocks, then the warps' scratch
+  extern __shared__ __align__(16) float asmem[];
+  __shared__ int s_tob[ACT_MAX_WIN + 1], s_fot[ACT_MAX_WIN + 1];
+  __shared__ unsigned s_live;  // bit i: block i held a live slot
+  __shared__ int s_prev, s_run[2][4], s_nrun, s_npc, s_crossing;
+  __shared__ PieceRec s_pc[ACT_MAX_WIN];
+  __shared__ int s_cnt[NT / 32], s_list[NT];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int w = blockIdx.x, w0 = w * win;
+  const int nw = min(win, n_blocks - w0);
+
+  int* stage = reinterpret_cast<int*>(asmem + win * COPY);
+  float* xs = reinterpret_cast<float*>(stage + win * STAGE) +
+              warp * 32 * (FC + 1);                               // slots
+  int* sl = stage + win * STAGE + warp * E_BLK;                   // feat
+  // the seg rows of the warp's blocks, one cp.async group; the window's
+  // tables and the tile of the block before it load meanwhile
+  for (int i = warp; i < nw; i += NWK) {
+    const int* g = seg + static_cast<size_t>(w0 + i) * E_BLK;
+    int* st = stage + i * STAGE;
+    for (int q = lane; q < E_BLK / 4; q += 32) {
+      cp_async16(st + q * 4, g + q * 4);
+    }
+  }
+  cp_async_commit();
+  load_window(tob, fot, w0, nw, n_blocks, s_tob, s_fot);
+  if (tid == NT - 1) s_prev = w0 > 0 ? tob[w0 - 1] : -1;
+  if (tid == 0) s_live = 0;
+  __syncthreads();
+  if (warp == NWK - 1) {  // the piece table, while the rows land
+    const bool crossing = piece_table(s_tob, s_fot, (1u << nw) - 1u, nw,
+                                      n_row_tiles, w, s_pc, &s_npc, lane);
+    if (lane == 0) s_crossing = crossing;
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+  // the warp's blocks that hold a live slot of their tile (bit m: its m-th
+  // block) stage their src rows, and for sum their sign rows, one group a
+  // block; a dead block costs its seg row alone
+  unsigned mine = 0;
+  int n_mine = 0;
+  for (int i = warp, m = 0; i < nw; i += NWK, ++m) {
+    const int tile = s_tob[i];
+    int* st = stage + i * STAGE;
+    int loc[E_BLK / 32];
+    if (tile < 0 || tile >= n_row_tiles ||
+        !block_rows(GatherSlots<OP>{val, st, nullptr, F}, tile * R_BLK, lane,
+                    loc)) {
+      continue;
+    }
+    mine |= 1u << m;
+    ++n_mine;
+    const size_t e0 = static_cast<size_t>(w0 + i) * E_BLK;
+    for (int c = lane; c < ROWS * E_BLK / 4; c += 32) {
+      const int row = c / (E_BLK / 4), q = c % (E_BLK / 4);
+      cp_async16(st + (1 + row) * E_BLK + q * 4,
+                 (row == 0 ? src : sign) + e0 + q * 4);
+    }
+    cp_async_commit();
+  }
+  for (int f0 = 0; f0 < F; f0 += FEAT ? 32 : F) {
+    const int nf = FEAT ? min(32, F - f0) : F;
+    int k = 0;  // the warp's live blocks reduced so far
+    for (int i = warp, m = 0; i < nw; i += NWK, ++m) {
+      if (((mine >> m) & 1u) == 0) continue;
+      if (f0 == 0) {  // block i's rows have landed (later groups may not)
+        if (k + 1 < n_mine) {
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncwarp();
+      }
+      ++k;
+      float* copy = asmem + i * COPY;
+      for (int j = lane; j < COPY; j += 32) copy[j] = identity<MX>();
+      __syncwarp();
+      const int row0 = s_tob[i] * R_BLK;
+      const GatherSlots<OP> slots{val, stage + i * STAGE, nullptr, F};
+      bool live;
+      if (FEAT) {
+        live = feature_block<MX>(slots, row0, F, f0 + lane, copy, sl, lane);
+      } else {
+        live = slot_block_overlapped<FC, MX>(slots, row0, F, copy, xs, lane);
+      }
+      if (lane == 0 && f0 == 0 && live) atomicOr(&s_live, 1u << i);
+    }
+    __syncthreads();
+    fold_pieces<FC, OP, NT>(s_pc, s_npc, s_live, asmem, out, part, flag, F,
+                            f0, nf);
+    __syncthreads();  // the copies are read before the next pass resets them
+  }
+
+  // tickets, in windows: the barrier above orders every part and flag
+  // write of the CTA before thread 0's release. A piece that does not start
+  // its run holds the window's first block (else it is skipped): it goes on
+  // from the window before unless the block before has another tile.
+  if (!s_crossing) return;
+  if (tid == 0) {
+    int nrun = 0;
+    for (int q = 0; q < s_npc; ++q) {
+      const PieceRec pc = s_pc[q];
+      if (pc.direct) continue;
+      int rec[3];
+      if (settle(ticket + pc.tile, run + 3 * pc.tile, pc.slot, 1, w, w + 1,
+                 pc.starts || s_prev != pc.tile, !pc.goes_on, rec)) {
+        s_run[nrun][0] = pc.tile;
+        s_run[nrun][1] = rec[0];
+        s_run[nrun][2] = rec[1];
+        s_run[nrun][3] = rec[2];
+        ++nrun;
+      }
+    }
+    s_nrun = nrun;
+  }
+  __syncthreads();
+  for (int q = 0; q < s_nrun; ++q) {
+    combine_run<OP, NT>(WindowPieces{}, F, flag, part, out, s_run[q][0],
+                        s_run[q][1], s_run[q][2], s_run[q][3], s_cnt, s_list);
   }
 }
 
@@ -1096,8 +1328,7 @@ template <int FC, bool MAX>
 cudaError_t launch_window(int grid, cudaStream_t st, const float* x,
                           const int* seg, const int* tob, const int* fot,
                           float* out, float* part, int* flag, int n_blocks,
-                          int F, int n_row_tiles, int win, int n_shards,
-                          Shard sh) {
+                          int F, int n_row_tiles, int win) {
   constexpr bool FEAT = FC == 32;
   constexpr int NWK = FEAT ? FEAT_WARPS : SLOT_WARPS;
   static SmemLimit lim;
@@ -1105,24 +1336,19 @@ cudaError_t launch_window(int grid, cudaStream_t st, const float* x,
                    (FEAT ? NWK * E_BLK * 4 : NWK * 32 * (FC + 1) * 4);
   const cudaError_t err = allow_smem(segment_agg_kernel<FC, MAX>, smem, lim);
   if (err != cudaSuccess) return err;
-  segment_agg_kernel<FC, MAX>
-      <<<dim3(grid, 1, n_shards), NWK * 32, smem, st>>>(
-          x, seg, tob, fot, out, part, flag, n_blocks, F, n_row_tiles, win,
-          sh);
+  segment_agg_kernel<FC, MAX><<<grid, NWK * 32, smem, st>>>(
+      x, seg, tob, fot, out, part, flag, n_blocks, F, n_row_tiles, win);
   return cudaGetLastError();
 }
 
 // The window kernel, then (unless every run lies in one window) the
-// combine as a programmatic dependent: one window CTA per window, n_shards
-// of each.
+// combine as a programmatic dependent.
 template <bool MAX>
 int launch(const void* x, const void* seg, const void* tob, const void* fot,
            void* part, void* flag, void* out, int n_blocks, int F,
-           int n_row_tiles, int win, int n_shards, long long seg_stride,
-           long long blk_stride, void* stream) {
+           int n_row_tiles, int win, void* stream) {
   if (n_blocks <= 0 || F <= 0 || n_row_tiles <= 0 || win <= 0 ||
-      win > MAX_WIN || n_shards <= 0 || n_shards > 65535 || seg_stride < 0 ||
-      blk_stride < 0) {
+      win > MAX_WIN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1134,11 +1360,10 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
   float* p = static_cast<float*>(part);
   int* fl = static_cast<int*>(flag);
   const int n_win = (n_blocks + win - 1) / win;
-  const Shard sh{seg_stride, blk_stride};
   cudaError_t err;
 #define SEGAGG_LAUNCH(FC)                                                   \
   err = launch_window<FC, MAX>(n_win, st, xf, s, t, f, o, p, fl, n_blocks,  \
-                               F, n_row_tiles, win, n_shards, sh)
+                               F, n_row_tiles, win)
   if (F == 1) {
     SEGAGG_LAUNCH(1);
   } else if (F == 2) {
@@ -1152,7 +1377,7 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_win == 1) return 0;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_win, (F + CF - 1) / CF, n_shards);
+  cfg.gridDim = dim3(n_win, (F + CF - 1) / CF);
   cfg.blockDim = dim3(R_BLK);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -1164,32 +1389,56 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
   const int* flc = fl;
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, segment_agg_combine_kernel<MAX>, t, f, pc, flc, o, n_blocks, F,
-      n_row_tiles, win, sh));
+      n_row_tiles, win));
 }
 
+// The fused entries' kernels by their arguments' type.
 template <int FC, int OP>
-cudaError_t launch_active(const ActiveArgs& a, int n_shards,
-                          cudaStream_t st) {
-  constexpr bool FEAT = FC == 32;
-  constexpr int NWK = FEAT ? FEAT_WARPS : ACT_SLOT_WARPS;
-  static SmemLimit lim;
-  const int smem = a.win * (FC * R_BLK + 3 * E_BLK) * 4 +
-                   (FEAT ? NWK * E_BLK * 4 : NWK * 32 * (FC + 1) * 4);
-  const cudaError_t err =
-      allow_smem(segment_agg_active_kernel<FC, OP>, smem, lim);
-  if (err != cudaSuccess) return err;
-  segment_agg_active_kernel<FC, OP>
-      <<<dim3(a.n_active, 1, n_shards), NWK * 32, smem, st>>>(a);
-  return cudaGetLastError();
+auto fused_kernel(const ActiveArgs&) {
+  return segment_agg_active_kernel<FC, OP>;
+}
+template <int FC, int OP>
+auto fused_kernel(const DenseArgs&) {
+  return segment_agg_dense_stacked_kernel<FC, OP>;
 }
 
-template <int OP>
-cudaError_t launch_active_op(const ActiveArgs& a, int n_shards,
-                             cudaStream_t st) {
-  if (a.F == 1) return launch_active<1, OP>(a, n_shards, st);
-  if (a.F == 2) return launch_active<2, OP>(a, n_shards, st);
-  if (a.F <= 4) return launch_active<4, OP>(a, n_shards, st);
-  return launch_active<32, OP>(a, n_shards, st);
+// A fused entry's launch: one kernel, grid (grid_x, 1, n_shards), the
+// shared memory of win blocks' copies and staged rows plus the warps'
+// scratch.
+template <class Args>
+struct LaunchFused {
+  const Args& a;
+  int grid_x, n_shards;
+  cudaStream_t st;
+  template <int FC, int OP>
+  cudaError_t go() const {
+    constexpr int NWK = FC == 32 ? FEAT_WARPS : ACT_SLOT_WARPS;
+    static SmemLimit lim;  // one per kernel instance
+    const int smem = a.win * (FC * R_BLK + 3 * E_BLK) * 4 +
+                     (FC == 32 ? NWK * E_BLK * 4 : NWK * 32 * (FC + 1) * 4);
+    const auto kernel = fused_kernel<FC, OP>(a);
+    const cudaError_t err = allow_smem(kernel, smem, lim);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(grid_x, 1, n_shards), NWK * 32, smem, st>>>(a);
+    return cudaGetLastError();
+  }
+};
+
+// l.go<FC, OP>() for the op code and F: FC = 1, 2, 4 (slot lanes) or 32
+// (feature lanes).
+template <int OP, class L>
+cudaError_t by_features(int F, const L& l) {
+  if (F == 1) return l.template go<1, OP>();
+  if (F == 2) return l.template go<2, OP>();
+  if (F <= 4) return l.template go<4, OP>();
+  return l.template go<32, OP>();
+}
+
+template <class L>
+cudaError_t by_op(int op, int F, const L& l) {
+  if (op == OP_SUM) return by_features<OP_SUM>(F, l);
+  if (op == OP_MAX) return by_features<OP_MAX>(F, l);
+  return by_features<OP_MIN>(F, l);
 }
 
 }  // namespace
@@ -1205,7 +1454,7 @@ extern "C" int segment_agg_sum_f32(const void* x, const void* seg,
                                    int n_blocks, int F, int n_row_tiles,
                                    int win, void* stream) {
   return launch<false>(x, seg, tob, fot, part, flag, out, n_blocks, F,
-                       n_row_tiles, win, 1, 0, 0, stream);
+                       n_row_tiles, win, stream);
 }
 
 extern "C" int segment_agg_max_f32(const void* x, const void* seg,
@@ -1214,34 +1463,7 @@ extern "C" int segment_agg_max_f32(const void* x, const void* seg,
                                    int n_blocks, int F, int n_row_tiles,
                                    int win, void* stream) {
   return launch<true>(x, seg, tob, fot, part, flag, out, n_blocks, F,
-                      n_row_tiles, win, 1, 0, 0, stream);
-}
-
-// The stacked dense entries: S shards' levels of one shape in one launch.
-// Shard z's seg starts at seg + z * seg_stride, its tob and fot at
-// + z * blk_stride (elements: a level of stacked (S, L, ...) tables has
-// strides L * n_blocks * 256 and L * n_blocks); x is (S, n_blocks*256, F),
-// out (S, n_row_tiles*128, F), part (S * 2 * n_win * 128 * F,) and flag
-// (S * 2 * n_win,); all contiguous. Each shard's output is bit-equal to the
-// single-shard entry's on its slice.
-extern "C" int segment_agg_sum_stacked_f32(
-    const void* x, const void* seg, const void* tob, const void* fot,
-    void* part, void* flag, void* out, int n_blocks, int F, int n_row_tiles,
-    int win, int n_shards, long long seg_stride, long long blk_stride,
-    void* stream) {
-  return launch<false>(x, seg, tob, fot, part, flag, out, n_blocks, F,
-                       n_row_tiles, win, n_shards, seg_stride, blk_stride,
-                       stream);
-}
-
-extern "C" int segment_agg_max_stacked_f32(
-    const void* x, const void* seg, const void* tob, const void* fot,
-    void* part, void* flag, void* out, int n_blocks, int F, int n_row_tiles,
-    int win, int n_shards, long long seg_stride, long long blk_stride,
-    void* stream) {
-  return launch<true>(x, seg, tob, fot, part, flag, out, n_blocks, F,
-                      n_row_tiles, win, n_shards, seg_stride, blk_stride,
-                      stream);
+                      n_row_tiles, win, stream);
 }
 
 // The active entry, S = n_shards shards in one launch (1: single shard).
@@ -1301,15 +1523,58 @@ extern "C" int segment_agg_active_f32(
                      n_slot,
                      n_win < n_active ? 1 : 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
+  const cudaError_t err = cudaMemsetAsync(
       hit, 0, static_cast<size_t>(n_shards) * n_row_tiles * R_BLK, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (op == OP_SUM) {
-    err = launch_active_op<OP_SUM>(a, n_shards, st);
-  } else if (op == OP_MAX) {
-    err = launch_active_op<OP_MAX>(a, n_shards, st);
-  } else {
-    err = launch_active_op<OP_MIN>(a, n_shards, st);
+  return static_cast<int>(
+      by_op(op, F, LaunchFused<ActiveArgs>{a, n_active, n_shards, st}));
+}
+
+// The stacked dense entry: a dense level of S = n_shards aligned shards in
+// one kernel launch. op 0 sum, 1 max, 2 min. val (S, n_val, F) f32; seg,
+// src (i32) and sign (f32) n_blocks*256 a shard, shard z's at
+// + z * seg_stride, 16-byte aligned (seg_stride a multiple of 4); tob/fot
+// n_blocks a shard at + z * blk_stride (a level of stacked (S, L, ...)
+// tables has strides L * n_blocks * 256 and L * n_blocks); out
+// (S, n_row_tiles*128, F) f32; scratch part (S * 2 * n_win * 128 * F,) f32
+// and flag (S * 2 * n_win,) i32 with n_win = ceil(n_blocks / win), run
+// (S * n_row_tiles * 3,) i32 and ticket (S * n_row_tiles,) i32 all zero (a
+// launch leaves them zero). win <= 16. Rows of tiles that no run visits
+// are left unwritten; shard z's other rows are bit-equal to the
+// single-shard dense entry's over its gathered values (see the header).
+// Launches on `stream`, does not synchronize, and returns
+// cudaGetLastError() (0 on success).
+extern "C" int segment_agg_dense_stacked_f32(
+    int op, const void* val, long long n_val, const void* seg,
+    const void* src, const void* sign, const void* tob, const void* fot,
+    void* out, void* part, void* flag, void* ticket, void* run,
+    int n_blocks, int F, int n_row_tiles, int win, int n_shards,
+    long long seg_stride, long long blk_stride, void* stream) {
+  if (op < OP_SUM || op > OP_MIN || n_val <= 0 || n_blocks <= 0 || F <= 0 ||
+      n_row_tiles <= 0 || win <= 0 || win > ACT_MAX_WIN || n_shards <= 0 ||
+      n_shards > 65535 || seg_stride < 0 || seg_stride % 4 != 0 ||
+      blk_stride < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  const DenseArgs a{static_cast<const float*>(val),
+                    static_cast<const int*>(seg),
+                    static_cast<const int*>(src),
+                    static_cast<const float*>(sign),
+                    static_cast<const int*>(tob),
+                    static_cast<const int*>(fot),
+                    static_cast<float*>(out),
+                    static_cast<float*>(part),
+                    static_cast<int*>(flag),
+                    static_cast<int*>(ticket),
+                    static_cast<int*>(run),
+                    n_val,
+                    seg_stride,
+                    blk_stride,
+                    n_blocks,
+                    F,
+                    n_row_tiles,
+                    win};
+  return static_cast<int>(by_op(
+      op, F, LaunchFused<DenseArgs>{a, (n_blocks + win - 1) / win, n_shards,
+                                    static_cast<cudaStream_t>(stream)}));
 }

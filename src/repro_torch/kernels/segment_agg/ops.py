@@ -6,12 +6,13 @@ levels) that plan is built once on the host (``make_plan``) and reused every
 step; only the edge *values* are runtime data. The builders are numpy and
 produce tables bit-equal to the JAX package's (same E_BLK / R_BLK).
 
-``segment_agg_level`` is the entry point the engine calls per level on
-gathered edge values, and ``segment_agg_active`` computes a whole
+``segment_agg_level`` is the entry point the single engine calls per dense
+level on gathered edge values, and ``segment_agg_active`` computes a whole
 frontier-sparse level (gather, sign, reduce and row mask over the level's
-active blocks) in one launch; ``segment_agg_level_stacked`` and
-``segment_agg_active_stacked`` run one level of S aligned shards in one
-launch (the stacked shard engine, ``distributed/stacked.py``). Each picks
+active blocks) in one launch; ``segment_agg_level_stacked`` (a dense
+level: gather, sign and reduce) and ``segment_agg_active_stacked`` run one
+level of S aligned shards in one launch (the stacked shard engine,
+``distributed/stacked.py``). Each picks
 the implementation by the tensors' device: CUDA tensors launch the
 hand-written kernel in ``csrc/segment_agg.cu`` (or raise), CPU tensors run
 the plain PyTorch version in ``ref.py``. ``LAUNCHES`` counts kernel launches per entry, so a
@@ -435,6 +436,15 @@ def _check(x, seg, tob, fot, n_rows, n_row_tiles, op):
         raise ValueError(f"n_rows={n_rows} outside (0, {n_row_tiles}*{R_BLK}]")
 
 
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the card (the kernel's side) rather than the
+    CPU (the plain version's); raises for any other device."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{t.device}")
+    return t.device.type == "cuda"
+
+
 def segment_agg_level(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
                       fot: torch.Tensor, *, n_rows: int, n_row_tiles: int,
                       op: str = "sum") -> torch.Tensor:
@@ -448,11 +458,8 @@ def segment_agg_level(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
     version; any other device raises.
     """
     _check(x, seg, tob, fot, n_rows, n_row_tiles, op)
-    if x.device.type == "cpu":
+    if not _on_cuda("segment_agg_level", x):
         return segment_agg_level_ref(x, seg, n_rows, op)
-    if x.device.type != "cuda":
-        raise ValueError(f"segment_agg_level runs on cuda or cpu tensors, "
-                         f"got {x.device}")
     n_blocks, F = tob.shape[0], x.shape[1]
     with torch.cuda.device(x.device):
         out = torch.empty((n_row_tiles * R_BLK, F), dtype=torch.float32,
@@ -475,23 +482,27 @@ def segment_agg_level(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
     return out[:n_rows]
 
 
-# ------------------------------------------------------------ the active entry
-# op codes of the C entry ``segment_agg_active_f32``; min runs the max
-# kernel's arithmetic on negated values, so it counts as a max launch
-_ACTIVE_OPS = {"sum": 0, "max": 1, "min": 2}
+# ------------------------------------------------------------ fused entries
+# op codes of the fused C entries (``segment_agg_active_f32``,
+# ``segment_agg_dense_stacked_f32``); min runs the max kernel's arithmetic
+# on negated values, so it counts as a max launch
+_OPS = {"sum": 0, "max": 1, "min": 2}
 _ACTIVE_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
                     + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                     + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                     + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
-# the active entry's scratch, per (device, stream): part (float32) and flag
-# (a run's pieces: two slots for each window the active list can open),
-# ticket (zero before and after every launch, so made with zeros) and run;
-# each grown to the largest call and never shrunk, so a call allocates only
-# its outputs
+_DENSE_STACKED_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                           + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+# the fused entries' scratch, per (device, stream): part (float32) and flag
+# (a run's pieces: two slots for each window a launch can open), ticket
+# (zero before and after every launch, so made with zeros) and run; each
+# grown to the largest call and never shrunk, so a call allocates only its
+# outputs
 _SCRATCH: dict = {}
 
 
-def _active_scratch(device, stream: int, *sizes: int) -> list:
+def _scratch(device, stream: int, *sizes: int) -> list:
     bufs = _SCRATCH.setdefault((device, stream), [None] * 4)
     for i, n in enumerate(sizes):
         if bufs[i] is None or bufs[i].numel() < n:
@@ -501,25 +512,27 @@ def _active_scratch(device, stream: int, *sizes: int) -> list:
     return bufs
 
 
-def _check_active(val, seg, src, sign, tob, fot, active, n_rows,
-                  n_row_tiles, op) -> None:
-    """The active wrappers' checks on one shard's slices: val (n_val, F)
+def _check_fused(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
+                 active=None) -> None:
+    """The fused wrappers' checks on one shard's slices: val (n_val, F)
     float32, the level's seg/src (int32) and sign (float32) tables of
-    n_blocks * E_BLK slots and its tob/fot, active (K,) int32, all on
-    val's device, the tables' rows contiguous."""
-    if op not in _ACTIVE_OPS:
+    n_blocks * E_BLK slots and its tob/fot, and for the active entry active
+    (K,) int32, all on val's device, the tables' rows contiguous."""
+    if op not in _OPS:
         raise ValueError(f"unknown op {op!r}; choose 'sum', 'max' or 'min'")
     if val.dtype != torch.float32:
-        raise TypeError(f"segment_agg_active takes float32 values, got "
-                        f"{val.dtype}")
+        raise TypeError(f"the fused segment entries take float32 values, "
+                        f"got {val.dtype}")
     if val.ndim != 2 or val.shape[0] < 1 or val.shape[1] < 1:
         raise ValueError(f"val must be (n, F) with n, F >= 1, got "
                          f"{tuple(val.shape)}")
-    for name, t, dt in (("seg", seg, torch.int32), ("src", src, torch.int32),
-                        ("sign", sign, torch.float32),
-                        ("tile_of_block", tob, torch.int32),
-                        ("first_of_tile", fot, torch.int32),
-                        ("active", active, torch.int32)):
+    tables = [("seg", seg, torch.int32), ("src", src, torch.int32),
+              ("sign", sign, torch.float32),
+              ("tile_of_block", tob, torch.int32),
+              ("first_of_tile", fot, torch.int32)]
+    if active is not None:
+        tables.append(("active", active, torch.int32))
+    for name, t, dt in tables:
         if t.dtype != dt or t.ndim != 1 or t.shape[0] < 1:
             raise TypeError(f"{name} must be a non-empty 1-D {dt} tensor, "
                             f"got {t.dtype} {tuple(t.shape)}")
@@ -538,15 +551,16 @@ def _check_active(val, seg, src, sign, tob, fot, active, n_rows,
         raise ValueError(f"n_rows={n_rows} outside (0, {n_row_tiles}*{R_BLK}]")
 
 
-def _launch_active(val, seg, src, sign, tob, fot, active, n_rows,
-                   n_row_tiles, op, strides=(0, 0)):
-    """One launch of the fused active entry: one shard (1-D tables), or S
-    shards (val (S, n, F), active (S, K), the tables' shard ``strides``
-    (seg/src/sign, tob/fot) in elements). Returns (out, hit) with a leading
-    shard axis."""
+def _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
+                  active=None, strides=(0, 0)):
+    """One launch of a fused entry: the active entry with ``active``, else
+    the stacked dense entry; one shard (1-D tables) or S shards (val
+    (S, n, F), active (S, K), the tables' shard ``strides`` (seg/src/sign,
+    tob/fot) in elements). Returns out (and for the active entry hit) with
+    a leading shard axis and every row tile."""
     S = val.shape[0] if val.ndim == 3 else 1
     n_val, F = val.shape[-2], val.shape[-1]
-    K, n_blocks = active.shape[-1], tob.shape[-1]
+    n_blocks = tob.shape[-1]
     for t in (seg, src, sign):
         if t.data_ptr() % 16:
             raise ValueError("seg, src and sign must be 16-byte aligned")
@@ -554,28 +568,40 @@ def _launch_active(val, seg, src, sign, tob, fot, active, n_rows,
     with torch.cuda.device(dev):
         out = torch.empty((S, n_row_tiles * R_BLK, F), dtype=torch.float32,
                           device=dev)
-        # cleared by the entry (an async memset before its kernel)
-        hit = torch.empty((S, n_row_tiles * R_BLK), dtype=torch.bool,
-                          device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         win = run_chunk(n_blocks, F)
-        n_slot = min(K, n_windows(n_blocks, F))  # windows K entries open
-        part, flag, ticket, run = _active_scratch(
+        n_win = n_windows(n_blocks, F)
+        # the windows a launch can open: every one (dense), or at most one
+        # per active entry
+        n_slot = n_win if active is None else min(active.shape[-1], n_win)
+        part, flag, ticket, run = _scratch(
             dev, stream, S * 2 * n_slot * R_BLK * F, S * 2 * n_slot,
             S * n_row_tiles, S * 3 * n_row_tiles)
-        rc = _entry("active", _ACTIVE_ARGTYPES)(
-            _ACTIVE_OPS[op], val.data_ptr(), n_val, seg.data_ptr(),
-            src.data_ptr(), sign.data_ptr(), tob.data_ptr(), fot.data_ptr(),
-            active.data_ptr(), K, n_slot, out.data_ptr(), hit.data_ptr(),
-            part.data_ptr(), flag.data_ptr(), ticket.data_ptr(),
-            run.data_ptr(), n_blocks, F, n_row_tiles, win,
-            S, *strides, stream)
+        head = (_OPS[op], val.data_ptr(), n_val, seg.data_ptr(),
+                src.data_ptr(), sign.data_ptr(), tob.data_ptr(),
+                fot.data_ptr())
+        shape = (n_blocks, F, n_row_tiles, win, S, *strides, stream)
+        scratch = (part.data_ptr(), flag.data_ptr(), ticket.data_ptr(),
+                   run.data_ptr())
+        if active is None:
+            rc = _entry("dense_stacked", _DENSE_STACKED_ARGTYPES)(
+                *head, out.data_ptr(), *scratch, *shape)
+            hit = None
+        else:
+            # cleared by the entry (an async memset before its kernel)
+            hit = torch.empty((S, n_row_tiles * R_BLK), dtype=torch.bool,
+                              device=dev)
+            rc = _entry("active", _ACTIVE_ARGTYPES)(
+                *head, active.data_ptr(), active.shape[-1], n_slot,
+                out.data_ptr(), hit.data_ptr(), *scratch, *shape)
     if rc != 0:
-        raise RuntimeError(f"segment_agg_active ({op}) kernel launch failed: "
-                           f"CUDA error {rc}")
-    return out[:, :n_rows], hit[:, :n_rows]
+        entry = "dense_stacked" if active is None else "active"
+        raise RuntimeError(f"segment_agg_{entry} ({op}) kernel launch "
+                           f"failed: CUDA error {rc}")
+    return out, hit
 
 
+# ------------------------------------------------------------ the active entry
 def segment_agg_active(val: torch.Tensor, seg: torch.Tensor,
                        src: torch.Tensor, sign: torch.Tensor,
                        tob: torch.Tensor, fot: torch.Tensor,
@@ -598,93 +624,75 @@ def segment_agg_active(val: torch.Tensor, seg: torch.Tensor,
     the fused kernel (one launch; ``LAUNCHES["sum_active"]``, or
     ``["max_active"]`` for max and min), CPU tensors run the plain
     version."""
-    _check_active(val, seg, src, sign, tob, fot, active, n_rows, n_row_tiles,
-                  op)
-    if val.device.type == "cpu":
+    _check_fused(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
+                 active)
+    if not _on_cuda("segment_agg_active", val):
         return segment_agg_active_ref(val, seg, src, sign, active, n_rows, op)
-    if val.device.type != "cuda":
-        raise ValueError(f"segment_agg_active runs on cuda or cpu tensors, "
-                         f"got {val.device}")
-    out, hit = _launch_active(val, seg, src, sign, tob, fot, active, n_rows,
-                              n_row_tiles, op)
+    out, hit = _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
+                             active)
     LAUNCHES["sum_active" if op == "sum" else "max_active"] += 1
-    return out[0], hit[0]
+    return out[0, :n_rows], hit[0, :n_rows]
 
 
 # ------------------------------------------------------------ stacked shards
-_STACKED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                     + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
-
-
-def _check_shard_axis(S: int, tables) -> None:
-    """Every (name, table) carries the shard axis first and a unit last
-    stride (a level of stacked (S, L, ...) tables is a strided view)."""
-    for name, t in tables:
+def _check_stacked(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
+                   active=None) -> None:
+    """The stacked wrappers' checks: val (S, n_val, F) contiguous, the
+    tables (S, ...) with a unit last stride (a level of stacked (S, L, ...)
+    tables is a strided view), seg, src and sign sharing one shard stride
+    and so tob and fot; active, when given, contiguous (S, K). Each shard's
+    slice passes the single-shard checks."""
+    S = val.shape[0] if val.ndim == 3 else -1
+    if S < 1:
+        raise ValueError(f"val must be (S, n, F), got {tuple(val.shape)}")
+    for name, t in (("seg", seg), ("src", src), ("sign", sign),
+                    ("tile_of_block", tob), ("first_of_tile", fot)):
         if t.ndim != 2 or t.shape[0] != S or t.stride(1) != 1:
             raise ValueError(f"{name} must be (S={S}, n) with a unit last "
                              f"stride, got {tuple(t.shape)} strides "
                              f"{t.stride()}")
+    if src.stride(0) != seg.stride(0) or sign.stride(0) != seg.stride(0) \
+            or fot.stride(0) != tob.stride(0):
+        raise ValueError("seg, src and sign must share their shard stride, "
+                         "and so must tile_of_block and first_of_tile")
+    if not val.is_contiguous():
+        raise ValueError("val must be contiguous")
+    if active is not None and (active.ndim != 2 or active.shape[0] != S
+                               or not active.is_contiguous()):
+        raise ValueError(f"active must be contiguous (S={S}, K), got "
+                         f"{tuple(active.shape)}")
+    _check_fused(val[0], seg[0], src[0], sign[0], tob[0], fot[0], n_rows,
+                 n_row_tiles, op, None if active is None else active[0])
 
 
-def _check_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op) -> None:
-    """The stacked dense wrapper's checks: x is contiguous, the tables only
-    along their last axis. Each shard's slice passes the single-shard
-    checks."""
-    S = x.shape[0] if x.ndim == 3 else -1
-    if S < 1:
-        raise ValueError(f"x must be (S, E, F), got {tuple(x.shape)}")
-    _check_shard_axis(S, (("seg", seg), ("tile_of_block", tob),
-                          ("first_of_tile", fot)))
-    if tob.stride(0) != fot.stride(0):
-        raise ValueError("tile_of_block and first_of_tile must share their "
-                         "shard stride")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    _check(x[0], seg[0], tob[0], fot[0], n_rows, n_row_tiles, op)
-
-
-def _launch_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op):
-    S, F, n_blocks = x.shape[0], x.shape[2], tob.shape[1]
-    grid = n_windows(n_blocks, F)
-    with torch.cuda.device(x.device):
-        out = torch.empty((S, n_row_tiles * R_BLK, F), dtype=torch.float32,
-                          device=x.device)
-        part = torch.empty((S * 2 * grid * R_BLK * F,), dtype=torch.float32,
-                           device=x.device)
-        flag = torch.empty((S * 2 * grid,), dtype=torch.int32,
-                           device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        key = f"{op}_stacked"
-        rc = _entry(key, _STACKED_ARGTYPES)(
-            x.data_ptr(), seg.data_ptr(), tob.data_ptr(), fot.data_ptr(),
-            part.data_ptr(), flag.data_ptr(), out.data_ptr(), n_blocks, F,
-            n_row_tiles, run_chunk(n_blocks, F), S, seg.stride(0),
-            tob.stride(0), stream)
-    if rc != 0:
-        raise RuntimeError(f"segment_agg_{key} kernel launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES[key] += 1
-    return out[:, :n_rows]
-
-
-def segment_agg_level_stacked(x: torch.Tensor, seg: torch.Tensor,
+def segment_agg_level_stacked(val: torch.Tensor, seg: torch.Tensor,
+                              src: torch.Tensor, sign: torch.Tensor,
                               tob: torch.Tensor, fot: torch.Tensor, *,
                               n_rows: int, n_row_tiles: int,
                               op: str = "sum") -> torch.Tensor:
-    """``segment_agg_level`` over one level of S aligned shards at once:
-    ``x`` (S, e_pad, F) float32, ``seg`` (S, e_pad), ``tob``/``fot``
-    (S, n_blocks) int32 (a level of stacked (S, L, ...) tables, strided
-    along the shard axis). Returns (S, n_rows, F); shard s equals
-    ``segment_agg_level`` on shard s's slices, bit for bit. CUDA tensors
-    launch the kernel's stacked entry (one launch for all S shards), CPU
-    tensors run the plain version shard by shard."""
-    _check_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op)
-    if x.device.type == "cpu":
-        return segment_agg_level_stacked_ref(x, seg, n_rows, op)
-    if x.device.type != "cuda":
-        raise ValueError(f"segment_agg_level_stacked runs on cuda or cpu "
-                         f"tensors, got {x.device}")
-    return _launch_stacked(x, seg, tob, fot, n_rows, n_row_tiles, op)
+    """One dense level of S aligned shards in one call: for each shard s,
+    each live slot's value gathered from ``val[s]`` by ``src[s]``, times
+    ``sign[s]`` for sum, reduced by ``seg[s]``; op ``"sum"``, ``"max"`` or
+    ``"min"`` (``-max(-x)``).
+
+    ``val`` (S, n_val, F) float32 contiguous; ``seg``/``src``/``sign``
+    (S, e_pad) and ``tob``/``fot`` (S, n_blocks) a level of the stacked
+    (S, L, ...) tables (strided along the shard axis; seg, src and sign
+    sharing one shard stride). Returns (S, n_rows, F); shard s equals
+    ``segment_agg_level`` on that shard's gathered values
+    (``val[s][src[s]] * sign[s]`` for sum, ``val[s][src[s]]`` for max,
+    ``-val[s][src[s]]`` negated back for min) bit for bit; rows of tiles no
+    block visits are undefined on the card (unwritten), so callers mask.
+    CUDA tensors launch the fused kernel once for all shards
+    (``LAUNCHES["sum_stacked"]``, or ``["max_stacked"]`` for max and min),
+    CPU tensors run the plain version shard by shard."""
+    _check_stacked(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op)
+    if not _on_cuda("segment_agg_level_stacked", val):
+        return segment_agg_level_stacked_ref(val, seg, src, sign, n_rows, op)
+    out, _ = _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
+                           strides=(seg.stride(0), tob.stride(0)))
+    LAUNCHES["sum_stacked" if op == "sum" else "max_stacked"] += 1
+    return out[:, :n_rows]
 
 
 def segment_agg_active_stacked(val: torch.Tensor, seg: torch.Tensor,
@@ -703,31 +711,13 @@ def segment_agg_active_stacked(val: torch.Tensor, seg: torch.Tensor,
     launch the fused kernel once for all shards
     (``LAUNCHES["{sum,max}_active_stacked"]``), CPU tensors run the plain
     version shard by shard."""
-    S = val.shape[0] if val.ndim == 3 else -1
-    if S < 1:
-        raise ValueError(f"val must be (S, n, F), got {tuple(val.shape)}")
-    _check_shard_axis(S, (("seg", seg), ("src", src), ("sign", sign),
-                          ("tile_of_block", tob), ("first_of_tile", fot)))
-    if src.stride(0) != seg.stride(0) or sign.stride(0) != seg.stride(0) \
-            or fot.stride(0) != tob.stride(0):
-        raise ValueError("seg, src and sign must share their shard stride, "
-                         "and so must tile_of_block and first_of_tile")
-    if not val.is_contiguous():
-        raise ValueError("val must be contiguous")
-    if active.ndim != 2 or active.shape[0] != S \
-            or not active.is_contiguous():
-        raise ValueError(f"active must be contiguous (S={S}, K), got "
-                         f"{tuple(active.shape)}")
-    _check_active(val[0], seg[0], src[0], sign[0], tob[0], fot[0], active[0],
-                  n_rows, n_row_tiles, op)
-    if val.device.type == "cpu":
+    _check_stacked(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
+                   active)
+    if not _on_cuda("segment_agg_active_stacked", val):
         return segment_agg_active_stacked_ref(val, seg, src, sign, active,
                                               n_rows, op)
-    if val.device.type != "cuda":
-        raise ValueError(f"segment_agg_active_stacked runs on cuda or cpu "
-                         f"tensors, got {val.device}")
-    out = _launch_active(val, seg, src, sign, tob, fot, active, n_rows,
-                         n_row_tiles, op, (seg.stride(0), tob.stride(0)))
+    out, hit = _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
+                             active, (seg.stride(0), tob.stride(0)))
     LAUNCHES["sum_active_stacked" if op == "sum"
              else "max_active_stacked"] += 1
-    return out
+    return out[:, :n_rows], hit[:, :n_rows]

@@ -77,13 +77,28 @@ def segment_agg_active_ref(val: torch.Tensor, seg: torch.Tensor,
     return (-out if op == "min" else out), hit[:n_rows]
 
 
-def segment_agg_level_stacked_ref(x: torch.Tensor, seg: torch.Tensor,
+def segment_agg_level_stacked_ref(val: torch.Tensor, seg: torch.Tensor,
+                                  src: torch.Tensor, sign: torch.Tensor,
                                   n_rows: int, op: str = "sum"
                                   ) -> torch.Tensor:
-    """``segment_agg_level_ref`` shard by shard: x (S, e_pad, F), seg
-    (S, e_pad). Returns (S, n_rows, F)."""
-    return torch.stack([segment_agg_level_ref(x[s], seg[s], n_rows, op)
-                        for s in range(x.shape[0])])
+    """One dense level of S shards, shard by shard: gather each slot's
+    values ``val[s][src[s]]`` (val (S, n_val, F)), times ``sign[s]`` for
+    sum, negated for min, then ``segment_agg_level_ref`` by ``seg[s]``
+    (seg, src and sign (S, e_pad)); min is ``-max(-x)``. Returns
+    (S, n_rows, F)."""
+    if op not in ("sum", "max", "min"):
+        raise ValueError(f"unknown op {op!r}; choose 'sum', 'max' or 'min'")
+    outs = []
+    for s in range(val.shape[0]):
+        x = val[s].index_select(0, src[s].long())
+        if op == "sum":
+            x = x * sign[s][:, None]
+        elif op == "min":
+            x = -x
+        out = segment_agg_level_ref(x, seg[s], n_rows,
+                                    "sum" if op == "sum" else "max")
+        outs.append(-out if op == "min" else out)
+    return torch.stack(outs)
 
 
 def segment_agg_active_stacked_ref(val: torch.Tensor, seg: torch.Tensor,

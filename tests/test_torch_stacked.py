@@ -422,13 +422,23 @@ def _ragged_active(rng, S, nb):
         .astype(np.int32))
 
 
+def _gathered(val, src, sign, op):
+    """One shard's slot values as the engine's single-shard level gathers
+    them: ``val[src] * sign`` for sum, ``val[src]`` for max, ``-val[src]``
+    for min."""
+    x = val.index_select(0, src.long())
+    return x * sign[:, None] if op == "sum" else (-x if op == "min" else x)
+
+
 @pytest.mark.parametrize("op", ["sum", "max"])
 @pytest.mark.parametrize("F", [1, 3, 40])
 def test_stacked_entries_equal_per_shard_plain(op, F):
     """On CPU tensors the stacked entries run the plain version shard by
-    shard: each shard's output equals the single-shard wrapper's on its
-    slice (a strided level of the (S, L, ...) tables), dense, and the fused
-    active entry (values gathered by src, min beside max) with ragged
+    shard (a strided level of the (S, L, ...) tables, values gathered by
+    src, min beside max): the dense entry's shard output equals the
+    single-shard dense wrapper's on that shard's gathered values
+    (``val[src] * sign``, or ``-val[src]`` negated back for min), and the
+    fused active entry's the single-shard active wrapper's with ragged
     sentinel-padded lists, its row mask too; no launch is counted."""
     rng = np.random.default_rng(F)
     seg, tob, fot, nrt, nb = _stacked_level(rng)
@@ -438,21 +448,22 @@ def test_stacked_entries_equal_per_shard_plain(op, F):
     for l in range(3):
         s_l, t_l, f_l = seg[:, l], tob[:, l], fot[:, l]
         assert s_l.stride(0) == 4 * nb * SA.E_BLK   # a strided view
-        x = torch.as_tensor(rng.standard_normal((S, nb * SA.E_BLK, F)),
-                            dtype=torch.float32)
-        out = SA.segment_agg_level_stacked(x, s_l, t_l, f_l, n_rows=n_rows,
-                                           n_row_tiles=nrt, op=op)
-        assert out.shape == (S, n_rows, F)
-        for s in range(S):
-            want = SA.segment_agg_level(x[s], s_l[s], t_l[s], f_l[s],
-                                        n_rows=n_rows, n_row_tiles=nrt,
-                                        op=op)
-            assert torch.equal(out[s], want)
-        act = _ragged_active(rng, S, nb)
         val = torch.as_tensor(rng.standard_normal((S, n_val, F)),
                               dtype=torch.float32)
         tabs = (s_l, src[:, l], sign[:, l], t_l, f_l)
-        for aop in (op, "min") if op == "max" else (op,):
+        ops = (op, "min") if op == "max" else (op,)
+        for dop in ops:
+            out = SA.segment_agg_level_stacked(val, *tabs, n_rows=n_rows,
+                                               n_row_tiles=nrt, op=dop)
+            assert out.shape == (S, n_rows, F)
+            for s in range(S):
+                x = _gathered(val[s], src[s, l], sign[s, l], dop)
+                want = SA.segment_agg_level(
+                    x, s_l[s], t_l[s], f_l[s], n_rows=n_rows,
+                    n_row_tiles=nrt, op="sum" if dop == "sum" else "max")
+                assert torch.equal(out[s], -want if dop == "min" else want)
+        act = _ragged_active(rng, S, nb)
+        for aop in ops:
             out, hit = SA.segment_agg_active_stacked(
                 val, *tabs, act, n_rows=n_rows, n_row_tiles=nrt, op=aop)
             assert out.shape == (S, n_rows, F) and hit.shape == (S, n_rows)
@@ -509,24 +520,77 @@ def test_stacked_active_plain_matches_jax_composition(op):
                                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+def test_stacked_dense_plain_matches_jax_composition(op):
+    """The stacked dense plain version against the JAX package's dense
+    level (``_level_reduce``, ``backend="xla"``) on each shard's slice, on
+    the rows some live slot routes to: exact on integers (every op), sums
+    of normal values within rtol/atol 1e-4, max and min exact."""
+    import jax.numpy as jnp
+    from repro.core import engine as RE
+
+    rng = np.random.default_rng(11)
+    seg, tob, fot, nrt, nb = _stacked_level(rng)
+    S, n_rows, n_val, F = seg.shape[0], 700, 600, 2
+    src, sign = _stacked_sources(rng, seg, n_val)
+    meta = RE.PlanMeta(n_nodes=n_rows, n_writers=1, n_levels=4,
+                       unroll_levels=0, n_row_tiles=nrt, backend="xla",
+                       interpret=False)
+    for integer in (True, False):
+        val = (rng.integers(-8, 9, (S, n_val, F)) if integer
+               else rng.normal(size=(S, n_val, F))).astype(np.float32)
+        for l in range(3):
+            out = SA.segment_agg_level_stacked(
+                torch.as_tensor(val), seg[:, l], src[:, l], sign[:, l],
+                tob[:, l], fot[:, l], n_rows=n_rows, n_row_tiles=nrt, op=op)
+            for s in range(S):
+                tables = RE.LevelTables(*(jnp.asarray(t[s].numpy()) for t in (
+                    seg, src, sign, tob, fot)),
+                    touched=jnp.ones((4, n_rows), bool))
+                want = np.asarray(RE._level_reduce(meta, tables, l,
+                                                   jnp.asarray(val[s]), op))
+                sg = seg[s, l].numpy()
+                rows = np.zeros(n_rows, bool)
+                rows[sg[sg >= 0]] = True
+                got = out[s].numpy()[rows]
+                if integer or op != "sum":
+                    np.testing.assert_array_equal(got, want[rows])
+                else:
+                    np.testing.assert_allclose(got, want[rows], rtol=1e-4,
+                                               atol=1e-4)
+
+
 def test_stacked_entries_check_their_arguments():
     rng = np.random.default_rng(0)
     seg, tob, fot, nrt, nb = _stacked_level(rng)
     S = seg.shape[0]
-    x = torch.zeros((S, nb * SA.E_BLK, 1))
-    kw = dict(n_rows=700, n_row_tiles=nrt)
-    with pytest.raises(ValueError, match=r"\(S, E, F\)"):
-        SA.segment_agg_level_stacked(x[0], seg[:, 0], tob[:, 0], fot[:, 0],
-                                     **kw)
-    with pytest.raises(ValueError, match="seg must be"):
-        SA.segment_agg_level_stacked(x, seg[:2, 0], tob[:, 0], fot[:, 0],
-                                     **kw)
-    with pytest.raises(ValueError, match="contiguous"):
-        SA.segment_agg_level_stacked(
-            torch.zeros((S, nb * SA.E_BLK, 2))[..., :1], seg[:, 0],
-            tob[:, 0], fot[:, 0], **kw)
+    val = torch.zeros((S, 10, 1))
     src = torch.zeros_like(seg)[:, 0]
     sign = torch.zeros(seg.shape)[:, 0]
+    kw = dict(n_rows=700, n_row_tiles=nrt)
+
+    def dense(v=val, s=seg[:, 0], sr=src, sg=sign, **over):
+        return SA.segment_agg_level_stacked(v, s, sr, sg, tob[:, 0],
+                                            fot[:, 0], **dict(kw, **over))
+
+    with pytest.raises(ValueError, match=r"\(S, n, F\)"):
+        dense(v=val[0])                             # 2-D val
+    with pytest.raises(ValueError, match="seg must be"):
+        dense(s=seg[:2, 0])
+    with pytest.raises(ValueError, match="src must be"):
+        dense(sr=src[:2])                           # src's shard axis
+    with pytest.raises(ValueError, match="sign must be"):
+        dense(sg=torch.zeros(seg.shape[0], 2 * seg.shape[2])[:, ::2])
+    with pytest.raises(ValueError, match="share their shard stride"):
+        dense(sr=src.contiguous())                  # src's shard stride
+    with pytest.raises(ValueError, match="share their shard stride"):
+        dense(sg=sign.contiguous())                 # sign's shard stride
+    with pytest.raises(TypeError, match="src must be"):
+        dense(sr=torch.zeros_like(seg, dtype=torch.int64)[:, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        dense(v=torch.zeros((S, 10, 2))[..., :1])
+    with pytest.raises(ValueError, match="unknown op"):
+        dense(op="mean")
     with pytest.raises(ValueError, match="active must be"):
         SA.segment_agg_active_stacked(
             torch.zeros((S, 10, 1)), seg[:, 0], src, sign, tob[:, 0],
@@ -537,5 +601,7 @@ def test_stacked_entries_check_their_arguments():
             tob[:, 0], fot[:, 0], torch.zeros((S, 1), dtype=torch.int32),
             **kw)
     with pytest.raises(ValueError, match="unknown op"):
-        SA.segment_agg_level_stacked(x, seg[:, 0], tob[:, 0], fot[:, 0],
-                                     op="mean", **kw)
+        SA.segment_agg_active_stacked(
+            torch.zeros((S, 10, 1)), seg[:, 0], src, sign, tob[:, 0],
+            fot[:, 0], torch.zeros((S, 1), dtype=torch.int32), op="mean",
+            **kw)

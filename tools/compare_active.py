@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time two or more versions of the port's frontier-sparse level side by
-side on one card.
+"""Time two or more versions of the port's frontier-sparse and dense levels
+side by side on one card.
 
     python3 tools/compare_active.py NAME=TREE NAME=TREE [...]
 
@@ -18,20 +18,31 @@ the ``max`` plan, F = 1; and the same level as the stacked engine runs it
 (``core.engine._stacked_levels``) over 4 shards that each hold a copy of
 the level, shard s's active list the level's own cut to its first
 (s + 1) / 4 blocks. Each level also runs dense (``active=None``), single
-and stacked, so the dense kernel's outputs are held across trees too. Per
-level it records
+and stacked, so the dense kernels' outputs are held across trees too; a
+dense stacked level is the whole level as the stacked engine runs it (its
+gather, sign and shard offsets included, whatever the tree fuses). Each
+dense level also runs as a stacked level of one shard (``dense stacked1``)
+beside the single engine's ``_level_reduce`` (``dense``), and its outputs
+must equal that level's bit for bit in every tree: the stacked entry at
+S = 1 against the single-shard dense path. Then the largest dense level of
+``chip_smoke.py``'s phase 8 (``EagrSession(shards=4)`` over the same graph,
+the push or pull level with the most live slots, built once on the host)
+of each of its ``sum`` and ``max`` groups runs through each tree's
+``_stacked_levels`` (keys ``p8.*``). Per level it records
 
 - ``held_ms``: CUDA events around 50 calls enqueued while a sleep kernel
   holds the card (the device work alone, ``chip_smoke.held_ms``);
+- ``device_ms``: the profiler's device time of one call (every kernel,
+  memset and copy of 20 calls, summed), null where it saw none;
 - ``host_ms``: the host's time to enqueue one call, the card held;
 - ``launches``: the device operations (kernels, memsets, copies) one call
-  enqueues, from torch.profiler traces (the fullest of 5), with their
-  names; null where the profiler returned no trace.
+  enqueues, from a CUDA graph captured around it
+  (``chip_smoke.captured_ops``), with their names.
 
 The outputs of every tree (values on the rows the level recomputes, and
 those rows) must agree bit for bit. Prints the card line and one JSON
-object, and writes it to ``chiprun_out/compare_active.json``. Needs one
-CUDA device.
+object (``note`` says what the dense stacked levels time), and writes it to
+``chiprun_out/compare_active.json``. Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -44,10 +55,16 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 50
 S = 4  # shards of the stacked runs
+NOTE = ("dense stacked levels time the whole level as each tree's stacked "
+        "engine runs it, the gather of val by src, the sign and the shard "
+        "offsets included; 'dense stacked1' is the level as a stack of one "
+        "shard beside the single engine's 'dense' level; 'p8.*' are "
+        "chip_smoke.py phase 8's largest stacked dense levels (4 shards)")
 
 
 def build_levels(path: str) -> None:
-    """Phase 6's sparse levels, with this checkout's package on the host."""
+    """Phase 6's sparse levels and phase 8's largest stacked dense levels,
+    with this checkout's package on the host."""
     import numpy as np
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -55,8 +72,8 @@ def build_levels(path: str) -> None:
     from repro_torch import EagrSession, Query, WindowSpec
     from repro_torch.graphs.generators import rmat_graph
 
-    session = EagrSession(rmat_graph(cs.N_NODES, cs.N_EDGES, seed=cs.SEED),
-                          device="cpu")
+    graph = rmat_graph(cs.N_NODES, cs.N_EDGES, seed=cs.SEED)
+    session = EagrSession(graph, device="cpu")
     for agg in ("sum", "max"):
         session.register(Query(agg=agg, window=WindowSpec("tuple",
                                                           cs.WINDOW)))
@@ -83,7 +100,47 @@ def build_levels(path: str) -> None:
                 for f in t._fields:
                     out[f"{key}.{f}"] = getattr(t, f)[l].numpy()
                 out[f"{key}.active"] = np.asarray(acts[l], np.int32)
+    # phase 8: each group's stacked level with the most live slots (as
+    # chip_smoke.check_stacked_kernel picks it)
+    shards = EagrSession(graph, device="cpu", shards=S)
+    for agg in ("sum", "max"):
+        shards.register(Query(agg=agg, window=WindowSpec("tuple",
+                                                         cs.WINDOW)))
+    for g in shards._groups.values():
+        eng = g.engine
+        live, side, l = max(
+            (int((getattr(eng.arrays, sd).seg[:, i] >= 0).sum()), sd, i)
+            for sd in ("push", "pull") for i in range(eng.meta.depth))
+        t = getattr(eng.arrays, side)
+        key = f"p8.{g.agg.name}.{side}{l}"
+        out[f"{key}.meta"] = np.array([eng.meta.n_nodes, eng.meta.n_writers,
+                                       eng.meta.n_row_tiles])
+        for f in t._fields:
+            out[f"{key}.{f}"] = getattr(t, f)[:, l].numpy()
     np.savez(path, **out)
+
+
+def measure(torch, E, cs, level, name: str, outs: dict) -> dict:
+    """One level's outputs (into ``outs``), its device operations, host
+    enqueue time and held device time (see the module docstring)."""
+    import numpy as np
+
+    out, rows = level()
+    torch.cuda.synchronize()
+    outs[f"{name}.rows"] = rows.cpu().numpy()
+    outs[f"{name}.out"] = out[rows].cpu().numpy()
+    names = cs.captured_ops(torch, level)
+    host = []
+    for _ in range(REPS):
+        torch.cuda._sleep(E.SLEEP_CYCLES // 10)
+        t0 = time.perf_counter()
+        level()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return dict(held_ms=cs.held_ms(torch, level, reps=REPS),
+                device_ms=cs.device_ms_or_none(torch, level),
+                host_ms=float(np.median(host)), launches=len(names),
+                names=names)
 
 
 def worker(tree: str, levels: str, out_path: str) -> None:
@@ -130,44 +187,64 @@ def worker(tree: str, levels: str, out_path: str) -> None:
                 np.pad(c, (0, a.size - c.size), constant_values=nb)
                 for c in cuts]).astype(np.int32), device=dev),)
             val_s = val[None].expand(S, n, 1).contiguous()
-            runs = [(op, stack, dense) for dense in (False, True)
-                    for stack in (False, True) for op in ops]
-            for op, stack, dense in runs:
-                def level(op=op, stack=stack, dense=dense):
-                    item = next(
-                        E._stacked_levels(meta, stacked,
-                                          None if dense else act_s)
-                        if stack else
-                        E._levels(meta, tables, None if dense else act))
-                    v = val_s if stack else val
+            # mode: the single engine's level, the 4-shard stack, or the
+            # level as a stack of one shard (the stacked entry at S = 1)
+            stacked1 = E.LevelTables(*(t[None] for t in tables))
+            runs = [(op, mode, dense) for dense in (False, True)
+                    for mode in ("single", "stacked") for op in ops]
+            runs += [(op, "stacked1", True) for op in ops]
+            for op, mode, dense in runs:
+                def level(op=op, mode=mode, dense=dense):
+                    if mode == "single":
+                        item = next(E._levels(meta, tables,
+                                              None if dense else act))
+                        v = val
+                    else:
+                        item = next(E._stacked_levels(
+                            meta, stacked1 if mode == "stacked1" else stacked,
+                            None if dense else act_s))
+                        v = val[None] if mode == "stacked1" else val_s
                     if isinstance(item, tuple):  # (reduce, rows)
                         reduce, rows = item
                         return reduce(v, op), rows
                     return item(v, op)
 
                 name = f"{key} {op}" + (" dense" if dense else "") + \
-                    (" stacked" if stack else "")
-                out, rows = level()
-                torch.cuda.synchronize()
-                outs[f"{name}.rows"] = rows.cpu().numpy()
-                outs[f"{name}.out"] = out[rows].cpu().numpy()
-                try:
-                    n_launch, names = cs.trace_launches(torch, level)
-                except AssertionError:  # no trace: not measured
-                    n_launch, names = None, []
-                host = []
-                for _ in range(REPS):
-                    torch.cuda._sleep(E.SLEEP_CYCLES // 10)
-                    t0 = time.perf_counter()
-                    level()
-                    host.append((time.perf_counter() - t0) * 1e3)
-                    torch.cuda.synchronize()
-                res[name] = dict(
-                    held_ms=cs.held_ms(torch, level, reps=REPS),
-                    host_ms=float(np.median(host)), launches=n_launch,
-                    names=names, active=int((act[0] < tables.tile_of_block
-                                             .shape[1]).sum().item()),
-                    n_blocks=int(tables.tile_of_block.shape[1]))
+                    ("" if mode == "single" else f" {mode}")
+                rec = measure(torch, E, cs, level, name, outs)
+                rec.update(active=int((act[0] < tables.tile_of_block
+                                       .shape[1]).sum().item()),
+                           n_blocks=int(tables.tile_of_block.shape[1]))
+                res[name] = rec
+                if mode == "stacked1":  # the S = 1 stack == _level_reduce
+                    one = f"{key} {op} dense"
+                    if not (np.array_equal(outs[f"{name}.rows"][0],
+                                           outs[f"{one}.rows"])
+                            and np.array_equal(outs[f"{name}.out"],
+                                               outs[f"{one}.out"])):
+                        raise AssertionError(f"{name}: output differs from "
+                                             f"{one}'s")
+    for key in sorted({k.rsplit(".", 1)[0] for k in lv.files
+                       if k.startswith("p8.") and k.endswith(".seg")}):
+        agg = key.split(".")[1]
+        n, n_w, n_tiles = (int(v) for v in lv[f"{key}.meta"])
+        meta = E.PlanMeta(n_nodes=n, n_writers=n_w, n_levels=1,
+                          n_row_tiles=n_tiles, depth=1)
+        stacked = E.LevelTables(*(
+            torch.as_tensor(lv[f"{key}.{f}"][:, None], device=dev)
+            for f in E.LevelTables._fields))
+        S8 = stacked.seg.shape[0]
+        val_s = torch.randn((S8, n, 1), generator=gen, device=dev)
+        for op in ("sum",) if agg == "sum" else ("max", "min"):
+            def level(op=op, stacked=stacked, val_s=val_s, meta=meta):
+                return next(E._stacked_levels(meta, stacked))(val_s, op)
+
+            name = f"{key} {op} dense stacked"
+            rec = measure(torch, E, cs, level, name, outs)
+            rec.update(shards=S8, n_blocks=int(stacked.tile_of_block
+                                               .shape[2]),
+                       n_live=int((stacked.seg >= 0).sum().item()))
+            res[name] = rec
     np.savez(out_path + ".npz", **outs)
     with open(out_path, "w") as f:
         json.dump(res, f)
@@ -216,7 +293,7 @@ def main(argv=None) -> int:
             by = runs.setdefault(key, {}).setdefault(name, {})
             for m, v in row.items():
                 by.setdefault(m, []).append(v)
-    res = {"card": card, "order": order, "levels": runs}
+    res = {"card": card, "order": order, "note": NOTE, "levels": runs}
     print(card)
     for key, by in runs.items():
         print(f"  {key:24s} " + "  ".join(
