@@ -142,7 +142,31 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    against the cold build's, first read bit-identical), reshards 4 -> 2
    and 4 -> single (sums within 1e-4, max exact) and
    ``SessionRecoveryDriver`` with one injected failure required
-   bit-identical to an uninterrupted run.
+   bit-identical to an uninterrupted run;
+9. bf16 edge values (``EAGR_SEGAGG_BF16``) on phase 3's overlay and
+   decisions, compiled again with the flag (no second construction): bf16
+   and fp32 engines of ``sum``, ``max`` and ``count`` and a 4-shard bf16
+   stack of ``sum`` and of ``max``. (a) Every real level of the bf16 plans
+   through each bf16 entry: the dense entry at S = 1 (the single engine's
+   bf16 dense level), the active entry on the frontier of a 256-writer
+   batch and 256 readers, and the shard-batched dense and active entries
+   on the stack (a 4,096-writer batch's frontier), F 1, 2 and 64, sum on
+   the sum plan, max and min on the max plan: reruns bit-equal, each
+   shard of a stacked call bit-equal to its single-shard call, exact
+   against the plain version on integers and for max and min, normal sums
+   within n * 2^-24 * sum|x| per row of an fp64 sum of the values rounded
+   on their bits on CPU copies, and the fp32 instance required to give
+   another output. (b) 20 write batches of 4,096 Zipf(1.5) writers with a
+   read round after every 4th: bf16 sparse == bf16 dense bit for bit
+   (forced modes), the stack (dense half, sparse half) == a host loop of
+   single-shard bf16 engines bit for bit, every bf16 instance launched and
+   no fp32 instance; against the fp32 engines on the same stream, sums
+   differ in at least one reader, sums and counts stay within ((1 +
+   2^-8)^(2 D) - 1) * 3 M (M the |values| written into the reader's
+   neighbourhood, D the depth) and within rtol 0.05 / atol 0.5, max within
+   one bf16 ulp. (c) Each entry's times at its largest level, F = 1, the
+   bf16 instance held (the card held by a sleep kernel) against the fp32
+   instance, the dense entry also against the fp32 ``_level_reduce``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -225,6 +249,11 @@ DESIGNS = {
                       "S shards: each CTA offsets its pointers to its "
                       "shard's slice; one launch a sparse level for all "
                       "shards",
+    "bf16": "the fused entry's BF16 instance: each slot's value rounded "
+            "to bfloat16 (to nearest even) where it is gathered, after the "
+            "sign's multiply, then reduced in fp32 as the fp32 instance "
+            "reduces it; at S = 1 the dense entry is the single engine's "
+            "bf16 dense level",
     "active": "one launch a frontier-sparse level: one CTA per window "
               "holding an active block, a warp per active block (16 slot-lane "
               "or 4 feature-lane warps), only those blocks' seg/src/sign rows "
@@ -261,6 +290,11 @@ PARITY_BATCHES = 10        # write batches of the stack-vs-host-loop check
 SPEED_BATCHES = 10         # write batches (each with reads) of the timing
 SHARD_CHURN_BURSTS = 3     # bursts at CHURN[0]'s 0.1% of the readers
 RECOVERY_BATCHES, RECOVERY_EVERY = 6, 2  # the recovery driver's run
+# phase 9: bf16 edge values on phase 3's overlay and decisions; a read
+# round after every 4th of 20 write batches of 4,096
+BF16_BATCHES, BF16_READ_EVERY = 20, 4
+BF16_U = 2.0 ** -8          # bf16's unit roundoff (8 significant bits)
+BF16_REF_BAR = (0.05, 0.5)  # the JAX package's own bf16 bar (rtol, atol)
 
 # the LM serve path: granite-3-2b at full width; 8 prompts of 2,048 tokens
 # and 32 greedy tokens (prefill_32k's B 32 x S 32,768 and decode_32k's
@@ -1017,16 +1051,16 @@ def plain_sum_fp64(x, seg_c, n_rows: int):
     return out.index_add_(0, dst, xc)[:n_rows]
 
 
-def active_bound_ms(seg_c, src_c, tob, act, F: int, n_rows: int, op: str
-                    ) -> tuple[float, str]:
+def active_bound_ms(seg_c, src_c, tob, act, F: int, n_rows: int, op: str,
+                    bf16: bool = False) -> tuple[float, str]:
     """Least time for one call of the fused active entry: each active
     block's seg and src rows (8 B a slot; sum also reads its sign row, 4 B
     more), its active entry and tob/fot (12 B) read once, the ``val`` row of
     each distinct source among the active live slots (``src_c`` beside
     ``seg_c``) read once, the output written for each row of a tile an
     active block routes to, and the row mask (n_rows bytes) written once;
-    per live slot and feature one add or max, and for sum one multiply by
-    the sign."""
+    per live slot and feature one add or max, for sum one multiply by the
+    sign, and with ``bf16`` one rounding to bfloat16."""
     live = seg_c >= 0
     n_live = int(live.sum().item())
     n_src = int(src_c[live].unique().numel())
@@ -1037,7 +1071,8 @@ def active_bound_ms(seg_c, src_c, tob, act, F: int, n_rows: int, op: str
     nbytes = real.numel() * (256 * slot_b + 12) + n_src * 4 * F \
         + tiles * 128 * 4 * F + n_rows
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_live * F * (2 if op == "sum" else 1) / FP32_OPS_PER_S * 1e3
+    t_ops = n_live * F * ((2 if op == "sum" else 1) + bf16) \
+        / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1886,14 +1921,16 @@ def stacked_ptrs(group) -> dict:
     return out
 
 
-def stacked_level_bound_ms(seg, src, tob, fot, F: int, n_rows: int, op: str
-                           ) -> tuple[float, str]:
+def stacked_level_bound_ms(seg, src, tob, fot, F: int, n_rows: int, op: str,
+                           bf16: bool = False) -> tuple[float, str]:
     """Least time for one call of the fused stacked dense entry, summed over
     the shards: every slot's seg (4 B), the src rows (and for sum the sign
     rows) of the blocks holding a live slot (1 or 2 KB a block), the ``val``
     row of each distinct source among the live slots once, tob and fot (8 B
     a block) and the output of each row of a visited tile; per live slot and
-    feature one add or max, and for sum one multiply by the sign."""
+    feature one add or max, for sum one multiply by the sign, and with
+    ``bf16`` one rounding to bfloat16 (the bytes are fp32's: ``val`` is
+    fp32 state)."""
     t_b = t_o = 0.0
     row_b = 2 * 256 * 4 if op == "sum" else 256 * 4
     for s in range(seg.shape[0]):
@@ -1905,7 +1942,8 @@ def stacked_level_bound_ms(seg, src, tob, fot, F: int, n_rows: int, op: str
         rows_out = min(int(fot[s].sum().item()) * 128, n_rows)
         t_b += (seg[s].numel() * 4 + live_blocks * row_b + n_src * 4 * F
                 + nb * 8 + rows_out * 4 * F) / HBM_BYTES_PER_S * 1e3
-        t_o += n_live * F * (2 if op == "sum" else 1) / FP32_OPS_PER_S * 1e3
+        t_o += n_live * F * ((2 if op == "sum" else 1) + bf16) \
+            / FP32_OPS_PER_S * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -2613,6 +2651,712 @@ def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
         del sf, sc
         lap("recovery")
     print(f"phase 8 seconds by part: {report['seconds_by_part']}",
+          flush=True)
+    return report
+
+# ---------------------------------------------------------- bf16 edge values
+def round_bf16_np(x) -> np.ndarray:
+    """fp32 values rounded to bfloat16 (to nearest even) and back, on the
+    bits in numpy: the checks' own rounding, independent of torch's."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def bf16_ulp(x) -> np.ndarray:
+    """One bf16 ulp at |x|: 2^(e - 8) for |x| = f * 2^e, f in [0.5, 1)."""
+    return np.ldexp(1.0, np.frexp(np.abs(np.asarray(x, np.float64)))[1] - 8)
+
+
+class segagg_bf16:
+    """``EAGR_SEGAGG_BF16`` set to ``on`` inside the block (plans compiled
+    there carry the flag), restored after."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        self.old = os.environ.get("EAGR_SEGAGG_BF16")
+        os.environ["EAGR_SEGAGG_BF16"] = "1" if self.on else "0"
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("EAGR_SEGAGG_BF16", None)
+        else:
+            os.environ["EAGR_SEGAGG_BF16"] = self.old
+
+
+def rows_of(torch, seg_c, n: int):
+    """(S, n) bool: the rows the slots ``seg_c`` (S, E) route to."""
+    hit = torch.zeros((seg_c.shape[0], n + 1), dtype=torch.bool,
+                      device=seg_c.device)
+    hit.scatter_(1, torch.where(seg_c >= 0, seg_c.long(), n),
+                 torch.ones_like(seg_c, dtype=torch.bool))
+    return hit[:, :n]
+
+
+def bf16_checked(torch, call, val, slots, op: str, integer: bool,
+                 where: str) -> tuple[float, bool]:
+    """One bf16 entry on values ``val`` (S, n, F) against its bars.
+    ``call`` = (launch, plain, fp32, singles): the bf16 launch and its plain
+    version, each ``val -> (out (S, n, F), hit (S, n))``, the entry's fp32
+    instance ``val -> out`` and, for the stacked entries, the single-shard
+    bf16 calls of each shard (``val -> [(out, hit)]``, else None).
+    ``slots`` = (seg_c, src_c, sign_c) (S, E) the slots the call reduces.
+    Bars: the row mask the slots' rows; a rerun bit-equal; each shard of a
+    stacked call bit-equal to its single-shard call; exact against the plain
+    version on integer values and for max and min; normal-valued sums
+    within n * 2^-24 * sum|x| per row (n the row's slots) of an fp64 sum of
+    the values rounded on their bits in numpy (``round_bf16_np``), on CPU
+    copies. Returns the max abs error (against the fp64 sum for normal
+    sums) and whether the fp32 instance gives another output on some row
+    (normal values: the rounding shows)."""
+    launch, plain, fp32, singles = call
+    seg_c, src_c, sign_c = slots
+    S, n, F = val.shape
+    where = f"{where} F={F} {'integer' if integer else 'normal'}"
+    got, got_hit = launch(val)
+    again, again_hit = launch(val)
+    want, want_hit = plain(val)
+    one = singles(val) if singles is not None else None
+    other = None if integer else fp32(val)
+    torch.cuda.synchronize()
+    hit = rows_of(torch, seg_c, n)
+    if not (torch.equal(got_hit, hit) and torch.equal(again_hit, hit)
+            and torch.equal(want_hit, hit)):
+        raise AssertionError(f"{where}: row mask != the slots' rows")
+    err, differs = 0.0, False
+    for s in range(S):
+        h = hit[s]
+        if not h.any():
+            continue
+        if not torch.equal(got[s][h], again[s][h]):
+            raise AssertionError(f"{where} is not deterministic")
+        if one is not None and not (torch.equal(got[s][h], one[s][0][h])
+                                    and torch.equal(one[s][1], h)):
+            raise AssertionError(f"{where}: shard {s} != its single-shard "
+                                 f"bf16 call")
+        if other is not None:
+            differs |= not torch.equal(got[s][h], other[s][h])
+        if integer or op != "sum":
+            e = (got[s][h] - want[s][h]).abs().max().item()
+            if not torch.equal(got[s][h], want[s][h]):
+                raise AssertionError(f"{where} != plain version (exact), "
+                                     f"shard {s}, max abs err {e}")
+            err = max(err, e)
+            continue
+        live = (seg_c[s] >= 0).cpu()
+        x = val[s].cpu().numpy()[src_c[s].cpu().numpy()] \
+            * sign_c[s].cpu().numpy()[:, None]
+        x = torch.from_numpy(round_bf16_np(x).astype(np.float64))
+        dst = torch.where(live, seg_c[s].cpu().long(), n)
+        exact = torch.zeros((n + 1, F), dtype=torch.float64) \
+            .index_add_(0, dst, x)[:n]
+        mag = torch.zeros((n + 1, F), dtype=torch.float64) \
+            .index_add_(0, dst, x.abs())[:n]
+        cnt = torch.zeros(n + 1, dtype=torch.float64).index_add_(
+            0, dst, torch.ones(dst.shape, dtype=torch.float64))[:n, None]
+        d64 = (got[s].cpu().double() - exact).abs()
+        hc = h.cpu()
+        e = d64[hc].max().item()
+        if bool((d64 > cnt * 2.0 ** -24 * mag)[hc].any()):
+            raise AssertionError(f"{where} beyond n * 2^-24 * sum|x| of the "
+                                 f"fp64 sum of the rounded values, shard "
+                                 f"{s}, max abs err {e}")
+        err = max(err, e)
+    return err, differs
+
+
+def bf16_calls(torch, ops, ref, tables, act, kw, single: bool):
+    """The bf16 entry on one level (``tables`` = (seg, src, sign, tob,
+    fot), each (S, ...); ``act`` (S, K) active lists or None for the dense
+    entry) as ``bf16_checked`` takes it. ``single``: one shard through the
+    single-shard active entry, or the dense entry at S = 1 (the single
+    engine's bf16 dense level); else the shard-batched entries, whose
+    singles are the single-shard calls of each shard."""
+    seg, src, sign, tob, fot = tables
+    S, n = seg.shape[0], kw["n_rows"]
+    hit = rows_of(torch, seg, n) if act is None else None
+
+    def launch(val, op, bf16=True):
+        if act is None:
+            return ops.segment_agg_level_stacked(
+                val, *tables, op=op, bf16=bf16, **kw), hit
+        if single:
+            out, h = ops.segment_agg_active(
+                val[0], *(t[0] for t in tables), act[0], op=op, bf16=bf16,
+                **kw)
+            return out[None], h[None]
+        return ops.segment_agg_active_stacked(val, *tables, act, op=op,
+                                              bf16=bf16, **kw)
+
+    def plain(val, op):
+        if act is None:
+            return ref.segment_agg_level_stacked_ref(
+                val, seg, src, sign, n, op, bf16=True), hit
+        return ref.segment_agg_active_stacked_ref(val, seg, src, sign, act,
+                                                  n, op, bf16=True)
+
+    def singles(val, op):
+        out = []
+        for s in range(S):
+            one = [t[s: s + 1] for t in tables]
+            if act is None:
+                o = ops.segment_agg_level_stacked(val[s: s + 1].contiguous(),
+                                                  *one, op=op, bf16=True,
+                                                  **kw)[0]
+                out.append((o, hit[s]))
+            else:
+                out.append(ops.segment_agg_active(
+                    val[s], *(t[0] for t in one), act[s].contiguous(), op=op,
+                    bf16=True, **kw))
+        return out
+
+    def for_op(op):
+        return (lambda v: launch(v, op), lambda v: plain(v, op),
+                lambda v: launch(v, op, False)[0],
+                None if single else (lambda v: singles(v, op)))
+
+    return for_op
+
+
+def bf16_slots(torch, tables, act):
+    """The slots a call reduces, (seg_c, src_c, sign_c) (S, E): the whole
+    level's, or the active blocks' (pads as padding slots)."""
+    seg, src, sign = tables[:3]
+    if act is None:
+        return seg, src.long(), sign
+    S, E = seg.shape[0], 256
+    nb = tables[3].shape[1]
+    a = act.long()
+    ab = a.clamp(max=nb - 1)
+    sid = torch.arange(S, device=seg.device)[:, None]
+    seg_c = torch.where((a < nb)[..., None], seg.reshape(S, nb, E)[sid, ab],
+                        -1).reshape(S, -1)
+    src_c = src.reshape(S, nb, E)[sid, ab].reshape(S, -1).long()
+    sign_c = sign.reshape(S, nb, E)[sid, ab].reshape(S, -1)
+    return seg_c, src_c, sign_c
+
+
+def bf16_levels(plan_tables, depth: int, acts, stacked: bool):
+    """(side, level, tables (S, ...), act (S, K) or None) of every real
+    level with work: the dense entry's every level, or the active entry's
+    levels with an active block. ``plan_tables`` maps side -> LevelTables
+    of one plan (single) or of the stack; ``acts`` side -> per-level
+    active lists (numpy) or None for dense."""
+    for side, t in plan_tables.items():
+        for l in range(depth):
+            if stacked:
+                tabs = (t.seg[:, l], t.src[:, l], t.sign[:, l],
+                        t.tile_of_block[:, l], t.first_of_tile[:, l])
+            else:
+                tabs = tuple(x[l][None] for x in (
+                    t.seg, t.src, t.sign, t.tile_of_block, t.first_of_tile))
+            if acts is None:
+                yield side, l, tabs, None
+                continue
+            a = acts.get(side)
+            if a is None or l >= len(a):
+                continue
+            a = np.asarray(a[l])
+            nb = tabs[3].shape[1]
+            if a.size == 0 or not (a < nb).any():
+                continue
+            yield side, l, tabs, (a if stacked else a[None])
+
+
+def bf16_kernel_checks(torch, ops, ref, entry: str, engine, tables_of,
+                       depth, acts, stacked: bool, errs) -> dict:
+    """Every level of one plan (or stack) through one bf16 entry, sum on
+    the sum plan, max and min on the max plan (``bf16_checked``): F 1 on
+    integer and normal values at every level, F 2 normal and F 64 integer
+    too (the slot-lane and feature-lane instances). Returns the levels
+    checked, the largest error, whether the rounding showed, and the
+    largest level (most live slots) for the timings."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    meta = engine.meta if stacked else engine.plan.meta
+    n = meta.n_nodes
+    kw = dict(n_rows=n, n_row_tiles=meta.n_row_tiles)
+    out = dict(levels=0, max_abs_err=0.0, differs=False, top=None)
+    cops = ("sum",) if engine.agg.name == "sum" else ("max", "min")
+    for side, l, tabs, act in bf16_levels(tables_of, depth, acts, stacked):
+        S = tabs[0].shape[0]
+        act_t = None if act is None else torch.as_tensor(
+            np.ascontiguousarray(act, np.int32), device=dev)
+        calls = bf16_calls(torch, ops, ref, tabs, act_t, kw, not stacked)
+        slots = bf16_slots(torch, tabs, act_t)
+        n_live = int((slots[0] >= 0).sum().item())
+        if n_live == 0:
+            continue
+        out["levels"] += 1
+        for F, kinds in ((1, (True, False)), (2, (False,)), (64, (True,))):
+            for integer in kinds:
+                val = (torch.randint(-8, 9, (S, n, F), generator=gen,
+                                     device=dev).to(torch.float32)
+                       if integer else
+                       torch.randn((S, n, F), generator=gen, device=dev) * 4)
+                for op in cops:
+                    e, d = bf16_checked(torch, calls(op), val, slots, op,
+                                        integer, f"{op} {entry} {side} l={l}")
+                    out["max_abs_err"] = max(out["max_abs_err"], e)
+                    out["differs"] |= d
+                    key = f"{'sum' if op == 'sum' else 'max'}_{entry}_bf16"
+                    errs[key] = max(errs.get(key, 0.0), e)
+        if out["top"] is None or n_live > out["top"][0]:
+            out["top"] = (n_live, side, l, tabs, act_t)
+    if not out["levels"]:
+        raise AssertionError(f"no level checked through the bf16 {entry} "
+                             f"entry")
+    if not out["differs"]:
+        raise AssertionError(f"the bf16 {entry} entry gave the fp32 "
+                             f"instance's output on every level")
+    return out
+
+
+def bf16_timed(torch, ops, entry: str, op: str, top, kw, stacked: bool
+               ) -> dict:
+    """One entry's times at its largest level, F = 1, normal values: the
+    bf16 instance (events back to back, and held: the card held by a sleep
+    kernel) beside the fp32 instance (held), the plain version, the library
+    composition (``index_select``, the sign's multiply, the rounding
+    ``.to(bfloat16).to(float32)``, ``index_add_`` / ``index_reduce_`` over
+    the flattened shards) and the bound; the dense entry at S = 1 also
+    beside the fp32 single engine's ``_level_reduce`` (gather, multiply and
+    two-kernel dense entry, ``segment_agg_level``), held."""
+    from repro_torch.core import engine as E
+    from repro_torch.kernels.segment_agg import ref
+
+    n_live, side, l, tabs, act = top
+    dev = torch.device(DEVICE)
+    S, n = tabs[0].shape[0], kw["n_rows"]
+    val = torch.randn((S, n, 1), device=dev)
+    seg_c, src_c, sign_c = bf16_slots(torch, tabs, act)
+    calls = bf16_calls(torch, ops, ref, tabs, act, kw, not stacked)(op)
+    launch, plain, fp32 = calls[0], calls[1], calls[2]
+    k_ms = cuda_ms(torch, lambda: launch(val))
+    k_held = held_ms(torch, lambda: launch(val))
+    f_held = held_ms(torch, lambda: fp32(val))
+    p_ms = cuda_ms(torch, lambda: plain(val), reps=5)
+    sid = torch.arange(S, device=dev)[:, None]
+    dst = (torch.where(seg_c >= 0, seg_c.long(), n) + sid * (n + 1)) \
+        .reshape(-1)
+    src_f = (src_c + sid * n).reshape(-1)
+    sign_f = sign_c.reshape(-1, 1)
+    lib_out = torch.zeros((S * (n + 1), 1), device=dev)
+    xv = val.reshape(-1, 1)
+
+    def lib():
+        g = xv.index_select(0, src_f)
+        if op == "sum":
+            g = g * sign_f
+        g = g.to(torch.bfloat16).to(torch.float32)
+        if op == "sum":
+            return lib_out.index_add_(0, dst, g)
+        return lib_out.index_reduce_(0, dst, g, "amax")
+
+    l_ms = cuda_ms(torch, lib)
+    if act is None:
+        b_ms, b_by = stacked_level_bound_ms(tabs[0], tabs[1], tabs[3],
+                                            tabs[4], 1, n, op, bf16=True)
+    else:
+        parts = [active_bound_ms(seg_c[s], src_c[s], tabs[3][s], act[s], 1,
+                                 n, op, bf16=True) for s in range(S)]
+        b_ms, b_by = sum(p[0] for p in parts), parts[0][1]
+    row = dict(entry=entry, op=op, side=side, level=l, shards=S,
+               n_blocks=int(tabs[3].shape[1]),
+               K=None if act is None else int(act.shape[1]), n_live=n_live,
+               F=1, ms=k_ms, held_ms=k_held, fp32_held_ms=f_held,
+               plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+    if entry == "dense":
+        meta = E.PlanMeta(n_nodes=n, n_writers=1, n_levels=1,
+                          n_row_tiles=kw["n_row_tiles"], depth=1)
+        t1 = E.LevelTables(*(t for t in tabs),
+                           touched=torch.ones((1, n), dtype=torch.bool,
+                                              device=dev))
+        row["level_reduce_fp32_held_ms"] = held_ms(
+            torch, lambda: E._level_reduce(meta, t1, 0, val[0], op))
+    return row
+
+
+def engine_active_sets(eng, ids, q):
+    """The push (write) and pull (read) active lists the single engine
+    expands for one batch of writers and readers, forced sparse."""
+    set_sparse("1")
+    try:
+        rows, mask = eng.plan.routes.writer_rows(ids)
+        push = eng.frontier_active(rows, mask)
+        nodes, _ = eng.plan.routes.reader_nodes(q)
+        rd = eng._reader_active(nodes)
+    finally:
+        set_sparse("auto")
+    return {"push": push, "pull": None if rd is None else rd[1]}
+
+
+def lockstep(torch, ops, eng16, eng32, stream) -> dict:
+    """The bf16 stream in lockstep (the host's speed swings between
+    moments): every batch, from one bf16 state, written by the bf16 engines
+    (agg -> EagrEngine) forced dense and, from a copy of that state, forced
+    sparse, PAOs and windows required bit-equal; then by the fp32 engines
+    forced dense; a read round of the batch's readers after every
+    BF16_READ_EVERY-th, each mode in turn, the two bf16 modes' answers
+    required bit-equal. Each engine set starts from empty windows. Returns
+    per mode the write and read times, the launches (counted from 0 around
+    each mode's calls) and the answers."""
+    modes = (("dense", eng16, "0"), ("sparse", eng16, "1"),
+             ("fp32", eng32, "0"))
+    out = {m: dict(w_ms=[], r_ms=[], answers=[],
+                   launches=dict.fromkeys(ops.LAUNCHES, 0))
+           for m, _, _ in modes}
+    for engs in (eng16, eng32):
+        for e in engs.values():
+            e.adopt_state(e.init_state(), now_host=0.0, last_eval_now=0.0)
+    torch.cuda.synchronize()
+    try:
+        for k, (ids, vals, q) in enumerate(stream):
+            start = [(e.state, e._now_host, e._last_eval_now)
+                     for e in eng16.values()]
+            states = {}
+            for name, engs, mode in modes:
+                if name == "sparse":  # from a copy of the dense step's start
+                    for e, (st, now, last) in zip(eng16.values(), start):
+                        e.adopt_state(type(st)(
+                            type(st.windows)(*(t.clone() for t in st.windows)),
+                            st.pao.clone(), st.now.clone()),
+                            now_host=now, last_eval_now=last)
+                run = out[name]
+                set_sparse(mode)
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                for e in engs.values():
+                    e.write_batch(ids, vals)
+                torch.cuda.synchronize()
+                run["w_ms"].append((time.perf_counter() - t0) * 1e3)
+                if (k + 1) % BF16_READ_EVERY == 0:
+                    t0 = time.perf_counter()
+                    run["answers"].append([np.asarray(e.read_batch(q))
+                                           for e in engs.values()])
+                    run["r_ms"].append((time.perf_counter() - t0) * 1e3)
+                for key, v in ops.LAUNCHES.items():
+                    run["launches"][key] += v
+                if engs is eng16:
+                    states[name] = [[*e.state.windows, e.state.pao]
+                                    for e in engs.values()]
+            for agg, a, b in zip(eng16, states["dense"], states["sparse"]):
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"bf16 sparse {agg} state != dense "
+                                         f"after batch {k}")
+            if out["dense"]["answers"] and (k + 1) % BF16_READ_EVERY == 0:
+                for agg, x, y in zip(eng16, out["dense"]["answers"][-1],
+                                     out["sparse"]["answers"][-1]):
+                    if not np.array_equal(x, y):
+                        raise AssertionError(f"bf16 sparse {agg} answers != "
+                                             f"dense after batch {k}")
+    finally:
+        set_sparse("auto")
+    return out
+
+
+def bf16_bar(torch, engines32, stream, readers_of_round, depth: int):
+    """The bar the bf16 sums and counts are held to against fp32 on the
+    same stream, per answer: every value reaching an answer is rounded at
+    most once a level in each sweep it crosses (a write sweep rounds the
+    batch's deltas, a read sweep the PAOs; D real levels), each rounding
+    within u = 2^-8 of its value, so an answer moves by at most
+    ((1 + u)^(2 D) - 1) times the magnitudes that crossed the levels: every
+    delta (at most |new| + |evicted| a write) and the PAOs read (at most
+    the window's |values|), together at most 3 M, M the sum of |v| over
+    every write of the stream into the reader's neighbourhood. M (and the
+    count of those writes, for count) comes from an fp32 engine with a
+    window of one into which each writer writes its stream totals once.
+    Returns per read round the (sum, count) bars."""
+    from repro_torch import WindowSpec
+    from repro_torch.core.aggregates import make_aggregate
+    from repro_torch.core.engine import EagrEngine
+
+    ref32 = engines32["sum"]
+    ids = np.concatenate([b[0] for b in stream])
+    vals = np.abs(np.concatenate([b[1] for b in stream])).astype(np.float64)
+    ws, inv = np.unique(ids, return_inverse=True)
+    mv = np.stack([np.bincount(inv, weights=vals, minlength=len(ws)),
+                   np.bincount(inv, minlength=len(ws))], 1).astype(np.float32)
+    mag = EagrEngine(ref32.overlay, ref32.plan.decision,
+                     make_aggregate("sum", value_dim=2),
+                     WindowSpec("tuple", 1, value_dim=2), device=DEVICE)
+    mag.write_batch(ws, mv)
+    grow = (1.0 + BF16_U) ** (2 * depth) - 1.0
+    out = []
+    for q in readers_of_round:
+        m = np.asarray(mag.read_batch(q), np.float64).reshape(len(q), 2)
+        out.append((grow * 3 * m[:, 0] + 2.0 ** -20 * m[:, 0],
+                    grow * 3 * m[:, 1]))
+    return out
+
+
+def phase_bf16(torch, ops, ref, bases, writers, readers, errs,
+               out_dir) -> dict:
+    """Phase 9 (see the module docstring)."""
+    from repro_torch import WindowSpec
+    from repro_torch.core.aggregates import make_aggregate
+    from repro_torch.core.engine import (
+        EagrEngine,
+        plan_from_snapshot,
+        plan_snapshot,
+    )
+    from repro_torch.distributed import (
+        StackedShardedEngine,
+        host_loop_read,
+        host_loop_write,
+        partition_overlay,
+    )
+
+    report: dict = {"seconds_by_part": {}}
+    clock = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        report["seconds_by_part"][part] = now - clock[0]
+        clock[0] = now
+
+    # ---- set-up: phase 3's overlay and decisions compiled again, bf16 and
+    # fp32 engines side by side; a 4-shard bf16 stack of sum and of max
+    spec = WindowSpec("tuple", WINDOW)
+    aggs = ("sum", "max", "count")
+    eng = {True: {}, False: {}}
+    for bf16 in (True, False):
+        for agg in aggs:
+            ov, dec = bases[agg]
+            with segagg_bf16(bf16):
+                e = EagrEngine(ov, dec, make_aggregate(agg), spec,
+                               device=DEVICE, headroom=2.0)
+            if e.plan.meta.bf16 is not bf16:
+                raise AssertionError(f"{agg} plan compiled with "
+                                     f"EAGR_SEGAGG_BF16={int(bf16)} carries "
+                                     f"bf16={e.plan.meta.bf16}")
+            eng[bf16][agg] = e
+    n_base = int(max(writers.max(), readers.max())) + 1
+    stk, hosts = {}, {}
+    for agg in ("sum", "max"):
+        ov, dec = bases[agg]
+        with segagg_bf16(True):
+            sh = partition_overlay(ov, dec, SHARDS, seed=SEED, device=DEVICE,
+                                   headroom=2.0)
+        stk[agg] = StackedShardedEngine(sh, make_aggregate(agg), spec,
+                                        base_capacity=n_base)
+        if not stk[agg].meta.bf16:
+            raise AssertionError(f"the {agg} stack is not in bf16 mode")
+        hosts[agg] = []
+        for s, p in enumerate(sh.shard_plans):
+            plan = plan_from_snapshot(*plan_snapshot(p), device=DEVICE)
+            if not plan.meta.bf16:
+                raise AssertionError("a snapshot dropped the bf16 flag")
+            hosts[agg].append(EagrEngine(sh.shards[s], plan.decision,
+                                         make_aggregate(agg), spec, plan=plan,
+                                         device=DEVICE))
+    depth = max(e.plan.meta.depth for e in eng[True].values())
+    print(f"9 set-up: bf16 and fp32 engines of sum, max and count on phase "
+          f"3's overlay and decisions (depth {depth}), a {SHARDS}-shard bf16 "
+          f"stack of sum and of max with a host loop of single-shard bf16 "
+          f"engines over snapshot copies of its plans", flush=True)
+    lap("set_up")
+
+    # ---- 9a. every level of the bf16 plans through each bf16 entry
+    rng = np.random.default_rng(SEED + 9)
+    ((ids256, _, q256),) = dyn_stream(writers, readers, 1, 256, rng)
+    (probe,) = make_stream(writers, readers, 1, rng, dyadic=False)
+    checks, tops = {}, {}
+    for agg in ("sum", "max"):
+        e = eng[True][agg]
+        tabs = {"push": e.plan.arrays.push, "pull": e.plan.arrays.pull}
+        d = e.plan.meta.depth
+        checks[f"{agg}_dense"] = bf16_kernel_checks(
+            torch, ops, ref, "stacked", e, tabs, d, None, False, errs)
+        checks[f"{agg}_active"] = bf16_kernel_checks(
+            torch, ops, ref, "active", e, tabs, d,
+            engine_active_sets(e, ids256, q256), False, errs)
+        s = stk[agg]
+        stabs = {"push": s.arrays.push, "pull": s.arrays.pull}
+        checks[f"{agg}_stacked"] = bf16_kernel_checks(
+            torch, ops, ref, "stacked", s, stabs, s.meta.depth, None, True,
+            errs)
+        set_sparse("1")
+        try:
+            push = s._frontier_active(probe[0])
+        finally:
+            set_sparse("auto")
+        if push is None:
+            raise AssertionError(f"the {agg} stack expanded no frontier for "
+                                 f"a batch of {BATCH}")
+        checks[f"{agg}_active_stacked"] = bf16_kernel_checks(
+            torch, ops, ref, "active_stacked", s, stabs, s.meta.depth,
+            {"push": push}, True, errs)
+    for key, c in checks.items():
+        tops[key] = c.pop("top")
+        print(f"  9a {key}_bf16: {c['levels']} levels, F 1/2/64 "
+              f"({'sum' if key.startswith('sum') else 'max/min'}): plain "
+              f"version held (max abs err {c['max_abs_err']:.3g}), reruns "
+              f"bit-equal{', each shard == its single-shard bf16 call' if 'stacked' in key else ''}; "
+              f"the fp32 instance gives another output", flush=True)
+    report["kernel_checks"] = checks
+    lap("kernels")
+
+    # ---- 9b. 20 write batches of 4,096 Zipf(1.5) writers, 5 read rounds:
+    # bf16 dense, bf16 sparse and fp32 in lockstep, from empty windows;
+    # then the stack against its host loop, dense half then sparse half
+    stream = make_stream(writers, readers, BF16_BATCHES, rng, dyadic=False)
+    # warm: the kernels, the frontier indices
+    lockstep(torch, ops, eng[True], eng[False],
+             make_stream(writers, readers, BF16_READ_EVERY, rng,
+                         dyadic=False))
+    runs = lockstep(torch, ops, eng[True], eng[False], stream)
+    dn, sp, f32 = runs["dense"], runs["sparse"], runs["fp32"]
+    dl, sl = dn["launches"], sp["launches"]
+    for k in ("sum_stacked_bf16", "max_stacked_bf16"):
+        if dl[k] <= 0:
+            raise AssertionError(f"the bf16 dense run launched no {k}")
+    for k in ("sum_active_bf16", "max_active_bf16"):
+        if sl[k] <= 0:
+            raise AssertionError(f"the bf16 sparse run launched no {k}")
+    fp32_keys = [k for k in ops.LAUNCHES if not k.endswith("_bf16")]
+    if any(dl[k] or sl[k] for k in fp32_keys):
+        raise AssertionError(f"a bf16 engine launched an fp32 instance: "
+                             f"dense {dl}, sparse {sl}")
+    # against fp32 on the same stream (bf16_bar)
+    rounds = [q for k, (_, _, q) in enumerate(stream)
+              if (k + 1) % BF16_READ_EVERY == 0]
+    bars = bf16_bar(torch, eng[False], stream, rounds, depth)
+    rtol, atol = BF16_REF_BAR
+    held = dict(sum_share=0.0, count_share=0.0, ref_share=0.0,
+                max_ulps=0.0)
+    differ = dict.fromkeys(aggs, 0)
+    for r, (a16, a32, (b_sum, b_cnt)) in enumerate(zip(
+            dn["answers"], f32["answers"], bars)):
+        for agg, x, y in zip(aggs, a16, a32):
+            x = np.asarray(x, np.float64).reshape(-1)
+            y = np.asarray(y, np.float64).reshape(-1)
+            d = np.abs(x - y)
+            differ[agg] += int((d > 0).sum())
+            if agg == "max":
+                ulps = d / bf16_ulp(y)
+                held["max_ulps"] = max(held["max_ulps"], float(ulps.max()))
+                if (ulps > 1).any():
+                    raise AssertionError(f"bf16 max beyond one bf16 ulp of "
+                                         f"fp32 in read round {r}: "
+                                         f"{float(ulps.max())} ulps")
+                continue
+            bar = b_sum if agg == "sum" else b_cnt
+            share = float((d / np.maximum(bar, 1e-30)).max())
+            ref_share = float((d / (atol + rtol * np.abs(y))).max())
+            held[f"{agg}_share"] = max(held[f"{agg}_share"], share)
+            held["ref_share"] = max(held["ref_share"], ref_share)
+            if share > 1 or ref_share > 1:
+                raise AssertionError(
+                    f"bf16 {agg} beyond its bar against fp32 in read round "
+                    f"{r}: {share:.3g} of ((1 + 2^-8)^(2 D) - 1) 3 M, "
+                    f"{ref_share:.3g} of rtol {rtol} / atol {atol}")
+    if differ["sum"] == 0:
+        raise AssertionError("bf16 sum answers equal fp32's in every reader: "
+                             "the mode did not round")
+    n_ans = sum(len(q) for q in rounds)
+    p50 = {m: (float(np.median(r["w_ms"])), float(np.median(r["r_ms"])))
+           for m, r in runs.items()}
+    print(f"9b single engines: {BF16_BATCHES} write batches of {BATCH}, "
+          f"{len(rounds)} read rounds, in lockstep: bf16 sparse == bf16 dense "
+          f"bit for bit (state after every batch, answers); write / read "
+          f"p50 ms of sum + max + count {p50}; launches dense {dl}, sparse "
+          f"{sl}; against fp32, answers that differ of {n_ans}: {differ}; "
+          f"largest share of the bar used: sum {held['sum_share']:.3g}, "
+          f"count {held['count_share']:.3g} of ((1 + 2^-8)^(2 D) - 1) 3 M, "
+          f"{held['ref_share']:.3g} of rtol {rtol} / atol {atol}; max within "
+          f"{held['max_ulps']:.3g} bf16 ulp", flush=True)
+    report.update(single_launches=dict(dense=dl, sparse=sl),
+                  vs_fp32=dict(held, differ=differ, answers=n_ans),
+                  write_p50_ms={k: v[0] for k, v in p50.items()},
+                  read_p50_ms={k: v[1] for k, v in p50.items()})
+    del runs, dn, sp, f32
+    lap("single")
+
+    counted = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def count(call):
+        ops.reset_launches()
+        out = call()
+        for key, v in ops.LAUNCHES.items():
+            counted[key] += v
+        return out
+
+    half = BF16_BATCHES // 2
+    for agg in ("sum", "max"):
+        s = stk[agg]
+        s.adopt_state(s.init_state(), now_host=0.0,
+                      last_eval_now=np.zeros(SHARDS, np.float32))
+        for e in hosts[agg]:
+            e.adopt_state(e.init_state(), now_host=0.0, last_eval_now=0.0)
+    for k, (ids, vals, q) in enumerate(stream):
+        set_sparse("0" if k < half else "1")
+        for agg in ("sum", "max"):
+            count(lambda: stk[agg].write_batch(ids, vals))
+            host_loop_write(stk[agg].sharded, hosts[agg], ids, vals)
+            if (k + 1) % BF16_READ_EVERY == 0:
+                got = count(lambda: stk[agg].read_batch(q))
+                if not np.array_equal(got, host_loop_read(
+                        stk[agg].sharded, hosts[agg], q)):
+                    raise AssertionError(f"bf16 {agg} stack answers != the "
+                                         f"host loop's after batch {k}")
+    set_sparse("auto")
+    for agg in ("sum", "max"):
+        st = stk[agg].state
+        for i, name in enumerate(("values", "stamps", "head", "count")):
+            if not torch.equal(st.windows[i], torch.stack(
+                    [e.state.windows[i] for e in hosts[agg]])):
+                raise AssertionError(f"bf16 {agg} stack windows.{name} != "
+                                     f"the host loop's")
+        for name in ("pao", "now"):
+            if not torch.equal(getattr(st, name), torch.stack(
+                    [getattr(e.state, name) for e in hosts[agg]])):
+                raise AssertionError(f"bf16 {agg} stack {name} != the host "
+                                     f"loop's")
+    stacked_launches = dict(counted)
+    for k in ("sum_stacked_bf16", "max_stacked_bf16",
+              "sum_active_stacked_bf16", "max_active_stacked_bf16"):
+        if stacked_launches[k] <= 0:
+            raise AssertionError(f"the bf16 stack launched no {k}")
+    if any(stacked_launches[k] for k in fp32_keys):
+        raise AssertionError(f"the bf16 stack launched an fp32 instance: "
+                             f"{stacked_launches}")
+    print(f"9b stack: {SHARDS} shards, sum and max, {half} dense and "
+          f"{BF16_BATCHES - half} sparse write batches, {len(rounds)} read "
+          f"rounds: == the host loop of {SHARDS} single-shard bf16 engines "
+          f"bit for bit (windows, PAOs, clocks, answers); launches "
+          f"{stacked_launches}", flush=True)
+    report["stacked_launches"] = stacked_launches
+    del hosts
+    lap("stack")
+
+    # ---- 9c. held times at each entry's largest level, bf16 against fp32
+    rows = []
+    for key, top in tops.items():
+        agg, entry = key.split("_", 1)
+        stacked = entry in ("stacked", "active_stacked")
+        e = stk[agg] if stacked else eng[True][agg]
+        meta = e.meta if stacked else e.plan.meta
+        kw = dict(n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles)
+        row = bf16_timed(torch, ops, entry, agg, top, kw, stacked)
+        row["max_abs_err"] = checks[key]["max_abs_err"]
+        rows.append(row)
+        extra = "" if "level_reduce_fp32_held_ms" not in row else (
+            f"; fp32 _level_reduce {row['level_reduce_fp32_held_ms']:.5f} "
+            f"held")
+        print(f"  9c {agg}_{entry}_bf16 {row['side']} l={row['level']} "
+              f"S={row['shards']} live={row['n_live']}: {row['ms']:.4f} ms, "
+              f"held {row['held_ms']:.5f} against the fp32 instance's "
+              f"{row['fp32_held_ms']:.5f}{extra}; plain {row['plain_ms']:.4f}"
+              f" ms, library composition {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+    report["timed"] = rows
+    lap("times")
+    print(f"phase 9 seconds by part: {report['seconds_by_part']}",
           flush=True)
     return report
 
@@ -3373,6 +4117,11 @@ def main(argv=None) -> int:
     print(f"plans: {plans}", flush=True)
     report.update(session_build_s=build_session_s, register_s=reg_s,
                   plans=plans)
+    # phase 9 compiles these again in bf16 mode: each group's overlay and
+    # decisions as registered (the engines replace, never edit, them)
+    bf16_bases = {g.agg.name: (g.engine.overlay,
+                               np.array(g.engine.plan.decision))
+                  for g in session._groups.values()}
 
     # ---- 2b. kernels against their plain version at the main path's shapes
     level_rows = phase_kernels_full(torch, ops, ref, session, errs)
@@ -3511,6 +4260,14 @@ def main(argv=None) -> int:
     print(f"shards and checkpoints: {shards['seconds']:.1f} s", flush=True)
     report["shards"] = shards
 
+    # ---- 9. bf16 edge values on phase 3's overlay and decisions
+    t0 = time.perf_counter()
+    bf16 = phase_bf16(torch, ops, ref, bf16_bases, writers, readers, errs,
+                      out_dir)
+    bf16["seconds"] = time.perf_counter() - t0
+    print(f"bf16 edge values: {bf16['seconds']:.1f} s", flush=True)
+    report["bf16"] = bf16
+
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:
@@ -3602,6 +4359,30 @@ def main(argv=None) -> int:
         if shards["launches"][k] <= 0:
             raise AssertionError(f"segment_agg_{k} was not launched on "
                                  f"phase 8's path")
+    # the bf16 instances of the fused entries at phase 9's largest levels,
+    # F=1 (the dense entry at S = 1 is the single engine's bf16 dense
+    # level); launches from phase 9's counted runs: the single engines'
+    # dense and sparse runs, and the stack's
+    bf16_launches = {
+        "dense": bf16["single_launches"]["dense"],
+        "active": bf16["single_launches"]["sparse"],
+        "stacked": bf16["stacked_launches"],
+        "active_stacked": bf16["stacked_launches"]}
+    for row in bf16["timed"]:
+        entry, op = row["entry"], row["op"]
+        key = f"{op}_{'stacked' if entry == 'dense' else entry}_bf16"
+        n = bf16_launches[entry][key]
+        if n <= 0:
+            raise AssertionError(f"segment_agg_{key} was not launched on "
+                                 f"phase 9's {entry} path")
+        kernels.append(dict(
+            name=f"segment_agg_{op}_{entry}_bf16", route="cuda",
+            source=SOURCE, replaces=KERNELS[op][1], design=DESIGNS["bf16"],
+            launches=n, max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            held_ms=row["held_ms"], fp32_held_ms=row["fp32_held_ms"],
+            shards=row["shards"]))
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -28,8 +28,9 @@ def plan_from_reference(arrays: dict, objs: dict, device=None) -> ExecPlan:
     bookkeeping), appended and retired writer rows and its real depth. The
     port rebuilds its own patch bookkeeping on the first patch, from the
     unpruned overlay the caller passes the engine. The backend fields of
-    the JAX package's ``PlanMeta`` are dropped; bf16 edge values and the
-    'xla_unrolled' backend have no counterpart and raise."""
+    the JAX package's ``PlanMeta`` are dropped and its bf16 flag is kept
+    (a plan compiled with ``EAGR_SEGAGG_BF16=1`` stays in bf16 mode); the
+    'xla_unrolled' backend has no counterpart and raises."""
     return plan_from_snapshot(arrays, objs, device=device)
 
 

@@ -40,6 +40,11 @@ step bodies run every shard at once, each level one launch of the segment
 kernel's stacked entry over all shards; per shard they compute exactly what
 the single-engine bodies compute on that shard's slice.
 
+A plan compiled with ``EAGR_SEGAGG_BF16=1`` (``PlanMeta.bf16``, as in the
+JAX package) rounds each slot's edge value to bfloat16 before the level
+reduces it in fp32: every level of its steps runs a fused entry's bf16
+instance, a dense level the stacked dense entry at S = 1.
+
 Every step is deterministic on the card: float values are only combined by
 the segment kernel (fixed slot order) and by ``index_put_(accumulate=True)``
 (sorted indices, lane order); the other scatters write unique indices or
@@ -218,6 +223,8 @@ class PlanMeta:
     n_row_tiles: int
     depth: int           # real overlay depth: the step bodies' trip count;
                          # levels past it are all padding and are skipped
+    bf16: bool = False   # EAGR_SEGAGG_BF16: each slot's edge value is
+                         # rounded to bfloat16; reductions stay fp32
 
 
 @dataclasses.dataclass
@@ -354,9 +361,8 @@ def compile_plan(overlay: Overlay, decisions: np.ndarray, *,
                  pad: PlanPad | None = None, device=None) -> ExecPlan:
     """Compile the overlay + decisions into stacked level tables on
     ``device`` (CUDA unless the caller names another). The numpy tables are
-    bit-equal to the JAX package's."""
-    if os.environ.get("EAGR_SEGAGG_BF16", "0").strip() == "1":
-        raise not_ported("EAGR_SEGAGG_BF16 (bf16 edge values)", "12")
+    bit-equal to the JAX package's. ``EAGR_SEGAGG_BF16=1`` compiles a plan
+    in bf16 mode (``PlanMeta.bf16``), as the JAX package reads it."""
     device = resolve_device(device)
     pad = pad or PlanPad()
     level = overlay.levels()
@@ -401,6 +407,7 @@ def compile_plan(overlay: Overlay, decisions: np.ndarray, *,
         n_levels=L,
         n_row_tiles=max(1, -(-n_nodes // R_BLK)),
         depth=n_levels,
+        bf16=os.environ.get("EAGR_SEGAGG_BF16", "0").strip() == "1",
     )
     put = lambda a: torch.as_tensor(a, device=device)
     arrays = PlanArrays(
@@ -468,7 +475,16 @@ def _level_reduce(meta: PlanMeta, tables: LevelTables, l: int,
                   val: torch.Tensor, op: str) -> torch.Tensor:
     """Reduce-by-destination of one level's edge contributions gathered from
     ``val`` (n_nodes, F). Rows outside the level's touched set are undefined
-    — callers mask. op: 'sum' (signed) | 'max' | 'min' (as -max(-x))."""
+    — callers mask. op: 'sum' (signed) | 'max' | 'min' (as -max(-x)). A
+    bf16 plan's level is one call of the fused dense entry at S = 1, whose
+    bf16 instance rounds each gathered value (the only bf16 dense path)."""
+    if meta.bf16:
+        tabs = (tables.seg[l], tables.src[l], tables.sign[l],
+                tables.tile_of_block[l], tables.first_of_tile[l])
+        return segment_agg_level_stacked(
+            val.contiguous()[None], *(t[None] for t in tabs),
+            n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles, op=op,
+            bf16=True)[0]
     x = val.index_select(0, tables.src[l])
     if op == "sum":
         x = x * tables.sign[l][:, None]
@@ -515,7 +531,8 @@ def _level_reduce_active(meta: PlanMeta, tables: LevelTables, l: int,
     out, hit = segment_agg_active(
         val.contiguous(), tables.seg[l], tables.src[l], tables.sign[l],
         tables.tile_of_block[l], tables.first_of_tile[l], active_l,
-        n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles, op=op)
+        n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles, op=op,
+        bf16=meta.bf16)
     return out, tables.touched[l] & hit
 
 
@@ -704,7 +721,8 @@ def _stacked_levels(meta: PlanMeta, tables: LevelTables, active=None):
     (S, K) active-block lists (each shard's padded with the level's block
     count), each level one call of the fused active entry; levels no shard
     has an active block in are skipped."""
-    kw = dict(n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles)
+    kw = dict(n_rows=meta.n_nodes, n_row_tiles=meta.n_row_tiles,
+              bf16=meta.bf16)
     for l in range(meta.depth):
         tabs = (tables.seg[:, l], tables.src[:, l], tables.sign[:, l],
                 tables.tile_of_block[:, l], tables.first_of_tile[:, l])
@@ -870,27 +888,28 @@ def _map_to_pairs(m: dict[int, int]) -> np.ndarray:
 # its kernel by the tensors' device; a snapshot carries the values of the
 # JAX package's looped 'xla' backend, which its restore accepts anywhere.
 REFERENCE_BACKEND_META = {"unroll_levels": 0, "backend": "xla",
-                          "interpret": False, "bf16": False}
+                          "interpret": False}
 
 
 def _meta_to_snapshot(meta: PlanMeta) -> dict:
     """``PlanMeta`` in the JAX package's key set (its real depth travels as
-    the snapshot's ``depth``)."""
+    the snapshot's ``depth``), with the plan's own bf16 flag."""
     return {"n_nodes": meta.n_nodes, "n_writers": meta.n_writers,
             "n_levels": meta.n_levels,
             "unroll_levels": REFERENCE_BACKEND_META["unroll_levels"],
             "n_row_tiles": meta.n_row_tiles,
             **{k: v for k, v in REFERENCE_BACKEND_META.items()
-               if k != "unroll_levels"}}
+               if k != "unroll_levels"},
+            "bf16": bool(meta.bf16)}
 
 
 def _meta_from_snapshot(meta: dict, depth: int) -> PlanMeta:
     """A snapshot's meta dict, in the JAX package's key set or the port's,
-    as a ``PlanMeta``: the backend fields are dropped (bf16 edge values and
-    the unrolled backend have no counterpart and raise)."""
+    as a ``PlanMeta``: the backend fields are dropped, the bf16 flag kept
+    (a snapshot without one is fp32), and plans of the unrolled backend,
+    which has no counterpart, raise."""
     meta = dict(meta)
-    if meta.get("bf16"):
-        raise not_ported("EAGR_SEGAGG_BF16 (bf16 edge values)", "12")
+    meta["bf16"] = bool(meta.get("bf16", False))
     if meta.get("unroll_levels"):
         raise ValueError("plans of the 'xla_unrolled' backend have no "
                          "counterpart in the port; compile with 'xla' or "

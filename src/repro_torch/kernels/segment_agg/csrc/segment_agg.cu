@@ -163,7 +163,19 @@
 // gathered values (val[src] * sign for sum, val[src] for max, -val[src]
 // then negated for min), which is what the engine's single-shard level
 // computes.
+//
+// bf16 edge values (the JAX package's EAGR_SEGAGG_BF16 mode). Both fused
+// entries take a bf16 flag, which picks their BF16 instance: each slot's
+// value, val[src] * sign for sum (after the multiply) or val[src] for max
+// and min (before min's negation), is rounded to bfloat16, to nearest even,
+// and then reduced in fp32 exactly as above. The rounding has one site,
+// GatherSlots::at, so every entry, dense or active, one shard or S, rounds
+// the same slots the same way, and a bf16 sparse level stays bit-equal to
+// the bf16 dense one. The TPU kernel streams x into VMEM as bf16 for block
+// headroom; here the values never reach memory as x, and `val` stays fp32
+// state, so the bytes bound is the fp32 instance's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <mutex>
@@ -254,9 +266,10 @@ struct DenseSlots {
 // memory (st: seg at [0, 256), src at [256, 512), sign's bits at
 // [512, 768)); slot s's feature j is val[src[s]] * sign[s] (sum; an
 // unfused multiply, as the engine's gather rounds it), val[src[s]] (max)
-// or -val[src[s]] (min). mark() sets the row mask of the block's live
-// slots when hit is given.
-template <int OP>
+// or -val[src[s]] (min); BF16 rounds the value (after the multiply, before
+// the negation) to bfloat16, to nearest even. mark() sets the row mask of
+// the block's live slots when hit is given.
+template <int OP, bool BF16>
 struct GatherSlots {
   const float* __restrict__ val;
   const int* st;
@@ -264,8 +277,9 @@ struct GatherSlots {
   int F;
   __device__ __forceinline__ int seg(int s) const { return st[s]; }
   __device__ __forceinline__ float at(int s, int j) const {
-    const float v = __ldg(val + static_cast<size_t>(st[E_BLK + s]) * F + j);
-    if (OP == OP_SUM) return __fmul_rn(v, __int_as_float(st[2 * E_BLK + s]));
+    float v = __ldg(val + static_cast<size_t>(st[E_BLK + s]) * F + j);
+    if (OP == OP_SUM) v = __fmul_rn(v, __int_as_float(st[2 * E_BLK + s]));
+    if (BF16) v = __bfloat162float(__float2bfloat16_rn(v));
     return OP == OP_MIN ? -v : v;
   }
   __device__ __forceinline__ void mark(int row0,
@@ -979,7 +993,7 @@ __device__ __forceinline__ void fold_pieces(const PieceRec* s_pc, int npc,
 // other piece to part (its window's two slots, see ActiveArgs), then
 // settles the tickets of its at most two non-direct pieces and combines
 // the runs it completes (see the header).
-template <int FC, int OP>
+template <int FC, int OP, bool BF16>
 __global__ void __launch_bounds__((FC == 32 ? FEAT_WARPS : ACT_SLOT_WARPS) *
                                   32)
 segment_agg_active_kernel(const ActiveArgs p) {
@@ -1089,8 +1103,8 @@ segment_agg_active_kernel(const ActiveArgs p) {
       const int tile = s_tob[s_ent[i] - w0];
       bool live = false;
       if (tile >= 0 && tile < n_row_tiles) {
-        const GatherSlots<OP> slots{val, stage + i * STAGE,
-                                    f0 == 0 ? hit : nullptr, F};
+        const GatherSlots<OP, BF16> slots{val, stage + i * STAGE,
+                                          f0 == 0 ? hit : nullptr, F};
         if (FEAT) {
           live = feature_block<MX>(slots, tile * R_BLK, F, f0 + lane, copy,
                                    sl, lane);
@@ -1175,7 +1189,7 @@ struct DenseArgs {
 // reduced, each piece folds its live blocks in block order, and the CTA
 // settles the tickets of its at most two non-direct pieces and combines
 // the runs it completes.
-template <int FC, int OP>
+template <int FC, int OP, bool BF16>
 __global__ void __launch_bounds__((FC == 32 ? FEAT_WARPS : ACT_SLOT_WARPS) *
                                   32)
 segment_agg_dense_stacked_kernel(const DenseArgs p) {
@@ -1248,8 +1262,8 @@ segment_agg_dense_stacked_kernel(const DenseArgs p) {
     int* st = stage + i * STAGE;
     int loc[E_BLK / 32];
     if (tile < 0 || tile >= n_row_tiles ||
-        !block_rows(GatherSlots<OP>{val, st, nullptr, F}, tile * R_BLK, lane,
-                    loc)) {
+        !block_rows(GatherSlots<OP, BF16>{val, st, nullptr, F}, tile * R_BLK,
+                    lane, loc)) {
       continue;
     }
     mine |= 1u << m;
@@ -1280,7 +1294,7 @@ segment_agg_dense_stacked_kernel(const DenseArgs p) {
       for (int j = lane; j < COPY; j += 32) copy[j] = identity<MX>();
       __syncwarp();
       const int row0 = s_tob[i] * R_BLK;
-      const GatherSlots<OP> slots{val, stage + i * STAGE, nullptr, F};
+      const GatherSlots<OP, BF16> slots{val, stage + i * STAGE, nullptr, F};
       bool live;
       if (FEAT) {
         live = feature_block<MX>(slots, row0, F, f0 + lane, copy, sl, lane);
@@ -1393,13 +1407,13 @@ int launch(const void* x, const void* seg, const void* tob, const void* fot,
 }
 
 // The fused entries' kernels by their arguments' type.
-template <int FC, int OP>
+template <int FC, int OP, bool BF16>
 auto fused_kernel(const ActiveArgs&) {
-  return segment_agg_active_kernel<FC, OP>;
+  return segment_agg_active_kernel<FC, OP, BF16>;
 }
-template <int FC, int OP>
+template <int FC, int OP, bool BF16>
 auto fused_kernel(const DenseArgs&) {
-  return segment_agg_dense_stacked_kernel<FC, OP>;
+  return segment_agg_dense_stacked_kernel<FC, OP, BF16>;
 }
 
 // A fused entry's launch: one kernel, grid (grid_x, 1, n_shards), the
@@ -1410,13 +1424,13 @@ struct LaunchFused {
   const Args& a;
   int grid_x, n_shards;
   cudaStream_t st;
-  template <int FC, int OP>
+  template <int FC, int OP, bool BF16>
   cudaError_t go() const {
     constexpr int NWK = FC == 32 ? FEAT_WARPS : ACT_SLOT_WARPS;
     static SmemLimit lim;  // one per kernel instance
     const int smem = a.win * (FC * R_BLK + 3 * E_BLK) * 4 +
                      (FC == 32 ? NWK * E_BLK * 4 : NWK * 32 * (FC + 1) * 4);
-    const auto kernel = fused_kernel<FC, OP>(a);
+    const auto kernel = fused_kernel<FC, OP, BF16>(a);
     const cudaError_t err = allow_smem(kernel, smem, lim);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(grid_x, 1, n_shards), NWK * 32, smem, st>>>(a);
@@ -1424,21 +1438,26 @@ struct LaunchFused {
   }
 };
 
-// l.go<FC, OP>() for the op code and F: FC = 1, 2, 4 (slot lanes) or 32
-// (feature lanes).
-template <int OP, class L>
+// l.go<FC, OP, BF16>() for the op code, the bf16 flag and F: FC = 1, 2, 4
+// (slot lanes) or 32 (feature lanes).
+template <int OP, bool BF16, class L>
 cudaError_t by_features(int F, const L& l) {
-  if (F == 1) return l.template go<1, OP>();
-  if (F == 2) return l.template go<2, OP>();
-  if (F <= 4) return l.template go<4, OP>();
-  return l.template go<32, OP>();
+  if (F == 1) return l.template go<1, OP, BF16>();
+  if (F == 2) return l.template go<2, OP, BF16>();
+  if (F <= 4) return l.template go<4, OP, BF16>();
+  return l.template go<32, OP, BF16>();
+}
+
+template <bool BF16, class L>
+cudaError_t by_op_of(int op, int F, const L& l) {
+  if (op == OP_SUM) return by_features<OP_SUM, BF16>(F, l);
+  if (op == OP_MAX) return by_features<OP_MAX, BF16>(F, l);
+  return by_features<OP_MIN, BF16>(F, l);
 }
 
 template <class L>
-cudaError_t by_op(int op, int F, const L& l) {
-  if (op == OP_SUM) return by_features<OP_SUM>(F, l);
-  if (op == OP_MAX) return by_features<OP_MAX>(F, l);
-  return by_features<OP_MIN>(F, l);
+cudaError_t by_op(int op, int bf16, int F, const L& l) {
+  return bf16 ? by_op_of<true>(op, F, l) : by_op_of<false>(op, F, l);
 }
 
 }  // namespace
@@ -1467,7 +1486,8 @@ extern "C" int segment_agg_max_f32(const void* x, const void* seg,
 }
 
 // The active entry, S = n_shards shards in one launch (1: single shard).
-// op 0 sum, 1 max, 2 min. val (S, n_val, F) f32; seg, src (i32) and sign
+// op 0 sum, 1 max, 2 min; bf16 != 0 rounds each slot's value to bfloat16
+// before it is reduced (the BF16 instance). val (S, n_val, F) f32; seg, src (i32) and sign
 // (f32) n_blocks*256 a shard, shard z's at + z * seg_stride, 16-byte
 // aligned (seg_stride a multiple of 4); tob/fot n_blocks a shard at
 // + z * blk_stride; active (S, n_active) i32 ascending block indices padded
@@ -1483,7 +1503,7 @@ extern "C" int segment_agg_max_f32(const void* x, const void* seg,
 // and hit is 1 exactly on those rows. Launches on `stream`, does not
 // synchronize, and returns cudaGetLastError() (0 on success).
 extern "C" int segment_agg_active_f32(
-    int op, const void* val, long long n_val, const void* seg,
+    int op, int bf16, const void* val, long long n_val, const void* seg,
     const void* src, const void* sign, const void* tob, const void* fot,
     const void* active, int n_active, int n_slot, void* out, void* hit,
     void* part, void* flag, void* ticket, void* run, int n_blocks, int F,
@@ -1527,11 +1547,12 @@ extern "C" int segment_agg_active_f32(
       hit, 0, static_cast<size_t>(n_shards) * n_row_tiles * R_BLK, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      by_op(op, F, LaunchFused<ActiveArgs>{a, n_active, n_shards, st}));
+      by_op(op, bf16, F, LaunchFused<ActiveArgs>{a, n_active, n_shards, st}));
 }
 
 // The stacked dense entry: a dense level of S = n_shards aligned shards in
-// one kernel launch. op 0 sum, 1 max, 2 min. val (S, n_val, F) f32; seg,
+// one kernel launch. op 0 sum, 1 max, 2 min; bf16 != 0 picks the BF16
+// instance, as in the active entry. val (S, n_val, F) f32; seg,
 // src (i32) and sign (f32) n_blocks*256 a shard, shard z's at
 // + z * seg_stride, 16-byte aligned (seg_stride a multiple of 4); tob/fot
 // n_blocks a shard at + z * blk_stride (a level of stacked (S, L, ...)
@@ -1545,7 +1566,7 @@ extern "C" int segment_agg_active_f32(
 // Launches on `stream`, does not synchronize, and returns
 // cudaGetLastError() (0 on success).
 extern "C" int segment_agg_dense_stacked_f32(
-    int op, const void* val, long long n_val, const void* seg,
+    int op, int bf16, const void* val, long long n_val, const void* seg,
     const void* src, const void* sign, const void* tob, const void* fot,
     void* out, void* part, void* flag, void* ticket, void* run,
     int n_blocks, int F, int n_row_tiles, int win, int n_shards,
@@ -1575,6 +1596,6 @@ extern "C" int segment_agg_dense_stacked_f32(
                     n_row_tiles,
                     win};
   return static_cast<int>(by_op(
-      op, F, LaunchFused<DenseArgs>{a, (n_blocks + win - 1) / win, n_shards,
+      op, bf16, F, LaunchFused<DenseArgs>{a, (n_blocks + win - 1) / win, n_shards,
                                     static_cast<cudaStream_t>(stream)}));
 }

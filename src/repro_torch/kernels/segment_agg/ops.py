@@ -15,8 +15,12 @@ level of S aligned shards in one launch (the stacked shard engine,
 ``distributed/stacked.py``). Each picks
 the implementation by the tensors' device: CUDA tensors launch the
 hand-written kernel in ``csrc/segment_agg.cu`` (or raise), CPU tensors run
-the plain PyTorch version in ``ref.py``. ``LAUNCHES`` counts kernel launches per entry, so a
-run can show that its path went through the kernel.
+the plain PyTorch version in ``ref.py``. The three fused entries take
+``bf16``: each slot's edge value is rounded to bfloat16 (to nearest even)
+before it is reduced in fp32, the JAX package's ``EAGR_SEGAGG_BF16`` mode;
+on the card that is the kernel's own ``BF16`` instance. ``LAUNCHES`` counts
+kernel launches per entry (the bf16 instances under their own ``*_bf16``
+keys), so a run can show that its path went through the kernel.
 
 ``patch_level``, ``scatter_slots``, ``scatter_rows`` and ``tile_occupancy``
 edit and measure the stacked level tables in place, for the plan patch path
@@ -52,7 +56,10 @@ RUN_CHUNK_MIN, RUN_CHUNK_MAX, RUN_WINDOWS = 4, 16, 256
 # path never counts)
 LAUNCHES = {"sum": 0, "max": 0, "sum_active": 0, "max_active": 0,
             "sum_stacked": 0, "max_stacked": 0, "sum_active_stacked": 0,
-            "max_active_stacked": 0}
+            "max_active_stacked": 0, "sum_active_bf16": 0,
+            "max_active_bf16": 0, "sum_stacked_bf16": 0,
+            "max_stacked_bf16": 0, "sum_active_stacked_bf16": 0,
+            "max_active_stacked_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -484,14 +491,17 @@ def segment_agg_level(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
 
 # ------------------------------------------------------------ fused entries
 # op codes of the fused C entries (``segment_agg_active_f32``,
-# ``segment_agg_dense_stacked_f32``); min runs the max kernel's arithmetic
-# on negated values, so it counts as a max launch
+# ``segment_agg_dense_stacked_f32``, each taking the op and then a bf16
+# flag); min runs the max kernel's arithmetic on negated values, so it
+# counts as a max launch
 _OPS = {"sum": 0, "max": 1, "min": 2}
-_ACTIVE_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+_ACTIVE_ARGTYPES = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_longlong]
                     + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                     + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                     + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
-_DENSE_STACKED_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+_DENSE_STACKED_ARGTYPES = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_longlong]
                            + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
 # the fused entries' scratch, per (device, stream): part (float32) and flag
@@ -551,13 +561,14 @@ def _check_fused(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
         raise ValueError(f"n_rows={n_rows} outside (0, {n_row_tiles}*{R_BLK}]")
 
 
-def _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
+def _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op, bf16,
                   active=None, strides=(0, 0)):
-    """One launch of a fused entry: the active entry with ``active``, else
-    the stacked dense entry; one shard (1-D tables) or S shards (val
-    (S, n, F), active (S, K), the tables' shard ``strides`` (seg/src/sign,
-    tob/fot) in elements). Returns out (and for the active entry hit) with
-    a leading shard axis and every row tile."""
+    """One launch of a fused entry, its bf16 instance with ``bf16``: the
+    active entry with ``active``, else the stacked dense entry; one shard
+    (1-D tables) or S shards (val (S, n, F), active (S, K), the tables'
+    shard ``strides`` (seg/src/sign, tob/fot) in elements). Returns out
+    (and for the active entry hit) with a leading shard axis and every row
+    tile."""
     S = val.shape[0] if val.ndim == 3 else 1
     n_val, F = val.shape[-2], val.shape[-1]
     n_blocks = tob.shape[-1]
@@ -577,9 +588,9 @@ def _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
         part, flag, ticket, run = _scratch(
             dev, stream, S * 2 * n_slot * R_BLK * F, S * 2 * n_slot,
             S * n_row_tiles, S * 3 * n_row_tiles)
-        head = (_OPS[op], val.data_ptr(), n_val, seg.data_ptr(),
-                src.data_ptr(), sign.data_ptr(), tob.data_ptr(),
-                fot.data_ptr())
+        head = (_OPS[op], int(bool(bf16)), val.data_ptr(), n_val,
+                seg.data_ptr(), src.data_ptr(), sign.data_ptr(),
+                tob.data_ptr(), fot.data_ptr())
         shape = (n_blocks, F, n_row_tiles, win, S, *strides, stream)
         scratch = (part.data_ptr(), flag.data_ptr(), ticket.data_ptr(),
                    run.data_ptr())
@@ -596,9 +607,16 @@ def _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
                 out.data_ptr(), hit.data_ptr(), *scratch, *shape)
     if rc != 0:
         entry = "dense_stacked" if active is None else "active"
-        raise RuntimeError(f"segment_agg_{entry} ({op}) kernel launch "
-                           f"failed: CUDA error {rc}")
+        raise RuntimeError(f"segment_agg_{entry} ({op}{', bf16' * bf16}) "
+                           f"kernel launch failed: CUDA error {rc}")
     return out, hit
+
+
+def _count(op: str, entry: str, bf16: bool) -> None:
+    """One launch of a fused entry's kernel in ``LAUNCHES``: min counts as
+    max, a bf16 instance under its ``_bf16`` key."""
+    key = f"{'sum' if op == 'sum' else 'max'}_{entry}"
+    LAUNCHES[key + "_bf16" if bf16 else key] += 1
 
 
 # ------------------------------------------------------------ the active entry
@@ -606,7 +624,8 @@ def segment_agg_active(val: torch.Tensor, seg: torch.Tensor,
                        src: torch.Tensor, sign: torch.Tensor,
                        tob: torch.Tensor, fot: torch.Tensor,
                        active: torch.Tensor, *, n_rows: int,
-                       n_row_tiles: int, op: str = "sum"):
+                       n_row_tiles: int, op: str = "sum",
+                       bf16: bool = False):
     """One frontier-sparse level in one call: over the level's active
     blocks, each live slot's value gathered from ``val`` (n_val, F) float32
     by ``src``, times ``sign`` for sum, reduced by ``seg``; op ``"sum"``,
@@ -620,17 +639,20 @@ def segment_agg_active(val: torch.Tensor, seg: torch.Tensor,
     bit-equal to ``segment_agg_level`` over the level's gathered values
     with the other blocks' set to the op's identity, rows of tiles with no
     active block undefined on the card (unwritten), so callers mask; ``hit``
-    (n_rows,) bool, the rows with an active live slot. CUDA tensors launch
-    the fused kernel (one launch; ``LAUNCHES["sum_active"]``, or
-    ``["max_active"]`` for max and min), CPU tensors run the plain
+    (n_rows,) bool, the rows with an active live slot. ``bf16`` rounds
+    each slot's value (after the sign, before min's negation) to bfloat16
+    before it is reduced. CUDA tensors launch the fused kernel (one launch;
+    ``LAUNCHES["sum_active"]``, or ``["max_active"]`` for max and min, with
+    ``_bf16`` appended for the bf16 instance), CPU tensors run the plain
     version."""
     _check_fused(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
                  active)
     if not _on_cuda("segment_agg_active", val):
-        return segment_agg_active_ref(val, seg, src, sign, active, n_rows, op)
+        return segment_agg_active_ref(val, seg, src, sign, active, n_rows, op,
+                                      bf16)
     out, hit = _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
-                             active)
-    LAUNCHES["sum_active" if op == "sum" else "max_active"] += 1
+                             bf16, active)
+    _count(op, "active", bf16)
     return out[0, :n_rows], hit[0, :n_rows]
 
 
@@ -669,7 +691,8 @@ def segment_agg_level_stacked(val: torch.Tensor, seg: torch.Tensor,
                               src: torch.Tensor, sign: torch.Tensor,
                               tob: torch.Tensor, fot: torch.Tensor, *,
                               n_rows: int, n_row_tiles: int,
-                              op: str = "sum") -> torch.Tensor:
+                              op: str = "sum",
+                              bf16: bool = False) -> torch.Tensor:
     """One dense level of S aligned shards in one call: for each shard s,
     each live slot's value gathered from ``val[s]`` by ``src[s]``, times
     ``sign[s]`` for sum, reduced by ``seg[s]``; op ``"sum"``, ``"max"`` or
@@ -683,15 +706,19 @@ def segment_agg_level_stacked(val: torch.Tensor, seg: torch.Tensor,
     (``val[s][src[s]] * sign[s]`` for sum, ``val[s][src[s]]`` for max,
     ``-val[s][src[s]]`` negated back for min) bit for bit; rows of tiles no
     block visits are undefined on the card (unwritten), so callers mask.
-    CUDA tensors launch the fused kernel once for all shards
-    (``LAUNCHES["sum_stacked"]``, or ``["max_stacked"]`` for max and min),
-    CPU tensors run the plain version shard by shard."""
+    ``bf16`` rounds each gathered (and signed) value to bfloat16 before it
+    is reduced, as ``segment_agg_active`` does; at S = 1 it is the single
+    engine's dense level in bf16 mode. CUDA tensors launch the fused kernel
+    once for all shards (``LAUNCHES["sum_stacked"]``, or ``["max_stacked"]``
+    for max and min, with ``_bf16`` appended for the bf16 instance), CPU
+    tensors run the plain version shard by shard."""
     _check_stacked(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op)
     if not _on_cuda("segment_agg_level_stacked", val):
-        return segment_agg_level_stacked_ref(val, seg, src, sign, n_rows, op)
+        return segment_agg_level_stacked_ref(val, seg, src, sign, n_rows, op,
+                                             bf16)
     out, _ = _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
-                           strides=(seg.stride(0), tob.stride(0)))
-    LAUNCHES["sum_stacked" if op == "sum" else "max_stacked"] += 1
+                           bf16, strides=(seg.stride(0), tob.stride(0)))
+    _count(op, "stacked", bf16)
     return out[:, :n_rows]
 
 
@@ -699,7 +726,8 @@ def segment_agg_active_stacked(val: torch.Tensor, seg: torch.Tensor,
                                src: torch.Tensor, sign: torch.Tensor,
                                tob: torch.Tensor, fot: torch.Tensor,
                                active: torch.Tensor, *, n_rows: int,
-                               n_row_tiles: int, op: str = "sum"):
+                               n_row_tiles: int, op: str = "sum",
+                               bf16: bool = False):
     """``segment_agg_active`` over one level of S aligned shards at once:
     ``val`` (S, n_val, F) contiguous, ``seg``/``src``/``sign`` (S, e_pad)
     and ``tob``/``fot`` (S, n_blocks) a level of the stacked tables
@@ -707,17 +735,17 @@ def segment_agg_active_stacked(val: torch.Tensor, seg: torch.Tensor,
     stride), ``active`` (S, K) int32, each shard's ascending active blocks
     padded at the end with ``n_blocks`` to the widest shard's K. Returns
     ``(out (S, n_rows, F), hit (S, n_rows))``; shard s equals
-    ``segment_agg_active`` on shard s's slices, bit for bit. CUDA tensors
-    launch the fused kernel once for all shards
-    (``LAUNCHES["{sum,max}_active_stacked"]``), CPU tensors run the plain
-    version shard by shard."""
+    ``segment_agg_active`` on shard s's slices (``bf16`` included), bit
+    for bit. CUDA tensors launch the fused kernel once for all shards
+    (``LAUNCHES["{sum,max}_active_stacked"]``, with ``_bf16`` appended for
+    the bf16 instance), CPU tensors run the plain version shard by
+    shard."""
     _check_stacked(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
                    active)
     if not _on_cuda("segment_agg_active_stacked", val):
         return segment_agg_active_stacked_ref(val, seg, src, sign, active,
-                                              n_rows, op)
+                                              n_rows, op, bf16)
     out, hit = _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
-                             active, (seg.stride(0), tob.stride(0)))
-    LAUNCHES["sum_active_stacked" if op == "sum"
-             else "max_active_stacked"] += 1
+                             bf16, active, (seg.stride(0), tob.stride(0)))
+    _count(op, "active_stacked", bf16)
     return out[:, :n_rows], hit[:, :n_rows]

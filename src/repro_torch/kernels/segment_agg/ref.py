@@ -2,12 +2,22 @@
 
 The wrapper in ``ops.py`` runs these for CPU tensors; on the card they are
 only the yardstick the CUDA kernel is compared with.
+
+The fused versions take ``bf16``: each slot's edge value (``val[src] *
+sign`` for sum, ``val[src]`` for max and min) is rounded to bfloat16, to
+nearest even, before its row reduces it in fp32, as the JAX package's
+``EAGR_SEGAGG_BF16`` mode does (``_round_bf16``).
 """
 from __future__ import annotations
 
 import torch
 
 NEG = -3.0e38  # the kernel's max identity
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to bfloat16 (to nearest even) and back."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def segment_agg_ref(x: torch.Tensor, seg: torch.Tensor, n_rows: int,
@@ -46,7 +56,7 @@ def segment_agg_level_ref(x: torch.Tensor, seg: torch.Tensor, n_rows: int,
 def segment_agg_active_ref(val: torch.Tensor, seg: torch.Tensor,
                            src: torch.Tensor, sign: torch.Tensor,
                            active: torch.Tensor, n_rows: int,
-                           op: str = "sum"):
+                           op: str = "sum", bf16: bool = False):
     """One frontier-sparse level, fused: over the blocks ``active`` (K,)
     names (entries past the level's block count are padding, their slots
     dropped), gather each slot's values ``val[src]`` (n_val, F), times
@@ -68,7 +78,9 @@ def segment_agg_active_ref(val: torch.Tensor, seg: torch.Tensor,
     x = val.index_select(0, src.view(nb, E_BLK)[ab].reshape(-1).long())
     if op == "sum":
         x = x * sign.view(nb, E_BLK)[ab].reshape(-1)[:, None]
-    elif op == "min":
+    if bf16:
+        x = _round_bf16(x)
+    if op == "min":
         x = -x
     out = segment_agg_level_ref(x, seg_c, n_rows,
                                 "sum" if op == "sum" else "max")
@@ -79,12 +91,13 @@ def segment_agg_active_ref(val: torch.Tensor, seg: torch.Tensor,
 
 def segment_agg_level_stacked_ref(val: torch.Tensor, seg: torch.Tensor,
                                   src: torch.Tensor, sign: torch.Tensor,
-                                  n_rows: int, op: str = "sum"
-                                  ) -> torch.Tensor:
+                                  n_rows: int, op: str = "sum",
+                                  bf16: bool = False) -> torch.Tensor:
     """One dense level of S shards, shard by shard: gather each slot's
     values ``val[s][src[s]]`` (val (S, n_val, F)), times ``sign[s]`` for
     sum, negated for min, then ``segment_agg_level_ref`` by ``seg[s]``
-    (seg, src and sign (S, e_pad)); min is ``-max(-x)``. Returns
+    (seg, src and sign (S, e_pad)); min is ``-max(-x)``; ``bf16`` rounds
+    each slot's value as ``segment_agg_active_ref`` does. Returns
     (S, n_rows, F)."""
     if op not in ("sum", "max", "min"):
         raise ValueError(f"unknown op {op!r}; choose 'sum', 'max' or 'min'")
@@ -93,7 +106,9 @@ def segment_agg_level_stacked_ref(val: torch.Tensor, seg: torch.Tensor,
         x = val[s].index_select(0, src[s].long())
         if op == "sum":
             x = x * sign[s][:, None]
-        elif op == "min":
+        if bf16:
+            x = _round_bf16(x)
+        if op == "min":
             x = -x
         out = segment_agg_level_ref(x, seg[s], n_rows,
                                     "sum" if op == "sum" else "max")
@@ -104,12 +119,12 @@ def segment_agg_level_stacked_ref(val: torch.Tensor, seg: torch.Tensor,
 def segment_agg_active_stacked_ref(val: torch.Tensor, seg: torch.Tensor,
                                    src: torch.Tensor, sign: torch.Tensor,
                                    active: torch.Tensor, n_rows: int,
-                                   op: str = "sum"):
+                                   op: str = "sum", bf16: bool = False):
     """``segment_agg_active_ref`` shard by shard: val (S, n_val, F), seg,
     src and sign (S, e_pad), active (S, K). Returns ``(out (S, n_rows, F),
     hit (S, n_rows))``."""
     outs, hits = zip(*(
         segment_agg_active_ref(val[s], seg[s], src[s], sign[s], active[s],
-                               n_rows, op)
+                               n_rows, op, bf16)
         for s in range(val.shape[0])))
     return torch.stack(outs), torch.stack(hits)

@@ -273,19 +273,30 @@ def test_convert_rejects_unrolled_plans(world):
 
 # ------------------------------------------------------------ out of slice
 def test_features_outside_the_slice_raise(world, monkeypatch):
-    """bf16 edge values (item 12) still raise, in a plan the JAX package
-    made and in a compile; sparse steps, apply_delta and adopt_decisions
-    (items 5 and 6) are checked in tests/test_torch_frontier.py and
-    test_torch_plan_patch.py, alerts (item 8) in test_torch_alerts.py."""
+    """bf16 edge values (item 12) no longer raise: a plan the JAX package
+    made in bf16 mode converts with its flag, a compile under
+    ``EAGR_SEGAGG_BF16=1`` carries it, and its snapshot writes it in the
+    JAX package's key set (answers in tests/test_torch_bf16.py). Sparse
+    steps, apply_delta and adopt_decisions (items 5 and 6) are checked in
+    tests/test_torch_frontier.py and test_torch_plan_patch.py, alerts
+    (item 8) in test_torch_alerts.py."""
     ref, port = _engines(world, "sum", {}, "tuple", 1, headroom=None)
+    assert port.plan.meta.bf16 is False
+    assert TE.plan_snapshot(port.plan)[1]["meta"]["bf16"] is False
     arrays, objs = RE.plan_snapshot(ref.plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.plan_from_reference(
-            arrays, {**objs, "meta": {**objs["meta"], "bf16": True}},
-            device="cpu")
+    pt = convert.plan_from_reference(
+        arrays, {**objs, "meta": {**objs["meta"], "bf16": True}},
+        device="cpu")
+    assert pt.meta.bf16 is True
     monkeypatch.setenv("EAGR_SEGAGG_BF16", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.compile_plan(world["ov_t"], port.plan.decision)
+    pc = TE.compile_plan(world["ov_t"], port.plan.decision, device="cpu")
+    assert pc.meta.bf16 is True
+    meta = TE.plan_snapshot(pc)[1]["meta"]
+    assert meta["bf16"] is True
+    assert list(meta) == list(objs["meta"])
+    monkeypatch.setenv("EAGR_SEGAGG_BF16", "0")
+    pr = RE.compile_plan(world["ov_r"], port.plan.decision, backend="xla")
+    assert pr.meta.bf16 is False
 
 
 def test_engine_rejects_negative_edges_for_max(world):

@@ -191,26 +191,7 @@ def test_no_silent_cpu_in_entry_points(entry, monkeypatch):
         call()
 
 
-def _bf16(mp):
-    mp.setenv("EAGR_SEGAGG_BF16", "1")
-
-
-def _bf16_meta(s, h):
-    arrays, objs = TE.plan_snapshot(h.group.engine.plan)
-    return arrays, {**objs, "meta": {**objs["meta"], "bf16": True}}
-
-
 @pytest.mark.parametrize("call", [
-    lambda s, h, d, mp: (_bf16(mp), s.register(Query(agg="max"))),
-    lambda s, h, d, mp: (_bf16(mp), EagrSession(
-        small_example_graph(), device="cpu", shards=2).register(
-            Query(agg="sum"))),
-    lambda s, h, d, mp: (_bf16(mp), EagrSession.restore(d, shards=2,
-                                                        device="cpu")),
-    lambda s, h, d, mp: TE.plan_from_snapshot(*_bf16_meta(s, h),
-                                              device="cpu"),
-    lambda s, h, d, mp: convert.plan_from_reference(*_bf16_meta(s, h),
-                                                    device="cpu"),
     lambda s, h, d, mp: get_arch("command-r-plus-104b"),
     lambda s, h, d, mp: get_arch("arctic-480b"),
     lambda s, h, d, mp: get_arch("dbrx-132b"),
@@ -224,14 +205,13 @@ def _bf16_meta(s, h):
                                                      device="cpu"),
 ])
 def test_features_outside_the_slice_raise(call, tmp_path, monkeypatch):
-    """bf16 edge values (item 12) raise in a compile — a session's, a
-    sharded session's, a resharding restore's — and in a plan snapshot
-    that asks for them; the archs and training shapes of item 13 raise.
-    Shards and checkpoints (items 10 and 9) work now: they are checked in
-    tests/test_torch_{stacked,checkpoint,fault}.py; churn, flush and
-    adaptation (items 5 and 6) against the reference below, ingest and
-    alerts (items 7 and 8) in tests/test_torch_ingest.py and
-    tests/test_torch_alerts.py."""
+    """The archs and training shapes of item 13 raise. Every other item
+    works: bf16 edge values (item 12) in sessions, sharded sessions,
+    snapshots and restores in tests/test_torch_bf16.py; shards and
+    checkpoints (items 10 and 9) in tests/test_torch_{stacked,checkpoint,
+    fault}.py; churn, flush and adaptation (items 5 and 6) against the
+    reference below, ingest and alerts (items 7 and 8) in
+    tests/test_torch_ingest.py and tests/test_torch_alerts.py."""
     s = EagrSession(small_example_graph(), device="cpu")
     h = s.register(Query(agg="sum"))
     s.update(np.arange(7), np.ones(7, np.float32))
