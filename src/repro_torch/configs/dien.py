@@ -6,7 +6,7 @@ Shapes:
   train_batch     batch=65,536   train step (not ported)
   serve_p99       batch=512      online CTR scoring
   serve_bulk      batch=262,144  offline scoring
-  retrieval_cand  batch=1, n_candidates=1,000,000  (not ported)
+  retrieval_cand  batch=1, n_candidates=1,000,000
 """
 from __future__ import annotations
 
@@ -50,17 +50,30 @@ def rand_rank_batch(gen: torch.Generator, cfg: m.DIENConfig, B: int):
 
 
 def build_smoke(shape: str, device=None) -> dict:
-    """The inputs of the JAX package's reduced serve cell on ``device``
-    (CUDA unless the caller names another): ``cfg`` (``SMOKE_CFG``),
-    ``params`` and a ``batch`` of 8."""
+    """The inputs of the JAX package's reduced cells on ``device`` (CUDA
+    unless the caller names another): ``cfg`` (``SMOKE_CFG``), ``params``
+    and a ``batch``: 8 users for a serve shape; for ``retrieval_cand`` one
+    user without a target and 512 candidates (``cand_items``,
+    ``cand_cats``)."""
     kind = SHAPE_DEFS[shape]["kind"]
     if kind == "train":
         raise not_ported("DIEN training (train_batch)", "13")
-    if kind == "retrieval":
-        raise not_ported("DIEN retrieval scoring (retrieval_cand)", "13")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = init_from_specs(m.param_specs(SMOKE_CFG), gen)
-    batch = rand_rank_batch(gen, SMOKE_CFG, 8)
+    if kind == "serve":
+        batch = rand_rank_batch(gen, SMOKE_CFG, 8)
+        return dict(cfg=SMOKE_CFG, params=params, batch=batch)
+    batch = rand_rank_batch(gen, SMOKE_CFG, 1)
+    del batch["target_item"], batch["target_cat"]
+    batch.update(rand_candidates(gen, SMOKE_CFG, 512))
     return dict(cfg=SMOKE_CFG, params=params, batch=batch)
+
+
+def rand_candidates(gen: torch.Generator, cfg: m.DIENConfig, n: int) -> dict:
+    """``n`` random candidates (item and category ids) on ``gen``'s
+    device."""
+    ints = dict(generator=gen, device=gen.device, dtype=torch.int32)
+    return dict(cand_items=torch.randint(0, cfg.n_items, (n,), **ints),
+                cand_cats=torch.randint(0, cfg.n_cats, (n,), **ints))

@@ -1,5 +1,5 @@
-"""Shared cell builders for the dense LM architectures: the assigned shapes
-and the reduced (smoke) configuration the serve launcher runs.
+"""Shared cell builders for the LM architectures: the assigned shapes and
+the reduced (smoke) configuration the serve launcher runs.
 
 Shapes (assigned):
   train_4k     seq 4,096   global_batch 256   -> train step (not ported)
@@ -30,6 +30,9 @@ SHAPE_DEFS = {
 
 # -------------------------------------------------------------------- smoke
 def smoke_config(cfg: T.TransformerConfig) -> T.TransformerConfig:
+    """The JAX package's reduced config: 2 layers, d_model 64, 4 experts
+    for an MoE arch (top k at most 2); ``moe_impl``, ``capacity_factor``
+    and ``moe_dense_residual`` kept as the arch sets them."""
     return dataclasses.replace(
         cfg, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
         vocab=128, head_dim=16,

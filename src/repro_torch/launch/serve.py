@@ -3,14 +3,17 @@ exercising the real serve step functions on the card unless ``--device``
 names another.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b --requests 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dien --requests 4096
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dien --device cpu
 
 It runs the JAX package's ``repro.launch.serve`` cells: the LM branch decodes
 ``--decode-steps`` tokens greedily per batch of the reduced ``decode_32k``
-cell (attention through the flash-decode kernel); the DIEN branch scores
-batches of the reduced ``serve_p99`` cell (profile lookup through the
-embedding-bag kernel).
+cell (attention through the flash-decode kernel) for every LM arch —
+granite-3-2b, internlm2-1.8b, command-r-plus-104b, and the MoE archs
+arctic-480b and dbrx-132b (their reduced configs keep 4 experts and the
+arch's dispatch); the DIEN branch scores batches of the reduced
+``serve_p99`` cell (profile lookup through the embedding-bag kernel).
 """
 from __future__ import annotations
 

@@ -41,19 +41,25 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def init_from_specs(tree, generator: torch.Generator):
+def init_from_specs(tree, generator: torch.Generator,
+                    depth: int | None = None):
     """Random init for smoke runs and examples, on ``generator``'s device:
     each leaf is normal * init_scale / sqrt(fan_in), fan_in being the first
     dim of a matrix and the length of a vector (the JAX package's rule, also
-    for layer-stacked leaves). The numbers differ from the JAX init: a test
-    that compares the two packages hands one parameter tree to both."""
+    for layer-stacked leaves). With ``depth``, a layer-stacked leaf (first
+    axis "layers") takes fan_in = depth: a model cut in depth then draws
+    each layer at the scale of its full depth. The numbers differ from the
+    JAX init: a test that compares the two packages hands one parameter
+    tree to both."""
     dev = generator.device
     out = {}
     for path, s in _leaves(tree):
         fan_in = s.shape[0] if len(s.shape) > 1 else max(1, s.shape[-1])
+        if depth is not None and s.axes[0] == "layers":
+            fan_in = depth
         scale = s.init_scale / math.sqrt(fan_in)
         x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                        device=dev) * scale
+                        device=dev).mul_(scale)   # one fp32 transient
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})

@@ -1,6 +1,7 @@
 """DIEN: Deep Interest Evolution Network [arXiv:1809.03672], serve path.
 
-The JAX package's ``models/recsys/dien.py`` in PyTorch, for CTR scoring:
+The JAX package's ``models/recsys/dien.py`` in PyTorch, for CTR scoring
+and candidate retrieval:
 
   behavior embeddings  e_t = [item_embed ; cat_embed]            (2 * 18 = 36)
   interest extraction  GRU over the 100-step behavior sequence   (hidden 108)
@@ -13,8 +14,13 @@ hand-written EmbeddingBag kernel (``kernels.embedding_bag.ops``), the
 function the JAX package's Pallas ``embedding_bag`` kernel computes (on
 CPU tensors its wrapper runs the plain version). The behaviour lookups stay
 plain gathers, as the JAX package's ``jnp.take``. Each ``lax.scan`` is a
-Python loop over the sequence. ``retrieval_score``, ``aux_loss`` and
-``loss_fn`` wait (ROADMAP.md, 'Modules to port', item 13).
+Python loop over the sequence. ``retrieval_score`` (the retrieval_cand
+shape) scores one user against every candidate: the GRU's final state and
+the masked mean of the behaviour embeddings through ``ret_w``, then one
+matrix-vector product with the candidates' item plus category embeddings
+(the JAX package's two-tower approximation of the ranking path; plain
+gathers and a matvec there too). ``aux_loss`` and ``loss_fn`` wait
+(ROADMAP.md, 'Modules to port', item 13).
 """
 from __future__ import annotations
 
@@ -72,8 +78,7 @@ def param_specs(cfg: DIENConfig):
         "att_b0": ParamSpec((cfg.att_hidden,), (None,), init_scale=0.0),
         "att_w1": ParamSpec((cfg.att_hidden, 1), (None, None)),
         "mlp": mlp,
-        # retrieval tower (retrieval_score is not ported; the leaf is kept so
-        # parameter trees match the JAX package's)
+        # retrieval tower: project user state into candidate-embedding space
         "ret_w": ParamSpec((d_h + d_b, cfg.embed_dim), (None, None)),
     }
 
@@ -196,3 +201,20 @@ def serve(params, batch, cfg: DIENConfig):
     """Online/offline CTR scoring (serve_p99 / serve_bulk shapes)."""
     logits, _, _ = ctr_logits(params, batch, cfg)
     return torch.sigmoid(logits)
+
+
+def retrieval_score(params, batch, cfg: DIENConfig):
+    """Score 1 user against n_cand candidates (retrieval_cand shape).
+    batch: item_ids/cat_ids/mask (1, S); profile_ids/profile_mask (1, n_bag);
+    cand_items, cand_cats (n_cand,). Returns (n_cand,) scores."""
+    behav = behavior_embed(params, batch["item_ids"], batch["cat_ids"], cfg)
+    mask = batch["mask"]
+    final = interest_states(params, behav, mask, cfg)[:, -1]     # (1, d_h)
+    m = mask.to(behav.dtype)
+    pooled = (behav * m[..., None]).sum(1) \
+        / m.sum(1, keepdim=True).clamp_min(1.0)
+    user = torch.cat([final, pooled], dim=-1) \
+        @ params["ret_w"].to(behav.dtype)
+    cand = params["item_embed"][batch["cand_items"].long()] \
+        + params["cat_embed"][batch["cand_cats"].long()]
+    return cand.to(user.dtype) @ user[0]                         # (n_cand,)

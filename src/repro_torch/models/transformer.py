@@ -1,9 +1,17 @@
-"""Decoder-only GQA transformer (granite / internlm2 family), serve path.
+"""Decoder-only GQA transformer family (granite / internlm2 / command-r /
+arctic / dbrx) with optional Mixture-of-Experts FFNs, serve path.
 
 The JAX package's ``models/transformer.py`` in PyTorch, for serving only:
 
   prefill        tokens -> last-token logits + KV cache (L, B, Hkv, S, hd)
   decode_step    one new token per batch row against a live KV cache
+
+MoE has the JAX package's two dispatch implementations, with its capacity
+formulas and drop rules: 'einsum' (GShard one-hot dispatch/combine
+einsums) and 'sort' (per-row sort of the assignments by expert into
+(E, C) slots, gathered back). The expert products are batched matmuls, as
+in JAX (no Pallas kernel there either). Routing reproduces
+``jax.lax.top_k``'s order, the lower expert first on equal probabilities.
 
 Attention goes through the hand-written flash-attention kernels
 (``kernels.flash_attention.ops``): ``flash_attention`` in prefill,
@@ -18,8 +26,9 @@ the compute dtype at each use, as in JAX; ``serving_params`` casts them once
 ahead (the same numbers, since a cast of a cast is the cast), and the casts
 at use are then no-ops. The port runs on one card: the JAX package's
 ``constrain`` sharding hints do nothing without a mesh and are dropped.
-Training (``loss_fn``, ``forward``, ``trunk``) and the MoE FFNs wait
-(ROADMAP.md, 'Modules to port', item 13).
+Training (``loss_fn``, ``forward``, ``trunk``) waits (ROADMAP.md,
+'Modules to port', item 13); ``_ffn`` returns the MoE load-balance loss
+for it, and ``prefill`` and ``decode_step`` drop it, as JAX does.
 """
 from __future__ import annotations
 
@@ -28,7 +37,6 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.engine import not_ported
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models.common import (
     ParamSpec,
@@ -49,10 +57,12 @@ class TransformerConfig:
     vocab: int
     head_dim: int = 128
     rope_base: float = 10000.0
-    # MoE (n_experts == 0 => dense FFN); the port raises on n_experts > 0
+    # MoE (n_experts == 0 => dense FFN)
     n_experts: int = 0
     top_k: int = 2
-    moe_dense_residual: bool = False
+    capacity_factor: float = 1.25
+    moe_dense_residual: bool = False   # arctic: dense FFN in parallel with MoE
+    moe_impl: str = "einsum"           # 'einsum' | 'sort'
     # numerics
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -109,7 +119,8 @@ def param_specs(cfg: TransformerConfig):
 # leaves the JAX package casts to the compute dtype at every use; the norm
 # gains stay in the parameter dtype (rms_norm reads them in fp32)
 _COMPUTE_LEAVES = ("embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate",
-                   "w_up", "w_down")
+                   "w_up", "w_down", "router", "we_gate", "we_up", "we_down")
+_MOE_LEAVES = ("router", "we_gate", "we_up", "we_down")
 
 
 def serving_params(params, cfg: TransformerConfig):
@@ -129,12 +140,155 @@ def _swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-def _ffn(x, lp, l: int, cfg: TransformerConfig):
-    if cfg.is_moe:
-        raise not_ported("MoE FFN (n_experts > 0: arctic, dbrx)", "13")
-    cdt = cfg.compute_dtype
+def _route(x, router, k: int):
+    """Router logits in x's dtype, fp32 softmax, top ``k`` experts per token
+    with their gates renormalised. x: (B, S, D). Returns (probs (B, S, E)
+    fp32, gate_vals (B, S, k) fp32, gate_idx (B, S, k) int64).
+
+    The top k come from a stable descending sort, so equal probabilities
+    (router logits are rounded to the compute dtype before the softmax)
+    keep the lower expert first, as ``jax.lax.top_k`` does; ``torch.topk``
+    promises no order on ties."""
+    logits = x @ router.to(x.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[..., :k], idx[..., :k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _capacity_einsum(cfg: TransformerConfig, S: int) -> int:
+    return max(4, int(cfg.capacity_factor * S * cfg.top_k / cfg.n_experts
+                      + 0.999) // 4 * 4)
+
+
+def _capacity_sort(cfg: TransformerConfig, S: int) -> int:
+    return max(4, int(cfg.capacity_factor * S * cfg.top_k / cfg.n_experts
+                      + 3.0) // 4 * 4)
+
+
+def _dispatch_einsum(gate_idx, gate_vals, E: int, C: int, dtype):
+    """GShard one-hot dispatch and combine tensors, (B, S, E, C) each
+    (dispatch in ``dtype``, combine fp32). Choice j of every token is placed
+    before choice j + 1 of any token; within a choice, tokens in sequence
+    order; an expert's assignments past C slots are dropped, per batch
+    row."""
+    B, S, k = gate_idx.shape
+    disp = torch.zeros((B, S, E, C), dtype=dtype, device=gate_idx.device)
+    comb = torch.zeros((B, S, E, C), dtype=torch.float32,
+                       device=gate_idx.device)
+    counts = torch.zeros((B, E), dtype=torch.int64, device=gate_idx.device)
+    for j in range(k):
+        mask_j = F.one_hot(gate_idx[..., j], E)                 # (B, S, E)
+        pos_j = mask_j.cumsum(1) - 1 + counts[:, None, :]
+        keep = (mask_j > 0) & (pos_j < C)
+        slot = F.one_hot(torch.where(keep, pos_j, C), C + 1)[..., :C].to(
+            dtype)                                              # (B,S,E,C)
+        disp = disp + slot
+        comb = comb + slot.float() * gate_vals[..., j][..., None, None]
+        counts = counts + mask_j.sum(1)
+    return disp, comb
+
+
+def _moe_ffn_einsum(x, p, cfg: TransformerConfig):
+    """GShard-style group-wise einsum dispatch. x: (B, S, D); p: one
+    layer's ``router``, ``we_gate``, ``we_up``, ``we_down``. Returns
+    (out (B, S, D), load-balance loss)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    probs, gate_vals, gate_idx = _route(x, p["router"], k)
+    disp, comb = _dispatch_einsum(gate_idx, gate_vals, E,
+                                  _capacity_einsum(cfg, S), x.dtype)
+    xd = torch.einsum("gsec,gsd->egcd", disp, x)
+    h = F.silu(torch.einsum("egcd,edf->egcf", xd, p["we_gate"].to(x.dtype)))
+    h = h * torch.einsum("egcd,edf->egcf", xd, p["we_up"].to(x.dtype))
+    y = torch.einsum("egcf,efd->egcd", h, p["we_down"].to(x.dtype))
+    out = torch.einsum("gsec,egcd->gsd", comb.to(x.dtype), y)
+    aux = _load_balance_loss(probs.reshape(-1, E), gate_idx.reshape(-1, k), E)
+    return out, aux
+
+
+def _dispatch_sort(gate_idx, E: int, C: int):
+    """Per batch row, the S * k assignments sorted stably by expert (the
+    order ``jnp.argsort`` gives, which decides what an over-full expert
+    drops); slot = rank within the expert's run, kept if below C. Returns
+    (order, e_sorted, slot, keep) in sorted order, each (B, S * k), and
+    (slot, keep) per assignment, each (B, S, k)."""
+    B, S, k = gate_idx.shape
+    dev = gate_idx.device
+    flat_e = gate_idx.reshape(B, S * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    e_sorted = flat_e.gather(1, order)
+    ar = torch.arange(S * k, device=dev)
+    run_start = torch.searchsorted(
+        e_sorted, torch.arange(E, device=dev).expand(B, E).contiguous(),
+        side="left")
+    slot = ar - run_start.gather(1, e_sorted)
+    keep = slot < C
+    inv = torch.empty_like(order).scatter_(1, order, ar.expand(B, -1))
+    return (order, e_sorted, slot, keep,
+            slot.gather(1, inv).reshape(B, S, k),
+            keep.gather(1, inv).reshape(B, S, k))
+
+
+def _moe_ffn_sort(x, p, cfg: TransformerConfig):
+    """Per-row sort-based dispatch: no (B, S, E, C) dispatch tensors.
+    x: (B, S, D); p as in :func:`_moe_ffn_einsum`.
+
+    Every batch row is dispatched on its own (capacity C per row and
+    expert, as JAX's vmap over rows), all rows at once. The expert
+    buffers are one (E * B * C + 1, D) matrix, expert-major: each kept
+    assignment writes its own row (kept (expert, row, slot) triples are
+    unique), every dropped one the spare last row, which no expert reads
+    (JAX adds zeros at slot 0 for them)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = _capacity_sort(cfg, S)
+    probs, gate_vals, gate_idx = _route(x, p["router"], k)
+    order, e_sorted, slot, keep, slot_sk, keep_sk = _dispatch_sort(
+        gate_idx, E, C)
+    bidx = torch.arange(B, device=x.device)[:, None]
+    rows = torch.where(keep, e_sorted * (B * C) + bidx * C + slot, E * B * C)
+    buf = x.new_zeros((E * B * C + 1, D))
+    buf[rows] = x[bidx, order // k]
+    xe = buf[:-1].view(E, B * C, D)
+    h = F.silu(torch.bmm(xe, p["we_gate"].to(x.dtype))) \
+        * torch.bmm(xe, p["we_up"].to(x.dtype))
+    y = torch.bmm(h, p["we_down"].to(x.dtype)).view(E * B * C, D)
+    rows_sk = gate_idx * (B * C) + bidx[..., None] * C \
+        + torch.where(keep_sk, slot_sk, 0)
+    picked = y[rows_sk].masked_fill(~keep_sk[..., None], 0.0)  # (B,S,k,D)
+    out = (picked * gate_vals[..., None].to(x.dtype)).sum(dim=2)
+    aux = _load_balance_loss(probs.reshape(-1, E), gate_idx.reshape(-1, k), E)
+    return out, aux
+
+
+def _load_balance_loss(probs, gate_idx, E: int):
+    """Switch-style aux loss: E * sum_e f_e * p_e."""
+    f = F.one_hot(gate_idx[..., 0], E).float().mean(dim=0)
+    return E * (f * probs.mean(dim=0)).sum()
+
+
+_MOE_IMPLS = {"einsum": _moe_ffn_einsum, "sort": _moe_ffn_sort}
+
+
+def _dense_ffn(x, lp, l: int, cdt):
     return _swiglu(x, lp["w_gate"][l].to(cdt), lp["w_up"][l].to(cdt),
                    lp["w_down"][l].to(cdt))
+
+
+def _ffn(x, lp, l: int, cfg: TransformerConfig):
+    """Layer ``l``'s FFN: (out, load-balance loss; 0.0 for a dense FFN)."""
+    if not cfg.is_moe:
+        return _dense_ffn(x, lp, l, cfg.compute_dtype), 0.0
+    if cfg.moe_impl not in _MOE_IMPLS:
+        raise ValueError(f"moe_impl {cfg.moe_impl!r} not in "
+                         f"{sorted(_MOE_IMPLS)}")
+    out, aux = _MOE_IMPLS[cfg.moe_impl](
+        x, {k: lp[k][l] for k in _MOE_LEAVES}, cfg)
+    if cfg.moe_dense_residual:
+        out = out + _dense_ffn(x, lp, l, cfg.compute_dtype)
+    return out, aux
 
 
 # ------------------------------------------------------------------- layer
@@ -199,7 +353,7 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         a, (kk, vv) = _attention(rms_norm(x, lp["ln1"][l]), lp, l, cfg, cos,
                                  sin, attention=attention)
         x = x + a
-        x = x + _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)
+        x = x + _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)[0]
         ks.append(kk)
         vs.append(vv)
     return _logits(x[:, -1], params, cfg), (torch.stack(ks), torch.stack(vs))
@@ -244,5 +398,5 @@ def decode_step(params, cache, tokens: torch.Tensor, lengths: torch.Tensor,
         else:
             o = attention(q, k_l, v_l, causal=False, lengths=live)
         x = x + _out_proj(o, lp["wo"][l], cdt)
-        x = x + _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)
+        x = x + _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)[0]
     return _logits(x[:, 0], params, cfg), cache, live

@@ -2,8 +2,9 @@
 parameters drawn with numpy from a seed (handed to the port through
 ``convert.params_from_reference``), one
 numpy-made batch (ragged behaviour masks, partly masked profile bags) through
-both ``serve``s, to 1e-5. The port's profile lookup runs the embedding-bag
-wrapper, whose CPU path is the kernel's plain version."""
+both ``serve``s, to 1e-5, and one user against numpy-made candidates through
+both ``retrieval_score``s, to 1e-5. The port's profile lookup runs the
+embedding-bag wrapper, whose CPU path is the kernel's plain version."""
 import numpy as np
 import pytest
 
@@ -103,7 +104,51 @@ def test_profile_embed_matches_jax_and_masked_row_is_zero(params):
     assert bag_ops.LAUNCHES["embedding_bag"] == 0   # CPU: the plain version
 
 
-@pytest.mark.parametrize("shape", ["train_batch", "retrieval_cand"])
+@pytest.mark.parametrize("masked", ["ragged", "all", "none"])
+def test_retrieval_score_matches_jax(params, masked):
+    """One user (behaviour steps partly masked, all live, or none live)
+    against 512 candidates, as the reduced retrieval_cand cell draws
+    them."""
+    jp, tp = params
+    batch = {k: v[1:] for k, v in _batch(2, seed=5).items()
+             if not k.startswith("target")}
+    batch["mask"][:] = {"ragged": batch["mask"], "all": True,
+                        "none": False}[masked]
+    rng = np.random.default_rng(6)
+    batch["cand_items"] = rng.integers(0, CFG.n_items, 512).astype(np.int32)
+    batch["cand_cats"] = rng.integers(0, CFG.n_cats, 512).astype(np.int32)
+    want = np.asarray(JD.retrieval_score(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}, JAX_SMOKE))
+    got = TD.retrieval_score(tp, {k: torch.from_numpy(v) for k, v in
+                                  batch.items()}, CFG)
+    assert got.shape == (512,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_retrieval_cell_has_the_reference_shapes():
+    """``build_smoke("retrieval_cand")`` gives the JAX package's reduced
+    cell: SMOKE_CFG, one user without a target, 512 candidates."""
+    from repro.configs.dien import ARCH
+    jcell = ARCH.build_smoke("retrieval_cand")
+    jbatch = jcell.args[1]
+    cell = tconfigs.build_smoke("retrieval_cand", device="cpu")
+    assert cell["cfg"] == CFG
+    assert sorted(cell["batch"]) == sorted(jbatch)
+    for k, v in cell["batch"].items():
+        assert tuple(v.shape) == tuple(jbatch[k].shape), k
+        assert str(v.dtype).removeprefix("torch.") == jbatch[k].dtype.name
+    jleaves = {tuple(p.key for p in path): leaf.shape for path, leaf in
+               jax.tree_util.tree_leaves_with_path(jcell.args[0])}
+    for path, shape in jleaves.items():
+        node = cell["params"]
+        for key in path:
+            node = node[key]
+        assert tuple(node.shape) == shape, path
+    scores = TD.retrieval_score(cell["params"], cell["batch"], cell["cfg"])
+    assert scores.shape == (512,) and torch.isfinite(scores).all()
+
+
+@pytest.mark.parametrize("shape", ["train_batch"])
 def test_shapes_outside_the_slice_raise(shape):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfigs.build_smoke(shape, device="cpu")

@@ -192,9 +192,12 @@ def test_no_silent_cpu_in_entry_points(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda s, h, d, mp: get_arch("command-r-plus-104b"),
-    lambda s, h, d, mp: get_arch("arctic-480b"),
-    lambda s, h, d, mp: get_arch("dbrx-132b"),
+    lambda s, h, d, mp: get_arch("command-r-plus-104b").build_smoke(
+        "train_4k", device="cpu"),
+    lambda s, h, d, mp: get_arch("arctic-480b").build_smoke(
+        "train_4k", device="cpu"),
+    lambda s, h, d, mp: get_arch("dbrx-132b").build_smoke(
+        "train_4k", device="cpu"),
     lambda s, h, d, mp: get_arch("graphcast"),
     lambda s, h, d, mp: get_arch("gat-cora"),
     lambda s, h, d, mp: get_arch("nequip"),
@@ -205,8 +208,8 @@ def test_no_silent_cpu_in_entry_points(entry, monkeypatch):
                                                      device="cpu"),
 ])
 def test_features_outside_the_slice_raise(call, tmp_path, monkeypatch):
-    """The archs and training shapes of item 13 raise. Every other item
-    works: bf16 edge values (item 12) in sessions, sharded sessions,
+    """The GNN archs and the training shapes of item 13 raise (the LM archs
+    serve: tests/test_torch_transformer.py). Every other item works: bf16 edge values (item 12) in sessions, sharded sessions,
     snapshots and restores in tests/test_torch_bf16.py; shards and
     checkpoints (items 10 and 9) in tests/test_torch_{stacked,checkpoint,
     fault}.py; churn, flush and adaptation (items 5 and 6) against the
@@ -226,8 +229,9 @@ def test_port_loads_no_jax_and_no_repro():
     session (``ingest_depth=2``) with a standing alert, a sharded session
     with churn, a save, a restore and a reshard, the recovery driver, the
     streams and the eagr config, and the serve path (LM prefill and decode,
-    DIEN scoring, the launcher) on the CPU and finds neither JAX nor the
-    JAX package in ``sys.modules``."""
+    a MoE arch's prefill and the launcher serving one, DIEN scoring and
+    retrieval, the launcher) on the CPU and finds neither JAX nor the JAX
+    package in ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -305,7 +309,13 @@ def test_port_loads_no_jax_and_no_repro():
                       c["cfg"])
         c = get_arch("dien").build_smoke("serve_p99", device="cpu")
         dien.serve(c["params"], c["batch"], c["cfg"])
+        c = get_arch("dien").build_smoke("retrieval_cand", device="cpu")
+        dien.retrieval_score(c["params"], c["batch"], c["cfg"])
+        c = get_arch("arctic-480b").build_smoke("prefill_32k", device="cpu")
+        T.prefill(c["params"], c["tokens"], c["cfg"])
         serve.main(["--arch", "internlm2-1.8b", "--requests", "2",
+                    "--decode-steps", "1", "--device", "cpu"])
+        serve.main(["--arch", "dbrx-132b", "--requests", "2",
                     "--decode-steps", "1", "--device", "cpu"])
         bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
                or k == "repro" or k.startswith("repro.")]

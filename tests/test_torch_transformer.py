@@ -1,5 +1,7 @@
 """The port's transformer serve path against the JAX package's, on the
-reduced (smoke) configurations of granite-3-2b and internlm2-1.8b in fp32:
+reduced (smoke) configurations of every LM arch in fp32 (granite-3-2b,
+internlm2-1.8b, command-r-plus-104b, and the MoE archs arctic-480b and
+dbrx-132b with 4 experts and their sort dispatch):
 parameters drawn with numpy from a seed, handed to JAX as they are and to
 the port through ``convert.params_from_reference``,
 ``prefill`` logits and KV cache, then four ``decode_step``s with ragged
@@ -24,10 +26,12 @@ from repro_torch.configs.lm_common import smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.common import blocked_attention, init_from_specs  # noqa: E402
+from repro_torch.models.common import (  # noqa: E402
+    blocked_attention, init_from_specs)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["granite-3-2b", "internlm2-1.8b"]
+ARCHS = ["granite-3-2b", "internlm2-1.8b", "command-r-plus-104b",
+         "arctic-480b", "dbrx-132b"]
 B, S, S_MAX, STEPS = 3, 12, 20, 4
 
 
@@ -58,13 +62,18 @@ def pair(request):
     return jcfg, tcfg, jparams, tparams
 
 
-def numpy_params(specs, seed):
-    """A parameter tree of the JAX package's specs drawn with numpy by the
-    fan-in rule of ``init_from_specs`` (handed to both sides)."""
+def numpy_params(specs, seed, per_matrix=False):
+    """A parameter tree of the JAX package's specs drawn with numpy (handed
+    to both sides): normal * init_scale / sqrt(fan_in), fan_in by the rule
+    of ``init_from_specs`` (a matrix's first dim, a vector's length) or,
+    with ``per_matrix``, by that rule on one layer's and one expert's
+    matrix (the "layers" and "expert" axes left out)."""
     rng = np.random.default_rng(seed)
 
     def draw(s):
-        fan_in = s.shape[0] if len(s.shape) > 1 else max(1, s.shape[-1])
+        shape = [n for n, a in zip(s.shape, s.axes)
+                 if not (per_matrix and a in ("layers", "expert"))]
+        fan_in = shape[0] if len(shape) > 1 else max(1, shape[-1])
         return (rng.normal(size=s.shape) * s.init_scale
                 / np.sqrt(fan_in)).astype(np.float32)
 
@@ -75,12 +84,15 @@ def numpy_params(specs, seed):
 def test_configs_agree_with_jax():
     for a in ARCHS:
         j, t = _jax_lm_cfg(a), _port_lm_cfg(a)
-        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-                  "vocab", "head_dim", "rope_base", "n_experts",
-                  "vocab_pad_to"):
-            assert getattr(j, f) == getattr(t, f), (a, f)
-        assert t.compute_dtype == torch.bfloat16
-        assert t.param_dtype == torch.float32
+        for c, d in ((j, t), (jax_smoke(j), smoke_config(t))):
+            for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                      "vocab", "head_dim", "rope_base", "n_experts", "top_k",
+                      "capacity_factor", "moe_dense_residual", "moe_impl",
+                      "vocab_pad_to"):
+                assert getattr(c, f) == getattr(d, f), (a, f)
+            for f in ("compute_dtype", "param_dtype"):
+                assert jnp.dtype(getattr(c, f)).name == \
+                    str(getattr(d, f)).removeprefix("torch."), (a, f)
 
 
 def test_param_specs_match_jax(pair):
@@ -161,16 +173,24 @@ def test_serving_params_give_the_same_numbers(pair):
     assert torch.equal(a, b) and torch.equal(ca[0], cb[0])
 
 
-def test_moe_config_raises():
-    cfg = dataclasses.replace(smoke_config(_port_lm_cfg("granite-3-2b")),
-                              n_experts=4)
-    gen = torch.Generator().manual_seed(0)
-    params = init_from_specs(T.param_specs(cfg), gen)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.prefill(params, torch.zeros((1, 4), dtype=torch.int32), cfg)
+def test_init_at_full_depth_draws_each_layer_at_that_scale():
+    """``init_from_specs(depth=...)`` draws a model cut in depth as its full
+    depth would: the layer-stacked leaves at 1/sqrt(depth) (here their
+    first dim, 2, is replaced by 32), every other leaf as before."""
+    cfg = dataclasses.replace(smoke_config(_port_lm_cfg("dbrx-132b")),
+                              n_layers=2, param_dtype=torch.float32)
+    specs = T.param_specs(cfg)
+    cut = init_from_specs(specs, torch.Generator().manual_seed(0))
+    full = init_from_specs(specs, torch.Generator().manual_seed(0), depth=32)
+    for name, x in cut["layers"].items():
+        torch.testing.assert_close(full["layers"][name], x * 0.25,
+                                   rtol=1e-6, atol=0)
+    for name in ("embed", "final_norm", "lm_head"):
+        assert torch.equal(full[name], cut[name])
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "dbrx-132b", "graphcast"])
+@pytest.mark.parametrize("arch", ["graphcast", "gat-cora", "nequip",
+                                  "gatedgcn"])
 def test_archs_outside_the_slice_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_arch(arch)
