@@ -187,7 +187,28 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    JAX package's test of the two); DIEN's ``retrieval_cand`` at its full
    CFG (1,000,000 candidates), p50/p99 over 50 calls beside the bound,
    scores within rtol 1e-4 / atol 1e-5 of the same function in fp64 on
-   the CPU.
+   the CPU;
+11. training, on a card freed of phase 10's models: the embedding bag's
+   backward kernel (the dense table gradient; sorted ids, one warp a table
+   row, no atomics) against its plain version on CPU copies at
+   ``tests/test_kernels.py``'s bag shapes and DIEN's (512 and the train
+   batch's bags of 16 ids, D 18), with padding ids, ids past the table and
+   before the first bag and empty bags: bit-equal on a rerun, exact on
+   integer inputs, normal sums within n * 2^-24 * sum|x| of fp64; its time
+   beside the bound and F.embedding_bag's backward; granite-3-2b's
+   train_4k at full width and depth (fp32 parameters, bf16 compute, AdamW,
+   accum 4, seq 4,096, remat full, fused CE in chunks of 512; global batch
+   cut to 4): one step run twice from copies of one state, bit-equal in
+   every parameter and moment, the loss finite and falling over 5 steps
+   on one batch, no flash launch, step time, tokens/s, peak memory and a
+   traced step's busy share; DIEN's train_batch at its full CFG and its
+   assigned batch of 65,536: the loss and every gradient leaf at batch 512
+   held to CPU copies (rtol 1e-4, atol max(1e-6, 1e-4 of the leaf's
+   largest magnitude)), one
+   launch of each bag kernel a step, step p50, users/s, peak memory; the
+   training launcher (``repro_torch.launch.train``) on every trainable
+   arch's reduced cell, and one run with an injected failure required
+   bit-equal to the uninterrupted one.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -260,6 +281,10 @@ DESIGNS = {
               "serving the GQA group, 4 warps on cp.async rings, chunks "
               "merged in order by a second kernel",
     "bag": "one warp per bag, 16 table-row loads in flight",
+    "bag_backward": "ids sorted stably by table row (preparation), one warp "
+                    "per table row summing its run of w * grad_out rows in "
+                    "id order, every row written once (zeros included), no "
+                    "atomics",
     "stacked": "one launch a dense level for all S shards: one CTA per "
                "(window of 16 blocks, shard), a warp per block; the seg "
                "rows staged first and blocks with no live slot skipped, the "
@@ -329,6 +354,25 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 8, 2048, 32, 0
 REST_ARCHS = (("dbrx-132b", 4), ("arctic-480b", 1), ("command-r-plus-104b", 5))
 MOE_CHECK = (2, 256, 8.0)  # dbrx's fp32 layer: B, S, capacity factor
 RETRIEVAL_CALLS = 50
+# phase 11: training. granite-3-2b's train_4k at full width and depth
+# with its global batch of 256 cut to 4 (one 4,096-token sequence a
+# microbatch of its accum 4: params, gradients and AdamW's moments take
+# ~52.6 GB of the card's 80); losses over LM_TRAIN_STEPS steps on one
+# batch. DIEN's train_batch at its full CFG and its assigned batch of
+# 65,536, not cut: the tensors its two 100-step loops save for the backward
+# (a GRU step keeps x @ wx and h @ wh, 324 floats each, and r, z, n, 1 - z
+# and h, 108 each; an AUGRU step as many and its attention weight) come to
+# ~1 MB a user, ~65 GB, within the card's 80; held against CPU copies at
+# DIEN_CHECK_BATCH. The launcher: every trainable arch's reduced cell, a
+# few steps each, and one run with an injected failure
+LM_TRAIN_BATCH, LM_TRAIN_STEPS = 4, 5
+DIEN_TRAIN_BATCH, DIEN_TRAIN_STEPS, DIEN_CHECK_BATCH = 65536, 5, 512
+TRAIN_ARCHS = ("granite-3-2b", "internlm2-1.8b", "command-r-plus-104b",
+               "arctic-480b", "dbrx-132b", "dien")
+LAUNCH_STEPS, LAUNCH_FAIL_AT = 6, 3
+# the bag's backward has no Pallas kernel (JAX differentiates jnp.take); it
+# is the gradient of _bag_kernel's function, which the port's forward runs
+BAG_BACKWARD_REPLACES = BAG_REPLACES
 # the decode kernel's extra check: a 32,768-row cache (decode_32k's context)
 DEC_BATCH, DEC_CACHE = 4, 32768
 DIEN_BATCHES, DIEN_SEED = 50, 0
@@ -424,12 +468,13 @@ def cuda_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int = 50) -> float:
+def device_ms(torch, fn, reps: int = 50, only: str | None = None) -> float:
     """Device time of one call: every CUDA kernel, copy and memset that
-    ``reps`` calls run, summed (torch.profiler), over ``reps``, after one
-    warm-up call. Unlike ``cuda_ms`` it leaves out the gaps in which the
-    device waits for the host, which for a call of a few microseconds are
-    most of the wall time."""
+    ``reps`` calls run (only those whose name holds ``only``, if given),
+    summed (torch.profiler), over ``reps``, after one warm-up call. Unlike
+    ``cuda_ms`` it leaves out the gaps in which the device waits for the
+    host, which for a call of a few microseconds are most of the wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -443,7 +488,8 @@ def device_ms(torch, fn, reps: int = 50) -> float:
             torch.cuda.synchronize()
         total_us = 0.0
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA and (only is None
+                                                     or only in e.key):
                 us = getattr(e, "self_device_time_total", None)
                 total_us += e.self_cuda_time_total if us is None else us
         if total_us > 0:
@@ -854,19 +900,24 @@ def check_answers(session, handles, win, sample) -> None:
                                  f"{want_max}")
 
 
-def trace_window(torch, name: str, run, n: int, out_dir) -> dict:
+def trace_window(torch, name: str, run, n: int, out_dir, *,
+                 lean: bool = False) -> dict:
     """One traced window of ``run()`` (after one untraced warm call): the
     time of every CUDA kernel, summed by name (torch.profiler), the window's
     host wall time, and their ratio (the device's busy share while traced;
     the tracer's own host cost is in the wall time, so the untraced share is
-    higher). The Chrome trace goes to ``out_dir``."""
+    higher). The Chrome trace goes to ``out_dir``. ``lean``, for a long run
+    that is warm already (a train step): no warm call, the device traced
+    alone and no Chrome trace (a train step's hundreds of thousands of
+    host ops take the profiler minutes to sum)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run()  # warm
+    if not lean:
+        run()  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([] if lean else [ProfilerActivity.CPU])
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -885,7 +936,9 @@ def trace_window(torch, name: str, run, n: int, out_dir) -> dict:
           f"{dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.4f}", flush=True)
     for k, c, t in rows[:8]:
         print(f"    {t:9.3f} ms  {c:6d} calls  {k[:90]}", flush=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    if not lean:
+        prof.export_chrome_trace(os.path.join(out_dir,
+                                              f"trace_{name}.json"))
     return dict(batches=n, wall_ms=wall_ms, device_ms=dev_ms,
                 busy_share=dev_ms / wall_ms,
                 top=[dict(kernel=k, calls=c, ms=t) for k, c, t in rows[:15]])
@@ -4454,6 +4507,453 @@ def phase_serve_rest(torch, prompt, gen_len, card, out_dir, errs) -> dict:
     return out
 
 
+# ------------------------------------------------------------- training
+def bag_backward_bound_ms(n_live, n_ids, n_bags, V, D, weighted) -> tuple:
+    """The dense (V, D) fp32 gradient written once; grad_out, the ids, the
+    offsets and the weights read once; a multiply and an add per live id
+    and feature (fp32)."""
+    nbytes = V * D * 4 + n_bags * D * 4 + n_ids * (8 if weighted else 4) \
+        + n_bags * 4
+    ops = 2 * D * n_live
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def bag_backward_fp64(torch, g, ids, bags, V, w):
+    """On the CPU: the table gradient summed in fp64, each row's sum of
+    |w_i * grad_out_i| and its number of terms."""
+    n_bags, D = g.shape
+    keep = torch.nonzero((ids >= 0) & (ids < V) & (bags >= 0)
+                         & (bags < n_bags)).flatten()
+    rows = g.double()[bags[keep].long()]
+    if w is not None:
+        rows = rows * w.double()[keep, None]
+    idx = ids[keep].long()
+    out = torch.zeros((V, D), dtype=torch.float64).index_add_(0, idx, rows)
+    mag = torch.zeros((V, D), dtype=torch.float64).index_add_(0, idx,
+                                                             rows.abs())
+    return out, mag, torch.bincount(idx, minlength=V).double()[:, None]
+
+
+def phase_bag_backward(torch, dien_cfg, train_bags, errs) -> dict:
+    """The bag's backward kernel against its plain version on CPU copies of
+    the same inputs (the wrapper's own CPU path), at tests/test_kernels.py's
+    bag shapes and DIEN's (512 bags and ``train_bags`` of 16 ids, D 18, V
+    100,000), with padding ids, ids past the table, ids before the first
+    bag and empty bags: exact on integer-valued inputs, normal-valued rows
+    within n * 2^-24 * sum|w g| of an fp64 sum (n the row's terms), every
+    call run twice and bit-equal; then DIEN's profile lookup at batch 512,
+    timed beside F.embedding_bag's backward."""
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    dev = torch.device(DEVICE)
+
+    def case(V, D, n_ids, n_bags, integer):
+        g = torch.randint(-50, 51, (n_bags, D), generator=gen, device=dev
+                          ).float() if integer else \
+            torch.randn((n_bags, D), generator=gen, device=dev)
+        ids = torch.randint(0, V, (n_ids,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        r = torch.rand(n_ids, generator=gen, device=dev)
+        ids[r < 0.15] = -1                                 # padding
+        ids[(r >= 0.15) & (r < 0.18)] = V + 1              # past the table
+        lead = min(3, n_ids // 4)                          # before any bag
+        offs = torch.sort(torch.randint(lead, n_ids + 1, (n_bags,),
+                                        generator=gen, device=dev)).values
+        offs[0] = lead
+        w = torch.randint(-3, 4, (n_ids,), generator=gen, device=dev
+                          ).float() if integer else \
+            torch.randn((n_ids,), generator=gen, device=dev)
+        return g, ids, offs.to(torch.int32), w
+
+    V_d, D_d, nb = dien_cfg.n_profile_feats, dien_cfg.embed_dim, \
+        dien_cfg.profile_bag_size
+    n_cases = n_equal = 0
+    worst_ratio = 0.0
+    for V, D, n_ids, n_bags in BAG_SWEEP + [(V_d, D_d, 512 * nb, 512),
+                                            (V_d, D_d, train_bags * nb,
+                                             train_bags)]:
+        for integer in (True, False):
+            g, ids, offs, w = case(V, D, n_ids, n_bags, integer)
+            for weights in (None, w):
+                call = lambda: ops.embedding_bag_backward(
+                    g, ids, offs, n_rows=V, weights=weights)
+                got, again = call(), call()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"embedding_bag_backward differs "
+                                         f"between two runs (V={V} D={D})")
+                got = got.cpu()
+                gc_, ic, oc = g.cpu(), ids.cpu(), offs.cpu()
+                wc = None if weights is None else weights.cpu()
+                want = ops.embedding_bag_backward(gc_, ic, oc, n_rows=V,
+                                                  weights=wc)
+                n_equal += int(torch.equal(got, want))
+                if integer:
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"embedding_bag_backward != plain version on "
+                            f"integer inputs (V={V} D={D} n_ids={n_ids})")
+                else:
+                    exact, mag, n = bag_backward_fp64(
+                        torch, gc_, ic, ref.bags_of(oc, n_ids), V, wc)
+                    err = (got.double() - exact).abs()
+                    bound = n * 2.0 ** -24 * mag
+                    if (err > bound).any():
+                        raise AssertionError(
+                            f"embedding_bag_backward off its fp64 sum by "
+                            f"more than n * 2^-24 * sum|x| (V={V} D={D})")
+                    live = bound > 0
+                    if live.any():
+                        worst_ratio = max(worst_ratio, float(
+                            (err[live] / bound[live]).max()))
+                errs["bag_backward"] = max(errs["bag_backward"],
+                                           (got - want).abs().max().item())
+                n_cases += 1
+    print(f"  embedding bag backward: {n_cases} cases (padding ids, ids past "
+          f"the table and before the first bag, empty bags, weighted and "
+          f"not; up to {train_bags} bags) bit-equal on a rerun, exact on "
+          f"integer inputs, normal sums within {worst_ratio:.3g} of their "
+          f"n * 2^-24 * sum|x| bound; {n_equal} of {n_cases} bit-equal to "
+          f"the plain version (max abs err {errs['bag_backward']:.3g})",
+          flush=True)
+
+    # DIEN's profile lookup at batch 512: 16 ids a user, D 18, mask weights
+    B = 512
+    g = torch.randn((B, D_d), generator=gen, device=dev)
+    ids = torch.randint(0, V_d, (B * nb,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    offs = torch.arange(B, dtype=torch.int32, device=dev) * nb
+    w = (torch.rand((B * nb,), generator=gen, device=dev) < 0.7).float()
+    bags = ref.bags_of(offs, B * nb)
+    table = torch.randn((V_d, D_d), generator=gen, device=dev,
+                        requires_grad=True)
+    ids64, offs64 = ids.long(), offs.long()
+    F = torch.nn.functional
+    lib_fwd = lambda: F.embedding_bag(ids64, table, offs64, mode="sum",
+                                      per_sample_weights=w)
+    calls = dict(
+        kernel=lambda: ops.embedding_bag_backward(g, ids, offs, n_rows=V_d,
+                                                  weights=w),
+        plain=lambda: ref.embedding_bag_backward_ref(g, ids, bags, V_d,
+                                                     weights=w),
+        library_fwd=lib_fwd,
+        library_fwd_bwd=lambda: torch.autograd.grad(lib_fwd(), table, g))
+    ev = {k: cuda_ms(torch, fn) for k, fn in calls.items()}
+    dv = {k: device_ms(torch, fn) for k, fn in calls.items()}
+    # the kernel alone, without the wrapper's sort and run starts (None
+    # where the profiler saw no such kernel)
+    try:
+        k_dev = device_ms(torch, calls["kernel"],
+                          only="embedding_bag_backward_kernel")
+    except AssertionError:
+        k_dev = None
+    lib_ms = ev["library_fwd_bwd"] - ev["library_fwd"]
+    lib_dev = dv["library_fwd_bwd"] - dv["library_fwd"]
+    n_live = int((w != 0).sum())
+    b_ms, b_by = bag_backward_bound_ms(n_live, B * nb, B, V_d, D_d, True)
+    print(f"  embedding bag backward at DIEN's shape ({B} bags x {nb} ids, "
+          f"D={D_d}, V={V_d}, 70% live), back-to-back event time: wrapper "
+          f"(sort, run starts, kernel) {ev['kernel']:.5f} ms, plain "
+          f"{ev['plain']:.5f} ms, F.embedding_bag backward (forward + "
+          f"backward less forward) {lib_ms:.5f} ms; device time: wrapper "
+          f"{dv['kernel']:.5f} (the kernel alone {ms_or_not(k_dev)}), plain "
+          f"{dv['plain']:.5f}, library {lib_dev:.5f} ms; bound {b_ms:.6f} "
+          f"ms ({b_by})", flush=True)
+    return dict(B=B, bag=nb, D=D_d, V=V_d, cases=n_cases,
+                bit_equal_to_plain=n_equal, bound_ratio=worst_ratio,
+                max_abs_err=errs["bag_backward"], ms=ev["kernel"],
+                plain_ms=ev["plain"], library_ms=lib_ms,
+                device_ms=dv["kernel"], kernel_device_ms=k_dev,
+                plain_device_ms=dv["plain"], library_device_ms=lib_dev,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_train_lm(torch, card, out_dir) -> dict:
+    """granite-3-2b's train_4k at its published width and depth, fp32
+    parameters drawn from a seed, bf16 compute, AdamW, accum 4, seq
+    4,096, remat full, the fused CE in chunks of 512,
+    a global batch of LM_TRAIN_BATCH: one step from the drawn state, the
+    state after it moved to the host and the drawn state put back on the
+    card, the same step again, required bit-equal in every parameter and
+    moment (and loss); then steps to LM_TRAIN_STEPS on the same batch (the
+    last one traced), the loss required finite and falling; step time,
+    tokens/s, peak memory, the traced step's busy share; the flash
+    kernels' launches required unchanged (training attends through
+    blocked_attention)."""
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.train.optimizer import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = granite_3_2b.build_train(batch=LM_TRAIN_BATCH, device=DEVICE,
+                                    seed=LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, step, batch, lr = cell["cfg"], cell["step"], cell["batch"], \
+        cell["lr"]
+    params, opt_state = cell["params"], cell["opt_state"]
+    leaves = tree_leaves((params, opt_state))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    state_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+    B, S = batch["tokens"].shape
+    flash_before = dict(flash.LAUNCHES)
+
+    def one():
+        _, _, m = step(params, opt_state, batch, lr)    # in place
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in m.items()}
+
+    # the drawn state to pinned host memory
+    t0 = time.perf_counter()
+    pin = DEVICE == "cuda"
+    host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+            for x in leaves]
+    for h, x in zip(host, leaves):
+        h.copy_(x, non_blocking=pin)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first = one()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    # the state after step 1 to the host, the drawn state back to the card
+    # (stream order: each leaf is read from the host before it is written)
+    t0 = time.perf_counter()
+    for h, x in zip(host, leaves):
+        after = x.clone()
+        x.copy_(h, non_blocking=pin)
+        h.copy_(after, non_blocking=pin)
+        del after
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    again = one()
+    t0 = time.perf_counter()
+    differ = [i for i, (h, x) in enumerate(zip(host, leaves))
+              if not torch.equal(x, h.to(x.device, non_blocking=pin))]
+    compare_s = time.perf_counter() - t0
+    del host
+    if differ or again != first:
+        raise AssertionError(f"two runs of one train step from copies of one "
+                             f"state differ: {len(differ)} of {len(leaves)} "
+                             f"parameter and moment leaves; metrics {first} "
+                             f"vs {again}")
+    print(f"  train replay: one granite-3-2b step run twice from copies of "
+          f"the drawn state, bit-equal in all {len(leaves)} parameter and "
+          f"moment leaves (state {state_gb:.2f} GB; pinned host copy "
+          f"{copy_s:.1f} s, swap {swap_s:.1f} s, compare {compare_s:.1f} s)",
+          flush=True)
+    losses, step_ms = [first["loss"]], []
+    for _ in range(LM_TRAIN_STEPS - 2):
+        t0 = time.perf_counter()
+        m = one()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    # the last step traced (device only), its time left out of the p50
+    t0 = time.perf_counter()
+    trace = trace_window(torch, "train_lm", lambda: losses.append(
+        one()["loss"]), 1, out_dir, lean=True)
+    trace["seconds"] = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"granite-3-2b's loss on one repeated batch is "
+                             f"not finite and falling: {losses}")
+    if dict(flash.LAUNCHES) != flash_before:
+        raise AssertionError(f"a train step launched the flash kernels: "
+                             f"{flash_before} -> {dict(flash.LAUNCHES)}")
+    p50 = float(np.median(step_ms))
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=B, seq=S,
+               accum=cell["accum"], optimizer=cell["optimizer"].name, lr=lr,
+               n_params=n_params, state_gb=state_gb, init_s=init_s,
+               first_step_ms=first_ms, step_ms=step_ms, step_p50_ms=p50,
+               tokens_per_s=B * S / (p50 / 1e3), peak_gb=peak_gb,
+               losses=losses, grad_norm=first["grad_norm"], trace=trace,
+               replay_s=dict(copy=copy_s, swap=swap_s, compare=compare_s))
+    print(f"granite-3-2b train on {card}: full width and depth, "
+          f"{cfg.n_layers} layers ({n_params / 1e9:.3f} B fp32 parameters; "
+          f"params + AdamW moments {state_gb:.2f} GB), batch {B} x {S} tokens in "
+          f"{out['accum']} microbatches: first step {first_ms:.1f} ms, then "
+          f"p50 {p50:.1f} ms = {out['tokens_per_s']:.0f} tokens/s; peak "
+          f"{peak_gb:.2f} GB; traced step busy "
+          f"{trace['busy_share']:.4f}; losses {[round(x, 4) for x in losses]}",
+          flush=True)
+    return out
+
+
+def phase_train_dien(torch, card, out_dir) -> dict:
+    """DIEN's train_batch at its full CFG: at DIEN_CHECK_BATCH (profiles
+    partly masked, one user with none) the loss and every gradient leaf
+    of the card's step (both bag kernels) held to the same computation on
+    CPU copies (the bag wrapper's plain versions): rtol 1e-4 and atol
+    1e-6; then at DIEN_TRAIN_BATCH users DIEN_TRAIN_STEPS AdamW steps, each
+    required to launch the bag kernel and its backward exactly once; step
+    p50, users/s, peak memory, a traced step's busy share."""
+    from repro_torch.configs import dien as dcfg
+    from repro_torch.kernels.embedding_bag import ops as bag
+    from repro_torch.models.recsys import dien as m
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import value_and_grad
+
+    cfg = dcfg.CFG
+    loss_fn = lambda p, b: m.loss_fn(p, b, cfg)
+    small = dcfg.build_train(batch=DIEN_CHECK_BATCH, device=DEVICE,
+                             seed=DIEN_SEED + 1)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(DIEN_SEED + 2)
+    pm = small["batch"]["profile_mask"]
+    pm.copy_(torch.rand(pm.shape, generator=gen, device=DEVICE) < 0.7)
+    pm[0] = False
+    bag.reset_launches()
+    loss, _, grads = value_and_grad(loss_fn, small["params"], small["batch"])
+    if bag.LAUNCHES != {"embedding_bag": 1, "embedding_bag_backward": 1}:
+        raise AssertionError(f"DIEN's gradient on the card launched "
+                             f"{dict(bag.LAUNCHES)}")
+    t0 = time.perf_counter()
+    cl, _, cg = value_and_grad(loss_fn, to_cpu(small["params"]),
+                               to_cpu(small["batch"]))
+    cpu_s = time.perf_counter() - t0
+    torch.testing.assert_close(loss.cpu(), cl, rtol=1e-4, atol=1e-6)
+    worst = 0.0
+    for a, b in zip(grads, cg):
+        a = a.cpu()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        worst = max(worst, float((a - b).abs().max()))
+    print(f"  DIEN train at batch {DIEN_CHECK_BATCH}: loss {float(loss):.6f} "
+          f"(CPU {float(cl):.6f}); {len(grads)} gradient leaves within rtol "
+          f"1e-4 + atol 1e-6 of the CPU copies' (worst abs diff "
+          f"{worst:.3g}; CPU step {cpu_s:.1f} s)", flush=True)
+    del small, grads, cg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    batch_size = DIEN_TRAIN_BATCH
+    cell = dcfg.build_train(batch=batch_size, device=DEVICE, seed=DIEN_SEED)
+    params, opt_state, batch, lr = (cell[k] for k in ("params", "opt_state",
+                                                      "batch", "lr"))
+    step = cell["step"]
+
+    def one():
+        _, _, mm = step(params, opt_state, batch, lr)
+        torch.cuda.synchronize()
+        return float(mm["loss"])
+
+    t0 = time.perf_counter()
+    losses = [one()]                      # warm
+    first_ms = (time.perf_counter() - t0) * 1e3
+    bag.reset_launches()
+    step_ms = []
+    for _ in range(DIEN_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(one())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(bag.LAUNCHES)
+    want = {"embedding_bag": DIEN_TRAIN_STEPS,
+            "embedding_bag_backward": DIEN_TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"DIEN's {DIEN_TRAIN_STEPS} train steps launched "
+                             f"{launches}, want {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"DIEN's train loss is not finite: {losses}")
+    if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(params)):
+        raise AssertionError("DIEN's parameters are not finite")
+    trace = trace_window(torch, "train_dien", lambda: step(
+        params, opt_state, batch, lr), 1, out_dir, lean=True)
+    p50 = float(np.median(step_ms))
+    out = dict(batch=batch_size, steps=DIEN_TRAIN_STEPS, launches=launches,
+               first_step_ms=first_ms, step_ms=step_ms, step_p50_ms=p50,
+               users_per_s=batch_size / (p50 / 1e3), peak_gb=peak_gb,
+               losses=losses, check_batch=DIEN_CHECK_BATCH,
+               check_worst_abs=worst, trace=trace)
+    print(f"DIEN train on {card}: full CFG, batch {batch_size}: first step "
+          f"{first_ms:.1f} ms, then p50 {p50:.1f} ms = "
+          f"{out['users_per_s']:.0f} users/s; peak {peak_gb:.2f} GB; "
+          f"traced step busy {trace['busy_share']:.4f}; bag launches "
+          f"{launches}; losses {[round(x, 4) for x in losses]}", flush=True)
+    return out
+
+
+def phase_train_launcher(torch) -> dict:
+    """``repro_torch.launch.train`` on the card: every trainable arch's
+    reduced train cell for LAUNCH_STEPS steps under the fault-tolerant
+    runner (checkpoints every 2 steps into a temporary directory under
+    build/, removed at exit), losses required finite; then granite-3-2b
+    again with a failure injected at LAUNCH_FAIL_AT, required to end
+    bit-equal, in parameters and optimizer state, to its uninterrupted
+    run."""
+    import tempfile
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.optimizer import tree_leaves
+
+    out, states = {}, {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        for arch_id in TRAIN_ARCHS + ("granite-3-2b",):
+            fail_at = LAUNCH_FAIL_AT if arch_id in states else None
+            t0 = time.perf_counter()
+            state, report, shape = launcher.train(
+                arch_id, steps=LAUNCH_STEPS, lr=1e-3,
+                ckpt_dir=os.path.join(d, f"{arch_id}-{fail_at}"),
+                ckpt_every=2, fail_at=fail_at, device=DEVICE)
+            torch.cuda.synchronize()
+            key = arch_id if fail_at is None else f"{arch_id} fail_at"
+            out[key] = dict(shape=shape, steps_run=report.steps_run,
+                            restarts=report.restarts,
+                            checkpoints=report.checkpoints,
+                            losses=report.losses,
+                            seconds=time.perf_counter() - t0)
+            if not np.isfinite(report.losses).all():
+                raise AssertionError(f"launcher {arch_id}: loss not finite "
+                                     f"{report.losses}")
+            if fail_at is None:
+                states[arch_id] = tree_leaves(state)
+                continue
+            if report.restarts != 1:
+                raise AssertionError(f"launcher {arch_id}: the injected "
+                                     f"failure gave {report.restarts} "
+                                     f"restarts")
+            ref_leaves = states[arch_id]
+            leaves = tree_leaves(state)
+            if len(leaves) != len(ref_leaves) or not all(
+                    torch.equal(a, b) for a, b in zip(leaves, ref_leaves)):
+                raise AssertionError(f"launcher {arch_id}: the run with a "
+                                     f"failure at step {fail_at} does not "
+                                     f"end bit-equal to the uninterrupted "
+                                     f"run")
+    runs = ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in out.items())
+    print(f"  launcher ({LAUNCH_STEPS} steps each): {runs}; the run with a "
+          f"failure at step {LAUNCH_FAIL_AT} ends bit-equal to the "
+          f"uninterrupted one", flush=True)
+    return out
+
+
+def phase_train(torch, card, out_dir, errs) -> dict:
+    """Phase 11, training: the bag's backward kernel, granite-3-2b's
+    full-width train step, DIEN's at its full CFG, the launcher."""
+    from repro_torch.configs import dien as dien_configs
+
+    parts = {}
+    out = {}
+    for name, run in (
+            ("bag_backward", lambda: phase_bag_backward(
+                torch, dien_configs.CFG, DIEN_TRAIN_BATCH, errs)),
+            ("lm", lambda: phase_train_lm(torch, card, out_dir)),
+            ("dien", lambda: phase_train_dien(torch, card, out_dir)),
+            ("launcher", lambda: phase_train_launcher(torch))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        parts[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds_by_part"] = parts
+    rounded = {k: round(v, 1) for k, v in parts.items()}
+    print(f"phase 11 seconds by part: {rounded}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=N_NODES)
@@ -4505,7 +5005,8 @@ def main(argv=None) -> int:
 
     # ---- 2a. kernels against their plain version: the shape sweeps
     errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "prefill_simt": 0.0,
-            "decode": 0.0, "bag": 0.0, "sum_active": 0.0, "max_active": 0.0}
+            "decode": 0.0, "bag": 0.0, "sum_active": 0.0, "max_active": 0.0,
+            "bag_backward": 0.0}
     phase_kernels_sweep(torch, ops, ref, errs)
     report["hub"] = phase_kernels_hub(torch, ops, ref, errs)
     phase_flash_sweep(torch, errs)
@@ -4827,6 +5328,31 @@ def main(argv=None) -> int:
                 device_ms=row["device_ms"],
                 library_device_ms=row["library_device_ms"],
                 shape={k: row[k] for k in ("B", "Hq", "Hkv", "S", "d")}))
+
+    # ---- 11. training, on a card freed of phase 10's models
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = phase_train(torch, card, out_dir, errs)
+    train["seconds"] = time.perf_counter() - t0
+    print(f"training: {train['seconds']:.1f} s", flush=True)
+    report["train"] = train
+    # the bag's backward at DIEN's profile lookup (batch 512); launches from
+    # phase 11's counted DIEN train steps
+    row = train["bag_backward"]
+    kernels.append(dict(
+        name="embedding_bag_backward", route="cuda", source=BAG_SOURCE,
+        replaces=BAG_BACKWARD_REPLACES,
+        note="no Pallas counterpart (the JAX package differentiates "
+             "jnp.take); the gradient of the function _bag_kernel computes, "
+             "which the port's forward runs",
+        design=DESIGNS["bag_backward"],
+        launches=train["dien"]["launches"]["embedding_bag_backward"],
+        max_abs_err=errs["bag_backward"], ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        device_ms=row["device_ms"], kernel_device_ms=row["kernel_device_ms"],
+        library_device_ms=row["library_device_ms"]))
 
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]

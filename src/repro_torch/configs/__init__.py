@@ -1,10 +1,12 @@
 """Architecture registry: ``get_arch(arch_id)`` -> the arch's config module
-(``FAMILY``, ``CFG``, ``SHAPE_DEFS``, ``build_smoke(shape, device=None)``),
-over the archs the port serves (the LMs granite-3-2b, internlm2-1.8b,
-command-r-plus-104b, arctic-480b and dbrx-132b, DIEN, and the paper's own
-system, eagr). The JAX package's GNN archs raise ``NotImplementedError``
-naming their ROADMAP item; an id the JAX package does not know raises
-``KeyError``."""
+(``FAMILY``, ``CFG``, ``SHAPE_DEFS``, ``build_smoke(shape, device=None)``;
+granite-3-2b and DIEN also ``build_train`` for the full-width train cell
+that ``chip_smoke.py`` drives),
+over the archs the port serves and trains (the LMs granite-3-2b,
+internlm2-1.8b, command-r-plus-104b, arctic-480b and dbrx-132b, DIEN, and
+the paper's own system, eagr). The JAX package's GNN archs raise
+``NotImplementedError`` naming their ROADMAP item; an id the JAX package
+does not know raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib

@@ -2,7 +2,7 @@
 35L d_model=7168 56H (kv=8) d_ff=4864(dense residual) vocab=32000,
 MoE 128 experts top-2 (expert d_ff=4864) + dense residual path;
 head_dim = 7168/56 = 128. bf16 parameters and sort dispatch, as the JAX
-package's config (its Adafactor training setting waits with training)."""
+package's config, and its training setting (Adafactor)."""
 import functools
 
 import torch
@@ -17,4 +17,6 @@ CFG = TransformerConfig(
     n_experts=128, top_k=2, moe_dense_residual=True, moe_impl="sort",
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
-build_smoke = functools.partial(lm_common.build_smoke, CFG)
+TRAIN = lm_common.TrainSetting(optimizer="adafactor", accum=8, lr=1e-4)
+
+build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)

@@ -1,7 +1,7 @@
 """command-r-plus-104b [hf:CohereForAI/c4ai-command-r-v01 family]: dense GQA
 LM, no biases. 64L d_model=12288 96H (kv=8) d_ff=33792 vocab=256000;
-head_dim = 12288/96 = 128. bf16 parameters, as the JAX package's config
-(its Adafactor training setting waits with training)."""
+head_dim = 12288/96 = 128. bf16 parameters, as the JAX package's config,
+and its training setting (Adafactor)."""
 import functools
 
 import torch
@@ -15,4 +15,6 @@ CFG = TransformerConfig(
     n_kv_heads=8, d_ff=33792, vocab=256000, head_dim=128,
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
-build_smoke = functools.partial(lm_common.build_smoke, CFG)
+TRAIN = lm_common.TrainSetting(optimizer="adafactor", accum=4, lr=1e-4)
+
+build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)

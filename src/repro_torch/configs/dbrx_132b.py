@@ -1,7 +1,7 @@
 """dbrx-132b [hf:databricks/dbrx-base]: fine-grained MoE.
 40L d_model=6144 48H (kv=8) d_ff=10752, 16 experts top-4 vocab=100352;
 head_dim = 6144/48 = 128. bf16 parameters and sort dispatch, as the JAX
-package's config (its Adafactor training setting waits with training)."""
+package's config, and its training setting (Adafactor)."""
 import functools
 
 import torch
@@ -16,4 +16,6 @@ CFG = TransformerConfig(
     n_experts=16, top_k=4, moe_impl="sort",
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
-build_smoke = functools.partial(lm_common.build_smoke, CFG)
+TRAIN = lm_common.TrainSetting(optimizer="adafactor", accum=8, lr=1e-4)
+
+build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)

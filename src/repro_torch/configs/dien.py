@@ -3,19 +3,22 @@ MLP 200-80, AUGRU interaction, 1M-item / 1k-category embedding tables and a
 100k-feature multi-hot profile EmbeddingBag.
 
 Shapes:
-  train_batch     batch=65,536   train step (not ported)
+  train_batch     batch=65,536   train step (CTR + DIEN auxiliary loss)
   serve_p99       batch=512      online CTR scoring
   serve_bulk      batch=262,144  offline scoring
   retrieval_cand  batch=1, n_candidates=1,000,000
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.core.engine import not_ported
 from repro_torch.device import resolve_device
 from repro_torch.models.common import init_from_specs
 from repro_torch.models.recsys import dien as m
+from repro_torch.train.optimizer import get_optimizer
+from repro_torch.train.trainer import make_train_step
 
 FAMILY = "recsys"
 
@@ -31,22 +34,38 @@ SHAPE_DEFS = {
 }
 
 
-def rand_rank_batch(gen: torch.Generator, cfg: m.DIENConfig, B: int):
+def rand_rank_batch(gen: torch.Generator, cfg: m.DIENConfig, B: int, *,
+                    train: bool = False):
     """A random ranking batch on ``gen``'s device, drawn as the JAX
     package's ``_rand_rank_batch`` draws it (90% live behaviour steps, full
-    profile bags)."""
+    profile bags); with ``train`` also ``labels`` (B,) in {0, 1} and the
+    sampled negatives ``neg_item_ids``, ``neg_cat_ids`` (B, S)."""
     S, nb, dev = cfg.seq_len, cfg.profile_bag_size, gen.device
 
     def ints(hi, shape):
         return torch.randint(0, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
-    return dict(
+    batch = dict(
         item_ids=ints(cfg.n_items, (B, S)), cat_ids=ints(cfg.n_cats, (B, S)),
         mask=torch.rand((B, S), generator=gen, device=dev) < 0.9,
         target_item=ints(cfg.n_items, (B,)), target_cat=ints(cfg.n_cats, (B,)),
         profile_ids=ints(cfg.n_profile_feats, (B, nb)),
         profile_mask=torch.ones((B, nb), dtype=torch.bool, device=dev))
+    if train:
+        batch.update(labels=ints(2, (B,)),
+                     neg_item_ids=ints(cfg.n_items, (B, S)),
+                     neg_cat_ids=ints(cfg.n_cats, (B, S)))
+    return batch
+
+
+def _train_cell(cfg: m.DIENConfig, params, batch: dict, lr: float) -> dict:
+    """The JAX package's DIEN train step: AdamW, one microbatch, the
+    trainer's default clip."""
+    opt = get_optimizer("adamw")
+    step = make_train_step(functools.partial(m.loss_fn, cfg=cfg), opt)
+    return dict(cfg=cfg, params=params, opt_state=opt.init(params),
+                batch=batch, step=step, lr=lr, optimizer=opt)
 
 
 def build_smoke(shape: str, device=None) -> dict:
@@ -54,14 +73,18 @@ def build_smoke(shape: str, device=None) -> dict:
     unless the caller names another): ``cfg`` (``SMOKE_CFG``), ``params``
     and a ``batch``: 8 users for a serve shape; for ``retrieval_cand`` one
     user without a target and 512 candidates (``cand_items``,
-    ``cand_cats``)."""
+    ``cand_cats``); for ``train_batch`` 8 users with labels and negatives,
+    and the train cell: ``opt_state``, ``step`` (AdamW), ``lr`` 1e-3,
+    ``optimizer``."""
     kind = SHAPE_DEFS[shape]["kind"]
-    if kind == "train":
-        raise not_ported("DIEN training (train_batch)", "13")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = init_from_specs(m.param_specs(SMOKE_CFG), gen)
+    if kind == "train":
+        return _train_cell(SMOKE_CFG, params,
+                           rand_rank_batch(gen, SMOKE_CFG, 8, train=True),
+                           1e-3)
     if kind == "serve":
         batch = rand_rank_batch(gen, SMOKE_CFG, 8)
         return dict(cfg=SMOKE_CFG, params=params, batch=batch)
@@ -77,3 +100,17 @@ def rand_candidates(gen: torch.Generator, cfg: m.DIENConfig, n: int) -> dict:
     ints = dict(generator=gen, device=gen.device, dtype=torch.int32)
     return dict(cand_items=torch.randint(0, cfg.n_items, (n,), **ints),
                 cand_cats=torch.randint(0, cfg.n_cats, (n,), **ints))
+
+
+def build_train(*, batch: int, device=None, seed: int = 0) -> dict:
+    """The ``train_batch`` cell at the full ``CFG`` (1M items, 100k profile
+    features, sequence 100) and a batch of ``batch`` users (the assigned
+    65,536 cut to what one card holds), on ``device`` (CUDA unless the
+    caller names another); parameters and batch drawn from ``seed``.
+    Returns the dict of :func:`build_smoke`'s train cell (lr 1e-3)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_from_specs(m.param_specs(CFG), gen)
+    return _train_cell(CFG, params, rand_rank_batch(gen, CFG, batch,
+                                                    train=True), 1e-3)

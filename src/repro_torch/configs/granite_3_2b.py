@@ -13,4 +13,7 @@ CFG = TransformerConfig(
     n_kv_heads=8, d_ff=8192, vocab=49155, head_dim=64,
     param_dtype=torch.float32, compute_dtype=torch.bfloat16)
 
-build_smoke = functools.partial(lm_common.build_smoke, CFG)
+TRAIN = lm_common.TrainSetting(optimizer="adamw", accum=4)
+
+build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)
+build_train = functools.partial(lm_common.build_train, CFG, TRAIN)

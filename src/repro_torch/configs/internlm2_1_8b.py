@@ -13,4 +13,6 @@ CFG = TransformerConfig(
     n_kv_heads=8, d_ff=8192, vocab=92544, head_dim=128,
     param_dtype=torch.float32, compute_dtype=torch.bfloat16)
 
-build_smoke = functools.partial(lm_common.build_smoke, CFG)
+TRAIN = lm_common.TrainSetting(optimizer="adamw", accum=2)
+
+build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)

@@ -1,8 +1,9 @@
-"""Shared cell builders for the LM architectures: the assigned shapes and
-the reduced (smoke) configuration the serve launcher runs.
+"""Shared cell builders for the LM architectures: the assigned shapes, each
+arch's training setting, the reduced (smoke) configuration the launchers
+run, and the full-width train cell.
 
 Shapes (assigned):
-  train_4k     seq 4,096   global_batch 256   -> train step (not ported)
+  train_4k     seq 4,096   global_batch 256   -> train step (fwd + bwd + optimizer)
   prefill_32k  seq 32,768  global_batch 32    -> prefill (logits + KV cache)
   decode_32k   seq 32,768  global_batch 128   -> decode_step (1 token vs cache)
   long_500k    seq 524,288 global_batch 1     -> decode_step
@@ -10,15 +11,28 @@ Shapes (assigned):
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from repro_torch.core.engine import not_ported
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import init_from_specs
+from repro_torch.train.optimizer import get_optimizer
+from repro_torch.train.trainer import make_train_step
 
 FAMILY = "lm"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSetting:
+    """An arch's training setting, the JAX package's ``LMArch`` fields:
+    the optimizer's name, the microbatches of a step and the learning
+    rate."""
+
+    optimizer: str = "adamw"
+    accum: int = 1
+    lr: float = 3e-4
 
 SHAPE_DEFS = {
     "train_4k": dict(seq=4096, batch=256, kind="train"),
@@ -40,19 +54,41 @@ def smoke_config(cfg: T.TransformerConfig) -> T.TransformerConfig:
         compute_dtype=torch.float32, param_dtype=torch.float32)
 
 
-def build_smoke(cfg: T.TransformerConfig, shape: str, device=None) -> dict:
-    """The inputs of the JAX package's reduced serve cell (same config and
+def _train_cell(cfg, train: TrainSetting, params, batch: dict, accum: int,
+                lr: float) -> dict:
+    opt = get_optimizer(train.optimizer)
+    step = make_train_step(functools.partial(T.loss_fn, cfg=cfg), opt,
+                           accum_steps=accum)
+    return dict(cfg=cfg, params=params, opt_state=opt.init(params),
+                batch=batch, step=step, lr=lr, optimizer=opt, accum=accum)
+
+
+def _tokens_and_labels(gen, cfg, B: int, S: int) -> dict:
+    ints = dict(generator=gen, device=gen.device, dtype=torch.int32)
+    return {"tokens": torch.randint(0, cfg.vocab, (B, S), **ints),
+            "labels": torch.randint(0, cfg.vocab, (B, S), **ints)}
+
+
+def build_smoke(cfg: T.TransformerConfig, train: TrainSetting, shape: str,
+                device=None) -> dict:
+    """The inputs of the JAX package's reduced cell (same config and
     shapes; seeded torch init, so other numbers) on ``device`` (CUDA unless
-    the caller names another): ``cfg`` (the smoke config), ``params`` and
-    ``tokens``, plus ``cache`` and ``lengths`` for a decode shape."""
+    the caller names another): ``cfg`` (the smoke config) and ``params``;
+    for a serve shape ``tokens``, plus ``cache`` and ``lengths`` for a
+    decode shape; for ``train_4k`` the train cell: ``opt_state``,
+    ``batch`` (``tokens``, ``labels``: B 4 x S 64), ``step`` (the arch's
+    optimizer, ``accum`` = min(the arch's, 2) microbatches), ``lr`` 1e-3,
+    ``optimizer``."""
     cfg = smoke_config(cfg)
     kind = SHAPE_DEFS[shape]["kind"]
-    if kind == "train":
-        raise not_ported("LM training (train_4k)", "13")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = init_from_specs(T.param_specs(cfg), gen)
+    if kind == "train":
+        return _train_cell(cfg, train, params,
+                           _tokens_and_labels(gen, cfg, 4, 64),
+                           min(train.accum, 2), 1e-3)
     if kind == "prefill":
         B, S = 2, 64
         tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
@@ -66,3 +102,24 @@ def build_smoke(cfg: T.TransformerConfig, shape: str, device=None) -> dict:
     lengths = torch.full((B,), S // 2, dtype=torch.int32, device=dev)
     return dict(cfg=cfg, params=params, cache=(kv, kv.clone()), tokens=tokens,
                 lengths=lengths)
+
+
+def build_train(cfg: T.TransformerConfig, train: TrainSetting, *,
+                batch: int, device=None, seed: int = 0) -> dict:
+    """The ``train_4k`` cell (seq 4,096) at full width and depth and a
+    global batch of ``batch`` (the assigned 256 cut to what one card
+    holds), on ``device`` (CUDA unless the caller names another): the
+    arch's optimizer, its ``accum`` microbatches and learning rate,
+    parameters drawn from ``seed``. Returns the dict of
+    :func:`build_smoke`'s train cell."""
+    if batch % train.accum:
+        raise ValueError(f"batch {batch} is not a multiple of accum "
+                         f"{train.accum}")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_from_specs(T.param_specs(cfg), gen)
+    S = SHAPE_DEFS["train_4k"]["seq"]
+    return _train_cell(cfg, train, params,
+                       _tokens_and_labels(gen, cfg, batch, S), train.accum,
+                       train.lr)

@@ -1,11 +1,12 @@
-"""Carry a plan, live state and model parameters from the JAX package into
-the port.
+"""Carry a plan, live state, model parameters and optimizer state from the
+JAX package into the port.
 
 The JAX package hands its state over as host numpy (``plan_snapshot`` of
 ``repro.core.engine``, ``window_state_to_host`` of ``repro.core.window``, and
-a parameter pytree mapped through ``np.asarray``); these functions turn it
-into the port's tensors on ``device``, which is CUDA unless the caller names
-another. Nothing here imports the JAX package: the caller holds both sides.
+a parameter or optimizer-state pytree mapped through ``np.asarray``); these
+functions turn it into the port's tensors on ``device``, which is CUDA
+unless the caller names another. Nothing here imports the JAX package: the
+caller holds both sides.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.window import WindowState
 from repro_torch.device import resolve_device
+from repro_torch.train.optimizer import AdamState, FactorState
 
 def plan_from_reference(arrays: dict, objs: dict, device=None) -> ExecPlan:
     """An ``ExecPlan`` on ``device`` (CUDA unless the caller names another)
@@ -73,3 +75,26 @@ def params_from_reference(tree, device=None):
         return _param_tensor(node, device)
 
     return put(tree)
+
+
+def opt_state_from_reference(state, device=None):
+    """The port's optimizer state on ``device`` (CUDA unless the caller
+    names another) from the JAX package's as numpy (``jax.tree.map(
+    np.asarray, opt_state)``): its ``AdamState(mu, nu, count)`` becomes the
+    port's ``AdamState``, its ``FactorState(vr, vc, count)`` the port's
+    ``FactorState`` (told apart by their field names), SGD's tree of
+    momenta a tree of tensors; every leaf in its own dtype, the count a 0-d
+    int32 tensor."""
+    device = resolve_device(device)
+    fields = getattr(state, "_fields", None)
+    kinds = {("mu", "nu", "count"): AdamState,
+             ("vr", "vc", "count"): FactorState}
+    if fields is None:
+        return params_from_reference(state, device=device)
+    if tuple(fields) not in kinds:
+        raise TypeError(f"unknown optimizer state with fields {fields}")
+    a, b, count = state
+    return kinds[tuple(fields)](
+        params_from_reference(a, device=device),
+        params_from_reference(b, device=device),
+        torch.tensor(np.asarray(count), dtype=torch.int32, device=device))

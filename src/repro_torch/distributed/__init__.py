@@ -1,7 +1,7 @@
 """Reader-partitioned shards stacked on one card, durable checkpoints and
-crash recovery — the port of the JAX package's ``repro.distributed``
-(without its gradient compression and mesh sharding rules, which serve the
-training path: ROADMAP.md item 13)."""
+crash recovery (of sessions and of training states) — the port of the JAX
+package's ``repro.distributed`` (without its gradient compression and mesh
+sharding rules: ROADMAP.md item 13e)."""
 from repro_torch.distributed.checkpoint import (
     CheckpointManager,
     restore_session,

@@ -47,14 +47,28 @@ import numpy as np
 import torch
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _flat_with_paths(tree, prefix: str = "") -> list:
-    """(path, tensor-or-array) leaves of a nested dict, with the JAX
-    package's key-path spelling (``['a']['b']``)."""
+    """(path, tensor-or-array) leaves of nested dicts, lists, tuples and
+    NamedTuples, in the JAX package's order and key-path spelling
+    (``jax.tree_util.keystr``): ``['a']`` for a dict key (keys sorted),
+    ``[0]`` for a position, ``.mu`` for a NamedTuple field — a training
+    state ``(params, AdamState(mu, nu, count))`` flattens to
+    ``[0]['embed']``, ``[1].mu['layers']['wq']``, ``[1].count``."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out.extend(_flat_with_paths(tree[k], f"{prefix}[{k!r}]"))
         return out
+    if _is_namedtuple(tree):
+        return [x for f, v in zip(tree._fields, tree)
+                for x in _flat_with_paths(v, f"{prefix}.{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _flat_with_paths(v, f"{prefix}[{i}]")]
     return [(prefix, tree)]
 
 
@@ -96,8 +110,9 @@ class CheckpointManager:
     # ----------------------------------------------------------------- save
     def save(self, step: int, state, *, blocking: bool = True,
              extra: dict | None = None) -> None:
-        """Snapshot a (nested dict of) tensors synchronously, write it
-        (a)synchronously, commit atomically."""
+        """Snapshot a tree of tensors (nested dicts, lists, tuples and
+        NamedTuples, such as a training state ``(params, opt_state)``)
+        synchronously, write it (a)synchronously, commit atomically."""
         snapshot = _host_arrays(_flat_with_paths(state))
         self._launch(step, snapshot, extra or {}, blocking)
 
@@ -174,15 +189,21 @@ class CheckpointManager:
             return d, json.load(f)
 
     def restore(self, state_like, step: int | None = None):
-        """Restore into the structure of ``state_like`` (a nested dict of
-        tensors): each array lands on its template's device and dtype.
-        Returns ``(state, manifest)``."""
+        """Restore into the structure of ``state_like`` (a tree of tensors
+        as :meth:`save` takes it): each array lands on its template's
+        device and dtype. Returns ``(state, manifest)``."""
         d, manifest = self._manifest(step)
 
         def load(tree, prefix=""):
             if isinstance(tree, dict):
                 return {k: load(v, f"{prefix}[{k!r}]")
                         for k, v in tree.items()}
+            if _is_namedtuple(tree):
+                return type(tree)(*(load(v, f"{prefix}.{f}")
+                                    for f, v in zip(tree._fields, tree)))
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(load(v, f"{prefix}[{i}]")
+                                  for i, v in enumerate(tree))
             meta = manifest["arrays"].get(prefix)
             if meta is None:
                 raise KeyError(f"checkpoint {manifest['step']} missing "

@@ -1,7 +1,8 @@
 """Fault tolerance: checkpoint/restart drivers and straggler detection.
 
 ``FaultTolerantRunner`` wraps any ``(state, batch) -> (state, metrics)``
-step function over a dict of tensors:
+step function over a tree of tensors (nested dicts, tuples, NamedTuples:
+a training state ``(params, opt_state)``):
   * periodic async checkpoints (:class:`CheckpointManager`),
   * on a step failure (a lost device surfaces as an exception), restore the
     latest checkpoint and REPLAY the data stream deterministically (the data
@@ -56,8 +57,8 @@ class RunReport:
 
 
 class FaultTolerantRunner:
-    """Drives a step loop with checkpoint/restart semantics over a (nested)
-    dict of tensors.
+    """Drives a step loop with checkpoint/restart semantics over a tree of
+    tensors (see :meth:`CheckpointManager.save`).
 
     ``make_batch(step)`` must be deterministic in ``step`` — that is what
     makes replay-after-restore exact.

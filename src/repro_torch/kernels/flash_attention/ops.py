@@ -11,7 +11,9 @@ row and head) take the JAX package's layout: q ``(B, Hq, S, d)`` (decode:
 kernel for every other case (fp32 keeps full fp32 products). ``LAUNCHES``
 counts kernel launches per entry point (``prefill`` counts both prefill
 kernels, ``prefill_wgmma`` the tensor-core one), so a run can show that its
-path went through the kernels.
+path went through the kernels. The kernels have no backward: a call with
+grad mode on and an input that requires grad raises rather than cut the
+autograd graph (training attends through ``common.blocked_attention``).
 """
 from __future__ import annotations
 
@@ -87,7 +89,22 @@ def _entry(name: str):
     return fn
 
 
+def _no_graph_cut(q, k, v) -> None:
+    """The kernels are bound through ctypes and have no backward: a call
+    that autograd would record raises instead of returning an output with
+    no gradient, on every device alike."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash-attention kernels have no backward, so this call "
+            "would cut the autograd graph: train through "
+            "repro_torch.models.common.blocked_attention (as the JAX package "
+            "does), or call under torch.no_grad(); a hand-written attention "
+            "kernel with a backward is ROADMAP.md's follow-up under section "
+            "2")
+
+
 def _check(q, k, v, lengths, *, q_ndim: int) -> None:
+    _no_graph_cut(q, k, v)
     if q.ndim != q_ndim or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"shapes: q {tuple(q.shape)} (want {q_ndim}-D), k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")

@@ -1,8 +1,7 @@
 """Shared model substrate: parameter specs and their seeded init, RMS norm,
-RoPE, and the plain blocked attention of the JAX package's production path.
-
-The training half of the JAX module (``cross_entropy``, ``fused_ce_loss``)
-waits with training (ROADMAP.md, 'Modules to port', item 13).
+RoPE, the plain blocked attention of the JAX package's production path
+(the one it trains through), and the losses: ``cross_entropy`` and the
+chunked, recomputed ``fused_ce_loss``.
 """
 from __future__ import annotations
 
@@ -11,6 +10,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 # ------------------------------------------------------------- param specs
@@ -126,10 +126,65 @@ def blocked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
             s = s.masked_fill(qpos < kpos, float("-inf"))
         if lmask is not None:
             s = s.masked_fill(~lmask[:, None, None, None, :], float("-inf"))
-        m = s.amax(dim=-1, keepdim=True)
+        m = s.amax(dim=-1, keepdim=True).detach()
         p = torch.exp(s - m)
         o = torch.einsum("bhgqk,bhkd->bhgqd", p, v32)
         outs.append(o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30))
     out = torch.cat(outs, dim=3) if outs else \
         q.new_zeros((B, Hkv, group, 0, d), dtype=torch.float32)
     return out.reshape(B, Hq, Sq, d).to(q.dtype)
+
+
+# -------------------------------------------------------------------- loss
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32. logits: (..., V); labels: (...)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def _ce_chunk(x, labels, lm_head, valid):
+    """One chunk's (sum of nll, sum of lse^2): the fp32 vocab projection,
+    padded columns at -inf."""
+    logits = (x.float() @ lm_head.float()).masked_fill(~valid, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - ll).sum(), (lse * lse).sum()
+
+
+def fused_ce_loss(x: torch.Tensor, lm_head: torch.Tensor,
+                  labels: torch.Tensor, *, n_valid_vocab: int,
+                  z_loss: float = 0.0, chunk: int = 512
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Memory-efficient vocab projection + cross entropy + z-loss.
+
+    The full (B, S, V) logits never materialize: the sequence is cut into
+    ``chunk``-sized slices whose projection (fp32) is recomputed in the
+    backward (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint``), so the live logits are (B, chunk, V). Padded vocab
+    columns (>= n_valid_vocab) are masked to -inf. x: (B, S, D); lm_head
+    (D, V); labels (B, S). Returns (mean nll, z_loss * mean lse^2)."""
+    B, S, D = x.shape
+    V = lm_head.shape[-1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    valid = torch.arange(V, device=x.device) < n_valid_vocab
+    nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        args = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], lm_head, valid)
+        if torch.is_grad_enabled():
+            nll, z = checkpoint(_ce_chunk, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            nll, z = _ce_chunk(*args)
+        nll_sum = nll_sum + nll
+        z_sum = z_sum + z
+    n_tok = B * S
+    return nll_sum / n_tok, z_loss * z_sum / n_tok

@@ -1,10 +1,11 @@
-"""DIEN: Deep Interest Evolution Network [arXiv:1809.03672], serve path.
+"""DIEN: Deep Interest Evolution Network [arXiv:1809.03672].
 
-The JAX package's ``models/recsys/dien.py`` in PyTorch, for CTR scoring
-and candidate retrieval:
+The JAX package's ``models/recsys/dien.py`` in PyTorch, for training, CTR
+scoring and candidate retrieval:
 
   behavior embeddings  e_t = [item_embed ; cat_embed]            (2 * 18 = 36)
   interest extraction  GRU over the 100-step behavior sequence   (hidden 108)
+    + auxiliary loss: sigmoid(h_t . e_{t+1}) vs sampled negatives
   interest evolution   AUGRU — GRU whose update gate is scaled by
                        attention(h_t, target embedding)
   prediction MLP       [user features] -> 200 -> 80 -> 1 (sigmoid CTR)
@@ -12,21 +13,26 @@ and candidate retrieval:
 The multi-hot user-profile lookup (``profile_embed``) goes through the
 hand-written EmbeddingBag kernel (``kernels.embedding_bag.ops``), the
 function the JAX package's Pallas ``embedding_bag`` kernel computes (on
-CPU tensors its wrapper runs the plain version). The behaviour lookups stay
-plain gathers, as the JAX package's ``jnp.take``. Each ``lax.scan`` is a
-Python loop over the sequence. ``retrieval_score`` (the retrieval_cand
-shape) scores one user against every candidate: the GRU's final state and
-the masked mean of the behaviour embeddings through ``ret_w``, then one
-matrix-vector product with the candidates' item plus category embeddings
-(the JAX package's two-tower approximation of the ranking path; plain
-gathers and a matvec there too). ``aux_loss`` and ``loss_fn`` wait
-(ROADMAP.md, 'Modules to port', item 13).
+CPU tensors its wrapper runs the plain version); it is differentiable in
+the table through the hand-written backward kernel, so ``loss_fn`` trains
+``profile_embed`` as JAX's gradient of its gather does. The behaviour
+lookups stay plain gathers, as the JAX package's ``jnp.take``. Each
+``lax.scan`` is a Python loop over the sequence. ``loss_fn`` is the
+sigmoid CTR cross entropy plus ``aux_weight`` times ``aux_loss`` (the
+interest states against the next behaviour and a sampled negative).
+``retrieval_score`` (the retrieval_cand shape) scores one user against
+every candidate: the GRU's final state and the masked mean of the
+behaviour embeddings through ``ret_w``, then one matrix-vector product
+with the candidates' item plus category embeddings (the JAX package's
+two-tower approximation of the ranking path; plain gathers and a matvec
+there too).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.models.common import ParamSpec
@@ -140,12 +146,14 @@ def profile_embed(params, profile_ids, profile_mask, cfg: DIENConfig):
 # -------------------------------------------------------------------- forward
 def interest_states(params, behav, mask, cfg: DIENConfig):
     """GRU over the behavior sequence. behav: (B, S, d_b). Returns (B, S, d_h)."""
-    B, S, _ = behav.shape
+    B = behav.shape[0]
     h = torch.zeros((B, cfg.gru_dim), dtype=behav.dtype, device=behav.device)
     hs = []
-    for t in range(S):
-        h_new = _gru_step(params, "gru", behav[:, t], h)
-        h = torch.where(mask[:, t, None], h_new, h)
+    # one view a step (scan's slicing): the backward stacks the steps'
+    # gradients once, where indexing would build a (B, S, d) zero tensor a
+    # step
+    for x, m in zip(behav.unbind(1), mask.unbind(1)):
+        h = torch.where(m[:, None], _gru_step(params, "gru", x, h), h)
         hs.append(h)
     return torch.stack(hs, dim=1)
 
@@ -165,11 +173,10 @@ def attention_scores(params, hs, target, mask):
 
 def evolve_interest(params, behav, hs, att, mask, cfg: DIENConfig):
     """AUGRU over interest states. Returns final state (B, d_h)."""
-    B, S, _ = hs.shape
+    B = hs.shape[0]
     h = torch.zeros((B, cfg.gru_dim), dtype=behav.dtype, device=behav.device)
-    for t in range(S):
-        h_new = _augru_step(params, hs[:, t], h, att[:, t])
-        h = torch.where(mask[:, t, None], h_new, h)
+    for x, a, m in zip(hs.unbind(1), att.unbind(1), mask.unbind(1)):
+        h = torch.where(m[:, None], _augru_step(params, x, h, a), h)
     return h
 
 
@@ -195,6 +202,35 @@ def ctr_logits(params, batch, cfg: DIENConfig):
         if i < n - 1:
             x = torch.relu(x)
     return x[:, 0], hs, behav
+
+
+def aux_loss(params, hs, behav, neg_behav, mask):
+    """DIEN auxiliary loss: h_t should predict e_{t+1} against a sampled
+    negative. hs: (B,S,d_h), behav/neg_behav: (B,S,d_b)."""
+    d_h = hs.shape[-1]
+    h, e_next = hs[:, :-1], behav[:, 1:]
+    e_neg = neg_behav[:, 1:]
+    m = mask[:, 1:].float()
+    # score by inner product on the shared prefix of dims
+    d = min(d_h, e_next.shape[-1])
+    pos = (h[..., :d] * e_next[..., :d]).sum(-1).float()
+    neg = (h[..., :d] * e_neg[..., :d]).sum(-1).float()
+    ll = F.logsigmoid(pos) + F.logsigmoid(-neg)
+    return -(ll * m).sum() / m.sum().clamp_min(1.0)
+
+
+def loss_fn(params, batch, cfg: DIENConfig, aux_weight: float = 1.0):
+    """The train step's loss: CTR cross entropy on ``labels`` (B,) plus
+    ``aux_weight`` times :func:`aux_loss` with the negatives
+    ``neg_item_ids``, ``neg_cat_ids`` (B, S). Returns (loss, {"ce",
+    "aux"})."""
+    logits, hs, behav = ctr_logits(params, batch, cfg)
+    y = batch["labels"].float()
+    ce = -(y * F.logsigmoid(logits) + (1 - y) * F.logsigmoid(-logits)).mean()
+    neg_behav = behavior_embed(params, batch["neg_item_ids"],
+                               batch["neg_cat_ids"], cfg)
+    al = aux_loss(params, hs, behav, neg_behav, batch["mask"])
+    return ce + aux_weight * al, {"ce": ce, "aux": al}
 
 
 def serve(params, batch, cfg: DIENConfig):

@@ -1,8 +1,12 @@
 """Decoder-only GQA transformer family (granite / internlm2 / command-r /
-arctic / dbrx) with optional Mixture-of-Experts FFNs, serve path.
+arctic / dbrx) with optional Mixture-of-Experts FFNs.
 
-The JAX package's ``models/transformer.py`` in PyTorch, for serving only:
+The JAX package's ``models/transformer.py`` in PyTorch, with its entry
+points:
 
+  loss_fn        train_4k     tokens -> mean CE + z-loss + 0.01 * MoE aux
+  forward        tokens -> logits (B, S, V) + MoE aux loss
+  trunk          embedding + layers + final norm (no vocab projection)
   prefill        tokens -> last-token logits + KV cache (L, B, Hkv, S, hd)
   decode_step    one new token per batch row against a live KV cache
 
@@ -13,12 +17,22 @@ einsums) and 'sort' (per-row sort of the assignments by expert into
 in JAX (no Pallas kernel there either). Routing reproduces
 ``jax.lax.top_k``'s order, the lower expert first on equal probabilities.
 
-Attention goes through the hand-written flash-attention kernels
-(``kernels.flash_attention.ops``): ``flash_attention`` in prefill,
-``flash_decode`` in decode. ``attention=`` runs a plain attention function
-instead (``common.blocked_attention``, the JAX package's production path, or
-the kernels' own plain version ``attention_ref``), so a caller can hold the
-kernel path against a plain one on the card.
+Attention: ``prefill`` and ``decode_step`` go through the hand-written
+flash-attention kernels (``kernels.flash_attention.ops``): ``flash_attention``
+in prefill, ``flash_decode`` in decode. ``attention=`` runs a plain
+attention function instead (``common.blocked_attention``, the JAX
+package's production path, or the kernels' own plain version
+``attention_ref``), so a caller can hold the kernel path against a plain
+one on the card. The training entry points (``trunk``, ``forward``,
+``loss_fn``) attend through ``common.blocked_attention`` with
+``cfg.q_chunk``, as the JAX package trains: the kernels have no backward
+(their wrappers raise rather than cut the graph). With ``remat == "full"``
+each layer runs under ``torch.utils.checkpoint`` (the JAX package's
+``jax.checkpoint`` of the scan body) and is recomputed in the backward;
+the loss's vocab projection is ``common.fused_ce_loss``, in chunks of
+``cfg.ce_chunk`` recomputed the same way. The layer-stacked leaves enter
+the layer loop through ``unbind``, so their gradient is stacked once per
+backward.
 
 Parameters are a nested dict of tensors laid out as the JAX package's
 (layer-stacked ``(L, ...)`` leaves under ``"layers"``). Matrices are cast to
@@ -26,9 +40,8 @@ the compute dtype at each use, as in JAX; ``serving_params`` casts them once
 ahead (the same numbers, since a cast of a cast is the cast), and the casts
 at use are then no-ops. The port runs on one card: the JAX package's
 ``constrain`` sharding hints do nothing without a mesh and are dropped.
-Training (``loss_fn``, ``forward``, ``trunk``) waits (ROADMAP.md,
-'Modules to port', item 13); ``_ffn`` returns the MoE load-balance loss
-for it, and ``prefill`` and ``decode_step`` drop it, as JAX does.
+``_ffn`` returns the MoE load-balance loss; ``prefill`` and
+``decode_step`` drop it, as JAX does.
 """
 from __future__ import annotations
 
@@ -36,11 +49,14 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models.common import (
     ParamSpec,
     apply_rope,
+    blocked_attention,
+    fused_ce_loss,
     rms_norm,
     rope_angles,
 )
@@ -63,9 +79,13 @@ class TransformerConfig:
     capacity_factor: float = 1.25
     moe_dense_residual: bool = False   # arctic: dense FFN in parallel with MoE
     moe_impl: str = "einsum"           # 'einsum' | 'sort'
-    # numerics
+    # numerics / memory
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: str = "full"                # 'none' | 'full'
+    q_chunk: int = 512
+    ce_chunk: int = 512                # fused-CE sequence chunk
+    z_loss: float = 1e-4
     vocab_pad_to: int = 128
 
     @property
@@ -272,23 +292,34 @@ def _load_balance_loss(probs, gate_idx, E: int):
 _MOE_IMPLS = {"einsum": _moe_ffn_einsum, "sort": _moe_ffn_sort}
 
 
-def _dense_ffn(x, lp, l: int, cdt):
-    return _swiglu(x, lp["w_gate"][l].to(cdt), lp["w_up"][l].to(cdt),
-                   lp["w_down"][l].to(cdt))
+def _dense_ffn(x, lw, cdt):
+    return _swiglu(x, lw["w_gate"].to(cdt), lw["w_up"].to(cdt),
+                   lw["w_down"].to(cdt))
 
 
-def _ffn(x, lp, l: int, cfg: TransformerConfig):
-    """Layer ``l``'s FFN: (out, load-balance loss; 0.0 for a dense FFN)."""
+def _layer_weights(lp, l: int) -> dict:
+    """Layer ``l``'s slice of every layer-stacked leaf."""
+    return {k: v[l] for k, v in lp.items()}
+
+
+def _layer_ffn(x, lw, cfg: TransformerConfig):
+    """One layer's FFN on that layer's weights ``lw``: (out, load-balance
+    loss; 0.0 for a dense FFN)."""
     if not cfg.is_moe:
-        return _dense_ffn(x, lp, l, cfg.compute_dtype), 0.0
+        return _dense_ffn(x, lw, cfg.compute_dtype), 0.0
     if cfg.moe_impl not in _MOE_IMPLS:
         raise ValueError(f"moe_impl {cfg.moe_impl!r} not in "
                          f"{sorted(_MOE_IMPLS)}")
-    out, aux = _MOE_IMPLS[cfg.moe_impl](
-        x, {k: lp[k][l] for k in _MOE_LEAVES}, cfg)
+    out, aux = _MOE_IMPLS[cfg.moe_impl](x, lw, cfg)
     if cfg.moe_dense_residual:
-        out = out + _dense_ffn(x, lp, l, cfg.compute_dtype)
+        out = out + _dense_ffn(x, lw, cfg.compute_dtype)
     return out, aux
+
+
+def _ffn(x, lp, l: int, cfg: TransformerConfig):
+    """Layer ``l``'s FFN from the layer-stacked leaves ``lp``: (out,
+    load-balance loss; 0.0 for a dense FFN)."""
+    return _layer_ffn(x, _layer_weights(lp, l), cfg)
 
 
 # ------------------------------------------------------------------- layer
@@ -305,22 +336,37 @@ def _out_proj(o, wo, cdt):
         @ wo.to(cdt).reshape(H * hd, -1)
 
 
+def _qkv(x, lw, cdt, cos, sin):
+    """One layer's q, k (RoPE applied) and v, each (B, H, S, hd)
+    contiguous. x: (B, S, D)."""
+    q = apply_rope(_project(x, lw["wq"], cdt), cos, sin)
+    kk = apply_rope(_project(x, lw["wk"], cdt), cos, sin)
+    vv = _project(x, lw["wv"], cdt)
+    return tuple(t.transpose(1, 2).contiguous() for t in (q, kk, vv))
+
+
 def _attention(x, lp, l: int, cfg: TransformerConfig, cos, sin, *,
                attention):
     """Prefill attention of layer ``l``. x: (B, S, D). Returns
     (out (B, S, D), (k, v) each (B, Hkv, S, hd))."""
     cdt = cfg.compute_dtype
-    q = apply_rope(_project(x, lp["wq"][l], cdt), cos, sin)
-    kk = apply_rope(_project(x, lp["wk"][l], cdt), cos, sin)
-    vv = _project(x, lp["wv"][l], cdt)
-    q = q.transpose(1, 2).contiguous()       # (B, Hq, S, hd)
-    kk = kk.transpose(1, 2).contiguous()
-    vv = vv.transpose(1, 2).contiguous()
+    q, kk, vv = _qkv(x, _layer_weights(lp, l), cdt, cos, sin)
     if attention is None:
         o = flash.flash_attention(q, kk, vv, causal=True)
     else:
         o = attention(q, kk, vv, causal=True, lengths=None)
     return _out_proj(o, lp["wo"][l], cdt), (kk, vv)
+
+
+def _layer(x, lw, cfg: TransformerConfig, cos, sin):
+    """One layer of the training forward on that layer's weights ``lw``:
+    (x, MoE load-balance loss). Attention is ``blocked_attention``."""
+    cdt = cfg.compute_dtype
+    q, kk, vv = _qkv(rms_norm(x, lw["ln1"]), lw, cdt, cos, sin)
+    o = blocked_attention(q, kk, vv, causal=True, q_chunk=cfg.q_chunk)
+    x = x + _out_proj(o, lw["wo"], cdt)
+    f, aux = _layer_ffn(rms_norm(x, lw["ln2"]), lw, cfg)
+    return x + f, aux
 
 
 def _logits(x, params, cfg: TransformerConfig):
@@ -331,6 +377,49 @@ def _logits(x, params, cfg: TransformerConfig):
     logits = x @ params["lm_head"].to(cdt)
     valid = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
     return logits.masked_fill(~valid, -1e9)
+
+
+# ---------------------------------------------------------------- training
+def trunk(params, tokens: torch.Tensor, cfg: TransformerConfig):
+    """Embedding + all layers + final norm (no vocab projection). tokens
+    (B, S) int -> (x (B, S, D) in the compute dtype, mean over layers of
+    the MoE load-balance loss (0 for a dense model))."""
+    cdt = cfg.compute_dtype
+    x = params["embed"][tokens.long()].to(cdt)
+    S = tokens.shape[1]
+    cos, sin = rope_angles(torch.arange(S, device=tokens.device),
+                           cfg.head_dim, cfg.rope_base)
+    # one view a layer of every stacked leaf; the backward stacks them once
+    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for l in range(cfg.n_layers):
+        lw = {k: v[l] for k, v in layers.items()}
+        if remat:
+            x, a = checkpoint(_layer, x, lw, cfg, cos, sin,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _layer(x, lw, cfg, cos, sin)
+        aux = aux + a
+    return rms_norm(x, params["final_norm"]), aux / cfg.n_layers
+
+
+def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
+    """tokens (B, S) int -> (logits (B, S, V_pad) in the compute dtype,
+    MoE aux loss)."""
+    x, aux = trunk(params, tokens, cfg)
+    return x @ params["lm_head"].to(cfg.compute_dtype), aux
+
+
+def loss_fn(params, batch, cfg: TransformerConfig):
+    """Fused vocab projection + CE: the (B, S, V) logits never
+    materialize. batch: ``tokens``, ``labels`` (B, S) int. Returns (ce +
+    z-loss + 0.01 * aux, {"ce", "aux"})."""
+    x, aux = trunk(params, batch["tokens"], cfg)
+    ce, zl = fused_ce_loss(
+        x, params["lm_head"], batch["labels"], n_valid_vocab=cfg.vocab,
+        z_loss=cfg.z_loss, chunk=cfg.ce_chunk)
+    return ce + zl + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ----------------------------------------------------------------- serving

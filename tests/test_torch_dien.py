@@ -149,9 +149,12 @@ def test_retrieval_cell_has_the_reference_shapes():
 
 
 @pytest.mark.parametrize("shape", ["train_batch"])
-def test_shapes_outside_the_slice_raise(shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconfigs.build_smoke(shape, device="cpu")
+def test_train_shape_builds_and_steps(shape):
+    """The train shape (item 13c, tests/test_torch_train_dien.py) builds its
+    reduced cell and steps it on the CPU."""
+    c = tconfigs.build_smoke(shape, device="cpu")
+    _, state, m = c["step"](c["params"], c["opt_state"], c["batch"], c["lr"])
+    assert np.isfinite(float(m["loss"])) and int(state.count) == 1
 
 
 def test_launcher_runs_on_cpu(capsys):

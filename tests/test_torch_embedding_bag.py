@@ -149,5 +149,6 @@ def test_plain_version_sums_each_bag_in_id_order():
 def test_cpu_path_counts_no_launch():
     ops.reset_launches()
     table, ids, offs, w = map(torch.from_numpy, _case(50, 18, 64, 4, seed=2))
-    ops.embedding_bag(table, ids, offs, n_bags=4, weights=w)
-    assert ops.LAUNCHES == {"embedding_bag": 0}
+    ops.embedding_bag(table.requires_grad_(), ids, offs, n_bags=4,
+                      weights=w).sum().backward()
+    assert ops.LAUNCHES == {"embedding_bag": 0, "embedding_bag_backward": 0}

@@ -192,24 +192,15 @@ def test_no_silent_cpu_in_entry_points(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda s, h, d, mp: get_arch("command-r-plus-104b").build_smoke(
-        "train_4k", device="cpu"),
-    lambda s, h, d, mp: get_arch("arctic-480b").build_smoke(
-        "train_4k", device="cpu"),
-    lambda s, h, d, mp: get_arch("dbrx-132b").build_smoke(
-        "train_4k", device="cpu"),
     lambda s, h, d, mp: get_arch("graphcast"),
     lambda s, h, d, mp: get_arch("gat-cora"),
     lambda s, h, d, mp: get_arch("nequip"),
     lambda s, h, d, mp: get_arch("gatedgcn"),
-    lambda s, h, d, mp: get_arch("granite-3-2b").build_smoke("train_4k",
-                                                             device="cpu"),
-    lambda s, h, d, mp: get_arch("dien").build_smoke("train_batch",
-                                                     device="cpu"),
 ])
 def test_features_outside_the_slice_raise(call, tmp_path, monkeypatch):
-    """The GNN archs and the training shapes of item 13 raise (the LM archs
-    serve: tests/test_torch_transformer.py). Every other item works: bf16 edge values (item 12) in sessions, sharded sessions,
+    """The GNN archs of item 13d raise (the LM archs serve and train:
+    tests/test_torch_{transformer,train_lm}.py; DIEN trains:
+    tests/test_torch_train_dien.py). Every other item works: bf16 edge values (item 12) in sessions, sharded sessions,
     snapshots and restores in tests/test_torch_bf16.py; shards and
     checkpoints (items 10 and 9) in tests/test_torch_{stacked,checkpoint,
     fault}.py; churn, flush and adaptation (items 5 and 6) against the
@@ -223,15 +214,45 @@ def test_features_outside_the_slice_raise(call, tmp_path, monkeypatch):
         call(s, h, str(tmp_path), monkeypatch)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Smoke-size ops gain nothing from intra-op threads, which only
+    contend with the other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("arch_id,shape", [
+    ("command-r-plus-104b", "train_4k"), ("arctic-480b", "train_4k"),
+    ("dbrx-132b", "train_4k"), ("granite-3-2b", "train_4k"),
+    ("dien", "train_batch")])
+def test_train_cells_build_and_step(arch_id, shape):
+    """The train shapes (item 13c) build their reduced cell on the CPU and
+    step it: finite loss and gradient norm, every parameter leaf finite,
+    the optimizer's count at 1 (AdamW and Adafactor)."""
+    c = get_arch(arch_id).build_smoke(shape, device="cpu")
+    params, state, metrics = c["step"](c["params"], c["opt_state"],
+                                       c["batch"], c["lr"])
+    assert np.isfinite(float(metrics["loss"]))
+    assert float(metrics["grad_norm"]) > 0
+    from repro_torch.train.optimizer import tree_leaves
+    assert all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    assert int(state.count) == 1
+
+
 def test_port_loads_no_jax_and_no_repro():
     """A fresh process imports repro_torch, runs a small session (with a
     churn burst, a sparse write and read, and an adaptation), a pipelined
     session (``ingest_depth=2``) with a standing alert, a sharded session
     with churn, a save, a restore and a reshard, the recovery driver, the
-    streams and the eagr config, and the serve path (LM prefill and decode,
+    streams and the eagr config, the serve path (LM prefill and decode,
     a MoE arch's prefill and the launcher serving one, DIEN scoring and
-    retrieval, the launcher) on the CPU and finds neither JAX nor the JAX
-    package in ``sys.modules``."""
+    retrieval, the launcher) and the training path (a smoke train step and
+    the training launcher with an injected failure) on the CPU and finds
+    neither JAX nor the JAX package in ``sys.modules``."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -317,12 +338,21 @@ def test_port_loads_no_jax_and_no_repro():
                     "--decode-steps", "1", "--device", "cpu"])
         serve.main(["--arch", "dbrx-132b", "--requests", "2",
                     "--decode-steps", "1", "--device", "cpu"])
+        # the training path: a smoke train step and the launcher
+        from repro_torch.launch import train
+        c = get_arch("dbrx-132b").build_smoke("train_4k", device="cpu")
+        c["step"](c["params"], c["opt_state"], c["batch"], c["lr"])
+        train.main(["--arch", "dien", "--smoke", "--steps", "4",
+                    "--ckpt-every", "2", "--fail-at", "3", "--device", "cpu"])
         bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
                or k == "repro" or k.startswith("repro.")]
         print("LOADED", bad)
         sys.exit(1 if bad else 0)
     """)
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    # one intra-op thread: small tensors, and other test processes share
+    # the cores
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
+               OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
