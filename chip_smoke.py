@@ -208,7 +208,32 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    launch of each bag kernel a step, step p50, users/s, peak memory; the
    training launcher (``repro_torch.launch.train``) on every trainable
    arch's reduced cell, and one run with an injected failure required
-   bit-equal to the uninterrupted one.
+   bit-equal to the uninterrupted one;
+12. the GNNs, on a card freed of phase 11's models: the segment kernel's
+   graph entry (``segment_agg_graph``: the stacked dense entry at S = 1
+   over an edge plan) at each cell's real edge sets (GraphCast's mesh,
+   grid2mesh and mesh2grid sets into their destination and source rows
+   at F 512; GAT's softmax max at F 8 and message sum at F 64; NequIP's
+   sums at F 32, 96 and 160 and its readout at F 1), held to its plain
+   version as the other phases hold the segment kernels (and, for the
+   smaller sets, to the plain version on CPU copies), its gather's
+   backward through autograd, timed beside the bound, the plain version,
+   the library call and, at GraphCast's sets, the bf16 path's casts;
+   graphcast's minibatch_lg at full width and depth (``CFG``: 16
+   processor layers, d 512, refinement 6, 227 vars, bf16 compute, fp32
+   parameters, AdamW): one step twice from copies of one state,
+   bit-equal, the 70 segment launches a step the code predicts, the loss
+   falling over 5 more steps on one batch, step p50, peak memory, a
+   traced step's busy share and the segment kernel's share; its strict
+   bar at full width in fp32 (2 processor layers, refinement 3,
+   full_graph_sm's grid), loss and every gradient leaf against CPU
+   copies; gat-cora and gatedgcn at minibatch_lg and nequip at molecule
+   (energies and forces), each a step twice bit-equal, step p50, peak
+   memory, and its loss and gradients against CPU copies (GatedGCN's 16
+   layers and NequIP's forces held to the fp32 floor: each leaf no
+   farther from an fp64 run than twice the CPU copies' own; GatedGCN's on
+   full_graph_sm); the launcher on every GNN's reduced cell, one run
+   replayed bit-equal after an injected failure.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -302,6 +327,13 @@ DESIGNS = {
             "sign's multiply, then reduced in fp32 as the fp32 instance "
             "reduces it; at S = 1 the dense entry is the single engine's "
             "bf16 dense level",
+    "gnn": "the stacked dense entry at S = 1 over an edge plan built once "
+           "per index array (live edges sorted stably by row into 256-slot "
+           "blocks routed to 128-row tiles, each slot's src the edge): a "
+           "GNN aggregation in one launch, edge values gathered into "
+           "registers by src, rows of no live edge zeroed after; its "
+           "backward is a gather and a gather's backward is this entry, so "
+           "every derivative reduces here without atomics",
     "active": "one launch a frontier-sparse level: one CTA per window "
               "holding an active block, a warp per active block (16 slot-lane "
               "or 4 feature-lane warps), only those blocks' seg/src/sign rows "
@@ -370,6 +402,18 @@ DIEN_TRAIN_BATCH, DIEN_TRAIN_STEPS, DIEN_CHECK_BATCH = 65536, 5, 512
 TRAIN_ARCHS = ("granite-3-2b", "internlm2-1.8b", "command-r-plus-104b",
                "arctic-480b", "dbrx-132b", "dien")
 LAUNCH_STEPS, LAUNCH_FAIL_AT = 6, 3
+# phase 12: the GNNs, on a card freed of phase 11's models. graphcast's
+# minibatch_lg at full width and depth (CFG: 16 processor layers, d 512,
+# refinement 6, 227 vars, bf16 compute, fp32 parameters, AdamW lr 1e-3; the
+# shape's 169,984 grid nodes, 679,936 edges each way between grid and mesh,
+# the multimesh's 327,660 edges padded to 327,680), GNN_STEPS steps on one
+# batch after the replayed one; its strict bar at full width in fp32 with
+# GNN_STRICT's depth and mesh on full_graph_sm's grid; gat-cora and gatedgcn
+# at minibatch_lg and nequip at molecule, each held to CPU copies, then
+# GNN_TIMED steps; the launcher on every GNN's reduced cell
+GNN_SEED, GNN_STEPS, GNN_TIMED = 0, 5, 5
+GNN_STRICT = dict(n_layers=2, mesh_refinement=3)
+GNN_ARCHS = ("gat-cora", "gatedgcn", "graphcast", "nequip")
 # the bag's backward has no Pallas kernel (JAX differentiates jnp.take); it
 # is the gradient of _bag_kernel's function, which the port's forward runs
 BAG_BACKWARD_REPLACES = BAG_REPLACES
@@ -941,6 +985,7 @@ def trace_window(torch, name: str, run, n: int, out_dir, *,
                                               f"trace_{name}.json"))
     return dict(batches=n, wall_ms=wall_ms, device_ms=dev_ms,
                 busy_share=dev_ms / wall_ms,
+                segment_ms=sum(t for k, _, t in rows if "segment_agg" in k),
                 top=[dict(kernel=k, calls=c, ms=t) for k, c, t in rows[:15]])
 
 
@@ -4875,14 +4920,14 @@ def phase_train_dien(torch, card, out_dir) -> dict:
     return out
 
 
-def phase_train_launcher(torch) -> dict:
-    """``repro_torch.launch.train`` on the card: every trainable arch's
-    reduced train cell for LAUNCH_STEPS steps under the fault-tolerant
-    runner (checkpoints every 2 steps into a temporary directory under
-    build/, removed at exit), losses required finite; then granite-3-2b
-    again with a failure injected at LAUNCH_FAIL_AT, required to end
-    bit-equal, in parameters and optimizer state, to its uninterrupted
-    run."""
+def phase_train_launcher(torch, archs=TRAIN_ARCHS,
+                         replay: str = "granite-3-2b") -> dict:
+    """``repro_torch.launch.train`` on the card: each of ``archs``' reduced
+    train cell for LAUNCH_STEPS steps under the fault-tolerant runner
+    (checkpoints every 2 steps into a temporary directory under build/,
+    removed at exit), losses required finite; then ``replay`` again with a
+    failure injected at LAUNCH_FAIL_AT, required to end bit-equal, in
+    parameters and optimizer state, to its uninterrupted run."""
     import tempfile
 
     from repro_torch.launch import train as launcher
@@ -4891,7 +4936,7 @@ def phase_train_launcher(torch) -> dict:
     out, states = {}, {}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
-        for arch_id in TRAIN_ARCHS + ("granite-3-2b",):
+        for arch_id in tuple(archs) + (replay,):
             fail_at = LAUNCH_FAIL_AT if arch_id in states else None
             t0 = time.perf_counter()
             state, report, shape = launcher.train(
@@ -4954,6 +4999,463 @@ def phase_train(torch, card, out_dir, errs) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 12: GNNs
+def gnn_bound_ms(plan, F: int) -> tuple[float, str]:
+    """Least time of one graph-entry call: 12 B of seg/src/sign a slot,
+    4 * F B of a live edge's values read, 4 * F B of an output row written
+    (one add or max a live value and feature)."""
+    nbytes = 12 * plan.seg.shape[1] + 4 * F * plan.n_live \
+        + 4 * F * plan.n_rows
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = plan.n_live * F / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gnn_fp64_sum(torch, x, plan):
+    """The plan's reduce of ``x`` in fp64, and each row's n * 2^-24 *
+    sum|x| (the reordered-sum bound of phases 2 and 6), on x's device."""
+    idx, xd = plan.index, x.double()
+    if plan.live is not None:
+        keep = plan.live.nonzero()[:, 0]
+        idx, xd = idx[keep], xd[keep]
+    z = torch.zeros((plan.n_rows, x.shape[1]), dtype=torch.float64,
+                    device=x.device)
+    want = z.index_add(0, idx, xd)
+    absum = z.index_add(0, idx, xd.abs())
+    n = torch.bincount(idx, minlength=plan.n_rows).double()[:, None]
+    return want, n * 2.0 ** -24 * absum
+
+
+def gnn_kernel_row(torch, ops, ref, name: str, plan, F: int, op: str,
+                   errs: dict, *, cpu: bool, seed: int,
+                   bf16_cast: bool = False, profile: bool = False) -> dict:
+    """The graph entry on ``plan`` at F features, op sum or max, against
+    its plain version: bit-equal on a rerun; exact on integer values (sum)
+    and for max, against the plain version on the card and, with ``cpu``,
+    on CPU copies; normal sums within n * 2^-24 * sum|x| a row of an fp64
+    sum; the gather over the plan, whose backward is this reduce, checked
+    through autograd. Timed (CUDA events) beside the bound, the plain
+    version and the library call (index_add_ for sum, scatter_reduce_
+    amax for max) on the same values; with ``bf16_cast`` the casts the
+    bf16 path adds (edge values to fp32, rows back to bf16)."""
+    dev = plan.seg.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    E, n = plan.n_edges, plan.n_rows
+    xi = torch.randint(-8, 9, (E, F), generator=gen, device=dev).float()
+    xn = torch.randn((E, F), generator=gen, device=dev)
+    worst = 0.0
+    for x, exact in ((xi, True), (xn, op == "max")):
+        got = ops.segment_agg_graph(x, plan, op)
+        if not torch.equal(got, ops.segment_agg_graph(x, plan, op)):
+            raise AssertionError(f"{name}: two launches differ")
+        plain = ref.segment_agg_graph_ref(x, plan.index, plan.live, n, op)
+        if exact:
+            if not torch.equal(got, plain):
+                raise AssertionError(f"{name}: {op} differs from the plain "
+                                     f"version (exact)")
+        else:
+            want, bar = gnn_fp64_sum(torch, x, plan)
+            err = (got.double() - want).abs()
+            if bool((err > bar).any()):
+                raise AssertionError(f"{name}: a sum is past n * 2^-24 * "
+                                     f"sum|x| of fp64 (worst "
+                                     f"{float((err - bar).max()):.3g})")
+            worst = max(worst, float((got - plain).abs().max()))
+        if cpu:
+            xc = x.cpu()
+            pc = ref.segment_agg_graph_ref(
+                xc, plan.index.cpu(), None if plan.live is None
+                else plan.live.cpu(), n, op)
+            gc_ = got.cpu()
+            if exact and not torch.equal(gc_, pc):
+                raise AssertionError(f"{name}: {op} differs from the plain "
+                                     f"version on CPU copies")
+            if not exact:
+                want, bar = gnn_fp64_sum(torch, xc, ops.make_edge_plan(
+                    plan.index.cpu(), n, None if plan.live is None
+                    else plan.live.cpu()))
+                if bool(((gc_.double() - want).abs() > bar).any()):
+                    raise AssertionError(f"{name}: a sum is past the bound "
+                                         f"against CPU copies")
+                worst = max(worst, float((gc_ - pc).abs().max()))
+    if op == "sum":   # the gather's backward is this reduce
+        h = torch.zeros((n, F), device=dev, requires_grad=True)
+        ops.graph_gather(h, plan).backward(xi)
+        if not torch.equal(h.grad, ops.segment_agg_graph(xi, plan, "sum")):
+            raise AssertionError(f"{name}: the gather's backward is not the "
+                                 f"graph entry's sum")
+    key = f"{op}_gnn"
+    errs[key] = max(errs.get(key, 0.0), worst)
+    ms = cuda_ms(torch, lambda: ops.segment_agg_graph(xn, plan, op))
+    plain_ms = cuda_ms(torch, lambda: ref.segment_agg_graph_ref(
+        xn, plan.index, plan.live, n, op), reps=5)
+    xl, il = xn, plan.index
+    if plan.live is not None:
+        keep = plan.live.nonzero()[:, 0]
+        xl, il = xn[keep], plan.index[keep]
+    if op == "sum":
+        lib = lambda: torch.zeros((n, F), device=dev).index_add_(0, il, xl)
+    else:
+        ix = il[:, None].expand(-1, F)
+        lib = lambda: torch.full((n, F), float("-inf"), device=dev) \
+            .scatter_reduce_(0, ix, xl, reduce="amax")
+    library_ms = cuda_ms(torch, lib)
+    bound, by = gnn_bound_ms(plan, F)
+    row = dict(name=name, op=op, F=F, edges=E, live=plan.n_live, rows=n,
+               slots=int(plan.seg.shape[1]), blocks=int(plan.tob.shape[1]),
+               max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound, bound_by=by)
+    if bf16_cast:
+        xb = xn.to(torch.bfloat16)
+        out = ops.segment_agg_graph(xn, plan, op)
+        row["cast_ms"] = cuda_ms(torch, lambda: xb.to(torch.float32)) \
+            + cuda_ms(torch, lambda: out.to(torch.bfloat16))
+    if profile:
+        row["device_ms"] = device_ms_or_none(
+            torch, lambda: ops.segment_agg_graph(xn, plan, op))
+        row["library_device_ms"] = device_ms_or_none(torch, lib)
+    print(f"  {name}: {op} F {F}, {plan.n_live} live edges into {n} rows: "
+          f"kernel {ms:.4f} ms (bound {bound:.4f} ms, {by}), plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms"
+          + (f", bf16 casts {row['cast_ms']:.4f} ms" if bf16_cast else "")
+          + f"; rerun bit-equal, exact on integers"
+          + (", max exact" if op == "max" else
+             f", normal sums within the fp64 bound (vs plain {worst:.3g})"),
+          flush=True)
+    return row
+
+
+def gnn_scratch_bytes(ops) -> int:
+    """Bytes the fused entries' scratch holds on every (device, stream)."""
+    return sum(b.numel() * b.element_size() for bufs in ops._SCRATCH.values()
+               for b in bufs if b is not None)
+
+
+def batch_to_cpu(batch, float_dtype=None):
+    """CPU copies of a GNN batch (a dataclass or a dict of tensors), its
+    floating tensors in ``float_dtype`` if one is given."""
+    import torch
+
+    def put(t):
+        return t.to("cpu", float_dtype) if float_dtype is not None \
+            and t.is_floating_point() else t.cpu()
+
+    if dataclasses.is_dataclass(batch):
+        return dataclasses.replace(batch, **{
+            f.name: put(getattr(batch, f.name))
+            for f in dataclasses.fields(batch)
+            if torch.is_tensor(getattr(batch, f.name))})
+    return {k: put(v) for k, v in batch.items()}
+
+
+def gnn_vs_cpu(torch, name, loss_fn, params, batch, loss_fn64=None) -> dict:
+    """The loss and every gradient leaf of one step on the card against the
+    same computation on CPU copies (the graph entry's plain version): the
+    loss within rtol 1e-4; each gradient leaf within rtol 1e-4 and atol
+    max(1e-6, 1e-4 of the leaf's largest magnitude), phase 11's bar. With
+    ``loss_fn64`` (the model in fp64, run on fp64 CPU copies) the
+    gradients are held instead to the fp32 floor: each leaf's distance
+    from fp64 at most twice the CPU copies' own plus 1e-4 of its largest
+    magnitude (a deep model whose fp32 gradients, on any device, sit
+    farther from fp64 than the fixed bar)."""
+    from repro_torch.train.trainer import value_and_grad
+
+    loss, _, grads = value_and_grad(loss_fn, params, batch)
+    t0 = time.perf_counter()
+    cl, _, cg = value_and_grad(loss_fn, to_cpu(params), batch_to_cpu(batch))
+    cpu_s = time.perf_counter() - t0
+    torch.testing.assert_close(loss.cpu(), cl, rtol=1e-4, atol=0.0)
+    ref64 = None
+    if loss_fn64 is not None:
+        _, _, ref64 = value_and_grad(loss_fn64,
+                                     to_cpu(params, torch.float64),
+                                     batch_to_cpu(batch, torch.float64))
+    worst, worst_leaf, ratios = 0.0, None, []
+    for i, (a, b) in enumerate(zip(grads, cg)):
+        a = a.cpu()
+        scale = float(b.abs().max())
+        if ref64 is None:
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=max(1e-6, 1e-4 * scale))
+            rel = float((a - b).abs().max()) / max(scale, 1e-30)
+        else:
+            d = ref64[i]
+            s64 = max(float(d.abs().max()), 1e-30)
+            card = float((a.double() - d).abs().max())
+            cpu = float((b.double() - d).abs().max())
+            if card > 2 * cpu + 1e-4 * s64:
+                raise AssertionError(
+                    f"{name}: gradient leaf {i} {tuple(d.shape)} sits "
+                    f"{card / s64:.3g} of its largest from fp64, the CPU "
+                    f"copies' {cpu / s64:.3g}")
+            ratios.append(card / max(cpu, 1e-300))
+            rel = card / s64
+        if rel >= worst:
+            worst, worst_leaf = rel, i
+    bar = ("rtol 1e-4 + max(1e-6, 1e-4 of the leaf's largest magnitude) "
+           "of the CPU copies'" if ref64 is None else
+           f"twice the CPU copies' distance from fp64 (largest ratio "
+           f"{max(ratios):.3g})")
+    print(f"  {name} against CPU copies: loss {float(loss):.6f} (CPU "
+          f"{float(cl):.6f}); {len(grads)} gradient leaves within {bar}; "
+          f"worst {worst:.3g} of a leaf's largest (leaf {worst_leaf}); CPU "
+          f"{cpu_s:.1f} s", flush=True)
+    return dict(loss=float(loss), cpu_loss=float(cl), worst_rel=worst,
+                worst_leaf=worst_leaf, leaves=len(grads), cpu_s=cpu_s,
+                fp64_ratio_max=max(ratios) if ratios else None)
+
+
+def gnn_cell(torch, ops, name, cell, out_dir, *, steps: int,
+             trace: bool = False, want_launches: dict | None = None,
+             falling: bool = False) -> dict:
+    """A GNN train cell on the card: one step from the built state, the
+    state after it kept, the built state put back and the step run again,
+    required bit-equal in every parameter and moment; its segment launches
+    counted (and required equal to ``want_launches`` where given, else
+    above zero); then ``steps`` more steps on the same batch, timed (p50),
+    the loss finite (and with ``falling`` lower at the end than at the
+    start); peak memory; with ``trace`` one traced step's busy share and
+    device time by kernel."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    step, batch, lr = cell["step"], cell["batch"], cell["lr"]
+    params, opt_state = cell["params"], cell["opt_state"]
+    leaves = tree_leaves((params, opt_state))
+
+    def one():
+        _, _, m = step(params, opt_state, batch, lr)
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in m.items()}
+
+    saved = [x.clone() for x in leaves]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    first = one()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: ops.LAUNCHES[k] for k in ("sum_gnn", "max_gnn")}
+    after = [x.clone() for x in leaves]
+    for x, s in zip(leaves, saved):
+        x.copy_(s)
+    del saved
+    again = one()
+    differ = [i for i, (x, a) in enumerate(zip(leaves, after))
+              if not torch.equal(x, a)]
+    del after
+    if differ or again != first:
+        raise AssertionError(f"{name}: two runs of one train step from "
+                             f"copies of one state differ in {len(differ)} "
+                             f"of {len(leaves)} leaves; {first} vs {again}")
+    if want_launches is not None and launches != want_launches:
+        raise AssertionError(f"{name}: a step launched {launches}, the code "
+                             f"predicts {want_launches}")
+    if launches["sum_gnn"] + launches["max_gnn"] <= 0:
+        raise AssertionError(f"{name}: a step launched no segment kernel")
+    losses, step_ms = [first["loss"], again["loss"]], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(one()["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out = dict(first_step_ms=first_ms, step_ms=step_ms,
+               step_p50_ms=float(np.median(step_ms)), losses=losses,
+               launches_per_step=launches, replay_leaves=len(leaves),
+               grad_norm=first["grad_norm"])
+    if trace:
+        out["trace"] = trace_window(torch, f"train_{name}", lambda: losses
+                                    .append(one()["loss"]), 1, out_dir,
+                                    lean=True)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: loss not finite: {losses}")
+    if falling and not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss on one repeated batch does "
+                             f"not fall: {losses}")
+    return out
+
+
+def graphcast_launches(cfg) -> dict:
+    """The segment launches of one GraphCast train step: the forward sums
+    once into the mesh (encoder), once a processor layer and once into the
+    grid (decoder); the backward recomputes each processor layer's sum and
+    reduces once for each of the two gathers of every block; no max."""
+    L = cfg.n_layers
+    return {"sum_gnn": (1 + L + 1) + L + 2 * (L + 2), "max_gnn": 0}
+
+
+def phase_gnn(torch, card, out_dir, errs) -> dict:
+    """Phase 12, the GNNs: the graph entry at each cell's edge sets;
+    graphcast's minibatch_lg at full width and depth, then its strict bar
+    in fp32; gat-cora and gatedgcn at minibatch_lg, nequip at molecule;
+    the launcher on every GNN's reduced cell."""
+    from repro_torch.configs import gat_cora, gatedgcn, graphcast, nequip
+    from repro_torch.kernels.segment_agg import ops, ref
+    from repro_torch.models.gnn import gat as gat_m
+    from repro_torch.models.gnn import gatedgcn as gg_m
+    from repro_torch.models.gnn import graphcast as gc_m
+    from repro_torch.models.gnn import nequip as nq_m
+    from repro_torch.train.optimizer import tree_leaves
+
+    parts, out, rows = {}, {}, []
+
+    # ---- graphcast minibatch_lg at full width and depth
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = graphcast.CFG
+    cell = graphcast.build_train("minibatch_lg", cfg=cfg, device=DEVICE,
+                                 seed=GNN_SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b = cell["batch"]
+    G, M = b.grid_x.shape[0], cfg.n_mesh
+    sets = {"graphcast mesh": (b.mesh_src, b.mesh_dst, M, M),
+            "graphcast grid2mesh": (b.g2m_src, b.g2m_dst, G, M),
+            "graphcast mesh2grid": (b.m2g_src, b.m2g_dst, M, G)}
+    t1 = time.perf_counter()
+    for i, (name, (src, dst, n_src, n_dst)) in enumerate(sets.items()):
+        rows.append(gnn_kernel_row(
+            torch, ops, ref, f"{name} (sum into dst)",
+            ops.edge_plan(dst, n_dst), cfg.d_hidden, "sum", errs, cpu=False,
+            seed=GNN_SEED + i, bf16_cast=True, profile=i == 0))
+        rows.append(gnn_kernel_row(
+            torch, ops, ref, f"{name} (gather backward into src)",
+            ops.edge_plan(src, n_src), cfg.d_hidden, "sum", errs, cpu=False,
+            seed=GNN_SEED + 10 + i))
+    parts["graphcast kernels"] = time.perf_counter() - t1
+    n_params = sum(x.numel() for x in tree_leaves(cell["params"]))
+    gc_run = gnn_cell(torch, ops, "graphcast", cell, out_dir,
+                      steps=GNN_STEPS, trace=True,
+                      want_launches=graphcast_launches(cfg), falling=True)
+    gc_run.update(build_s=build_s, n_params=n_params, grid=G, mesh=M,
+                  edges=dict(g2m=int(b.g2m_src.shape[0]),
+                             mesh=int(b.mesh_src.shape[0]),
+                             m2g=int(b.m2g_src.shape[0])),
+                  scratch_gb=gnn_scratch_bytes(ops) / 1e9)
+    seg_ms = gc_run["trace"].get("segment_ms", 0.0)
+    gc_run["segment_share"] = seg_ms / gc_run["trace"]["device_ms"]
+    print(f"graphcast train on {card}: minibatch_lg at full width and depth "
+          f"({cfg.n_layers} processor layers, d {cfg.d_hidden}, refinement "
+          f"{cfg.mesh_refinement}: {M} mesh nodes, {b.mesh_src.shape[0]} "
+          f"mesh edges; grid {G}, {b.g2m_src.shape[0]} edges each way; "
+          f"{n_params / 1e6:.2f} M fp32 parameters, bf16 compute): first "
+          f"step {gc_run['first_step_ms']:.1f} ms, then p50 "
+          f"{gc_run['step_p50_ms']:.1f} ms; peak {gc_run['peak_gb']:.2f} "
+          f"GB; traced step busy {gc_run['trace']['busy_share']:.4f}, "
+          f"segment kernel {seg_ms:.3f} ms = {gc_run['segment_share']:.4f} "
+          f"of device time; launches a step {gc_run['launches_per_step']}; "
+          f"segment scratch {gc_run['scratch_gb']:.3f} GB; losses "
+          f"{[round(x, 5) for x in gc_run['losses']]}", flush=True)
+    del cell, b, sets
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["graphcast"] = time.perf_counter() - t0
+
+    # ---- the strict bar at full width: fp32, 2 processor layers,
+    # refinement 3, full_graph_sm's grid
+    t0 = time.perf_counter()
+    strict_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                                     **GNN_STRICT)
+    cell = graphcast.build_train("full_graph_sm", cfg=strict_cfg,
+                                 device=DEVICE, seed=GNN_SEED + 1)
+    strict = gnn_vs_cpu(torch, "graphcast strict bar (fp32, d 512, 227 "
+                        "vars, 2 layers, refinement 3, 2,708-node grid)",
+                        lambda p, bb: gc_m.loss_fn(p, bb, strict_cfg),
+                        cell["params"], cell["batch"])
+    del cell
+    parts["graphcast strict"] = time.perf_counter() - t0
+    out["graphcast"] = dict(gc_run, strict=strict)
+
+    # ---- gat-cora and gatedgcn at minibatch_lg, nequip at molecule
+    for arch, mod, model, shape in (
+            ("gat-cora", gat_cora, gat_m, "minibatch_lg"),
+            ("gatedgcn", gatedgcn, gg_m, "minibatch_lg"),
+            ("nequip", nequip, nq_m, "molecule")):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cell = mod.build_train(shape, device=DEVICE, seed=GNN_SEED)
+        ccfg, batch = cell["cfg"], cell["batch"]
+        if arch == "nequip":
+            loss_fn = lambda p, bb: model.loss_fn(p, bb, ccfg)
+            n, dst, F = batch["positions"].shape[0], batch["edge_dst"], \
+                ccfg.d_hidden
+            gid, n_g = batch["graph_ids"], batch["energy_targets"].shape[0]
+            plan = ops.edge_plan(dst, n)
+            for i, l in enumerate(ccfg.ls):
+                rows.append(gnn_kernel_row(
+                    torch, ops, ref, f"nequip molecule l={l}", plan,
+                    F * (2 * l + 1), "sum", errs, cpu=True,
+                    seed=GNN_SEED + 20 + i))
+            rows.append(gnn_kernel_row(
+                torch, ops, ref, "nequip readout", ops.edge_plan(gid, n_g),
+                1, "sum", errs, cpu=True, seed=GNN_SEED + 30))
+        else:
+            loss_fn = lambda p, bb, ccfg=ccfg, model=model: model.loss_fn(
+                p, bb, ccfg)
+            if arch == "gat-cora":
+                plan = ops.edge_plan(batch.edge_dst, batch.x.shape[0],
+                                     batch.edge_mask)
+                H = ccfg.n_heads
+                rows.append(gnn_kernel_row(
+                    torch, ops, ref, "gat-cora minibatch_lg (softmax max)",
+                    plan, H, "max", errs, cpu=True, seed=GNN_SEED + 40,
+                    profile=True))
+                rows.append(gnn_kernel_row(
+                    torch, ops, ref, "gat-cora minibatch_lg (messages)",
+                    plan, H * ccfg.d_hidden, "sum", errs, cpu=True,
+                    seed=GNN_SEED + 41))
+        if arch == "gatedgcn":
+            # 16 layers: fp32 gradients sit 0.1-1% of a leaf's largest from
+            # fp64 on the card and on the CPU alike; held to that floor on
+            # full_graph_sm (the CPU's fp32 and fp64 passes at 169,984
+            # nodes would take ~80 s of the host)
+            small = mod.build_train("full_graph_sm", device=DEVICE,
+                                    seed=GNN_SEED + 2)
+            scfg = small["cfg"]
+            scfg64 = dataclasses.replace(scfg, compute_dtype=torch.float64)
+            check = gnn_vs_cpu(
+                torch, f"{arch} full_graph_sm (published config)",
+                lambda p, bb: model.loss_fn(p, bb, scfg), small["params"],
+                small["batch"],
+                loss_fn64=lambda p, bb: model.loss_fn(p, bb, scfg64))
+            del small
+        elif arch == "nequip":
+            # its forces' gradients (a gradient of a gradient over energies
+            # of ~1e5 a molecule at this random init) meet the same floor
+            cfg64 = dataclasses.replace(ccfg, compute_dtype=torch.float64)
+            check = gnn_vs_cpu(
+                torch, f"{arch} {shape}", loss_fn, cell["params"], batch,
+                loss_fn64=lambda p, bb: model.loss_fn(p, bb, cfg64))
+        else:
+            check = gnn_vs_cpu(torch, f"{arch} {shape}", loss_fn,
+                               cell["params"], batch)
+        run = gnn_cell(torch, ops, arch, cell, out_dir, steps=GNN_TIMED,
+                       trace=True)
+        run.update(check=check, shape=shape, build_s=0.0)
+        print(f"{arch} train on {card}: {shape} at its published config: "
+              f"first step {run['first_step_ms']:.1f} ms, then p50 "
+              f"{run['step_p50_ms']:.1f} ms; peak {run['peak_gb']:.2f} GB; "
+              f"traced step busy {run['trace']['busy_share']:.4f}; "
+              f"launches a step {run['launches_per_step']}; losses "
+              f"{[round(x, 5) for x in run['losses']]}", flush=True)
+        out[arch] = run
+        del cell, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts[arch] = time.perf_counter() - t0
+
+    # ---- the launcher on every GNN's reduced cell, one run replayed
+    t0 = time.perf_counter()
+    out["launcher"] = phase_train_launcher(torch, GNN_ARCHS, "gatedgcn")
+    parts["launcher"] = time.perf_counter() - t0
+    out["kernel_rows"] = rows
+    out["launches"] = {k: sum(out[a]["launches_per_step"][k]
+                              for a in GNN_ARCHS)
+                       for k in ("sum_gnn", "max_gnn")}
+    out["seconds_by_part"] = parts
+    rounded = {k: round(v, 1) for k, v in parts.items()}
+    print(f"phase 12 seconds by part: {rounded}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=N_NODES)
@@ -5006,7 +5508,7 @@ def main(argv=None) -> int:
     # ---- 2a. kernels against their plain version: the shape sweeps
     errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "prefill_simt": 0.0,
             "decode": 0.0, "bag": 0.0, "sum_active": 0.0, "max_active": 0.0,
-            "bag_backward": 0.0}
+            "bag_backward": 0.0, "sum_gnn": 0.0, "max_gnn": 0.0}
     phase_kernels_sweep(torch, ops, ref, errs)
     report["hub"] = phase_kernels_hub(torch, ops, ref, errs)
     phase_flash_sweep(torch, errs)
@@ -5353,6 +5855,34 @@ def main(argv=None) -> int:
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         device_ms=row["device_ms"], kernel_device_ms=row["kernel_device_ms"],
         library_device_ms=row["library_device_ms"]))
+
+    # ---- 12. the GNNs, on a card freed of phase 11's models
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gnn = phase_gnn(torch, card, out_dir, errs)
+    gnn["seconds"] = time.perf_counter() - t0
+    print(f"GNNs: {gnn['seconds']:.1f} s", flush=True)
+    report["gnn"] = gnn
+    # the graph entry at GraphCast's mesh set (sum, F 512) and GAT's
+    # softmax shift (max, F 8); launches from phase 12's counted train step
+    # of each cell
+    for op, pick in (("sum", "graphcast mesh (sum into dst)"),
+                     ("max", "gat-cora minibatch_lg (softmax max)")):
+        row = next(r for r in gnn["kernel_rows"] if r["name"] == pick)
+        n = gnn["launches"][f"{op}_gnn"]
+        if n <= 0:
+            raise AssertionError(f"segment_agg_{op}_gnn was not launched on "
+                                 f"phase 12's train steps")
+        kernels.append(dict(
+            name=f"segment_agg_{op}_gnn", route="cuda", source=SOURCE,
+            replaces=KERNELS[op][1], design=DESIGNS["gnn"], launches=n,
+            max_abs_err=errs[f"{op}_gnn"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            device_ms=row.get("device_ms"),
+            library_device_ms=row.get("library_device_ms"),
+            shape=dict(F=row["F"], edges=row["live"], rows=row["rows"])))
 
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]

@@ -1,0 +1,112 @@
+"""nequip [arXiv:2101.03164]: 5 interaction layers, 32 channels/irrep,
+l_max=2, 8 Bessel RBFs, cutoff 5 A, E(3) tensor-product messages.
+
+molecule is the native shape (energies + forces, ``CFG`` in fp32); the giant
+graph shapes (``_SHARDMAP_SHAPES``) run energy-only (no force supervision
+exists there, and force training is grad-through-energy — double memory on
+61.9M-edge graphs). The JAX package sends those shapes through its
+destination-partitioned shard_map forward across a mesh of devices; on one
+card that forward is ``forward_energy``, energy only, which these cells run
+with ``CFG_BF16``."""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.configs.gnn_common import (  # noqa: F401
+    FAMILY,
+    SHAPE_DEFS,
+    random_graph_batch,
+    smoke_dims,
+    train_cell,
+)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.segment_agg.ops import edge_plan
+from repro_torch.models.common import init_from_specs
+from repro_torch.models.gnn import nequip as m
+
+CFG = m.NequIPConfig(name="nequip", n_layers=5, d_hidden=32, l_max=2,
+                     n_rbf=8, cutoff=5.0, n_species=10)
+# the 61.9M-edge shape runs the same architecture in bf16 (no force training
+# there; fp32 equivariance is validated in tests on the molecule path)
+CFG_BF16 = dataclasses.replace(CFG, compute_dtype=torch.bfloat16)
+SMOKE_CFG = m.NequIPConfig(name="nequip", n_layers=2, d_hidden=8, l_max=2,
+                           n_rbf=4, cutoff=5.0, n_species=4)
+
+# huge single-graph shapes: energy only, CFG_BF16, ``forward_energy`` (the
+# JAX package's shard_map path on one card); molecule keeps fp32 with forces
+_SHARDMAP_SHAPES = ("ogb_products", "minibatch_lg", "full_graph_sm")
+
+
+def batch_plans(batch: dict, cfg: m.NequIPConfig) -> list:
+    """Build (or find) the plans a NequIP batch takes: its two edge
+    arrays', its species' (into the embedding's rows) and its graph ids'."""
+    n = batch["positions"].shape[0]
+    return [edge_plan(batch["edge_src"], n), edge_plan(batch["edge_dst"], n),
+            edge_plan(batch["species"], cfg.n_species),
+            edge_plan(batch["graph_ids"], batch["energy_targets"].shape[0])]
+
+
+def _batch(rng, d, cfg, *, targets: bool, device) -> dict:
+    g = max(d["graphs"], 1)
+    gb = random_graph_batch(rng, d["n"], d["e"], 4, 2, graphs=d["graphs"],
+                            geometric=True, graph_task=bool(d["graphs"]),
+                            device=device)
+    n = d["n"]
+    dev = gb.x.device
+    if targets:
+        e_t = torch.as_tensor(rng.standard_normal(g, dtype=np.float32),
+                              device=dev)
+        f_t = torch.as_tensor(rng.standard_normal((n, 3), dtype=np.float32),
+                              device=dev)
+    else:
+        e_t = torch.zeros(g, device=dev)
+        f_t = torch.zeros((n, 3), device=dev)
+    return dict(
+        positions=gb.positions,
+        species=gb.species.clamp(0, cfg.n_species - 1),
+        edge_src=gb.edge_src, edge_dst=gb.edge_dst, edge_mask=gb.edge_mask,
+        node_mask=gb.node_mask,
+        graph_ids=(gb.graph_ids if gb.graph_ids is not None
+                   else torch.zeros(n, dtype=torch.int32, device=dev)),
+        energy_targets=e_t, force_targets=f_t)
+
+
+def _cell(cfg, batch, gen, use_forces: bool) -> dict:
+    params = init_from_specs(m.param_specs(cfg), gen)
+    batch_plans(batch, cfg)
+    return train_cell(cfg, functools.partial(m.loss_fn,
+                                             use_forces=use_forces),
+                      params, batch)
+
+
+def build_smoke(shape: str, device=None) -> dict:
+    """The JAX package's reduced cell: ``SMOKE_CFG`` at every shape, at
+    most 60 atoms, 200 edges and 4 graphs, zero targets; forces on
+    ``molecule`` only."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    d = smoke_dims(shape, n=60, e=200)
+    batch = _batch(np.random.default_rng(1), d, SMOKE_CFG, targets=False,
+                   device=dev)
+    return _cell(SMOKE_CFG, batch, gen, shape == "molecule")
+
+
+def build_train(shape: str = "molecule", *, device=None,
+                seed: int = 0) -> dict:
+    """The cell at ``shape``'s full size, unpadded: ``molecule`` (128
+    graphs of 30 atoms, 64 edges each) with ``CFG``, energies and forces,
+    normal targets; the other shapes with ``CFG_BF16``, energy only."""
+    d = SHAPE_DEFS[shape]
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    molecule = shape == "molecule"
+    cfg = CFG if molecule else CFG_BF16
+    batch = _batch(np.random.default_rng(seed + 1), d, cfg, targets=True,
+                   device=dev)
+    return _cell(cfg, batch, gen, molecule)

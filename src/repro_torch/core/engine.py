@@ -91,13 +91,6 @@ from repro_torch.kernels.segment_agg.ops import (
 )
 
 
-def not_ported(feature: str, item: str) -> NotImplementedError:
-    """The error every feature outside this slice of the port raises."""
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet: ROADMAP.md, "
-        f"'Modules to port', item {item}")
-
-
 def bucket_batch(n: int, floor: int = 16) -> int:
     """Power-of-two batch bucketing: varying user batch sizes land on a
     handful of padded shapes."""

@@ -5,6 +5,7 @@ from repro_torch.graphs.generators import (
     cora_like_graph,
     small_example_graph,
 )
+from repro_torch.graphs.sampler import NeighborSampler, SampledBlock
 
 __all__ = [
     "CSRGraph",
@@ -12,4 +13,6 @@ __all__ = [
     "erdos_graph",
     "cora_like_graph",
     "small_example_graph",
+    "NeighborSampler",
+    "SampledBlock",
 ]

@@ -22,6 +22,14 @@ on the card that is the kernel's own ``BF16`` instance. ``LAUNCHES`` counts
 kernel launches per entry (the bf16 instances under their own ``*_bf16``
 keys), so a run can show that its path went through the kernel.
 
+The graph entry (``segment_agg_graph``) is the GNN path's reduce: edge
+values (E, F) by an edge index array, through the stacked dense entry's
+kernel at S = 1 over an ``EdgePlan`` built once per index array on the host
+(``edge_plan``). ``graph_sum``, ``graph_gather`` and ``graph_max`` wrap it
+for autograd: the sum's backward is the gather and the gather's backward is
+the sum, so every derivative of every order on the GNN path reduces on the
+kernel, without atomics.
+
 ``patch_level``, ``scatter_slots``, ``scatter_rows`` and ``tile_occupancy``
 edit and measure the stacked level tables in place, for the plan patch path
 (``core/plan_patch.py``): churn inside the plan's capacity never reallocates
@@ -31,6 +39,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import weakref
 
 import numpy as np
 import torch
@@ -38,6 +48,7 @@ import torch
 from repro_torch.kernels.segment_agg.ref import (
     segment_agg_active_ref,
     segment_agg_active_stacked_ref,
+    segment_agg_graph_ref,
     segment_agg_level_ref,
     segment_agg_level_stacked_ref,
 )
@@ -59,7 +70,7 @@ LAUNCHES = {"sum": 0, "max": 0, "sum_active": 0, "max_active": 0,
             "max_active_stacked": 0, "sum_active_bf16": 0,
             "max_active_bf16": 0, "sum_stacked_bf16": 0,
             "max_stacked_bf16": 0, "sum_active_stacked_bf16": 0,
-            "max_active_stacked_bf16": 0}
+            "max_active_stacked_bf16": 0, "sum_gnn": 0, "max_gnn": 0}
 
 
 def reset_launches() -> None:
@@ -749,3 +760,231 @@ def segment_agg_active_stacked(val: torch.Tensor, seg: torch.Tensor,
                              bf16, active, (seg.stride(0), tob.stride(0)))
     _count(op, "active_stacked", bf16)
     return out[:, :n_rows], hit[:, :n_rows]
+
+
+# ------------------------------------------------------------- the graph entry
+@dataclasses.dataclass(frozen=True, eq=False)
+class EdgePlan:
+    """The stacked dense entry's tables, at S = 1, for one edge index array:
+    edge e goes to row ``index[e]`` of ``n_rows``; edges whose mask is
+    False, and edges whose row lies outside [0, n_rows) (which
+    ``jax.ops.segment_sum`` drops), are left out: their values are never
+    read, and their gathers read 0. Slots are ``make_plan``'s layout of the
+    live edges (sorted stably by row, 256-slot blocks routed to 128-row
+    tiles); a slot's ``src`` is its edge and its ``sign`` 1, padding slots
+    carry ``seg=-1, src=0, sign=0``.
+    The tables are (1, ...) rows on the index's device, uploaded once."""
+
+    index: torch.Tensor          # (E,) int64, the edges' rows (clamped)
+    live: torch.Tensor | None    # (E,) bool, None when every edge is live
+    seg: torch.Tensor            # (1, e_pad) int32
+    src: torch.Tensor            # (1, e_pad) int32
+    sign: torch.Tensor           # (1, e_pad) float32
+    tob: torch.Tensor            # (1, n_blocks) int32
+    fot: torch.Tensor            # (1, n_blocks) int32
+    hit: torch.Tensor            # (n_rows,) bool, the rows of a live edge
+    n_rows: int
+    n_row_tiles: int
+    n_live: int
+    every_tile: bool             # a block visits every row tile
+    every_row: bool              # every row has a live edge
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.index.shape[0])
+
+
+def make_edge_plan(index: torch.Tensor, n_rows: int,
+                   mask: torch.Tensor | None = None) -> EdgePlan:
+    """Build the ``EdgePlan`` of ``index`` (E,) into ``n_rows`` rows, the
+    edges with ``mask`` (E,) False left out, on ``index``'s device. It reads
+    ``index`` and ``mask`` on the host: one device-to-host copy (and wait)
+    for tensors on the card, which only a batch whose plans were not built
+    with it pays (a redrawn smoke batch, at its first use)."""
+    if index.ndim != 1:
+        raise ValueError(f"index must be 1-D, got {tuple(index.shape)}")
+    if n_rows < 1:
+        raise ValueError(f"n_rows must be >= 1, got {n_rows}")
+    dev = index.device
+    idx = index.detach().cpu().numpy().astype(np.int64)
+    live = (idx >= 0) & (idx < n_rows)
+    if mask is not None:
+        if mask.shape != index.shape:
+            raise ValueError(f"mask {tuple(mask.shape)} does not match index "
+                             f"{tuple(index.shape)}")
+        live &= mask.detach().cpu().numpy().astype(bool)
+    if live.all():
+        live = None
+    keep = np.arange(idx.size) if live is None else np.flatnonzero(live)
+    rows = idx[keep]
+    p = make_plan(rows, n_rows)
+    src = np.zeros(p.e_pad, np.int32)
+    sign = np.zeros(p.e_pad, np.float32)
+    src[p.perm] = keep
+    sign[p.perm] = 1.0
+    hit = np.zeros(n_rows, bool)
+    hit[rows] = True
+    put = lambda a: torch.as_tensor(a, device=dev)[None]
+    return EdgePlan(
+        index=index.detach().to(torch.int64).clamp(0, n_rows - 1),
+        live=None if live is None else torch.as_tensor(live, device=dev),
+        seg=put(p.seg_padded), src=put(src), sign=put(sign),
+        tob=put(p.tile_of_block), fot=put(p.first_of_tile),
+        hit=torch.as_tensor(hit, device=dev), n_rows=int(n_rows),
+        n_row_tiles=p.n_row_tiles, n_live=int(rows.size),
+        every_tile=bool(np.unique(p.tile_of_block).size == p.n_row_tiles),
+        every_row=bool(hit.all()))
+
+
+# plans by (id(index), id(mask), n_rows): the tensors' weak references and
+# versions beside each, so a plan dies with its tensors and an index edited
+# in place gets a new one
+_EDGE_PLANS: dict = {}
+
+
+def _drop_plan(key, ref) -> None:
+    got = _EDGE_PLANS.get(key)
+    if got is not None and ref in got[:2]:
+        del _EDGE_PLANS[key]
+
+
+def _version(t) -> int | None:
+    return None if t is None else t._version
+
+
+def edge_plan(index: torch.Tensor, n_rows: int,
+              mask: torch.Tensor | None = None) -> EdgePlan:
+    """``make_edge_plan(index, n_rows, mask)``, built once per index tensor
+    (and mask tensor) and kept while they live: a batch's plans are built
+    with the batch (the config builders ask for them) or at their first
+    use, and every later aggregation over the same tensors reuses them.
+    A mask that keeps every edge shares the unmasked plan."""
+    key = (id(index), id(mask), int(n_rows))
+    got = _EDGE_PLANS.get(key)
+    if got is not None and got[0]() is index \
+            and (mask is None or got[1]() is mask) \
+            and got[2] == (_version(index), _version(mask)):
+        return got[3]
+    if mask is not None and bool(mask.all()):
+        plan = edge_plan(index, n_rows)
+    else:
+        plan = make_edge_plan(index, n_rows, mask)
+    drop = functools.partial(_drop_plan, key)
+    _EDGE_PLANS[key] = (
+        weakref.ref(index, drop),
+        None if mask is None else weakref.ref(mask, drop),
+        (_version(index), _version(mask)), plan)
+    return plan
+
+
+def segment_agg_graph(val: torch.Tensor, plan: EdgePlan,
+                      op: str = "sum") -> torch.Tensor:
+    """Reduce edge values ``val`` (E, F) float32, one row per edge of
+    ``plan``, into ``plan.n_rows`` rows: ``out[r]`` is the sum (op
+    ``"sum"``) or the max (``"max"``) of ``val[e]`` over the live edges e
+    with ``index[e] == r``; rows with no live edge read 0. CUDA tensors
+    launch the stacked dense entry's kernel once at S = 1, gathering each
+    slot's value from ``val`` by the plan's ``src``
+    (``LAUNCHES["sum_gnn"]`` or ``["max_gnn"]``), then zero the rows no
+    live edge reaches where the kernel leaves them unwritten or at the
+    max's identity; CPU tensors run the plain version (also in float64,
+    for a reference run in fp64). Deterministic: a row's values are added
+    in the plan's slot order."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"unknown op {op!r}; choose 'sum' or 'max'")
+    cpu64 = val.dtype == torch.float64 and val.device.type == "cpu"
+    if not (val.dtype == torch.float32 or cpu64) or val.ndim != 2:
+        raise TypeError(f"val must be (E, F) float32 (float64 on the CPU), "
+                        f"got {val.dtype} {tuple(val.shape)} on "
+                        f"{val.device}")
+    if val.shape[0] != plan.n_edges:
+        raise ValueError(f"val has {val.shape[0]} rows for a plan of "
+                         f"{plan.n_edges} edges")
+    if val.device != plan.seg.device:
+        raise ValueError(f"val is on {val.device}, the plan on "
+                         f"{plan.seg.device}")
+    if not _on_cuda("segment_agg_graph", val):
+        return segment_agg_graph_ref(val, plan.index, plan.live, plan.n_rows,
+                                     op)
+    if val.shape[0] == 0:
+        return val.new_zeros((plan.n_rows, val.shape[1]))
+    val = val.contiguous()
+    _check_stacked(val[None], plan.seg, plan.src, plan.sign, plan.tob,
+                   plan.fot, plan.n_rows, plan.n_row_tiles, op)
+    out, _ = _fused_launch(val[None], plan.seg, plan.src, plan.sign,
+                           plan.tob, plan.fot, plan.n_row_tiles, op, False,
+                           strides=(plan.seg.stride(0), plan.tob.stride(0)))
+    LAUNCHES[f"{op}_gnn"] += 1
+    out = out[0, :plan.n_rows]
+    if not (plan.every_row or (op == "sum" and plan.every_tile)):
+        out = torch.where(plan.hit[:, None], out, 0.0)
+    return out
+
+
+def _reduce(x: torch.Tensor, plan: EdgePlan, op: str) -> torch.Tensor:
+    """``segment_agg_graph`` on x (E, ...) of any float dtype: reduced in
+    fp32 (fp64 on the CPU) and cast back to x's dtype, (n_rows, ...)."""
+    v = x.reshape(x.shape[0], -1)
+    if not (x.dtype == torch.float64 and x.device.type == "cpu"):
+        v = v.to(torch.float32)
+    out = segment_agg_graph(v, plan, op)
+    return out.to(x.dtype).reshape((plan.n_rows,) + x.shape[1:])
+
+
+def _take(h: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
+    """``h[index]``, the left-out edges' rows 0."""
+    if h.shape[0] != plan.n_rows:
+        raise ValueError(f"h has {h.shape[0]} rows for a plan into "
+                         f"{plan.n_rows}")
+    y = h.index_select(0, plan.index)
+    if plan.live is not None:
+        y = torch.where(plan.live.view((-1,) + (1,) * (y.ndim - 1)), y, 0)
+    return y
+
+
+class _GraphSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _reduce(x, plan, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GraphGather.apply(g, ctx.plan), None
+
+
+class _GraphGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, plan):
+        ctx.plan = plan
+        return _take(h, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GraphSum.apply(g, ctx.plan), None
+
+
+def graph_sum(x: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
+    """Sum edge values ``x`` (E, ...) into ``plan.n_rows`` rows over the
+    plan's live edges (``jax.ops.segment_sum`` of the masked values), in
+    x's dtype, reduced in fp32 by the kernel. Its backward is
+    ``graph_gather`` over the same plan, and so on for every order."""
+    return _GraphSum.apply(x, plan)
+
+
+def graph_gather(h: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
+    """``h[index]`` (E, ...), rows of left-out edges 0: a plain
+    ``index_select``. Its backward is ``graph_sum`` over the same plan: the
+    reduction goes through the kernel, not a scatter-add."""
+    return _GraphGather.apply(h, plan)
+
+
+def graph_max(x: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
+    """The max of edge values ``x`` (E, ...) per row over the plan's live
+    edges, rows with none 0, in x's dtype; computed without a gradient. Its
+    one use is the stability shift of a segment softmax, whose value does
+    not depend on the shift: the softmax's gradient is the same with it
+    held constant (``jax.ops.segment_max``'s gradient through the shift
+    adds terms that cancel)."""
+    with torch.no_grad():
+        return _reduce(x.detach(), plan, "max")

@@ -128,3 +128,30 @@ def segment_agg_active_stacked_ref(val: torch.Tensor, seg: torch.Tensor,
                                n_rows, op, bf16)
         for s in range(val.shape[0])))
     return torch.stack(outs), torch.stack(hits)
+
+
+def segment_agg_graph_ref(val: torch.Tensor, index: torch.Tensor,
+                          live: torch.Tensor | None, n_rows: int,
+                          op: str = "sum") -> torch.Tensor:
+    """The graph entry's function, plainly: ``out[r]`` the sum or max of
+    ``val[e]`` (val (E, F) float32) over the edges e with ``index[e] == r``
+    and ``live[e]`` (every edge when ``live`` is None), in edge order; rows
+    with no such edge read 0. Returns (n_rows, F), in float64 for float64
+    values."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"unknown op {op!r}; choose 'sum' or 'max'")
+    idx = index.long()
+    x = val if val.dtype == torch.float64 else val.to(torch.float32)
+    if live is not None:
+        keep = live.nonzero()[:, 0]
+        idx, x = idx[keep], x[keep]
+    F = x.shape[1]
+    out = torch.full((n_rows, F), 0.0 if op == "sum" else NEG,
+                     dtype=x.dtype, device=val.device)
+    out.scatter_reduce_(0, idx[:, None].expand(-1, F), x,
+                        reduce="sum" if op == "sum" else "amax")
+    if op == "sum":
+        return out
+    hit = torch.zeros(n_rows, dtype=torch.bool, device=val.device)
+    hit.index_fill_(0, idx, True)
+    return torch.where(hit[:, None], out, 0.0)

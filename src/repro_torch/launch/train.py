@@ -7,11 +7,14 @@ another.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \\
       --steps 12 --smoke --ckpt-every 4 --fail-at 7 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \\
+      --steps 8 --smoke --ckpt-every 2 --fail-at 3 --device cpu
 
 The JAX package's ``repro.launch.train``: it drives the fault-tolerant
 runner (checkpoint/restart and straggler detection) around the arch's
 reduced train cell (``build_smoke`` of ``train_4k`` for an LM arch,
-``train_batch`` for DIEN); ``--fail-at N`` injects a node failure at step N
+``train_batch`` for DIEN, ``full_graph_sm`` for a GNN: gat-cora, gatedgcn,
+graphcast, nequip); ``--fail-at N`` injects a node failure at step N
 to exercise restore and deterministic replay end to end. Batch ``i`` is
 drawn from a ``torch.Generator`` seeded by ``i`` (every leaf of the cell's
 batch redrawn: integers in [0, max + 1), at least [0, 2); masks all set;
@@ -23,6 +26,7 @@ directory removed at exit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 import time
 
@@ -32,9 +36,19 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def batch_maker(batch0: dict):
+def batch_maker(batch0):
     """``make_batch(i)``: a batch shaped as ``batch0``, drawn from a
-    generator seeded by ``i`` on ``batch0``'s device."""
+    generator seeded by ``i`` on ``batch0``'s device. ``batch0`` is a dict
+    of tensors, or a dataclass of them (a GNN's ``GraphBatch`` or
+    ``GraphCastBatch``), whose tensor fields are redrawn and whose other
+    fields (counts, absent fields) are kept. A GNN batch's edges are
+    redrawn with it, so its segment plans are built at its first use."""
+    if dataclasses.is_dataclass(batch0):
+        tensors = {f.name: getattr(batch0, f.name)
+                   for f in dataclasses.fields(batch0)
+                   if torch.is_tensor(getattr(batch0, f.name))}
+        make = batch_maker(tensors)
+        return lambda i: dataclasses.replace(batch0, **make(i))
     hi = {k: max(2, int(v.max()) + 1) for k, v in batch0.items()
           if not v.is_floating_point() and v.dtype != torch.bool}
 

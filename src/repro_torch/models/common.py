@@ -1,7 +1,7 @@
-"""Shared model substrate: parameter specs and their seeded init, RMS norm,
-RoPE, the plain blocked attention of the JAX package's production path
-(the one it trains through), and the losses: ``cross_entropy`` and the
-chunked, recomputed ``fused_ce_loss``.
+"""Shared model substrate: parameter specs and their seeded init, RMS and
+layer norm, RoPE, the plain blocked attention of the JAX package's
+production path (the one it trains through), and the losses:
+``cross_entropy`` and the chunked, recomputed ``fused_ce_loss``.
 """
 from __future__ import annotations
 
@@ -73,6 +73,21 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     x32 = x.float()
     x32 = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     return (x32 * gamma.float()).to(x.dtype)
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or kept in fp64 (an fp64 reference run)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last axis in fp32 (fp64 for fp64 input), cast
+    back to ``x``'s dtype."""
+    x32 = at_least_fp32(x)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
 # -------------------------------------------------------------------- rope

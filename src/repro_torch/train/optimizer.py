@@ -22,7 +22,8 @@ sees it.
 Memory: elementwise temporaries are taken one leading slice at a time on
 layer-stacked (>= 3-D) leaves, so their size is one layer's (granite-3-2b's
 ``w_gate`` is 2.7 GB in fp32 as a whole, 67 MB a layer). For AdamW and SGD
-that changes nothing but memory. For Adafactor it is the JAX package's
+that changes nothing but memory, so they slice only leaves of at least
+2^24 elements. For Adafactor it is the JAX package's
 ``layer_chunked``: the factored moments and the relative-step clip are
 taken per layer slice.
 """
@@ -63,10 +64,18 @@ def _device(params) -> torch.device:
     return tree_leaves(params)[0].device
 
 
-def _slices(*ts):
+# AdamW and SGD take a >= 3-D leaf a leading slice at a time only from this
+# many elements: their update is elementwise, so slicing changes memory and
+# never a number, and a small 3-D leaf (GAT's (602, 8, 8) projection) cut
+# into hundreds of slices would cost a dozen launches a slice
+_SLICE_NUMEL = 1 << 24
+
+
+def _slices(*ts, min_numel: int = 0):
     """One leading slice of each tensor at a time (views) for a
-    layer-stacked (>= 3-D) leaf, else the tensors whole."""
-    if ts[0].ndim >= 3:
+    layer-stacked (>= 3-D) leaf of at least ``min_numel`` elements, else
+    the tensors whole."""
+    if ts[0].ndim >= 3 and ts[0].numel() >= min_numel:
         return zip(*(t.unbind(0) for t in ts))
     return [ts]
 
@@ -121,7 +130,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         bc2 = 1.0 - torch.pow(b2, c)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
                               tree_leaves(state.nu), tree_leaves(params)):
-            for g, m, v, p in _slices(g, m, v, p):
+            for g, m, v, p in _slices(g, m, v, p, min_numel=_SLICE_NUMEL):
                 g32 = _grad32(g, grad_scale)
                 m32 = _moment(m, b1, torch.mul(g32, 1 - b1))
                 v32 = _moment(v, b2, torch.mul(g32, 1 - b2).mul_(g32))
@@ -215,7 +224,7 @@ def sgd(momentum: float = 0.9) -> Optimizer:
     def update(grads, state, params, lr, grad_scale=None):
         for g, m, p in zip(tree_leaves(grads), tree_leaves(state),
                            tree_leaves(params)):
-            for g, m, p in _slices(g, m, p):
+            for g, m, p in _slices(g, m, p, min_numel=_SLICE_NUMEL):
                 m.mul_(momentum).add_(_grad32(g, grad_scale))
                 _apply(p, m.clone(), lr)
         return params, state

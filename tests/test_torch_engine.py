@@ -3,8 +3,8 @@
 bit for bit, and the same answers for every aggregate x tuple/time window x
 scalar/vector payload on one event stream — float sums within 1e-4, max/min,
 counts and top-k ids exactly. Also: state carried across mid-stream through
-``repro_torch.convert``, replay determinism, and the features still to port
-raising ``NotImplementedError``."""
+``repro_torch.convert``, replay determinism, and bf16 plans, once outside
+the port, converting and compiling with their flag."""
 import numpy as np
 import pytest
 
