@@ -90,8 +90,8 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    write step's host work by part (unique rows, frontier keys, packing, the
    staged upload beside a copy per array); a steady-state sparse window
    run under
-   ``torch.cuda.set_sync_debug_mode("error")``; 10 churn bursts at 0.1% and
-   10 at 1% of the readers (70% ``add_edge``, 30% ``delete_edge``), each
+   ``torch.cuda.set_sync_debug_mode("error")``; 6 churn bursts at 0.1% and
+   6 at 1% of the readers (70% ``add_edge``, 30% ``delete_edge``), each
    flushed, then a write batch and a read, the plan tables required to keep
    their storage across in-capacity bursts, the answers held to the oracle
    on 256 sampled readers, sparse against dense replayed bit-equal on the
@@ -233,7 +233,22 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    layers and NequIP's forces held to the fp32 floor: each leaf no
    farther from an fp64 run than twice the CPU copies' own; GatedGCN's on
    full_graph_sm); the launcher on every GNN's reduced cell, one run
-   replayed bit-equal after an injected failure.
+   replayed bit-equal after an injected failure;
+13. the cell tools (``repro_torch.launch.dryrun`` and ``roofline``): all
+   40 assigned (arch x shape) cells built on the meta device (and eagr's
+   cell at its smoke config), the card's allocation required unmoved, each
+   cell's argument GB, per-device GB on the 16 x 16 production mesh,
+   ``model_flops`` and whether it fits one card printed; five cells
+   measured on the card, one counted step (aten FLOPs and operand bytes
+   plus the kernels' own counts) and timed steps each: granite-3-2b
+   prefill_32k (batch cut to 1) and decode_32k (batch cut to 8), DIEN
+   serve_p99, gat-cora and graphcast minibatch_lg train steps, each
+   required to launch its kernels and to give 0 < mfu <= 1, and the
+   roofline table of the five; the kernels' counts of each cell's smoke
+   step on the card required equal to the CPU's, DIEN's and GAT's measured
+   steps counted again on the CPU and the LM cells' against the per-call
+   formulas, all exactly; int8 compression with error feedback on the
+   card bit-equal to the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -273,10 +288,27 @@ PROFILE_BATCHES = 5   # update batches and read rounds in each traced window
 
 DEVICE = "cuda"
 
-# H100 SXM peaks (NVIDIA data sheet) for the kernels' bound
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+# each kernel's work a call (its wrapper module's cost functions), held to
+# the H100 SXM's peaks (NVIDIA data sheet) by ``bound_of``
+from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.segment_agg import ops as seg_ops  # noqa: E402
+
+
+def bound_of(ops: int, nbytes: int, rate: str = "fp32") -> tuple[float, str]:
+    """``kernels/cost.bound_ms`` of ``ops`` operations at ``rate`` and
+    ``nbytes`` bytes: the least time on the card in ms, and what bounds
+    it. ``kernels/cost.py`` is imported here, not with the script:
+    ``tools/compare_active.py`` imports this script for its timers on the
+    package of trees older than that module."""
+    from repro_torch.kernels import cost
+
+    return cost.bound_ms(cost.Work(ops, nbytes, rate))
+
+
+def bound_of_work(work) -> tuple[float, str]:
+    """``bound_of`` a cost function's ``Work``."""
+    return bound_of(work.ops, work.bytes, work.rate)
 
 KERNELS = {
     "sum": ("segment_agg_sum", "src/repro/kernels/segment_agg/segment_agg.py:41"),
@@ -414,6 +446,25 @@ LAUNCH_STEPS, LAUNCH_FAIL_AT = 6, 3
 GNN_SEED, GNN_STEPS, GNN_TIMED = 0, 5, 5
 GNN_STRICT = dict(n_layers=2, mesh_refinement=3)
 GNN_ARCHS = ("gat-cora", "gatedgcn", "graphcast", "nequip")
+# phase 13: the measured cells (arch, shape), cut by the dry run's own
+# fit, and the kernel entries each must launch ({module: keys}); timed
+# repeats of each step
+CELL_RUNS = (
+    ("granite-3-2b", "prefill_32k",
+     {"flash_attention": ("prefill", "prefill_wgmma")}),
+    ("granite-3-2b", "decode_32k", {"flash_attention": ("decode",)}),
+    ("dien", "serve_p99", {"embedding_bag": ("embedding_bag",)}),
+    ("gat-cora", "minibatch_lg", {"segment_agg": ("sum_gnn", "max_gnn")}),
+    ("graphcast", "minibatch_lg", {"segment_agg": ("sum_gnn",)}),
+)
+CELL_REPEATS = 3
+# device_ms calls timed by held CUDA events because the profiler's traces
+# held no device record
+PROFILER_FALLBACKS = []
+# cells whose measured size is counted again on the CPU (the others' steps
+# take minutes there); the LM cells' counts are checked by formula
+CELL_CPU_COUNTED = (("dien", "serve_p99"), ("gat-cora", "minibatch_lg"))
+COMPRESS_STEPS = 20
 # the bag's backward has no Pallas kernel (JAX differentiates jnp.take); it
 # is the gradient of _bag_kernel's function, which the port's forward runs
 BAG_BACKWARD_REPLACES = BAG_REPLACES
@@ -512,19 +563,19 @@ def cuda_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int = 50, only: str | None = None) -> float:
+def device_ms_or_none(torch, fn, reps: int = 20, only: str | None = None):
     """Device time of one call: every CUDA kernel, copy and memset that
     ``reps`` calls run (only those whose name holds ``only``, if given),
-    summed (torch.profiler), over ``reps``, after one warm-up call. Unlike
-    ``cuda_ms`` it leaves out the gaps in which the device waits for the
-    host, which for a call of a few microseconds are most of the wall
-    time."""
+    summed (torch.profiler), over ``reps``, after one warm-up call; None
+    where the profiler handed back three traces with no such record (it
+    now and then does). Unlike ``cuda_ms`` it leaves out the gaps in which
+    the device waits for the host, which for a call of a few microseconds
+    are most of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # the profiler now and then hands back an empty trace: take up to three
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -538,19 +589,34 @@ def device_ms(torch, fn, reps: int = 50, only: str | None = None) -> float:
                 total_us += e.self_cuda_time_total if us is None else us
         if total_us > 0:
             return total_us / 1e3 / reps
-    raise AssertionError("the profiler saw no device time in three traces")
+    return None
 
 
-def device_ms_or_none(torch, fn, reps: int = 20):
-    """``device_ms``, or None where the profiler saw no device time."""
-    try:
-        return device_ms(torch, fn, reps=reps)
-    except AssertionError:
-        return None
+def device_ms(torch, fn, reps: int = 50, only: str | None = None) -> float:
+    """``device_ms_or_none``; where the profiler saw nothing, ``held_ms``
+    (CUDA events with the host's enqueueing hidden behind a sleep kernel:
+    the device work alone, no profiler), each such call named in
+    ``PROFILER_FALLBACKS``. With ``only``, which needs the profiler's
+    names, an empty trace raises."""
+    t = device_ms_or_none(torch, fn, reps, only)
+    if t is not None:
+        return t
+    if only is not None:
+        raise AssertionError(f"the profiler saw no device time of {only} "
+                             f"in three traces")
+    PROFILER_FALLBACKS.append(getattr(fn, "__qualname__", repr(fn)))
+    print(f"device_ms: the profiler saw no device time in three traces; "
+          f"timed by held CUDA events ({PROFILER_FALLBACKS[-1]})",
+          flush=True)
+    return held_ms(torch, fn, reps)
 
 
 def ms_or_not(t) -> str:
     return "not measured" if t is None else f"{t:.5f}"
+
+
+def share_or_not(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def held_ms(torch, fn, reps: int = 50) -> float:
@@ -612,16 +678,12 @@ def check_kernel(torch, ops, ref, x, seg, tob, fot, n_rows, n_row_tiles, op,
 
 
 def level_bound_ms(seg, tob, fot, F: int, n_rows: int) -> tuple[float, str]:
-    """Least time for one level: seg and the block tables read once, x read
-    for each live slot, output written for each row of a visited tile; one
-    add/max per live slot and feature."""
+    """Least time for one level (``seg_ops.level_cost``) at its live slots
+    and visited tiles."""
     n_live = int((seg >= 0).sum().item())
     rows_out = min(int(fot.sum().item()) * 128, n_rows)
-    nbytes = seg.numel() * 4 + tob.numel() * 8 + n_live * 4 * F \
-        + rows_out * 4 * F
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_live * F / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_of_work(seg_ops.level_cost(seg.numel(), n_live, tob.numel(),
+                                            rows_out, F))
 
 
 def shuffle_within_runs(ops, rng, plan, xp):
@@ -975,17 +1037,21 @@ def trace_window(torch, name: str, run, n: int, out_dir, *,
             dev_us = e.self_cuda_time_total
         rows.append((e.key, e.count, dev_us / 1e3))
     rows.sort(key=lambda r: -r[2])
-    dev_ms = sum(r[2] for r in rows)
+    # the profiler now and then hands back a trace with no device record:
+    # the window's device time is then not measured
+    dev_ms = sum(r[2] for r in rows) if rows else None
+    busy = None if dev_ms is None else dev_ms / wall_ms
     print(f"profile {name}: {n} batches, wall {wall_ms:.3f} ms, device "
-          f"{dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.4f}", flush=True)
+          f"{ms_or_not(dev_ms)} ms, busy share {share_or_not(busy)}",
+          flush=True)
     for k, c, t in rows[:8]:
         print(f"    {t:9.3f} ms  {c:6d} calls  {k[:90]}", flush=True)
     if not lean:
         prof.export_chrome_trace(os.path.join(out_dir,
                                               f"trace_{name}.json"))
     return dict(batches=n, wall_ms=wall_ms, device_ms=dev_ms,
-                busy_share=dev_ms / wall_ms,
-                segment_ms=sum(t for k, _, t in rows if "segment_agg" in k),
+                busy_share=busy, segment_ms=None if dev_ms is None else
+                sum(t for k, _, t in rows if "segment_agg" in k),
                 top=[dict(kernel=k, calls=c, ms=t) for k, c, t in rows[:15]])
 
 
@@ -1188,27 +1254,18 @@ def plain_sum_fp64(x, seg_c, n_rows: int):
 
 def active_bound_ms(seg_c, src_c, tob, act, F: int, n_rows: int, op: str,
                     bf16: bool = False) -> tuple[float, str]:
-    """Least time for one call of the fused active entry: each active
-    block's seg and src rows (8 B a slot; sum also reads its sign row, 4 B
-    more), its active entry and tob/fot (12 B) read once, the ``val`` row of
-    each distinct source among the active live slots (``src_c`` beside
-    ``seg_c``) read once, the output written for each row of a tile an
-    active block routes to, and the row mask (n_rows bytes) written once;
-    per live slot and feature one add or max, for sum one multiply by the
-    sign, and with ``bf16`` one rounding to bfloat16."""
+    """Least time for one call of the fused active entry
+    (``seg_ops.active_cost``) at its active blocks, their live slots
+    (``seg_c``), the distinct sources among them (``src_c`` beside
+    ``seg_c``) and the tiles they route to."""
     live = seg_c >= 0
     n_live = int(live.sum().item())
     n_src = int(src_c[live].unique().numel())
     nb = tob.numel()
     real = act[act < nb].long()
     tiles = int(tob[real].unique().numel())
-    slot_b = 12 if op == "sum" else 8
-    nbytes = real.numel() * (256 * slot_b + 12) + n_src * 4 * F \
-        + tiles * 128 * 4 * F + n_rows
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_live * F * ((2 if op == "sum" else 1) + bf16) \
-        / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_of_work(seg_ops.active_cost(real.numel(), n_live, n_src,
+                                             tiles, F, n_rows, op, bf16))
 
 
 def captured_ops(torch, fn) -> list:
@@ -2058,16 +2115,10 @@ def stacked_ptrs(group) -> dict:
 
 def stacked_level_bound_ms(seg, src, tob, fot, F: int, n_rows: int, op: str,
                            bf16: bool = False) -> tuple[float, str]:
-    """Least time for one call of the fused stacked dense entry, summed over
-    the shards: every slot's seg (4 B), the src rows (and for sum the sign
-    rows) of the blocks holding a live slot (1 or 2 KB a block), the ``val``
-    row of each distinct source among the live slots once, tob and fot (8 B
-    a block) and the output of each row of a visited tile; per live slot and
-    feature one add or max, for sum one multiply by the sign, and with
-    ``bf16`` one rounding to bfloat16 (the bytes are fp32's: ``val`` is
-    fp32 state)."""
-    t_b = t_o = 0.0
-    row_b = 2 * 256 * 4 if op == "sum" else 256 * 4
+    """Least time for one call of the fused stacked dense entry
+    (``seg_ops.stacked_cost``), summed over the shards, at each shard's
+    live slots, blocks holding one, distinct sources and visited tiles."""
+    ops = nbytes = 0
     for s in range(seg.shape[0]):
         nb = tob[s].numel()
         live = seg[s] >= 0
@@ -2075,11 +2126,10 @@ def stacked_level_bound_ms(seg, src, tob, fot, F: int, n_rows: int, op: str,
         live_blocks = int(live.view(nb, -1).any(1).sum().item())
         n_src = int(src[s][live].unique().numel())
         rows_out = min(int(fot[s].sum().item()) * 128, n_rows)
-        t_b += (seg[s].numel() * 4 + live_blocks * row_b + n_src * 4 * F
-                + nb * 8 + rows_out * 4 * F) / HBM_BYTES_PER_S * 1e3
-        t_o += n_live * F * ((2 if op == "sum" else 1) + bf16) \
-            / FP32_OPS_PER_S * 1e3
-    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+        w = seg_ops.stacked_cost(seg[s].numel(), live_blocks, n_src, nb,
+                                 rows_out, n_live, F, op, bf16)
+        ops, nbytes = ops + w.ops, nbytes + w.bytes
+    return bound_of(ops, nbytes)
 
 
 def stacked_level_launches(torch, meta, tables, l: int, op: str) -> list:
@@ -2638,7 +2688,7 @@ def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
           f"max + count): write p50 {single['write_p50_ms']:.3f} ms, "
           f"{single['write_events_per_s']:.0f} writes/s, read p50 "
           f"{single['read_p50_ms']:.3f} ms; stacked write busy share "
-          f"{report['profile']['busy_share']:.4f}", flush=True)
+          f"{share_or_not(report['profile']['busy_share'])}", flush=True)
     report["speed"] = metrics
     lap("speed")
 
@@ -3504,29 +3554,17 @@ def sdpa(torch, q, k, v, *, causal, mask=None):
 
 
 def prefill_bound_ms(B, Hq, Hkv, Sq, Skv, d, causal, esize) -> tuple:
-    """q, k, v read once and out written once; 4 d operations (q.k and p.v)
-    per live query-key pair, at the tensor cores' rate for the input type
-    (bf16; fp32 inputs at the CUDA cores' rate)."""
-    off = Skv - Sq
-    pairs = sum(min(max(i + off + 1, 0), Skv) for i in range(Sq)) \
-        if causal else Sq * Skv
-    nbytes = (2 * B * Hq * Sq * d + 2 * B * Hkv * Skv * d) * esize
-    ops = 4 * d * B * Hq * pairs
-    rate = BF16_OPS_PER_S if esize == 2 else FP32_OPS_PER_S
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    """Least time of one prefill call (``flash_ops.prefill_cost``), at the
+    tensor cores' rate for bf16 inputs, the CUDA cores' for fp32."""
+    return bound_of_work(flash_ops.prefill_cost(B, Hq, Hkv, Sq, Skv, d,
+                                                causal, esize))
 
 
 def decode_bound_ms(Hq, Hkv, d, lengths, esize) -> tuple:
-    """Each live cache row of k and v read once, q read and out written
-    once; 4 d operations per query head and live key."""
-    live = int(sum(lengths))
-    B = len(lengths)
-    nbytes = (2 * Hkv * d * live + 2 * B * Hq * d) * esize
-    ops = 4 * d * Hq * live
-    rate = BF16_OPS_PER_S if esize == 2 else FP32_OPS_PER_S
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    """Least time of one decode call (``flash_ops.decode_cost``) over the
+    rows' live lengths."""
+    return bound_of_work(flash_ops.decode_cost(len(lengths), Hq, Hkv, d,
+                                               int(sum(lengths)), esize))
 
 
 def tc_measure(torch, got, want, floor=None) -> dict:
@@ -3894,13 +3932,9 @@ def phase_flash_serve_shapes(torch, cfg, prompt, gen_len, errs) -> dict:
 
 # --------------------------------------------------------- embedding bag
 def bag_bound_ms(n_live, n_ids, n_bags, D, weighted) -> tuple:
-    """Each live id's row read once, ids/offsets/weights read once, out
-    written once; a multiply and an add per live id and feature (fp32)."""
-    nbytes = n_live * D * 4 + n_ids * (8 if weighted else 4) + n_bags * 4 \
-        + n_bags * D * 4
-    ops = 2 * D * n_live
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    """Least time of one bag call (``bag_ops.bag_cost``)."""
+    return bound_of_work(bag_ops.bag_cost(n_live, n_ids, n_bags, D,
+                                          weighted))
 
 
 def phase_bag(torch, dien_cfg, errs) -> dict:
@@ -4434,10 +4468,8 @@ def retrieval_bound_ms(batch, n_cand, cfg) -> tuple:
             + batch["cand_cats"].unique().numel())
     nbytes = rows * D * 4 + 2 * n_cand * 4 + n_cand * 4
     ops = 3 * D * n_cand
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     every = 2 * n_cand * D * 4 + 2 * n_cand * 4 + n_cand * 4
-    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", \
-        nbytes, every
+    return (*bound_of(ops, nbytes), nbytes, every)
 
 
 def phase_retrieval(torch, out_dir) -> dict:
@@ -4486,7 +4518,7 @@ def phase_retrieval(torch, out_dir) -> dict:
                max_abs_err_vs_fp64=err, max_abs_score=want.abs().max().item(),
                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
                every_row_bytes=every,
-               every_row_bound_ms=every / HBM_BYTES_PER_S * 1e3, trace=trace)
+               every_row_bound_ms=bound_of(0, every)[0], trace=trace)
     print(f"  DIEN retrieval_cand: 1 user x {n} candidates, {RETRIEVAL_CALLS} "
           f"calls: p50 {res['p50_ms']:.4f} ms, p99 {res['p99_ms']:.4f} ms; "
           f"scores vs fp64 on the CPU max abs err {err:.3g} (max |score| "
@@ -4494,7 +4526,7 @@ def phase_retrieval(torch, out_dir) -> dict:
           f"{nbytes / 1e6:.1f} MB, distinct rows once), "
           f"{res['every_row_bound_ms']:.5f} ms reading every candidate's "
           f"rows ({every / 1e6:.1f} MB); traced busy share "
-          f"{trace['busy_share']:.4f}", flush=True)
+          f"{share_or_not(trace['busy_share'])}", flush=True)
     return res
 
 
@@ -4554,14 +4586,9 @@ def phase_serve_rest(torch, prompt, gen_len, card, out_dir, errs) -> dict:
 
 # ------------------------------------------------------------- training
 def bag_backward_bound_ms(n_live, n_ids, n_bags, V, D, weighted) -> tuple:
-    """The dense (V, D) fp32 gradient written once; grad_out, the ids, the
-    offsets and the weights read once; a multiply and an add per live id
-    and feature (fp32)."""
-    nbytes = V * D * 4 + n_bags * D * 4 + n_ids * (8 if weighted else 4) \
-        + n_bags * 4
-    ops = 2 * D * n_live
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    """Least time of one bag backward call (``bag_ops.bag_backward_cost``)."""
+    return bound_of_work(bag_ops.bag_backward_cost(n_live, n_ids, n_bags, V,
+                                                   D, weighted))
 
 
 def bag_backward_fp64(torch, g, ids, bags, V, w):
@@ -4821,7 +4848,8 @@ def phase_train_lm(torch, card, out_dir) -> dict:
           f"{out['accum']} microbatches: first step {first_ms:.1f} ms, then "
           f"p50 {p50:.1f} ms = {out['tokens_per_s']:.0f} tokens/s; peak "
           f"{peak_gb:.2f} GB; traced step busy "
-          f"{trace['busy_share']:.4f}; losses {[round(x, 4) for x in losses]}",
+          f"{share_or_not(trace['busy_share'])}; losses "
+          f"{[round(x, 4) for x in losses]}",
           flush=True)
     return out
 
@@ -4915,8 +4943,9 @@ def phase_train_dien(torch, card, out_dir) -> dict:
     print(f"DIEN train on {card}: full CFG, batch {batch_size}: first step "
           f"{first_ms:.1f} ms, then p50 {p50:.1f} ms = "
           f"{out['users_per_s']:.0f} users/s; peak {peak_gb:.2f} GB; "
-          f"traced step busy {trace['busy_share']:.4f}; bag launches "
-          f"{launches}; losses {[round(x, 4) for x in losses]}", flush=True)
+          f"traced step busy {share_or_not(trace['busy_share'])}; bag "
+          f"launches {launches}; losses {[round(x, 4) for x in losses]}",
+          flush=True)
     return out
 
 
@@ -5001,14 +5030,9 @@ def phase_train(torch, card, out_dir, errs) -> dict:
 
 # ------------------------------------------------------------ phase 12: GNNs
 def gnn_bound_ms(plan, F: int) -> tuple[float, str]:
-    """Least time of one graph-entry call: 12 B of seg/src/sign a slot,
-    4 * F B of a live edge's values read, 4 * F B of an output row written
-    (one add or max a live value and feature)."""
-    nbytes = 12 * plan.seg.shape[1] + 4 * F * plan.n_live \
-        + 4 * F * plan.n_rows
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = plan.n_live * F / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time of one graph-entry call (``seg_ops.graph_cost``)."""
+    return bound_of_work(seg_ops.graph_cost(plan.seg.shape[1], plan.n_live,
+                                            plan.n_rows, F))
 
 
 def gnn_fp64_sum(torch, x, plan):
@@ -5330,8 +5354,9 @@ def phase_gnn(torch, card, out_dir, errs) -> dict:
                              mesh=int(b.mesh_src.shape[0]),
                              m2g=int(b.m2g_src.shape[0])),
                   scratch_gb=gnn_scratch_bytes(ops) / 1e9)
-    seg_ms = gc_run["trace"].get("segment_ms", 0.0)
-    gc_run["segment_share"] = seg_ms / gc_run["trace"]["device_ms"]
+    tr = gc_run["trace"]
+    gc_run["segment_share"] = None if tr["device_ms"] is None \
+        else tr["segment_ms"] / tr["device_ms"]
     print(f"graphcast train on {card}: minibatch_lg at full width and depth "
           f"({cfg.n_layers} processor layers, d {cfg.d_hidden}, refinement "
           f"{cfg.mesh_refinement}: {M} mesh nodes, {b.mesh_src.shape[0]} "
@@ -5339,9 +5364,10 @@ def phase_gnn(torch, card, out_dir, errs) -> dict:
           f"{n_params / 1e6:.2f} M fp32 parameters, bf16 compute): first "
           f"step {gc_run['first_step_ms']:.1f} ms, then p50 "
           f"{gc_run['step_p50_ms']:.1f} ms; peak {gc_run['peak_gb']:.2f} "
-          f"GB; traced step busy {gc_run['trace']['busy_share']:.4f}, "
-          f"segment kernel {seg_ms:.3f} ms = {gc_run['segment_share']:.4f} "
-          f"of device time; launches a step {gc_run['launches_per_step']}; "
+          f"GB; traced step busy {share_or_not(tr['busy_share'])}, "
+          f"segment kernel {ms_or_not(tr['segment_ms'])} ms = "
+          f"{share_or_not(gc_run['segment_share'])} of device time; "
+          f"launches a step {gc_run['launches_per_step']}; "
           f"segment scratch {gc_run['scratch_gb']:.3f} GB; losses "
           f"{[round(x, 5) for x in gc_run['losses']]}", flush=True)
     del cell, b, sets
@@ -5433,7 +5459,7 @@ def phase_gnn(torch, card, out_dir, errs) -> dict:
         print(f"{arch} train on {card}: {shape} at its published config: "
               f"first step {run['first_step_ms']:.1f} ms, then p50 "
               f"{run['step_p50_ms']:.1f} ms; peak {run['peak_gb']:.2f} GB; "
-              f"traced step busy {run['trace']['busy_share']:.4f}; "
+              f"traced step busy {share_or_not(run['trace']['busy_share'])}; "
               f"launches a step {run['launches_per_step']}; losses "
               f"{[round(x, 5) for x in run['losses']]}", flush=True)
         out[arch] = run
@@ -5453,6 +5479,211 @@ def phase_gnn(torch, card, out_dir, errs) -> dict:
     out["seconds_by_part"] = parts
     rounded = {k: round(v, 1) for k, v in parts.items()}
     print(f"phase 12 seconds by part: {rounded}", flush=True)
+    return out
+
+
+# ------------------------------------------------------ phase 13: cell tools
+def kernel_launches() -> dict:
+    """Every kernel module's ``LAUNCHES``, by module name."""
+    return {"segment_agg": dict(seg_ops.LAUNCHES),
+            "flash_attention": dict(flash_ops.LAUNCHES),
+            "embedding_bag": dict(bag_ops.LAUNCHES)}
+
+
+def reset_kernel_counts() -> None:
+    for m in (seg_ops, flash_ops, bag_ops):
+        m.reset_launches()
+
+
+def lm_cell_counts(arch_id: str, shape: str, reduced: dict) -> dict:
+    """The flash kernels' counts of one step of an LM serve cell from the
+    shapes alone: one call a layer (``flash_ops.prefill_cost`` /
+    ``decode_cost``; decode counts every cache row)."""
+    from repro_torch.configs import get_arch
+
+    mod = get_arch(arch_id)
+    cfg = mod.CFG
+    d = mod.SHAPE_DEFS[shape]
+    B, S, L = reduced.get("batch", d["batch"]), d["seq"], \
+        reduced.get("n_layers", cfg.n_layers)
+    es = cfg.compute_dtype.itemsize
+    if d["kind"] == "prefill":
+        key, w = "prefill", flash_ops.prefill_cost(
+            B, cfg.n_heads, cfg.n_kv_heads, S, S, cfg.head_dim, True, es)
+    else:
+        key, w = "decode", flash_ops.decode_cost(
+            B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, B * S, es)
+    return {"flash_attention": {key: dict(calls=L, ops=L * w.ops,
+                                          bytes=L * w.bytes)}}
+
+
+def compress_check(torch) -> dict:
+    """``compress_with_feedback`` over ``COMPRESS_STEPS`` seeded steps on
+    the card and on the CPU: every dequantized gradient and error state
+    bit-equal."""
+    from repro_torch.distributed import compression as C
+
+    rng = np.random.default_rng(13)
+    steps = [{"w": rng.standard_normal((256, 96), dtype=np.float32) * 0.01,
+              "b": {"x": rng.standard_normal(1000, dtype=np.float32)}}
+             for _ in range(COMPRESS_STEPS)]
+
+    def run(dev):
+        def put(t):
+            return {k: put(v) for k, v in t.items()} if isinstance(t, dict) \
+                else torch.as_tensor(t, device=dev)
+        err = C.init_error_state(put(steps[0]))
+        outs = []
+        for g in steps:
+            cg, err = C.compress_with_feedback(put(g), err)
+            outs.append((cg, err))
+        return outs
+
+    card, cpu = run(DEVICE), run("cpu")
+    n = 0
+    for (cg_a, e_a), (cg_b, e_b) in zip(card, cpu):
+        for a, b in ((cg_a["w"], cg_b["w"]), (cg_a["b"]["x"], cg_b["b"]["x"]),
+                     (e_a["w"], e_b["w"]), (e_a["b"]["x"], e_b["b"]["x"])):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError("compress_with_feedback differs between "
+                                     "the card and the CPU")
+            n += 1
+    return dict(steps=COMPRESS_STEPS, tensors_equal=n)
+
+
+def phase_cells(torch, card, out_dir) -> dict:
+    """Phase 13: the cell tools. (a) every assigned cell (and eagr's reduced
+    cell: its full engine's host compile takes minutes) built on the meta
+    device, the card's allocation unmoved; (b) ``CELL_RUNS`` measured by
+    the dry run, each cut by the dry run's ``fit`` (one counted step,
+    ``CELL_REPEATS`` timed),
+    each launching its kernels and 0 < mfu <= 1, and the roofline table;
+    (c) the kernels' counts of each cell's smoke step on the card equal to
+    the CPU's, of ``CELL_CPU_COUNTED``'s measured steps too, the LM cells'
+    equal to the per-call formulas, and int8 compression bit-equal."""
+    from repro_torch.configs import all_cells, get_arch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+
+    parts, out = {}, {}
+    t_part = time.perf_counter()
+
+    def lap(part: str) -> None:
+        nonlocal t_part
+        parts[part] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    mesh = make_production_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (a) every cell on the meta device
+    before = torch.cuda.memory_allocated()
+    dry = [dryrun.run_cell(a, s, mesh) for a, s in all_cells()]
+    dry.append(dryrun.run_cell("eagr", "stream_mixed", mesh, smoke=True))
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise AssertionError(f"the meta builds moved the card's allocation: "
+                             f"{before} -> {after} bytes")
+    for r in dry:
+        print(f"  cell {r['arch']:20s} {r['shape']:15s} args "
+              f"{r['arg_bytes'] / 1e9:9.3f} GB, per device on 16x16 "
+              f"{r['per_device_arg_bytes'] / 1e9:8.4f} GB, model_flops "
+              f"{r['model_flops'] or 0:.4e}, fits one card "
+              f"{r['fits_one_card']}", flush=True)
+    out["meta"] = dict(cells=dry, allocated_before=before,
+                       allocated_after=after)
+    lap("meta builds")
+
+    # ---- (b) the measured cells
+    recs = []
+    for arch_id, shape, want in CELL_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch_id, shape, mesh, measure=True,
+                              device=DEVICE, repeats=CELL_REPEATS)
+        rec["phase_s"] = time.perf_counter() - t0
+        launches = kernel_launches()
+        rec["launches"] = launches
+        for mod, keys in want.items():
+            for key in keys:
+                counted = rec["kernels"].get(mod, {}).get(
+                    "prefill" if key == "prefill_wgmma" else key, {})
+                # warm-up, counted and timed steps all launch
+                steps = 2 + CELL_REPEATS
+                if not counted.get("calls") or \
+                        launches[mod][key] != steps * counted["calls"]:
+                    raise AssertionError(
+                        f"{arch_id} {shape}: {mod}.{key} launched "
+                        f"{launches[mod][key]} times in {steps} steps, "
+                        f"counted {counted.get('calls')} a step")
+        row = roofline.analyze([rec])[0]
+        rec["mfu"] = row["mfu"]
+        rec["useful_ratio"] = row["useful_ratio"]
+        if not (row["mfu"] and 0 < row["mfu"] <= 1.0):
+            raise AssertionError(f"{arch_id} {shape}: mfu {row['mfu']} "
+                                 f"outside (0, 1]")
+        print(f"  measured {arch_id} {shape} {rec['reduced']}: step p50 "
+              f"{rec['seconds'] * 1e3:.3f} ms, flops {rec['flops']:.4e} "
+              f"(aten {rec['aten_flops']:.4e}, kernels "
+              f"{rec['kernel_ops']:.4e}), model_flops "
+              f"{rec['model_flops']:.4e}, mfu {row['mfu']:.5f}, bytes "
+              f"{rec['bytes_accessed']:.4e}, temp "
+              f"{rec['temp_bytes'] / 1e9:.3f} GB, args "
+              f"{rec['arg_bytes'] / 1e9:.3f} GB ({rec['phase_s']:.1f} s)",
+              flush=True)
+        recs.append(rec)
+    table = roofline.format_table(roofline.analyze(recs))
+    print(f"  roofline on {card}:\n" + "\n".join(
+        "    " + ln for ln in table.splitlines()), flush=True)
+    out["measured"] = recs
+    out["table"] = table
+    lap("measured cells")
+
+    # ---- (c) the counts: the card's against the CPU's
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = {}
+    for arch_id, shape, _ in CELL_RUNS:
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            plan = get_arch(arch_id).ARCH.build_smoke(shape, device=dev)
+            plan.fn(*plan.args)
+            got[dev] = dryrun.count_step(plan, dev)["kernels"]
+        if got[DEVICE] != got["cpu"] or not got["cpu"]:
+            raise AssertionError(f"{arch_id} {shape} smoke: the card counted "
+                                 f"{got[DEVICE]}, the CPU {got['cpu']}")
+        smoke[f"{arch_id} {shape}"] = got["cpu"]
+    full = {}
+    for rec in recs:
+        key = (rec["arch"], rec["shape"])
+        if key in CELL_CPU_COUNTED:
+            plan = get_arch(rec["arch"]).ARCH.build(
+                rec["shape"], device="cpu", reduced=rec["reduced"] or None)
+            want = dryrun.count_step(plan, "cpu")["kernels"]
+            plan = None
+        elif get_arch(rec["arch"]).FAMILY == "lm":
+            want = lm_cell_counts(rec["arch"], rec["shape"], rec["reduced"])
+        else:
+            continue
+        if rec["kernels"] != want:
+            raise AssertionError(f"{key}: the card counted {rec['kernels']}, "
+                                 f"the CPU or the formula {want}")
+        full[" ".join(key)] = want
+    out["counts"] = dict(smoke=smoke, full=full)
+    out["compress"] = compress_check(torch)
+    print(f"  counts: {len(smoke)} smoke cells and {len(full)} measured "
+          f"cells count the same kernel work on the card as on the CPU (or "
+          f"by formula); compress_with_feedback bit-equal over "
+          f"{COMPRESS_STEPS} steps", flush=True)
+    lap("counts")
+    out["parts"] = parts
+    print(f"phase 13 seconds by part: "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)
+    with open(os.path.join(out_dir, "cells.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
     return out
 
 
@@ -5884,12 +6115,25 @@ def main(argv=None) -> int:
             library_device_ms=row.get("library_device_ms"),
             shape=dict(F=row["F"], edges=row["live"], rows=row["rows"])))
 
+    # ---- 13. the cell tools, on a card freed of phase 12's models
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cells = phase_cells(torch, card, out_dir)
+    cells["seconds"] = time.perf_counter() - t0
+    print(f"cell tools: {cells['seconds']:.1f} s", flush=True)
+    report["cells"] = {k: cells[k] for k in ("measured", "table", "counts",
+                                             "compress", "parts", "seconds")}
+
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:
         raise AssertionError(f"the port loaded {bad[:5]}")
 
     report["kernels"] = kernels
+    report["profiler_fallbacks"] = PROFILER_FALLBACKS
+    print(f"device_ms timed by held CUDA events for want of a profiler "
+          f"record: {len(PROFILER_FALLBACKS)} calls", flush=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(card)

@@ -17,6 +17,9 @@ CFG = TransformerConfig(
     n_experts=128, top_k=2, moe_dense_residual=True, moe_impl="sort",
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
-TRAIN = lm_common.TrainSetting(optimizer="adafactor", accum=8, lr=1e-4)
+TRAIN = lm_common.TrainSetting(optimizer="adafactor", accum=8, lr=1e-4,
+                               train_rules="residual_sp")
 
 build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)
+
+ARCH = lm_common.make_arch("arctic-480b", CFG, TRAIN)

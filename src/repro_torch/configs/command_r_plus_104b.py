@@ -15,6 +15,9 @@ CFG = TransformerConfig(
     n_kv_heads=8, d_ff=33792, vocab=256000, head_dim=128,
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
-TRAIN = lm_common.TrainSetting(optimizer="adafactor", accum=4, lr=1e-4)
+TRAIN = lm_common.TrainSetting(optimizer="adafactor", accum=4, lr=1e-4,
+                               train_rules="residual_sp")
 
 build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)
+
+ARCH = lm_common.make_arch("command-r-plus-104b", CFG, TRAIN)

@@ -19,3 +19,5 @@ CFG = TransformerConfig(
 TRAIN = lm_common.TrainSetting(optimizer="adafactor", accum=8, lr=1e-4)
 
 build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)
+
+ARCH = lm_common.make_arch("dbrx-132b", CFG, TRAIN)

@@ -14,8 +14,15 @@ import functools
 
 import torch
 
+from repro_torch.configs.cell import (
+    ArchSpec,
+    CellPlan,
+    meta,
+    on_meta,
+    opt_state_specs,
+)
 from repro_torch.device import resolve_device
-from repro_torch.models.common import init_from_specs
+from repro_torch.models.common import init_from_specs, spec_to_meta
 from repro_torch.models.recsys import dien as m
 from repro_torch.train.optimizer import get_optimizer
 from repro_torch.train.trainer import make_train_step
@@ -114,3 +121,105 @@ def build_train(*, batch: int, device=None, seed: int = 0) -> dict:
     params = init_from_specs(m.param_specs(CFG), gen)
     return _train_cell(CFG, params, rand_rank_batch(gen, CFG, batch,
                                                     train=True), 1e-3)
+
+
+# ------------------------------------------------------------ the full cells
+DIEN_SHAPES = tuple(SHAPE_DEFS)
+
+
+def _serve_fn(params, batch, cfg):
+    with torch.no_grad():
+        return m.serve(params, batch, cfg)
+
+
+def _retrieval_fn(params, batch, cfg):
+    with torch.no_grad():
+        return m.retrieval_score(params, batch, cfg)
+
+
+def rank_batch_meta(cfg: m.DIENConfig, B: int, *, train: bool) -> dict:
+    """The JAX package's ``_rank_batch_sds``: a ranking batch of meta
+    tensors."""
+    S, nb = cfg.seq_len, cfg.profile_bag_size
+    i32, b_ = torch.int32, torch.bool
+    batch = dict(
+        item_ids=meta((B, S), i32), cat_ids=meta((B, S), i32),
+        mask=meta((B, S), b_), target_item=meta((B,), i32),
+        target_cat=meta((B,), i32), profile_ids=meta((B, nb), i32),
+        profile_mask=meta((B, nb), b_))
+    if train:
+        batch.update(labels=meta((B,), i32), neg_item_ids=meta((B, S), i32),
+                     neg_cat_ids=meta((B, S), i32))
+    return batch
+
+
+def _batch_axes(batch: dict) -> dict:
+    return {k: (("candidates",) if k.startswith("cand") else
+                ("batch",) + (None,) * (v.ndim - 1))
+            for k, v in batch.items()}
+
+
+def build(shape: str, device=None, reduced=None, seed: int = 0) -> CellPlan:
+    """The JAX package's DIEN cell at ``shape`` with ``CFG``:
+    ``train_batch`` a train step (AdamW, lr 1e-3), the serve shapes
+    ``serve``, ``retrieval_cand`` ``retrieval_score`` of one user against
+    1,000,000 candidates; ``reduced`` cuts the batch (``"batch"``)."""
+    reduced = dict(reduced or {})
+    d = SHAPE_DEFS[shape]
+    B = reduced.get("batch", d["batch"])
+    specs = m.param_specs(CFG)
+    if on_meta(device):
+        gen = None
+        params = spec_to_meta(specs)
+        if d["kind"] == "retrieval":
+            batch = rank_batch_meta(CFG, B, train=False)
+            del batch["target_item"], batch["target_cat"]
+            batch.update(cand_items=meta((d["n_cand"],), torch.int32),
+                         cand_cats=meta((d["n_cand"],), torch.int32))
+        else:
+            batch = rank_batch_meta(CFG, B, train=d["kind"] == "train")
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = init_from_specs(specs, gen)
+        batch = rand_rank_batch(gen, CFG, B, train=d["kind"] == "train")
+        if d["kind"] == "retrieval":
+            del batch["target_item"], batch["target_cat"]
+            batch.update(rand_candidates(gen, CFG, d["n_cand"]))
+    axes = _batch_axes(batch)
+    if d["kind"] == "train":
+        o_specs = opt_state_specs("adamw", specs)
+        if gen is None:
+            step = make_train_step(functools.partial(m.loss_fn, cfg=CFG),
+                                   get_optimizer("adamw"))
+            cell = dict(params=params, opt_state=spec_to_meta(o_specs),
+                        lr=meta(()), step=step)
+        else:
+            cell = _train_cell(CFG, params, batch, 1e-3)
+            cell["lr"] = torch.tensor(1e-3, device=params["item_embed"].device)
+        return CellPlan("dien", shape, cell["step"],
+                        (cell["params"], cell["opt_state"], batch,
+                         cell["lr"]), kind="train", reduced=reduced,
+                        dims={"batch": B}, arg_axes=(specs, o_specs, axes, ()))
+    fn = _serve_fn if d["kind"] == "serve" else _retrieval_fn
+    return CellPlan("dien", shape, functools.partial(fn, cfg=CFG),
+                    (params, batch), kind="serve", reduced=reduced,
+                    dims={"batch": B}, arg_axes=(specs, axes))
+
+
+def smoke_plan(shape: str, device=None) -> CellPlan:
+    """:func:`build_smoke`'s cell as a ``CellPlan``."""
+    c = build_smoke(shape, device=device)
+    kind = SHAPE_DEFS[shape]["kind"]
+    if kind == "train":
+        lr = torch.tensor(c["lr"], device=c["params"]["item_embed"].device)
+        return CellPlan("dien", shape, c["step"],
+                        (c["params"], c["opt_state"], c["batch"], lr))
+    fn = _serve_fn if kind == "serve" else _retrieval_fn
+    return CellPlan("dien", shape, functools.partial(fn, cfg=c["cfg"]),
+                    (c["params"], c["batch"]), kind="serve")
+
+
+ARCH = ArchSpec(arch_id="dien", family=FAMILY, shapes=DIEN_SHAPES,
+                build=build, build_smoke=smoke_plan)

@@ -13,10 +13,13 @@ import dataclasses
 
 import numpy as np
 
+import torch
+
+from repro_torch.configs.cell import ArchSpec, CellPlan, meta, on_meta
 from repro_torch.core import dataflow as D
 from repro_torch.core.aggregates import make_aggregate
 from repro_torch.core.bipartite import build_bipartite
-from repro_torch.core.engine import EagrEngine
+from repro_torch.core.engine import EagrEngine, read_step, write_step_sum
 from repro_torch.core.vnm import construct_vnm
 from repro_torch.core.window import WindowSpec
 from repro_torch.graphs.generators import rmat_graph
@@ -77,3 +80,69 @@ def build_smoke(shape: str, device=None) -> dict:
     vals = rng.normal(size=cfg.write_batch).astype(np.float32)
     readers = rng.choice(list(bp.reader_inputs.keys()), cfg.read_batch)
     return dict(cfg=cfg, engine=eng, ids=ids, vals=vals, readers=readers)
+
+
+# ------------------------------------------------------------ the full cell
+def _as_meta(tree):
+    if isinstance(tree, torch.Tensor):
+        return meta(tree.shape, tree.dtype)
+    return type(tree)(*(_as_meta(t) for t in tree))
+
+
+def build(shape: str, device=None, reduced=None, seed: int = 1,
+          cfg: EagrSystemConfig = CFG) -> CellPlan:
+    """The JAX package's bonus cell: one write batch and one read batch of
+    ``cfg``'s engine as one step, ``fn(state, rows, vals, wmask, rnodes,
+    rmask) -> (state, answers)`` (the overlay, a compile-time constant,
+    closed over). The engine is compiled on the host (on the CPU for
+    ``device="meta"``, whose state and batches are meta tensors); on a
+    real device the batches are ``cfg``'s Zipf-free uniform draws of
+    writers and readers from ``seed``. Not one of the 40 assigned cells.
+    ``reduced`` is not taken."""
+    if shape not in SHAPE_DEFS:
+        raise KeyError(f"unknown shape {shape!r}; eagr has {list(SHAPE_DEFS)}")
+    if reduced:
+        raise ValueError("the eagr cell takes no cut")
+    eng, bp, _ = build_engine(cfg, device="cpu" if on_meta(device)
+                              else device)
+    plan = eng.plan
+
+    def mixed(state, rows, vals, wmask, rnodes, rmask):
+        state = write_step_sum(plan.meta, eng.agg, eng.spec, plan.arrays,
+                               state, rows, vals, wmask)
+        ans, _ = read_step(plan.meta, eng.agg, plan.arrays, state, rnodes,
+                           rmask)
+        return state, ans
+
+    B, R = cfg.write_batch, cfg.read_batch
+    if on_meta(device):
+        args = (_as_meta(eng.state), meta((B,), torch.int32), meta((B,)),
+                meta((B,), torch.bool), meta((R,), torch.int32),
+                meta((R,), torch.bool))
+    else:
+        rng = np.random.default_rng(seed)
+        rows, wmask = plan.routes.writer_rows(rng.choice(bp.writers, B))
+        nodes, rmask = plan.routes.reader_nodes(
+            rng.choice(list(bp.reader_inputs.keys()), R))
+        dev = eng.device
+        put = lambda a, dt: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+        args = (eng.state, put(rows, torch.int32),
+                put(rng.normal(size=B), torch.float32), put(wmask, torch.bool),
+                put(nodes, torch.int32), put(rmask, torch.bool))
+    return CellPlan(
+        "eagr", shape, mixed, args, kind="serve",
+        notes="bonus cell: EAGr engine step (overlay = compile-time constant)",
+        arg_axes=(_state_axes(eng.state),) + (("batch",),) * 5)
+
+
+def _state_axes(tree):
+    if isinstance(tree, torch.Tensor):
+        return ()
+    return type(tree)(*(_state_axes(t) for t in tree))
+
+
+ARCH = ArchSpec(
+    arch_id="eagr", family=FAMILY, shapes=tuple(SHAPE_DEFS), build=build,
+    build_smoke=lambda shape, device=None: build(shape, device,
+                                                 cfg=SMOKE_CFG),
+    describe="the paper's system (reference implementation)")

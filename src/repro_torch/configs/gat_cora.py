@@ -27,3 +27,7 @@ def build_train(shape: str = "minibatch_lg", *, device=None,
     return gnn_common.build_graph_cell(shape, config, gat.param_specs,
                                        gat.loss_fn, smoke=False,
                                        device=device, seed=seed)
+
+
+ARCH = gnn_common.make_graph_arch("gat-cora", config, config, gat.param_specs,
+                                  gat.loss_fn)

@@ -31,3 +31,7 @@ def build_train(shape: str = "minibatch_lg", *, device=None,
     return gnn_common.build_graph_cell(shape, config, m.param_specs,
                                        m.loss_fn, smoke=False, device=device,
                                        seed=seed)
+
+
+ARCH = gnn_common.make_graph_arch("gatedgcn", config, smoke_config,
+                                  m.param_specs, m.loss_fn)

@@ -29,10 +29,17 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.configs.cell import (
+    ArchSpec,
+    CellPlan,
+    meta,
+    on_meta,
+    opt_state_specs,
+)
 from repro_torch.device import resolve_device
-from repro_torch.models.common import init_from_specs
+from repro_torch.models.common import init_from_specs, spec_to_meta
 from repro_torch.models.gnn.common import GraphBatch
-from repro_torch.train.optimizer import get_optimizer
+from repro_torch.train.optimizer import get_optimizer, tree_leaves
 from repro_torch.train.trainer import make_train_step
 
 FAMILY = "gnn"
@@ -164,3 +171,107 @@ def build_graph_cell(shape: str, make_cfg, param_specs, loss_fn, *,
         batch = pad_graph_batch(batch, pad512(d["n"]), pad512(d["e"]))
     batch.plans()
     return train_cell(cfg, loss_fn, params, batch)
+
+
+# ------------------------------------------------------------ the full cells
+# the logical axes of a GraphBatch's fields (labels of a graph task: batch)
+BATCH_AXES = dict(
+    x=("nodes", None), edge_src=("edges",), edge_dst=("edges",),
+    edge_mask=("edges",), node_mask=("nodes",), labels=("nodes",),
+    label_mask=("nodes",), graph_ids=("nodes",),
+    positions=("nodes", None), species=("nodes",),
+)
+
+
+def batch_axes(graph_task: bool) -> dict:
+    if not graph_task:
+        return BATCH_AXES
+    return {**BATCH_AXES, "labels": ("batch",), "label_mask": ("batch",)}
+
+
+def graph_batch_meta(d: dict, *, geometric: bool = False,
+                     graph_task: bool = False) -> GraphBatch:
+    """The JAX package's ``graph_batch_sds``: a ``GraphBatch`` of meta
+    tensors, nodes and edges padded to multiples of 512."""
+    n, e, g = pad512(d["n"]), pad512(d["e"]), d["graphs"]
+    lbl_n = g if graph_task and g else n
+    i32, b_ = torch.int32, torch.bool
+    return GraphBatch(
+        x=meta((n, d["d_feat"])), edge_src=meta((e,), i32),
+        edge_dst=meta((e,), i32), edge_mask=meta((e,), b_),
+        node_mask=meta((n,), b_), labels=meta((lbl_n,), i32),
+        label_mask=meta((lbl_n,), b_),
+        graph_ids=meta((n,), i32) if g else None, n_graphs=max(g, 1),
+        positions=meta((n, 3)) if geometric else None,
+        species=meta((n,), i32) if geometric else None)
+
+
+def cut_layers(make_cfg, reduced: dict):
+    """``make_cfg`` with the depth cut to ``reduced["n_layers"]`` where the
+    cut names one."""
+    if "n_layers" not in reduced:
+        return make_cfg
+    return lambda d, graph_task: dataclasses.replace(
+        make_cfg(d, graph_task), n_layers=reduced["n_layers"])
+
+
+def train_plan(arch_id: str, shape: str, cell: dict, *, reduced=None,
+               arg_axes=None, notes: str = "", cut: bool = False) -> CellPlan:
+    """A train cell's dict (``train_cell``) as a ``CellPlan``: ``(params,
+    opt_state, batch, lr)``, lr a 0-d fp32 tensor on the parameters'
+    device; ``cut``: its depth (the cell's ``cfg.n_layers``) may be
+    cut."""
+    lr = cell["lr"]
+    if not isinstance(lr, torch.Tensor):
+        lr = torch.tensor(lr, dtype=torch.float32,
+                          device=tree_leaves(cell["params"])[0].device)
+    return CellPlan(arch_id, shape, cell["step"],
+                    (cell["params"], cell["opt_state"], cell["batch"], lr),
+                    kind="train", notes=notes, reduced=dict(reduced or {}),
+                    dims={"n_layers": cell["cfg"].n_layers} if cut else {},
+                    arg_axes=arg_axes)
+
+
+def meta_train_cell(cfg, loss_fn, specs, batch, *, lr: float = 1e-3,
+                    optimizer: str = "adamw") -> dict:
+    """``train_cell`` on the meta device: parameters, optimizer state and
+    lr as meta tensors (nothing allocated, nothing run)."""
+    opt = get_optimizer(optimizer)
+    step = make_train_step(functools.partial(loss_fn, cfg=cfg), opt)
+    return dict(cfg=cfg, params=spec_to_meta(specs),
+                opt_state=spec_to_meta(opt_state_specs(optimizer, specs)),
+                batch=batch, step=step, lr=meta(()), optimizer=opt)
+
+
+def make_graph_arch(arch_id: str, make_cfg, make_smoke_cfg, param_specs,
+                    loss_fn) -> ArchSpec:
+    """The JAX package's ``make_gnn_arch`` for a ``GraphBatch`` GNN
+    (gat-cora, gatedgcn): every shape a train step (AdamW, lr 1e-3) on the
+    shape's graph padded to multiples of 512; ``reduced`` cuts the depth
+    (``"n_layers"``)."""
+
+    def build(shape, device=None, reduced=None, seed: int = 0):
+        reduced = dict(reduced or {})
+        d = SHAPE_DEFS[shape]
+        graph_task = shape == "molecule"
+        mk = cut_layers(make_cfg, reduced)
+        cfg = mk(d, graph_task)
+        specs = param_specs(cfg)
+        axes = (specs, opt_state_specs("adamw", specs), batch_axes(graph_task),
+                ())
+        if on_meta(device):
+            cell = meta_train_cell(cfg, loss_fn, specs, graph_batch_meta(
+                d, graph_task=graph_task))
+        else:
+            cell = build_graph_cell(shape, mk, param_specs, loss_fn,
+                                    smoke=False, device=device, seed=seed)
+        return train_plan(arch_id, shape, cell, reduced=reduced,
+                          arg_axes=axes, cut=True)
+
+    def build_smoke(shape, device=None):
+        return train_plan(arch_id, shape, build_graph_cell(
+            shape, make_smoke_cfg, param_specs, loss_fn, smoke=True,
+            device=device))
+
+    return ArchSpec(arch_id=arch_id, family=FAMILY, shapes=GNN_SHAPES,
+                    build=build, build_smoke=build_smoke)

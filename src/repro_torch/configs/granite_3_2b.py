@@ -17,3 +17,5 @@ TRAIN = lm_common.TrainSetting(optimizer="adamw", accum=4)
 
 build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)
 build_train = functools.partial(lm_common.build_train, CFG, TRAIN)
+
+ARCH = lm_common.make_arch("granite-3-2b", CFG, TRAIN)

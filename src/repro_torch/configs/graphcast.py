@@ -10,14 +10,20 @@ drawn uniformly from a seed, as the JAX package's are (grid ends over the
 shape's real grid nodes; padded grid rows are masked out of the loss)."""
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.configs.cell import ArchSpec, meta, on_meta, opt_state_specs
 from repro_torch.configs.gnn_common import (  # noqa: F401
     FAMILY,
+    GNN_SHAPES,
     SHAPE_DEFS,
+    meta_train_cell,
     pad512,
     train_cell,
+    train_plan,
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.common import init_from_specs
@@ -96,3 +102,49 @@ def build_train(shape: str = "minibatch_lg", *, cfg: m.GraphCastConfig = CFG,
                          e_gm=pad512(4 * n_grid),
                          e_mesh=pad512(cfg.n_mesh_edges), device=dev)
     return _cell(cfg, batch, gen)
+
+
+# the logical axes of a GraphCastBatch's fields
+BATCH_AXES = dict(
+    grid_x=("nodes", None), g2m_src=("edges",), g2m_dst=("edges",),
+    mesh_src=("edges",), mesh_dst=("edges",), m2g_src=("edges",),
+    m2g_dst=("edges",), targets=("nodes", None), grid_mask=("nodes",))
+
+
+def batch_meta(cfg: m.GraphCastConfig, n_grid: int) -> m.GraphCastBatch:
+    """The JAX package's ``_batch_sds``: the grid padded to a multiple of
+    512, 4 grid edges a padded grid node each way and the multimesh's
+    edges, each padded to 512, as meta tensors."""
+    n_grid = pad512(n_grid)
+    e_gm, e_mesh = pad512(4 * n_grid), pad512(cfg.n_mesh_edges)
+    i32 = torch.int32
+    return m.GraphCastBatch(
+        grid_x=meta((n_grid, cfg.n_vars)),
+        g2m_src=meta((e_gm,), i32), g2m_dst=meta((e_gm,), i32),
+        mesh_src=meta((e_mesh,), i32), mesh_dst=meta((e_mesh,), i32),
+        m2g_src=meta((e_gm,), i32), m2g_dst=meta((e_gm,), i32),
+        targets=meta((n_grid, cfg.n_vars)),
+        grid_mask=meta((n_grid,), torch.bool))
+
+
+def build(shape: str, device=None, reduced=None, seed: int = 0):
+    """The cell at ``shape`` with ``CFG`` (``reduced`` may cut its
+    processor layers, ``"n_layers"``): :func:`build_train` on a real
+    device, its meta twin on ``device="meta"``."""
+    reduced = dict(reduced or {})
+    cfg = dataclasses.replace(CFG, **reduced)
+    specs = m.param_specs(cfg)
+    axes = (specs, opt_state_specs("adamw", specs), BATCH_AXES, ())
+    if on_meta(device):
+        cell = meta_train_cell(cfg, m.loss_fn, specs,
+                               batch_meta(cfg, SHAPE_DEFS[shape]["n"]))
+    else:
+        cell = build_train(shape, cfg=cfg, device=device, seed=seed)
+    return train_plan("graphcast", shape, cell, reduced=reduced,
+                      arg_axes=axes, cut=True)
+
+
+ARCH = ArchSpec(
+    arch_id="graphcast", family=FAMILY, shapes=GNN_SHAPES, build=build,
+    build_smoke=lambda shape, device=None: train_plan(
+        "graphcast", shape, build_smoke(shape, device=device)))

@@ -16,3 +16,5 @@ CFG = TransformerConfig(
 TRAIN = lm_common.TrainSetting(optimizer="adamw", accum=2)
 
 build_smoke = functools.partial(lm_common.build_smoke, CFG, TRAIN)
+
+ARCH = lm_common.make_arch("internlm2-1.8b", CFG, TRAIN)

@@ -1,6 +1,8 @@
 """Shared cell builders for the LM architectures: the assigned shapes, each
 arch's training setting, the reduced (smoke) configuration the launchers
-run, and the full-width train cell.
+run, the full-width train cell, and each arch's ``ArchSpec``
+(``make_arch``: every shape's ``CellPlan`` at full size, on the meta device
+for the dry run).
 
 Shapes (assigned):
   train_4k     seq 4,096   global_batch 256   -> train step (fwd + bwd + optimizer)
@@ -12,12 +14,21 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 
+from repro_torch.configs.cell import (
+    ArchSpec,
+    CellPlan,
+    generator,
+    meta,
+    on_meta,
+    opt_state_specs,
+)
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.common import init_from_specs
+from repro_torch.models.common import init_from_specs, spec_to_meta
 from repro_torch.train.optimizer import get_optimizer
 from repro_torch.train.trainer import make_train_step
 
@@ -27,12 +38,14 @@ FAMILY = "lm"
 @dataclasses.dataclass(frozen=True)
 class TrainSetting:
     """An arch's training setting, the JAX package's ``LMArch`` fields:
-    the optimizer's name, the microbatches of a step and the learning
-    rate."""
+    the optimizer's name, the microbatches of a step, the learning rate and
+    the train cell's sharding-rule preset (``distributed.sharding.
+    RULE_SETS``; None: the default rules)."""
 
     optimizer: str = "adamw"
     accum: int = 1
     lr: float = 3e-4
+    train_rules: str | None = None
 
 SHAPE_DEFS = {
     "train_4k": dict(seq=4096, batch=256, kind="train"),
@@ -123,3 +136,119 @@ def build_train(cfg: T.TransformerConfig, train: TrainSetting, *,
     return _train_cell(cfg, train, params,
                        _tokens_and_labels(gen, cfg, batch, S), train.accum,
                        train.lr)
+
+
+# ------------------------------------------------------------ the full cells
+LM_SHAPES = tuple(SHAPE_DEFS)
+# (L, B, Hkv, S, hd); cache_seq picks up every mesh axis batch leaves free
+CACHE_AXES = ("layers", "batch", "kv_heads", "cache_seq", None)
+
+
+def _prefill_fn(params, tokens, cfg):
+    with torch.no_grad():
+        return T.prefill(params, tokens, cfg)
+
+
+def _decode_fn(params, cache, tokens, lengths, cfg):
+    with torch.no_grad():
+        return T.decode_step(params, cache, tokens, lengths, cfg)
+
+
+def build_cell(cfg: T.TransformerConfig, train: TrainSetting, shape: str,
+               device=None, reduced: dict | None = None,
+               seed: int = 0) -> CellPlan:
+    """The JAX package's ``lm_common.build_cell``: ``train_4k`` a train
+    step ``(params, opt_state, batch, lr)``, ``prefill_32k`` ``(params,
+    tokens)``, ``decode_32k`` and ``long_500k`` one decode step ``(params,
+    (k, v), tokens, lengths)`` against an (L, B, Hkv, S, hd) cache in the
+    compute dtype, every live row but the new token's. On ``device="meta"``
+    nothing is allocated; on a real device the parameters are drawn from
+    ``seed`` (each layer at its full depth's scale), tokens uniform, the
+    cache normal. ``reduced`` cuts the batch (``"batch"``) and the depth
+    (``"n_layers"``); a train cell's microbatches are then the gcd of the
+    arch's and the batch."""
+    d = SHAPE_DEFS[shape]
+    reduced = dict(reduced or {})
+    B, S = reduced.get("batch", d["batch"]), d["seq"]
+    depth = cfg.n_layers
+    if "n_layers" in reduced:
+        cfg = dataclasses.replace(cfg, n_layers=reduced["n_layers"])
+    dims = {"batch": B, "n_layers": cfg.n_layers}
+    dev = None if on_meta(device) else resolve_device(device)
+    gen = None if dev is None else generator(dev, seed)
+    specs = T.param_specs(cfg)
+    params = spec_to_meta(specs) if gen is None \
+        else init_from_specs(specs, gen, depth=depth)
+
+    def ints(hi, shape):
+        if gen is None:
+            return meta(shape, torch.int32)
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    if d["kind"] == "train":
+        accum = math.gcd(train.accum, B)
+        o_specs = opt_state_specs(train.optimizer, specs)
+        opt = get_optimizer(train.optimizer)
+        opt_state = spec_to_meta(o_specs) if gen is None \
+            else opt.init(params)
+        batch = {"labels": ints(cfg.vocab, (B, S)),
+                 "tokens": ints(cfg.vocab, (B, S))}
+        lr = meta(()) if gen is None else torch.tensor(train.lr, device=dev)
+        step = make_train_step(functools.partial(T.loss_fn, cfg=cfg), opt,
+                               accum_steps=accum)
+        return CellPlan(
+            cfg.name, shape, step, (params, opt_state, batch, lr),
+            kind="train", notes=f"accum={accum} opt={train.optimizer}",
+            reduced=reduced, dims=dims,
+            arg_axes=(specs, o_specs, {"labels": ("batch", None),
+                                       "tokens": ("batch", None)}, ()),
+            rules=train.train_rules)
+    if d["kind"] == "prefill":
+        return CellPlan(
+            cfg.name, shape, functools.partial(_prefill_fn, cfg=cfg),
+            (params, ints(cfg.vocab, (B, S))), kind="serve", reduced=reduced,
+            dims=dims,            arg_axes=(specs, ("batch", "sequence")))
+    kv_shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
+    if gen is None:
+        cache = (meta(kv_shape, cfg.compute_dtype),
+                 meta(kv_shape, cfg.compute_dtype))
+        lengths = meta((B,), torch.int32)
+    else:
+        cache = tuple(torch.randn(kv_shape, generator=gen, device=dev,
+                                  dtype=cfg.compute_dtype) for _ in range(2))
+        lengths = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    return CellPlan(
+        cfg.name, shape, functools.partial(_decode_fn, cfg=cfg),
+        (params, cache, ints(cfg.vocab, (B,)), lengths), kind="serve",
+        reduced=reduced, dims=dims,
+        arg_axes=(specs, (CACHE_AXES, CACHE_AXES), ("batch",), ("batch",)))
+
+
+def smoke_plan(cfg: T.TransformerConfig, train: TrainSetting, shape: str,
+               device=None) -> CellPlan:
+    """:func:`build_smoke`'s cell as a ``CellPlan``."""
+    c = build_smoke(cfg, train, shape, device=device)
+    kind = SHAPE_DEFS[shape]["kind"]
+    name = c["cfg"].name
+    if kind == "train":
+        return CellPlan(name, shape, c["step"], (c["params"], c["opt_state"],
+                                                 c["batch"], c["lr"]),
+                        notes=f"accum={c['accum']} opt={train.optimizer}")
+    if kind == "prefill":
+        return CellPlan(name, shape,
+                        functools.partial(_prefill_fn, cfg=c["cfg"]),
+                        (c["params"], c["tokens"]), kind="serve")
+    return CellPlan(name, shape, functools.partial(_decode_fn, cfg=c["cfg"]),
+                    (c["params"], c["cache"], c["tokens"], c["lengths"]),
+                    kind="serve")
+
+
+def make_arch(arch_id: str, cfg: T.TransformerConfig,
+              train: TrainSetting) -> ArchSpec:
+    return ArchSpec(
+        arch_id=arch_id, family=FAMILY, shapes=LM_SHAPES,
+        build=functools.partial(build_cell, cfg, train),
+        build_smoke=functools.partial(smoke_plan, cfg, train),
+        describe=f"{cfg.n_layers}L d={cfg.d_model} "
+                 f"{'MoE' if cfg.is_moe else 'dense'}")

@@ -16,12 +16,23 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.configs.cell import (
+    ArchSpec,
+    meta,
+    on_meta,
+    opt_state_specs,
+    replicated_specs,
+)
 from repro_torch.configs.gnn_common import (  # noqa: F401
     FAMILY,
+    GNN_SHAPES,
     SHAPE_DEFS,
+    meta_train_cell,
+    pad512,
     random_graph_batch,
     smoke_dims,
     train_cell,
+    train_plan,
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels.segment_agg.ops import edge_plan
@@ -110,3 +121,82 @@ def build_train(shape: str = "molecule", *, device=None,
     batch = _batch(np.random.default_rng(seed + 1), d, cfg, targets=True,
                    device=dev)
     return _cell(cfg, batch, gen, molecule)
+
+
+# the logical axes of a batch's fields
+BATCH_AXES = dict(
+    positions=("nodes", None), species=("nodes",), edge_src=("edges",),
+    edge_dst=("edges",), edge_mask=("edges",), node_mask=("nodes",),
+    graph_ids=("nodes",), energy_targets=("batch",),
+    force_targets=("nodes", None),
+)
+
+
+def batch_meta(d: dict) -> dict:
+    """The JAX package's ``_batch_sds``: atoms and edges padded to
+    multiples of 512, as meta tensors."""
+    n, e, g = pad512(d["n"]), pad512(d["e"]), max(d["graphs"], 1)
+    i32 = torch.int32
+    return dict(
+        positions=meta((n, 3)), species=meta((n,), i32),
+        edge_src=meta((e,), i32), edge_dst=meta((e,), i32),
+        edge_mask=meta((e,), torch.bool), node_mask=meta((n,), torch.bool),
+        graph_ids=meta((n,), i32), energy_targets=meta((g,)),
+        force_targets=meta((n, 3)))
+
+
+def _padded(batch: dict, n_pad: int, e_pad: int) -> dict:
+    """``batch`` with atoms padded to ``n_pad`` and edges to ``e_pad``:
+    padded slots 0, their masks False (graph 0, masked out of every sum)."""
+    def pad(t, size):
+        if t.shape[0] == size:
+            return t
+        return torch.cat([t, t.new_zeros((size - t.shape[0],) + t.shape[1:])])
+
+    out = dict(batch)
+    for k in ("positions", "species", "node_mask", "graph_ids",
+              "force_targets"):
+        out[k] = pad(batch[k], n_pad)
+    for k in ("edge_src", "edge_dst", "edge_mask"):
+        out[k] = pad(batch[k], e_pad)
+    return out
+
+
+def build(shape: str, device=None, reduced=None, seed: int = 0):
+    """The JAX package's cell at ``shape``: atoms and edges padded to
+    multiples of 512; ``molecule`` with ``CFG``, energies and forces; the
+    single-graph shapes with ``CFG_BF16``, energy only, through
+    ``forward_energy`` (the JAX package runs them through its shard_map
+    forward over a mesh of devices, with parameters replicated: so they
+    are placed here). ``reduced`` may cut the depth (``"n_layers"``)."""
+    reduced = dict(reduced or {})
+    d = SHAPE_DEFS[shape]
+    molecule = shape == "molecule"
+    cfg = dataclasses.replace(CFG if molecule else CFG_BF16, **reduced)
+    specs = m.param_specs(cfg)
+    o_specs = opt_state_specs("adamw", specs)
+    if shape in _SHARDMAP_SHAPES:
+        specs, o_specs = replicated_specs(specs), replicated_specs(o_specs)
+        notes = ("energy-only: forward_energy on one card (the JAX "
+                 "package's shard_map path)")
+    else:
+        notes = "" if molecule else "energy-only"
+    loss = functools.partial(m.loss_fn, use_forces=molecule)
+    if on_meta(device):
+        cell = meta_train_cell(cfg, loss, specs, batch_meta(d))
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        batch = _padded(_batch(np.random.default_rng(seed + 1), d, cfg,
+                               targets=True, device=dev),
+                        pad512(d["n"]), pad512(d["e"]))
+        cell = _cell(cfg, batch, gen, molecule)
+    return train_plan("nequip", shape, cell, reduced=reduced, notes=notes,
+                      arg_axes=(specs, o_specs, BATCH_AXES, ()), cut=True)
+
+
+ARCH = ArchSpec(
+    arch_id="nequip", family=FAMILY, shapes=GNN_SHAPES, build=build,
+    build_smoke=lambda shape, device=None: train_plan(
+        "nequip", shape, build_smoke(shape, device=device)))

@@ -1,7 +1,8 @@
 """Reader-partitioned shards stacked on one card, durable checkpoints and
-crash recovery (of sessions and of training states) — the port of the JAX
-package's ``repro.distributed`` (without its gradient compression and mesh
-sharding rules: ROADMAP.md item 13e)."""
+crash recovery (of sessions and of training states), int8 gradient
+compression (``compression``) and the logical-axis sharding rules as host
+logic over mesh shapes (``sharding``) — the port of the JAX package's
+``repro.distributed``."""
 from repro_torch.distributed.checkpoint import (
     CheckpointManager,
     restore_session,

@@ -10,7 +10,8 @@ the dense table gradient. CUDA tensors launch the hand-written kernels in
 ``ref.py``, forward and backward; any other device raises. The ids and the
 weights get no gradient: weights that require one raise. ``LAUNCHES``
 counts kernel launches, so a run can show that its path went through the
-kernels.
+kernels; ``WORK`` counts each call's operations and bytes (``bag_cost``,
+``bag_backward_cost``) on either path while ``cost.counting()`` is on.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.cost import Work, WorkCounter, counted
 from repro_torch.kernels.embedding_bag.ref import (
     bags_of,
     embedding_bag_backward_ref,
@@ -26,11 +28,35 @@ from repro_torch.kernels.embedding_bag.ref import (
 
 # kernel launches since the last reset (the CPU path never counts)
 LAUNCHES = {"embedding_bag": 0, "embedding_bag_backward": 0}
+# each call's work, on either path (cost.py)
+WORK = WorkCounter(LAUNCHES)
 
 
 def reset_launches() -> None:
+    """Zero ``LAUNCHES`` and ``WORK``."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    WORK.reset()
+
+
+def bag_cost(n_live: int, n_ids: int, n_bags: int, D: int,
+             weighted: bool) -> Work:
+    """One forward call: each of ``n_live`` live ids' table rows read once,
+    the ids, offsets and weights read once, the (n_bags, D) output written
+    once; a multiply and an add per live id and feature (fp32)."""
+    nbytes = n_live * D * 4 + n_ids * (8 if weighted else 4) + n_bags * 4 \
+        + n_bags * D * 4
+    return Work(2 * D * n_live, nbytes)
+
+
+def bag_backward_cost(n_live: int, n_ids: int, n_bags: int, V: int, D: int,
+                      weighted: bool) -> Work:
+    """One backward call: the dense (V, D) fp32 gradient written once;
+    grad_out, the ids, the offsets and the weights read once; a multiply
+    and an add per live id and feature (fp32)."""
+    nbytes = V * D * 4 + n_bags * D * 4 + n_ids * (8 if weighted else 4) \
+        + n_bags * 4
+    return Work(2 * D * n_live, nbytes)
 
 
 _ENTRIES: dict = {}
@@ -99,6 +125,14 @@ def _checked(table, ids, offsets, n_bags, weights):
 
 
 def _forward(table, ids, offsets, n_bags, weights):
+    # the wrapper reads no id back to the host: it counts every id as live
+    n = ids.shape[0]
+    return counted(WORK, lambda: ("embedding_bag", bag_cost(
+        n, n, n_bags, table.shape[1], weights is not None)),
+        _forward_body, table, ids, offsets, n_bags, weights)
+
+
+def _forward_body(table, ids, offsets, n_bags, weights):
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, bags_of(offsets, ids.shape[0]),
                                  n_bags, weights=weights)
@@ -177,6 +211,15 @@ def embedding_bag_backward(grad_out: torch.Tensor, ids: torch.Tensor,
         weights = weights.detach().contiguous()
     if not 0 <= n_rows < 2 ** 31:
         raise ValueError(f"n_rows={n_rows} outside the kernel's int32 sizes")
+    n = ids.shape[0]
+    return counted(WORK, lambda: ("embedding_bag_backward", bag_backward_cost(
+        n, n, n_bags, n_rows, D, weights is not None)),
+        _backward, grad_out, ids, offsets, n_rows, weights)
+
+
+def _backward(grad_out, ids, offsets, n_rows, weights):
+    dev = grad_out.device
+    n_bags, D = grad_out.shape
     bags = bags_of(offsets, ids.shape[0])
     if dev.type == "cpu":
         return embedding_bag_backward_ref(grad_out, ids, bags, n_rows,

@@ -11,8 +11,10 @@ row and head) take the JAX package's layout: q ``(B, Hq, S, d)`` (decode:
 kernel for every other case (fp32 keeps full fp32 products). ``LAUNCHES``
 counts kernel launches per entry point (``prefill`` counts both prefill
 kernels, ``prefill_wgmma`` the tensor-core one), so a run can show that its
-path went through the kernels. The kernels have no backward: a call with
-grad mode on and an input that requires grad raises rather than cut the
+path went through the kernels; ``WORK`` counts each call's operations and
+bytes (``prefill_cost``, ``decode_cost``) on either path while
+``cost.counting()`` is on. The kernels have no backward: a call with grad
+mode on and an input that requires grad raises rather than cut the
 autograd graph (training attends through ``common.blocked_attention``).
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.cost import Work, WorkCounter, counted
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
 
 HEAD_DIMS = (16, 32, 48, 64, 128)
@@ -33,6 +36,43 @@ WGMMA_HEAD_DIMS = (64, 128)
 # kernel launches per entry point since the last reset (the CPU path never
 # counts)
 LAUNCHES = {"prefill": 0, "prefill_wgmma": 0, "decode": 0}
+# each call's work, on either path (cost.py)
+WORK = WorkCounter(("prefill", "decode"))
+
+
+def _esize_rate(esize: int) -> str:
+    """bf16 inputs at the tensor cores' rate, fp32 at the CUDA cores'."""
+    return "bf16" if esize == 2 else "fp32"
+
+
+def causal_pairs(Sq: int, Skv: int, causal: bool = True) -> int:
+    """The live (query, key) pairs of one head: query i sees keys up to
+    ``i + Skv - Sq`` when causal."""
+    if not causal:
+        return Sq * Skv
+    off = Skv - Sq
+    lo = max(0, -off)            # the first query that sees a key
+    n = Sq - lo
+    return 0 if n <= 0 else (lo + off + 1 + Skv) * n // 2
+
+
+def prefill_cost(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, d: int,
+                 causal: bool, esize: int) -> Work:
+    """One prefill call: q, k, v read once and out written once; 4 d
+    operations (q.k and p.v, a multiply and an add each) per live
+    query-key pair and query head."""
+    nbytes = (2 * B * Hq * Sq * d + 2 * B * Hkv * Skv * d) * esize
+    ops = 4 * d * B * Hq * causal_pairs(Sq, Skv, causal)
+    return Work(ops, nbytes, _esize_rate(esize))
+
+
+def decode_cost(B: int, Hq: int, Hkv: int, d: int, live: int,
+                esize: int) -> Work:
+    """One decode call over ``live`` cache rows in all (the batch rows'
+    live lengths summed): each live row of k and v read once, q read and
+    out written once; 4 d operations per query head and live key."""
+    nbytes = (2 * Hkv * d * live + 2 * B * Hq * d) * esize
+    return Work(4 * d * Hq * live, nbytes, _esize_rate(esize))
 
 
 def prefill_variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -62,8 +102,10 @@ def decode_split(S: int) -> tuple[int, int]:
 
 
 def reset_launches() -> None:
+    """Zero ``LAUNCHES`` and ``WORK``."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    WORK.reset()
 
 
 _ENTRIES: dict = {}
@@ -155,6 +197,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     masks keys at or past ``lengths[b]``. fp32 softmax and accumulation;
     returns (B, Hq, Sq, d) in q's dtype, 0 on rows with no live key."""
     _check(q, k, v, lengths, q_ndim=4)
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    return counted(WORK, lambda: ("prefill", prefill_cost(
+        B, Hq, Hkv, Sq, Skv, d, causal, q.element_size())),
+        _prefill, q, k, v, causal, lengths)
+
+
+def _prefill(q, k, v, causal, lengths):
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, lengths=lengths)
     B, Hq, Sq, d = q.shape
@@ -192,6 +242,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if lengths is None:
         raise TypeError("flash_decode needs lengths")
     _check(q, k_cache, v_cache, lengths, q_ndim=3)
+    B, Hq, d = q.shape
+    # the wrapper reads no length back to the host: it counts every row of
+    # the cache as live
+    return counted(WORK, lambda: ("decode", decode_cost(
+        B, Hq, k_cache.shape[1], d, B * k_cache.shape[2], q.element_size())),
+        _decode, q, k_cache, v_cache, lengths)
+
+
+def _decode(q, k_cache, v_cache, lengths):
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, lengths)
     B, Hq, d = q.shape

@@ -20,7 +20,10 @@ the plain PyTorch version in ``ref.py``. The three fused entries take
 before it is reduced in fp32, the JAX package's ``EAGR_SEGAGG_BF16`` mode;
 on the card that is the kernel's own ``BF16`` instance. ``LAUNCHES`` counts
 kernel launches per entry (the bf16 instances under their own ``*_bf16``
-keys), so a run can show that its path went through the kernel.
+keys), so a run can show that its path went through the kernel; ``WORK``
+counts each call's operations and bytes (``level_cost``, ``active_cost``,
+``stacked_cost``, ``graph_cost``) on either path while
+``cost.counting()`` is on, under the same keys.
 
 The graph entry (``segment_agg_graph``) is the GNN path's reduce: edge
 values (E, F) by an edge index array, through the stacked dense entry's
@@ -45,6 +48,7 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch.kernels.cost import Work, WorkCounter, counted
 from repro_torch.kernels.segment_agg.ref import (
     segment_agg_active_ref,
     segment_agg_active_stacked_ref,
@@ -73,9 +77,70 @@ LAUNCHES = {"sum": 0, "max": 0, "sum_active": 0, "max_active": 0,
             "max_active_stacked_bf16": 0, "sum_gnn": 0, "max_gnn": 0}
 
 
+# each call's work, on either path (cost.py)
+WORK = WorkCounter(LAUNCHES)
+
+
 def reset_launches() -> None:
+    """Zero ``LAUNCHES`` and ``WORK``."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    WORK.reset()
+
+
+# -------------------------------------------------------------- each call's work
+def level_cost(n_slots: int, n_live: int, n_blocks: int, rows_out: int,
+               F: int) -> Work:
+    """One dense level (``segment_agg_level``): seg (4 B a slot) and the
+    block tables (8 B a block) read once, x read for each live slot, the
+    output written for each row of a visited tile (``rows_out``); one add
+    or max per live slot and feature."""
+    nbytes = n_slots * 4 + n_blocks * 8 + n_live * 4 * F + rows_out * 4 * F
+    return Work(n_live * F, nbytes)
+
+
+def _slot_ops(op: str, bf16: bool) -> int:
+    """Operations per live slot and feature: an add or a max, for sum a
+    multiply by the sign, with ``bf16`` a rounding to bfloat16."""
+    return (2 if op == "sum" else 1) + bool(bf16)
+
+
+def active_cost(n_active: int, n_live: int, n_src: int, tiles: int, F: int,
+                n_rows: int, op: str, bf16: bool = False) -> Work:
+    """One call of the fused active entry on one shard: each of the
+    ``n_active`` active blocks' seg and src rows (8 B a slot; sum also its
+    sign row, 4 B more), its active entry and tob/fot (12 B) read once, the
+    ``val`` row of each of ``n_src`` distinct sources among the active live
+    slots read once, the output written for each row of the ``tiles`` row
+    tiles an active block routes to, and the row mask (``n_rows`` bytes)
+    written once."""
+    slot_b = 12 if op == "sum" else 8
+    nbytes = n_active * (E_BLK * slot_b + 12) + n_src * 4 * F \
+        + tiles * R_BLK * 4 * F + n_rows
+    return Work(n_live * F * _slot_ops(op, bf16), nbytes)
+
+
+def stacked_cost(n_slots: int, live_blocks: int, n_src: int, n_blocks: int,
+                 rows_out: int, n_live: int, F: int, op: str,
+                 bf16: bool = False) -> Work:
+    """One shard of a call of the fused stacked dense entry (the graph
+    entry's kernel too): every slot's seg (4 B), the src rows (and for sum
+    the sign rows) of the ``live_blocks`` blocks holding a live slot (1 or
+    2 KB a block), the ``val`` row of each of ``n_src`` distinct sources
+    once, tob and fot (8 B a block) and the output of each row of a visited
+    tile (``rows_out``); the bytes are fp32's with ``bf16`` (``val`` is
+    fp32 state)."""
+    row_b = 2 * E_BLK * 4 if op == "sum" else E_BLK * 4
+    nbytes = n_slots * 4 + live_blocks * row_b + n_src * 4 * F \
+        + n_blocks * 8 + rows_out * 4 * F
+    return Work(n_live * F * _slot_ops(op, bf16), nbytes)
+
+
+def graph_cost(n_slots: int, n_live: int, n_rows: int, F: int) -> Work:
+    """One graph-entry call (``segment_agg_graph``): 12 B of seg, src and
+    sign a slot, 4 F B of each live edge's values read, 4 F B of each
+    output row written; one add or max a live value and feature."""
+    return Work(n_live * F, 12 * n_slots + 4 * F * n_live + 4 * F * n_rows)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -476,6 +541,14 @@ def segment_agg_level(x: torch.Tensor, seg: torch.Tensor, tob: torch.Tensor,
     version; any other device raises.
     """
     _check(x, seg, tob, fot, n_rows, n_row_tiles, op)
+    # shapes only (the wrapper reads no table back): every slot live, every
+    # row written
+    return counted(WORK, lambda: (op, level_cost(
+        seg.shape[0], seg.shape[0], tob.shape[0], n_rows, x.shape[1])),
+        _level, x, seg, tob, fot, n_rows, n_row_tiles, op)
+
+
+def _level(x, seg, tob, fot, n_rows, n_row_tiles, op):
     if not _on_cuda("segment_agg_level", x):
         return segment_agg_level_ref(x, seg, n_rows, op)
     n_blocks, F = tob.shape[0], x.shape[1]
@@ -623,11 +696,35 @@ def _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op, bf16,
     return out, hit
 
 
-def _count(op: str, entry: str, bf16: bool) -> None:
-    """One launch of a fused entry's kernel in ``LAUNCHES``: min counts as
-    max, a bf16 instance under its ``_bf16`` key."""
+def _key(op: str, entry: str, bf16: bool) -> str:
+    """A fused entry's key in ``LAUNCHES`` and ``WORK``: min counts as max,
+    a bf16 instance under its ``_bf16`` key."""
     key = f"{'sum' if op == 'sum' else 'max'}_{entry}"
-    LAUNCHES[key + "_bf16" if bf16 else key] += 1
+    return key + "_bf16" if bf16 else key
+
+
+def _count(op: str, entry: str, bf16: bool) -> None:
+    """One launch of a fused entry's kernel in ``LAUNCHES``."""
+    LAUNCHES[_key(op, entry, bf16)] += 1
+
+
+def _fused_work(val, seg, tob, n_rows, n_row_tiles, op, bf16,
+                active=None) -> Work:
+    """A fused call's work from its shapes alone, summed over its shards:
+    every slot (of every active block) live with a distinct source, up to
+    the ``val`` rows there are, every row (of every tile an active block
+    may route to) written."""
+    S = val.shape[0] if val.ndim == 3 else 1
+    n_val, F = val.shape[-2], val.shape[-1]
+    n_slots, n_blocks = seg.shape[-1], tob.shape[-1]
+    if active is None:
+        one = stacked_cost(n_slots, n_blocks, min(n_slots, n_val), n_blocks,
+                           n_rows, n_slots, F, op, bf16)
+    else:
+        K = active.shape[-1]
+        one = active_cost(K, K * E_BLK, min(K * E_BLK, n_val),
+                          min(K, n_row_tiles), F, n_rows, op, bf16)
+    return Work(one.ops * S, one.bytes * S)
 
 
 # ------------------------------------------------------------ the active entry
@@ -658,9 +755,17 @@ def segment_agg_active(val: torch.Tensor, seg: torch.Tensor,
     version."""
     _check_fused(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
                  active)
+    return counted(WORK, lambda: (_key(op, "active", bf16), _fused_work(
+        val, seg, tob, n_rows, n_row_tiles, op, bf16, active)),
+        _active, val, seg, src, sign, tob, fot, active, n_rows, n_row_tiles,
+        op, bf16)
+
+
+def _active(val, seg, src, sign, tob, fot, active, n_rows, n_row_tiles, op,
+            bf16):
     if not _on_cuda("segment_agg_active", val):
-        return segment_agg_active_ref(val, seg, src, sign, active, n_rows, op,
-                                      bf16)
+        return segment_agg_active_ref(val, seg, src, sign, active, n_rows,
+                                      op, bf16)
     out, hit = _fused_launch(val, seg, src, sign, tob, fot, n_row_tiles, op,
                              bf16, active)
     _count(op, "active", bf16)
@@ -724,6 +829,14 @@ def segment_agg_level_stacked(val: torch.Tensor, seg: torch.Tensor,
     for max and min, with ``_bf16`` appended for the bf16 instance), CPU
     tensors run the plain version shard by shard."""
     _check_stacked(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op)
+    return counted(WORK, lambda: (_key(op, "stacked", bf16), _fused_work(
+        val, seg, tob, n_rows, n_row_tiles, op, bf16)),
+        _level_stacked, val, seg, src, sign, tob, fot, n_rows, n_row_tiles,
+        op, bf16)
+
+
+def _level_stacked(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
+                   bf16):
     if not _on_cuda("segment_agg_level_stacked", val):
         return segment_agg_level_stacked_ref(val, seg, src, sign, n_rows, op,
                                              bf16)
@@ -753,6 +866,15 @@ def segment_agg_active_stacked(val: torch.Tensor, seg: torch.Tensor,
     shard."""
     _check_stacked(val, seg, src, sign, tob, fot, n_rows, n_row_tiles, op,
                    active)
+    return counted(WORK, lambda: (_key(op, "active_stacked", bf16),
+                                  _fused_work(val, seg, tob, n_rows,
+                                              n_row_tiles, op, bf16, active)),
+                   _active_stacked, val, seg, src, sign, tob, fot, active,
+                   n_rows, n_row_tiles, op, bf16)
+
+
+def _active_stacked(val, seg, src, sign, tob, fot, active, n_rows,
+                    n_row_tiles, op, bf16):
     if not _on_cuda("segment_agg_active_stacked", val):
         return segment_agg_active_stacked_ref(val, seg, src, sign, active,
                                               n_rows, op, bf16)
@@ -903,6 +1025,12 @@ def segment_agg_graph(val: torch.Tensor, plan: EdgePlan,
     if val.device != plan.seg.device:
         raise ValueError(f"val is on {val.device}, the plan on "
                          f"{plan.seg.device}")
+    return counted(WORK, lambda: (f"{op}_gnn", graph_cost(
+        plan.seg.shape[1], plan.n_live, plan.n_rows, val.shape[1])),
+        _graph, val, plan, op)
+
+
+def _graph(val, plan, op):
     if not _on_cuda("segment_agg_graph", val):
         return segment_agg_graph_ref(val, plan.index, plan.live, plan.n_rows,
                                      op)

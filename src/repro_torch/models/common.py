@@ -41,6 +41,29 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
+def map_specs(fn, tree):
+    """``fn`` over the ``ParamSpec`` leaves of a tree of nested dicts,
+    tuples and NamedTuples (such as an optimizer state's), dict keys in
+    sorted order (the JAX package's tree order)."""
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, t) for t in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_specs(fn, t) for t in tree)
+    raise TypeError(f"not a ParamSpec tree: {type(tree).__name__}")
+
+
+def spec_to_meta(tree):
+    """The JAX package's ``spec_to_sds``: a ``ParamSpec`` tree as a tree of
+    ``torch.device("meta")`` tensors of the same shapes and dtypes. A meta
+    tensor is PyTorch's ``ShapeDtypeStruct``: it allocates nothing."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                           device="meta"), tree)
+
+
 def init_from_specs(tree, generator: torch.Generator,
                     depth: int | None = None):
     """Random init for smoke runs and examples, on ``generator``'s device:

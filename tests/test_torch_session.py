@@ -356,6 +356,24 @@ def test_port_loads_no_jax_and_no_repro():
             c["step"](c["params"], c["opt_state"], c["batch"], c["lr"])
         train.main(["--arch", "gatedgcn", "--smoke", "--steps", "4",
                     "--ckpt-every", "2", "--fail-at", "3", "--device", "cpu"])
+        # the cell tools: every cell on the meta device, the roofline, a
+        # measured smoke cell, the sharding rules, int8 compression
+        import torch
+        from repro_torch.configs import all_cells
+        from repro_torch.distributed import compression, sharding
+        from repro_torch.launch import dryrun, mesh, roofline
+        from repro_torch.models.common import spec_to_meta
+        pm = mesh.make_production_mesh(multi_pod=True)
+        recs = [dryrun.run_cell(a, s, pm) for a, s in all_cells()]
+        recs.append(dryrun.run_cell("gat-cora", "molecule", pm, measure=True,
+                                    smoke=True, device="cpu", repeats=1))
+        assert "gat-cora" in roofline.format_table(roofline.analyze(recs))
+        specs = get_arch("dien").ARCH.build("serve_p99",
+                                            device="meta").arg_axes[0]
+        assert spec_to_meta(specs)["item_embed"].is_meta
+        assert sharding.explain_sharding(specs, pm).startswith("[")
+        g = {"w": torch.ones(3)}
+        compression.compress_with_feedback(g, compression.init_error_state(g))
         bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
                or k == "repro" or k.startswith("repro.")]
         print("LOADED", bad)
