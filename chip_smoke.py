@@ -210,15 +210,20 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    arch's reduced cell, and one run with an injected failure required
    bit-equal to the uninterrupted one;
 12. the GNNs, on a card freed of phase 11's models: the segment kernel's
-   graph entry (``segment_agg_graph``: the stacked dense entry at S = 1
-   over an edge plan) at each cell's real edge sets (GraphCast's mesh,
-   grid2mesh and mesh2grid sets into their destination and source rows
-   at F 512; GAT's softmax max at F 8 and message sum at F 64; NequIP's
-   sums at F 32, 96 and 160 and its readout at F 1), held to its plain
-   version as the other phases hold the segment kernels (and, for the
-   smaller sets, to the plain version on CPU copies), its gather's
-   backward through autograd, timed beside the bound, the plain version,
-   the library call and, at GraphCast's sets, the bf16 path's casts;
+   graph entry (``segment_agg_graph``: its own kernel over an edge plan,
+   ``csrc/segment_graph.cu``) at each cell's real edge sets (GraphCast's
+   mesh, grid2mesh and mesh2grid sets into their destination and source
+   rows at F 512, fp32 and bf16; GAT's softmax max at F 8 and message sum
+   at F 64; GatedGCN's three sets at F 70; NequIP's sums at F 32, 96 and
+   160 and its readout at F 1), bit-equal to the stacked route (the
+   stacked dense entry at S = 1 over the plan's old tables, rows of no
+   live edge zeroed, the graph entry's route before its own kernel; in
+   bf16 the cast, that route, the cast back), held to its
+   plain version as the other phases hold the segment kernels (and, for
+   the smaller sets, to the plain version on CPU copies), its gather's
+   backward through autograd, timed beside the bound, the stacked route, the
+   plain version and the library call, with each call's host enqueue
+   time;
    graphcast's minibatch_lg at full width and depth (``CFG``: 16
    processor layers, d 512, refinement 6, 227 vars, bf16 compute, fp32
    parameters, AdamW): one step twice from copies of one state,
@@ -320,6 +325,7 @@ ACTIVE_KERNELS = {
     "max_active": ("segment_agg_max_active", KERNELS["max"][1]),
 }
 SOURCE = "src/repro_torch/kernels/segment_agg/csrc/segment_agg.cu"
+GRAPH_SOURCE = "src/repro_torch/kernels/segment_agg/csrc/segment_graph.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:34"
 BAG_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
@@ -359,13 +365,19 @@ DESIGNS = {
             "sign's multiply, then reduced in fp32 as the fp32 instance "
             "reduces it; at S = 1 the dense entry is the single engine's "
             "bf16 dense level",
-    "gnn": "the stacked dense entry at S = 1 over an edge plan built once "
-           "per index array (live edges sorted stably by row into 256-slot "
-           "blocks routed to 128-row tiles, each slot's src the edge): a "
-           "GNN aggregation in one launch, edge values gathered into "
-           "registers by src, rows of no live edge zeroed after; its "
-           "backward is a gather and a gather's backward is this entry, so "
-           "every derivative reduces here without atomics",
+    "gnn": "a kernel of its own over an edge plan built once per index "
+           "array (live edges sorted stably by row, cut into segments: a "
+           "row's slots in one 256-slot block; tasks of ~32 slots): grid "
+           "(lane groups, 32-vector feature chunks), a group streaming its "
+           "tasks' slots with 8 rows of 16-byte loads (fp32 or bf16 read "
+           "directly) in flight and the segment sum in registers (sums at "
+           "F <= 4: a warp a block, the slot lanes' shuffle trees), a row "
+           "crossing blocks folded per window then across windows by the "
+           "last of its partials to take an integer ticket, empty rows "
+           "zeroed in the same launch; bit-equal to the stacked dense "
+           "entry's route; its backward is a gather and a gather's backward is "
+           "this entry, so every derivative reduces here without float "
+           "atomics",
     "active": "one launch a frontier-sparse level: one CTA per window "
               "holding an active block, a warp per active block (16 slot-lane "
               "or 4 feature-lane warps), only those blocks' seg/src/sign rows "
@@ -444,6 +456,9 @@ LAUNCH_STEPS, LAUNCH_FAIL_AT = 6, 3
 # at minibatch_lg and nequip at molecule, each held to CPU copies, then
 # GNN_TIMED steps; the launcher on every GNN's reduced cell
 GNN_SEED, GNN_STEPS, GNN_TIMED = 0, 5, 5
+GNN_ENQUEUE_CALLS = 100    # calls of a graph-entry row's host enqueue time
+GNN_PENDING_TILES = 1_600  # tiles of gnn_pending_index: 851,074 edges, 4
+                           # tasks a lane group at F 512 on 132 SMs
 GNN_STRICT = dict(n_layers=2, mesh_refinement=3)
 GNN_ARCHS = ("gat-cora", "gatedgcn", "graphcast", "nequip")
 # phase 13: the measured cells (arch, shape), cut by the dry run's own
@@ -5029,10 +5044,11 @@ def phase_train(torch, card, out_dir, errs) -> dict:
 
 
 # ------------------------------------------------------------ phase 12: GNNs
-def gnn_bound_ms(plan, F: int) -> tuple[float, str]:
-    """Least time of one graph-entry call (``seg_ops.graph_cost``)."""
-    return bound_of_work(seg_ops.graph_cost(plan.seg.shape[1], plan.n_live,
-                                            plan.n_rows, F))
+def gnn_bound_ms(plan, F: int, itemsize: int = 4) -> tuple[float, str]:
+    """Least time of one graph-entry call (``seg_ops.graph_cost``), values
+    of ``itemsize`` bytes."""
+    return bound_of_work(seg_ops.graph_cost(plan.n_live, plan.n_rows, F,
+                                            itemsize))
 
 
 def gnn_fp64_sum(torch, x, plan):
@@ -5050,35 +5066,177 @@ def gnn_fp64_sum(torch, x, plan):
     return want, n * 2.0 ** -24 * absum
 
 
+def gnn_stacked_tables(torch, ops, plan) -> dict:
+    """The graph entry's layout (``make_plan`` of the plan's live edges) as
+    the stacked dense entry's tables at S = 1, on the plan's device: a
+    slot's ``src`` its edge and ``sign`` 1, padding slots ``seg=-1, src=0,
+    sign=0``; ``hit`` the rows of a live edge."""
+    idx = plan.index.cpu().numpy()
+    keep = np.arange(idx.size) if plan.live is None \
+        else np.flatnonzero(plan.live.cpu().numpy())
+    rows = idx[keep]
+    p = ops.make_plan(rows, plan.n_rows)
+    src = np.zeros(p.e_pad, np.int32)
+    sign = np.zeros(p.e_pad, np.float32)
+    src[p.perm], sign[p.perm] = keep, 1.0
+    hit = np.zeros(plan.n_rows, bool)
+    hit[rows] = True
+    put = lambda a: torch.as_tensor(a, device=plan.packed.device)
+    return dict(seg=put(p.seg_padded)[None], src=put(src)[None],
+                sign=put(sign)[None], tob=put(p.tile_of_block)[None],
+                fot=put(p.first_of_tile)[None], hit=put(hit),
+                n_row_tiles=p.n_row_tiles)
+
+
+def gnn_stacked_route(torch, ops, x, plan, op: str, tabs: dict):
+    """The stacked route of the graph entry on ``x`` (its route before its
+    own kernel): the stacked dense entry at S = 1 over the layout's tables
+    ``tabs`` (``gnn_stacked_tables``), the rows of no live edge zeroed as
+    that wrapper zeroed them; bf16 values cast to fp32 first and the rows
+    cast back, as its ``_reduce`` did."""
+    v = x.float() if x.dtype == torch.bfloat16 else x
+    out = ops.segment_agg_level_stacked(
+        v[None], tabs["seg"], tabs["src"], tabs["sign"], tabs["tob"],
+        tabs["fot"], n_rows=plan.n_rows, n_row_tiles=tabs["n_row_tiles"],
+        op=op)[0]
+    return torch.where(tabs["hit"][:, None], out, 0.0).to(x.dtype)
+
+
+def gnn_pending_index(n_tiles: int):
+    """An edge index whose plan makes the graph kernel hold the most
+    crossing rows' partials unsettled (``pending_peak``): in each 128-row
+    tile a row of 510 edges (one full block and 254 slots of the next), a
+    row of 3 (the rest of that block and one slot of the third) and 1 to 37
+    rows of one edge, so that the tiles start at every slot offset and
+    task."""
+    idx = []
+    for k in range(n_tiles):
+        b = k * 128
+        idx += [b] * 510 + [b + 1] * 3 + list(b + 2 + np.arange(1 + k % 37))
+    return np.asarray(idx, np.int64)
+
+
+def graph_per_group(plan, F: int, op: str, itemsize: int, sms: int) -> int:
+    """The tasks a lane group of the graph kernel streams at F on a card of
+    ``sms`` SMs (``segment_agg_graph_run``'s choice, values aligned to 16
+    bytes); 0 for sums at F <= 4, which take a warp a block."""
+    if op == "sum" and F <= 4:
+        return 0
+    V = next((c for c in (16 // itemsize, 8 // itemsize, 4 // itemsize)
+              if c > 1 and F % c == 0), 1)
+    n_vec = F // V
+    L = 1
+    while L < 32 and L < n_vec:
+        L *= 2
+    chunks = -(-n_vec // L)
+    n_task = plan.tables.task.size - 1
+    warps = -(-n_task // (32 // L)) * chunks
+    return int(min(4, max(1, warps // (32 * sms))))
+
+
+def pending_peak(tables, per_group: int) -> int:
+    """The most crossing rows' partials a lane group of the graph kernel
+    holds unsettled at once when it streams ``per_group`` tasks
+    (``ops.IN_FLIGHT`` slots a step, settling at 2 or more), by replaying
+    its loop over ``tables``; the kernel has room for 4."""
+    w = tables.slots[:, 0].view(np.uint32)
+    ends = ((w & seg_ops.LAST_SEG) != 0) & (tables.slots[:, 1] < 0)
+    n_task, U, peak = tables.task.size - 1, seg_ops.IN_FLIGHT, 0
+    for t0 in range(0, n_task, per_group):
+        s0, s1 = tables.task[t0], tables.task[min(t0 + per_group, n_task)]
+        n = 0
+        for s in range(s0, s1, U):
+            n += int(ends[s:min(s + U, s1)].sum())
+            peak = max(peak, n)
+            if n >= 2:
+                n = 0
+    return peak
+
+
+@contextlib.contextmanager
+def graph_calls_by_dtype(ops):
+    """Tallies the graph entry's calls by op and values dtype while on
+    (``ops.segment_agg_graph`` wrapped, and put back after): on the card a
+    call is one launch, counted under ``{op}_gnn`` for either dtype."""
+    tally = collections.Counter()
+    entry = ops.segment_agg_graph
+
+    def spy(val, plan, op="sum"):
+        tally[f"{op}_gnn {str(val.dtype).split('.')[-1]}"] += 1
+        return entry(val, plan, op)
+
+    ops.segment_agg_graph = spy
+    try:
+        yield tally
+    finally:
+        ops.segment_agg_graph = entry
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (signed zeros and NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return torch.equal(a.view(as_int[a.dtype]), b.view(as_int[b.dtype]))
+
+
+def host_enqueue_us(torch, fn, calls: int = GNN_ENQUEUE_CALLS) -> float:
+    """Host time to enqueue one call: the host clock over ``calls``
+    back-to-back calls with no synchronise between them (after a warm
+    call), the device then waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def gnn_kernel_row(torch, ops, ref, name: str, plan, F: int, op: str,
-                   errs: dict, *, cpu: bool, seed: int,
-                   bf16_cast: bool = False, profile: bool = False) -> dict:
-    """The graph entry on ``plan`` at F features, op sum or max, against
-    its plain version: bit-equal on a rerun; exact on integer values (sum)
-    and for max, against the plain version on the card and, with ``cpu``,
-    on CPU copies; normal sums within n * 2^-24 * sum|x| a row of an fp64
-    sum; the gather over the plan, whose backward is this reduce, checked
-    through autograd. Timed (CUDA events) beside the bound, the plain
-    version and the library call (index_add_ for sum, scatter_reduce_
-    amax for max) on the same values; with ``bf16_cast`` the casts the
-    bf16 path adds (edge values to fp32, rows back to bf16)."""
-    dev = plan.seg.device
+                   errs: dict, *, cpu: bool, seed: int, bf16: bool = False,
+                   profile: bool = False, pending: bool = False) -> dict:
+    """The graph entry on ``plan`` at F features, op sum or max, in fp32
+    (or with ``bf16`` bf16 values and rows): bit-equal to the stacked route
+    (``gnn_stacked_route``) on integer and normal values and on a rerun; exact
+    on integer values (sum) and for max against its plain version on the
+    card and, with ``cpu``, on CPU copies; fp32 normal sums within
+    n * 2^-24 * sum|x| a row of an fp64 sum; the gather over the plan,
+    whose backward is this reduce, checked through autograd. Timed (CUDA
+    events) beside the bound, the stacked route, the plain version and the
+    library call (index_add_ for sum, scatter_reduce_ amax for max) on the
+    same values, with the host time to enqueue one call of the entry and
+    of the stacked route. With ``pending`` the plan must make a lane group
+    hold as many crossing rows' partials unsettled as the kernel has room
+    for (``pending_peak`` at this card's choice of tasks a group)."""
+    dev = plan.packed.device
+    dt = torch.bfloat16 if bf16 else torch.float32
+    tabs = gnn_stacked_tables(torch, ops, plan)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     E, n = plan.n_edges, plan.n_rows
-    xi = torch.randint(-8, 9, (E, F), generator=gen, device=dev).float()
-    xn = torch.randn((E, F), generator=gen, device=dev)
+    xi = torch.randint(-8, 9, (E, F), generator=gen, device=dev).to(dt)
+    xn = torch.randn((E, F), generator=gen, device=dev).to(dt)
     worst = 0.0
     for x, exact in ((xi, True), (xn, op == "max")):
         got = ops.segment_agg_graph(x, plan, op)
-        if not torch.equal(got, ops.segment_agg_graph(x, plan, op)):
+        if got.dtype != dt or tuple(got.shape) != (n, F):
+            raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                                 f"for {dt} ({n}, {F})")
+        if not same_bits(torch, got, ops.segment_agg_graph(x, plan, op)):
             raise AssertionError(f"{name}: two launches differ")
-        plain = ref.segment_agg_graph_ref(x, plan.index, plan.live, n, op)
+        if not same_bits(torch, got,
+                         gnn_stacked_route(torch, ops, x, plan, op, tabs)):
+            raise AssertionError(f"{name}: {op} {dt} differs from the "
+                                 f"stacked route bit for bit")
+        plain = ref.segment_agg_graph_ref(x.float(), plan.index, plan.live,
+                                          n, op).to(dt)
         if exact:
             if not torch.equal(got, plain):
                 raise AssertionError(f"{name}: {op} differs from the plain "
                                      f"version (exact)")
-        else:
+        elif not bf16:
             want, bar = gnn_fp64_sum(torch, x, plan)
             err = (got.double() - want).abs()
             if bool((err > bar).any()):
@@ -5086,7 +5244,10 @@ def gnn_kernel_row(torch, ops, ref, name: str, plan, F: int, op: str,
                                      f"sum|x| of fp64 (worst "
                                      f"{float((err - bar).max()):.3g})")
             worst = max(worst, float((got - plain).abs().max()))
-        if cpu:
+        else:   # bf16 normal sums: one rounding from fp32 sums in two orders
+            worst = max(worst, float((got.float() - plain.float()).abs()
+                                     .max()))
+        if cpu and not bf16:
             xc = x.cpu()
             pc = ref.segment_agg_graph_ref(
                 xc, plan.index.cpu(), None if plan.live is None
@@ -5104,47 +5265,67 @@ def gnn_kernel_row(torch, ops, ref, name: str, plan, F: int, op: str,
                                          f"against CPU copies")
                 worst = max(worst, float((gc_ - pc).abs().max()))
     if op == "sum":   # the gather's backward is this reduce
-        h = torch.zeros((n, F), device=dev, requires_grad=True)
+        h = torch.zeros((n, F), dtype=dt, device=dev, requires_grad=True)
         ops.graph_gather(h, plan).backward(xi)
-        if not torch.equal(h.grad, ops.segment_agg_graph(xi, plan, "sum")):
+        if not same_bits(torch, h.grad,
+                         ops.segment_agg_graph(xi, plan, "sum")):
             raise AssertionError(f"{name}: the gather's backward is not the "
                                  f"graph entry's sum")
-    key = f"{op}_gnn"
+    key = f"{op}_gnn" + ("_bf16" if bf16 else "")
     errs[key] = max(errs.get(key, 0.0), worst)
-    ms = cuda_ms(torch, lambda: ops.segment_agg_graph(xn, plan, op))
+    new = lambda: ops.segment_agg_graph(xn, plan, op)
+    old = lambda: gnn_stacked_route(torch, ops, xn, plan, op, tabs)
+    ms, old_ms = cuda_ms(torch, new), cuda_ms(torch, old)
+    host_us, old_host_us = host_enqueue_us(torch, new), \
+        host_enqueue_us(torch, old)
     plain_ms = cuda_ms(torch, lambda: ref.segment_agg_graph_ref(
-        xn, plan.index, plan.live, n, op), reps=5)
+        xn.float(), plan.index, plan.live, n, op), reps=5)
     xl, il = xn, plan.index
     if plan.live is not None:
         keep = plan.live.nonzero()[:, 0]
         xl, il = xn[keep], plan.index[keep]
     if op == "sum":
-        lib = lambda: torch.zeros((n, F), device=dev).index_add_(0, il, xl)
+        lib = lambda: torch.zeros((n, F), dtype=dt, device=dev) \
+            .index_add_(0, il, xl)
     else:
         ix = il[:, None].expand(-1, F)
-        lib = lambda: torch.full((n, F), float("-inf"), device=dev) \
+        lib = lambda: torch.full((n, F), float("-inf"), dtype=dt,
+                                 device=dev) \
             .scatter_reduce_(0, ix, xl, reduce="amax")
     library_ms = cuda_ms(torch, lib)
-    bound, by = gnn_bound_ms(plan, F)
-    row = dict(name=name, op=op, F=F, edges=E, live=plan.n_live, rows=n,
-               slots=int(plan.seg.shape[1]), blocks=int(plan.tob.shape[1]),
-               max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound, bound_by=by)
-    if bf16_cast:
-        xb = xn.to(torch.bfloat16)
-        out = ops.segment_agg_graph(xn, plan, op)
-        row["cast_ms"] = cuda_ms(torch, lambda: xb.to(torch.float32)) \
-            + cuda_ms(torch, lambda: out.to(torch.bfloat16))
+    bound, by = gnn_bound_ms(plan, F, xn.element_size())
+    row = dict(name=name, op=op, F=F, dtype=str(dt).split(".")[-1],
+               edges=E, live=plan.n_live, rows=n,
+               slots=plan.n_slots, blocks=plan.n_blocks,
+               crossing_rows=int(np.unique(plan.tables.part[:, 3]).size),
+               max_abs_err=worst, ms=ms, stacked_ms=old_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound, bound_by=by,
+               bound_share=bound / ms, host_us=host_us,
+               stacked_host_us=old_host_us)
+    if pending:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        pg = graph_per_group(plan, F, op, xn.element_size(), sms)
+        peak = pending_peak(plan.tables, pg)
+        row.update(per_group=pg, pending_peak=peak)
+        if peak != seg_ops.CHUNK_ENDS + 1:
+            raise AssertionError(f"{name}: a lane group holds at most {peak} "
+                                 f"partials unsettled ({pg} tasks a group "
+                                 f"on {sms} SMs), not the kernel's "
+                                 f"{seg_ops.CHUNK_ENDS + 1}")
+        print(f"  {name}: {pg} tasks a lane group on {sms} SMs, {peak} "
+              f"partials unsettled at most", flush=True)
     if profile:
-        row["device_ms"] = device_ms_or_none(
-            torch, lambda: ops.segment_agg_graph(xn, plan, op))
+        row["device_ms"] = device_ms_or_none(torch, new)
+        row["stacked_device_ms"] = device_ms_or_none(torch, old)
         row["library_device_ms"] = device_ms_or_none(torch, lib)
-    print(f"  {name}: {op} F {F}, {plan.n_live} live edges into {n} rows: "
-          f"kernel {ms:.4f} ms (bound {bound:.4f} ms, {by}), plain "
-          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms"
-          + (f", bf16 casts {row['cast_ms']:.4f} ms" if bf16_cast else "")
-          + f"; rerun bit-equal, exact on integers"
-          + (", max exact" if op == "max" else
+    print(f"  {name}: {op} {row['dtype']} F {F}, {plan.n_live} live edges "
+          f"into {n} rows: kernel {ms:.4f} ms = {bound / ms:.3f} of its "
+          f"bound {bound:.5f} ms ({by}); the stacked route {old_ms:.4f} ms; "
+          f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms; host "
+          f"enqueue {host_us:.1f} us a call (the stacked route "
+          f"{old_host_us:.1f}); bit-equal to the stacked route and on a "
+          f"rerun, exact on integers"
+          + (", max exact" if op == "max" else "" if bf16 else
              f", normal sums within the fp64 bound (vs plain {worst:.3g})"),
           flush=True)
     return row
@@ -5262,7 +5443,8 @@ def gnn_cell(torch, ops, name, cell, out_dir, *, steps: int,
     for x, s in zip(leaves, saved):
         x.copy_(s)
     del saved
-    again = one()
+    with graph_calls_by_dtype(ops) as by_dtype:
+        again = one()
     differ = [i for i, (x, a) in enumerate(zip(leaves, after))
               if not torch.equal(x, a)]
     del after
@@ -5275,6 +5457,11 @@ def gnn_cell(torch, ops, name, cell, out_dir, *, steps: int,
                              f"predicts {want_launches}")
     if launches["sum_gnn"] + launches["max_gnn"] <= 0:
         raise AssertionError(f"{name}: a step launched no segment kernel")
+    for k, n in launches.items():
+        calls = sum(c for t, c in by_dtype.items() if t.split()[0] == k)
+        if calls != n:
+            raise AssertionError(f"{name}: {calls} {k} calls by dtype in the "
+                                 f"replayed step, {n} launches in the first")
     losses, step_ms = [first["loss"], again["loss"]], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -5282,7 +5469,8 @@ def gnn_cell(torch, ops, name, cell, out_dir, *, steps: int,
         step_ms.append((time.perf_counter() - t0) * 1e3)
     out = dict(first_step_ms=first_ms, step_ms=step_ms,
                step_p50_ms=float(np.median(step_ms)), losses=losses,
-               launches_per_step=launches, replay_leaves=len(leaves),
+               launches_per_step=launches, calls_by_dtype=dict(by_dtype),
+               replay_leaves=len(leaves),
                grad_norm=first["grad_norm"])
     if trace:
         out["trace"] = trace_window(torch, f"train_{name}", lambda: losses
@@ -5336,14 +5524,27 @@ def phase_gnn(torch, card, out_dir, errs) -> dict:
             "graphcast mesh2grid": (b.m2g_src, b.m2g_dst, M, G)}
     t1 = time.perf_counter()
     for i, (name, (src, dst, n_src, n_dst)) in enumerate(sets.items()):
+        for bf16 in (False, True):   # fp32 rows, then the bf16 instance's
+            tag = " bf16" if bf16 else ""
+            rows.append(gnn_kernel_row(
+                torch, ops, ref, f"{name} (sum into dst){tag}",
+                ops.edge_plan(dst, n_dst), cfg.d_hidden, "sum", errs,
+                cpu=False, seed=GNN_SEED + i, bf16=bf16,
+                profile=i == 0 and not bf16))
+            rows.append(gnn_kernel_row(
+                torch, ops, ref, f"{name} (gather backward into src){tag}",
+                ops.edge_plan(src, n_src), cfg.d_hidden, "sum", errs,
+                cpu=False, seed=GNN_SEED + 10 + i, bf16=bf16))
+    # a plan that fills the kernel's room for unsettled partials, at
+    # GraphCast's width
+    idx = torch.as_tensor(gnn_pending_index(GNN_PENDING_TILES),
+                          device=DEVICE)
+    plan = ops.edge_plan(idx, 128 * GNN_PENDING_TILES)
+    for op in ("sum", "max"):
         rows.append(gnn_kernel_row(
-            torch, ops, ref, f"{name} (sum into dst)",
-            ops.edge_plan(dst, n_dst), cfg.d_hidden, "sum", errs, cpu=False,
-            seed=GNN_SEED + i, bf16_cast=True, profile=i == 0))
-        rows.append(gnn_kernel_row(
-            torch, ops, ref, f"{name} (gather backward into src)",
-            ops.edge_plan(src, n_src), cfg.d_hidden, "sum", errs, cpu=False,
-            seed=GNN_SEED + 10 + i))
+            torch, ops, ref, f"pending partials ({op})", plan, cfg.d_hidden,
+            op, errs, cpu=False, seed=GNN_SEED + 60, pending=True))
+    del idx, plan
     parts["graphcast kernels"] = time.perf_counter() - t1
     n_params = sum(x.numel() for x in tree_leaves(cell["params"]))
     gc_run = gnn_cell(torch, ops, "graphcast", cell, out_dir,
@@ -5429,6 +5630,19 @@ def phase_gnn(torch, card, out_dir, errs) -> dict:
                     plan, H * ccfg.d_hidden, "sum", errs, cpu=True,
                     seed=GNN_SEED + 41))
         if arch == "gatedgcn":
+            # its three edge sets at d 70: the gated sums into dst (masked)
+            # and the two gathers' backward into src and dst
+            N, F = batch.x.shape[0], ccfg.d_hidden
+            for i, (what, plan) in enumerate((
+                    ("sums into dst", ops.edge_plan(batch.edge_dst, N,
+                                                    batch.edge_mask)),
+                    ("gather backward into src",
+                     ops.edge_plan(batch.edge_src, N)),
+                    ("gather backward into dst",
+                     ops.edge_plan(batch.edge_dst, N)))):
+                rows.append(gnn_kernel_row(
+                    torch, ops, ref, f"gatedgcn minibatch_lg ({what})",
+                    plan, F, "sum", errs, cpu=True, seed=GNN_SEED + 50 + i))
             # 16 layers: fp32 gradients sit 0.1-1% of a leaf's largest from
             # fp64 on the card and on the CPU alike; held to that floor on
             # full_graph_sm (the CPU's fp32 and fp64 passes at 169,984
@@ -5476,6 +5690,9 @@ def phase_gnn(torch, card, out_dir, errs) -> dict:
     out["launches"] = {k: sum(out[a]["launches_per_step"][k]
                               for a in GNN_ARCHS)
                        for k in ("sum_gnn", "max_gnn")}
+    out["calls_by_dtype"] = dict(sum(
+        (collections.Counter(out[a]["calls_by_dtype"]) for a in GNN_ARCHS),
+        collections.Counter()))
     out["seconds_by_part"] = parts
     rounded = {k: round(v, 1) for k, v in parts.items()}
     print(f"phase 12 seconds by part: {rounded}", flush=True)
@@ -5739,7 +5956,8 @@ def main(argv=None) -> int:
     # ---- 2a. kernels against their plain version: the shape sweeps
     errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "prefill_simt": 0.0,
             "decode": 0.0, "bag": 0.0, "sum_active": 0.0, "max_active": 0.0,
-            "bag_backward": 0.0, "sum_gnn": 0.0, "max_gnn": 0.0}
+            "bag_backward": 0.0, "sum_gnn": 0.0, "max_gnn": 0.0,
+            "sum_gnn_bf16": 0.0, "max_gnn_bf16": 0.0}
     phase_kernels_sweep(torch, ops, ref, errs)
     report["hub"] = phase_kernels_hub(torch, ops, ref, errs)
     phase_flash_sweep(torch, errs)
@@ -6095,25 +6313,36 @@ def main(argv=None) -> int:
     gnn["seconds"] = time.perf_counter() - t0
     print(f"GNNs: {gnn['seconds']:.1f} s", flush=True)
     report["gnn"] = gnn
-    # the graph entry at GraphCast's mesh set (sum, F 512) and GAT's
-    # softmax shift (max, F 8); launches from phase 12's counted train step
-    # of each cell
-    for op, pick in (("sum", "graphcast mesh (sum into dst)"),
-                     ("max", "gat-cora minibatch_lg (softmax max)")):
+    # the graph entry at GraphCast's mesh set (sum, F 512) in fp32 and in
+    # bf16 and GAT's softmax shift (max, F 8), beside the stacked route in
+    # the same run; launches from phase 12's counted train step of each
+    # cell, by the values' dtype (both instances count under one key)
+    by_dtype = gnn["calls_by_dtype"]
+    for op, dt, pick in (
+            ("sum", "float32", "graphcast mesh (sum into dst)"),
+            ("sum", "bfloat16", "graphcast mesh (sum into dst) bf16"),
+            ("max", "float32", "gat-cora minibatch_lg (softmax max)")):
         row = next(r for r in gnn["kernel_rows"] if r["name"] == pick)
-        n = gnn["launches"][f"{op}_gnn"]
+        n = by_dtype.get(f"{op}_gnn {dt}", 0)
+        tag = "_bf16" if dt == "bfloat16" else ""
         if n <= 0:
-            raise AssertionError(f"segment_agg_{op}_gnn was not launched on "
-                                 f"phase 12's train steps")
+            raise AssertionError(f"segment_agg_{op}_gnn{tag} was not launched "
+                                 f"on phase 12's train steps")
         kernels.append(dict(
-            name=f"segment_agg_{op}_gnn", route="cuda", source=SOURCE,
-            replaces=KERNELS[op][1], design=DESIGNS["gnn"], launches=n,
-            max_abs_err=errs[f"{op}_gnn"], ms=row["ms"],
+            name=f"segment_agg_{op}_gnn{tag}", route="cuda",
+            source=GRAPH_SOURCE, replaces=KERNELS[op][1],
+            design=DESIGNS["gnn"], launches=n, launch_key=f"{op}_gnn",
+            note=f"LAUNCHES['{op}_gnn'] counts the fp32 and bf16 instances "
+                 f"together ({gnn['launches'][f'{op}_gnn']} in the counted "
+                 f"steps); these are the {dt} calls of the replayed steps",
+            max_abs_err=errs[f"{op}_gnn{tag}"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             device_ms=row.get("device_ms"),
             library_device_ms=row.get("library_device_ms"),
-            shape=dict(F=row["F"], edges=row["live"], rows=row["rows"])))
+            stacked_ms=row["stacked_ms"], host_us=row["host_us"],
+            shape=dict(F=row["F"], edges=row["live"], rows=row["rows"],
+                       dtype=row["dtype"])))
 
     # ---- 13. the cell tools, on a card freed of phase 12's models
     gc.collect()

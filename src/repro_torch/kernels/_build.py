@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # every CUDA source of the package, by short name
 SOURCES = {
     "segment_agg": _PKG / "segment_agg" / "csrc" / "segment_agg.cu",
+    "segment_graph": _PKG / "segment_agg" / "csrc" / "segment_graph.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "embedding_bag": _PKG / "embedding_bag" / "csrc" / "embedding_bag.cu",
 }

@@ -26,12 +26,13 @@ counts each call's operations and bytes (``level_cost``, ``active_cost``,
 ``cost.counting()`` is on, under the same keys.
 
 The graph entry (``segment_agg_graph``) is the GNN path's reduce: edge
-values (E, F) by an edge index array, through the stacked dense entry's
-kernel at S = 1 over an ``EdgePlan`` built once per index array on the host
-(``edge_plan``). ``graph_sum``, ``graph_gather`` and ``graph_max`` wrap it
-for autograd: the sum's backward is the gather and the gather's backward is
-the sum, so every derivative of every order on the GNN path reduces on the
-kernel, without atomics.
+values (E, F), fp32 or bf16, by an edge index array, through a kernel of
+its own (``csrc/segment_graph.cu``) over an ``EdgePlan`` built once per
+index array on the host (``edge_plan``), bit-equal to the stacked dense
+entry at S = 1 over the same layout. ``graph_sum``, ``graph_gather`` and
+``graph_max`` wrap it for autograd: the sum's backward is the gather and
+the gather's backward is the sum, so every derivative of every order on
+the GNN path reduces on the kernel, without float atomics.
 
 ``patch_level``, ``scatter_slots``, ``scatter_rows`` and ``tile_occupancy``
 edit and measure the stacked level tables in place, for the plan patch path
@@ -136,11 +137,12 @@ def stacked_cost(n_slots: int, live_blocks: int, n_src: int, n_blocks: int,
     return Work(n_live * F * _slot_ops(op, bf16), nbytes)
 
 
-def graph_cost(n_slots: int, n_live: int, n_rows: int, F: int) -> Work:
-    """One graph-entry call (``segment_agg_graph``): 12 B of seg, src and
-    sign a slot, 4 F B of each live edge's values read, 4 F B of each
-    output row written; one add or max a live value and feature."""
-    return Work(n_live * F, 12 * n_slots + 4 * F * n_live + 4 * F * n_rows)
+def graph_cost(n_live: int, n_rows: int, F: int, itemsize: int = 4) -> Work:
+    """One graph-entry call (``segment_agg_graph``): 8 B of slot table a
+    live edge (its edge and destination), ``itemsize`` F B of each live
+    edge's values read and of each output row written (4 for fp32, 2 for
+    bf16); one add or max a live value and feature."""
+    return Work(n_live * F, 8 * n_live + itemsize * F * (n_live + n_rows))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -885,31 +887,147 @@ def _active_stacked(val, seg, src, sign, tob, fot, active, n_rows,
 
 
 # ------------------------------------------------------------- the graph entry
+# the graph kernel's slot word (csrc/segment_graph.cu): the edge in bits
+# 0-29, bit 31 on the last slot of a segment (one row's slots in one block)
+LAST_SEG, SRC_BITS = 1 << 31, 30
+TASK_SLOTS = 32   # slots a task holds, about: whole segments
+IN_FLIGHT = 8     # slots a lane group loads at once (U in the kernel)
+CHUNK_ENDS = 3    # crossing rows' segments that end in IN_FLIGHT slots, at
+                  # most (the kernel's partials pending: CHUNK_ENDS + 1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GraphTables:
+    """The graph kernel's tables of one ``EdgePlan`` (numpy int32; see
+    ``csrc/segment_graph.cu``): the live slots in layout order, cut into
+    segments (a row's slots inside one block), tasks of whole segments,
+    the partials of the rows whose slots span blocks, and the rows no live
+    edge reaches."""
+
+    slots: np.ndarray   # (n_live, 2): edge | LAST_SEG, destination (the
+                        # row, or -1 - p for partial p)
+    task: np.ndarray    # (n_task + 1,) slot offsets
+    blocks: np.ndarray  # (n_blocks + 1,) slot offsets of the blocks with a
+                        # live slot (a prefix of each)
+    part: np.ndarray    # (n_part, 4): per partial its row's first partial
+                        # and count, the row's first block (its blocks are
+                        # consecutive, one partial each), the row
+    empty: np.ndarray   # (n_empty,) rows with no live edge
+
+    def fields(self) -> tuple:
+        return self.slots, self.task, self.blocks, self.part, self.empty
+
+
+def graph_tables(pos: np.ndarray, edge: np.ndarray, rows: np.ndarray,
+                 n_rows: int) -> GraphTables:
+    """The graph kernel's tables from ``make_plan``'s layout of the live
+    edges: ``pos`` each live edge's padded slot, ``edge`` its index in the
+    edge array (< 2^30), ``rows`` its row."""
+    if edge.size and int(edge.max()) >> SRC_BITS:
+        raise ValueError(f"the graph entry takes at most 2^{SRC_BITS} edges")
+    order = np.argsort(pos, kind="stable")
+    pos = pos[order].astype(np.int64)
+    edge = edge[order].astype(np.int64)
+    rows = rows[order].astype(np.int64)
+    n = pos.size
+    blk = pos // E_BLK
+    new = np.ones(n, bool)
+    new[1:] = (rows[1:] != rows[:-1]) | (blk[1:] != blk[:-1])
+    first = np.flatnonzero(new)             # each segment's first slot
+    seg_row, seg_blk = rows[first], blk[first]
+    segs = np.bincount(seg_row, minlength=n_rows)
+    cross = segs[seg_row] > 1
+    p = np.cumsum(cross) - 1
+    dst = np.where(cross, -1 - p, seg_row)
+    prow, pblk = seg_row[cross], seg_blk[cross]
+    lo = np.zeros(prow.size, np.int64)      # each partial's row's first
+    if prow.size:
+        head = np.ones(prow.size, bool)
+        head[1:] = prow[1:] != prow[:-1]
+        lo = np.flatnonzero(head)[np.cumsum(head) - 1]
+    last = np.zeros(n, bool)
+    last[first[1:] - 1] = True
+    last[n - 1:] = True
+    slots = np.empty((n, 2), np.int32)
+    slots[:, 0] = (edge | np.where(last, LAST_SEG, 0)).astype(
+        np.uint32).view(np.int32)
+    slots[:, 1] = dst[np.cumsum(new) - 1]
+    tb = first // TASK_SLOTS
+    tnew = np.ones(first.size, bool)
+    tnew[1:] = tb[1:] != tb[:-1]
+    part = np.stack([lo, segs[prow], pblk[lo], prow], 1).astype(np.int32)
+    # a crossing segment ends at a full block's last slot or is the first
+    # segment of the next block; a block of fewer than IN_FLIGHT slots is
+    # its tile's last, which no row leaves, so IN_FLIGHT slots hold at most
+    # CHUNK_ENDS such ends: the kernel's pending partials fit its array
+    ends = np.convolve(last & cross[np.cumsum(new) - 1], np.ones(IN_FLIGHT,
+                                                                 int)) \
+        if n else np.zeros(1, int)
+    if int(ends.max()) > CHUNK_ENDS:
+        raise AssertionError(f"{int(ends.max())} crossing segments end in "
+                             f"{IN_FLIGHT} slots (at most {CHUNK_ENDS})")
+    bnew = np.ones(n, bool)
+    bnew[1:] = blk[1:] != blk[:-1]
+    return GraphTables(
+        slots=slots, task=np.append(first[tnew], n).astype(np.int32),
+        blocks=np.append(np.flatnonzero(bnew), n).astype(np.int32),
+        part=part.reshape(-1, 4),
+        empty=np.flatnonzero(segs == 0).astype(np.int32))
+
+
+class _GraphPlanC(ctypes.Structure):
+    """``GraphPlan`` of ``csrc/segment_graph.cu``: the tables' device
+    addresses and counts."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in (
+        "slots", "task", "blocks", "part", "empty")]
+        + [(k, ctypes.c_int) for k in (
+            "n_live", "n_task", "n_blocks", "n_part", "n_empty", "n_rows",
+            "win_narrow", "win_wide", "device")])
+
+
+def _upload_tables(t: GraphTables, dev, n_rows: int, n_blocks: int):
+    """The tables in one int32 tensor on ``dev`` (each 16-byte aligned),
+    and on the card their ``_GraphPlanC``."""
+    parts = [np.ascontiguousarray(a, np.int32).ravel() for a in t.fields()]
+    offs = np.cumsum([0] + [-(-a.size // 4) * 4 for a in parts])
+    flat = np.zeros(max(4, int(offs[-1])), np.int32)
+    for a, o in zip(parts, offs):
+        flat[o:o + a.size] = a
+    packed = torch.as_tensor(flat, device=dev)
+    if dev.type != "cuda":
+        return packed, None
+    base = packed.data_ptr()
+    c = _GraphPlanC(*[base + 4 * int(o) for o in offs[:-1]],
+                    t.slots.shape[0], t.task.size - 1, t.blocks.size - 1,
+                    t.part.shape[0], t.empty.size, n_rows,
+                    # the stacked route's windows at F <= 4 and F > 4
+                    run_chunk(n_blocks, 4), run_chunk(n_blocks, 5),
+                    dev.index)
+    return packed, c
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class EdgePlan:
-    """The stacked dense entry's tables, at S = 1, for one edge index array:
-    edge e goes to row ``index[e]`` of ``n_rows``; edges whose mask is
-    False, and edges whose row lies outside [0, n_rows) (which
-    ``jax.ops.segment_sum`` drops), are left out: their values are never
-    read, and their gathers read 0. Slots are ``make_plan``'s layout of the
-    live edges (sorted stably by row, 256-slot blocks routed to 128-row
-    tiles); a slot's ``src`` is its edge and its ``sign`` 1, padding slots
-    carry ``seg=-1, src=0, sign=0``.
-    The tables are (1, ...) rows on the index's device, uploaded once."""
+    """The graph entry's plan for one edge index array: edge e goes to row
+    ``index[e]`` of ``n_rows``; edges whose mask is False, and edges whose
+    row lies outside [0, n_rows) (which ``jax.ops.segment_sum`` drops), are
+    left out: their values are never read, and their gathers read 0. Slots
+    are ``make_plan``'s layout of the live edges (sorted stably by row,
+    256-slot blocks routed to 128-row tiles), ``n_slots`` slots in
+    ``n_blocks`` blocks; ``tables`` are the graph kernel's
+    (``graph_tables``), uploaded once into ``packed`` on the index's
+    device."""
 
     index: torch.Tensor          # (E,) int64, the edges' rows (clamped)
     live: torch.Tensor | None    # (E,) bool, None when every edge is live
-    seg: torch.Tensor            # (1, e_pad) int32
-    src: torch.Tensor            # (1, e_pad) int32
-    sign: torch.Tensor           # (1, e_pad) float32
-    tob: torch.Tensor            # (1, n_blocks) int32
-    fot: torch.Tensor            # (1, n_blocks) int32
-    hit: torch.Tensor            # (n_rows,) bool, the rows of a live edge
+    tables: GraphTables          # the graph kernel's, on the host
+    packed: torch.Tensor         # the same, one int32 tensor on the device
     n_rows: int
-    n_row_tiles: int
     n_live: int
-    every_tile: bool             # a block visits every row tile
-    every_row: bool              # every row has a live edge
+    n_slots: int                 # the layout's slots, padding included
+    n_blocks: int
+    cplan: _GraphPlanC | None    # the kernel's view of ``packed`` (card)
 
     @property
     def n_edges(self) -> int:
@@ -940,22 +1058,15 @@ def make_edge_plan(index: torch.Tensor, n_rows: int,
     keep = np.arange(idx.size) if live is None else np.flatnonzero(live)
     rows = idx[keep]
     p = make_plan(rows, n_rows)
-    src = np.zeros(p.e_pad, np.int32)
-    sign = np.zeros(p.e_pad, np.float32)
-    src[p.perm] = keep
-    sign[p.perm] = 1.0
-    hit = np.zeros(n_rows, bool)
-    hit[rows] = True
-    put = lambda a: torch.as_tensor(a, device=dev)[None]
+    n_blocks = p.tile_of_block.size
+    tables = graph_tables(p.perm, keep, rows, n_rows)
+    packed, cplan = _upload_tables(tables, dev, n_rows, n_blocks)
     return EdgePlan(
         index=index.detach().to(torch.int64).clamp(0, n_rows - 1),
         live=None if live is None else torch.as_tensor(live, device=dev),
-        seg=put(p.seg_padded), src=put(src), sign=put(sign),
-        tob=put(p.tile_of_block), fot=put(p.first_of_tile),
-        hit=torch.as_tensor(hit, device=dev), n_rows=int(n_rows),
-        n_row_tiles=p.n_row_tiles, n_live=int(rows.size),
-        every_tile=bool(np.unique(p.tile_of_block).size == p.n_row_tiles),
-        every_row=bool(hit.all()))
+        tables=tables, packed=packed, n_rows=int(n_rows),
+        n_live=int(rows.size), n_slots=int(p.e_pad), n_blocks=int(n_blocks),
+        cplan=cplan)
 
 
 # plans by (id(index), id(mask), n_rows): the tensors' weak references and
@@ -999,61 +1110,91 @@ def edge_plan(index: torch.Tensor, n_rows: int,
     return plan
 
 
+_GRAPH_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def segment_agg_graph(val: torch.Tensor, plan: EdgePlan,
                       op: str = "sum") -> torch.Tensor:
-    """Reduce edge values ``val`` (E, F) float32, one row per edge of
-    ``plan``, into ``plan.n_rows`` rows: ``out[r]`` is the sum (op
-    ``"sum"``) or the max (``"max"``) of ``val[e]`` over the live edges e
-    with ``index[e] == r``; rows with no live edge read 0. CUDA tensors
-    launch the stacked dense entry's kernel once at S = 1, gathering each
-    slot's value from ``val`` by the plan's ``src``
-    (``LAUNCHES["sum_gnn"]`` or ``["max_gnn"]``), then zero the rows no
-    live edge reaches where the kernel leaves them unwritten or at the
-    max's identity; CPU tensors run the plain version (also in float64,
-    for a reference run in fp64). Deterministic: a row's values are added
-    in the plan's slot order."""
+    """Reduce edge values ``val`` (E, F) float32 or bfloat16, one row per
+    edge of ``plan``, into ``plan.n_rows`` rows of val's dtype: ``out[r]``
+    is the sum (op ``"sum"``) or the max (``"max"``) of ``val[e]`` over the
+    live edges e with ``index[e] == r``; rows with no live edge read 0. CUDA
+    tensors launch the graph kernel (``csrc/segment_graph.cu``) once, which
+    accumulates in fp32 and rounds bf16 rows once, and writes every row
+    (``LAUNCHES["sum_gnn"]`` or ``["max_gnn"]``); CPU tensors run the plain
+    version in fp32 (bf16 cast to fp32 and back; also float64, for a
+    reference run in fp64). Deterministic: a row's values are added in the
+    plan's slot order, per block, per window of blocks, then across
+    windows, bit-equal to the stacked dense entry at S = 1 over the same
+    layout."""
     if op not in ("sum", "max"):
         raise ValueError(f"unknown op {op!r}; choose 'sum' or 'max'")
     cpu64 = val.dtype == torch.float64 and val.device.type == "cpu"
-    if not (val.dtype == torch.float32 or cpu64) or val.ndim != 2:
-        raise TypeError(f"val must be (E, F) float32 (float64 on the CPU), "
-                        f"got {val.dtype} {tuple(val.shape)} on "
-                        f"{val.device}")
+    if not (val.dtype in _GRAPH_DTYPES or cpu64) or val.ndim != 2:
+        raise TypeError(f"val must be (E, F) float32 or bfloat16 (float64 "
+                        f"on the CPU), got {val.dtype} {tuple(val.shape)} "
+                        f"on {val.device}")
     if val.shape[0] != plan.n_edges:
         raise ValueError(f"val has {val.shape[0]} rows for a plan of "
                          f"{plan.n_edges} edges")
-    if val.device != plan.seg.device:
+    if val.device != plan.packed.device:
         raise ValueError(f"val is on {val.device}, the plan on "
-                         f"{plan.seg.device}")
+                         f"{plan.packed.device}")
     return counted(WORK, lambda: (f"{op}_gnn", graph_cost(
-        plan.seg.shape[1], plan.n_live, plan.n_rows, val.shape[1])),
+        plan.n_live, plan.n_rows, val.shape[1], val.element_size())),
         _graph, val, plan, op)
+
+
+_GRAPH_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _graph(val, plan, op):
     if not _on_cuda("segment_agg_graph", val):
-        return segment_agg_graph_ref(val, plan.index, plan.live, plan.n_rows,
-                                     op)
-    if val.shape[0] == 0:
-        return val.new_zeros((plan.n_rows, val.shape[1]))
+        v = val.float() if val.dtype == torch.bfloat16 else val
+        return segment_agg_graph_ref(v, plan.index, plan.live, plan.n_rows,
+                                     op).to(val.dtype)
     val = val.contiguous()
-    _check_stacked(val[None], plan.seg, plan.src, plan.sign, plan.tob,
-                   plan.fot, plan.n_rows, plan.n_row_tiles, op)
-    out, _ = _fused_launch(val[None], plan.seg, plan.src, plan.sign,
-                           plan.tob, plan.fot, plan.n_row_tiles, op, False,
-                           strides=(plan.seg.stride(0), plan.tob.stride(0)))
+    F = val.shape[1]
+    dev = val.device
+    out = torch.empty((plan.n_rows, F), dtype=val.dtype, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    t = plan.tables
+    n_part = t.part.shape[0]
+    part, _, ticket, _ = _scratch(dev, stream, n_part * F, 0,
+                                  n_part * max(1, -(-F // 32)))
+    rc = _graph_entry()(ctypes.addressof(plan.cplan), _OPS[op],
+                        int(val.dtype == torch.bfloat16), val.data_ptr(),
+                        out.data_ptr(), part.data_ptr(), ticket.data_ptr(),
+                        F, stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_agg_graph ({op}, {val.dtype}) kernel "
+                           f"launch failed: CUDA error {rc}")
     LAUNCHES[f"{op}_gnn"] += 1
-    out = out[0, :plan.n_rows]
-    if not (plan.every_row or (op == "sum" and plan.every_tile)):
-        out = torch.where(plan.hit[:, None], out, 0.0)
     return out
 
 
+def _graph_entry():
+    """``segment_agg_graph_run`` of ``csrc/segment_graph.cu``, bound on
+    first use (which builds the library)."""
+    fn = _ENTRIES.get("graph")
+    if fn is None:
+        from repro_torch.kernels import _build
+
+        fn = _build.library("segment_graph").segment_agg_graph_run
+        fn.argtypes = _GRAPH_ARGTYPES
+        fn.restype = ctypes.c_int
+        _ENTRIES["graph"] = fn
+    return fn
+
+
 def _reduce(x: torch.Tensor, plan: EdgePlan, op: str) -> torch.Tensor:
-    """``segment_agg_graph`` on x (E, ...) of any float dtype: reduced in
-    fp32 (fp64 on the CPU) and cast back to x's dtype, (n_rows, ...)."""
+    """``segment_agg_graph`` on x (E, ...) of any float dtype, (n_rows,
+    ...) in x's dtype: float32 and bfloat16 (and float64 on the CPU) as
+    they are, any other dtype reduced in fp32 and cast back."""
     v = x.reshape(x.shape[0], -1)
-    if not (x.dtype == torch.float64 and x.device.type == "cpu"):
+    if not (x.dtype in _GRAPH_DTYPES
+            or (x.dtype == torch.float64 and x.device.type == "cpu")):
         v = v.to(torch.float32)
     out = segment_agg_graph(v, plan, op)
     return out.to(x.dtype).reshape((plan.n_rows,) + x.shape[1:])
@@ -1095,7 +1236,7 @@ class _GraphGather(torch.autograd.Function):
 def graph_sum(x: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
     """Sum edge values ``x`` (E, ...) into ``plan.n_rows`` rows over the
     plan's live edges (``jax.ops.segment_sum`` of the masked values), in
-    x's dtype, reduced in fp32 by the kernel. Its backward is
+    x's dtype, accumulated in fp32 by the kernel. Its backward is
     ``graph_gather`` over the same plan, and so on for every order."""
     return _GraphSum.apply(x, plan)
 

@@ -35,18 +35,18 @@ def _plan(n_edges: int, n_rows: int, seed: int):
 
 # (name, edges, rows, F, table ms, digits, bound by)
 GRAPH_ROWS = [
-    ("graphcast mesh set into dst", 327_680, 40_962, 512, 0.22669, 5),
-    ("graphcast mesh set into src", 327_680, 40_962, 512, 0.22669, 5),
-    ("grid2mesh into dst", 679_936, 40_962, 512, 0.44334, 5),
-    ("grid2mesh into src", 679_936, 169_984, 512, 0.52262, 5),
-    ("mesh2grid into dst", 679_936, 169_984, 512, 0.52263, 5),
-    ("mesh2grid into src", 679_936, 40_962, 512, 0.44334, 5),
-    ("GAT messages", 168_960, 169_984, 64, 0.02712, 5),
-    ("GAT softmax max", 168_960, 169_984, 8, 0.004455, 6),
-    ("NequIP messages F 32", 8_192, 3_840, 32, 0.00051, 5),
-    ("NequIP messages F 96", 8_192, 3_840, 96, 0.00143, 5),
-    ("NequIP messages F 160", 8_192, 3_840, 160, 0.00235, 5),
-    ("NequIP readout", 3_840, 128, 1, 0.00002, 5),
+    ("graphcast mesh set into dst", 327_680, 40_962, 512, 0.22615, 5),
+    ("graphcast mesh set into src", 327_680, 40_962, 512, 0.22615, 5),
+    ("grid2mesh into dst", 679_936, 40_962, 512, 0.44234, 5),
+    ("grid2mesh into src", 679_936, 169_984, 512, 0.52122, 5),
+    ("mesh2grid into dst", 679_936, 169_984, 512, 0.52122, 5),
+    ("mesh2grid into src", 679_936, 40_962, 512, 0.44234, 5),
+    ("GAT messages", 168_960, 169_984, 64, 0.02630, 5),
+    ("GAT softmax max", 168_960, 169_984, 8, 0.003641, 6),
+    ("NequIP messages F 32", 8_192, 3_840, 32, 0.00048, 5),
+    ("NequIP messages F 96", 8_192, 3_840, 96, 0.00140, 5),
+    ("NequIP messages F 160", 8_192, 3_840, 160, 0.00232, 5),
+    ("NequIP readout", 3_840, 128, 1, 0.00001, 5),
 ]
 
 
@@ -54,13 +54,50 @@ GRAPH_ROWS = [
 def test_graph_cost_matches_table(row):
     name, E, R, F, table, digits = row
     plan = _plan(E, R, seed=len(name))
-    w = seg.graph_cost(plan.seg.shape[1], plan.n_live, plan.n_rows, F)
+    w = seg.graph_cost(plan.n_live, plan.n_rows, F)
     ms, by = cost.bound_ms(w)
     assert by == "bytes"
     assert _close(ms, table, digits), (ms, table)
-    # the formula by hand: 12 B a slot, 4 F B a live edge and an output row
-    assert w.bytes == 12 * plan.seg.shape[1] + 4 * F * (E + R)
+    # the formula by hand: 8 B of slot table and 4 F B of values a live
+    # edge, 4 F B an output row
+    assert plan.n_live == E
+    assert w.bytes == 8 * E + 4 * F * (E + R)
     assert w.ops == E * F
+
+
+@pytest.mark.parametrize("row", GRAPH_ROWS, ids=[r[0] for r in GRAPH_ROWS])
+def test_graph_cost_counts_two_bytes_a_bf16_value(row):
+    """The bf16 instance at each row's shape: 2 F B of each live edge and
+    output row, the same 8 B of slot table a live edge and the same
+    operations; its bound is that many bytes over the HBM rate, below the
+    fp32 row's."""
+    name, E, R, F, table, digits = row
+    plan = _plan(E, R, seed=len(name))
+    w = seg.graph_cost(plan.n_live, plan.n_rows, F, 2)
+    assert w.bytes == 8 * E + 2 * F * (E + R)
+    assert w.ops == E * F
+    ms, by = cost.bound_ms(w)
+    assert by == "bytes"
+    fp32 = cost.bound_ms(seg.graph_cost(plan.n_live, plan.n_rows, F))[0]
+    assert ms == cost.bound_ms(cost.Work(w.ops, w.bytes))[0] < fp32
+
+
+def test_graph_entry_counts_its_values_dtype():
+    """Under ``cost.counting()`` the graph entry counts 2 B a value for
+    bf16 values and 4 for fp32, on either path."""
+    plan = _plan(400, 50, seed=1)
+    x = torch.randn(400, 12)
+    seg.reset_launches()
+    with cost.counting():
+        seg.segment_agg_graph(x, plan, "sum")
+        seg.segment_agg_graph(x.to(torch.bfloat16), plan, "max")
+    w32 = seg.graph_cost(400, 50, 12)
+    w16 = seg.graph_cost(400, 50, 12, 2)
+    assert seg.WORK.snapshot() == {
+        "sum_gnn": dict(calls=1, ops=w32.ops, bytes=w32.bytes),
+        "max_gnn": dict(calls=1, ops=w16.ops, bytes=w16.bytes)}
+    assert w32.bytes - w16.bytes == 2 * 12 * (400 + 50)
+    seg.reset_launches()
 
 
 # (name, B, Hq, Hkv, S, d, table ms)
@@ -193,4 +230,4 @@ def test_bound_helpers_call_the_cost_functions(chip_smoke):
         cost.bound_ms(bag.bag_backward_cost(10, 12, 3, 50, 18, False))
     plan = _plan(1000, 77, 0)
     assert chip_smoke.gnn_bound_ms(plan, 16) == cost.bound_ms(
-        seg.graph_cost(plan.seg.shape[1], plan.n_live, 77, 16))
+        seg.graph_cost(plan.n_live, 77, 16))

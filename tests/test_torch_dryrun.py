@@ -185,7 +185,7 @@ def test_each_wrapper_adds_its_formula():
     with cost.counting():
         seg.segment_agg_graph(x, plan, "sum")
         seg.segment_agg_graph(x, plan, "max")
-    w = seg.graph_cost(plan.seg.shape[1], 6, 6, 5)
+    w = seg.graph_cost(6, 6, 5)
     assert plan.n_live == 6
     assert seg.WORK.snapshot() == {"sum_gnn": dict(calls=1, **_ob(w)),
                                    "max_gnn": dict(calls=1, **_ob(w))}

@@ -12,6 +12,9 @@ Tolerances (fp32): values and derivatives rtol 1e-5, atol 1e-6 (the two
 packages add a row's values in other orders); intertwiners 1e-10 up to
 sign (both are fp64 null vectors of the same constraints, of unit norm); the
 sampler's blocks equal, array for array."""
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -140,36 +143,52 @@ def test_first_and_second_derivatives_match_jax(name):
     np.testing.assert_allclose(thv.numpy(), jhv, **TOL)
 
 
+@pytest.fixture(scope="module")
+def chip_smoke():
+    sys.path.insert(0, os.path.abspath(os.path.join(
+        os.path.dirname(__file__), "..")))
+    import chip_smoke as cs
+    return cs
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("op", ["sum", "max"])
-def test_edge_plan_through_the_fused_entry(op, masked):
-    """The plan's tables through the stacked dense entry's plain version
-    at S = 1 (what the kernel runs on the card), rows masked by the plan's
-    hit set, equal the graph entry's plain version; the layout keeps
-    make_plan's invariants."""
+def test_edge_plan_through_the_fused_entry(op, masked, chip_smoke):
+    """The plan's layout, as the stacked dense entry's tables at S = 1
+    (``chip_smoke.gnn_stacked_tables``, what the graph entry ran on the
+    card before its own kernel), through that entry's plain version, rows
+    masked by the tables' hit set, equals the graph entry's plain version;
+    the layout keeps make_plan's invariants."""
     g = graph(5, masked, seed=7, n=300, e=2000)
     idx, mask = torch.tensor(g["dst"]), torch.tensor(g["emask"])
     x = torch.tensor(g["vals"])
     p = ops.make_edge_plan(idx, 300, mask if masked else None)
-    fused = ref.segment_agg_level_stacked_ref(x[None], p.seg, p.src, p.sign,
-                                              300, op)[0]
-    fused = torch.where(p.hit[:, None], fused, 0.0)
+    tabs = chip_smoke.gnn_stacked_tables(torch, ops, p)
+    fused = ref.segment_agg_level_stacked_ref(
+        x[None], tabs["seg"], tabs["src"], tabs["sign"], 300, op)[0]
+    fused = torch.where(tabs["hit"][:, None], fused, 0.0)
     want = ref.segment_agg_graph_ref(x, idx, p.live, 300, op)
     torch.testing.assert_close(fused, want, **TOL)
     assert torch.equal(ops.segment_agg_graph(x, p, op), want)
-    seg, src, sign = p.seg[0].numpy(), p.src[0].numpy(), p.sign[0].numpy()
+    assert torch.equal(chip_smoke.gnn_stacked_route(torch, ops, x, p, op,
+                                                    tabs), fused)
+    seg, src = tabs["seg"][0].numpy(), tabs["src"][0].numpy()
+    sign = tabs["sign"][0].numpy()
     live = seg >= 0
     assert live.sum() == p.n_live == int(g["emask"].sum() if masked else 2000)
     assert (seg[live] == g["dst"][src[live]]).all()
     assert (sign[live] == 1).all() and (sign[~live] == 0).all()
     assert (src[~live] == 0).all() and seg.size % ops.E_BLK == 0
+    assert seg.size == p.n_slots and tabs["tob"].shape[1] == p.n_blocks
     blocks = seg.reshape(-1, ops.E_BLK)
-    tob = p.tob[0].numpy()
+    tob = tabs["tob"][0].numpy()
     for b, t in enumerate(tob):      # no block straddles its row tile
         rows = blocks[b][blocks[b] >= 0]
         assert ((rows // ops.R_BLK) == t).all()
-    assert p.every_row == bool(p.hit.all())
-    assert not p.every_row      # rows 30.. have no edge
+    # rows 30.. have no edge: the kernel's tables list them to zero
+    np.testing.assert_array_equal(p.tables.empty,
+                                  np.flatnonzero(~tabs["hit"].numpy()))
+    assert p.tables.empty.size > 0
     assert ops.LAUNCHES["sum_gnn"] == ops.LAUNCHES["max_gnn"] == 0
 
 
