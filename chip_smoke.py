@@ -90,8 +90,8 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    write step's host work by part (unique rows, frontier keys, packing, the
    staged upload beside a copy per array); a steady-state sparse window
    run under
-   ``torch.cuda.set_sync_debug_mode("error")``; 6 churn bursts at 0.1% and
-   6 at 1% of the readers (70% ``add_edge``, 30% ``delete_edge``), each
+   ``torch.cuda.set_sync_debug_mode("error")``; 4 churn bursts at 0.1% and
+   3 at 1% of the readers (70% ``add_edge``, 30% ``delete_edge``), each
    flushed, then a write batch and a read, the plan tables required to keep
    their storage across in-capacity bursts, the answers held to the oracle
    on 256 sampled readers, sparse against dense replayed bit-equal on the
@@ -145,7 +145,8 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    against the cold build's, first read bit-identical), reshards 4 -> 2
    and 4 -> single (sums within 1e-4, max exact) and
    ``SessionRecoveryDriver`` with one injected failure required
-   bit-identical to an uninterrupted run;
+   bit-identical to an uninterrupted run; phase 14 runs between the
+   same-layout restore and the reshards;
 9. bf16 edge values (``EAGR_SEGAGG_BF16``) on phase 3's overlay and
    decisions, compiled again with the flag (no second construction): bf16
    and fp32 engines of ``sum``, ``max`` and ``count`` and a 4-shard bf16
@@ -253,7 +254,29 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    step on the card required equal to the CPU's, DIEN's and GAT's measured
    steps counted again on the CPU and the LM cells' against the per-call
    formulas, all exactly; int8 compression with error feedback on the
-   card bit-equal to the CPU.
+   card bit-equal to the CPU;
+14. the group (inside phase 8f, on its checkpoint): 4 ranks spawned by
+   ``torch.multiprocessing`` over a ``file://`` store, every collective
+   with a timeout: ``nccl`` with one card a rank where 4 cards exist,
+   else ``gloo`` with the ranks sharing the card (the backend, world size
+   and each rank's device printed). Each rank restores phase 8's 4-shard
+   checkpoint with its own shard only (``EagrSession.restore`` inside the
+   group: the stacked entries at S = 1), its first read required equal to
+   phase 8's bit for bit; then 10 write batches of 4,096 Zipf(1.5) writers
+   (5 forced dense, 5 forced sparse), each followed by reads of ``sum``
+   and ``max`` on phase 8's 256 sampled readers, a churn burst on one
+   shard's readers flushed before batch 4 (patched in place on that rank
+   only, no table reallocated), and an alert (``above`` 0 on up to 64
+   push-decided readers of ``sum``) registered before batch 6 and drained
+   after each later batch: every rank's answers and fired sets required
+   bit-equal to the one-card stack restored once more in the parent and
+   run on the same script, each rank's stacked-entry launch counts
+   (every count set to 0 just before the batches) above 0, every engine
+   tensor on the card, no kernel built again in a rank; each rank's write
+   and read p50 printed as ranks sharing one card (not a multi-card
+   speed). Beside it, a 1-rank ``nccl`` group on a 1-shard session over
+   3,000 nodes / 20,000 edges, its stacked-entry launches above 0 and its
+   answers bit-equal to the same session without a group.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -391,7 +414,7 @@ DESIGNS = {
 DYN_BATCHES = 8            # batches of each sparse/dense run
 DYN_SIZES = (256, BATCH)   # writers a batch (benchmarks/dynamic_bench.py's
 DYN_READS = 256            # 256, and phase 3's 4,096); readers a read
-CHURN = ((0.001, 10), (0.01, 10))  # (share of readers a burst, bursts)
+CHURN = ((0.001, 4), (0.01, 3))  # (share of readers a burst, bursts)
 SYNC_WINDOW = 4            # sparse batches under the sync check
 # F1: phase 3's stream under auto against both forced modes
 F1_ROUNDS, F1_FACTOR = 7, 1.10
@@ -2536,6 +2559,385 @@ def stacked_active_sets(group, ids):
     return {"push": push, "pull": None}
 
 
+GROUP_RANKS = 4            # phase 14: ranks of the group, one shard each
+GROUP_BATCHES = 10         # write batches (5 dense, 5 sparse), each read
+GROUP_CHURN_AT = 4         # the churn burst lands before this batch
+GROUP_ALERT_AT = 6         # the alert is registered before this batch
+GROUP_CHURN_SHARD = 1      # the one shard the burst touches
+GROUP_TIMEOUT_S = 120.0    # every collective of the group
+GROUP_JOIN_S = 300.0       # the spawn's join deadline
+NCCL_GRAPH = (3_000, 20_000)   # the 1-rank nccl group's session
+NCCL_BATCHES = 6
+
+
+def bits_equal(a, b) -> bool:
+    """Two host arrays equal bit for bit (signed zeros included)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def device_sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def engine_devices(group) -> list:
+    """The device types of every tensor of a group's engine (tables, state,
+    owner maps, alert columns)."""
+    from repro_torch.core.engine import _plan_array_leaves
+
+    eng = group.engine
+    ts = [x for _, x in _plan_array_leaves(eng.arrays)]
+    ts += [*eng.state.windows, eng.state.pao, eng.state.now,
+           eng.writer_map, eng.reader_map]
+    if eng.alerts is not None and eng.alerts.state is not None:
+        ts += list(eng.alerts.state)
+    return sorted({t.device.type for t in ts})
+
+
+def group_drive(torch, session, plan: dict) -> dict:
+    """Phase 14's script on one session (a rank's, or the one-card stack's
+    in the parent): the first read, then GROUP_BATCHES write batches (the
+    first half forced dense, the rest forced sparse) each followed by a
+    read of both queries; the churn burst flushed before batch
+    GROUP_CHURN_AT, the alert registered before batch GROUP_ALERT_AT and
+    drained after every later batch. The launch counts cover the batches
+    (every count set to 0 just before them)."""
+    from repro_torch.kernels.segment_agg import ops
+
+    hs = session.queries
+    q = plan["q"]
+    out = {"first": [session.read(h, q) for h in hs], "reads": [],
+           "fired": [], "w_ms": [], "r_ms": []}
+    half = GROUP_BATCHES // 2
+    groups = [h.group for h in hs]
+    alert = None
+    device_sync(torch)
+    ops.reset_launches()
+    for k, (ids, vals) in enumerate(plan["stream"]):
+        set_sparse("0" if k < half else "1")
+        if k == GROUP_CHURN_AT:
+            for op, u, v in plan["churn"]:
+                getattr(session, op)(u, v)
+            before = [stacked_ptrs(g) for g in groups]
+            rep = session.flush()
+            out["kinds"] = (rep.patched, rep.relayout, rep.recompiled)
+            out["in_place"] = [stacked_ptrs(g) == b
+                               for g, b in zip(groups, before)]
+            out["patched_local"] = [
+                any(r is not None and s in g.engine.local
+                    for s, r in enumerate(res))
+                for g, res in zip(groups, rep)]
+        if k == GROUP_ALERT_AT:
+            alert = session.register_alert(hs[0], above=plan["above"],
+                                           readers=plan["alert_readers"])
+        device_sync(torch)
+        t0 = time.perf_counter()
+        session.update(ids, vals)
+        device_sync(torch)
+        out["w_ms"].append((time.perf_counter() - t0) * 1e3)
+        reads = []
+        for h in hs:
+            t0 = time.perf_counter()
+            reads.append(session.read(h, q))
+            out["r_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["reads"].append(reads)
+        if alert is not None:
+            out["fired"] += [(b.now, b.base_ids, b.values, b.aids, b.overflow)
+                             for b in session.drain_fired()]
+    device_sync(torch)
+    set_sparse("auto")
+    out["launches"] = dict(ops.LAUNCHES)
+    out["devices"] = sorted({t for g in groups for t in engine_devices(g)})
+    return out
+
+
+def group_rank(rank: int, world: int, backend: str, work: str) -> None:
+    """One rank of phase 14's group: restore phase 8's checkpoint (its own
+    shard only), check the first read against phase 8's, run
+    ``group_drive`` and write the results to ``rank{rank}.pkl``. Any
+    failure raises, which ends the spawn with an error."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import EagrSession
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import init_group
+
+    with open(os.path.join(work, "plan.pkl"), "rb") as f:
+        plan = pickle.load(f)
+    device = plan["devices"][rank]
+    init_group(rank, world, os.path.join(work, "store"), backend=backend,
+               timeout_s=GROUP_TIMEOUT_S, device=device)
+    try:
+        t0 = time.perf_counter()
+        session = EagrSession.restore(plan["ckpt"], device=device)
+        device_sync(torch)
+        restore_s = time.perf_counter() - t0
+        meshes = [h.group.engine.mesh for h in session.queries]
+        if any(m is None or m.rank != rank or m.world != world
+               for m in meshes):
+            raise AssertionError(f"rank {rank}: no shard mesh of {world} "
+                                 f"ranks behind the restored session")
+        out = group_drive(torch, session, plan)
+        for a, b in zip(out["first"], plan["want"]):
+            if not bits_equal(a, b):
+                raise AssertionError(f"rank {rank}: the first read after "
+                                     f"the restore differs from phase 8's")
+        out.update(rank=rank, device=str(meshes[0].device),
+                   comm=str(meshes[0].comm), backend=meshes[0].backend,
+                   restore_s=restore_s, built=sorted(_build.BUILD_LOG))
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_rank(rank: int, work: str) -> None:
+    """A 1-rank nccl group on a 1-shard session over a small graph: the
+    session on the group (launch counts from 0 over its batches), then the
+    same session and stream on one card without a group; answers required
+    bit-equal. Results to ``nccl.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import EagrSession, Query, WindowSpec
+    from repro_torch.graphs.generators import rmat_graph
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.segment_agg import ops
+    from repro_torch.launch.mesh import init_group
+
+    graph = rmat_graph(*NCCL_GRAPH, seed=SEED)
+    init_group(0, 1, os.path.join(work, "nccl_store"), backend="nccl",
+               timeout_s=GROUP_TIMEOUT_S, device="cuda:0")
+    out = {}
+    for name in ("group", "card"):
+        s = EagrSession(graph, shards=1, device="cuda:0")
+        hs = [s.register(Query(agg=a, window=WindowSpec("tuple", WINDOW)))
+              for a in ("sum", "max")]
+        mesh = hs[0].group.engine.mesh
+        rng = np.random.default_rng(SEED + 14)
+        writers = np.asarray(s.writers, np.int64)
+        readers = np.asarray(s.readers, np.int64)
+        q = rng.choice(readers, 256)
+        device_sync(torch)
+        ops.reset_launches()
+        reads = []
+        for k in range(NCCL_BATCHES):
+            set_sparse("0" if k < NCCL_BATCHES // 2 else "1")
+            s.update(rng.choice(writers, 1024),
+                     rng.normal(size=1024).astype(np.float32))
+            reads.append([s.read(h, q) for h in hs])
+        device_sync(torch)
+        set_sparse("auto")
+        out[name] = dict(reads=reads, launches=dict(ops.LAUNCHES),
+                         backend=None if mesh is None else mesh.backend,
+                         device=str(s.device),
+                         devices=sorted({t for h in hs
+                                         for t in engine_devices(h.group)}))
+        if name == "group":
+            dist.destroy_process_group()
+    out["built"] = sorted(_build.BUILD_LOG)
+    with open(os.path.join(work, "nccl.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_group(torch, session, handles, ckpt: str, want, sample,
+                writers, d: str) -> dict:
+    """Phase 14 (see the module docstring), in phase 8f's temporary
+    directory ``d``: a group of GROUP_RANKS ranks restores phase 8's
+    checkpoint ``ckpt``, one shard a rank, and is held bit for bit to the
+    one-card stack restored in the parent; beside it, a 1-rank nccl
+    group."""
+    import pickle
+    import threading
+
+    from repro_torch import EagrSession
+    from repro_torch.core.dataflow import PUSH
+    from repro_torch.launch.mesh import spawn_group
+
+    t_phase = time.perf_counter()
+    work = os.path.join(d, "group")
+    os.makedirs(work, exist_ok=True)
+    rng = np.random.default_rng(SEED + 14)
+    stream = [(ids, vals) for ids, vals, _ in
+              make_stream(writers, np.asarray(sample), GROUP_BATCHES, rng,
+                          dyadic=False)]
+    # the burst: edges into readers of one shard only (of both groups)
+    g_sum, g_max = (h.group for h in handles)
+    owned = sorted(r for r, s in g_sum.sharded.reader_shard.items()
+                   if s == GROUP_CHURN_SHARD
+                   and g_max.sharded.reader_shard.get(r) == s
+                   and session.neighborhood(r))
+    hit = rng.choice(owned, 6, replace=False)
+    churn = [("add_edge", int(rng.choice(writers)), int(r)) for r in hit[:5]]
+    churn.append(("delete_edge", int(min(session.neighborhood(int(hit[5])))),
+                  int(hit[5])))
+    # alerts need push-maintained readers: the sum group's PUSH-decided
+    # readers the burst leaves alone
+    push = sorted(b for p in g_sum.sharded.shard_plans
+                  for b, n in p.reader_node_of_base.items()
+                  if p.decision[n] == PUSH and b not in set(hit.tolist()))
+    if len(push) < 8:
+        raise AssertionError(f"phase 14: only {len(push)} PUSH-decided "
+                             f"readers of the sum group to alert on")
+    backend = "nccl" if torch.cuda.device_count() >= GROUP_RANKS else "gloo"
+    devices = [f"cuda:{r % torch.cuda.device_count()}" if DEVICE == "cuda"
+               else DEVICE for r in range(GROUP_RANKS)]
+    plan = dict(ckpt=ckpt, want=want, q=np.asarray(sample), stream=stream,
+                devices=devices,
+                churn=churn, above=0.0,
+                alert_readers=[int(b) for b in push[:: max(1, len(push)
+                                                            // 64)][:64]])
+    with open(os.path.join(work, "plan.pkl"), "wb") as f:
+        pickle.dump(plan, f)
+    print(f"14 group: {GROUP_RANKS} ranks over {backend} (file:// store, "
+          f"collective timeout {GROUP_TIMEOUT_S:.0f} s), "
+          f"{torch.cuda.device_count()} card(s): "
+          + ("one card a rank" if backend == "nccl" else
+             "every rank on cuda:0, sharing one card"), flush=True)
+
+    errors, secs = [], {}
+
+    def run(name, fn, world, args):
+        t0 = time.perf_counter()
+        try:
+            spawn_group(fn, world, args=args, join_timeout_s=GROUP_JOIN_S)
+        except BaseException as e:   # raised below, in the main thread
+            errors.append(e)
+        secs[name] = time.perf_counter() - t0
+
+    # the group, and beside it the 1-rank nccl group
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(
+                   "group", group_rank, GROUP_RANKS,
+                   (GROUP_RANKS, backend, work))),
+               threading.Thread(target=run,
+                                args=("nccl", nccl_rank, 1, (work,)))]
+    for th in threads:
+        th.start()
+    try:
+        # the one-card stack, restored once more, on the same script
+        one = EagrSession.restore(ckpt, device=DEVICE)
+        ref = group_drive(torch, one, plan)
+    finally:
+        for th in threads:
+            th.join()
+    group_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    del one
+    for a, b in zip(ref["first"], want):
+        if not bits_equal(a, b):
+            raise AssertionError("the one-card restore's first read differs "
+                                 "from phase 8's")
+    ranks = []
+    for r in range(GROUP_RANKS):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    n_fired = sum(len(b[1]) for b in ref["fired"])
+    if n_fired == 0:
+        raise AssertionError("phase 14: the alert fired no reader on the "
+                             "one-card stack")
+    stacked_keys = ("sum_stacked", "max_stacked", "sum_active_stacked",
+                    "max_active_stacked")
+    for out in ranks:
+        r = out["rank"]
+        for k, (a, b) in enumerate(zip(out["reads"], ref["reads"])):
+            for x, y in zip(a, b):
+                if not bits_equal(x, y):
+                    raise AssertionError(f"rank {r}: batch {k}'s answers "
+                                         f"differ from the one-card stack's")
+        if out["kinds"] != ref["kinds"] or out["kinds"][2]:
+            raise AssertionError(f"rank {r}: flush {out['kinds']} against "
+                                 f"the one-card stack's {ref['kinds']}")
+        if not all(out["in_place"]):
+            raise AssertionError(f"rank {r}: the burst reallocated a table")
+        if any(out["patched_local"]) != (r == GROUP_CHURN_SHARD):
+            raise AssertionError(f"rank {r}: patched {out['patched_local']}, "
+                                 f"the burst touched shard "
+                                 f"{GROUP_CHURN_SHARD} only")
+        if len(out["fired"]) != len(ref["fired"]) or not all(
+                a[0] == b[0] and a[4] == b[4]
+                and all(bits_equal(x, y) for x, y in zip(a[1:4], b[1:4]))
+                for a, b in zip(out["fired"], ref["fired"])):
+            raise AssertionError(f"rank {r}: fired sets differ from the "
+                                 f"one-card stack's")
+        low = [k for k in stacked_keys if out["launches"].get(k, 0) <= 0]
+        if low:
+            raise AssertionError(f"rank {r}: launches {out['launches']} "
+                                 f"(stacked entries at 0: {low})")
+        if out["devices"] != [torch.device(DEVICE).type]:
+            raise AssertionError(f"rank {r}: engine tensors on "
+                                 f"{out['devices']}, not all on {DEVICE}")
+        if out["built"]:
+            raise AssertionError(f"rank {r} built {out['built']} again")
+    for out in ranks:
+        print(f"14 rank {out['rank']} of {GROUP_RANKS}: {out['backend']}, "
+              f"device {out['device']}, collectives on {out['comm']}; "
+              f"restore {out['restore_s']:.3f} s; ranks sharing one card "
+              f"(not a multi-card speed): write p50 "
+              f"{np.median(out['w_ms']):.3f} ms, read p50 "
+              f"{np.median(out['r_ms']):.3f} ms; launches "
+              f"{ {k: out['launches'][k] for k in stacked_keys} }",
+              flush=True)
+    print(f"14 group: the first read after the restore == phase 8's on every "
+          f"rank; {GROUP_BATCHES} write batches ({GROUP_BATCHES // 2} dense, "
+          f"{GROUP_BATCHES - GROUP_BATCHES // 2} sparse) with reads of sum "
+          f"and max == the one-card stack bit for bit; a burst of "
+          f"{len(churn)} ops on shard {GROUP_CHURN_SHARD} {ref['kinds']} "
+          f"patched in place on rank {GROUP_CHURN_SHARD} only; the alert "
+          f"fired {n_fired} readers over {len(ref['fired'])} batches, the "
+          f"same sets; one-card stack on the same card: write p50 "
+          f"{np.median(ref['w_ms']):.3f} ms, read p50 "
+          f"{np.median(ref['r_ms']):.3f} ms; the group's ranks "
+          f"{secs['group']:.1f} s", flush=True)
+
+    with open(os.path.join(work, "nccl.pkl"), "rb") as f:
+        nccl = pickle.load(f)
+    nccl_s = secs["nccl"]
+    g, c = nccl["group"], nccl["card"]
+    if g["backend"] != "nccl" or c["backend"] is not None:
+        raise AssertionError(f"the 1-rank run's meshes: {g['backend']}, "
+                             f"{c['backend']}")
+    for a, b in zip(g["reads"], c["reads"]):
+        for x, y in zip(a, b):
+            if not bits_equal(x, y):
+                raise AssertionError("the 1-rank nccl group's answers differ "
+                                     "from the one-card stack's")
+    low = [k for k in stacked_keys if g["launches"].get(k, 0) <= 0]
+    if low or g["devices"] != ["cuda"] or nccl["built"]:
+        raise AssertionError(f"the 1-rank nccl group: launches "
+                             f"{g['launches']}, engine tensors on "
+                             f"{g['devices']}, built {nccl['built']}")
+    print(f"14 nccl: a 1-rank nccl group on a 1-shard session "
+          f"({NCCL_GRAPH[0]} nodes / {NCCL_GRAPH[1]} edges, {NCCL_BATCHES} "
+          f"batches of 1,024) on {g['device']}: launches "
+          f"{ {k: g['launches'][k] for k in stacked_keys} }, answers == "
+          f"the same session without a group bit for bit; {nccl_s:.1f} s, "
+          f"beside the group; phase 14 {group_s:.1f} s", flush=True)
+    return dict(
+        backend=backend, ranks=GROUP_RANKS, seconds=time.perf_counter()
+        - t_phase, group_s=group_s, group_ranks_s=secs["group"],
+        nccl_s=nccl_s, fired=n_fired,
+        kinds=ref["kinds"],
+        per_rank=[dict(rank=o["rank"], device=o["device"], comm=o["comm"],
+                       restore_s=o["restore_s"],
+                       write_p50_ms=float(np.median(o["w_ms"])),
+                       read_p50_ms=float(np.median(o["r_ms"])),
+                       launches={k: o["launches"][k] for k in stacked_keys})
+                  for o in ranks],
+        one_card=dict(write_p50_ms=float(np.median(ref["w_ms"])),
+                      read_p50_ms=float(np.median(ref["r_ms"]))),
+        nccl=dict(device=g["device"], launches={
+            k: g["launches"][k] for k in stacked_keys}))
+
+
 def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
     """Phase 8 (see the module docstring)."""
     import tempfile
@@ -2782,6 +3184,14 @@ def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
                 raise AssertionError("the restored session's first read "
                                      "differs from the saved session's")
         del same
+        lap("save_restore")
+
+        # ---- 14. the group: this checkpoint restored onto GROUP_RANKS
+        # ranks, one shard a rank, against the one-card stack
+        report["group"] = phase_group(torch, session, handles,
+                                      os.path.join(d, "main"), want, q,
+                                      writers, d)
+        lap("group")
         reshard = {}
         for m in (2, 0):
             t0 = time.perf_counter()
@@ -2810,7 +3220,7 @@ def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
                       save_total_s=total_s,
                       save_mb_s=nbytes / total_s / 1e6,
                       restore_s=restore_s, reshard_s=reshard)
-        lap("save_restore_reshard")
+        lap("reshard")
 
         # the recovery driver: a run with one injected failure against an
         # uninterrupted one, both from this checkpoint ("cold" = restore)

@@ -22,6 +22,13 @@ master overlay and the global push/pull decisions, so an N-shard save
 restacks into any M-shard (or single-engine) layout by base id — write
 replication keeps a writer's window ring identical on every owning shard.
 
+A session of one shard per rank of a ``torch.distributed`` group writes the
+one-card stack's format (one gather of the shard states, then rank 0
+writes), and a saved N-shard layout restores onto a group of N ranks with
+every rank adopting its own shard's plan, windows and PAOs only — so one
+checkpoint directory restores onto one card, onto a group, or into the JAX
+package.
+
 Array names, dtypes and shapes are the JAX package's (``repro.distributed.
 checkpoint``), so a checkpoint either package writes restores in the other.
 Tables only the port derives (routes, frontier indices, patch bookkeeping)
@@ -429,7 +436,9 @@ def snapshot_session(session) -> tuple[dict, dict]:
             "continuous": bool(g.continuous),
             "now": float(eng._now_host),
         }
-        st = eng.state
+        # on a group of ranks: every shard's state, one gather
+        st = eng.global_state_host() if getattr(eng, "mesh", None) \
+            is not None else eng.state
         items.extend((f"g{i}.win.{f}", x)
                      for f, x in zip(WindowState._fields, st.windows))
         items.append((f"g{i}.pao", st.pao))
@@ -565,19 +574,25 @@ def _restore_group_same(session, i: int, gobj: dict, arrays: dict,
     from repro_torch.core.window import WindowState, window_state_from_host
 
     dev = session.device
+    mesh = session.mesh
+    # a rank of a group adopts its own shard's state only
+    own = (lambda a: a) if mesh is None else \
+        (lambda a: a[mesh.rank: mesh.rank + 1])
     g = _new_group(session, gobj, agg, spec)
     win = window_state_from_host(
-        {f: arrays[f"g{i}.win.{f}"] for f in WindowState._fields},
+        {f: own(arrays[f"g{i}.win.{f}"]) for f in WindowState._fields},
         device=dev)
-    pao = _put(arrays[f"g{i}.pao"], np.float32, dev)
-    now = _put(arrays[f"g{i}.now"], np.float32, dev)
+    pao = _put(own(arrays[f"g{i}.pao"]), np.float32, dev)
+    now = _put(own(arrays[f"g{i}.now"]), np.float32, dev)
     if session.n_shards:
         from repro_torch.distributed.eagr_shard import ShardedOverlay
         from repro_torch.distributed.stacked import StackedShardedEngine
 
         S = session.n_shards
-        plans = [plan_from_snapshot(_slice(arrays, f"g{i}.s{s}.plan."),
-                                    gobj["plans"][s], device=dev)
+        # every other shard's plan stays on the host of a rank
+        plans = [plan_from_snapshot(
+            _slice(arrays, f"g{i}.s{s}.plan."), gobj["plans"][s],
+            device=dev if mesh is None or s == mesh.rank else "cpu")
                  for s in range(S)]
         shards = [_overlay_from_arrays(arrays, f"g{i}.s{s}.",
                                        session._master_dup)
@@ -591,7 +606,8 @@ def _restore_group_same(session, i: int, gobj: dict, arrays: dict,
             shard_plans=plans,
             writer_rows=[p.writer_row_of_base for p in plans])
         g.dec_global = np.asarray(arrays[f"g{i}.dec"], np.int64)
-        g.engine = StackedShardedEngine(g.sharded, agg, spec,
+        g.engine = StackedShardedEngine(g.sharded, agg, spec, mesh=mesh,
+                                        device=dev,
                                         base_capacity=session.n_base)
         g.engine.pin_push = g.continuous
         g.engine.adopt_state(EngineState(win, pao, now),
@@ -678,7 +694,8 @@ def _restore_group_reshard(session, i: int, gobj: dict, arrays: dict,
             basis, dec, n_shards=M, seed=session.seed, device=dev,
             headroom=session.headroom)
         g.dec_global = dec
-        g.engine = StackedShardedEngine(g.sharded, agg, spec,
+        g.engine = StackedShardedEngine(g.sharded, agg, spec, mesh=None,
+                                        device=dev,
                                         base_capacity=session.n_base)
         g.engine.pin_push = g.continuous
         wins, paos = [], []
@@ -728,9 +745,9 @@ def restore_session(directory: str, *, step: int | None = None,
     from repro_torch.core.vnm import ConstructionStats
     from repro_torch.core.window import WindowSpec
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_shard_mesh
     from repro_torch.session import EagrSession, Query, QueryHandle
 
-    dev = resolve_device(device)
     mgr = CheckpointManager(directory)
     arrays, objs, step = mgr.restore_payload(step)
     if objs.get("format") != 1:
@@ -741,9 +758,16 @@ def restore_session(directory: str, *, step: int | None = None,
     target = old_shards if shards is None else int(shards)
     if target < 0:
         raise ValueError(f"shards must be >= 0, got {shards}")
+    mesh = make_shard_mesh(target, device=device) if target else None
+    if mesh is not None and target != old_shards:
+        raise ValueError(f"restore onto a group of {target} ranks takes the "
+                         f"saved layout of {old_shards} shards (shards=None); "
+                         f"resharding onto a group is not supported")
+    dev = mesh.device if mesh is not None else resolve_device(device)
 
     sess = object.__new__(EagrSession)
     sess.device = dev
+    sess.mesh = mesh
     sess.bipartite = None if graph is None else (
         graph if isinstance(graph, Bipartite) else build_bipartite(graph))
     sess.n_base = int(cfg["n_base"])

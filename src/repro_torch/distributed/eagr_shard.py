@@ -22,7 +22,9 @@ delta routing (``ShardedDynamic``), and the per-shard host loop helpers
 (``shard_write_batch`` / ``shard_read_batch``) kept as the parity and
 benchmark baseline. The production execution path is
 ``distributed.stacked.StackedShardedEngine``: all shards stacked along a
-leading axis of one card's tensors, batch routing on the device.
+leading axis of one card's tensors, batch routing on the device, or, inside
+a ``torch.distributed`` group of one rank per shard, each rank's own shard
+(``keep_local_shard`` uploads its plan and leaves the others on the host).
 
 Everything here is host numpy and equals the JAX package's array for
 array.
@@ -35,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.dataflow import PULL, PUSH
 from repro_torch.core.dynamic import DynamicOverlay
@@ -93,6 +96,22 @@ def align_shard_plans(shards: list[Overlay], decisions: list[np.ndarray],
         pad = grow_pad(pad, headroom)
     return [compile_plan(s, d, device=device, pad=pad)
             for s, d in zip(shards, decisions)]
+
+
+def keep_local_shard(sharded: ShardedOverlay, rank: int, device) -> None:
+    """One shard per rank: shard ``rank``'s plan tables go to ``device``,
+    the only tables this rank uploads; every other shard's plan stays on
+    the CPU as host bookkeeping (each rank replays every shard's churn on
+    it, so all ranks take the same realign decisions). Run on every rank
+    after ``partition_overlay(..., device="cpu")``, which gives every rank
+    the same plans from the same overlay, decisions and seed."""
+    from repro_torch.core.engine import _map_arrays
+
+    cpu = torch.device("cpu")
+    for s, p in enumerate(sharded.shard_plans):
+        dev = torch.device(device) if s == rank else cpu
+        if p.arrays.decision.device != dev:
+            p.arrays = _map_arrays(lambda x, dev=dev: x.to(dev), p.arrays)
 
 
 def partition_overlay(overlay: Overlay, decisions: np.ndarray,
@@ -181,11 +200,39 @@ def _project_decisions(full: Overlay, decisions: np.ndarray,
     return dec
 
 
+class _ShardJournals:
+    """Each shard's ``DynamicOverlay``, built on its first use (indexing or
+    iterating builds; ``built`` does not). A burst that touches one shard
+    builds that shard's journal only; every build starts from the same
+    construction snapshot, so a late build equals an early one."""
+
+    def __init__(self, build, n: int):
+        self._build = build
+        self._dyn: list[DynamicOverlay | None] = [None] * n
+
+    def __len__(self) -> int:
+        return len(self._dyn)
+
+    def __getitem__(self, s: int) -> DynamicOverlay:
+        if self._dyn[s] is None:
+            self._dyn[s] = self._build(s)
+        return self._dyn[s]
+
+    def __iter__(self):
+        return (self[s] for s in range(len(self._dyn)))
+
+    def built(self) -> list[tuple[int, DynamicOverlay]]:
+        return [(s, d) for s, d in enumerate(self._dyn) if d is not None]
+
+
 class ShardedDynamic:
     """Structural churn (§3.3) over a reader-partitioned deployment.
 
     Each shard adopts its sub-overlay into a ``DynamicOverlay`` (node ids
-    align 1:1 with the shard's compiled plan, so deltas patch in place).
+    align 1:1 with the shard's compiled plan, so deltas patch in place),
+    on the shard's first mutation (``dynamics``). ``live_writers`` (a
+    restored deployment's, whose saved overlays are unpruned exports) drops
+    the writer nodes a shard no longer has from its journal as it is built.
     Base-graph mutations are routed to the shards that own the affected
     readers — a writer-side change fans out to every shard consuming the
     writer, mirroring how writes themselves are replicated. ``apply()``
@@ -196,7 +243,7 @@ class ShardedDynamic:
     padded shape so execution stays on one compiled program."""
 
     def __init__(self, sharded: ShardedOverlay, engines=None,
-                 *, growth: float = 2.0):
+                 *, growth: float = 2.0, live_writers: list | None = None):
         from repro_torch.distributed.stacked import StackedShardedEngine
 
         self.sharded = sharded
@@ -204,11 +251,18 @@ class ShardedDynamic:
             else None
         self.engines = None if self.stacked is not None else engines
         self.growth = growth
-        self.dynamics: list[DynamicOverlay] = []
-        for sub in sharded.shards:
-            sets = sub.input_writer_sets()
-            ris = {sub.origin[v]: set(sets[v]) for v in sub.reader_nodes()}
-            self.dynamics.append(DynamicOverlay.from_overlay(sub, ris))
+        self._live_writers = live_writers
+        self.dynamics = _ShardJournals(self._journal, sharded.n_shards)
+
+    def _journal(self, s: int) -> DynamicOverlay:
+        sub = self.sharded.shards[s]
+        sets = sub.input_writer_sets()
+        ris = {sub.origin[v]: set(sets[v]) for v in sub.reader_nodes()}
+        dyn = DynamicOverlay.from_overlay(sub, ris)
+        if self._live_writers is not None:
+            from repro_torch.distributed.checkpoint import scrub_dead_writers
+            scrub_dead_writers(dyn, self._live_writers[s])
+        return dyn
 
     # --------------------------------------------------------------- routing
     def _owner(self, reader: int, *, allow_new: bool = False) -> int:
@@ -274,9 +328,10 @@ class ShardedDynamic:
         from repro_torch.core.plan_patch import patch_plan
 
         results = []
-        for s, dyn in enumerate(self.dynamics):
-            delta = dyn.drain_delta()
-            if delta.empty:
+        built = dict(self.dynamics.built())
+        for s in range(self.sharded.n_shards):
+            delta = built[s].drain_delta() if s in built else None
+            if delta is None or delta.empty:
                 results.append(None)
                 continue
             if self.stacked is not None:

@@ -1,5 +1,5 @@
 """Stacked execution of reader-partitioned EAGr shards (paper §7), on one
-card.
+card or one shard per rank of a ``torch.distributed`` group.
 
 ``eagr_shard.partition_overlay`` + ``align_shard_plans`` force every shard's
 ``ExecPlan`` onto one table shape. This module takes the remaining step: all
@@ -18,8 +18,34 @@ The step bodies are the engine's ``*_stacked`` twins of the single-engine
 bodies: each level is one launch of the segment kernel's stacked entry for
 all S shards, and per shard the arithmetic is the single engine's, so the
 stack equals the per-shard host loop (``eagr_shard.host_loop_write`` /
-``host_loop_read``) bit for bit. There is no mesh: the JAX package's
-``vmap`` fallback is what runs here, with the shard axis a tensor dimension.
+``host_loop_read``) bit for bit. Without a mesh the JAX package's ``vmap``
+fallback is what runs, with the shard axis a tensor dimension.
+
+On a mesh (``mesh="auto"`` inside a group of one rank per shard,
+``launch.mesh.make_shard_mesh``) the same bodies run SPMD, the counterpart
+of the JAX package's ``shard_map`` path: rank r holds only shard r's slice,
+as a stack of one (its ``PlanArrays``, windows, PAOs, clock and its own row
+of the owner maps; ``local == [r]``), and runs the segment kernel's stacked
+entries at S = 1. Input and output are replicated: every rank calls
+``write_batch`` / ``read_batch`` with the same global batch.
+
+  * Writes need no collective: each rank routes the batch through its own
+    owner map (the write replication the JAX body does by all-gather) and
+    chooses sparse or dense for its own shard (sparse equals dense bit for
+    bit, so the choice never changes an answer).
+  * Reads run shard-local; the answers come back by one all-gather of the
+    ranks' answers and a pick by owner, so every rank returns the whole
+    batch's answers, bit-equal to the one-card stack (no sum: the JAX
+    ``psum`` turns ``-0.0 + 0.0`` into ``+0.0``).
+  * Alerts: each rank evaluates its own readers' columns; the batch's fired
+    total is one all-reduce, and the fired buffers come back by all-gather
+    when something fired (``streams.alerts.AlertSet``).
+  * Churn: every rank applies every shard's delta. The owning rank patches
+    its slice in place; every other rank replays the patch on its host copy
+    of that shard's plan (the other shards' plans stay on the CPU). The
+    patch bookkeeping is deterministic, so every rank replays every shard's
+    host bookkeeping and reaches the same growth-fallback and ``restack``
+    decision with no collective.
 
 Structural churn patches one shard's slice in place: each shard plan's
 tables are views of the stack, so ``plan_patch.patch_plan`` on a shard
@@ -55,6 +81,7 @@ from repro_torch.core.window import (
     stack_windows,
     window_shard,
 )
+from repro_torch.distributed.eagr_shard import keep_local_shard
 
 BASE_BUCKET = 256  # owner maps grow in power-of-two multiples of this
 
@@ -80,7 +107,8 @@ def _stacked_meta(plans):
 
 
 class StackedShardedEngine:
-    """N reader-partitioned shards stacked on one device.
+    """N reader-partitioned shards stacked on one device, or one shard per
+    rank of a mesh.
 
     Owns the stacked runtime state of a ``ShardedOverlay`` whose plans were
     aligned by ``align_shard_plans``:
@@ -92,21 +120,38 @@ class StackedShardedEngine:
       maps     writer_map / reader_map (S, base_cap) int32 on the device,
                -1 = not owned
 
-    ``write_batch`` / ``read_batch`` take *global* batches of base ids and
-    route them on the device through the owner maps. Structural churn
-    patches one shard slice at a time (``apply_delta``); a growth fallback
-    on any shard triggers a stack-wide realign + ``restack``.
+    ``local`` lists the shards this process holds: all S on one card, the
+    rank's own on a mesh, where each of the tensors above has a leading
+    axis of 1. ``write_batch`` / ``read_batch`` take *global* batches of
+    base ids and route them on the device through the owner maps.
+    Structural churn patches one shard slice at a time (``apply_delta``); a
+    growth fallback on any shard triggers a stack-wide realign +
+    ``restack``.
+
+    ``mesh="auto"`` takes ``make_shard_mesh(n_shards, device=device)``: a
+    group of exactly ``n_shards`` ranks runs one shard per rank, anything
+    less runs the stack on one device (``device``, else the plans').
     """
 
     def __init__(self, sharded, aggregate: Aggregate,
-                 window: WindowSpec | None = None, *,
-                 base_capacity: int | None = None):
+                 window: WindowSpec | None = None, *, mesh="auto",
+                 device=None, base_capacity: int | None = None):
+        from repro_torch.launch.mesh import make_shard_mesh
+
         self.sharded = sharded
         self.agg = aggregate
         self.spec = window or WindowSpec(kind="tuple", size=1)
         self.n_shards = sharded.n_shards
         self.meta = _stacked_meta(sharded.shard_plans)
-        self.device = sharded.shard_plans[0].arrays.decision.device
+        self.mesh = make_shard_mesh(self.n_shards, device=device) \
+            if mesh == "auto" else mesh
+        if self.mesh is not None:
+            self.device = self.mesh.device
+            self.local = [self.mesh.rank]
+        else:
+            self.device = torch.device(device) if device is not None \
+                else sharded.shard_plans[0].arrays.decision.device
+            self.local = list(range(self.n_shards))
         self._adopt_arrays()
         self.state = self.init_state()
         self._base_cap = _bucket_base_cap(base_capacity or 1)
@@ -117,7 +162,8 @@ class StackedShardedEngine:
         self.pin_push = False  # continuous groups: churn-added nodes stay PUSH
         # host clocks mirror EagrEngine's; `now` advances in lockstep (every
         # global batch runs on every shard) but the last PAO-eval instant is
-        # per shard — a slice patch refreshes one shard's PAOs only
+        # per shard — a slice patch refreshes one shard's PAOs only. Every
+        # process keeps every shard's instant.
         self._now_host = 0.0
         self._last_eval_now = np.zeros(self.n_shards, np.float32)
         self.refresh_owner_maps()
@@ -129,12 +175,23 @@ class StackedShardedEngine:
         return self.sharded.shard_plans
 
     def _adopt_arrays(self) -> None:
-        """Stack the shard plans' tables and point every plan at its slice
+        """Stack the held shard plans' tables and point each at its slice
         of the stack (views), so patching a plan patches the stack."""
         plans = self.sharded.shard_plans
-        self.arrays = stack_plan_arrays([p.arrays for p in plans])
-        for s, p in enumerate(plans):
-            p.arrays = plan_arrays_shard(self.arrays, s)
+        if self.mesh is not None:
+            keep_local_shard(self.sharded, self.mesh.rank, self.device)
+        self.arrays = stack_plan_arrays([plans[s].arrays for s in self.local])
+        for i, s in enumerate(self.local):
+            plans[s].arrays = plan_arrays_shard(self.arrays, i)
+
+    def gather_shards(self, t: torch.Tensor) -> torch.Tensor:
+        """A tensor over this process's shards, ``(len(local), ...)``, as
+        the whole stack's ``(S, ...)``: itself on one card, the all-gather
+        of every rank's slice on a mesh (a collective: every rank calls
+        it)."""
+        if self.mesh is None:
+            return t
+        return self.mesh.all_gather(t).flatten(0, 1)
 
     def attach_alerts(self, alerts) -> None:
         """Attach an ``AlertSet`` over the stack: rows resolve to (owner
@@ -149,7 +206,7 @@ class StackedShardedEngine:
 
     # ------------------------------------------------------------------ state
     def init_state(self) -> EngineState:
-        S, dev = self.n_shards, self.device
+        S, dev = len(self.local), self.device
         windows = stack_windows([init_windows(self.meta.n_writers, self.spec,
                                               device=dev) for _ in range(S)])
         pao = torch.stack([self.agg.init_pao(self.meta.n_nodes, device=dev)
@@ -159,10 +216,10 @@ class StackedShardedEngine:
 
     def adopt_state(self, state: EngineState, *, now_host: float,
                     last_eval_now) -> None:
-        """Adopt a stacked ``EngineState`` plus the host clock mirror and
-        the per-shard last-PAO-eval instants (checkpoint restore), verbatim:
-        no PAO refresh, so restored reads equal the saved session's bit for
-        bit."""
+        """Adopt a stacked ``EngineState`` of the held shards plus the host
+        clock mirror and every shard's last-PAO-eval instant (checkpoint
+        restore), verbatim: no PAO refresh, so restored reads equal the
+        saved session's bit for bit."""
         lev = np.asarray(last_eval_now, np.float32).reshape(-1).copy()
         if len(lev) != self.n_shards:
             raise ValueError(f"last_eval_now has {len(lev)} shards, engine "
@@ -170,6 +227,16 @@ class StackedShardedEngine:
         self.state = state
         self._now_host = float(now_host)
         self._last_eval_now = lev
+
+    def global_state_host(self) -> EngineState:
+        """Every shard's state as host arrays, (S, ...) leaves: on a mesh
+        one all-gather of the ranks' states (a collective)."""
+        st = self.state
+        leaves = to_host(*st.windows, st.pao, st.now)
+        if self.mesh is not None:
+            parts = self.mesh.all_gather_object(leaves)
+            leaves = [np.concatenate(xs) for xs in zip(*parts)]
+        return EngineState(type(st.windows)(*leaves[:-2]), *leaves[-2:])
 
     def refresh_owner_maps(self) -> None:
         """Rebuild the device-resident base-id routing maps from the host
@@ -197,9 +264,13 @@ class StackedShardedEngine:
         # dense host twin of "some shard owns this base id": the read path's
         # unknown-id check is one vectorized gather against it
         self._reader_known = (rmap >= 0).any(axis=0)
+        # every shard's reader map on the host: a mesh read picks each
+        # lane's answer by owner from it
+        self._rmap_host = rmap
         # fresh tensors (a later patch scatters into them in place)
         self.writer_map, self.reader_map = (
-            t.clone() for t in stage([(wmap, np.int32), (rmap, np.int32)],
+            t.clone() for t in stage([(wmap[self.local], np.int32),
+                                      (rmap[self.local], np.int32)],
                                      self.device))
 
     def _chunk(self, ids: np.ndarray, vals: np.ndarray | None,
@@ -227,14 +298,15 @@ class StackedShardedEngine:
 
     # -------------------------------------------------------------- execution
     def _frontier_active(self, base_ids: np.ndarray):
-        """Per-shard frontier expansion for one global batch: a per-level
-        tuple of (S, K_l) active-block arrays, each shard's list padded with
-        the level's block count to the widest shard's bucketed width, or
-        ``None`` for the dense stacked sweep. All shards go sparse together
-        or none does (one step runs the whole stack). Extremal time windows
-        stay dense: the stack keeps no expiry bookkeeping to bound the
-        stale set. ``auto`` uses the JAX package's rule (a large batch or a
-        frontier past the density threshold goes dense)."""
+        """Per-shard frontier expansion of the held shards for one global
+        batch: a per-level tuple of (len(local), K_l) active-block arrays,
+        each shard's list padded with the level's block count to the widest
+        shard's bucketed width, or ``None`` for the dense stacked sweep.
+        The held shards go sparse together or none does (one step runs
+        them all); on a mesh each rank decides for its own shard. Extremal
+        time windows stay dense: the stack keeps no expiry bookkeeping to
+        bound the stale set. ``auto`` uses the JAX package's rule (a large
+        batch or a frontier past the density threshold goes dense)."""
         from repro_torch.core import frontier as F
 
         mode = F.sparse_mode()
@@ -245,7 +317,8 @@ class StackedShardedEngine:
         ids = np.asarray(base_ids, np.int64).reshape(-1)
         exact = self.agg.combine == "sum"
         acts = []
-        for p in self.sharded.shard_plans:
+        for s in self.local:
+            p = self.sharded.shard_plans[s]
             rows, mask = p.routes.writer_rows(ids)
             density = None
             if mode == "auto":
@@ -276,18 +349,19 @@ class StackedShardedEngine:
         """Apply one *global* write batch. Every shard sees the whole batch
         (the paper's write replication) and keeps the writes it consumes;
         writes owned by no shard are dropped on the device, like the single
-        engine drops writes that feed no reader. When every shard's batch
-        frontier expands (``EAGR_SPARSE_WRITE``), the level sweeps run over
-        the stacked active-block lists. The batch, its mask and the active
-        lists travel as one copy; the step is queued and the call returns
-        without waiting for it."""
+        engine drops writes that feed no reader. When every held shard's
+        batch frontier expands (``EAGR_SPARSE_WRITE``), the level sweeps run
+        over the stacked active-block lists. The batch, its mask and the
+        active lists travel as one copy; the step is queued and the call
+        returns without waiting for it (on a mesh with alerts attached, the
+        fired total's all-reduce is the one collective)."""
         base_ids = np.asarray(base_ids)
         values = np.asarray(values, np.float32)
         active = self._frontier_active(base_ids)
         host = self._chunk(base_ids, values, batch_size)
         extremal = self.agg.combine != "sum"
         if extremal:
-            host.append((self._last_eval_now, np.float32))
+            host.append((self._last_eval_now[self.local], np.float32))
             # rebound, never mutated: the staged copy may still be reading
             self._last_eval_now = np.full(self.n_shards, self._now_host,
                                           np.float32)
@@ -315,13 +389,19 @@ class StackedShardedEngine:
 
             out = alert_eval_stacked(self.agg, al.state, ns.pao,
                                      ns.now - 1.0, al.cap)
+            if self.mesh is not None:
+                # the batch's fired total over every rank's readers
+                count = out[0]
+                total = self.mesh.all_reduce_sum(count[:1])
+                out = (torch.cat([total, count[1:]]),) + tuple(out[1:])
             al.push_pending(self._now_host, *out)
         self._now_host += 1.0
 
     def read_batch(self, base_ids: np.ndarray,
                    batch_size: int | None = None) -> np.ndarray:
         """Answer one global read batch: shard-local pull sweeps, then the
-        gather by owner. Raises on the host for base ids no shard owns."""
+        gather by owner (on a mesh, over one all-gather of the ranks'
+        answers). Raises on the host for base ids no shard owns."""
         base_ids = np.asarray(base_ids)
         ids64 = base_ids.astype(np.int64).reshape(-1)
         known = np.zeros(len(ids64), bool)
@@ -332,13 +412,22 @@ class StackedShardedEngine:
                 f"read_batch: base ids "
                 f"{sorted(set(map(int, ids64[~known])))[:8]} are owned "
                 f"by no shard (not readers of any shard overlay)")
-        ids_d, valid_d = stage(self._chunk(base_ids, None, batch_size),
-                               self.device)
+        chunk = self._chunk(base_ids, None, batch_size)
+        ids_d, valid_d = stage(chunk, self.device)
         nodes = self.reader_map.index_select(1, ids_d.to(torch.int64))
         own = valid_d[None, :] & (nodes >= 0)
         fin, _ = read_step_stacked(self.meta, self.agg, self.arrays,
                                    self.state, torch.clamp(nodes, min=0), own)
-        (out,) = to_host(fin)
+        if self.mesh is None:
+            (out,) = to_host(fin)
+            return out[: len(base_ids)]
+        # every rank's answers, then each lane's from the shard that owns
+        # it (as read_step_stacked picks on one card)
+        (every,) = to_host(self.mesh.all_gather(fin))
+        idp, valid = chunk[0][0], chunk[1][0]
+        owns = valid[None, :] & (self._rmap_host[:, idp] >= 0)
+        owner = (owns * np.arange(self.n_shards)[:, None]).sum(0)
+        out = every[owner, np.arange(len(idp))]
         return out[: len(base_ids)]
 
     # ----------------------------------------------------- structural updates
@@ -347,8 +436,10 @@ class StackedShardedEngine:
         stack, so an in-capacity patch writes its edits into exactly that
         slice of the stacked tables in place (the storage is kept; the
         other shards' tables, windows and PAOs are untouched); owner-map
-        rows are scattered in place the same way. A growth fallback defers
-        to ``restack``."""
+        rows are scattered in place the same way. On a mesh the rank that
+        holds shard ``s`` does that; every other rank replays the patch on
+        its host copy of the plan and its host owner bookkeeping. A growth
+        fallback defers to ``restack``."""
         from repro_torch.core.plan_patch import patch_plan
 
         plan = self.sharded.shard_plans[s]
@@ -379,8 +470,9 @@ class StackedShardedEngine:
     def _patch_owner_maps(self, s: int, wm_before: dict, rm_before: dict,
                           plan) -> None:
         """Scatter only shard ``s``'s changed owner-map rows into the device
-        maps, in place. A base id past the current capacity bucket falls
-        back to the full rebuild."""
+        maps (where this process holds shard ``s``) and their host twins,
+        in place. A base id past the current capacity bucket falls back to
+        the full rebuild."""
         wm, rm = plan.writer_row_of_base, plan.reader_node_of_base
         w_edits = [(b, r) for b, r in wm.items() if wm_before.get(b) != r]
         w_edits += [(b, -1) for b in wm_before if b not in wm]
@@ -392,6 +484,7 @@ class StackedShardedEngine:
             self.refresh_owner_maps()
             return
         for b, n in r_edits:
+            self._rmap_host[s, int(b)] = n
             if n >= 0:
                 self._reader_owner[int(b)] = s
                 self._reader_known[int(b)] = True
@@ -400,29 +493,36 @@ class StackedShardedEngine:
                 # MOVED shards may have been claimed by its new home already
                 self._reader_owner.pop(int(b), None)
                 self._reader_known[int(b)] = False
+        if s not in self.local:
+            return
+        i = self.local.index(s)
         for m, edits in ((self.writer_map, w_edits),
                          (self.reader_map, r_edits)):
             if edits:
                 e = np.asarray(edits, np.int64).reshape(-1, 2)
                 base, val = stage([(e[:, 0], np.int64), (e[:, 1], np.int32)],
                                   self.device)
-                m[s].index_copy_(0, base, val)
+                m[i].index_copy_(0, base, val)
 
     def _refresh_shard_state(self, s: int, retired_rows) -> None:
         """Migrate one shard's window/PAO slice after an in-capacity patch,
-        in place: retired writer rows are zeroed and the slice's PAOs
-        recomputed through its (patched) push tables."""
-        plan = self.sharded.shard_plans[s]
-        win_s = window_shard(self.state.windows, s)
-        if retired_rows:
-            win_s = reset_window_rows(win_s, retired_rows)
-            place_window_shard(self.state.windows, s, win_s)
-        pao_s = refresh_pao_step(plan.meta, self.agg, self.spec, plan.arrays,
-                                 win_s, self.state.now[s])
-        self.state.pao[s].copy_(pao_s)
+        in place (where this process holds it): retired writer rows are
+        zeroed and the slice's PAOs recomputed through its (patched) push
+        tables. Every process records the shard's new last-eval instant."""
         lev = self._last_eval_now.copy()
         lev[s] = self._now_host
         self._last_eval_now = lev
+        if s not in self.local:
+            return
+        i = self.local.index(s)
+        plan = self.sharded.shard_plans[s]
+        win_s = window_shard(self.state.windows, i)
+        if retired_rows:
+            win_s = reset_window_rows(win_s, retired_rows)
+            place_window_shard(self.state.windows, i, win_s)
+        pao_s = refresh_pao_step(plan.meta, self.agg, self.spec, plan.arrays,
+                                 win_s, self.state.now[i])
+        self.state.pao[i].copy_(pao_s)
 
     def adopt_shard_plans(self) -> None:
         """Re-adopt the whole stack from ``sharded.shard_plans`` (a decision
@@ -434,21 +534,23 @@ class StackedShardedEngine:
     def restack(self) -> None:
         """Re-adopt every shard plan after a stack-wide realignment (a
         growth fallback on any shard): new meta, re-stacked arrays, window
-        rows padded per shard, all PAO slices refreshed, owner maps
+        rows padded per shard, all held PAO slices refreshed, owner maps
         rebuilt."""
         plans = self.sharded.shard_plans
         self.meta = _stacked_meta(plans)
         self._adopt_arrays()
         wins, paos = [], []
-        for s, p in enumerate(plans):
-            w = pad_window_rows(window_shard(self.state.windows, s),
+        for i, s in enumerate(self.local):
+            w = pad_window_rows(window_shard(self.state.windows, i),
                                 self.meta.n_writers)
-            retired = self._pending_retired.pop(s, None)
+            retired = self._pending_retired.get(s)
             if retired:
                 w = reset_window_rows(w, retired)
             wins.append(w)
-            paos.append(refresh_pao_step(p.meta, self.agg, self.spec,
-                                         p.arrays, w, self.state.now[s]))
+            paos.append(refresh_pao_step(plans[s].meta, self.agg, self.spec,
+                                         plans[s].arrays, w,
+                                         self.state.now[i]))
+        self._pending_retired.clear()
         self.state = EngineState(stack_windows(wins), torch.stack(paos),
                                  self.state.now)
         self._last_eval_now = np.full(self.n_shards, self._now_host,

@@ -1,7 +1,28 @@
-"""Production mesh shapes: the JAX package's ``repro.launch.mesh`` as
-``MeshShape``s (axis names and sizes, no devices), which the sharding rules
-and the dry run's per-device bytes read."""
+"""Production mesh shapes, and the EAGr shard mesh over a ``torch.distributed``
+group.
+
+``make_production_mesh`` / ``make_host_mesh`` are the JAX package's
+``repro.launch.mesh`` as ``MeshShape``s (axis names and sizes, no devices),
+which the sharding rules and the dry run's per-device bytes read.
+
+``make_shard_mesh`` is the counterpart of the JAX package's 1-D shard mesh:
+where the JAX package runs one controller over one device per shard, the
+port runs one process per shard (SPMD), each holding its own shard. The
+returned :class:`ShardMesh` carries the group, this rank, the world size and
+this rank's device, and stages every collective on the device the group's
+backend takes: the rank's CUDA device for ``nccl``, the CPU for ``gloo``.
+
+``init_group`` and ``spawn_group`` start such a group on one host: a
+``file://`` store, a timeout on every collective, and a join deadline, so a
+rank that fails or hangs ends the run with an error instead of a hang.
+"""
 from __future__ import annotations
+
+import dataclasses
+import datetime
+import time
+
+import torch
 
 from repro_torch.distributed.sharding import MeshShape
 
@@ -23,14 +44,137 @@ def make_host_mesh() -> MeshShape:
 SHARD_AXIS = "shard"
 
 
-def make_shard_mesh(n_shards: int) -> MeshShape | None:
-    """1-D mesh of ``n_shards`` ranks along the EAGr shard axis, or None
-    unless ``torch.distributed`` is initialised with at least ``n_shards``
-    ranks (the JAX package's rule: fewer devices than shards gives None,
-    and the stacked engine keeps its one-card path)."""
+@dataclasses.dataclass(frozen=True)
+class ShardMesh(MeshShape):
+    """One EAGr shard per rank of a ``torch.distributed`` group: the 1-D
+    mesh ``(SHARD_AXIS,)`` of ``world`` ranks, seen from rank ``rank``.
+
+    ``device`` is where this rank's shard lives; ``comm`` where its
+    collectives stage tensors (``device`` under ``nccl``, the CPU under
+    ``gloo``), decided once from the group's backend."""
+
+    group: object = None
+    rank: int = 0
+    world: int = 1
+    device: torch.device = torch.device("cpu")
+    comm: torch.device = torch.device("cpu")
+    backend: str = "gloo"
+
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        # collectives carry no bool: bools travel as uint8
+        t = t.to(self.comm)
+        return t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` stacked in rank order, ``(world, *t.shape)``,
+        on ``comm``."""
+        import torch.distributed as dist
+
+        x = self._staged(t)
+        out = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(out, x, group=self.group)
+        out = torch.stack(out)
+        return out.to(torch.bool) if t.dtype == torch.bool else out
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks, on ``t``'s device."""
+        import torch.distributed as dist
+
+        x = self._staged(t).clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x.to(device=t.device, dtype=t.dtype)
+
+    def all_gather_object(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order."""
+        import torch.distributed as dist
+
+        out = [None] * self.world
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def barrier(self) -> None:
+        """Wait until every rank got here (one all-reduce on ``comm``)."""
+        self.all_reduce_sum(torch.zeros(1, device=self.comm))
+
+
+def make_shard_mesh(n_shards: int, *, device=None,
+                    group=None) -> ShardMesh | None:
+    """The shard mesh of ``n_shards`` ranks, or None.
+
+    The JAX package's rule: without an initialised ``torch.distributed``
+    group, or with fewer ranks than shards, there is no mesh and the
+    stacked engine runs every shard on one card. A group of exactly
+    ``n_shards`` ranks holds one shard per rank; a larger group raises.
+    Rank r runs on ``cuda:{r % torch.cuda.device_count()}`` unless
+    ``device`` names another."""
     import torch.distributed as dist
 
-    if not (dist.is_available() and dist.is_initialized()) \
-            or dist.get_world_size() < n_shards:
+    from repro_torch.device import resolve_device
+
+    if not (dist.is_available() and dist.is_initialized()):
         return None
-    return MeshShape((SHARD_AXIS,), (n_shards,))
+    world = dist.get_world_size(group)
+    if world < n_shards:
+        return None
+    if world > n_shards:
+        raise ValueError(f"a group of {world} ranks holds one shard per rank: "
+                         f"it cannot run {n_shards} shards")
+    rank = dist.get_rank(group)
+    if device is None:
+        resolve_device(None)   # raises without a card
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    backend = str(dist.get_backend(group))
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError(f"an nccl group needs CUDA devices, got {device}")
+        torch.cuda.set_device(device)
+        comm = device
+    else:
+        comm = torch.device("cpu")
+    return ShardMesh((SHARD_AXIS,), (n_shards,), group=group, rank=rank,
+                     world=world, device=device, comm=comm, backend=backend)
+
+
+def init_group(rank: int, world: int, store: str, *, backend: str = "gloo",
+               timeout_s: float = 120.0, device=None) -> None:
+    """Join a ``world``-rank group over the ``file://`` store at ``store``
+    (a path no earlier group used). Every collective of the group fails
+    after ``timeout_s`` seconds instead of hanging. An ``nccl`` rank first
+    makes ``device`` its current CUDA device."""
+    import torch.distributed as dist
+
+    if backend == "nccl" and device is not None:
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def spawn_group(fn, world: int, args: tuple = (), *,
+                join_timeout_s: float = 300.0) -> None:
+    """Run ``fn(rank, *args)`` in ``world`` processes started by
+    ``torch.multiprocessing`` (``spawn``). Raises the first rank's error, or
+    ``TimeoutError`` (after terminating every rank) when the ranks have not
+    all ended within ``join_timeout_s`` seconds."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + join_timeout_s
+    try:
+        while not ctx.join(timeout=max(0.0, min(
+                1.0, deadline - time.monotonic()))):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks still running after "
+                                   f"{join_timeout_s:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        for p in ctx.processes:
+            p.join(5.0)
+            if p.is_alive():
+                p.kill()

@@ -29,7 +29,10 @@ Deployment shape is a constructor argument, not a different API:
 ``EagrSession(graph, shards=N)`` stands up ``partition_overlay ->
 align_shard_plans -> StackedShardedEngine`` (paper §7's reader-partitioned
 shards, stacked on one card) behind the same methods, with churn journaled
-per shard (``ShardedDynamic``).
+per shard (``ShardedDynamic``). Inside an initialised ``torch.distributed``
+group of exactly N ranks the same call holds one shard per rank
+(``launch.mesh.make_shard_mesh``): every rank makes the same calls with the
+same global batches, and ``read`` returns the global answers on every rank.
 
 Sessions are durable: ``save`` checkpoints every group's plans, windows,
 PAOs and clocks (two-phase commit, written by a background thread),
@@ -276,12 +279,17 @@ class _EngineGroup:
             # creation-time global decisions over the basis id space: the
             # repartition key a checkpoint needs to reshard N -> M
             self.dec_global = decisions
+            # on a group every rank partitions alike on the host; the
+            # engine uploads the rank's own shard only
+            mesh = session.mesh
             self.sharded = partition_overlay(
                 basis, decisions, n_shards=session.n_shards,
-                seed=session.seed, device=session.device,
+                seed=session.seed,
+                device="cpu" if mesh is not None else session.device,
                 headroom=session.headroom)
             self.engine = StackedShardedEngine(
-                self.sharded, agg, spec, base_capacity=session.n_base)
+                self.sharded, agg, spec, mesh=mesh, device=session.device,
+                base_capacity=session.n_base)
             self.sdyn = ShardedDynamic(self.sharded, self.engine,
                                        growth=session.growth)
         else:
@@ -306,17 +314,15 @@ class _EngineGroup:
         if self.dyn is not None or self.sdyn is not None:
             return
         if self.session.n_shards:
-            from repro_torch.distributed.checkpoint import scrub_dead_writers
             from repro_torch.distributed.eagr_shard import ShardedDynamic
 
-            self.sdyn = ShardedDynamic(self.sharded, self.engine,
-                                       growth=self.session.growth)
             # the saved per-shard overlays are unpruned exports: deleted
             # writer nodes linger with their 'W' label and must not be
-            # re-registered as live by the rebuilt journal
-            for s, dyn in enumerate(self.sdyn.dynamics):
-                scrub_dead_writers(
-                    dyn, set(self.sharded.shard_plans[s].writer_row_of_base))
+            # re-registered as live by the rebuilt journals
+            self.sdyn = ShardedDynamic(
+                self.sharded, self.engine, growth=self.session.growth,
+                live_writers=[set(p.writer_row_of_base)
+                              for p in self.sharded.shard_plans])
         else:
             self.dyn = self.session._master.fork()
 
@@ -324,7 +330,7 @@ class _EngineGroup:
     def journal_nodes(self) -> int:
         """Overlay nodes the next flush() will drain across this group."""
         if self.sdyn is not None:
-            return sum(d.pending_nodes for d in self.sdyn.dynamics)
+            return sum(d.pending_nodes for _, d in self.sdyn.dynamics.built())
         return self.dyn.pending_nodes if self.dyn is not None else 0
 
     def flush(self, growth: float):
@@ -414,7 +420,10 @@ class EagrSession:
     shards : int | None
         ``None`` runs each engine group on one :class:`EagrEngine`; ``N``
         reader-partitions the overlay into N shards stacked on the device
-        (:class:`~repro_torch.distributed.stacked.StackedShardedEngine`).
+        (:class:`~repro_torch.distributed.stacked.StackedShardedEngine`),
+        or, inside a ``torch.distributed`` group of N ranks, one shard per
+        rank: rank r on ``device``, else ``cuda:{r % device_count}``. The
+        ingest ring does not run on a group.
     ckpt_dir, ckpt_every, ckpt_keep :
         Auto-checkpointing: every ``ckpt_every`` updates the session saves
         to ``ckpt_dir`` in the background, keeping the newest ``ckpt_keep``
@@ -433,10 +442,15 @@ class EagrSession:
                  ckpt_dir: str | None = None,
                  ckpt_every: int | None = None,
                  ckpt_keep: int | None = None):
-        self.device = resolve_device(device)
+        from repro_torch.launch.mesh import make_shard_mesh
+
         self.n_shards = int(shards) if shards else 0
         if shards is not None and self.n_shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
+        self.mesh = make_shard_mesh(self.n_shards, device=device) \
+            if self.n_shards else None
+        self.device = self.mesh.device if self.mesh is not None \
+            else resolve_device(device)
         bp = graph if isinstance(graph, Bipartite) else build_bipartite(
             graph, hops=hops, pred=pred, neighborhood=neighborhood)
         self.bipartite = bp
@@ -478,6 +492,9 @@ class EagrSession:
             ingest_batch = int(os.environ.get("EAGR_INGEST_BATCH", "0") or 0)
         self.ingest_depth = max(0, int(ingest_depth))
         self.ingest_batch = int(ingest_batch) or 8192
+        if self.ingest_depth and self.mesh is not None:
+            raise ValueError("the ingest ring does not run on a group of "
+                             "ranks yet: pass ingest_depth=0")
         self._pipeline = None
         self._carry_ingest = None  # IngestStats across pipeline rebuilds
         # durable sessions: the update-batch sequence number doubles as the
@@ -872,7 +889,11 @@ class EagrSession:
         wait) and hands the files to the checkpoint thread
         (``blocking=False``), so updates resume while they are written. The
         commit is atomic (two-phase manifest + rename): a crash mid-save
-        leaves the previous committed checkpoint restorable.
+        leaves the previous committed checkpoint restorable. On a group of
+        ranks every rank calls it: one gather of the shard states, then
+        rank 0 writes the one-card stack's format (a blocking save, and
+        :meth:`wait_for_checkpoint`, return on every rank after the
+        commit).
 
         ``directory`` defaults to the session's ``ckpt_dir``; ``step``
         defaults to the update-batch sequence number, which is what
@@ -889,15 +910,21 @@ class EagrSession:
         from repro_torch.distributed.checkpoint import snapshot_session
         arrays, objs = snapshot_session(self)
         step = self._seq if step is None else int(step)
-        self._ckpt_manager(directory, keep).save_payload(
-            step, arrays, objs, blocking=blocking)
+        if self.mesh is None or self.mesh.rank == 0:
+            self._ckpt_manager(directory, keep).save_payload(
+                step, arrays, objs, blocking=blocking)
+        if blocking and self.mesh is not None:
+            self.mesh.barrier()
         self._last_ckpt_step = step
         return step
 
     def wait_for_checkpoint(self) -> None:
-        """Block until every in-flight background save committed."""
+        """Block until every in-flight background save committed (on a
+        group, on every rank)."""
         for mgr in self._ckpt_mgrs.values():
             mgr.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     @classmethod
     def restore(cls, directory: str, *, step: int | None = None,
@@ -909,7 +936,9 @@ class EagrSession:
 
         ``shards=None`` restores the saved deployment shape bit for bit —
         compiled plans, window rings, PAOs and clocks adopt verbatim, with
-        no construction, min-cut or compilation. ``shards=M`` (``M >= 1``,
+        no construction, min-cut or compilation; inside a group of as many
+        ranks as the checkpoint has shards, every rank adopts its own
+        shard only. ``shards=M`` (``M >= 1``,
         or ``0`` for a single engine) reshards: plans recompile over the
         saved master overlay and window rings redistribute by base writer
         id. A checkpoint the JAX package wrote restores here, and the
@@ -943,6 +972,9 @@ class EagrSession:
             group.ensure_journal()
 
     def _ingest(self):
+        if self.mesh is not None:
+            raise ValueError("the ingest ring does not run on a group of "
+                             "ranks yet: pass ingest_depth=0")
         if self._pipeline is None:
             from repro_torch.streams.ingest import IngestPipeline
             self._pipeline = IngestPipeline(

@@ -287,6 +287,9 @@ class AlertSet:
         self._row_base: np.ndarray | None = None  # (S, n_rows) node -> base
         self._row_aid: np.ndarray | None = None   # (S, n_rows) node -> aid
         self._stacked = False
+        # a mesh engine's gather of every rank's shards (None elsewhere):
+        # the device columns hold the rank's own shard only
+        self._gather = None
         self.state: AlertState | None = None
         # ------------------------- fired-set plumbing
         self._pending: collections.deque = collections.deque()
@@ -387,7 +390,7 @@ class AlertSet:
         if self.state is None or not self._placed.any():
             return
         host = dict(zip(DYNAMIC_FIELDS, to_host(
-            *(getattr(self.state, f) for f in DYNAMIC_FIELDS))))
+            *(self._global(getattr(self.state, f)) for f in DYNAMIC_FIELDS))))
         # a registration appends bases after the placed ones; only the
         # placed prefix has device rows (the JAX package indexes the whole
         # column with the shorter mask and raises on a second registration)
@@ -395,6 +398,11 @@ class AlertSet:
         for f in DYNAMIC_FIELDS:
             col = host[f] if self._stacked else host[f][None]
             self._dyn[f][: len(p)][p] = col[self._shard[p], self._node[p]]
+
+    def _global(self, t: torch.Tensor) -> torch.Tensor:
+        """A device column (or PAO) over every shard: on a mesh the
+        all-gather of the ranks' own (a collective every rank calls)."""
+        return t if self._gather is None else self._gather(t)
 
     @staticmethod
     def _plans(engine) -> list:
@@ -411,6 +419,8 @@ class AlertSet:
         self._pull_dynamic()
         plans = self._plans(engine)
         self._stacked = getattr(engine, "shard_plans", None) is not None
+        self._gather = engine.gather_shards \
+            if getattr(engine, "mesh", None) is not None else None
         S, n_rows = len(plans), plans[0].meta.n_nodes
 
         if retired is not None and len(retired):
@@ -497,6 +507,9 @@ class AlertSet:
             cols[f][at] = col
         for f, col in self._dyn.items():
             cols[f][at] = col
+        if self._gather is not None:
+            # a mesh rank evaluates its own shard's readers only
+            cols = {f: c[engine.local] for f, c in cols.items()}
         self.state = AlertState(**{
             f: torch.as_tensor(c, device=engine.device)
             for f, c in cols.items()})
@@ -504,7 +517,7 @@ class AlertSet:
     def _measures_host(self, engine) -> np.ndarray:
         """Current finalized measure per registered base (one readback;
         only at registration / churn barriers, never per batch)."""
-        (pao,) = to_host(engine.state.pao)
+        (pao,) = to_host(self._global(engine.state.pao))
         if not self._stacked:
             pao = pao[None]
         fin = np.asarray(engine.agg.FINALIZE(pao.reshape(-1, pao.shape[-1])),
@@ -551,6 +564,13 @@ class AlertSet:
             self.detect_s.append(time.perf_counter() - t_disp)
             if int(count.reshape(-1)[0]) == 0:
                 continue
+            if self._gather is not None:
+                # the total was all-reduced, so every rank gets here: the
+                # ranks' compact buffers, in rank order
+                per, idx, vals = to_host(*(
+                    self._gather(torch.from_numpy(np.ascontiguousarray(a)))
+                    for a in (count.reshape(-1)[1:], idx, vals)))
+                count = np.concatenate([count.reshape(-1)[:1], per])
             batch = self._to_batch(now, idx, vals, count, fired, m)
             if len(batch):
                 self.fired.append(batch)
@@ -571,7 +591,7 @@ class AlertSet:
         for s, c in enumerate(counts):
             if c > self.cap:
                 if dense is None:
-                    dense = to_host(fired, m)
+                    dense = to_host(self._global(fired), self._global(m))
                     if not self._stacked:
                         dense = [d[None] for d in dense]
                 nodes = np.flatnonzero(dense[0][s])

@@ -253,7 +253,8 @@ def test_port_loads_no_jax_and_no_repro():
     churn burst, a sparse write and read, and an adaptation), a pipelined
     session (``ingest_depth=2``) with a standing alert, a sharded session
     with churn, a save, a restore and a reshard, the recovery driver, the
-    streams and the eagr config, the serve path (LM prefill and decode,
+    streams and the eagr config, the shard mesh on a one-rank group, the
+    serve path (LM prefill and decode,
     a MoE arch's prefill and the launcher serving one, DIEN scoring and
     retrieval, the launcher) and the training path (a smoke train step,
     one of each GNN arch, and the training launcher with an injected
@@ -316,6 +317,22 @@ def test_port_loads_no_jax_and_no_repro():
         assert (back.read(back.queries[0], sh.readers[:8]) == want).all()
         one = EagrSession.restore(d + "/c", shards=0, device="cpu")
         assert one.read(one.queries[0], sh.readers[:8]).shape == want.shape
+        # the shard mesh: a sharded session on a gloo group of one rank,
+        # saved and restored onto the group
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as M
+        M.init_group(0, 1, d + "/pg", backend="gloo", timeout_s=60)
+        g1 = EagrSession(rmat_graph(120, 600, seed=1), device="cpu",
+                         shards=1)
+        hg = g1.register(Query(agg="sum", window=WindowSpec("tuple", 2)))
+        assert hg.group.engine.mesh is not None
+        g1.update(np.asarray(g1.writers[:16]), np.ones(16, np.float32))
+        wg = g1.read(hg, g1.readers[:8])
+        g1.save(d + "/g", blocking=True)
+        bg = EagrSession.restore(d + "/g", device="cpu")
+        assert bg.queries[0].group.engine.mesh is not None
+        assert (bg.read(bg.queries[0], g1.readers[:8]) == wg).all()
+        dist.destroy_process_group()
         def make():
             x = EagrSession(rmat_graph(120, 600, seed=1), device="cpu")
             x.register(Query(agg="sum"))

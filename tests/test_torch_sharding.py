@@ -114,7 +114,14 @@ def test_shard_mesh_needs_enough_ranks(tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             rank=0, world_size=1)
     try:
-        assert PM.make_shard_mesh(1) == PS.MeshShape(("shard",), (1,))
+        # a rank of the group: the shard mesh, with its rank, device and
+        # the device its collectives stage on (the CPU under gloo)
+        m = PM.make_shard_mesh(1, device="cpu")
+        assert isinstance(m, PS.MeshShape)
+        assert (m.axis_names, m.shape) == (("shard",), (1,))
+        cpu = torch.device("cpu")
+        assert (m.rank, m.world, m.device, m.comm, m.backend) == \
+            (0, 1, cpu, cpu, "gloo")
         assert PM.make_shard_mesh(2) is None
     finally:
         dist.destroy_process_group()
