@@ -274,9 +274,34 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    (every count set to 0 just before the batches) above 0, every engine
    tensor on the card, no kernel built again in a rank; each rank's write
    and read p50 printed as ranks sharing one card (not a multi-card
-   speed). Beside it, a 1-rank ``nccl`` group on a 1-shard session over
-   3,000 nodes / 20,000 edges, its stacked-entry launches above 0 and its
-   answers bit-equal to the same session without a group.
+   speed). Then, in the same ranks, NequIP's ``minibatch_lg`` cell at the
+   JAX package's full width (``CFG_BF16``: 5 layers, d 32, l_max 2;
+   169,984 atoms, 168,960 edges) built by ``configs/nequip.build`` inside
+   the group: ``forward_energy_shardmap`` over the ranks, 42,496 atoms a
+   rank, the batch arranged to its input contract; the energy, one train
+   step from the built state and 3 more timed (one more traced on rank
+   0), and an fp32 strict cell at 2 layers: its energy, one step, and the
+   energy of its batch with the edges permuted (breaking the contract).
+   In the parent afterwards, the one-card ``forward_energy`` on the same
+   arranged batches: every rank's bf16 energy, loss and grad_norm within
+   1e-6 of the one card's (the group reassociates some fp32 sums: the
+   readout's and each gather-backward row's rank partials), every rank's
+   energy, loss and parameters after the step bit-equal, its graph-entry
+   launches a step equal to one card's and to its calls tallied by dtype;
+   the fp32 energy within 1e-5 of |E| and grad_norm within 1e-4; the
+   contract-breaking energy within 1e-5 of the one-card energy of the
+   edges the ranks keep (the reference's drop); the graph entry held as
+   in phase 12 at rank 0's local shapes, one row for every (dtype, F,
+   rows) the ranks' steps called it at (fp32 messages into its 42,496
+   rows and gathers' backward into all 169,984 at F 32, 96 and 160, the
+   embedding's backward, the readout), each also timed alone with L2
+   warm and with L2 flushed before each call, its trace records counted;
+   bf16 message sums at F 32, 96 and 160, not on the path; step p50 a
+   rank, busy share, the entry's share of rank 0's device time, peak GB
+   and launches a rank printed as ranks sharing one card. Beside the
+   group, a 1-rank ``nccl`` group on a 1-shard session over 3,000 nodes /
+   20,000 edges, its stacked-entry launches above 0 and its answers
+   bit-equal to the same session without a group.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -628,6 +653,45 @@ def device_ms_or_none(torch, fn, reps: int = 20, only: str | None = None):
         if total_us > 0:
             return total_us / 1e3 / reps
     return None
+
+
+# bytes written between the calls of a cold timing (``profiled_ms``):
+# five times the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
+
+
+def profiled_ms(torch, fn, only: str, device, reps: int = 20,
+                cold: bool = False):
+    """(device ms of one call, records): the kernels whose name holds
+    ``only`` that ``reps`` calls of ``fn`` run, summed by torch.profiler
+    over ``reps``, and the number of their records in the trace (a record
+    lost makes the time short). With ``cold`` a buffer of L2_FLUSH_BYTES
+    on ``device`` is written before each call, so the call finds none of
+    its operands in L2. (None, 0) where three traces hold no such
+    record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device) \
+        if cold else None
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and only in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+                n += e.count
+        if n:
+            return us / 1e3 / reps, n
+    return None, 0
 
 
 def device_ms(torch, fn, reps: int = 50, only: str | None = None) -> float:
@@ -2568,6 +2632,17 @@ GROUP_TIMEOUT_S = 120.0    # every collective of the group
 GROUP_JOIN_S = 300.0       # the spawn's join deadline
 NCCL_GRAPH = (3_000, 20_000)   # the 1-rank nccl group's session
 NCCL_BATCHES = 6
+# phase 14's NequIP: the JAX package's minibatch_lg cell (CFG_BF16, 5
+# layers, d 32, l_max 2) over the group's ranks, one node range a rank
+NEQUIP_SHAPE = "minibatch_lg"
+NEQUIP_STEPS = 3           # timed train steps a rank, after the first
+NEQUIP_STRICT = 2          # layers of the fp32 strict run
+# the bf16 cell's bar against one card, relative: the group's values are
+# one card's with some fp32 sums reassociated (the readout's and each
+# gather-backward row's partials added rank by rank), 16 fp32 roundoffs
+NEQUIP_REL = 1e-6
+NEQUIP_ARGS = ("positions", "species", "edge_src", "edge_dst", "edge_mask",
+               "node_mask", "graph_ids")
 
 
 def bits_equal(a, b) -> bool:
@@ -2687,6 +2762,8 @@ def group_rank(rank: int, world: int, backend: str, work: str) -> None:
             if not bits_equal(a, b):
                 raise AssertionError(f"rank {rank}: the first read after "
                                      f"the restore differs from phase 8's")
+        del session
+        out["nequip"] = nequip_rank(torch, rank, device)
         out.update(rank=rank, device=str(meshes[0].device),
                    comm=str(meshes[0].comm), backend=meshes[0].backend,
                    restore_s=restore_s, built=sorted(_build.BUILD_LOG))
@@ -2694,6 +2771,400 @@ def group_rank(rank: int, world: int, backend: str, work: str) -> None:
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
+
+
+def nequip_perm(torch, n_edges: int):
+    """The permutation of an arranged batch's edges that makes phase 14's
+    batch breaking the input contract (most edges then lie in a slice
+    other than their destination's)."""
+    gen = torch.Generator()
+    gen.manual_seed(GNN_SEED + 14)
+    return torch.randperm(n_edges, generator=gen)
+
+
+def nequip_rank(torch, rank: int, device) -> dict:
+    """Phase 14's NequIP part in one rank of the running group:
+    ``configs/nequip.build`` of NEQUIP_SHAPE inside the group (the
+    destination-partitioned forward over the ranks, the batch arranged to
+    its contract): the energy, one train step from the built state (its
+    loss, grad_norm, graph-entry launches and the parameters after it),
+    NEQUIP_STEPS more steps timed, one more (traced on rank 0), the peak
+    memory; the graph entry's calls of the first step tallied by dtype and
+    by (op, dtype, F, rows);
+    then the fp32 strict cell at NEQUIP_STRICT layers: its energy, one
+    step, and the energy of its batch with the edges permuted
+    (``nequip_perm``), which breaks the contract."""
+    from repro_torch.configs import nequip
+    from repro_torch.kernels.segment_agg import ops
+    from repro_torch.models.gnn import nequip as nq_m
+    from repro_torch.tree import tree_leaves
+
+    t_part = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = nequip.group_mesh(device)
+    out = {}
+    for tag, reduced in (("bf16", {}), ("fp32", dict(
+            n_layers=NEQUIP_STRICT, compute_dtype=torch.float32))):
+        t0 = time.perf_counter()
+        cell = nequip.build(NEQUIP_SHAPE, device=device, reduced=reduced,
+                            seed=GNN_SEED)
+        params, opt_state, batch, lr = cell.args
+        cfg = dataclasses.replace(
+            nequip.CFG_BF16, **reduced)
+        device_sync(torch)
+        build_s = time.perf_counter() - t0
+        args = [batch[k] for k in NEQUIP_ARGS]
+        with torch.no_grad():
+            energy = nq_m.forward_energy_shardmap(params, *args, 1, cfg,
+                                                  mesh)
+        res = dict(notes=cell.notes, build_s=build_s,
+                   energy=float(energy[0]),
+                   e_local=int(batch["edge_src"].shape[0]) // mesh.world,
+                   n_local=int(batch["positions"].shape[0]) // mesh.world,
+                   live=int(batch["edge_mask"].sum()))
+        if tag == "fp32":
+            perm = nequip_perm(torch, batch["edge_src"].shape[0]).to(
+                batch["edge_src"].device)
+            broken = {**batch, **{k: batch[k][perm] for k in
+                                  ("edge_src", "edge_dst", "edge_mask")}}
+            with torch.no_grad():
+                res["broken"] = float(nq_m.forward_energy_shardmap(
+                    params, *(broken[k] for k in NEQUIP_ARGS), 1, cfg,
+                    mesh)[0])
+        device_sync(torch)
+        ops.reset_launches()
+        shapes = collections.Counter()
+        t0 = time.perf_counter()
+        with graph_calls_by_dtype(ops, shapes) as by_dtype:
+            _, _, met = cell.fn(params, opt_state, batch, lr)
+        device_sync(torch)
+        res.update(first_ms=(time.perf_counter() - t0) * 1e3,
+                   launches={k: ops.LAUNCHES[k] for k in ("sum_gnn",
+                                                          "max_gnn")},
+                   calls_by_dtype=dict(by_dtype),
+                   calls_by_shape=[dict(op=k[0], dtype=k[1], F=k[2],
+                                        rows=k[3], calls=c)
+                                   for k, c in sorted(shapes.items())],
+                   **{k: float(v) for k, v in met.items()},
+                   params=[x.detach().cpu().numpy()
+                           for x in tree_leaves(params)])
+        if tag == "bf16":
+            step_ms = []
+            for _ in range(NEQUIP_STEPS):
+                t0 = time.perf_counter()
+                cell.fn(params, opt_state, batch, lr)
+                device_sync(torch)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            res.update(step_ms=step_ms,
+                       step_p50_ms=float(np.median(step_ms)),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            # one more step on every rank (its collectives need them
+            # all), traced on rank 0
+            run = lambda: cell.fn(params, opt_state, batch, lr)
+            if rank == 0:
+                res["trace"] = trace_window(torch, "nequip_group_rank0",
+                                            run, 1, None, lean=True)
+            else:
+                run()
+                device_sync(torch)
+        out[tag] = res
+        del cell, params, opt_state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def nequip_one_card(torch, errs: dict, shapes: list) -> dict:
+    """Phase 14's NequIP reference in the parent, on one card without a
+    group: the same cells (``configs/nequip.build``, ``forward_energy``)
+    on the same batches, arranged to the contract for GROUP_RANKS ranks
+    (``arrange_to_contract``): the bf16 energy, one train step from the
+    built state, then NEQUIP_STEPS steps timed; the fp32 strict cell's
+    energy, the energy of the edges each rank keeps of the permuted batch
+    (and of all its edges), and its step. Then the graph entry at rank 0's local shapes: a row
+    for every (op, dtype, F, rows) in ``shapes``, the calls rank 0's
+    steps made (``nequip_shape_plans``), and bf16 rows of the message sums
+    into its rows at each l's width, which the group's step does not run
+    (its messages are fp32)."""
+    from repro_torch.configs import nequip
+    from repro_torch.kernels.segment_agg import ops, ref
+    from repro_torch.models.gnn import nequip as nq_m
+
+    t_part = time.perf_counter()
+    out, rows = {}, []
+    for tag, reduced in (("bf16", {}), ("fp32", dict(
+            n_layers=NEQUIP_STRICT, compute_dtype=torch.float32))):
+        cell = nequip.build(NEQUIP_SHAPE, device=DEVICE, reduced=reduced,
+                            seed=GNN_SEED)
+        params, opt_state, raw, lr = cell.args
+        cfg = dataclasses.replace(nequip.CFG_BF16, **reduced)
+        batch = nequip.arrange_to_contract(raw, GROUP_RANKS)
+
+        def energy(b):
+            with torch.no_grad():
+                return float(nq_m.forward_energy(
+                    params, *(b[k] for k in NEQUIP_ARGS), 1, cfg)[0])
+
+        res = dict(notes=cell.notes, energy=energy(batch))
+        if tag == "fp32":   # from the built parameters, as the ranks do
+            perm = nequip_perm(torch, batch["edge_src"].shape[0]).to(
+                batch["edge_src"].device)
+            broken = {**batch, **{k: batch[k][perm] for k in
+                                  ("edge_src", "edge_dst", "edge_mask")}}
+            e = broken["edge_dst"].shape[0]
+            n_local = batch["positions"].shape[0] // GROUP_RANKS
+            slot_rank = torch.arange(e, device=perm.device) \
+                // (e // GROUP_RANKS)
+            kept = broken["edge_mask"] & (
+                broken["edge_dst"].long() // n_local == slot_rank)
+            res["kept"] = energy({**broken, "edge_mask": kept})
+            res["whole"] = energy(broken)
+            res["kept_share"] = float(kept.sum()) / float(
+                broken["edge_mask"].sum())
+        device_sync(torch)
+        ops.reset_launches()
+        _, _, met = cell.fn(params, opt_state, batch, lr)
+        device_sync(torch)
+        res["step"] = {k: float(v) for k, v in met.items()}
+        res["step"]["launches"] = {k: ops.LAUNCHES[k]
+                                   for k in ("sum_gnn", "max_gnn")}
+        if tag == "bf16":
+            step_ms = []
+            for _ in range(NEQUIP_STEPS):
+                t0 = time.perf_counter()
+                cell.fn(params, opt_state, batch, lr)
+                device_sync(torch)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            res["step_p50_ms"] = float(np.median(step_ms))
+            plans = nequip_shape_plans(torch, ops, batch, cfg)
+            for i, sh_ in enumerate(shapes):
+                if sh_["rows"] not in plans:
+                    raise AssertionError(f"rank 0's step summed into "
+                                         f"{sh_['rows']} rows, which no "
+                                         f"plan of a rank's has")
+                what, plan = plans[sh_["rows"]]
+                row = gnn_kernel_row(
+                    torch, ops, ref, f"nequip group rank 0 {sh_['dtype']} "
+                    f"F {sh_['F']}, {what}", plan, sh_["F"],
+                    sh_["op"].split("_")[0], errs, cpu=False,
+                    seed=GNN_SEED + 70 + i,
+                    bf16=sh_["dtype"] == "bfloat16", profile=True, l2=True)
+                rows.append(dict(row, on_path=True, calls=sh_["calls"]))
+            what, plan = plans[batch["positions"].shape[0] // GROUP_RANKS]
+            for i, l in enumerate(cfg.ls):
+                row = gnn_kernel_row(
+                    torch, ops, ref, f"nequip group rank 0 bfloat16 F "
+                    f"{cfg.d_hidden * (2 * l + 1)}, {what} (not on the "
+                    f"group's path)", plan, cfg.d_hidden * (2 * l + 1),
+                    "sum", errs, cpu=False, seed=GNN_SEED + 90 + i,
+                    bf16=True, profile=True, l2=True)
+                rows.append(dict(row, on_path=False, calls=0))
+        out[tag] = res
+        del cell, params, opt_state, batch, raw
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["kernel_rows"] = rows
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def nequip_shape_plans(torch, ops, batch: dict, cfg) -> dict:
+    """Rank 0's plans of the group's forward (``shard_inputs``: rank 0's
+    node range starts at 0, so its local destination rows are its edges'
+    destinations) on an arranged batch, by the rows each sums into:
+    {rows: (what it sums, plan)}."""
+    n = batch["positions"].shape[0]
+    n_local = n // GROUP_RANKS
+    e_local = batch["edge_dst"].shape[0] // GROUP_RANKS
+    dst = batch["edge_dst"][:e_local].clone()
+    src = batch["edge_src"][:e_local].clone()
+    mask = batch["edge_mask"][:e_local].clone()
+    species = batch["species"][:n_local].clone()
+    atoms = torch.zeros(n_local, dtype=torch.int32, device=dst.device)
+    return {
+        n_local: (f"{int(mask.sum())} messages into its {n_local} rows",
+                  ops.edge_plan(dst, n_local, mask)),
+        n: (f"its features' gathers' backward, {e_local} edges into all "
+            f"{n} rows", ops.edge_plan(src, n)),
+        cfg.n_species: (f"the embedding's backward, {n_local} atoms into "
+                        f"{cfg.n_species} rows",
+                        ops.edge_plan(species, cfg.n_species)),
+        1: (f"the readout, {n_local} atoms into 1 row",
+            ops.edge_plan(atoms, 1)),
+    }
+
+
+def nequip_group_check(torch, ranks: list, one: dict) -> dict:
+    """Phase 14's NequIP checks, every rank against the one-card
+    reference (``nequip_one_card``): in bf16 the energy, the step's loss
+    and grad_norm each within NEQUIP_REL of the one card's (the group's
+    sums differ from one card's only in association: the readout's and
+    every gather-backward row's rank partials added in rank order), every
+    rank's energy, loss and parameters after the step bit-equal to every
+    other's, the graph entry launched as often a step as on one card and
+    its calls tallied by dtype equal to those launches, with a kernel row
+    at rank 0's local shapes for every (op, dtype, F, rows) it was called
+    at; in fp32 the energy within 1e-5 of |E| and grad_norm within 1e-4;
+    the contract-breaking batch's energy within 1e-5 of the one-card
+    energy of the edges the ranks keep, which differs from the energy of
+    all."""
+    b1, f1 = one["bf16"], one["fp32"]
+    bars = dict(energy=NEQUIP_REL * abs(b1["energy"]),
+                loss=NEQUIP_REL * abs(b1["step"]["loss"]),
+                grad_norm=NEQUIP_REL * abs(b1["step"]["grad_norm"]))
+    r0 = ranks[0]["nequip"]
+    held = {(k["op"], k["dtype"], k["F"], k["rows"])
+            for k in one["kernel_rows"] if k["on_path"]}
+    for out in ranks:
+        r, nq = out["rank"], out["nequip"]
+        b, f = nq["bf16"], nq["fp32"]
+        if "forward_energy_shardmap" not in b["notes"]:
+            raise AssertionError(f"rank {r}: the cell did not take the "
+                                 f"group path: {b['notes']!r}")
+        got = dict(energy=b["energy"], loss=b["loss"],
+                   grad_norm=b["grad_norm"])
+        want = dict(energy=b1["energy"], loss=b1["step"]["loss"],
+                    grad_norm=b1["step"]["grad_norm"])
+        for k in bars:
+            if not np.isfinite(got[k]) or abs(got[k] - want[k]) > bars[k]:
+                raise AssertionError(
+                    f"rank {r}: NequIP bf16 {k} {got[k]!r} against one "
+                    f"card's {want[k]!r}: past the bar {bars[k]:.4g}")
+        for tag in ("bf16", "fp32"):
+            a, z = nq[tag], r0[tag]
+            if (a["energy"], a["loss"], a["grad_norm"]) != \
+                    (z["energy"], z["loss"], z["grad_norm"]) or not all(
+                    bits_equal(x, y) for x, y in zip(a["params"],
+                                                     z["params"])):
+                raise AssertionError(f"rank {r}: {tag} energy, step or "
+                                     f"parameters differ from rank 0's")
+        if b["launches"] != b1["step"]["launches"] \
+                or b["launches"]["sum_gnn"] <= 0:
+            raise AssertionError(f"rank {r}: graph-entry launches a step "
+                                 f"{b['launches']}, one card "
+                                 f"{b1['step']['launches']}")
+        for tag in ("bf16", "fp32"):
+            t = nq[tag]
+            for k, n in t["launches"].items():
+                calls = sum(c for d, c in t["calls_by_dtype"].items()
+                            if d.split()[0] == k)
+                if calls != n:
+                    raise AssertionError(f"rank {r}: {tag} step: {calls} {k} "
+                                         f"calls by dtype, {n} launches")
+            missed = {(k["op"].split("_")[0], k["dtype"], k["F"], k["rows"])
+                      for k in t["calls_by_shape"]} - held
+            if missed:
+                raise AssertionError(f"rank {r}: {tag} step called the "
+                                     f"graph entry at {sorted(missed)}, "
+                                     f"which no kernel row checked")
+        if abs(f["energy"] - f1["energy"]) > 1e-5 * abs(f1["energy"]):
+            raise AssertionError(f"rank {r}: fp32 energy {f['energy']!r}, "
+                                 f"one card {f1['energy']!r}")
+        if abs(f["grad_norm"] - f1["step"]["grad_norm"]) \
+                > 1e-4 * abs(f1["step"]["grad_norm"]):
+            raise AssertionError(f"rank {r}: fp32 grad_norm "
+                                 f"{f['grad_norm']!r}, one card "
+                                 f"{f1['step']['grad_norm']!r}")
+        if abs(f["broken"] - f1["kept"]) > 1e-5 * abs(f1["kept"]):
+            raise AssertionError(f"rank {r}: the contract-breaking batch's "
+                                 f"energy {f['broken']!r}, one card's of "
+                                 f"the kept edges {f1['kept']!r}")
+    if abs(f1["whole"] - f1["kept"]) <= 1e-3 * abs(f1["whole"]):
+        raise AssertionError("the contract-breaking batch drops nothing "
+                             "that moves its energy")
+    return dict(bars=bars, one_card=dict(
+        energy=b1["energy"], step=b1["step"], step_p50_ms=b1["step_p50_ms"],
+        fp32=dict(energy=f1["energy"], step=f1["step"], kept=f1["kept"],
+                  whole=f1["whole"], kept_share=f1["kept_share"]),
+        seconds=one["seconds"]),
+        per_rank=[dict(
+            rank=o["rank"], energy=o["nequip"]["bf16"]["energy"],
+            loss=o["nequip"]["bf16"]["loss"],
+            grad_norm=o["nequip"]["bf16"]["grad_norm"],
+            step_ms=o["nequip"]["bf16"]["step_ms"],
+            step_p50_ms=o["nequip"]["bf16"]["step_p50_ms"],
+            first_ms=o["nequip"]["bf16"]["first_ms"],
+            peak_gb=o["nequip"]["bf16"]["peak_gb"],
+            launches=o["nequip"]["bf16"]["launches"],
+            calls_by_dtype=o["nequip"]["bf16"]["calls_by_dtype"],
+            calls_by_shape=o["nequip"]["bf16"]["calls_by_shape"],
+            build_s=o["nequip"]["bf16"]["build_s"],
+            fp32=dict(energy=o["nequip"]["fp32"]["energy"],
+                      grad_norm=o["nequip"]["fp32"]["grad_norm"],
+                      broken=o["nequip"]["fp32"]["broken"]),
+            seconds=o["nequip"]["seconds"]) for o in ranks],
+        trace=r0["bf16"].get("trace"),
+        shapes=dict(n_local=r0["bf16"]["n_local"],
+                    e_local=r0["bf16"]["e_local"], live=r0["bf16"]["live"]),
+        kernel_rows=one["kernel_rows"])
+
+
+def phase_group_nequip(torch, ranks: list, backend: str) -> dict:
+    """Phase 14's NequIP part in the parent, after the ranks ended: the
+    one-card reference (``nequip_one_card``), the checks
+    (``nequip_group_check``) and the printed lines."""
+    t0 = time.perf_counter()
+    nq_errs: dict = {}
+    shapes = {}
+    for tag in ("bf16", "fp32"):
+        for k in ranks[0]["nequip"][tag]["calls_by_shape"]:
+            key = (k["op"], k["dtype"], k["F"], k["rows"])
+            shapes[key] = dict(k, calls=shapes.get(key, {}).get(
+                "calls", 0) + (k["calls"] if tag == "bf16" else 0))
+    nq = nequip_group_check(torch, ranks, nequip_one_card(
+        torch, nq_errs, [shapes[k] for k in sorted(shapes)]))
+    nq["errs"] = nq_errs
+    nq_parent_s = time.perf_counter() - t0
+    pr, oc, tr = nq["per_rank"], nq["one_card"], nq["trace"] or {}
+    share = None if tr.get("device_ms") is None \
+        else tr["segment_ms"] / tr["device_ms"]
+    how = ("ranks sharing one card over gloo, not a multi-card speed"
+           if backend == "gloo" else "one card a rank over nccl")
+    sh_ = nq["shapes"]
+    print(f"14 nequip: {NEQUIP_SHAPE} at the JAX package's full width "
+          f"(CFG_BF16: 5 layers, d 32, l_max 2), "
+          f"{sh_['n_local'] * GROUP_RANKS} atoms, "
+          f"{sh_['e_local'] * GROUP_RANKS} edge slots ({sh_['live']} live) "
+          f"arranged to the contract: {sh_['n_local']} atoms and "
+          f"{sh_['e_local']} edge slots a rank; energy on every rank "
+          f"{pr[0]['energy']!r} (one card {oc['energy']!r}, bar "
+          f"{nq['bars']['energy']:.4g}, {NEQUIP_REL:g} of it); "
+          f"one step: loss {pr[0]['loss']!r} (one card "
+          f"{oc['step']['loss']!r}, bar {nq['bars']['loss']:.4g}), "
+          f"grad_norm {pr[0]['grad_norm']!r} (one card "
+          f"{oc['step']['grad_norm']!r}, bar "
+          f"{nq['bars']['grad_norm']:.4g}); every rank's energy, loss and "
+          f"parameters after the step bit-equal", flush=True)
+    print(f"14 nequip ({how}): step p50 a rank "
+          f"{[round(r['step_p50_ms'], 1) for r in pr]} ms over "
+          f"{NEQUIP_STEPS} steps (first step "
+          f"{[round(r['first_ms'], 1) for r in pr]} ms; one card on the "
+          f"same batch {oc['step_p50_ms']:.1f} ms); rank 0's traced step: "
+          f"busy share {share_or_not(tr.get('busy_share'))}, graph entry "
+          f"{ms_or_not(tr.get('segment_ms'))} ms = {share_or_not(share)} "
+          f"of its device time {ms_or_not(tr.get('device_ms'))} ms; peak "
+          f"GB a rank {[round(r['peak_gb'], 3) for r in pr]}; graph-entry "
+          f"launches a rank per step {pr[0]['launches']} (one card "
+          f"{oc['step']['launches']}), by dtype {pr[0]['calls_by_dtype']}, "
+          f"by (dtype, F, rows) "
+          f"{[(k['dtype'], k['F'], k['rows'], k['calls']) for k in pr[0]['calls_by_shape']]}",
+          flush=True)
+    f1 = oc["fp32"]
+    print(f"14 nequip fp32 strict ({NEQUIP_STRICT} layers): energy "
+          f"{pr[0]['fp32']['energy']!r} (one card {f1['energy']!r}, rel "
+          f"{abs(pr[0]['fp32']['energy'] - f1['energy']) / abs(f1['energy']):.3g}"
+          f"), grad_norm {pr[0]['fp32']['grad_norm']!r} (one card "
+          f"{f1['step']['grad_norm']!r}); the contract-breaking batch "
+          f"(edges permuted): {pr[0]['fp32']['broken']!r} == one card's "
+          f"energy of the {f1['kept_share']:.3f} of live edges the ranks "
+          f"keep {f1['kept']!r} (of all {f1['whole']!r}); seconds: ranks "
+          f"{[round(r['seconds'], 1) for r in pr]}, one card "
+          f"{nq_parent_s:.1f}", flush=True)
+    nq.update(parent_s=nq_parent_s, graph_entry_share=share, how=how)
+    return nq
 
 
 def nccl_rank(rank: int, work: str) -> None:
@@ -2898,6 +3369,10 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
           f"{np.median(ref['r_ms']):.3f} ms; the group's ranks "
           f"{secs['group']:.1f} s", flush=True)
 
+    # NequIP over the group's ranks against one card (the ranks have
+    # ended: the card is the parent's)
+    nq = phase_group_nequip(torch, ranks, backend)
+
     with open(os.path.join(work, "nccl.pkl"), "rb") as f:
         nccl = pickle.load(f)
     nccl_s = secs["nccl"]
@@ -2920,7 +3395,8 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
           f"batches of 1,024) on {g['device']}: launches "
           f"{ {k: g['launches'][k] for k in stacked_keys} }, answers == "
           f"the same session without a group bit for bit; {nccl_s:.1f} s, "
-          f"beside the group; phase 14 {group_s:.1f} s", flush=True)
+          f"beside the group; phase 14 {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
     return dict(
         backend=backend, ranks=GROUP_RANKS, seconds=time.perf_counter()
         - t_phase, group_s=group_s, group_ranks_s=secs["group"],
@@ -2935,7 +3411,8 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
         one_card=dict(write_p50_ms=float(np.median(ref["w_ms"])),
                       read_p50_ms=float(np.median(ref["r_ms"]))),
         nccl=dict(device=g["device"], launches={
-            k: g["launches"][k] for k in stacked_keys}))
+            k: g["launches"][k] for k in stacked_keys}),
+        nequip=nq)
 
 
 def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
@@ -5564,15 +6041,20 @@ def pending_peak(tables, per_group: int) -> int:
 
 
 @contextlib.contextmanager
-def graph_calls_by_dtype(ops):
+def graph_calls_by_dtype(ops, shapes=None):
     """Tallies the graph entry's calls by op and values dtype while on
     (``ops.segment_agg_graph`` wrapped, and put back after): on the card a
-    call is one launch, counted under ``{op}_gnn`` for either dtype."""
+    call is one launch, counted under ``{op}_gnn`` for either dtype. With
+    ``shapes`` (a Counter) its calls are also tallied there by (op, dtype,
+    F, rows)."""
     tally = collections.Counter()
     entry = ops.segment_agg_graph
 
     def spy(val, plan, op="sum"):
-        tally[f"{op}_gnn {str(val.dtype).split('.')[-1]}"] += 1
+        dt = str(val.dtype).split('.')[-1]
+        tally[f"{op}_gnn {dt}"] += 1
+        if shapes is not None:
+            shapes[(f"{op}_gnn", dt, int(val.shape[1]), plan.n_rows)] += 1
         return entry(val, plan, op)
 
     ops.segment_agg_graph = spy
@@ -5606,7 +6088,8 @@ def host_enqueue_us(torch, fn, calls: int = GNN_ENQUEUE_CALLS) -> float:
 
 def gnn_kernel_row(torch, ops, ref, name: str, plan, F: int, op: str,
                    errs: dict, *, cpu: bool, seed: int, bf16: bool = False,
-                   profile: bool = False, pending: bool = False) -> dict:
+                   profile: bool = False, pending: bool = False,
+                   l2: bool = False) -> dict:
     """The graph entry on ``plan`` at F features, op sum or max, in fp32
     (or with ``bf16`` bf16 values and rows): bit-equal to the stacked route
     (``gnn_stacked_route``) on integer and normal values and on a rerun; exact
@@ -5619,7 +6102,12 @@ def gnn_kernel_row(torch, ops, ref, name: str, plan, F: int, op: str,
     same values, with the host time to enqueue one call of the entry and
     of the stacked route. With ``pending`` the plan must make a lane group
     hold as many crossing rows' partials unsettled as the kernel has room
-    for (``pending_peak`` at this card's choice of tasks a group)."""
+    for (``pending_peak`` at this card's choice of tasks a group). With
+    ``l2`` the kernel's own device time is also profiled back to back
+    (``device_warm_ms``, operands left in L2 by the call before) and with
+    L2 flushed before each call (``device_cold_ms``), each with the
+    records its trace kept; the cold time's share of the bound only where
+    every record was kept."""
     dev = plan.packed.device
     dt = torch.bfloat16 if bf16 else torch.float32
     tabs = gnn_stacked_tables(torch, ops, plan)
@@ -5728,6 +6216,23 @@ def gnn_kernel_row(torch, ops, ref, name: str, plan, F: int, op: str,
         row["device_ms"] = device_ms_or_none(torch, new)
         row["stacked_device_ms"] = device_ms_or_none(torch, old)
         row["library_device_ms"] = device_ms_or_none(torch, lib)
+    if l2:
+        reps = 20
+        warm, warm_n = profiled_ms(torch, new, "segment_agg_graph", dev,
+                                   reps)
+        cold, cold_n = profiled_ms(torch, new, "segment_agg_graph", dev,
+                                   reps, cold=True)
+        row.update(device_warm_ms=warm, warm_records=warm_n,
+                   device_cold_ms=cold, cold_records=cold_n,
+                   records_wanted=reps,
+                   cold_bound_share=bound / cold if cold_n == reps
+                   else None)
+        print(f"  {name}: the kernel alone, back to back (L2 warm) "
+              f"{ms_or_not(warm)} ms ({warm_n} of {reps} records), L2 "
+              f"flushed before each call {ms_or_not(cold)} ms ({cold_n} of "
+              f"{reps} records) = "
+              f"{share_or_not(row['cold_bound_share'])} of its bound",
+              flush=True)
     print(f"  {name}: {op} {row['dtype']} F {F}, {plan.n_live} live edges "
           f"into {n} rows: kernel {ms:.4f} ms = {bound / ms:.3f} of its "
           f"bound {bound:.5f} ms ({by}); the stacked route {old_ms:.4f} ms; "

@@ -2,12 +2,15 @@
 l_max=2, 8 Bessel RBFs, cutoff 5 A, E(3) tensor-product messages.
 
 molecule is the native shape (energies + forces, ``CFG`` in fp32); the giant
-graph shapes (``_SHARDMAP_SHAPES``) run energy-only (no force supervision
-exists there, and force training is grad-through-energy — double memory on
-61.9M-edge graphs). The JAX package sends those shapes through its
-destination-partitioned shard_map forward across a mesh of devices; on one
-card that forward is ``forward_energy``, energy only, which these cells run
-with ``CFG_BF16``."""
+graph shapes (``_SHARDMAP_SHAPES``) run energy-only with ``CFG_BF16`` (no
+force supervision exists there, and force training is grad-through-energy —
+double memory on 61.9M-edge graphs). As in the JAX package, those shapes go
+through the destination-partitioned forward (``forward_energy_shardmap``)
+when ``build`` runs inside a ``torch.distributed`` group, one node range a
+rank, parameters and optimizer state replicated; the cell's batch is then
+arranged to that forward's input contract (``arrange_to_contract``).
+Outside a group (the JAX package's one-device mesh: one shard) they run
+``forward_energy``."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,9 +50,68 @@ CFG_BF16 = dataclasses.replace(CFG, compute_dtype=torch.bfloat16)
 SMOKE_CFG = m.NequIPConfig(name="nequip", n_layers=2, d_hidden=8, l_max=2,
                            n_rbf=4, cutoff=5.0, n_species=4)
 
-# huge single-graph shapes: energy only, CFG_BF16, ``forward_energy`` (the
-# JAX package's shard_map path on one card); molecule keeps fp32 with forces
+# huge single-graph shapes: energy only, CFG_BF16, the destination-
+# partitioned forward inside a group (``forward_energy`` on one card);
+# molecule keeps fp32 with forces
 _SHARDMAP_SHAPES = ("ogb_products", "minibatch_lg", "full_graph_sm")
+
+
+def _loss_shardmap(params, batch, cfg, mesh):
+    """Energy-only loss over the destination-partitioned forward (EAGr
+    reader partitioning applied to message passing)."""
+    e = m.forward_energy_shardmap(
+        params, batch["positions"], batch["species"], batch["edge_src"],
+        batch["edge_dst"], batch["edge_mask"], batch["node_mask"],
+        batch["graph_ids"], 1, cfg, mesh)
+    e_loss = ((e - batch["energy_targets"].float()) ** 2).mean()
+    return e_loss, {"e_mse": e_loss}
+
+
+def group_mesh(device=None):
+    """The ``ShardMesh`` of the running ``torch.distributed`` group, one
+    node range a rank (this rank on ``device``, or on
+    ``launch.mesh.make_shard_mesh``'s choice), or None outside a group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_shard_mesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return make_shard_mesh(dist.get_world_size(), device=device)
+
+
+def arrange_to_contract(batch: dict, world: int) -> dict:
+    """``batch`` with its edges arranged to ``forward_energy_shardmap``'s
+    input contract over ``world`` ranks: grouped by the node range of
+    their destination (the atoms split into ``world`` contiguous ranges),
+    their relative order kept, each rank's slice padded with masked edges
+    (each a self edge on its range's first atom) to a common length, a
+    multiple of 512. The atoms and the rest of the batch stay as they
+    are."""
+    n = batch["positions"].shape[0]
+    if n % world:
+        raise ValueError(f"{n} atoms do not split into {world} node "
+                         f"ranges: {(n, world)}")
+    n_local = n // world
+    dst = batch["edge_dst"]
+    owner = (dst.long() // n_local).clamp(0, world - 1)
+    order = torch.argsort(owner, stable=True)
+    counts = torch.bincount(owner, minlength=world).tolist()
+    e_local = pad512(max(max(counts), 1))
+    slices = {k: [] for k in ("edge_src", "edge_dst", "edge_mask")}
+    start = 0
+    for r, c in enumerate(counts):
+        take = order[start:start + c]
+        start += c
+        pad = e_local - c
+        for k in slices:
+            t = batch[k][take]
+            if k == "edge_mask":
+                fill = t.new_zeros(pad)
+            else:
+                fill = t.new_full((pad,), r * n_local)
+            slices[k].append(torch.cat([t, fill]))
+    return {**batch, **{k: torch.cat(v) for k, v in slices.items()}}
 
 
 def batch_plans(batch: dict, cfg: m.NequIPConfig) -> list:
@@ -165,33 +227,52 @@ def _padded(batch: dict, n_pad: int, e_pad: int) -> dict:
 def build(shape: str, device=None, reduced=None, seed: int = 0):
     """The JAX package's cell at ``shape``: atoms and edges padded to
     multiples of 512; ``molecule`` with ``CFG``, energies and forces; the
-    single-graph shapes with ``CFG_BF16``, energy only, through
-    ``forward_energy`` (the JAX package runs them through its shard_map
-    forward over a mesh of devices, with parameters replicated: so they
-    are placed here). ``reduced`` may cut the depth (``"n_layers"``)."""
+    single-graph shapes with ``CFG_BF16``, energy only, parameters and
+    optimizer state replicated. Inside a ``torch.distributed`` group those
+    run ``forward_energy_shardmap`` over the group (``group_mesh``), this
+    rank's state on its device, the batch arranged to the input contract;
+    outside one, ``forward_energy``. ``reduced`` may cut the depth
+    (``"n_layers"``)."""
     reduced = dict(reduced or {})
     d = SHAPE_DEFS[shape]
     molecule = shape == "molecule"
     cfg = dataclasses.replace(CFG if molecule else CFG_BF16, **reduced)
     specs = m.param_specs(cfg)
     o_specs = opt_state_specs("adamw", specs)
+    mesh = None
     if shape in _SHARDMAP_SHAPES:
         specs, o_specs = replicated_specs(specs), replicated_specs(o_specs)
-        notes = ("energy-only: forward_energy on one card (the JAX "
-                 "package's shard_map path)")
+        if not on_meta(device):
+            mesh = group_mesh(device)
+        notes = ("energy-only: " + (
+            f"forward_energy_shardmap over {mesh.world} ranks "
+            f"({mesh.backend}), destination-partitioned"
+            if mesh is not None else
+            "forward_energy on one card (one shard of the JAX package's "
+            "shard_map path)"))
     else:
         notes = "" if molecule else "energy-only"
     loss = functools.partial(m.loss_fn, use_forces=molecule)
     if on_meta(device):
         cell = meta_train_cell(cfg, loss, specs, batch_meta(d))
     else:
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else mesh.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         batch = _padded(_batch(np.random.default_rng(seed + 1), d, cfg,
                                targets=True, device=dev),
                         pad512(d["n"]), pad512(d["e"]))
-        cell = _cell(cfg, batch, gen, molecule)
+        if mesh is None:
+            cell = _cell(cfg, batch, gen, molecule)
+        else:
+            batch = arrange_to_contract(batch, mesh.world)
+            m.shard_inputs(mesh, batch["species"], batch["edge_src"],
+                           batch["edge_dst"], batch["edge_mask"],
+                           batch["node_mask"], cfg)
+            cell = train_cell(cfg, functools.partial(_loss_shardmap,
+                                                     mesh=mesh),
+                              init_from_specs(m.param_specs(cfg), gen),
+                              batch)
     return train_plan("nequip", shape, cell, reduced=reduced, notes=notes,
                       arg_axes=(specs, o_specs, BATCH_AXES, ()), cut=True)
 

@@ -1069,45 +1069,50 @@ def make_edge_plan(index: torch.Tensor, n_rows: int,
         cplan=cplan)
 
 
-# plans by (id(index), id(mask), n_rows): the tensors' weak references and
-# versions beside each, so a plan dies with its tensors and an index edited
-# in place gets a new one
-_EDGE_PLANS: dict = {}
+# what is made from tensors (edge plans, a rank's slices of a batch and
+# their plans), by a tag and the tensors' ids, with the tensors' weak
+# references and versions beside each entry: an entry dies with its
+# tensors, and a tensor edited in place gets a new one
+_MEMO: dict = {}
 
 
-def _drop_plan(key, ref) -> None:
-    got = _EDGE_PLANS.get(key)
-    if got is not None and ref in got[:2]:
-        del _EDGE_PLANS[key]
+def _drop_entry(key, ref) -> None:
+    got = _MEMO.get(key)
+    if got is not None and ref in got[0]:
+        del _MEMO[key]
 
 
-def _version(t) -> int | None:
-    return None if t is None else t._version
+def tensor_memo(tag: tuple, tensors: tuple, make):
+    """``make()``, made once per ``tag`` and set of ``tensors`` (None
+    allowed among them) and kept while they live unedited."""
+    key = tag + tuple(id(t) for t in tensors)
+    vers = tuple(None if t is None else t._version for t in tensors)
+    got = _MEMO.get(key)
+    if got is not None and got[1] == vers and all(
+            r is None if t is None else r() is t
+            for r, t in zip(got[0], tensors)):
+        return got[2]
+    out = make()
+    drop = functools.partial(_drop_entry, key)
+    _MEMO[key] = (tuple(None if t is None else weakref.ref(t, drop)
+                        for t in tensors), vers, out)
+    return out
 
 
 def edge_plan(index: torch.Tensor, n_rows: int,
               mask: torch.Tensor | None = None) -> EdgePlan:
     """``make_edge_plan(index, n_rows, mask)``, built once per index tensor
-    (and mask tensor) and kept while they live: a batch's plans are built
-    with the batch (the config builders ask for them) or at their first
-    use, and every later aggregation over the same tensors reuses them.
-    A mask that keeps every edge shares the unmasked plan."""
-    key = (id(index), id(mask), int(n_rows))
-    got = _EDGE_PLANS.get(key)
-    if got is not None and got[0]() is index \
-            and (mask is None or got[1]() is mask) \
-            and got[2] == (_version(index), _version(mask)):
-        return got[3]
-    if mask is not None and bool(mask.all()):
-        plan = edge_plan(index, n_rows)
-    else:
-        plan = make_edge_plan(index, n_rows, mask)
-    drop = functools.partial(_drop_plan, key)
-    _EDGE_PLANS[key] = (
-        weakref.ref(index, drop),
-        None if mask is None else weakref.ref(mask, drop),
-        (_version(index), _version(mask)), plan)
-    return plan
+    (and mask tensor) and kept while they live (``tensor_memo``): a
+    batch's plans are built with the batch (the config builders ask for
+    them) or at their first use, and every later aggregation over the same
+    tensors reuses them. A mask that keeps every edge shares the unmasked
+    plan."""
+    def make():
+        if mask is not None and bool(mask.all()):
+            return edge_plan(index, n_rows)
+        return make_edge_plan(index, n_rows, mask)
+
+    return tensor_memo(("edge_plan", int(n_rows)), (index, mask), make)
 
 
 _GRAPH_DTYPES = (torch.float32, torch.bfloat16)

@@ -15,6 +15,17 @@ backend takes: the rank's CUDA device for ``nccl``, the CPU for ``gloo``.
 ``init_group`` and ``spawn_group`` start such a group on one host: a
 ``file://`` store, a timeout on every collective, and a join deadline, so a
 rank that fails or hangs ends the run with an error instead of a hang.
+
+Three collectives carry gradients, as the JAX package's ``shard_map``
+transposes them: ``all_gather_tiled`` (JAX's ``all_gather(..., tiled=True)``;
+backward: the sum over the ranks of the cotangent's slice for this rank,
+JAX's ``psum_scatter``), ``psum`` (forward: the sum over the ranks; backward:
+the identity, every rank holding the whole cotangent of the replicated
+output) and ``replicate`` (JAX's implicit broadcast of a ``P()`` input:
+forward the identity, backward the sum of each leaf's gradient over the
+ranks). Every sum over the ranks adds the ranks' tensors in rank order
+(floating types below fp32 in fp32, rounded once), so it is deterministic
+and bit-equal on every rank.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import time
 import torch
 
 from repro_torch.distributed.sharding import MeshShape
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
@@ -95,6 +107,110 @@ class ShardMesh(MeshShape):
     def barrier(self) -> None:
         """Wait until every rank got here (one all-reduce on ``comm``)."""
         self.all_reduce_sum(torch.zeros(1, device=self.comm))
+
+    # ------------------------------------------- collectives with gradients
+    def all_gather_tiled(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` (rows, ...) concatenated in rank order, (world
+        * rows, ...) on ``x``'s device. Its gradient in ``x`` is the sum
+        over the ranks of the rows of their cotangents that came from this
+        rank."""
+        return _GatherTiled.apply(x, self)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks, on every rank. Its gradient is
+        the cotangent as it is: the output is replicated, so every rank
+        holds all of its cotangent."""
+        return _Psum.apply(x, self)
+
+    def replicate(self, tree):
+        """``tree`` (a dict of tensors, nested) as it is, with gradients
+        summed over the ranks: a replicated input of an SPMD function."""
+        return tree_unflatten(tree, _Replicate.apply(self,
+                                                     *tree_leaves(tree)))
+
+    def _rows_gathered(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        xs = x.detach().to(self.comm).contiguous()
+        out = torch.empty((self.world * xs.shape[0],) + tuple(xs.shape[1:]),
+                          dtype=xs.dtype, device=self.comm)
+        dist.all_gather(list(out.chunk(self.world)), xs, group=self.group)
+        return out.to(x.device)
+
+    def _rows_summed(self, g: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``g`` (world * rows, ...) summed over the
+        ranks: one all-to-all, then the ranks' blocks added in rank
+        order."""
+        import torch.distributed as dist
+
+        gs = g.detach().to(self.comm).contiguous()
+        got = torch.empty_like(gs)
+        dist.all_to_all_single(got, gs, group=self.group)
+        got = got.to(g.device)
+        return _sum_in_order(list(got.chunk(self.world)), g.dtype)
+
+    def _sum_ranks(self, ts: list) -> list:
+        """Each tensor of ``ts`` summed over the ranks in rank order: one
+        all-gather per dtype of the tensors flattened together."""
+        import torch.distributed as dist
+
+        out = list(ts)
+        by_dtype: dict = {}
+        for i, t in enumerate(ts):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for dt, idx in by_dtype.items():
+            flat = torch.cat([ts[i].detach().reshape(-1) for i in idx])
+            x = flat.to(self.comm)
+            parts = [torch.empty_like(x) for _ in range(self.world)]
+            dist.all_gather(parts, x, group=self.group)
+            total = _sum_in_order([p.to(flat.device) for p in parts], dt)
+            for i, piece in zip(idx, total.split(
+                    [ts[i].numel() for i in idx])):
+                out[i] = piece.view_as(ts[i])
+        return out
+
+
+def _sum_in_order(parts: list, dtype: torch.dtype) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...`` in that order; floating types below
+    fp32 added in fp32 and rounded once."""
+    wide = torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+        else dtype
+    acc = parts[0].to(wide, copy=True)
+    for p in parts[1:]:
+        acc += p.to(wide)
+    return acc.to(dtype)
+
+
+class _GatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh._rows_gathered(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._rows_summed(g), None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh._sum_ranks([x])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *leaves):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ctx.mesh._sum_ranks(list(grads)))
 
 
 def make_shard_mesh(n_shards: int, *, device=None,

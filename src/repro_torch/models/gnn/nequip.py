@@ -26,20 +26,27 @@ interactions run without remat: the molecule cells are small, and a
 checkpointed block would have to carry the force term's second-order graph
 through its recompute.
 
-``forward_energy_shardmap`` (destination-partitioned message passing over
-the devices of a mesh) is not ported: on one card it is ``forward_energy``
-with energy only, which is what ``configs/nequip.py`` runs for its shapes.
+``forward_energy_shardmap`` is the JAX package's destination-partitioned
+forward (its ``shard_map`` path, EAGr's reader partitioning applied to
+message passing) over the ranks of a ``torch.distributed`` group
+(``launch.mesh.ShardMesh``), SPMD: every rank makes the same call on the
+same global arrays and works on its own node range and edge slice. Its
+input contract is the JAX package's: rank r's edge slice holds only edges
+whose destination lies in r's node range; any other edge's message is
+dropped (``configs/nequip.arrange_to_contract`` arranges a batch so).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.segment_agg.ops import edge_plan, graph_sum
+from repro_torch.kernels.segment_agg.ops import (edge_plan, graph_sum,
+                                                tensor_memo)
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.gnn.common import gather
 from repro_torch.models.gnn.equivariant import intertwiner, tp_paths
@@ -139,15 +146,25 @@ def _ein(eq: str, *ts: torch.Tensor) -> torch.Tensor:
 
 
 def _interaction(lp, feats, sh, rad, edge_src, edge_dst, n_nodes,
-                 cfg: NequIPConfig):
-    """One NequIP interaction block. feats: {l: (N, mul, 2l+1)}."""
+                 cfg: NequIPConfig, *, gather=None, scatter=None):
+    """One NequIP interaction block. feats: {l: (N, mul, 2l+1)}.
+
+    gather/scatter hooks let the destination-partitioned path
+    (``forward_energy_shardmap``) reuse the same math:
+      gather(f)  default f[edge_src]
+      scatter(m) default the sum of m into edge_dst's n_nodes rows
+    """
     mul = cfg.d_hidden
-    dst_plan = edge_plan(edge_dst, n_nodes)
+    if gather is None:
+        gather = functools.partial(_gather_rows, index=edge_src)
+    if scatter is None:
+        scatter = functools.partial(graph_sum, plan=edge_plan(edge_dst,
+                                                              n_nodes))
     # per-edge, per-path, per-channel radial weights
     h = F.silu(_mm(rad, lp["rad_w0"]) + lp["rad_b0"])
     w = _mm(h, lp["rad_w1"]).reshape(-1, len(cfg.paths), mul)  # (E, P, mul)
 
-    src_full = {l: gather(feats[l], edge_src) for l in cfg.ls}  # one per l
+    src_full = {l: gather(feats[l]) for l in cfg.ls}      # one per l
     msgs = {l: [] for l in cfg.ls}
     for p_idx, (l1, l2, l3) in enumerate(cfg.paths):
         T = _intertwiner_tensor((l1, l2, l3), feats[l1].dtype,
@@ -157,7 +174,7 @@ def _interaction(lp, feats, sh, rad, edge_src, edge_dst, n_nodes,
         msgs[l3].append(m * w[:, p_idx, :, None])
     out = {}
     for l in cfg.ls:
-        stack = [feats[l]] + [graph_sum(m, dst_plan) for m in msgs[l]]
+        stack = [feats[l]] + [scatter(m) for m in msgs[l]]
         cat = torch.cat(stack, dim=1)                    # (N, mul*(1+P_l), 2l+1)
         out[l] = _ein("nci,cd->ndi", cat, lp[f"self_l{l}"])
     # gate nonlinearity
@@ -172,12 +189,16 @@ def _interaction(lp, feats, sh, rad, edge_src, edge_dst, n_nodes,
     return new
 
 
-def forward_energy(params, positions, species, edge_src, edge_dst, edge_mask,
-                   node_mask, graph_ids, n_graphs, cfg: NequIPConfig):
-    """positions (N,3), species (N,), edges (E,). Returns (n_graphs,) energies."""
+def _gather_rows(h: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    return gather(h, index)
+
+
+def _geometry(pos, edge_src, edge_dst, edge_mask, cfg: NequIPConfig):
+    """The edges' spherical harmonics {l: (E, 2l+1)} and radial basis (E,
+    n_rbf) in the compute dtype, masked edges and edges past the cutoff
+    zeroed; ``pos`` holds every row the edges name."""
     cdt = cfg.compute_dtype
-    n = positions.shape[0]
-    rel = gather(positions, edge_dst) - gather(positions, edge_src)  # (E, 3)
+    rel = gather(pos, edge_dst) - gather(pos, edge_src)  # (E, 3)
     # grad-safe norm: masked/self edges have rel = 0; plain norm() gives NaN grads
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
     unit = rel / dist[:, None]
@@ -186,23 +207,147 @@ def forward_energy(params, positions, species, edge_src, edge_dst, edge_mask,
     # promote every edge message back to fp32
     sh = {l: (_sph(l, unit) * emask).to(cdt) for l in cfg.ls}
     rad = (bessel_rbf(dist, cfg.n_rbf, cfg.cutoff) * emask).to(cdt)
+    return sh, rad
 
-    mul = cfg.d_hidden
+
+def _embed(params, species, node_mask, cfg: NequIPConfig) -> dict:
+    """Layer 0's features of the atoms ``species`` names: the embedding
+    at l = 0, zeros above."""
+    cdt = cfg.compute_dtype
+    n = species.shape[0]
     feats = {0: (gather(params["embed"], species)
                  * node_mask.to(cdt)[:, None])[..., None]}
     for l in range(1, cfg.l_max + 1):
-        feats[l] = torch.zeros((n, mul, 2 * l + 1), dtype=cdt,
-                               device=positions.device)
+        feats[l] = torch.zeros((n, cfg.d_hidden, 2 * l + 1), dtype=cdt,
+                               device=species.device)
+    return feats
 
+
+def _layers(params, feats, sh, rad, cfg: NequIPConfig, **hooks) -> dict:
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in layers.items()}
-        feats = _interaction(lp, feats, sh, rad, edge_src, edge_dst, n, cfg)
+        feats = _interaction(lp, feats, sh, rad, cfg=cfg, **hooks)
+    return feats
 
+
+def _atom_energies(params, feats, node_mask, cfg: NequIPConfig):
     scalars = feats[0][..., 0]
     e_atom = F.silu(_mm(scalars, params["out_w0"]) + params["out_b0"])
-    e_atom = _mm(e_atom, params["out_w1"])[:, 0] * node_mask.to(cdt)
+    return _mm(e_atom, params["out_w1"])[:, 0] * node_mask.to(
+        cfg.compute_dtype)
+
+
+def forward_energy(params, positions, species, edge_src, edge_dst, edge_mask,
+                   node_mask, graph_ids, n_graphs, cfg: NequIPConfig):
+    """positions (N,3), species (N,), edges (E,). Returns (n_graphs,) energies."""
+    n = positions.shape[0]
+    sh, rad = _geometry(positions, edge_src, edge_dst, edge_mask, cfg)
+    feats = _embed(params, species, node_mask, cfg)
+    feats = _layers(params, feats, sh, rad, cfg, edge_src=edge_src,
+                    edge_dst=edge_dst, n_nodes=n)
+    e_atom = _atom_energies(params, feats, node_mask, cfg)
     return graph_sum(e_atom, edge_plan(graph_ids, n_graphs))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardInputs:
+    """One rank's part of a batch for ``forward_energy_shardmap``, on the
+    rank's device: its node range [lo, lo + n_local) and its edge slice
+    (global row ids), its edges' local destination rows ``seg`` and the
+    plans of every gather and sum over them."""
+
+    lo: int
+    n_local: int
+    species: torch.Tensor      # (n_local,)
+    node_mask: torch.Tensor    # (n_local,)
+    edge_src: torch.Tensor     # (e_local,) rows of the gathered arrays
+    edge_dst: torch.Tensor     # (e_local,)
+    edge_mask: torch.Tensor    # (e_local,)
+    seg: torch.Tensor          # (e_local,) edge_dst - lo
+    atoms: torch.Tensor        # (n_local,) zeros: the readout's one row
+
+
+def shard_inputs(mesh, species, edge_src, edge_dst, edge_mask, node_mask,
+                 cfg: NequIPConfig) -> ShardInputs:
+    """This rank's ``ShardInputs`` of the global arrays, made (and their
+    plans built) once per set of arrays and kept while they live
+    (``ops.tensor_memo``). Only the rank's node range and edge slice move
+    to its device."""
+    n, e = species.shape[0], edge_src.shape[0]
+    if n % mesh.world:
+        raise ValueError(f"{n} atoms do not split into {mesh.world} "
+                         f"node ranges: {(n, mesh.world)}")
+    if e % mesh.world:
+        raise ValueError(f"{e} edges do not split into {mesh.world} "
+                         f"edge slices: {(e, mesh.world)}")
+    n_local, e_local = n // mesh.world, e // mesh.world
+    lo, le = mesh.rank * n_local, mesh.rank * e_local
+    dev = mesh.device
+
+    def part(t, start, size):
+        return t.detach()[start:start + size].to(dev)
+
+    def make() -> ShardInputs:
+        esrc, edst = part(edge_src, le, e_local), part(edge_dst, le, e_local)
+        out = ShardInputs(
+            lo=lo, n_local=n_local, species=part(species, lo, n_local),
+            node_mask=part(node_mask, lo, n_local), edge_src=esrc,
+            edge_dst=edst, edge_mask=part(edge_mask, le, e_local),
+            seg=edst - lo,
+            atoms=torch.zeros(n_local, dtype=torch.int32, device=dev))
+        # the plans of every gather and sum of the forward: the positions'
+        # and features' gathers over all n rows, the species' embedding,
+        # the messages into the rank's rows (foreign and masked edges left
+        # out: the JAX package's sink row), the readout
+        edge_plan(out.edge_src, n)
+        edge_plan(out.edge_dst, n)
+        edge_plan(out.species, cfg.n_species)
+        edge_plan(out.seg, n_local, out.edge_mask)
+        edge_plan(out.atoms, 1)
+        return out
+
+    return tensor_memo(
+        ("shard_inputs", mesh.rank, mesh.world, str(dev), cfg.n_species),
+        (species, edge_src, edge_dst, edge_mask, node_mask), make)
+
+
+def forward_energy_shardmap(params, positions, species, edge_src, edge_dst,
+                            edge_mask, node_mask, graph_ids, n_graphs,
+                            cfg: NequIPConfig, mesh):
+    """Destination-partitioned message passing over the ranks of ``mesh``
+    (a ``launch.mesh.ShardMesh``), the JAX package's ``shard_map`` path.
+    Every rank calls it with the same global arrays and parameters.
+
+    INPUT CONTRACT (the input pipeline's job, declared here): atoms split
+    into ``mesh.world`` contiguous ranges and edges into as many slices,
+    rank r's edge slice holding only edges whose DESTINATION lies in r's
+    node range (any source); an edge that breaks it is dropped, as the
+    JAX package's sink row drops it. Each rank then: all-gathers the
+    positions once, computes its edges' geometry, per layer all-gathers
+    each l's features once and gathers them at the global sources, and
+    sums the messages into its OWN rows. Parameters enter through
+    ``mesh.replicate``, so their gradients are summed over the ranks.
+
+    graph_ids and n_graphs are ignored: the single-graph shapes that take
+    this path have one graph. Returns the energy (1,), on every rank."""
+    loc = shard_inputs(mesh, species, edge_src, edge_dst, edge_mask,
+                       node_mask, cfg)
+    prm = mesh.replicate(params)
+    pos_l = positions[loc.lo:loc.lo + loc.n_local].to(mesh.device)
+    pos_f = mesh.all_gather_tiled(pos_l)
+    sh, rad = _geometry(pos_f, loc.edge_src, loc.edge_dst, loc.edge_mask, cfg)
+    feats = _embed(prm, loc.species, loc.node_mask, cfg)
+    seg_plan = edge_plan(loc.seg, loc.n_local, loc.edge_mask)
+
+    def gather_full(f):
+        return gather(mesh.all_gather_tiled(f), loc.edge_src)
+
+    feats = _layers(prm, feats, sh, rad, cfg, edge_src=None, edge_dst=None,
+                    n_nodes=None, gather=gather_full,
+                    scatter=functools.partial(graph_sum, plan=seg_plan))
+    e_atom = _atom_energies(prm, feats, loc.node_mask, cfg)
+    return mesh.psum(graph_sum(e_atom, edge_plan(loc.atoms, 1)))
 
 
 def _sph(l: int, unit: torch.Tensor) -> torch.Tensor:

@@ -34,30 +34,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.tree import tree_leaves, tree_map  # noqa: F401
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     name: str
     init: Callable[[Any], Any]
     update: Callable[..., tuple[Any, Any]]
-
-
-# ---------------------------------------------------------------- trees
-def tree_leaves(tree) -> list:
-    """The leaves of nested dicts, lists and tuples, dict keys in sorted
-    order (the JAX package's tree order)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in tree_leaves(t)]
-    return [tree]
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts of one structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    return fn(tree, *rest)
 
 
 def _device(params) -> torch.device:

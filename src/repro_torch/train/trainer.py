@@ -21,7 +21,8 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.train.optimizer import Optimizer, tree_leaves
+from repro_torch.train.optimizer import Optimizer
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def _split_batch(batch: dict, n: int) -> list[dict]:
@@ -35,12 +36,6 @@ def _split_batch(batch: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def _rebuild(tree, it):
-    if isinstance(tree, dict):
-        return {k: _rebuild(tree[k], it) for k in sorted(tree)}
-    return next(it)
-
-
 def value_and_grad(loss_fn, params, batch):
     """``loss_fn(params, batch) -> (loss, metrics)`` and the gradient of the
     loss in every floating leaf of ``params`` (zeros for a leaf the loss
@@ -49,7 +44,7 @@ def value_and_grad(loss_fn, params, batch):
     metrics, grads) detached, grads in ``tree_leaves(params)`` order."""
     leaves = tree_leaves(params)
     req = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
-    loss, metrics = loss_fn(_rebuild(params, iter(req)), batch)
+    loss, metrics = loss_fn(tree_unflatten(params, req), batch)
     wrt = [r for r in req if r.requires_grad]
     got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = []
@@ -125,7 +120,7 @@ def make_train_step(
                     grads[i] = g.float().mul_(scale)   # in place if fp32
                 scale = None
 
-        grads = _rebuild(params, iter(grads))
+        grads = tree_unflatten(params, grads)
         if grad_transform is not None:
             grads, opt_state = grad_transform(grads, opt_state)
         params, opt_state = optimizer.update(grads, opt_state, params, lr,

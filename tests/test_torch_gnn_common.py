@@ -215,9 +215,9 @@ def test_edge_plans_are_built_once_per_tensor():
         ops.graph_sum(v, out).numpy())
     assert ops.graph_gather(torch.arange(40.0)[:, None], out).flatten() \
         .tolist() == [0, 0, 0, 2]
-    n0 = len(ops._EDGE_PLANS)
+    n0 = len(ops._MEMO)
     del idx, mask, ones, p, q
-    assert len(ops._EDGE_PLANS) < n0
+    assert len(ops._MEMO) < n0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

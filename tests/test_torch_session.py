@@ -253,7 +253,8 @@ def test_port_loads_no_jax_and_no_repro():
     churn burst, a sparse write and read, and an adaptation), a pipelined
     session (``ingest_depth=2``) with a standing alert, a sharded session
     with churn, a save, a restore and a reshard, the recovery driver, the
-    streams and the eagr config, the shard mesh on a one-rank group, the
+    streams and the eagr config, the shard mesh on a one-rank group (a
+    sharded session and NequIP's ``forward_energy_shardmap``), the
     serve path (LM prefill and decode,
     a MoE arch's prefill and the launcher serving one, DIEN scoring and
     retrieval, the launcher) and the training path (a smoke train step,
@@ -332,6 +333,16 @@ def test_port_loads_no_jax_and_no_repro():
         bg = EagrSession.restore(d + "/g", device="cpu")
         assert bg.queries[0].group.engine.mesh is not None
         assert (bg.read(bg.queries[0], g1.readers[:8]) == wg).all()
+        # NequIP's destination-partitioned forward on the same group
+        from repro_torch.configs import nequip as NC
+        from repro_torch.models.gnn import nequip as NM
+        c = NC.build_smoke("full_graph_sm", device="cpu")
+        b = NC.arrange_to_contract(c["batch"], 1)
+        e = NM.forward_energy_shardmap(
+            c["params"], *(b[k] for k in ("positions", "species",
+            "edge_src", "edge_dst", "edge_mask", "node_mask",
+            "graph_ids")), 1, c["cfg"], NC.group_mesh("cpu"))
+        assert e.shape == (1,) and bool(e.isfinite().all())
         dist.destroy_process_group()
         def make():
             x = EagrSession(rmat_graph(120, 600, seed=1), device="cpu")
