@@ -143,10 +143,10 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    window oracle; then, in a temporary directory removed at exit, a save
    (blocking part, total, bytes, MB/s), a same-layout restore (seconds
    against the cold build's, first read bit-identical), reshards 4 -> 2
-   and 4 -> single (sums within 1e-4, max exact) and
-   ``SessionRecoveryDriver`` with one injected failure required
+   (then saved for phase 14) and 4 -> single (sums within 1e-4, max
+   exact) and ``SessionRecoveryDriver`` with one injected failure required
    bit-identical to an uninterrupted run; phase 14 runs between the
-   same-layout restore and the reshards;
+   reshards and the recovery driver;
 9. bf16 edge values (``EAGR_SEGAGG_BF16``) on phase 3's overlay and
    decisions, compiled again with the flag (no second construction): bf16
    and fp32 engines of ``sum``, ``max`` and ``count`` and a 4-shard bf16
@@ -274,7 +274,23 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    (every count set to 0 just before the batches) above 0, every engine
    tensor on the card, no kernel built again in a rank; each rank's write
    and read p50 printed as ranks sharing one card (not a multi-card
-   speed). Then, in the same ranks, NequIP's ``minibatch_lg`` cell at the
+   speed). Then, in the same ranks and beside the one-card stack: (i)
+   phase 8's checkpoint restored with phase 7's ingest ring (2 slots,
+   device batches of 8,192 from arrival batches of 1,024 integral
+   Zipf(1.5) writes, 16 device batches) and the alert on, every rank's
+   answers, fired sets and its shard's state (SHA-256 of windows, PAOs
+   and clock) required bit-equal to the one-card ring's, its stacked
+   launches (counts from 0 over the ring) above 0, events/s a rank,
+   ``stall_s`` and detection p50 printed; (ii) ``SessionRecoveryDriver``
+   over that ring session, 12 batches of 4,096, a checkpoint every 4
+   (rank 0 writes after one gather), failures injected at +6 and +10 on
+   every rank: restarts 2, state and answers bit-equal to the
+   uninterrupted group run; (iii) phase 8f's 2-shard reshard restored
+   with ``shards=4`` onto the ranks (each partitions alike and builds
+   its own shard), its state and first reads bit-equal to the one-card
+   ``restore(shards=4)``, whose first reads equal the saved session's
+   (max exactly, sums within 1e-4); restore seconds a rank printed. Then,
+   in the same ranks, NequIP's ``minibatch_lg`` cell at the
    JAX package's full width (``CFG_BF16``: 5 layers, d 32, l_max 2;
    169,984 atoms, 168,960 edges) built by ``configs/nequip.build`` inside
    the group: ``forward_energy_shardmap`` over the ranks, 42,496 atoms a
@@ -2628,8 +2644,11 @@ GROUP_BATCHES = 10         # write batches (5 dense, 5 sparse), each read
 GROUP_CHURN_AT = 4         # the churn burst lands before this batch
 GROUP_ALERT_AT = 6         # the alert is registered before this batch
 GROUP_CHURN_SHARD = 1      # the one shard the burst touches
+GROUP_RING_BATCHES = 16    # (i) device batches of the ring's stream
+GROUP_DRIVER_BATCHES, GROUP_DRIVER_EVERY = 12, 4   # (ii) the driver's run
+GROUP_DRIVER_FAIL = (6, 10)  # its injected failures, after phase 8's seq
 GROUP_TIMEOUT_S = 120.0    # every collective of the group
-GROUP_JOIN_S = 300.0       # the spawn's join deadline
+GROUP_JOIN_S = 600.0       # the spawn's join deadline
 NCCL_GRAPH = (3_000, 20_000)   # the 1-rank nccl group's session
 NCCL_BATCHES = 6
 # phase 14's NequIP: the JAX package's minibatch_lg cell (CFG_BF16, 5
@@ -2650,6 +2669,15 @@ def bits_equal(a, b) -> bool:
     a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
     return a.shape == b.shape and a.dtype == b.dtype and \
         np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def fired_equal(a: list, b: list) -> bool:
+    """Two lists of (now, base ids, values, aids, overflow) fired batches
+    equal, the arrays bit for bit."""
+    return len(a) == len(b) and all(
+        x[0] == y[0] and x[4] == y[4]
+        and all(bits_equal(u, v) for u, v in zip(x[1:4], y[1:4]))
+        for x, y in zip(a, b))
 
 
 def device_sync(torch) -> None:
@@ -2728,11 +2756,117 @@ def group_drive(torch, session, plan: dict) -> dict:
     return out
 
 
+def shard_digests(session) -> dict:
+    """SHA-256 of each held shard's windows, PAOs and clock, by (group
+    index, shard): all shards on one card, the rank's own on a group."""
+    import hashlib
+
+    from repro_torch.core.engine import to_host
+
+    out = {}
+    for gi, g in enumerate(session._groups.values()):
+        st, eng = g.engine.state, g.engine
+        for i, s in enumerate(eng.local):
+            parts = to_host(*(w[i] for w in st.windows), st.pao[i], st.now[i])
+            h = hashlib.sha256()
+            for p in parts:
+                h.update(np.ascontiguousarray(p).tobytes())
+            out[(gi, s)] = h.hexdigest()
+    return out
+
+
+def ring_session(plan, device):
+    """Phase 8's checkpoint restored (its own shard only, on a group) with
+    phase 7's ingest ring: INGEST_DEPTH slots, device batches of ARRIVAL x
+    COALESCE events."""
+    from repro_torch import EagrSession
+
+    s = EagrSession.restore(plan["ckpt"], device=device)
+    s.ingest_depth, s.ingest_batch = INGEST_DEPTH, ARRIVAL * COALESCE
+    s.ckpt_keep = 1
+    return s
+
+
+def group_ring(torch, plan, device) -> dict:
+    """Phase 14 (i) on one side (a rank, or the one-card stack in the
+    parent): phase 8's checkpoint through phase 7's ring with the alert
+    on, GROUP_RING_BATCHES device batches of arrival batches of ARRIVAL
+    integral writes, then reads of both queries; launch counts from 0 over
+    the ring and the reads."""
+    from repro_torch.kernels.segment_agg import ops
+
+    s = ring_session(plan, device)
+    hs = s.queries
+    s.register_alert(hs[0], above=plan["above"],
+                     readers=plan["alert_readers"])
+    device_sync(torch)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for ids, vals in plan["ring"]:
+        s.update(ids, vals)
+    fired = [(b.now, b.base_ids, b.values, b.aids, b.overflow)
+             for b in s.drain_fired()]
+    device_sync(torch)
+    secs = time.perf_counter() - t0
+    reads = [s.read(h, plan["q"]) for h in hs]
+    device_sync(torch)
+    st = s.stats().ingest
+    detect = hs[0].group.engine.alerts.detect_s
+    out = dict(reads=reads, fired=fired, digests=shard_digests(s),
+               launches=dict(ops.LAUNCHES), seconds=secs,
+               events=st.events_in, batches=st.batches,
+               partial=st.partial_batches, stall_s=st.stall_s,
+               barrier_s=st.barrier_s,
+               detect_p50_ms=float(np.median(detect)) * 1e3)
+    out["events_per_s"] = out["events"] / secs
+    return out
+
+
+def group_driver(torch, plan, device, work: str, name: str, fail) -> dict:
+    """Phase 14 (ii) on a rank: ``SessionRecoveryDriver`` over the ring
+    session, GROUP_DRIVER_BATCHES batches after phase 8's seq, a
+    checkpoint every GROUP_DRIVER_EVERY (rank 0 writes), failures injected
+    at ``fail`` (relative to that seq) on every rank."""
+    from repro_torch.distributed import SessionRecoveryDriver
+
+    seq0 = plan["seq0"]
+    feed = plan["driver"]
+    drv = SessionRecoveryDriver(
+        lambda: ring_session(plan, device),
+        lambda seq: feed[seq - seq0], os.path.join(work, f"driver_{name}"),
+        ckpt_every=GROUP_DRIVER_EVERY, device=device)
+    t0 = time.perf_counter()
+    s = drv.run(seq0 + len(feed), fail_at={seq0 + f for f in fail})
+    device_sync(torch)
+    secs = time.perf_counter() - t0
+    return dict(seq=s._seq, restarts=drv.report.restarts,
+                checkpoints=drv.report.checkpoints, seconds=secs,
+                reads=[s.read(h, plan["q"]) for h in s.queries],
+                digests=shard_digests(s))
+
+
+def group_reshard(torch, plan, device) -> dict:
+    """Phase 14 (iii) on one side: phase 8f's 2-shard reshard restored
+    with shards=GROUP_RANKS (on a group: every rank partitions alike and
+    builds its own shard), timed, its first reads and state digests."""
+    from repro_torch import EagrSession
+
+    t0 = time.perf_counter()
+    r = EagrSession.restore(plan["r2"], shards=GROUP_RANKS, device=device)
+    device_sync(torch)
+    secs = time.perf_counter() - t0
+    return dict(seconds=secs, first=[r.read(h, plan["q"]) for h in r.queries],
+                digests=shard_digests(r), n_shards=r.n_shards,
+                on_group=[h.group.engine.mesh is not None for h in r.queries])
+
+
 def group_rank(rank: int, world: int, backend: str, work: str) -> None:
     """One rank of phase 14's group: restore phase 8's checkpoint (its own
     shard only), check the first read against phase 8's, run
-    ``group_drive`` and write the results to ``rank{rank}.pkl``. Any
-    failure raises, which ends the spawn with an error."""
+    ``group_drive``, the ring, the recovery driver (with failures and
+    without), the reshard and NequIP, and write the results to
+    ``rank{rank}.pkl``. Any failure raises, which ends the spawn with an
+    error."""
     import pickle
 
     import torch
@@ -2763,6 +2897,11 @@ def group_rank(rank: int, world: int, backend: str, work: str) -> None:
                 raise AssertionError(f"rank {rank}: the first read after "
                                      f"the restore differs from phase 8's")
         del session
+        out["ring"] = group_ring(torch, plan, device)
+        out["driver"] = {
+            name: group_driver(torch, plan, device, work, name, fail)
+            for name, fail in (("fault", GROUP_DRIVER_FAIL), ("clean", ()))}
+        out["reshard"] = group_reshard(torch, plan, device)
         out["nequip"] = nequip_rank(torch, rank, device)
         out.update(rank=rank, device=str(meshes[0].device),
                    comm=str(meshes[0].comm), backend=meshes[0].backend,
@@ -3219,12 +3358,14 @@ def nccl_rank(rank: int, work: str) -> None:
 
 
 def phase_group(torch, session, handles, ckpt: str, want, sample,
-                writers, d: str) -> dict:
+                writers, d: str, r2: str, r2_want) -> dict:
     """Phase 14 (see the module docstring), in phase 8f's temporary
     directory ``d``: a group of GROUP_RANKS ranks restores phase 8's
     checkpoint ``ckpt``, one shard a rank, and is held bit for bit to the
-    one-card stack restored in the parent; beside it, a 1-rank nccl
-    group."""
+    one-card stack restored in the parent, through the script, the ingest
+    ring and the recovery driver; it reshards phase 8f's 2-shard
+    checkpoint ``r2`` (whose reads were ``r2_want``) onto the ranks;
+    beside it, a 1-rank nccl group."""
     import pickle
     import threading
 
@@ -3264,7 +3405,14 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
                 devices=devices,
                 churn=churn, above=0.0,
                 alert_readers=[int(b) for b in push[:: max(1, len(push)
-                                                            // 64)][:64]])
+                                                            // 64)][:64]],
+                ring=stream_of(writers, np.asarray(sample),
+                               GROUP_RING_BATCHES, SEED + 141),
+                seq0=session._seq,
+                driver=[(ids, vals) for ids, vals, _ in make_stream(
+                    writers, np.asarray(sample), GROUP_DRIVER_BATCHES, rng,
+                    dyadic=False)],
+                r2=r2)
     with open(os.path.join(work, "plan.pkl"), "wb") as f:
         pickle.dump(plan, f)
     print(f"14 group: {GROUP_RANKS} ranks over {backend} (file:// store, "
@@ -3293,16 +3441,19 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
     for th in threads:
         th.start()
     try:
-        # the one-card stack, restored once more, on the same script
+        # the one-card stack, restored once more, on the same script, the
+        # same ring, and the same reshard
         one = EagrSession.restore(ckpt, device=DEVICE)
         ref = group_drive(torch, one, plan)
+        del one
+        ref["ring"] = group_ring(torch, plan, DEVICE)
+        ref["reshard"] = group_reshard(torch, plan, DEVICE)
     finally:
         for th in threads:
             th.join()
     group_s = time.perf_counter() - t0
     if errors:
         raise errors[0]
-    del one
     for a, b in zip(ref["first"], want):
         if not bits_equal(a, b):
             raise AssertionError("the one-card restore's first read differs "
@@ -3333,10 +3484,7 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
             raise AssertionError(f"rank {r}: patched {out['patched_local']}, "
                                  f"the burst touched shard "
                                  f"{GROUP_CHURN_SHARD} only")
-        if len(out["fired"]) != len(ref["fired"]) or not all(
-                a[0] == b[0] and a[4] == b[4]
-                and all(bits_equal(x, y) for x, y in zip(a[1:4], b[1:4]))
-                for a, b in zip(out["fired"], ref["fired"])):
+        if not fired_equal(out["fired"], ref["fired"]):
             raise AssertionError(f"rank {r}: fired sets differ from the "
                                  f"one-card stack's")
         low = [k for k in stacked_keys if out["launches"].get(k, 0) <= 0]
@@ -3368,6 +3516,8 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
           f"{np.median(ref['w_ms']):.3f} ms, read p50 "
           f"{np.median(ref['r_ms']):.3f} ms; the group's ranks "
           f"{secs['group']:.1f} s", flush=True)
+
+    streams = group_stream_check(ranks, ref, r2_want)
 
     # NequIP over the group's ranks against one card (the ranks have
     # ended: the card is the parent's)
@@ -3412,7 +3562,109 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
                       read_p50_ms=float(np.median(ref["r_ms"]))),
         nccl=dict(device=g["device"], launches={
             k: g["launches"][k] for k in stacked_keys}),
-        nequip=nq)
+        streams=streams, nequip=nq)
+
+
+def group_stream_check(ranks: list, ref: dict, r2_want) -> dict:
+    """Phase 14 (i)-(iii) after the join: each rank's ring against the
+    one-card ring (answers, fired sets, its shard's state digests), its
+    recovered driver run against its uninterrupted one, its reshard
+    against the one-card reshard (and the one-card reshard's first reads
+    against the saved 2-shard session's: max exactly, sums within 1e-4).
+    Prints the ring's events/s, stall and detection p50 a rank and the
+    restore seconds a rank, as ranks sharing one card."""
+    one_ring, one_rs = ref["ring"], ref["reshard"]
+    for k, (a, b) in enumerate(zip(one_rs["first"], r2_want)):
+        ok = bits_equal(a, b) if k else np.allclose(a, b, rtol=1e-4,
+                                                    atol=1e-4)
+        if not ok:
+            raise AssertionError(f"phase 14 reshard 2 -> {GROUP_RANKS} on "
+                                 f"one card: query {k}'s first read differs "
+                                 f"from the saved session's")
+    if not any(len(f[1]) for f in one_ring["fired"]):
+        raise AssertionError("phase 14 ring: the alert fired no reader")
+    for out in ranks:
+        r = out["rank"]
+        ring, rs, drv = out["ring"], out["reshard"], out["driver"]
+        for x, y in zip(ring["reads"], one_ring["reads"]):
+            if not bits_equal(x, y):
+                raise AssertionError(f"rank {r}: the ring's answers differ "
+                                     f"from the one-card ring's")
+        if not fired_equal(ring["fired"], one_ring["fired"]):
+            raise AssertionError(f"rank {r}: the ring's fired sets differ "
+                                 f"from the one-card ring's")
+        for key, dig in ring["digests"].items():
+            if key[1] != r or dig != one_ring["digests"][key]:
+                raise AssertionError(f"rank {r}: the ring's state of "
+                                     f"{key} differs from the one card's")
+        if (ring["batches"], ring["partial"]) != (one_ring["batches"],
+                                                  one_ring["partial"]):
+            raise AssertionError(f"rank {r}: ring batches {ring['batches']} "
+                                 f"against {one_ring['batches']}")
+        for op in ("sum", "max"):
+            if ring["launches"].get(f"{op}_stacked", 0) \
+                    + ring["launches"].get(f"{op}_active_stacked", 0) <= 0:
+                raise AssertionError(f"rank {r}: the ring launched no "
+                                     f"stacked {op} entry: "
+                                     f"{ring['launches']}")
+        f, c = drv["fault"], drv["clean"]
+        if (f["restarts"], c["restarts"]) != (2, 0) \
+                or f["seq"] != c["seq"]:
+            raise AssertionError(f"rank {r}: driver restarts "
+                                 f"{f['restarts']}, {c['restarts']}, seq "
+                                 f"{f['seq']}, {c['seq']}")
+        if f["digests"] != c["digests"] or not all(
+                bits_equal(x, y) for x, y in zip(f["reads"], c["reads"])):
+            raise AssertionError(f"rank {r}: the recovered run differs from "
+                                 f"the uninterrupted run")
+        if rs["n_shards"] != GROUP_RANKS or not all(rs["on_group"]):
+            raise AssertionError(f"rank {r}: the reshard is not on the "
+                                 f"group: {rs['on_group']}")
+        for key, dig in rs["digests"].items():
+            if key[1] != r or dig != one_rs["digests"][key]:
+                raise AssertionError(f"rank {r}: the reshard's state of "
+                                     f"{key} differs from the one card's")
+        if not all(bits_equal(x, y)
+                   for x, y in zip(rs["first"], one_rs["first"])):
+            raise AssertionError(f"rank {r}: the reshard's first reads "
+                                 f"differ from the one card's")
+    for out in ranks:
+        ring, drv = out["ring"], out["driver"]
+        print(f"14 rank {out['rank']} streams (ranks sharing one card, not "
+              f"a multi-card speed): ring {ring['events']} events in "
+              f"{ring['batches']} device batches, {ring['events_per_s']:.0f} "
+              f"events/s, stall_s {ring['stall_s']:.4f}, barrier_s "
+              f"{ring['barrier_s']:.4f}, detection p50 "
+              f"{ring['detect_p50_ms']:.3f} ms; driver "
+              f"{drv['fault']['seconds']:.1f} s with 2 failures "
+              f"({drv['fault']['checkpoints']} checkpoints), "
+              f"{drv['clean']['seconds']:.1f} s without; reshard 2 -> "
+              f"{GROUP_RANKS} restore {out['reshard']['seconds']:.3f} s",
+              flush=True)
+    print(f"14 streams: the ring ({INGEST_DEPTH} slots, device batches of "
+          f"{ARRIVAL * COALESCE} from arrivals of {ARRIVAL}, the alert on) "
+          f"== the one-card ring bit for bit (answers, fired sets, state), "
+          f"one card {one_ring['events_per_s']:.0f} events/s, detection p50 "
+          f"{one_ring['detect_p50_ms']:.3f} ms; the driver "
+          f"({GROUP_DRIVER_BATCHES} batches, a checkpoint every "
+          f"{GROUP_DRIVER_EVERY}, failures at +{GROUP_DRIVER_FAIL}) == the "
+          f"uninterrupted group run bit for bit; the reshard 2 -> "
+          f"{GROUP_RANKS} == one card's bit for bit (one card "
+          f"{one_rs['seconds']:.3f} s)", flush=True)
+    return dict(
+        one_card=dict(ring_events_per_s=one_ring["events_per_s"],
+                      ring_detect_p50_ms=one_ring["detect_p50_ms"],
+                      ring_stall_s=one_ring["stall_s"],
+                      reshard_s=one_rs["seconds"]),
+        per_rank=[dict(rank=o["rank"],
+                       ring_events_per_s=o["ring"]["events_per_s"],
+                       ring_stall_s=o["ring"]["stall_s"],
+                       ring_barrier_s=o["ring"]["barrier_s"],
+                       ring_detect_p50_ms=o["ring"]["detect_p50_ms"],
+                       driver_fault_s=o["driver"]["fault"]["seconds"],
+                       driver_clean_s=o["driver"]["clean"]["seconds"],
+                       reshard_s=o["reshard"]["seconds"])
+                  for o in ranks])
 
 
 def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
@@ -3663,12 +3915,6 @@ def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
         del same
         lap("save_restore")
 
-        # ---- 14. the group: this checkpoint restored onto GROUP_RANKS
-        # ranks, one shard a rank, against the one-card stack
-        report["group"] = phase_group(torch, session, handles,
-                                      os.path.join(d, "main"), want, q,
-                                      writers, d)
-        lap("group")
         reshard = {}
         for m in (2, 0):
             t0 = time.perf_counter()
@@ -3685,19 +3931,33 @@ def phase_shards(torch, ops, ref, graph, single, out_dir, errs) -> dict:
                 elif not np.allclose(a, b, rtol=1e-4, atol=1e-4):
                     raise AssertionError(f"reshard {SHARDS} -> {m}: sum "
                                          f"answers beyond 1e-4")
+            if m == 2:
+                # phase 14 reshards this one onto its ranks
+                r2_want = got
+                r.save(os.path.join(d, "r2"), blocking=True)
             del r
         print(f"8f checkpoints on {card_line()}: save {nbytes} bytes, "
               f"blocking part {block_s:.3f} s, total {total_s:.3f} s "
               f"({nbytes / total_s / 1e6:.1f} MB/s); restore to the same "
               f"layout {restore_s:.3f} s against the cold build's "
               f"{cold_s:.3f} s, first read bit-identical; reshard "
-              f"{SHARDS} -> 2 {reshard[2]:.3f} s, {SHARDS} -> single "
-              f"{reshard[0]:.3f} s (sums within 1e-4, max exact)", flush=True)
+              f"{SHARDS} -> 2 {reshard[2]:.3f} s (then saved), {SHARDS} -> "
+              f"single {reshard[0]:.3f} s (sums within 1e-4, max exact)",
+              flush=True)
         report.update(save_bytes=nbytes, save_block_s=block_s,
                       save_total_s=total_s,
                       save_mb_s=nbytes / total_s / 1e6,
                       restore_s=restore_s, reshard_s=reshard)
         lap("reshard")
+
+        # ---- 14. the group: this checkpoint restored onto GROUP_RANKS
+        # ranks, one shard a rank, against the one-card stack; the 2-shard
+        # reshard resharded onto them
+        report["group"] = phase_group(torch, session, handles,
+                                      os.path.join(d, "main"), want, q,
+                                      writers, d, os.path.join(d, "r2"),
+                                      r2_want)
+        lap("group")
 
         # the recovery driver: a run with one injected failure against an
         # uninterrupted one, both from this checkpoint ("cold" = restore)

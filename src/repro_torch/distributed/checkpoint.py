@@ -24,10 +24,12 @@ replication keeps a writer's window ring identical on every owning shard.
 
 A session of one shard per rank of a ``torch.distributed`` group writes the
 one-card stack's format (one gather of the shard states, then rank 0
-writes), and a saved N-shard layout restores onto a group of N ranks with
-every rank adopting its own shard's plan, windows and PAOs only — so one
-checkpoint directory restores onto one card, onto a group, or into the JAX
-package.
+writes). A saved N-shard layout restores onto a group of N ranks with
+every rank adopting its own shard's plan, windows and PAOs only; any layout
+(a single engine included) reshards onto a group of M ranks, every rank
+partitioning alike on the host and building its own shard's windows and
+PAO only — so one checkpoint directory restores onto one card, onto a
+group of any size, or into the JAX package.
 
 Array names, dtypes and shapes are the JAX package's (``repro.distributed.
 checkpoint``), so a checkpoint either package writes restores in the other.
@@ -633,7 +635,9 @@ def _restore_group_reshard(session, i: int, gobj: dict, arrays: dict,
     to a single engine). Plans recompile against the master basis, window
     rings redistribute by base id (write replication keeps a writer's ring
     identical across its owning shards, so any old owner is a valid source)
-    and PAOs recompute from the migrated windows at the saved clock."""
+    and PAOs recompute from the migrated windows at the saved clock. On a
+    group of M ranks each rank builds its own shard's windows and PAO
+    only."""
     from repro_torch.core import dataflow as D
     from repro_torch.core.engine import (
         EagrEngine,
@@ -690,24 +694,29 @@ def _restore_group_reshard(session, i: int, gobj: dict, arrays: dict,
         from repro_torch.distributed.stacked import StackedShardedEngine
 
         M = session.n_shards
+        mesh = session.mesh
+        # on a group every rank partitions alike on the host (deterministic
+        # numpy, same seed); the engine uploads the rank's own shard only
         g.sharded = partition_overlay(
-            basis, dec, n_shards=M, seed=session.seed, device=dev,
+            basis, dec, n_shards=M, seed=session.seed,
+            device="cpu" if mesh is not None else dev,
             headroom=session.headroom)
         g.dec_global = dec
-        g.engine = StackedShardedEngine(g.sharded, agg, spec, mesh=None,
+        g.engine = StackedShardedEngine(g.sharded, agg, spec, mesh=mesh,
                                         device=dev,
                                         base_capacity=session.n_base)
         g.engine.pin_push = g.continuous
         wins, paos = [], []
-        for plan in g.sharded.shard_plans:
+        for s in g.engine.local:
+            plan = g.sharded.shard_plans[s]
             w = window_state_from_host(take_window_rows(big, rows_for(plan)),
                                        device=dev)
             wins.append(w)
             paos.append(refresh_pao_step(plan.meta, agg, spec, plan.arrays,
                                          w, now_d))
         state = EngineState(stack_windows(wins), torch.stack(paos),
-                            torch.full((M,), now, dtype=torch.float32,
-                                       device=dev))
+                            torch.full((len(wins),), now,
+                                       dtype=torch.float32, device=dev))
         g.engine.adopt_state(state, now_host=now,
                              last_eval_now=np.full(M, now, np.float32))
     else:
@@ -738,8 +747,9 @@ def restore_session(directory: str, *, step: int | None = None,
     without running construction, min-cut or compilation. An explicit
     ``shards=M`` (``M >= 1``, or ``0`` for a single engine) *reshards*:
     plans recompile over the saved master overlay and window state
-    redistributes by base id. ``graph`` optionally re-attaches the data
-    graph (only ``.bipartite`` depends on it)."""
+    redistributes by base id, onto one card or, inside a group of M ranks,
+    one shard a rank. ``graph`` optionally re-attaches the data graph (only
+    ``.bipartite`` depends on it)."""
     from repro_torch.core.aggregates import make_aggregate
     from repro_torch.core.bipartite import Bipartite, build_bipartite
     from repro_torch.core.vnm import ConstructionStats
@@ -759,10 +769,6 @@ def restore_session(directory: str, *, step: int | None = None,
     if target < 0:
         raise ValueError(f"shards must be >= 0, got {shards}")
     mesh = make_shard_mesh(target, device=device) if target else None
-    if mesh is not None and target != old_shards:
-        raise ValueError(f"restore onto a group of {target} ranks takes the "
-                         f"saved layout of {old_shards} shards (shards=None); "
-                         f"resharding onto a group is not supported")
     dev = mesh.device if mesh is not None else resolve_device(device)
 
     sess = object.__new__(EagrSession)

@@ -12,7 +12,8 @@ a training state ``(params, opt_state)``):
     it flags and records slow steps.
 
 ``SessionRecoveryDriver`` is the same loop over a durable
-:class:`repro_torch.session.EagrSession`.
+:class:`repro_torch.session.EagrSession`, on one card or SPMD on a group
+of ranks.
 """
 from __future__ import annotations
 
@@ -129,6 +130,15 @@ class SessionRecoveryDriver:
     ``make_session()`` builds the cold session (on first start, and when a
     crash precedes the first committed checkpoint); restores land on
     ``device`` (CUDA unless the caller names another).
+
+    On a group of ranks (a session of one shard a rank) the driver runs
+    SPMD: every rank runs it with the same ``make_batch``, ``directory``
+    and ``fail_at``, so every rank fails at the same ``seq``. Rank 0 alone
+    writes checkpoints; the failed session's ``wait_for_checkpoint`` is a
+    barrier after the last commit, so every rank then boots from the same
+    committed step, and restores onto the rank's existing
+    ``torch.distributed`` group. A failure raised on one rank only is not
+    covered: the others block in their next collective until its timeout.
     """
 
     def __init__(self, make_session: Callable[[], Any],
@@ -143,11 +153,12 @@ class SessionRecoveryDriver:
         self.report = RunReport()
 
     def _boot(self):
-        mgr = CheckpointManager(self.directory)
-        if mgr.latest_step() is None:
+        step = CheckpointManager(self.directory).latest_step()
+        if step is None:
             return self.make_session()
         from repro_torch.session import EagrSession
-        return EagrSession.restore(self.directory, device=self.device)
+        return EagrSession.restore(self.directory, step=step,
+                                   device=self.device)
 
     def run(self, n_batches: int, *,
             fail_at: "set[int] | None" = None) -> Any:
@@ -176,6 +187,10 @@ class SessionRecoveryDriver:
                 if restarts > self.max_restarts:
                     raise
                 session.wait_for_checkpoint()
-                session = self._boot()  # replay resumes at the saved _seq
+                # the failed session is dropped as it stands: its ring's
+                # partial slot is never dispatched, and replay resumes at
+                # the saved _seq from a flushed ring, so slot boundaries
+                # and the logical clock match the uninterrupted run
+                session = self._boot()
         session.wait_for_checkpoint()
         return session

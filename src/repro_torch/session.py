@@ -32,7 +32,9 @@ shards, stacked on one card) behind the same methods, with churn journaled
 per shard (``ShardedDynamic``). Inside an initialised ``torch.distributed``
 group of exactly N ranks the same call holds one shard per rank
 (``launch.mesh.make_shard_mesh``): every rank makes the same calls with the
-same global batches, and ``read`` returns the global answers on every rank.
+same global batches (the ingest ring, alerts, churn, ``adapt``, ``save`` and
+the recovery driver included), and ``read`` returns the global answers on
+every rank.
 
 Sessions are durable: ``save`` checkpoints every group's plans, windows,
 PAOs and clocks (two-phase commit, written by a background thread),
@@ -422,8 +424,9 @@ class EagrSession:
         reader-partitions the overlay into N shards stacked on the device
         (:class:`~repro_torch.distributed.stacked.StackedShardedEngine`),
         or, inside a ``torch.distributed`` group of N ranks, one shard per
-        rank: rank r on ``device``, else ``cuda:{r % device_count}``. The
-        ingest ring does not run on a group.
+        rank: rank r on ``device``, else ``cuda:{r % device_count}``. On a
+        group each rank runs its own ingest ring over the same global
+        stream; every rank must make the same calls in the same order.
     ckpt_dir, ckpt_every, ckpt_keep :
         Auto-checkpointing: every ``ckpt_every`` updates the session saves
         to ``ckpt_dir`` in the background, keeping the newest ``ckpt_keep``
@@ -492,9 +495,6 @@ class EagrSession:
             ingest_batch = int(os.environ.get("EAGR_INGEST_BATCH", "0") or 0)
         self.ingest_depth = max(0, int(ingest_depth))
         self.ingest_batch = int(ingest_batch) or 8192
-        if self.ingest_depth and self.mesh is not None:
-            raise ValueError("the ingest ring does not run on a group of "
-                             "ranks yet: pass ingest_depth=0")
         self._pipeline = None
         self._carry_ingest = None  # IngestStats across pipeline rebuilds
         # durable sessions: the update-batch sequence number doubles as the
@@ -938,11 +938,13 @@ class EagrSession:
         compiled plans, window rings, PAOs and clocks adopt verbatim, with
         no construction, min-cut or compilation; inside a group of as many
         ranks as the checkpoint has shards, every rank adopts its own
-        shard only. ``shards=M`` (``M >= 1``,
-        or ``0`` for a single engine) reshards: plans recompile over the
-        saved master overlay and window rings redistribute by base writer
-        id. A checkpoint the JAX package wrote restores here, and the
-        reverse."""
+        shard only. ``shards=M`` (``M >= 1``, or ``0`` for a single engine)
+        reshards: plans recompile over the saved master overlay and window
+        rings redistribute by base writer id; inside a group of M ranks
+        every rank partitions alike on the host and builds its own shard's
+        windows and PAOs only, bit-equal to the one-card ``shards=M``.
+        Standing alerts and the ingest ring's settings carry over. A
+        checkpoint the JAX package wrote restores here, and the reverse."""
         from repro_torch.distributed.checkpoint import restore_session
         return restore_session(directory, step=step, graph=graph,
                                shards=shards, device=device)
@@ -972,9 +974,6 @@ class EagrSession:
             group.ensure_journal()
 
     def _ingest(self):
-        if self.mesh is not None:
-            raise ValueError("the ingest ring does not run on a group of "
-                             "ranks yet: pass ingest_depth=0")
         if self._pipeline is None:
             from repro_torch.streams.ingest import IngestPipeline
             self._pipeline = IngestPipeline(

@@ -43,6 +43,16 @@ fired sets of the steps up to that mark are read back — the steps' compact
 buffers were copied to pinned host memory behind them, so the readback
 waits for nothing.
 
+On a group of ranks (one stacked shard a rank, ``launch.mesh``) every rank
+runs its own ring over the same global stream, SPMD: the same submits fill
+the same slots, so every rank dispatches, releases and collects at the same
+points, and the collectives behind them (the fired total's all-reduce in
+``StackedShardedEngine.write_batch``, the fired buffers' all-gather in
+``AlertSet.collect``) run in the same order on every rank. Under ``gloo``
+those collectives stage through the CPU and wait for the step, so a ring
+with alerts attached loses its overlap there; under ``nccl`` they stay on
+the device.
+
 ``IngestStats`` is the counter block: events in/dispatched/dropped,
 batches, stall and barrier time, ring occupancy high-water.
 """
@@ -86,9 +96,9 @@ class IngestPipeline:
     ----------
     engines : list
         ``EagrEngine`` and/or ``StackedShardedEngine`` instances on one
-        device. Single engines dispatch through the pre-routed
-        ``write_rows`` entry; stacked engines route on the device and go
-        through ``write_batch``.
+        device (on a group: the rank's). Single engines dispatch through
+        the pre-routed ``write_rows`` entry; stacked engines route on the
+        device and go through ``write_batch``.
     depth : int
         Ring slots (>= 1). ``depth=1`` degenerates to synchronous-but-
         coalesced; ``depth=2`` is classic double buffering.
@@ -189,10 +199,11 @@ class IngestPipeline:
         self.stats.batches += 1
         # the token: recorded after every engine's step for slot s (and the
         # alert buffers' copies behind them), so its completion frees the
-        # slot's pinned values and proves those steps done
+        # slot's pinned values and proves those steps done; recorded on the
+        # current stream of the engines' device, whichever device is current
         if self.device.type == "cuda":
             tok = torch.cuda.Event()
-            tok.record()
+            tok.record(torch.cuda.current_stream(self.device))
             self._tokens[s] = tok
         self._busy[s] = True
         marks = [(al, al.seq) for al in

@@ -254,7 +254,8 @@ def test_port_loads_no_jax_and_no_repro():
     session (``ingest_depth=2``) with a standing alert, a sharded session
     with churn, a save, a restore and a reshard, the recovery driver, the
     streams and the eagr config, the shard mesh on a one-rank group (a
-    sharded session and NequIP's ``forward_energy_shardmap``), the
+    sharded session, the ingest ring, a reshard onto the group, the
+    recovery driver and NequIP's ``forward_energy_shardmap``), the
     serve path (LM prefill and decode,
     a MoE arch's prefill and the launcher serving one, DIEN scoring and
     retrieval, the launcher) and the training path (a smoke train step,
@@ -333,6 +334,24 @@ def test_port_loads_no_jax_and_no_repro():
         bg = EagrSession.restore(d + "/g", device="cpu")
         assert bg.queries[0].group.engine.mesh is not None
         assert (bg.read(bg.queries[0], g1.readers[:8]) == wg).all()
+        # on the same group: the ingest ring, a reshard of the 2-shard
+        # checkpoint onto it, and the recovery driver over a ring session
+        def ring1():
+            x = EagrSession(rmat_graph(120, 600, seed=1), device="cpu",
+                            shards=1, ingest_depth=2, ingest_batch=16)
+            x.register(Query(agg="sum", window=WindowSpec("tuple", 2)))
+            return x
+        p1 = ring1()
+        p1.update(np.asarray(p1.writers[:24]), np.ones(24, np.float32))
+        assert p1.read(p1.queries[0], p1.readers[:8]).shape == (8, 1)
+        assert p1.stats().ingest.batches == 2
+        rg = EagrSession.restore(d + "/c", shards=1, device="cpu")
+        assert rg.queries[0].group.engine.mesh is not None
+        assert (rg.read(rg.queries[0], sh.readers[:8]) == want).all()
+        SessionRecoveryDriver(
+            ring1, lambda i: (np.asarray(p1.writers[i: i + 9]),
+                              np.ones(9, np.float32)),
+            d + "/rg", ckpt_every=2, device="cpu").run(5, fail_at={3})
         # NequIP's destination-partitioned forward on the same group
         from repro_torch.configs import nequip as NC
         from repro_torch.models.gnn import nequip as NM
