@@ -314,8 +314,41 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    warm and with L2 flushed before each call, its trace records counted;
    bf16 message sums at F 32, 96 and 160, not on the path; step p50 a
    rank, busy share, the entry's share of rank 0's device time, peak GB
-   and launches a rank printed as ranks sharing one card. Beside the
-   group, a 1-rank ``nccl`` group on a 1-shard session over 3,000 nodes /
+   and launches a rank printed as ranks sharing one card. Then, in the
+   same ranks, the dense LM serve cells placed on a (2, 2) (data, model)
+   device mesh (``CellPlan.on_mesh``'s DTensor placements, the model's
+   ``constrain`` calls, the flash kernels on each rank's local heads):
+   granite-3-2b at its published widths, 2 of its 40 layers, phase 4's
+   parameters drawn a leaf at a time (each rank keeps its shard); the
+   prefill of 8 x 2,048 (a rank: batch 4, 16 q heads, 4 kv heads, the
+   tensor-core kernel), 3 greedy decode steps, then B = 1 decodes against
+   a 32,768-row cache whose rows lie over ``data`` (16,384 a rank, kv
+   heads over ``model``) at live lengths 24,575 and 12,000 (data shard 1
+   then holds none): each rank's partial over its rows, the partials
+   all-gathered and merged (the decode kernel's partial and merge
+   entries). One run with every flash call held on the rank's own
+   activations (the prefill to the tensor-core bar, decode to the bf16
+   tolerance, partials and merges to their plain versions), one counted
+   (every count set to 0 just before; launches required: the layers'
+   prefills, decodes, partials and merges) and timed. In the parent
+   afterwards, the same script on one card on the same parameters,
+   teacher-forced on rank 0's tokens, with the kernels, with
+   ``blocked_attention`` and with the floor's attention (``attention_ref``
+   a row at a time; at the B = 1 decodes the same exact sums split at the
+   ranks' rows and merged, ``split_attention``, since for one query row
+   ``blocked_attention`` and ``attention_ref`` add alike), and with
+   ``blocked_attention`` and the row-parallel products split as the ranks
+   split them (``split_rows``: bf16 partials of the contraction's halves
+   added in rank order, as the ranks' all-reduce adds them); each logits'
+   floor is the larger of the attention floor and that partitioned-product
+   floor: every rank's logits (prefill, first and last step, both B = 1
+   decodes) bit-equal across ranks and within the serve bar of the
+   one-card kernel run's, and beside it their distance to the one-card
+   kernel run with the split products (printed, not a bar); then the prefill at a rank's local shapes and
+   the partial and merge entries at a rank's 16,384 rows, each held to
+   its plain version and timed beside its bound (the prefill also beside
+   SDPA). Prefill ms, decode p50, peak GB and launches a rank printed as
+   ranks sharing one card. Beside the group, a 1-rank ``nccl`` group on a 1-shard session over 3,000 nodes /
    20,000 edges, its stacked-entry launches above 0 and its answers
    bit-equal to the same session without a group.
 
@@ -407,6 +440,14 @@ DESIGNS = {
     "decode": "split KV: one CTA per (key chunk, kv head, batch row) "
               "serving the GQA group, 4 warps on cp.async rings, chunks "
               "merged in order by a second kernel",
+    "decode_partial": "the decode kernel's split over one rank's cache "
+                      "rows (local lengths clamp(len - offset, 0, rows)), "
+                      "every chunk's partial kept and the merge kernel "
+                      "writing the row's unnormalised (acc, m, l): an empty "
+                      "partial where the rank holds no live row",
+    "decode_merge": "the decode kernel's chunk merge over the all-gathered "
+                    "partials, ranks for chunks, in rank order, empty "
+                    "partials skipped, the output rounded once",
     "bag": "one warp per bag, 16 table-row loads in flight",
     "bag_backward": "ids sorted stably by table row (preparation), one warp "
                     "per table row summing its run of w * grad_out rows in "
@@ -2662,6 +2703,18 @@ NEQUIP_STRICT = 2          # layers of the fp32 strict run
 NEQUIP_REL = 1e-6
 NEQUIP_ARGS = ("positions", "species", "edge_src", "edge_dst", "edge_mask",
                "node_mask", "graph_ids")
+# phase 14's placed granite-3-2b: the dense LM serve cells on a (data,
+# model) device mesh over the group's ranks (CellPlan.on_mesh's placements)
+GROUP_LM_MESH = (2, 2)
+GROUP_LM_LAYERS = 2        # granite-3-2b's 40 layers cut to these (width kept)
+GROUP_LM_GEN = 3           # greedy decode steps after the 8 x 2,048 prefill
+# the B = 1 decode: its cache rows (batch 1 leaves data to the rows: 16,384
+# a rank) and two live lengths, the second with no live row on data shard 1
+GROUP_LM_LONG = (32_768, (24_575, 12_000))
+# the partials' check against their plain version (fp32 from one set of
+# bf16 inputs, sums in another order): m in log2 units, l and acc relative
+# to their row's largest
+PARTIAL_RTOL = 1e-4
 
 
 def bits_equal(a, b) -> bool:
@@ -2903,6 +2956,7 @@ def group_rank(rank: int, world: int, backend: str, work: str) -> None:
             for name, fail in (("fault", GROUP_DRIVER_FAIL), ("clean", ()))}
         out["reshard"] = group_reshard(torch, plan, device)
         out["nequip"] = nequip_rank(torch, rank, device)
+        out["lm"] = lm_rank(torch, rank, device)
         out.update(rank=rank, device=str(meshes[0].device),
                    comm=str(meshes[0].comm), backend=meshes[0].backend,
                    restore_s=restore_s, built=sorted(_build.BUILD_LOG))
@@ -3306,6 +3360,500 @@ def phase_group_nequip(torch, ranks: list, backend: str) -> dict:
     return nq
 
 
+# ------------------------------------------- phase 14: the placed LM cells
+def group_lm_cfg():
+    """Phase 14's granite-3-2b: its published widths, GROUP_LM_LAYERS of
+    its 40 layers."""
+    from repro_torch.configs import granite_3_2b
+
+    return dataclasses.replace(granite_3_2b.CFG, n_layers=GROUP_LM_LAYERS)
+
+
+def group_lm_params(torch, cfg, device, mesh=None):
+    """Phase 4's parameters (LM_SEED, each layer at the full depth's
+    scale, cast for serving) at ``cfg``'s depth: on one device, or placed
+    on ``mesh`` a leaf at a time, each rank keeping its shard."""
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.distributed.sharding import place
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_from_specs
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LM_SEED)
+    depth = granite_3_2b.CFG.n_layers
+    if mesh is None:
+        return T.serving_params(init_from_specs(T.param_specs(cfg), gen,
+                                                depth=depth), cfg)
+    return place(T.serving_sources(cfg, gen, depth=depth),
+                 T.param_specs(cfg), mesh)
+
+
+def group_lm_inputs(torch, cfg, device):
+    """Phase 14's LM inputs, drawn on ``device`` from LM_SEED + 14: the
+    prompts (LM_BATCH x LM_PROMPT), the B = 1 decode's token, and its k
+    and v caches (GROUP_LM_LONG's rows) as functions drawing them, k
+    first."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LM_SEED + 14)
+    ints = dict(generator=gen, device=device, dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), **ints)
+    tok1 = torch.randint(0, cfg.vocab, (1,), **ints)
+    shape = (cfg.n_layers, 1, cfg.n_kv_heads, GROUP_LM_LONG[0],
+             cfg.head_dim)
+
+    def draw():
+        return torch.randn(shape, generator=gen, device=device).to(
+            cfg.compute_dtype)
+
+    return tokens, tok1, (draw, draw)
+
+
+def lm_serve_run(torch, params, cfg, inputs, *, mesh=None, attention=None,
+                 forced=None, n_gen=GROUP_LM_GEN,
+                 long_attention=None) -> dict:
+    """Phase 14's serve script on one device, or placed on ``mesh`` (the
+    arguments by the cells' logical axes, the steps under
+    ``activation_sharding``): the prefill of the prompts, ``n_gen`` greedy
+    decode steps (``forced`` tokens instead where given) against a cache
+    grown to the prompt plus ``n_gen`` rows, then the B = 1 decode against
+    GROUP_LM_LONG's cache at each of its live lengths in turn (through
+    ``long_attention`` where given, else ``attention``). Every logits
+    gathered to the host; host ms of each part (after a synchronize)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.configs.lm_common import CACHE_AXES
+    from repro_torch.distributed.sharding import (
+        activation_sharding,
+        from_local,
+        mesh_dims,
+        place,
+        redistribute,
+    )
+    from repro_torch.models import transformer as T
+
+    tokens, tok1, long_cache = inputs
+    dev = tokens.device
+
+    def put(t, axes):
+        if mesh is None:
+            return tuple(f() for f in t) if isinstance(t, tuple) else t
+        return place(t, axes, mesh)
+
+    def host(x):
+        if mesh is not None:
+            x = redistribute(x, [Replicate()] * mesh.ndim).to_local()
+        return x.float().cpu()
+
+    def grown(c, rows):
+        if mesh is None:
+            big = c.new_zeros(c.shape[:3] + (rows, c.shape[4]))
+            big[:, :, :, :c.shape[3]] = c
+            return big
+        if mesh_dims(c, 3):
+            raise AssertionError(f"the prefill's cache rows are sharded: "
+                                 f"{c.placements}")
+        loc = c.to_local()
+        big = loc.new_zeros(loc.shape[:3] + (rows, loc.shape[4]))
+        big[:, :, :, :loc.shape[3]] = loc
+        return from_local(big, mesh, c.placements,
+                          tuple(c.shape[:3]) + (rows, c.shape[4]))
+
+    def timed(fn):
+        device_sync(torch)
+        t0 = time.perf_counter()
+        res = fn()
+        device_sync(torch)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    ctx = contextlib.nullcontext() if mesh is None \
+        else activation_sharding(mesh)
+    out = dict(tokens=[], step_logits=[], step_ms=[], long_logits=[],
+               long_ms=[])
+    with ctx, torch.no_grad():
+        (lg, (k, v)), ms = timed(lambda: T.prefill(
+            params, put(tokens, ("batch", "sequence")), cfg,
+            attention=attention))
+        out.update(prefill_logits=host(lg), prefill_ms=ms)
+        kc, vc = grown(k, LM_PROMPT + n_gen), grown(v, LM_PROMPT + n_gen)
+        del k, v
+        lens = put(torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32,
+                              device=dev), ("batch",))
+        tok = out["prefill_logits"].argmax(-1).to(torch.int32)
+        for i in range(n_gen):
+            if forced is not None:
+                tok = forced[i]
+            out["tokens"].append(tok)
+            (lg, (kc, vc), lens), ms = timed(lambda: T.decode_step(
+                params, (kc, vc), put(tok.to(dev), ("batch",)), lens, cfg,
+                attention=attention))
+            out["step_logits"].append(host(lg))
+            out["step_ms"].append(ms)
+            tok = out["step_logits"][-1].argmax(-1).to(torch.int32)
+        del kc, vc
+        cache = put(long_cache, (CACHE_AXES, CACHE_AXES))
+        out["long_placements"] = None if mesh is None else [
+            repr(p) for p in cache[0].placements]
+        for n in GROUP_LM_LONG[1]:
+            (lg, _, _), ms = timed(lambda: T.decode_step(
+                params, cache, put(tok1, ("batch",)),
+                put(torch.tensor([n], dtype=torch.int32, device=dev),
+                    ("batch",)), cfg,
+                attention=long_attention or attention))
+            out["long_logits"].append(host(lg))
+            out["long_ms"].append(ms)
+    return out
+
+
+def split_attention(torch, pieces: int):
+    """A plain decode attention (one query row) that sums its keys as a
+    decode over ``pieces`` row ranges of the cache does: each range's
+    partial softmax state (``ref.decode_partial_ref``), merged in range
+    order (``ref.decode_merge_ref``). Exact in fp32 like
+    ``blocked_attention``, in another order: for a single query row
+    ``blocked_attention`` and ``attention_ref`` run the same sums, so this
+    is the floor's second attention at the sequence-sharded decode."""
+    from repro_torch.kernels.flash_attention import ref
+
+    def attn(q, k, v, *, causal, lengths):
+        if q.shape[2] != 1 or causal:
+            raise ValueError("split_attention takes one query row")
+        rows = k.shape[2] // pieces
+        parts = [ref.decode_partial_ref(
+            q[:, :, 0], k[:, :, i * rows:(i + 1) * rows],
+            v[:, :, i * rows:(i + 1) * rows],
+            (lengths - i * rows).clamp(0, rows)) for i in range(pieces)]
+        return ref.decode_merge_ref(torch.stack(parts), q.dtype)[:, :, None]
+    return attn
+
+
+def split_rows(torch, pieces: int):
+    """``transformer._row_product`` as the ranks of a mesh whose ``model``
+    dim has ``pieces`` ranks take it on one card: the contraction dim cut
+    in ``pieces`` equal contiguous ranges (each rank's heads or FFN
+    columns), each range's product in the compute dtype, the partials
+    added in rank order in that dtype (the all-reduce's sum)."""
+    def product(h, w):
+        n = h.shape[-1] // pieces
+        out = h[..., :n] @ w[:n]
+        for i in range(1, pieces):
+            out = out + h[..., i * n:(i + 1) * n] @ w[i * n:(i + 1) * n]
+        return out
+    return product
+
+
+def lm_rank(torch, rank: int, device) -> dict:
+    """Phase 14's placed granite-3-2b in one rank of the running group: a
+    (data, model) DeviceMesh of GROUP_LM_MESH over the ranks, the
+    parameters drawn a leaf at a time from phase 4's seed (the rank keeps
+    its shard); ``lm_serve_run`` once with every flash call held on this
+    rank's own activations (``checked_flash``, one decode step; it also
+    warms the path), then once counted (every count set to 0 just before)
+    and timed."""
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.launch.mesh import make_device_mesh
+
+    t_part = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = group_lm_cfg()
+    mesh = make_device_mesh(MeshShape(("data", "model"), GROUP_LM_MESH),
+                            device_type=torch.device(device).type)
+    t0 = time.perf_counter()
+    params = group_lm_params(torch, cfg, device, mesh)
+    device_sync(torch)
+    place_s = time.perf_counter() - t0
+    calls = []
+    t0 = time.perf_counter()
+    with checked_flash(torch, calls):
+        lm_serve_run(torch, params, cfg, group_lm_inputs(torch, cfg, device),
+                     mesh=mesh, n_gen=1)
+    held_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    run = lm_serve_run(torch, params, cfg,
+                       group_lm_inputs(torch, cfg, device), mesh=mesh)
+    launches = dict(flash.LAUNCHES)
+    run.update(run_s=time.perf_counter() - t0, launches=launches,
+               calls=calls_summary(calls), n_calls=len(calls),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               place_s=place_s, held_s=held_s,
+               coord=list(mesh.get_coordinate()),
+               seconds=time.perf_counter() - t_part)
+    return run
+
+
+def partial_row(torch, rnd, Hq, Hkv, S, d, n) -> dict:
+    """The decode kernel's partial entry on one rank's bf16 shard: q (1,
+    Hq, d) against (1, Hkv, S, d) rows of which ``n`` live, held to its
+    plain version (``partial_check``), bit-equal on a rerun; kernel and
+    plain times beside the bound (no library call computes the partial
+    state)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q, k, v = rnd(1, Hq, d), rnd(1, Hkv, S, d), rnd(1, Hkv, S, d)
+    lens = torch.tensor([n], dtype=torch.int32, device=DEVICE)
+    got = ops.flash_decode_partial(q, k, v, lens)
+    again = ops.flash_decode_partial(q, k, v, lens)
+    want = ref.decode_partial_ref(q, k, v, lens)
+    device_sync(torch)
+    if not torch.equal(got, again):
+        raise AssertionError("flash_decode_partial is not deterministic")
+    m = partial_check(torch, got, want)
+    k_ms = cuda_ms(torch, lambda: ops.flash_decode_partial(q, k, v, lens))
+    p_ms = cuda_ms(torch, lambda: ref.decode_partial_ref(q, k, v, lens),
+                   reps=5)
+    k_dev = device_ms(torch, lambda: ops.flash_decode_partial(q, k, v,
+                                                             lens))
+    b_ms, b_by = bound_of_work(ops.decode_partial_cost(1, Hq, Hkv, d, n, 2))
+    print(f"  flash decode partial B=1 Hq={Hq} Hkv={Hkv} rows={S} d={d} "
+          f"bf16, {n} live: m err {m['m_err']:.3g}, l {m['l_rel']:.3g}, acc "
+          f"{m['max_abs_err']:.3g} (relative) vs fp32 plain; kernel "
+          f"{k_ms:.4f} ms (device {k_dev:.4f}), plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})", flush=True)
+    return dict(B=1, Hq=Hq, Hkv=Hkv, S=S, d=d, live=n, dtype="bf16",
+                max_abs_err=m["max_abs_err"], ms=k_ms, plain_ms=p_ms,
+                library_ms=None, device_ms=k_dev, bound_ms=b_ms,
+                bound_by=b_by, parts=(got, want))
+
+
+def merge_row(torch, parts) -> dict:
+    """The merge entry over two ranks' partials (R 2 of ``partial_row``'s
+    shape, the second a copy with half its l): within the bf16 bar of its
+    plain version, bit-equal on a rerun; times beside the bound."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    R, B, Hq, d2 = parts.shape
+    got = ops.flash_decode_merge(parts, torch.bfloat16)
+    again = ops.flash_decode_merge(parts, torch.bfloat16)
+    want = ref.decode_merge_ref(parts, torch.float32)
+    device_sync(torch)
+    if not torch.equal(got, again):
+        raise AssertionError("flash_decode_merge is not deterministic")
+    torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    err = (got.float() - want).abs().max().item()
+    k_ms = cuda_ms(torch, lambda: ops.flash_decode_merge(parts,
+                                                         torch.bfloat16))
+    p_ms = cuda_ms(torch, lambda: ref.decode_merge_ref(parts,
+                                                       torch.bfloat16))
+    k_dev = device_ms(torch, lambda: ops.flash_decode_merge(
+        parts, torch.bfloat16))
+    b_ms, b_by = bound_of_work(ops.decode_merge_cost(R, B, Hq, d2 - 2, 2))
+    print(f"  flash decode merge R={R} B={B} Hq={Hq} d={d2 - 2} -> bf16: max "
+          f"abs err {err:.3g} vs fp32 plain; kernel {k_ms:.4f} ms (device "
+          f"{k_dev:.4f}), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by})", flush=True)
+    return dict(R=R, B=B, Hq=Hq, d=d2 - 2, dtype="bf16", max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, library_ms=None, device_ms=k_dev,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_group_lm(torch, ranks: list, backend: str) -> dict:
+    """Phase 14's placed LM part in the parent, after the ranks ended: the
+    one-card runs of the same script on the same parameters and inputs,
+    teacher-forced on rank 0's greedy tokens (the flash kernels, the JAX
+    package's ``blocked_attention``, the floor's exact plain attention in
+    another order: the kernels' plain version a batch row at a time, and
+    at the B = 1 decodes ``split_attention`` over the ranks' row ranges;
+    and ``blocked_attention`` with the row-parallel products split as the
+    ranks split them, ``split_rows``, each logits' floor the larger of the
+    two; and, as a witness, the kernels with those products split);
+    every rank's logits required within
+    the serve bar (``check_lm_logits``) of the one-card kernel run's, the
+    same on every rank bit for bit, its launch counts the script's;
+    then the flash kernels at a rank's local shapes: the prefill (B 4, Hq
+    16, Hkv 4) and the decode's partial and merge entries at a rank's
+    16,384 rows."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import blocked_attention
+
+    t_parent = time.perf_counter()
+    cfg = group_lm_cfg()
+    dev = torch.device(DEVICE)
+    params = group_lm_params(torch, cfg, dev)
+    rk = [r["lm"] for r in ranks]
+    forced = [t.to(dev) for t in rk[0]["tokens"]]
+
+    def serve(attention, long=None, split=False):
+        rows = mock.patch.object(T, "_row_product",
+                                 split_rows(torch, GROUP_LM_MESH[1])) \
+            if split else contextlib.nullcontext()
+        with rows:
+            return lm_serve_run(torch, params, cfg,
+                                group_lm_inputs(torch, cfg, dev),
+                                attention=attention, forced=forced,
+                                long_attention=long)
+
+    one, plain = serve(None), serve(blocked_attention)
+    floor = serve(per_row(torch, ref.attention_ref),
+                  split_attention(torch, GROUP_LM_MESH[0]))
+    plain_split = serve(blocked_attention, split=True)
+    one_split = serve(None, split=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def logits(run):
+        return dict(prefill=run["prefill_logits"],
+                    first_step=run["step_logits"][0],
+                    last_step=run["step_logits"][-1],
+                    **{f"b1_len{n}": x for n, x in zip(GROUP_LM_LONG[1],
+                                                       run["long_logits"])})
+
+    want, p_l = logits(one), logits(plain)
+    witness = logits(one_split)
+    # the floor: the plain path against itself with the attention's sums in
+    # another exact order, and with the row-parallel products reassociated
+    # as the ranks reassociate them; each logits takes the larger
+    attn_floor = {k: lm_compare(torch, x, p_l[k])
+                  for k, x in logits(floor).items()}
+    rows_floor = {k: lm_compare(torch, x, p_l[k])
+                  for k, x in logits(plain_split).items()}
+    floors = {k: {m: max(attn_floor[k][m], rows_floor[k][m])
+                  for m in ("max_rel", "l2_rel")} for k in want}
+    L = cfg.n_layers
+    n_long = len(GROUP_LM_LONG[1])
+    need = dict(prefill=L, prefill_wgmma=L, decode=L * GROUP_LM_GEN,
+                decode_partial=L * n_long, decode_merge=L * n_long)
+    bars = {}
+    for r, run in enumerate(rk):
+        got = logits(run)
+        for k, x in got.items():
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"14 lm rank {r}: non-finite {k} "
+                                     f"logits")
+            if not torch.equal(x, logits(rk[0])[k]):
+                raise AssertionError(f"14 lm rank {r}: {k} logits differ "
+                                     f"from rank 0's")
+        lm = dict(arch=f"granite-3-2b placed, rank {r}",
+                  logits_vs_plain={k: lm_compare(torch, got[k], want[k])
+                                   for k in want},
+                  logits_floor=floors,
+                  logits_vs_split={k: lm_compare(torch, got[k], witness[k])
+                                   for k in want})
+        check_lm_logits(lm)
+        bars[r] = lm
+        if run["launches"] != need:
+            raise AssertionError(f"14 lm rank {r}: launches "
+                                 f"{run['launches']}, want {need}")
+        if not run["calls"].get("decode_partial") or \
+                not run["calls"].get("prefill"):
+            raise AssertionError(f"14 lm rank {r}: held calls "
+                                 f"{run['calls']}")
+    # the kernels at a rank's local shapes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED + 15)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    Hq = cfg.n_heads // GROUP_LM_MESH[1]
+    Hkv = cfg.n_kv_heads // GROUP_LM_MESH[1]
+    rows_local = GROUP_LM_LONG[0] // GROUP_LM_MESH[0]
+    errs = {"prefill": 0.0}
+    rows = dict(prefill=prefill_row(
+        torch, rnd, LM_BATCH // GROUP_LM_MESH[0], Hq, Hkv, LM_PROMPT,
+        cfg.head_dim, errs))
+    rows["decode_partial"] = partial_row(torch, rnd, Hq, Hkv, rows_local,
+                                         cfg.head_dim, rows_local)
+    got_p, want_p = rows["decode_partial"].pop("parts")
+    second = got_p.clone()
+    second[..., -1] *= 0.5
+    rows["decode_merge"] = merge_row(torch, torch.stack([got_p, second]))
+    del want_p
+    parent_s = time.perf_counter() - t_parent
+    how = ("ranks sharing one card over gloo, not a multi-card speed"
+           if backend == "gloo" else "one card a rank over nccl")
+    r0 = rk[0]
+    print(f"14 lm: granite-3-2b at its published widths, {L} of 40 layers, "
+          f"placed on a {GROUP_LM_MESH} (data, model) mesh of the "
+          f"{len(rk)} ranks ({how}): prefill {LM_BATCH} x {LM_PROMPT} "
+          f"(a rank: batch {LM_BATCH // GROUP_LM_MESH[0]}, {Hq} q heads, "
+          f"{Hkv} kv heads), {GROUP_LM_GEN} greedy steps, then B = 1 "
+          f"decodes against {GROUP_LM_LONG[0]} rows (placements "
+          f"{r0['long_placements']}: {rows_local} rows a rank) at "
+          f"lengths {GROUP_LM_LONG[1]}", flush=True)
+    for r, run in enumerate(rk):
+        print(f"14 lm rank {r} {run['coord']}: prefill "
+              f"{run['prefill_ms']:.1f} ms, decode p50 "
+              f"{float(np.median(run['step_ms'])):.1f} ms (steps "
+              f"{[round(x, 1) for x in run['step_ms']]}), B = 1 decodes "
+              f"{[round(x, 1) for x in run['long_ms']]} ms; peak "
+              f"{run['peak_gb']:.3f} GB; launches {run['launches']}; held "
+              f"calls {run['calls']}; seconds: place "
+              f"{run['place_s']:.1f}, held run {run['held_s']:.1f}, counted "
+              f"run {run['run_s']:.1f}, part {run['seconds']:.1f}",
+              flush=True)
+    print(f"14 lm: logits of every rank bit-equal; against one card "
+          f"(prefill {one['prefill_ms']:.1f} ms, decode p50 "
+          f"{float(np.median(one['step_ms'])):.1f} ms): "
+          f"{fmt_logits(bars[0]['logits_vs_plain'])}; floor "
+          f"{fmt_logits(bars[0]['logits_floor'])} (attention "
+          f"{fmt_logits(attn_floor)}; split products "
+          f"{fmt_logits(rows_floor)}); against one card with the products "
+          f"split as the ranks split them: "
+          f"{fmt_logits(bars[0]['logits_vs_split'])}; parent "
+          f"{parent_s:.1f} s", flush=True)
+    return dict(
+        cfg=dict(n_layers=L, mesh=list(GROUP_LM_MESH), batch=LM_BATCH,
+                 prompt=LM_PROMPT, gen=GROUP_LM_GEN,
+                 long=[GROUP_LM_LONG[0], list(GROUP_LM_LONG[1])]),
+        per_rank=[dict(coord=run["coord"], prefill_ms=run["prefill_ms"],
+                       decode_p50_ms=float(np.median(run["step_ms"])),
+                       step_ms=run["step_ms"], long_ms=run["long_ms"],
+                       peak_gb=run["peak_gb"], launches=run["launches"],
+                       calls=run["calls"], place_s=run["place_s"],
+                       held_s=run["held_s"], run_s=run["run_s"],
+                       seconds=run["seconds"]) for run in rk],
+        one_card=dict(prefill_ms=one["prefill_ms"],
+                      decode_p50_ms=float(np.median(one["step_ms"])),
+                      long_ms=one["long_ms"]),
+        logits_vs_one_card=bars[0]["logits_vs_plain"],
+        logits_floor=bars[0]["logits_floor"], attention_floor=attn_floor,
+        split_products_floor=rows_floor,
+        logits_vs_split_one_card=bars[0]["logits_vs_split"],
+        long_placements=r0["long_placements"], rows=rows, errs=errs,
+        parent_s=parent_s, how=how)
+
+
+def group_lm_kernel_rows(glm: dict) -> list:
+    """The kernels line's entries of phase 14's placed LM cells: the flash
+    kernels at a rank's local shapes (prefill B 4 / Hq 16 / Hkv 4; the
+    decode partial at 16,384 rows a rank and the merge of two ranks'
+    partials), timed in the parent; launches from rank 0's counted run
+    (every rank's checked there)."""
+    rows = []
+    for name, key, count in (
+            ("flash_attention_group_rank", "prefill", "prefill_wgmma"),
+            ("flash_decode_partial", "decode_partial", "decode_partial"),
+            ("flash_decode_merge", "decode_merge", "decode_merge")):
+        row = glm["rows"][key]
+        rows.append(dict(
+            name=name, route="cuda", source=FLASH_SOURCE,
+            replaces=FLASH_REPLACES, design=DESIGNS[key],
+            launches=glm["per_rank"][0]["launches"][count],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            device_ms=row["device_ms"],
+            library_device_ms=row.get("library_device_ms"),
+            shape={k: row[k] for k in ("B", "Hq", "Hkv", "S", "d", "R")
+                   if k in row},
+            note="4 gloo ranks sharing one card on a (2, 2) (data, model) "
+                 "mesh; " + ("a rank's local heads of the placed prefill; "
+                             "library: SDPA" if key == "prefill" else
+                             "no library call computes a partial state or "
+                             "its merge")))
+    return rows
+
+
 def nccl_rank(rank: int, work: str) -> None:
     """A 1-rank nccl group on a 1-shard session over a small graph: the
     session on the group (launch counts from 0 over its batches), then the
@@ -3522,6 +4070,8 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
     # NequIP over the group's ranks against one card (the ranks have
     # ended: the card is the parent's)
     nq = phase_group_nequip(torch, ranks, backend)
+    # the placed LM cells over the same ranks against one card
+    lm = phase_group_lm(torch, ranks, backend)
 
     with open(os.path.join(work, "nccl.pkl"), "rb") as f:
         nccl = pickle.load(f)
@@ -3562,7 +4112,7 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
                       read_p50_ms=float(np.median(ref["r_ms"]))),
         nccl=dict(device=g["device"], launches={
             k: g["launches"][k] for k in stacked_keys}),
-        streams=streams, nequip=nq)
+        streams=streams, nequip=nq, lm=lm)
 
 
 def group_stream_check(ranks: list, ref: dict, r2_want) -> dict:
@@ -5225,12 +5775,16 @@ def checked_flash(torch, calls: list):
     times SDPA's on them); each call's errors go to ``calls``. The model's
     activations, not random ones: the kernels as the serve path feeds
     them."""
+    from repro_torch.distributed.sharding import is_placed
     from repro_torch.kernels.flash_attention import ops, ref
 
     prefill, decode = ops.flash_attention, ops.flash_decode
+    partial, merge = ops.flash_decode_partial, ops.flash_decode_merge
 
     def checked_prefill(q, k, v, *, causal=True, lengths=None):
         out = prefill(q, k, v, causal=causal, lengths=lengths)
+        if is_placed(q):   # its local call comes back here and is held
+            return out
         want = per_row(torch, ref.attention_ref)(
             q.float(), k.float(), v.float(), causal=causal, lengths=lengths)
         floor = sdpa_floor(torch, q, k, v, want)
@@ -5243,6 +5797,8 @@ def checked_flash(torch, calls: list):
 
     def checked_decode(q, k, v, lengths):
         out = decode(q, k, v, lengths)
+        if is_placed(q):
+            return out
         want = ref.decode_ref(q.float(), k.float(), v.float(), lengths)
         live = torch.arange(k.shape[2], device=q.device)[None, :] \
             < lengths[:, None]
@@ -5256,11 +5812,53 @@ def checked_flash(torch, calls: list):
                           library_l2_rel=floor[1]))
         return out
 
-    ops.flash_attention, ops.flash_decode = checked_prefill, checked_decode
+    def checked_partial(q, k, v, lengths):
+        out = partial(q, k, v, lengths)
+        want = ref.decode_partial_ref(q, k, v, lengths)
+        calls.append(dict(kind="decode_partial",
+                          **partial_check(torch, out, want)))
+        return out
+
+    def checked_merge(parts, dtype):
+        out = merge(parts, dtype)
+        want = ref.decode_merge_ref(parts, torch.float32)
+        torch.testing.assert_close(out.float(), want, rtol=BF16_RTOL,
+                                   atol=BF16_ATOL)
+        calls.append(dict(kind="decode_merge", max_abs_err=(
+            out.float() - want).abs().max().item(), parts=parts.shape[0]))
+        return out
+
+    saved = (prefill, decode, partial, merge)
+    (ops.flash_attention, ops.flash_decode, ops.flash_decode_partial,
+     ops.flash_decode_merge) = (checked_prefill, checked_decode,
+                                checked_partial, checked_merge)
     try:
         yield
     finally:
-        ops.flash_attention, ops.flash_decode = prefill, decode
+        (ops.flash_attention, ops.flash_decode, ops.flash_decode_partial,
+         ops.flash_decode_merge) = saved
+
+
+def partial_check(torch, got, want) -> dict:
+    """A decode partial (acc, m, l) against its plain version: m within
+    PARTIAL_RTOL (log2 units), l and acc within PARTIAL_RTOL of their row's
+    largest magnitude; an empty partial exactly (0, -3e38, 0)."""
+    d = got.shape[-1] - 2
+    err = dict(m=(got[..., d] - want[..., d]).abs().max().item(),
+               l=((got[..., d + 1] - want[..., d + 1]).abs()
+                  / want[..., d + 1].abs().clamp_min(1e-30)).max().item(),
+               acc=((got[..., :d] - want[..., :d]).abs().amax(-1)
+                    / want[..., :d].abs().amax(-1).clamp_min(1e-30)
+                    ).max().item())
+    empty = want[..., d + 1] == 0
+    if bool(empty.any()) and not torch.equal(got[empty], want[empty]):
+        raise AssertionError("an empty decode partial is not (0, -3e38, 0)")
+    live = ~empty
+    if bool(live.any()) and max(err.values()) > PARTIAL_RTOL:
+        raise AssertionError(f"decode partial against its plain version: "
+                             f"{err} (limit {PARTIAL_RTOL})")
+    return dict(max_abs_err=err["acc"], m_err=err["m"], l_rel=err["l"],
+                empty_rows=int(empty.sum()))
 
 
 def calls_summary(calls: list) -> dict:
@@ -5278,6 +5876,11 @@ def calls_summary(calls: list) -> dict:
                     c["library_max_abs_err"], 1e-30) for c in rows),
                 l2_vs_library=max(c["l2_rel"] / max(c["library_l2_rel"],
                                                     1e-30) for c in rows))
+    for kind in ("decode_partial", "decode_merge"):
+        rows = [c for c in calls if c["kind"] == kind]
+        if rows:
+            out[kind] = dict(calls=len(rows), max_abs_err=max(
+                c["max_abs_err"] for c in rows))
     return out
 
 
@@ -5384,7 +5987,8 @@ def phase_serve_lm(torch, cfg, prompt, gen_len, out_dir, depth) -> dict:
     kern = run()                        # the serve path, counted
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lp = kern["launches"]
-    if lp["prefill"] != {"prefill": L, "prefill_wgmma": L, "decode": 0}:
+    if lp["prefill"] != {"prefill": L, "prefill_wgmma": L, "decode": 0,
+                         "decode_partial": 0, "decode_merge": 0}:
         raise AssertionError(f"prefill launched {lp['prefill']}, want "
                              f"{L} flash prefill launches, all on the "
                              f"tensor-core kernel")
@@ -7389,6 +7993,7 @@ def main(argv=None) -> int:
             held_ms=row["held_ms"],
             single_x_S_held_ms=row["single_x_S_held_ms"],
             shards=row["shards"]))
+    kernels += group_lm_kernel_rows(shards["group"]["lm"])
     missing = {f"{op}_{e}" for op in KERNELS
                for e in ("stacked", "active_stacked")} - \
         {f"{r['op']}_{r['entry']}" for r in shards["kernel"]}

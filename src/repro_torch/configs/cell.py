@@ -15,7 +15,11 @@ device=None)`` returns the reduced-config plan with real (tiny) tensors.
 ``fn(*args)`` runs one step. ``arg_axes`` mirrors ``args`` with each
 tensor's logical axis names (a ``ParamSpec`` tree where ``args`` holds
 parameters or optimizer state), which ``distributed.sharding`` maps onto
-a mesh shape for the per-device bytes.
+a mesh shape for the per-device bytes; ``out_axes`` mirrors ``fn``'s
+outputs (the JAX package's ``out_shardings``; None where the cell is not
+placed yet). ``CellPlan.on_mesh(device_mesh)``, the JAX package's
+``lower(mesh)``, gives the plan placed on a device mesh: its arguments
+DTensors, its step run under ``activation_sharding``.
 """
 from __future__ import annotations
 
@@ -43,6 +47,33 @@ class CellPlan:
     dims: dict = dataclasses.field(default_factory=dict)
     arg_axes: Any = None             # logical axes mirroring args
     rules: Any = None                # the cell's rule preset (None: default)
+    out_axes: Any = None             # logical axes mirroring fn's outputs
+
+    def on_mesh(self, device_mesh) -> CellPlan:
+        """This plan on ``device_mesh`` (a ``DeviceMesh`` whose dims carry
+        the rules' axis names): ``args`` placed by ``arg_axes`` and the
+        plan's rules, ``fn`` run under ``activation_sharding`` with its
+        outputs redistributed to ``out_axes``' placements."""
+        from repro_torch.distributed.sharding import (
+            RULE_SETS,
+            activation_sharding,
+            place,
+            redistribute_tree,
+        )
+
+        if self.arg_axes is None or self.out_axes is None:
+            raise ValueError(f"{self.arch_id} {self.shape}: no placement "
+                             f"(arg_axes / out_axes) for this cell")
+        rules = RULE_SETS[self.rules or "default"]
+        step, out_axes = self.fn, self.out_axes
+
+        def fn(*args):
+            with activation_sharding(device_mesh, rules):
+                return redistribute_tree(step(*args), out_axes, rules)
+
+        return dataclasses.replace(
+            self, fn=fn, args=place(self.args, self.arg_axes, device_mesh,
+                                    rules))
 
 
 @dataclasses.dataclass

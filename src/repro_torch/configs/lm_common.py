@@ -142,6 +142,12 @@ def build_train(cfg: T.TransformerConfig, train: TrainSetting, *,
 LM_SHAPES = tuple(SHAPE_DEFS)
 # (L, B, Hkv, S, hd); cache_seq picks up every mesh axis batch leaves free
 CACHE_AXES = ("layers", "batch", "kv_heads", "cache_seq", None)
+# the serve steps' logical axes: the arguments after the parameters, and
+# the outputs (the JAX package's in_shardings and out_shardings)
+PREFILL_TOKEN_AXES = ("batch", "sequence")
+PREFILL_OUT_AXES = (("batch", "vocab"), (CACHE_AXES, CACHE_AXES))
+DECODE_ARG_AXES = ((CACHE_AXES, CACHE_AXES), ("batch",), ("batch",))
+DECODE_OUT_AXES = (("batch", "vocab"), (CACHE_AXES, CACHE_AXES), ("batch",))
 
 
 def _prefill_fn(params, tokens, cfg):
@@ -208,7 +214,8 @@ def build_cell(cfg: T.TransformerConfig, train: TrainSetting, shape: str,
         return CellPlan(
             cfg.name, shape, functools.partial(_prefill_fn, cfg=cfg),
             (params, ints(cfg.vocab, (B, S))), kind="serve", reduced=reduced,
-            dims=dims,            arg_axes=(specs, ("batch", "sequence")))
+            dims=dims, arg_axes=(specs, PREFILL_TOKEN_AXES),
+            out_axes=PREFILL_OUT_AXES)
     kv_shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
     if gen is None:
         cache = (meta(kv_shape, cfg.compute_dtype),
@@ -222,7 +229,7 @@ def build_cell(cfg: T.TransformerConfig, train: TrainSetting, shape: str,
         cfg.name, shape, functools.partial(_decode_fn, cfg=cfg),
         (params, cache, ints(cfg.vocab, (B,)), lengths), kind="serve",
         reduced=reduced, dims=dims,
-        arg_axes=(specs, (CACHE_AXES, CACHE_AXES), ("batch",), ("batch",)))
+        arg_axes=(specs,) + DECODE_ARG_AXES, out_axes=DECODE_OUT_AXES)
 
 
 def smoke_plan(cfg: T.TransformerConfig, train: TrainSetting, shape: str,
@@ -235,13 +242,17 @@ def smoke_plan(cfg: T.TransformerConfig, train: TrainSetting, shape: str,
         return CellPlan(name, shape, c["step"], (c["params"], c["opt_state"],
                                                  c["batch"], c["lr"]),
                         notes=f"accum={c['accum']} opt={train.optimizer}")
+    specs = T.param_specs(c["cfg"])
     if kind == "prefill":
         return CellPlan(name, shape,
                         functools.partial(_prefill_fn, cfg=c["cfg"]),
-                        (c["params"], c["tokens"]), kind="serve")
+                        (c["params"], c["tokens"]), kind="serve",
+                        arg_axes=(specs, PREFILL_TOKEN_AXES),
+                        out_axes=PREFILL_OUT_AXES)
     return CellPlan(name, shape, functools.partial(_decode_fn, cfg=c["cfg"]),
                     (c["params"], c["cache"], c["tokens"], c["lengths"]),
-                    kind="serve")
+                    kind="serve", arg_axes=(specs,) + DECODE_ARG_AXES,
+                    out_axes=DECODE_OUT_AXES)
 
 
 def make_arch(arch_id: str, cfg: T.TransformerConfig,

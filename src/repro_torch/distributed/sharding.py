@@ -1,30 +1,41 @@
-"""Logical-axis sharding rules (MaxText-style) mapped onto a mesh shape, as
-host logic: the JAX package's ``repro.distributed.sharding`` without GSPMD.
+"""Logical-axis sharding rules (MaxText-style) mapped onto a mesh, and the
+placement of arrays on a device mesh: the JAX package's
+``repro.distributed.sharding`` with DTensor in GSPMD's place.
 
 Every parameter and input declares *logical* axis names
 (``ParamSpec.axes``); a rule table maps logical names to mesh axes.
 ``data`` composes with ``pod`` for every data-parallel dim, so the same
 rules serve the single-pod (16, 16) and multi-pod (2, 16, 16) meshes.
 
-A mesh here is a ``MeshShape``: axis names and sizes, no devices. The port
-runs on one card, so these rules place nothing; they say where each array
-would live on a mesh of cards, which is what the dry run's per-device bytes
-read (``param_placements``, ``placed_bytes``). ``spec_for`` returns the
-entries a ``PartitionSpec`` would hold: per dim ``None``, one axis name or
-a tuple of names.
+Two kinds of mesh. A ``MeshShape`` holds axis names and sizes and no
+devices: ``spec_for`` gives the entries a ``PartitionSpec`` would hold (per
+dim ``None``, one axis name or a tuple of names), and ``param_placements``
+/ ``placed_bytes`` the per-device shapes and bytes the dry run reads. A
+``torch.distributed`` ``DeviceMesh`` (``launch.mesh.make_device_mesh``,
+dims named like the ``MeshShape``'s axes) places tensors:
+``placements_for`` turns ``spec_for``'s entries into DTensor placements
+(the JAX package's ``sharding_for``), ``place`` a tree into DTensors whose
+local shards are the ones JAX's ``addressable_shards`` hold (its
+``param_shardings`` / ``replicated``), each leaf sliced as it is drawn.
+
+The model code calls ``constrain(x, axes)`` with logical names where the
+JAX package does. Outside ``activation_sharding`` it returns ``x``
+untouched, so every one-card path runs as before; inside one, ``x`` is a
+DTensor and ``constrain`` redistributes it to the rules' placements, the
+collectives GSPMD would insert. ``no_constrain`` turns it off again.
+``gather_dim`` is the FSDP gather of a weight's ``embed`` dim before its
+use, made explicit so the collectives do not depend on DTensor's choice of
+matrix-product strategy.
 
 Divisibility guard: a mesh axis is only applied to a dim it divides evenly,
 otherwise it is dropped (replicated) for that dim, as in the JAX package.
-
-The JAX package's ``constrain``, ``activation_sharding`` and
-``no_constrain`` only tell GSPMD how to place activations; no port model
-calls them and on one card they do nothing, so they have no counterpart
-here. Placing arrays on a real device mesh (DTensor) needs several cards.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 
 import torch
 
@@ -217,3 +228,251 @@ def explain_sharding(spec_tree, mesh: MeshShape, rules=None,
            for p, sh, ps, b in rows[:max_rows or len(rows)]]
     out.append(f"TOTAL per-device param bytes: {total / 1e9:.2f} GB")
     return "\n".join(out)
+
+
+# ------------------------------------------------ placing on a device mesh
+def is_placed(x) -> bool:
+    """``x`` is a DTensor (a tensor placed on a device mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def mesh_shape_of(device_mesh) -> MeshShape:
+    """A ``DeviceMesh``'s axis names and sizes."""
+    return MeshShape(tuple(device_mesh.mesh_dim_names),
+                     tuple(device_mesh.shape))
+
+
+def placements_for(spec_entries, device_mesh) -> tuple:
+    """The DTensor placements of ``spec_for``'s entries on ``device_mesh``:
+    each mesh dim ``Shard(d)`` for the tensor dim ``d`` that names it, else
+    ``Replicate()``. A dim named by several axes (``("pod", "data")``) is
+    sharded by each of them in mesh order, as JAX shards it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec_entries):
+        pos = [names.index(a) for a in _spec_axes(entry)]
+        if pos != sorted(pos):
+            raise ValueError(f"dim {d} is sharded by {entry}, not in the "
+                             f"mesh's order {names}")
+        for p in pos:
+            out[p] = Shard(d)
+    return tuple(out)
+
+
+def _shard_of(placements, device_mesh, dim: int) -> tuple[int, int]:
+    from torch.distributed.tensor import Shard
+
+    coord = device_mesh.get_coordinate()
+    idx, n = 0, 1
+    for i, p in enumerate(placements):
+        if p == Shard(dim):
+            size = device_mesh.size(i)
+            idx, n = idx * size + coord[i], n * size
+    return idx, n
+
+
+def dim_shard(x, dim: int) -> tuple[int, int]:
+    """(this rank's shard of tensor dim ``dim`` of the DTensor ``x``, the
+    number of shards): row-major over the mesh dims that shard it, JAX's
+    order."""
+    return _shard_of(x.placements, x.device_mesh, dim)
+
+
+def mesh_dims(x, dim: int) -> list:
+    """The mesh dims that shard tensor dim ``dim`` of the DTensor ``x``."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+
+
+def from_local(local: torch.Tensor, device_mesh, placements, shape):
+    """``DTensor.from_local`` of a contiguous global ``shape``, without a
+    check across ranks."""
+    from torch.distributed.tensor import DTensor
+
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(local, device_mesh, placements,
+                              run_check=False, shape=tuple(shape),
+                              stride=stride)
+
+
+def replicated_like(x, t):
+    """``t`` replicated on ``x``'s mesh where ``x`` is placed (so the two
+    can meet in one operation); ``t`` itself otherwise."""
+    if not is_placed(x) or is_placed(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return from_local(t, x.device_mesh, [Replicate()] * x.device_mesh.ndim,
+                      t.shape)
+
+
+def local_slice(full: torch.Tensor, spec_entries, device_mesh):
+    """This rank's shard of ``full`` under ``spec_entries``: a view."""
+    placements = placements_for(spec_entries, device_mesh)
+    for d in range(full.ndim):
+        idx, n = _shard_of(placements, device_mesh, d)
+        if n > 1:
+            size = full.shape[d] // n
+            full = full.narrow(d, idx * size, size)
+    return full
+
+
+def _entries(x: torch.Tensor, axes, mesh: MeshShape, rules) -> tuple:
+    ax = axes.axes if isinstance(axes, ParamSpec) else axes
+    if not _is_axes(ax):
+        raise TypeError(f"no logical axes for a tensor of shape "
+                        f"{tuple(x.shape)}: {axes!r}")
+    return spec_for(tuple(x.shape), ax or (None,) * x.ndim, mesh, rules)
+
+
+def place_tensor(full: torch.Tensor, spec_entries, device_mesh):
+    """``full`` as a DTensor on ``device_mesh`` holding this rank's shard
+    (a copy, so ``full`` can be freed)."""
+    local = local_slice(full, spec_entries, device_mesh)
+    if local.shape != full.shape:
+        local = local.clone(memory_format=torch.contiguous_format)
+    return from_local(local, device_mesh,
+                      placements_for(spec_entries, device_mesh), full.shape)
+
+
+def place(tree, axes, device_mesh, rules=None):
+    """``tree`` as DTensors on ``device_mesh`` (the JAX package's
+    ``device_put`` under ``param_shardings`` / ``sharding_for``). ``axes``
+    mirrors ``tree`` as in :func:`placed_bytes` (a ``ParamSpec`` tree, or
+    tuples of logical names; ``()``: replicated). A leaf may be a tensor or
+    a function of no arguments that returns one: it is called, this rank
+    keeps its shard, and the whole leaf is dropped before the next is
+    drawn, so a rank never holds more than one whole leaf. ``None`` leaves
+    stay None."""
+    mesh = mesh_shape_of(device_mesh)
+    if tree is None:
+        return None
+    if callable(tree) and not isinstance(tree, torch.Tensor):
+        tree = tree()
+    if isinstance(tree, torch.Tensor):
+        return place_tensor(tree, _entries(tree, axes, mesh, rules),
+                            device_mesh)
+    if isinstance(tree, dict):   # sorted: sources draw in the tree order
+        return {k: place(tree[k], axes[k], device_mesh, rules)
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(t, a, device_mesh, rules)
+                          for t, a in zip(tree, axes))
+    raise TypeError(f"cannot place a {type(tree).__name__}")
+
+
+def redistribute(x, placements):
+    """The DTensor ``x`` with ``placements``: ``x.redistribute``, except
+    that every mesh dim going from ``Shard`` to ``Replicate`` is gathered
+    first by ``launch.mesh.all_gather`` (innermost mesh dim first), the one
+    all-gather of a placed step, which stages it where the group's backend
+    refuses it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import all_gather
+
+    mesh, pl = x.device_mesh, list(x.placements)
+    gather = [i for i, (a, b) in enumerate(zip(pl, placements))
+              if isinstance(a, Shard) and isinstance(b, Replicate)]
+    for i in [i for i in gather if mesh.size(i) == 1]:
+        pl[i] = Replicate()            # one shard: nothing moves
+    gather = [i for i in gather if mesh.size(i) > 1]
+    if gather or pl != list(x.placements):
+        local = x.to_local()
+        for i in reversed(gather):
+            d = pl[i].dim
+            if any(pl[j] == Shard(d) for j in range(i + 1, len(pl))):
+                raise ValueError(f"mesh dim {i} gathers tensor dim {d} while "
+                                 f"an inner mesh dim still shards it: "
+                                 f"{x.placements}")
+            local = all_gather(local, mesh, i, d)
+            pl[i] = Replicate()
+        x = from_local(local, mesh, pl, x.shape)
+    return x if tuple(pl) == tuple(placements) \
+        else x.redistribute(mesh, tuple(placements))
+
+
+def redistribute_tree(tree, axes, rules=None):
+    """Every DTensor of ``tree`` redistributed to the placements its
+    logical ``axes`` (mirroring ``tree``) give under ``rules``: the JAX
+    package's ``out_shardings``."""
+    if is_placed(tree):
+        mesh = tree.device_mesh
+        return redistribute(tree, placements_for(
+            _entries(tree, axes, mesh_shape_of(mesh), rules), mesh))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(redistribute_tree(t, a, rules)
+                          for t, a in zip(tree, axes))
+    return tree
+
+
+def gather_dim(x, dim: int):
+    """``x`` with tensor dim ``dim`` gathered on every mesh dim that shards
+    it (``Shard(dim)`` -> ``Replicate()``): the FSDP all-gather of a
+    weight's ``embed`` dim before it is used. A tensor that is not placed
+    is returned as it is."""
+    if not is_placed(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim = dim % x.ndim
+    return redistribute(x, [Replicate() if p == Shard(dim) else p
+                            for p in x.placements])
+
+
+# ------------------------------------------------------- activation context
+# Model code calls constrain(x, axes) with logical names; outside a context
+# (every one-card run) it returns x, so models never depend on a mesh.
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def activation_sharding(device_mesh, rules: dict | None = None):
+    """Inside, :func:`constrain` places activations on ``device_mesh`` by
+    ``rules`` (the default rules when None)."""
+    prev = getattr(_TLS, "ctx", None)
+    _TLS.ctx = (device_mesh, rules or DEFAULT_RULES)
+    try:
+        yield
+    finally:
+        _TLS.ctx = prev
+
+
+def current_sharding():
+    """``(device_mesh, rules)`` of the innermost ``activation_sharding``,
+    or None."""
+    return getattr(_TLS, "ctx", None)
+
+
+def constrain(x, axes: tuple[str | None, ...]):
+    """The JAX package's ``with_sharding_constraint`` by logical axis
+    names: ``x`` itself outside a context; inside one, the DTensor ``x``
+    redistributed to the placements the context's rules give its
+    shape."""
+    ctx = current_sharding()
+    if ctx is None:
+        return x
+    mesh, rules = ctx
+    if not is_placed(x):
+        raise TypeError(f"constrain inside activation_sharding needs a "
+                        f"DTensor, got a {type(x).__name__} of shape "
+                        f"{tuple(x.shape)}")
+    spec = spec_for(tuple(x.shape), axes, mesh_shape_of(mesh), rules)
+    return redistribute(x, placements_for(spec, mesh))
+
+
+@contextlib.contextmanager
+def no_constrain():
+    """Turn :func:`constrain` off (the JAX package's, for ``shard_map``
+    bodies, where arrays are per-shard locals)."""
+    prev = getattr(_TLS, "ctx", None)
+    _TLS.ctx = None
+    try:
+        yield
+    finally:
+        _TLS.ctx = prev

@@ -79,6 +79,18 @@
 //   each chunk leaves its partial (m, l, acc) in fp32 scratch, and
 //   `flash_decode_combine_kernel` merges a row's chunks in chunk order and
 //   rounds the output once. Every order is fixed, so reruns are bit-equal.
+//
+// Decode over a cache whose rows are spread over ranks (`ops.
+// flash_decode_partial` and `ops.flash_decode_merge`; replaces no TPU
+// kernel of its own: the JAX package lets GSPMD partition
+// `blocked_attention` over the cache's rows). The partial entry runs the
+// same two kernels on a rank's rows, every chunk leaving its partial and
+// the merge writing the row's partial (acc, m, l) unnormalised, an empty
+// partial (0, -3e38, 0) for a row with no live key on the rank. The merge
+// entry is the same merge kernel over the all-gathered partials, ranks for
+// chunks, in rank order, skipping empty partials. Bound: the partial
+// entry is the decode's (the rank's live K and V rows); the merge reads
+// R (d + 2) fp32 values a query row and writes d, a few kilobytes.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -801,15 +813,16 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
 // batch row). Warp w takes the chunk's sub-tiles w, w + 4, ... through a
 // cp.async ring of DEC_STAGES sub-tiles and keeps its own (m, l, acc) for
 // each head; the warps are merged in warp order at the end. A row that
-// fits one chunk is written here; a longer row leaves its partial (m, l,
-// acc) in `part` for flash_decode_combine_kernel.
+// fits one chunk is written here; a longer row (or, with `partial`, every
+// row) leaves its partial (m, l, acc) in `part` for
+// flash_decode_combine_kernel.
 template <typename T, int D, int GT>
 __global__ void __launch_bounds__(DEC_THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
                     T* __restrict__ out, float* __restrict__ part, int Hq,
                     int Hkv, int S, int chunk, int n_chunks,
-                    float scale_log2) {
+                    float scale_log2, int partial) {
   using L = DecTile<T, D>;
   static_assert(DEC_WARPS * GT * (D + 2) * 4 <=
                     DEC_WARPS * DEC_STAGES * L::STAGE,
@@ -832,7 +845,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n = min(max(lengths[b], 0), S);
   const size_t qrow = static_cast<size_t>(b) * Hq + hq0;
   if (n == 0) {  // no live key: the row is 0, written by chunk 0
-    if (c == 0) {
+    if (c == 0 && !partial) {
       for (int i = tid; i < ng * D; i += DEC_THREADS) {
         out[qrow * D + i] = from_f<T>(0.0f);
       }
@@ -999,7 +1012,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  const bool whole = n <= chunk;  // the row's only chunk: write the output
+  // the row's only chunk writes the output, unless the row's partial is
+  // asked for
+  const bool whole = n <= chunk && !partial;
   float* part_acc = part + static_cast<size_t>(gridDim.z) * Hq * n_chunks * 2;
   for (int e = tid; e < ng * D; e += DEC_THREADS) {
     const int g = e / D, d = e - g * D;
@@ -1030,36 +1045,64 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   launch_dependents();
 }
 
-// One CTA per (query head, batch row) whose row spans several chunks: the
-// chunks' partial (m, l, acc) merged in chunk order, rounded once.
+// One CTA per (query head, batch row): partial (m, l, acc) states merged
+// in order, the row's (m, l) of partial c at ml[row * ml_row + c * ml_c]
+// (+1 for l), its acc at acc[row * acc_row + c * acc_c]. Modes:
+// 0, a decode's chunks: the first ceil(n / chunk) of them, n =
+//    clamp(lengths[b], 0, S); a row of one chunk was written by it; the
+//    output rounded once;
+// 1, the same chunks into the row's partial state, written unnormalised
+//    to out_part (acc, m, l), also for one chunk or none (the empty
+//    partial 0, NEG, 0);
+// 2, n_parts partials of disjoint rows (ranks): every one read, the empty
+//    ones (l == 0) skipped, 0 where none is live; lengths unread.
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
-flash_decode_combine_kernel(const float* __restrict__ part,
-                            const int* __restrict__ lengths,
-                            T* __restrict__ out, int Hq, int S, int chunk,
-                            int n_chunks) {
+flash_decode_combine_kernel(const float* __restrict__ ml,
+                            const float* __restrict__ acc, long long ml_row,
+                            long long ml_c, long long acc_row,
+                            long long acc_c, const int* __restrict__ lengths,
+                            T* __restrict__ out, float* __restrict__ out_part,
+                            int Hq, int S, int chunk, int n_parts, int mode) {
   wait_prerequisites();
   const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int n = min(max(lengths[b], 0), S);
-  const int nc = (n + chunk - 1) / chunk;
-  if (nc <= 1) return;  // written by its only chunk
+  int nc = n_parts;
+  if (mode != 2) {
+    const int n = min(max(lengths[b], 0), S);
+    nc = (n + chunk - 1) / chunk;
+    if (mode == 0 && nc <= 1) return;  // written by its only chunk
+  }
   const size_t row = static_cast<size_t>(b) * Hq + hq;
-  const float* ml = part + row * n_chunks * 2;
-  const float* acc = part + static_cast<size_t>(gridDim.y) * Hq * n_chunks * 2 +
-                     row * n_chunks * D;
-  extern __shared__ float s_ml[];  // the row's (m, l) of every chunk
-  for (int i = d; i < 2 * nc; i += D) s_ml[i] = ml[i];
+  extern __shared__ float s_ml[];  // the row's (m, l) of every partial
+  for (int i = d; i < nc; i += D) {
+    const float* src = ml + row * ml_row + i * ml_c;
+    s_ml[2 * i] = src[0];
+    s_ml[2 * i + 1] = src[1];
+  }
   __syncthreads();
   float M = NEG;
-  for (int c = 0; c < nc; ++c) M = fmaxf(M, s_ml[2 * c]);
+  for (int c = 0; c < nc; ++c) {
+    if (mode != 2 || s_ml[2 * c + 1] > 0.0f) M = fmaxf(M, s_ml[2 * c]);
+  }
+  const float* arow = acc + row * acc_row;
   float Lsum = 0.0f, O = 0.0f;
 #pragma unroll 16
   for (int c = 0; c < nc; ++c) {
+    if (mode == 2 && !(s_ml[2 * c + 1] > 0.0f)) continue;  // empty
     const float a = exp2f(s_ml[2 * c] - M);
     Lsum += s_ml[2 * c + 1] * a;
-    O += acc[static_cast<size_t>(c) * D + d] * a;
+    O += arow[c * acc_c + d] * a;
   }
-  out[row * D + d] = from_f<T>(O / Lsum);
+  if (mode == 1) {
+    float* o = out_part + row * (D + 2);
+    o[d] = O;
+    if (d == 0) {
+      o[D] = M;
+      o[D + 1] = Lsum;
+    }
+  } else {
+    out[row * D + d] = from_f<T>(Lsum > 0.0f ? O / Lsum : 0.0f);
+  }
 }
 
 // ------------------------------------------------------------------ launch
@@ -1081,11 +1124,14 @@ int launch_prefill(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// out_part non-null: the partial entry (the rows' partial states into
+// out_part, not the output into out)
 template <typename T, int D, int GT>
 int launch_decode_gt(const void* q, const void* k, const void* v,
-                     const void* lengths, void* out, void* part, int B,
-                     int Hq, int Hkv, int S, int chunk, int n_chunks,
-                     float scale, cudaStream_t st) {
+                     const void* lengths, void* out, void* part,
+                     void* out_part, int B, int Hq, int Hkv, int S,
+                     int chunk, int n_chunks, float scale, cudaStream_t st) {
+  const int partial = out_part != nullptr;
   constexpr int smem = decode_smem_bytes<T, D, GT>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_decode_kernel<T, D, GT>,
@@ -1100,9 +1146,11 @@ int launch_decode_gt(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
       static_cast<T*>(out), static_cast<float*>(part), Hq, Hkv, S, chunk,
-      n_chunks, scale * 1.4426950408889634f);
+      n_chunks, scale * 1.4426950408889634f, partial);
   err = cudaGetLastError();
-  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || (n_chunks == 1 && !partial)) {
+    return static_cast<int>(err);
+  }
   const size_t ml_bytes = static_cast<size_t>(n_chunks) * 2 * sizeof(float);
   if (ml_bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
@@ -1115,34 +1163,59 @@ int launch_decode_gt(const void* q, const void* k, const void* v,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  const float* ml = static_cast<const float*>(part);
+  const float* acc = ml + static_cast<size_t>(B) * Hq * n_chunks * 2;
+  const long long ml_row = 2LL * n_chunks, ml_c = 2;
+  const long long acc_row = static_cast<long long>(n_chunks) * D, acc_c = D;
+  const int* lens = static_cast<const int*>(lengths);
+  T* o = static_cast<T*>(out);
+  float* op = static_cast<float*>(out_part);
+  const int mode = partial ? 1 : 0;
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, flash_decode_combine_kernel<T, D>,
-      static_cast<const float*>(part), static_cast<const int*>(lengths),
-      static_cast<T*>(out), Hq, S, chunk, n_chunks));
+      &cfg, flash_decode_combine_kernel<T, D>, ml, acc, ml_row, ml_c,
+      acc_row, acc_c, lens, o, op, Hq, S, chunk, n_chunks, mode));
+}
+
+// The merge of R ranks' partials (R, B, Hq, D + 2) fp32 into out (B, Hq, D)
+template <typename T, int D>
+int launch_merge(const void* parts, void* out, int R, int B, int Hq,
+                 cudaStream_t st) {
+  const size_t ml_bytes = static_cast<size_t>(R) * 2 * sizeof(float);
+  if (ml_bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const float* p = static_cast<const float*>(parts);
+  const long long row = D + 2;
+  const long long rank = static_cast<long long>(B) * Hq * (D + 2);
+  flash_decode_combine_kernel<T, D><<<dim3(Hq, B), D, ml_bytes, st>>>(
+      p + D, p, row, rank, row, rank, nullptr, static_cast<T*>(out),
+      nullptr, Hq, 0, 1, R, 2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // GT, the query heads a CTA serves: the group size G rounded up to a power
 // of two, at most 8 (larger groups take several CTAs per kv head)
 template <typename T, int D>
 int launch_decode(const void* q, const void* k, const void* v,
-                  const void* lengths, void* out, void* part, int B, int Hq,
-                  int Hkv, int S, int chunk, int n_chunks, float scale,
-                  cudaStream_t st) {
+                  const void* lengths, void* out, void* part, void* out_part,
+                  int B, int Hq, int Hkv, int S, int chunk, int n_chunks,
+                  float scale, cudaStream_t st) {
   const int G = Hq / Hkv;
   if (G == 1) {
-    return launch_decode_gt<T, D, 1>(q, k, v, lengths, out, part, B, Hq, Hkv,
-                                     S, chunk, n_chunks, scale, st);
+    return launch_decode_gt<T, D, 1>(q, k, v, lengths, out, part, out_part,
+                                     B, Hq, Hkv, S, chunk, n_chunks, scale,
+                                     st);
   }
   if (G == 2) {
-    return launch_decode_gt<T, D, 2>(q, k, v, lengths, out, part, B, Hq, Hkv,
-                                     S, chunk, n_chunks, scale, st);
+    return launch_decode_gt<T, D, 2>(q, k, v, lengths, out, part, out_part,
+                                     B, Hq, Hkv, S, chunk, n_chunks, scale,
+                                     st);
   }
   if (G <= 4) {
-    return launch_decode_gt<T, D, 4>(q, k, v, lengths, out, part, B, Hq, Hkv,
-                                     S, chunk, n_chunks, scale, st);
+    return launch_decode_gt<T, D, 4>(q, k, v, lengths, out, part, out_part,
+                                     B, Hq, Hkv, S, chunk, n_chunks, scale,
+                                     st);
   }
-  return launch_decode_gt<T, D, 8>(q, k, v, lengths, out, part, B, Hq, Hkv,
-                                   S, chunk, n_chunks, scale, st);
+  return launch_decode_gt<T, D, 8>(q, k, v, lengths, out, part, out_part, B,
+                                   Hq, Hkv, S, chunk, n_chunks, scale, st);
 }
 
 bool shapes_ok(int B, int Hq, int Hkv) {
@@ -1244,6 +1317,38 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(launch_decode, q, k, v, lengths, out, part, B, Hq, Hkv, S,
-              chunk, n_chunks, scale, st)
+  FA_DISPATCH(launch_decode, q, k, v, lengths, out, part, nullptr, B, Hq,
+              Hkv, S, chunk, n_chunks, scale, st)
+}
+
+// The partial entry: the arguments of flash_decode_fwd, with out_part
+// (B, Hq, D + 2) fp32 for the rows' partial states (acc, m, l) in place of
+// the output, and part always given (B * Hq * n_chunks * (D + 2) floats,
+// n_chunks = ceil(S / chunk), at least 1).
+extern "C" int flash_decode_partial_fwd(const void* q, const void* k,
+                                        const void* v, const void* lengths,
+                                        void* out_part, void* part, int B,
+                                        int Hq, int Hkv, int S, int D,
+                                        int bf16, int chunk, float scale,
+                                        void* stream) {
+  if (!shapes_ok(B, Hq, Hkv) || S < 0 || lengths == nullptr || chunk <= 0 ||
+      chunk % DEC_KT != 0 || out_part == nullptr || part == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_chunks = S > chunk ? (S + chunk - 1) / chunk : 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FA_DISPATCH(launch_decode, q, k, v, lengths, nullptr, part, out_part, B,
+              Hq, Hkv, S, chunk, n_chunks, scale, st)
+}
+
+// The merge entry: R partials (R, B, Hq, D + 2) fp32 of disjoint rows
+// merged in order 0..R-1 into out (B, Hq, D) of the output type.
+extern "C" int flash_decode_merge_fwd(const void* parts, void* out, int R,
+                                      int B, int Hq, int D, int bf16,
+                                      void* stream) {
+  if (R <= 0 || B <= 0 || Hq <= 0 || B > 65535 || Hq > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FA_DISPATCH(launch_merge, parts, out, R, B, Hq, st)
 }

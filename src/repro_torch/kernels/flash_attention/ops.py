@@ -16,6 +16,24 @@ bytes (``prefill_cost``, ``decode_cost``) on either path while
 ``cost.counting()`` is on. The kernels have no backward: a call with grad
 mode on and an input that requires grad raises rather than cut the
 autograd graph (training attends through ``common.blocked_attention``).
+
+Two more entries serve a decode over a cache whose rows are spread over
+ranks: ``flash_decode_partial`` (the decode kernel leaving a row's partial
+softmax state ``(acc, m, l)`` instead of its output, for the rank's own
+rows) and ``flash_decode_merge`` (the decode kernel's chunk merge, with
+ranks for chunks, over the all-gathered partials). Meta tensors take a
+meta path (an output of the right shape, the work counted): the dry run
+runs placed steps on them.
+
+Placed tensors (DTensors, ``distributed.sharding``): ``flash_attention``
+and ``flash_decode`` run the same kernels on each rank's local tensors
+through ``local_map``. The query heads may be sharded where the kv heads
+are replicated (fewer kv heads than the mesh axis): each rank then slices
+the kv heads its local query heads read. A cache sharded along its rows
+makes the decode gather the query heads over those mesh dims, take each
+rank's partial over its rows (local lengths ``clamp(len - offset, 0,
+S_local)``: a rank past the live rows contributes the empty partial),
+all-gather the partials in rank order and merge them.
 """
 from __future__ import annotations
 
@@ -24,8 +42,14 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import dim_shard, is_placed, mesh_dims
 from repro_torch.kernels.cost import Work, WorkCounter, counted
-from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    decode_merge_ref,
+    decode_partial_ref,
+    decode_ref,
+)
 
 HEAD_DIMS = (16, 32, 48, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -35,9 +59,10 @@ WGMMA_HEAD_DIMS = (64, 128)
 
 # kernel launches per entry point since the last reset (the CPU path never
 # counts)
-LAUNCHES = {"prefill": 0, "prefill_wgmma": 0, "decode": 0}
+LAUNCHES = {"prefill": 0, "prefill_wgmma": 0, "decode": 0,
+            "decode_partial": 0, "decode_merge": 0}
 # each call's work, on either path (cost.py)
-WORK = WorkCounter(("prefill", "decode"))
+WORK = WorkCounter(("prefill", "decode", "decode_partial", "decode_merge"))
 
 
 def _esize_rate(esize: int) -> str:
@@ -73,6 +98,22 @@ def decode_cost(B: int, Hq: int, Hkv: int, d: int, live: int,
     out written once; 4 d operations per query head and live key."""
     nbytes = (2 * Hkv * d * live + 2 * B * Hq * d) * esize
     return Work(4 * d * Hq * live, nbytes, _esize_rate(esize))
+
+
+def decode_partial_cost(B: int, Hq: int, Hkv: int, d: int, live: int,
+                        esize: int) -> Work:
+    """One partial decode call over ``live`` cache rows in all: the rows
+    of k and v and q read once, the fp32 partial (d + 2 values a query
+    row) written once; 4 d operations per query head and live key."""
+    nbytes = (2 * Hkv * d * live + B * Hq * d) * esize + B * Hq * (d + 2) * 4
+    return Work(4 * d * Hq * live, nbytes, _esize_rate(esize))
+
+
+def decode_merge_cost(R: int, B: int, Hq: int, d: int, esize: int) -> Work:
+    """One merge of R partials: each read once, the output written once;
+    a multiply and an add per value of each partial (fp32)."""
+    nbytes = R * B * Hq * (d + 2) * 4 + B * Hq * d * esize
+    return Work(2 * R * B * Hq * (d + 2), nbytes, "fp32")
 
 
 def prefill_variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -116,6 +157,10 @@ _ARGTYPES = {
     + [ctypes.c_float, ctypes.c_void_p],
     "flash_decode_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
+    "flash_decode_partial_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_decode_merge_fwd": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
 }
 
 
@@ -171,9 +216,9 @@ def _check(q, k, v, lengths, *, q_ndim: int) -> None:
         if lengths.device != q.device:
             raise ValueError(f"lengths is on {lengths.device}, q on "
                              f"{q.device}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash attention runs on cuda or cpu tensors, got "
-                         f"{q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash attention runs on cuda or cpu tensors (meta "
+                         f"for the dry run), got {q.device}")
     if q.device.type == "cuda":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not t.is_contiguous():
@@ -195,7 +240,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Prefill attention. q (B, Hq, Sq, d); k, v (B, Hkv, Skv, d); causal
     rows see keys up to their position plus ``Skv - Sq``; ``lengths`` (B,)
     masks keys at or past ``lengths[b]``. fp32 softmax and accumulation;
-    returns (B, Hq, Sq, d) in q's dtype, 0 on rows with no live key."""
+    returns (B, Hq, Sq, d) in q's dtype, 0 on rows with no live key.
+    Placed (DTensor) inputs run it on each rank's local heads."""
+    if is_placed(q):
+        return _placed_prefill(q, k, v, causal, lengths)
     _check(q, k, v, lengths, q_ndim=4)
     B, Hq, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -207,6 +255,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _prefill(q, k, v, causal, lengths):
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, lengths=lengths)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     B, Hq, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     lens = _lengths_i32(lengths)
@@ -238,9 +288,13 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """One-token decode. q (B, Hq, d); caches (B, Hkv, S, d); keys at or past
     ``lengths[b]`` are masked. Returns (B, Hq, d) in q's dtype, 0 where
-    ``lengths[b] == 0``."""
+    ``lengths[b] == 0``. Placed (DTensor) inputs run it on each rank's
+    local heads and, on a cache sharded along its rows, merge the ranks'
+    partials."""
     if lengths is None:
         raise TypeError("flash_decode needs lengths")
+    if is_placed(q):
+        return _placed_decode(q, k_cache, v_cache, lengths)
     _check(q, k_cache, v_cache, lengths, q_ndim=3)
     B, Hq, d = q.shape
     # the wrapper reads no length back to the host: it counts every row of
@@ -253,6 +307,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 def _decode(q, k_cache, v_cache, lengths):
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, lengths)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     B, Hq, d = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     lens = _lengths_i32(lengths)
@@ -275,3 +331,186 @@ def _decode(q, k_cache, v_cache, lengths):
                            f"{rc}")
     LAUNCHES["decode"] += 1
     return out
+
+
+def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """The decode kernel's partial state over this cache's rows below
+    ``lengths[b]``: (B, Hq, d + 2) fp32 per query row, ``acc`` (d values,
+    not normalised), ``m`` (the largest score in log2 units, q.k / sqrt(d)
+    * log2 e) and ``l``; a row with no live key gives the empty partial
+    (0, -3e38, 0). ``ref.decode_partial_ref`` is its plain version."""
+    if lengths is None:
+        raise TypeError("flash_decode_partial needs lengths")
+    _check(q, k_cache, v_cache, lengths, q_ndim=3)
+    B, Hq, d = q.shape
+    return counted(WORK, lambda: ("decode_partial", decode_partial_cost(
+        B, Hq, k_cache.shape[1], d, B * k_cache.shape[2],
+        q.element_size())), _decode_partial, q, k_cache, v_cache, lengths)
+
+
+def _decode_partial(q, k_cache, v_cache, lengths):
+    B, Hq, d = q.shape
+    if q.device.type == "cpu":
+        return decode_partial_ref(q, k_cache, v_cache, lengths)
+    if q.device.type == "meta":
+        return q.new_empty((B, Hq, d + 2), dtype=torch.float32)
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    lens = _lengths_i32(lengths)
+    chunk, n_chunks = decode_split(S)
+    with torch.cuda.device(q.device):
+        out = torch.empty((B, Hq, d + 2), dtype=torch.float32,
+                          device=q.device)
+        # every chunk's partial, merged into out by the second kernel
+        part = torch.empty((B * Hq * n_chunks * (d + 2),),
+                           dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _entry("flash_decode_partial_fwd")(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), part.data_ptr(), B, Hq, Hkv, S,
+            d, int(q.dtype == torch.bfloat16), chunk, 1.0 / math.sqrt(d),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_decode_partial kernel launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES["decode_partial"] += 1
+    return out
+
+
+def flash_decode_merge(parts: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The decode output of R partials (R, B, Hq, d + 2) of
+    :func:`flash_decode_partial` over disjoint cache rows, merged in order
+    0..R-1 by the decode kernel's chunk merge: empty partials are skipped,
+    a row with none live is 0. Returns (B, Hq, d) in ``dtype``.
+    ``ref.decode_merge_ref`` is its plain version."""
+    if parts.ndim != 4 or parts.dtype != torch.float32 \
+            or parts.shape[-1] - 2 not in HEAD_DIMS or dtype not in DTYPES:
+        raise ValueError(f"parts must be (R, B, Hq, d + 2) fp32 with d in "
+                         f"{HEAD_DIMS} and dtype one of {DTYPES}, got "
+                         f"{parts.dtype} {tuple(parts.shape)} -> {dtype}")
+    if parts.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"parts on {parts.device}")
+    R, B, Hq, d2 = parts.shape
+    esize = torch.empty((), dtype=dtype).element_size()
+    return counted(WORK, lambda: ("decode_merge", decode_merge_cost(
+        R, B, Hq, d2 - 2, esize)), _decode_merge, parts, dtype)
+
+
+def _decode_merge(parts, dtype):
+    R, B, Hq, d2 = parts.shape
+    if parts.device.type == "cpu":
+        return decode_merge_ref(parts, dtype)
+    if parts.device.type == "meta":
+        return parts.new_empty((B, Hq, d2 - 2), dtype=dtype)
+    if B > 65535 or Hq > 65535:
+        raise ValueError(f"B={B}, Hq={Hq}: the merge's grid takes at most "
+                         f"65535 of each")
+    parts = parts.contiguous()
+    with torch.cuda.device(parts.device):
+        out = torch.empty((B, Hq, d2 - 2), dtype=dtype, device=parts.device)
+        stream = torch.cuda.current_stream(parts.device).cuda_stream
+        rc = _entry("flash_decode_merge_fwd")(
+            parts.data_ptr(), out.data_ptr(), R, B, Hq, d2 - 2,
+            int(dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_decode_merge kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["decode_merge"] += 1
+    return out
+
+
+# ------------------------------------------------------ placed (DTensor)
+def _local_kv_heads(q, k) -> slice:
+    """The local kv heads (a slice of ``k``'s local heads) that the local
+    query heads of ``q`` read, the kv head of global query head h being
+    h // (Hq // Hkv)."""
+    Hq, Hkv = q.shape[1], k.shape[1]
+    G = Hq // Hkv
+    (qi, qn), (ki, kn) = dim_shard(q, 1), dim_shard(k, 1)
+    nq, nk = Hq // qn, Hkv // kn
+    h0, k0 = qi * nq, ki * nk
+    lo, hi = h0 // G, (h0 + nq - 1) // G + 1
+    g = nq // (hi - lo)
+    if lo < k0 or hi > k0 + nk or nq % (hi - lo) or any(
+            (h0 + j) // G - lo != j // g for j in range(nq)):
+        raise ValueError(f"query heads {h0}..{h0 + nq - 1} of {Hq} and kv "
+                         f"heads {k0}..{k0 + nk - 1} of {Hkv} on this rank do "
+                         f"not pair")
+    return slice(lo - k0, hi - k0)
+
+
+def _check_placed(q, k, v, lengths, seq_ok: bool) -> None:
+    if not all(is_placed(t) for t in (k, v)) or (
+            lengths is not None and not is_placed(lengths)):
+        raise TypeError("placed attention needs every input placed")
+    if not (q.device_mesh == k.device_mesh == v.device_mesh):
+        raise ValueError("q, k and v lie on different meshes")
+    if tuple(k.placements) != tuple(v.placements):
+        raise ValueError(f"k {k.placements} and v {v.placements} differ")
+    if mesh_dims(q, 0) != mesh_dims(k, 0) or (
+            lengths is not None and mesh_dims(lengths, 0)
+            != mesh_dims(q, 0)):
+        raise ValueError(f"the batch is placed differently: q {q.placements}"
+                         f", k {k.placements}")
+    if (q.ndim == 4 and mesh_dims(q, 2)) or (not seq_ok
+                                               and mesh_dims(k, 2)):
+        raise NotImplementedError(
+            f"attention over a sequence sharded on the mesh (q "
+            f"{q.placements}, k {k.placements}): sequence parallelism is not "
+            f"ported")
+
+
+def _placed_prefill(q, k, v, causal, lengths):
+    from torch.distributed.tensor.experimental import local_map
+
+    _check_placed(q, k, v, lengths, seq_ok=False)
+    heads = _local_kv_heads(q, k)
+
+    def local(ql, kl, vl, ll):
+        if kl.shape[1] != heads.stop - heads.start:
+            kl, vl = kl[:, heads].contiguous(), vl[:, heads].contiguous()
+        return flash_attention(ql, kl, vl, causal=causal, lengths=ll)
+
+    return local_map(
+        local, out_placements=(q.placements,),
+        in_placements=(q.placements, k.placements, v.placements,
+                       None if lengths is None else lengths.placements),
+        device_mesh=q.device_mesh)(q, k, v, lengths)
+
+
+def _placed_decode(q, k_cache, v_cache, lengths):
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import redistribute
+    from repro_torch.launch.mesh import all_gather
+
+    mesh = q.device_mesh
+    seq = mesh_dims(k_cache, 2)
+    # a rank's partial covers every query head: gather the heads the cache
+    # rows' mesh dims shard
+    q = redistribute(q, [Replicate() if i in seq and p == Shard(1) else p
+                         for i, p in enumerate(q.placements)])
+    _check_placed(q, k_cache, v_cache, lengths, seq_ok=True)
+    heads = _local_kv_heads(q, k_cache)
+    row0, n_seq = dim_shard(k_cache, 2)
+    S_local = k_cache.shape[2] // n_seq
+
+    def local(ql, kl, vl, ll):
+        if kl.shape[1] != heads.stop - heads.start:
+            kl, vl = kl[:, heads].contiguous(), vl[:, heads].contiguous()
+        if not seq:
+            return flash_decode(ql, kl, vl, ll)
+        part = flash_decode_partial(
+            ql, kl, vl, (ll - row0 * S_local).clamp(0, S_local))[None]
+        for i in reversed(seq):        # rank order: the outer mesh dim major
+            part = all_gather(part, mesh, i, 0)
+        return flash_decode_merge(part, ql.dtype)
+
+    return local_map(
+        local, out_placements=(q.placements,),
+        in_placements=(q.placements, k_cache.placements, v_cache.placements,
+                       lengths.placements),
+        device_mesh=mesh)(q, k_cache, v_cache, lengths)

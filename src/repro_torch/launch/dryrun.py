@@ -28,10 +28,16 @@ around ``torch.cuda.synchronize()``); ``temp_bytes`` is the peak allocated
 during them less the arguments. ``--smoke`` measures the arch's reduced
 cell instead.
 
-The records keep the JAX package's keys. The port has no HLO, so the JAX
-package's HLO parsing (``collective_bytes``, ``_computation_blocks``,
-``_effective_multipliers``) has no counterpart: one card runs no
-collective, and ``collective_bytes`` is ``{}``.
+The records keep the JAX package's keys. ``collective_bytes`` is the
+placed step's per-device collective traffic, as the JAX package reads it
+from the partitioned HLO: the CLI (``add_collective_bytes``) places each
+placed cell (``placed``: the dense LM serve cells) on ``--multi-pod``'s
+production mesh over a fake process group of as many ranks
+(``launch.mesh.fake_group``; meta tensors, nothing allocated, no peer)
+and runs its step once under ``CollectiveBytes``, which sums every
+functional collective's result bytes under the JAX package's kind names.
+The other cells keep ``{}`` and say so in ``notes``; a measured run is
+one card's and runs no collective.
 """
 from __future__ import annotations
 
@@ -67,6 +73,69 @@ STEP_S = 0.5
 _NO_TRAFFIC = {torch.ops.aten.empty.memory_format,
                torch.ops.aten.empty_strided.default,
                torch.ops.aten.empty_like.default}
+
+
+# the cells placed on a device mesh (DTensor) for their collective bytes:
+# the dense LM archs' serve shapes; the MoE archs, DIEN, the GNNs, the
+# train cells and eagr are not placed yet
+PLACED_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+# the JAX package's collective kinds, and the functional collectives that
+# are each (result bytes counted, as the JAX package counts the HLO
+# instruction's result shape)
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+_KIND_OF = {"all_gather_into_tensor": "all-gather",
+            "all_gather_into_tensor_coalesced": "all-gather",
+            "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+            "all_reduce_coalesced": "all-reduce",
+            "all_reduce_coalesced_": "all-reduce",
+            "reduce_scatter_tensor": "reduce-scatter",
+            "reduce_scatter_tensor_coalesced": "reduce-scatter",
+            "all_to_all_single": "all-to-all"}
+
+
+def placed(arch_id: str, shape: str) -> bool:
+    """Whether the dry run places ``arch_id``'s ``shape`` on the mesh for
+    its collective bytes."""
+    from repro_torch.configs import get_arch
+
+    mod = get_arch(arch_id)
+    return getattr(mod, "FAMILY", None) == "lm" and \
+        not mod.CFG.is_moe and shape in PLACED_SHAPES
+
+
+class CollectiveBytes(TorchDispatchMode):
+    """Sums the result bytes of every functional collective
+    (``_c10d_functional``) by the JAX package's kind names."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = dict.fromkeys(COLLECTIVE_KINDS, 0.0)
+        self.calls = dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ns, _, name = func._schema.name.partition("::")
+        kind = _KIND_OF.get(name) if ns == "_c10d_functional" else None
+        if kind is not None:
+            self.calls[kind] += 1
+            self.bytes[kind] += sum(t.numel() * t.element_size()
+                                    for t in tree_leaves(out)
+                                    if isinstance(t, torch.Tensor))
+        return out
+
+
+def collective_bytes(plan: CellPlan, mesh: MeshShape) -> tuple[dict, dict]:
+    """One step of ``plan`` (meta arguments) placed on ``mesh`` over a fake
+    group of ``mesh.size`` ranks: the per-device result bytes of its
+    collectives by kind, and their calls by kind."""
+    from repro_torch.launch.mesh import fake_group, make_device_mesh
+
+    with fake_group(mesh.size):
+        step = plan.on_mesh(make_device_mesh(mesh, fake=True))
+        with CollectiveBytes() as cb:
+            step.fn(*step.args)
+    return cb.bytes, cb.calls
 
 
 class OperandBytes(TorchDispatchMode):
@@ -195,7 +264,8 @@ def run_cell(arch_id: str, shape: str, mesh: MeshShape,
     (:func:`measure_plan`), the cell cut by :func:`fit`. ``smoke``: the
     arch's reduced cell (``build_smoke``), never cut and with no model
     FLOPs, built on ``device`` to be measured, else on the meta device
-    (where the arch's reduced build takes it)."""
+    (where the arch's reduced build takes it). ``collective_bytes`` is
+    ``{}``: :func:`add_collective_bytes` fills it in."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.roofline import model_flops
 
@@ -239,6 +309,24 @@ def run_cell(arch_id: str, shape: str, mesh: MeshShape,
     return rec
 
 
+def add_collective_bytes(rec: dict, mesh: MeshShape) -> dict:
+    """``rec`` (a meta record of :func:`run_cell`) with its
+    ``collective_bytes``: a placed cell's step built on the meta device and
+    run on a fake group of ``mesh``'s ranks (:func:`collective_bytes`,
+    seconds a cell on the host), its calls by kind in ``notes``; a cell
+    not placed yet keeps ``{}`` and says so in ``notes``."""
+    from repro_torch.configs import get_arch
+
+    notes = rec["notes"] or ""
+    if placed(rec["arch"], rec["shape"]):
+        plan = get_arch(rec["arch"]).ARCH.build(rec["shape"], device="meta")
+        rec["collective_bytes"], calls = collective_bytes(plan, mesh)
+        rec["notes"] = f"{notes} collective_calls={calls}".strip()
+    else:
+        rec["notes"] = f"{notes} collective_bytes: not placed yet".strip()
+    return rec
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--arch", default=None)
@@ -277,11 +365,14 @@ def main(argv=None):
             rec = run_cell(a, s, mesh, args.rules, measure=args.measure,
                            device=dev, smoke=args.smoke,
                            repeats=args.repeats)
+            if not (args.measure or args.smoke):
+                add_collective_bytes(rec, mesh)
             records.append(rec)
             per_dev = rec["per_device_arg_bytes"]
             line = (f"{tag} OK args={rec['arg_bytes'] / 1e9:8.2f}GB "
                     f"per-device={(per_dev or 0) / 1e9:7.3f}GB "
                     f"fits={rec['fits_one_card']} "
+                    f"coll={sum(rec['collective_bytes'].values()) / 1e9:.3f}GB "
                     f"model_flops={rec['model_flops'] or 0:.3e}")
             if rec["measured"]:
                 line += (f" step={rec['seconds']:.4f}s "

@@ -1,9 +1,15 @@
-"""Production mesh shapes, and the EAGr shard mesh over a ``torch.distributed``
-group.
+"""Production mesh shapes, device meshes over a ``torch.distributed`` group,
+and the EAGr shard mesh.
 
 ``make_production_mesh`` / ``make_host_mesh`` are the JAX package's
 ``repro.launch.mesh`` as ``MeshShape``s (axis names and sizes, no devices),
 which the sharding rules and the dry run's per-device bytes read.
+``make_device_mesh`` turns a ``MeshShape`` into a ``DeviceMesh`` over the
+running group (the JAX package's ``Mesh(devices.reshape(shape))``: ranks
+in row-major order), on which ``distributed.sharding.place`` puts DTensors;
+with ``fake=True`` over a fake process group of ``shape.size`` ranks
+(``fake_group``), which the dry run uses to count a placed step's
+collectives on meta tensors without a card or a peer.
 
 ``make_shard_mesh`` is the counterpart of the JAX package's 1-D shard mesh:
 where the JAX package runs one controller over one device per shard, the
@@ -29,6 +35,7 @@ and bit-equal on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import time
@@ -51,6 +58,84 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
 def make_host_mesh() -> MeshShape:
     """1-device mesh with the production axis names."""
     return MeshShape(("data", "model"), (1, 1))
+
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """A fake default process group of ``world`` ranks, this process rank 0
+    (``torch.testing._internal.distributed.fake_pg``): collectives return
+    at once and move nothing. Raises inside a real group; destroyed on
+    exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised: the "
+                           "fake group is the dry run's alone")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_device_mesh(shape: MeshShape, *, fake: bool = False,
+                     device_type: str | None = None):
+    """A ``DeviceMesh`` of ``shape`` over the running default group
+    (started by :func:`init_group` / :func:`spawn_group`), its dims named
+    like ``shape``'s axes, ranks in row-major order. The group must hold
+    exactly ``shape.size`` ranks. ``fake``: the caller runs inside
+    :func:`fake_group` (the dry run), and the mesh's device type is the
+    CPU's (its tensors are meta tensors). ``device_type``: ``cuda`` unless
+    ``fake`` or the group's ranks run on the CPU (``"cpu"``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: start one with init_group")
+    if fake != (str(dist.get_backend()) == "fake"):
+        raise ValueError(f"fake={fake} on a {dist.get_backend()} group")
+    world = dist.get_world_size()
+    if world != shape.size:
+        raise ValueError(f"a {shape.shape} mesh needs {shape.size} ranks, the "
+                         f"group has {world}")
+    dev = "cpu" if fake else (device_type or "cuda")
+    return DeviceMesh(dev, torch.arange(world).reshape(shape.shape),
+                      mesh_dim_names=tuple(shape.axis_names))
+
+
+def all_gather(t: torch.Tensor, device_mesh, mesh_dim: int,
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` along ``device_mesh``'s dim ``mesh_dim``
+    concatenated along tensor dim ``dim`` in that mesh dim's rank order:
+    the all-gather of every placed step (DTensor's Shard -> Replicate, the
+    FSDP gathers, the decode partials), a functional collective.
+
+    The one collective that gloo refuses on CUDA tensors: the functional
+    all-gather (``_c10d_functional.all_gather_into_tensor``) kills the
+    process on a gloo group with CUDA inputs (torch 2.11; gloo's other
+    collectives, functional or not, and its non-functional all-gather take
+    CUDA tensors). There it is staged through host memory, the
+    non-functional all-gather on CPU copies, and the result copied back
+    to ``t``'s device. This is the only place a placed step moves data
+    through the host on purpose."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    group = device_mesh.get_group(mesh_dim)
+    if t.device.type == "cuda" and str(dist.get_backend(group)) == "gloo":
+        host = t.detach().movedim(dim, 0).contiguous().cpu()
+        n = dist.get_world_size(group)
+        out = torch.empty((n * host.shape[0],) + tuple(host.shape[1:]),
+                          dtype=host.dtype)
+        dist.all_gather_into_tensor(out, host, group=group)
+        return out.to(t.device).movedim(0, dim)
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor       # the name before torch 2.12
+    out = gather(t.contiguous(), dim, (device_mesh, mesh_dim))
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
 
 
 SHARD_AXIS = "shard"
@@ -259,10 +344,11 @@ def init_group(rank: int, world: int, store: str, *, backend: str = "gloo",
     """Join a ``world``-rank group over the ``file://`` store at ``store``
     (a path no earlier group used). Every collective of the group fails
     after ``timeout_s`` seconds instead of hanging. An ``nccl`` rank first
-    makes ``device`` its current CUDA device."""
+    makes ``device`` its current CUDA device (a ``gloo`` rank too, for the
+    device meshes it builds)."""
     import torch.distributed as dist
 
-    if backend == "nccl" and device is not None:
+    if device is not None and torch.device(device).type == "cuda":
         torch.cuda.set_device(torch.device(device))
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world,

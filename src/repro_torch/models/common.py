@@ -6,6 +6,7 @@ production path (the one it trains through), and the losses:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -64,6 +65,16 @@ def spec_to_meta(tree):
                                            device="meta"), tree)
 
 
+def _draw(s: ParamSpec, generator: torch.Generator, depth: int | None):
+    fan_in = s.shape[0] if len(s.shape) > 1 else max(1, s.shape[-1])
+    if depth is not None and s.axes[0] == "layers":
+        fan_in = depth
+    scale = s.init_scale / math.sqrt(fan_in)
+    x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device).mul_(scale)  # one fp32 transient
+    return x.to(s.dtype)
+
+
 def init_from_specs(tree, generator: torch.Generator,
                     depth: int | None = None):
     """Random init for smoke runs and examples, on ``generator``'s device:
@@ -74,20 +85,24 @@ def init_from_specs(tree, generator: torch.Generator,
     each layer at the scale of its full depth. The numbers differ from the
     JAX init: a test that compares the two packages hands one parameter
     tree to both."""
-    dev = generator.device
     out = {}
     for path, s in _leaves(tree):
-        fan_in = s.shape[0] if len(s.shape) > 1 else max(1, s.shape[-1])
-        if depth is not None and s.axes[0] == "layers":
-            fan_in = depth
-        scale = s.init_scale / math.sqrt(fan_in)
-        x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                        device=dev).mul_(scale)   # one fp32 transient
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = x.to(s.dtype)
+        node[path[-1]] = _draw(s, generator, depth)
     return out
+
+
+def leaf_sources(tree, generator: torch.Generator,
+                 depth: int | None = None):
+    """:func:`init_from_specs` a leaf at a time: the tree of functions of no
+    arguments that each draw their leaf. Called in the tree's order (dict
+    keys sorted, as ``distributed.sharding.place`` calls them) they draw
+    ``init_from_specs``' numbers, and a caller never holds more than one
+    whole leaf."""
+    return map_specs(lambda s: functools.partial(_draw, s, generator, depth),
+                     tree)
 
 
 # ------------------------------------------------------------------- norms

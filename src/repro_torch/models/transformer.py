@@ -38,10 +38,24 @@ Parameters are a nested dict of tensors laid out as the JAX package's
 (layer-stacked ``(L, ...)`` leaves under ``"layers"``). Matrices are cast to
 the compute dtype at each use, as in JAX; ``serving_params`` casts them once
 ahead (the same numbers, since a cast of a cast is the cast), and the casts
-at use are then no-ops. The port runs on one card: the JAX package's
-``constrain`` sharding hints do nothing without a mesh and are dropped.
-``_ffn`` returns the MoE load-balance loss; ``prefill`` and
-``decode_step`` drop it, as JAX does.
+at use are then no-ops. ``_ffn`` returns the MoE load-balance loss;
+``prefill`` and ``decode_step`` drop it, as JAX does.
+
+The model calls ``distributed.sharding.constrain`` where the JAX package
+does. Outside ``activation_sharding`` it returns its input, and every
+path above runs as on one card. Inside one (``CellPlan.on_mesh``) the
+dense serve path (``prefill``, ``decode_step``) runs on DTensors placed by
+the sharding rules, as GSPMD partitions the JAX package's: each layer's
+weights are gathered over the FSDP (``embed``) axes once per use
+(``sharding.gather_dim``), the embedding lookup is vocab-parallel (a
+rank's vocab rows, the others masked, summed over the vocab's mesh dims),
+the padded-vocab mask takes the rank's vocab offset, the flash kernels run
+on each rank's local heads (``flash_attention.ops``), a decode step writes
+the new token's k/v on the rank that holds its cache row, and the
+row-parallel products (attention out, FFN down) are all-reduced by the
+``constrain`` that follows them: taken in fp32 on a mesh (GSPMD adds bf16
+partials) and rounded once after the sum, as one card rounds them, so a
+placed step gives one card's numbers up to fp32 reassociation.
 """
 from __future__ import annotations
 
@@ -51,12 +65,23 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (
+    constrain,
+    dim_shard,
+    from_local,
+    gather_dim,
+    is_placed,
+    mesh_dims,
+    redistribute,
+    replicated_like,
+)
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models.common import (
     ParamSpec,
     apply_rope,
     blocked_attention,
     fused_ce_loss,
+    leaf_sources,
     rms_norm,
     rope_angles,
 )
@@ -155,9 +180,38 @@ def serving_params(params, cfg: TransformerConfig):
     return out
 
 
+def serving_sources(cfg: TransformerConfig, generator: torch.Generator,
+                    depth: int | None = None):
+    """``serving_params(init_from_specs(param_specs(cfg), generator,
+    depth), cfg)`` a leaf at a time (``common.leaf_sources``): functions of
+    no arguments, each drawing its leaf and casting it as
+    ``serving_params`` does; ``sharding.place`` calls them in order, and a
+    rank keeps only its shard of each."""
+    src = leaf_sources(param_specs(cfg), generator, depth)
+
+    def cast(f):
+        return lambda: f().to(cfg.compute_dtype)
+
+    out = {k: cast(f) if k in _COMPUTE_LEAVES else f
+           for k, f in src.items() if k != "layers"}
+    out["layers"] = {k: cast(f) if k in _COMPUTE_LEAVES else f
+                     for k, f in src["layers"].items()}
+    return out
+
+
 # --------------------------------------------------------------------- ffn
 def _swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    h = constrain(h, ("act_batch", "act_seq", "act_mlp"))
+    return _row_product(h, w_down)
+
+
+def _row_product(h, w):
+    """``h @ w`` where the contraction runs over a dim the mesh shards (the
+    FFN's down and the attention's out products): placed, each rank's
+    product is a partial sum in the compute dtype, and the ``constrain``
+    that follows all-reduces the partials in that dtype, as GSPMD does."""
+    return h @ w
 
 
 def _route(x, router, k: int):
@@ -293,8 +347,9 @@ _MOE_IMPLS = {"einsum": _moe_ffn_einsum, "sort": _moe_ffn_sort}
 
 
 def _dense_ffn(x, lw, cdt):
-    return _swiglu(x, lw["w_gate"].to(cdt), lw["w_up"].to(cdt),
-                   lw["w_down"].to(cdt))
+    return _swiglu(x, gather_dim(lw["w_gate"].to(cdt), 0),
+                   gather_dim(lw["w_up"].to(cdt), 0),
+                   gather_dim(lw["w_down"].to(cdt), 1))
 
 
 def _layer_weights(lp, l: int) -> dict:
@@ -324,24 +379,36 @@ def _ffn(x, lp, l: int, cfg: TransformerConfig):
 
 # ------------------------------------------------------------------- layer
 def _project(x, w, cdt):
-    """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
+    """einsum("bsd,dhk->bshk", x, w) as one matrix product (w gathered
+    over its FSDP axes when placed)."""
     D, H, hd = w.shape
-    return (x @ w.to(cdt).reshape(D, H * hd)).unflatten(-1, (H, hd))
+    w = gather_dim(w.to(cdt), 0)
+    return (x @ w.reshape(D, H * hd)).unflatten(-1, (H, hd))
 
 
 def _out_proj(o, wo, cdt):
     """einsum("bhsk,hkd->bsd", o, wo): o (B, Hq, S, hd)."""
     B, H, S, hd = o.shape
-    return o.to(cdt).transpose(1, 2).reshape(B, S, H * hd) \
-        @ wo.to(cdt).reshape(H * hd, -1)
+    return _row_product(o.to(cdt).transpose(1, 2).reshape(B, S, H * hd),
+                        gather_dim(wo.to(cdt), 2).reshape(H * hd, -1))
+
+
+_Q_AXES = ("act_batch", "act_seq", "act_heads", None)
+_KV_AXES = ("act_batch", "act_seq", "act_kv_heads", None)
+_O_AXES = ("act_batch", "act_heads", "act_seq", None)
+_CACHE_AXES = ("act_batch", "act_kv_heads", "cache_seq", None)
+_OUT_AXES = ("act_batch", "act_seq", "act_embed")
+_RES_AXES = ("act_batch", "act_res_seq", "act_embed")
 
 
 def _qkv(x, lw, cdt, cos, sin):
     """One layer's q, k (RoPE applied) and v, each (B, H, S, hd)
     contiguous. x: (B, S, D)."""
-    q = apply_rope(_project(x, lw["wq"], cdt), cos, sin)
-    kk = apply_rope(_project(x, lw["wk"], cdt), cos, sin)
-    vv = _project(x, lw["wv"], cdt)
+    cos, sin = replicated_like(x, cos), replicated_like(x, sin)
+    q = constrain(apply_rope(_project(x, lw["wq"], cdt), cos, sin), _Q_AXES)
+    kk = constrain(apply_rope(_project(x, lw["wk"], cdt), cos, sin),
+                   _KV_AXES)
+    vv = constrain(_project(x, lw["wv"], cdt), _KV_AXES)
     return tuple(t.transpose(1, 2).contiguous() for t in (q, kk, vv))
 
 
@@ -355,7 +422,9 @@ def _attention(x, lp, l: int, cfg: TransformerConfig, cos, sin, *,
         o = flash.flash_attention(q, kk, vv, causal=True)
     else:
         o = attention(q, kk, vv, causal=True, lengths=None)
-    return _out_proj(o, lp["wo"][l], cdt), (kk, vv)
+    o = constrain(o, _O_AXES)
+    return constrain(_out_proj(o, lp["wo"][l], cdt), _OUT_AXES).to(cdt), \
+        (kk, vv)
 
 
 def _layer(x, lw, cfg: TransformerConfig, cos, sin):
@@ -374,9 +443,92 @@ def _logits(x, params, cfg: TransformerConfig):
     decoding never picks a padded id. x: (B, D)."""
     cdt = cfg.compute_dtype
     x = rms_norm(x, params["final_norm"])
-    logits = x @ params["lm_head"].to(cdt)
-    valid = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
+    logits = x @ gather_dim(params["lm_head"].to(cdt), 0)
+    if is_placed(logits):     # the rank's vocab columns from its offset
+        offset = dim_shard(logits, 1)[0] * _local_size(logits, 1)
+        logits = from_local(_mask_vocab(logits.to_local(), cfg.vocab, offset),
+                            logits.device_mesh, logits.placements,
+                            logits.shape)
+    else:
+        logits = _mask_vocab(logits, cfg.vocab, 0)
+    return constrain(logits, ("act_batch", "act_vocab"))
+
+
+def _mask_vocab(logits, vocab: int, offset: int):
+    """Logits of ids ``offset + j`` at or past ``vocab`` set to -1e9."""
+    valid = torch.arange(logits.shape[-1], device=logits.device) \
+        + offset < vocab
     return logits.masked_fill(~valid, -1e9)
+
+
+# --------------------------------------------------------- placed helpers
+def _local_size(x, dim: int) -> int:
+    return x.shape[dim] // dim_shard(x, dim)[1]
+
+
+def _embed(table, tokens, cdt):
+    """The embedding rows of ``tokens`` in ``cdt``. Placed: vocab-parallel,
+    as GSPMD partitions a gather from a vocab-sharded table: the table
+    gathered over its FSDP axes, each rank looks up the ids in its vocab
+    rows (the others give 0), and the result is partial over the vocab's
+    mesh dims (summed by the ``constrain`` that follows)."""
+    if not is_placed(table):
+        return table[tokens.long()].to(cdt)
+    from torch.distributed.tensor import Partial
+
+    table = gather_dim(table.to(cdt), 1)
+    vocab = mesh_dims(table, 0)
+    if any(not table.placements[i].is_replicate() for i in range(
+            table.device_mesh.ndim) if i not in vocab) or any(
+            not tokens.placements[i].is_replicate() for i in vocab):
+        raise ValueError(f"tokens {tokens.placements} and the table "
+                         f"{table.placements} do not meet")
+    V = _local_size(table, 0)
+    lo = dim_shard(table, 0)[0] * V
+    ids = tokens.to_local().long() - lo
+    hit = (ids >= 0) & (ids < V)
+    rows = table.to_local()[ids.clamp(0, V - 1)]
+    rows = rows.masked_fill(~hit[..., None], 0)
+    placements = [Partial() if i in vocab else p
+                  for i, p in enumerate(tokens.placements)]
+    return from_local(rows, table.device_mesh, placements,
+                      tuple(tokens.shape) + (table.shape[1],))
+
+
+def _angles(positions, cfg: TransformerConfig):
+    """RoPE's (cos, sin) at ``positions`` (placed as they are)."""
+    if not is_placed(positions):
+        return rope_angles(positions, cfg.head_dim, cfg.rope_base)
+    return tuple(from_local(t, positions.device_mesh, positions.placements,
+                            tuple(positions.shape) + (t.shape[-1],))
+                 for t in rope_angles(positions.to_local(), cfg.head_dim,
+                                      cfg.rope_base))
+
+
+def _write_rows(cache_l, new, pos) -> None:
+    """``cache_l[b, :, pos[b]] = new[b]`` in place for every batch row b.
+    cache_l (B, Hkv, S, hd), new (B, Hkv, hd), pos (B,). Placed: on each
+    rank's local shard, by the rank that holds row ``pos[b]`` only (the
+    others write the row they hold back unchanged)."""
+    if not is_placed(cache_l):
+        bidx = torch.arange(new.shape[0], device=new.device)
+        cache_l[bidx, :, pos.long()] = new.to(cache_l.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = cache_l.placements
+    new = redistribute(new, [p if p in (Shard(0), Shard(1)) else Replicate()
+                             for p in pl])
+    pos = redistribute(pos, [p if p == Shard(0) else Replicate()
+                             for p in pl])
+    S = _local_size(cache_l, 2)
+    local = cache_l.to_local()
+    p = pos.to_local().long() - dim_shard(cache_l, 2)[0] * S
+    mine = ((p >= 0) & (p < S))[:, None, None]
+    p = p.clamp(0, S - 1)
+    bidx = torch.arange(local.shape[0], device=local.device)
+    local[bidx, :, p] = torch.where(mine, new.to_local().to(local.dtype),
+                                    local[bidx, :, p])
 
 
 # ---------------------------------------------------------------- training
@@ -423,6 +575,15 @@ def loss_fn(params, batch, cfg: TransformerConfig):
 
 
 # ----------------------------------------------------------------- serving
+def _serve_placed(params, cfg: TransformerConfig) -> None:
+    """Placed serving covers the dense archs (the MoE archs' expert
+    placements are not ported)."""
+    if cfg.is_moe and is_placed(params["embed"]):
+        raise NotImplementedError(
+            f"{cfg.name}: placed serving of an MoE arch (its 'expert' "
+            f"placements) is not ported")
+
+
 def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
             attention=None):
     """tokens (B, S) int -> (last-token logits (B, V_pad) in the compute
@@ -432,7 +593,8 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     ``(q, k, v, *, causal, lengths) -> out`` of the kernels' layout to call
     instead."""
     cdt = cfg.compute_dtype
-    x = params["embed"][tokens.long()].to(cdt)
+    _serve_placed(params, cfg)
+    x = constrain(_embed(params["embed"], tokens, cdt), _RES_AXES)
     S = tokens.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=tokens.device),
                            cfg.head_dim, cfg.rope_base)
@@ -442,9 +604,10 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         a, (kk, vv) = _attention(rms_norm(x, lp["ln1"][l]), lp, l, cfg, cos,
                                  sin, attention=attention)
         x = x + a
-        x = x + _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)[0]
-        ks.append(kk)
-        vs.append(vv)
+        f = _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)[0]
+        x = constrain(x + constrain(f, _OUT_AXES).to(cdt), _RES_AXES)
+        ks.append(constrain(kk, _CACHE_AXES))
+        vs.append(constrain(vv, _CACHE_AXES))
     return _logits(x[:, -1], params, cfg), (torch.stack(ks), torch.stack(vs))
 
 
@@ -463,13 +626,11 @@ def decode_step(params, cache, tokens: torch.Tensor, lengths: torch.Tensor,
     tensors.
     """
     cdt = cfg.compute_dtype
-    B = tokens.shape[0]
+    _serve_placed(params, cfg)
     k_cache, v_cache = cache
-    x = params["embed"][tokens.long()][:, None, :].to(cdt)    # (B, 1, D)
-    cos, sin = rope_angles(lengths[:, None], cfg.head_dim,
-                           cfg.rope_base)                     # (B, 1, half)
-    bidx = torch.arange(B, device=tokens.device)
-    pos = lengths.long()
+    x = constrain(_embed(params["embed"], tokens, cdt)[:, None, :],
+                  _OUT_AXES)                                  # (B, 1, D)
+    cos, sin = _angles(lengths[:, None], cfg)                 # (B, 1, half)
     live = lengths + 1
     lp = params["layers"]
     for l in range(cfg.n_layers):
@@ -478,14 +639,17 @@ def decode_step(params, cache, tokens: torch.Tensor, lengths: torch.Tensor,
         kk = apply_rope(_project(xn, lp["wk"][l], cdt), cos, sin)
         vv = _project(xn, lp["wv"][l], cdt)
         k_l, v_l = k_cache[l], v_cache[l]
-        k_l[bidx, :, pos] = kk[:, 0].to(k_l.dtype)
-        v_l[bidx, :, pos] = vv[:, 0].to(v_l.dtype)
+        _write_rows(k_l, kk[:, 0], lengths)
+        _write_rows(v_l, vv[:, 0], lengths)
+        k_l, v_l = constrain(k_l, _CACHE_AXES), constrain(v_l, _CACHE_AXES)
         q = q.transpose(1, 2)                                 # (B, Hq, 1, hd)
         if attention is None:
             o = flash.flash_decode(q[:, :, 0].contiguous(), k_l, v_l,
                                    live)[:, :, None]
         else:
             o = attention(q, k_l, v_l, causal=False, lengths=live)
-        x = x + _out_proj(o, lp["wo"][l], cdt)
-        x = x + _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)[0]
+        o = constrain(o, _O_AXES)
+        x = x + constrain(_out_proj(o, lp["wo"][l], cdt), _OUT_AXES).to(cdt)
+        f = _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)[0]
+        x = constrain(x + constrain(f, _OUT_AXES).to(cdt), _OUT_AXES)
     return _logits(x[:, 0], params, cfg), cache, live

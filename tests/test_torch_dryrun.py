@@ -3,13 +3,18 @@ give the JAX package's record keys; every kernel wrapper counts each
 call's operations and bytes (its cost function at the call's shapes) on
 the CPU path, so a step's counters are the per-call formulas summed over
 its calls; the plain versions' own matmuls are not counted a second time;
-the CLI's ``--json`` round trip through the roofline."""
+the CLI's ``--json`` round trip through the roofline; the dense LM serve
+cells placed on a fake group of the production mesh's ranks carry their
+per-device collective bytes, which at the smoke widths equal a closed form
+of the shapes and placements."""
 import json
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch.utils._pytree import tree_leaves  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.configs import all_cells, get_arch  # noqa: E402
@@ -293,3 +298,135 @@ def test_cli_without_a_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dryrun.main(["--arch", "dien"])
+
+
+# ------------------------------------------- placed cells: collective bytes
+PLACED = [(a, s) for a in ("granite-3-2b", "internlm2-1.8b",
+                           "command-r-plus-104b")
+          for s in ("prefill_32k", "decode_32k", "long_500k")]
+
+
+class _Host(TorchDispatchMode):
+    """The largest tensor off the meta device that an operation makes."""
+
+    def __init__(self):
+        super().__init__()
+        self.numel = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.numel = max([self.numel] + [
+            t.numel() for t in tree_leaves(out)
+            if isinstance(t, torch.Tensor) and t.device.type != "meta"])
+        return out
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch_id,shape", PLACED)
+def test_placed_record_carries_collective_bytes(arch_id, shape, multi_pod):
+    """The 18 placed records: built and run on a fake group of the
+    production mesh's ranks with meta tensors (nothing allocated but the
+    mesh's table of ranks),
+    the per-device bytes under the JAX package's collective kinds, every
+    step gathering its FSDP weights and all-reducing its row-parallel
+    products; the roofline gives them a collective term. On the (16, 16)
+    mesh the bytes are the closed form's at the arch's published widths
+    (bf16: the row-parallel partials all-reduced in bf16, as GSPMD adds
+    them)."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    assert dryrun.placed(arch_id, shape)
+    with _Host() as host:
+        rec = dryrun.run_cell(arch_id, shape, mesh)
+        assert rec["collective_bytes"] == {}
+        dryrun.add_collective_bytes(rec, mesh)
+    assert host.numel <= mesh.size    # the mesh's table of ranks, no more
+    assert not torch.distributed.is_initialized()    # the fake group ended
+    cb = rec["collective_bytes"]
+    assert tuple(cb) == dryrun.COLLECTIVE_KINDS
+    assert cb["all-gather"] > 0 and cb["all-reduce"] > 0
+    assert cb["reduce-scatter"] == cb["all-to-all"] == 0
+    assert "collective_calls=" in rec["notes"]
+    assert roofline.analyze([rec])[0]["t_collective_s"] > 0
+    if not multi_pod:      # (data 16, model 16): the closed form's mesh
+        assert cb == _closed_form(get_arch(arch_id).CFG, shape, 16, 16)
+
+
+def test_unplaced_records_say_so():
+    for arch_id, shape in [("dbrx-132b", "decode_32k"),
+                           ("granite-3-2b", "train_4k"),
+                           ("dien", "serve_p99")]:
+        assert not dryrun.placed(arch_id, shape)
+        mesh = make_production_mesh()
+        rec = dryrun.add_collective_bytes(
+            dryrun.run_cell(arch_id, shape, mesh), mesh)
+        assert rec["collective_bytes"] == {}
+        assert "not placed yet" in rec["notes"]
+        assert roofline.analyze([rec])[0]["t_collective_s"] == 0
+
+
+def _closed_form(cfg, shape: str, data: int, model: int) -> dict:
+    """A placed serve step's collective bytes per device on a (data, model)
+    mesh under the default rules, from the shapes alone: the FSDP gathers
+    (each weight, cast to the compute dtype, gathered over data to its
+    model shard), the vocab-parallel lookup's sum and two row-parallel
+    all-reduces a layer (partials in the compute dtype, as GSPMD adds
+    them) of the (batch shard, tokens, D) activations, and a
+    decode over a cache whose rows are sharded: the query heads gathered
+    over the rows' mesh dims where those shard them, and each layer's
+    partials (d + 2 fp32 a query row) gathered over them."""
+    from repro_torch.configs.lm_common import SHAPE_DEFS
+
+    def div(n, k):
+        return n // k if n % k == 0 else n
+
+    d = SHAPE_DEFS[shape]
+    B, S = d["batch"], d["seq"]
+    e = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    D, Fd, V, L = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.n_layers
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    layer = D * (2 * div(Hq, model) * hd + 2 * div(Hkv, model) * hd
+                 + 3 * div(Fd, model)) * e
+    gather = L * layer + 2 * div(V, model) * D * e
+    B_l = div(B, data)
+    rows = B_l * (S if d["kind"] == "prefill" else 1)
+    # the lookup's sum and the row-parallel products' partials, all in the
+    # compute dtype
+    reduce = rows * D * e * (1 + 2 * L)
+    if d["kind"] == "decode":
+        # cache_seq takes the axes the batch and the kv heads left
+        seq = {ax: n for ax, n, free in (("data", data, B % data),
+                                         ("model", model, Hkv % model))
+               if free and n > 1}
+        q_split = Hq % model == 0 and model > 1
+        heads = Hq // model if q_split and "model" not in seq else Hq
+        if q_split and "model" in seq:
+            gather += L * B_l * Hq * hd * e      # q's heads over model
+        n = 1
+        for k in reversed(seq.values()):
+            n *= k
+            gather += L * n * B_l * heads * (hd + 2) * 4
+    return {"all-gather": float(gather), "all-reduce": float(reduce),
+            "reduce-scatter": 0.0, "all-to-all": 0.0,
+            "collective-permute": 0.0}
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k",
+                                   "long_500k"])
+def test_smoke_collective_bytes_equal_the_closed_form(shape):
+    """granite-3-2b's smoke widths (2 layers, d 64, 4 heads, 2 kv heads,
+    vocab 128, fp32) at the cells' batch and sequence on a fake (2, 2)
+    group: the counted bytes are the closed form's, kind by kind."""
+    from repro_torch.configs import lm_common
+    from repro_torch.configs.granite_3_2b import CFG, TRAIN
+    from repro_torch.distributed.sharding import MeshShape
+
+    cfg = lm_common.smoke_config(CFG)
+    plan = lm_common.build_cell(cfg, TRAIN, shape, device="meta")
+    got, calls = dryrun.collective_bytes(plan, MeshShape(("data", "model"),
+                                                         (2, 2)))
+    assert got == _closed_form(cfg, shape, 2, 2)
+    # the gathers: 7 weights a layer, the table and the head; B = 1 decode
+    # also each layer's partials
+    assert calls["all-gather"] == 7 * 2 + 2 + (2 if shape == "long_500k"
+                                               else 0)
+    assert calls["all-reduce"] == 2 * 2 + 1

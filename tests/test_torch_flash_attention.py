@@ -110,8 +110,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k = k.double()
     elif bad == "groups":
         q = q[:, :3]
-    else:
-        q, k, v = (t.to("meta") for t in (q, k, v))
+    else:   # meta tensors are the dry run's: q there, k and v on the CPU
+        q = q.to("meta")
     with pytest.raises((ValueError, TypeError)):
         ops.flash_attention(q, k, v, causal=True)
 
@@ -121,7 +121,8 @@ def test_cpu_path_counts_no_launch():
     q, k, v = _t(*_qkv(1, 2, 1, 8, 8, 16, seed=6))
     ops.flash_attention(q, k, v, causal=True)
     ops.flash_decode(q[:, :, 0], k, v, torch.tensor([8]))
-    assert ops.LAUNCHES == {"prefill": 0, "prefill_wgmma": 0, "decode": 0}
+    assert ops.LAUNCHES == {"prefill": 0, "prefill_wgmma": 0, "decode": 0,
+                            "decode_partial": 0, "decode_merge": 0}
 
 
 @pytest.mark.parametrize("dtype,d,want", [
@@ -149,7 +150,8 @@ def test_cpu_path_counts_no_launch_of_either_prefill_variant(dtype, d):
     q, k, v = (t.to(dtype) for t in _t(*_qkv(1, 4, 2, 24, 24, d, seed=d)))
     out = ops.flash_attention(q, k, v, causal=True)
     assert out.dtype == dtype and out.shape == q.shape
-    assert ops.LAUNCHES == {"prefill": 0, "prefill_wgmma": 0, "decode": 0}
+    assert ops.LAUNCHES == {"prefill": 0, "prefill_wgmma": 0, "decode": 0,
+                            "decode_partial": 0, "decode_merge": 0}
 
 
 def _bf16(a):
@@ -287,3 +289,69 @@ def test_decode_split_gives_each_live_key_one_item(S):
             lo, hi = c * chunk, min((c + 1) * chunk, n)
             hits[lo:hi] += 1
         assert (hits == 1).all()
+
+
+# ------------------------------------------ decode over a cache in pieces
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("lens", [[37, 120], [1, 64], [128, 5]])
+def test_partials_merged_equal_jax_decode(ranks, lens):
+    """A (B, Hkv, 128, d) cache cut into ``ranks`` row ranges: each range's
+    partial (``flash_decode_partial`` with local lengths clamp(len -
+    offset, 0, rows)), merged in rank order (``flash_decode_merge``),
+    equals the JAX package's ``decode_ref`` on the whole cache; a range
+    past a row's live keys gives the empty partial, which the merge
+    skips."""
+    B, Hq, Hkv, S, D = 2, 8, 2, 128, 64
+    rng = np.random.default_rng(ranks * 100 + lens[0])
+    q = rng.normal(size=(B, Hq, D)).astype(np.float32)
+    _, k, v = _qkv(B, Hq, Hkv, 1, S, D, seed=lens[1])
+    lens = np.asarray(lens, np.int32)
+    tq, tk, tv, tl = _t(q, k, v, lens)
+    rows = S // ranks
+    parts = []
+    for r in range(ranks):
+        local = (tl - r * rows).clamp(0, rows)
+        p = ops.flash_decode_partial(tq, tk[:, :, r * rows:(r + 1) * rows],
+                                     tv[:, :, r * rows:(r + 1) * rows],
+                                     local)
+        assert p.shape == (B, Hq, D + 2) and p.dtype == torch.float32
+        empty = local == 0
+        assert torch.equal(p[empty][..., -1], torch.zeros_like(
+            p[empty][..., -1]))
+        assert torch.equal(p[empty][..., :D], torch.zeros_like(
+            p[empty][..., :D]))
+        parts.append(p)
+    got = ops.flash_decode_merge(torch.stack(parts), torch.float32).numpy()
+    want = np.asarray(jax_decode_ref(*map(jnp.asarray, (q, k, v, lens))))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_merge_of_only_empty_partials_is_zero():
+    B, Hq, D = 1, 4, 16
+    empty = torch.zeros((3, B, Hq, D + 2))
+    empty[..., D] = -3.0e38
+    out = ops.flash_decode_merge(empty, torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, Hq, D)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_partial_and_merge_count_no_launch_on_the_cpu():
+    ops.reset_launches()
+    q, k, v = _t(*_qkv(1, 2, 1, 1, 32, 16, seed=9))
+    p = ops.flash_decode_partial(q[:, :, 0], k, v, torch.tensor([20]))
+    ops.flash_decode_merge(p[None], torch.float32)
+    assert ops.LAUNCHES["decode_partial"] == ops.LAUNCHES["decode_merge"] == 0
+
+
+def test_meta_tensors_take_the_meta_path():
+    """The dry run's placed steps run the wrappers on meta tensors: an
+    output of the kernel's shape, nothing computed."""
+    q = torch.empty((2, 4, 64, 16), device="meta")
+    k = torch.empty((2, 2, 64, 16), device="meta")
+    assert ops.flash_attention(q, k, k, causal=True).shape == q.shape
+    lens = torch.empty((2,), dtype=torch.int32, device="meta")
+    assert ops.flash_decode(q[:, :, 0], k, k, lens).shape == (2, 4, 16)
+    p = ops.flash_decode_partial(q[:, :, 0], k, k, lens)
+    assert p.shape == (2, 4, 18) and p.is_meta
+    assert ops.flash_decode_merge(p[None].expand(3, -1, -1, -1),
+                                  torch.bfloat16).shape == (2, 4, 16)

@@ -149,3 +149,64 @@ def _placed_leaves(tree, path=""):
     else:
         for k in sorted(tree):
             yield from _placed_leaves(tree[k], f"{path}/{k}")
+
+
+# ------------------------------------------------ placing on a device mesh
+def test_placements_for_shards_a_dim_by_each_of_its_axes_in_mesh_order():
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"))
+    got = PS.placements_for((("pod", "data"), None, "model"), mesh)
+    assert got == (Shard(0), Shard(0), Shard(2))
+    assert PS.placements_for((None, None), mesh) == (Replicate(),) * 3
+    with pytest.raises(ValueError, match="mesh's order"):
+        PS.placements_for((("data", "pod"),), mesh)
+
+
+def test_constrain_is_the_identity_outside_a_context():
+    x = torch.ones(4, 3)
+    assert PS.constrain(x, ("act_batch", "act_embed")) is x
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+    with PS.activation_sharding(mesh):
+        assert PS.current_sharding()[1] is PS.DEFAULT_RULES
+        with pytest.raises(TypeError, match="DTensor"):
+            PS.constrain(x, ("act_batch", "act_embed"))
+        with PS.no_constrain():
+            assert PS.constrain(x, ("act_batch", "act_embed")) is x
+    assert PS.current_sharding() is None
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_place_gives_the_placements_local_shapes(shape):
+    """Every granite-3-2b decode_32k argument placed on a fake (data, model)
+    group (meta tensors): its local shape is ``placement_for``'s, its
+    placements ``placements_for``'s of ``spec_for``'s entries."""
+    import torch.distributed as dist
+
+    plan = P.get_arch("granite-3-2b").ARCH.build("decode_32k", device="meta")
+    ms = PS.MeshShape(("data", "model"), shape)
+    with PM.fake_group(ms.size):
+        mesh = PM.make_device_mesh(ms, fake=True)
+        placed = PS.place(plan.args, plan.arg_axes, mesh)
+        leaves = list(zip(_arg_leaves(plan.args, plan.arg_axes),
+                          _arg_leaves(placed, plan.arg_axes)))
+        assert leaves
+        for (full, ax), (dt, _) in leaves:
+            pl = PS.placement_for(full.shape, full.dtype, ax, ms)
+            assert tuple(dt.to_local().shape) == pl.local_shape
+            assert tuple(dt.shape) == tuple(full.shape)
+            assert tuple(dt.placements) == PS.placements_for(pl.spec, mesh)
+            assert dt.to_local().is_meta
+    assert not dist.is_initialized()
+
+
+def _arg_leaves(tree, axes):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _arg_leaves(tree[k], axes[k])
+    elif isinstance(tree, (list, tuple)):
+        for t, a in zip(tree, axes):
+            yield from _arg_leaves(t, a)
+    else:
+        ax = axes.axes if isinstance(axes, ParamSpec) else axes
+        yield tree, ax
