@@ -7,7 +7,8 @@ Needs one NVIDIA GPU (written for the H100, sm_90a) and ``nvcc``; it builds
 the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
 
 1. card and build: the card's name and power limit, then every CUDA source
-   compiled (all ``nvcc`` started together) and the build seconds;
+   compiled (all ``nvcc`` started together, on a thread while the host
+   builds phase 3's session) and the build seconds;
 2. kernels against their plain PyTorch versions, on the card: the segment
    kernels on the shape sweep of ``tests/test_kernels.py``, on a
    synthetic hub level (one tile of 1,024 live blocks crossing some 200 of
@@ -148,7 +149,10 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    bit-identical to an uninterrupted run; phase 14 runs between the
    reshards and the recovery driver;
 9. bf16 edge values (``EAGR_SEGAGG_BF16``) on phase 3's overlay and
-   decisions, compiled again with the flag (no second construction): bf16
+   decisions, compiled again with the flag (no second construction; on the
+   host in a process of its own started after phase 3's F1 gate, while
+   phases 4-8 run; ``compile_plan`` reads the flag into ``PlanMeta.bf16``
+   only, so each plan's fp32 twin is its copy with the flag cleared): bf16
    and fp32 engines of ``sum``, ``max`` and ``count`` and a 4-shard bf16
    stack of ``sum`` and of ``max``. (a) Every real level of the bf16 plans
    through each bf16 entry: the dense entry at S = 1 (the single engine's
@@ -350,12 +354,33 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    SDPA). Prefill ms, decode p50, peak GB and launches a rank printed as
    ranks sharing one card. Beside the group, a 1-rank ``nccl`` group on a 1-shard session over 3,000 nodes /
    20,000 edges, its stacked-entry launches above 0 and its answers
-   bit-equal to the same session without a group.
+   bit-equal to the same session without a group. Then, in the same ranks
+   and on the same mesh, granite-3-2b's ``train_4k`` step placed on it
+   (``lm_common.build_train(..., device_mesh=)``: its published widths, 2
+   of 40 layers each drawn at the full depth's scale from phase 11's
+   seed, a leaf at a time, each rank keeping its shard; fp32 parameters,
+   bf16 compute, AdamW, remat full, the fused CE in chunks of 512; the
+   global batch of 256 cut to 8 at seq 4,096 and accum 4: microbatches of
+   2 rows, 1 a data rank): one step twice from copies of one state, every
+   local shard of parameters and moments bit-equal, its collectives counted
+   by kind; 3 more steps on the batch, the loss finite and lower after
+   them; one step from the first state under ``RESIDUAL_SP_RULES`` (the
+   sequence gathered into each layer and reduce-scattered out of it); no
+   flash launch. The parent, while the ranks run, takes the same step on
+   one card and again with its products split as the ranks split them
+   (the row-parallel ones over ``model``, ``split_rows``, and each
+   microbatch's rows over ``data``); after the join every rank's loss,
+   ``grad_norm`` and parameters after the step (relative to its move, on
+   the rank's shards), default and ``residual_sp``, must lie within 3x
+   that floor plus 1e-5, the loss and ``grad_norm`` bit-equal across
+   ranks; step p50, peak GB and the collectives a step printed a rank, as
+   ranks sharing one card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that line. Details of every measurement go
-to ``chiprun_out/chip_smoke.json``. The script imports neither JAX nor the
+to ``chiprun_out/chip_smoke.json``; the seconds of every phase are printed
+before the kernels line. The script imports neither JAX nor the
 JAX package.
 """
 from __future__ import annotations
@@ -364,6 +389,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -2715,6 +2741,15 @@ GROUP_LM_LONG = (32_768, (24_575, 12_000))
 # bf16 inputs, sums in another order): m in log2 units, l and acc relative
 # to their row's largest
 PARTIAL_RTOL = 1e-4
+# phase 14's placed train step: granite-3-2b's train_4k on the same mesh
+# (its widths, GROUP_LM_LAYERS of 40 layers, the global batch of 256 cut
+# to GROUP_TRAIN_BATCH: accum 4, microbatches of 2 rows, 1 a data rank)
+GROUP_TRAIN_BATCH = 8
+GROUP_TRAIN_MORE = 3       # steps on the same batch after the first
+# the bar against one card: within 3x the floor (the one-card step against
+# itself with the products split as the ranks split them: the row-parallel
+# ones over model, each microbatch's rows over data) plus 1e-5, relative
+GROUP_TRAIN_FLOOR_X, GROUP_TRAIN_FLOOR_ADD = 3.0, 1e-5
 
 
 def bits_equal(a, b) -> bool:
@@ -2957,6 +2992,7 @@ def group_rank(rank: int, world: int, backend: str, work: str) -> None:
         out["reshard"] = group_reshard(torch, plan, device)
         out["nequip"] = nequip_rank(torch, rank, device)
         out["lm"] = lm_rank(torch, rank, device)
+        out["lm_train"] = lm_train_rank(torch, rank, device, work)
         out.update(rank=rank, device=str(meshes[0].device),
                    comm=str(meshes[0].comm), backend=meshes[0].backend,
                    restore_s=restore_s, built=sorted(_build.BUILD_LOG))
@@ -3854,6 +3890,333 @@ def group_lm_kernel_rows(glm: dict) -> list:
     return rows
 
 
+# ------------------------------------ phase 14: the placed LM train step
+def group_train_cell(torch, cfg, device, mesh=None, rules=None) -> dict:
+    """Phase 14's granite-3-2b ``train_4k`` cell: ``cfg`` (its published
+    widths, GROUP_LM_LAYERS layers each drawn at the full depth's scale,
+    fp32 parameters, bf16 compute), AdamW, accum 4, batch
+    GROUP_TRAIN_BATCH, phase 11's seed; on one device, or placed on
+    ``mesh`` (each leaf drawn whole and sliced to the rank's shard) with
+    its step under ``rules`` (the arch's ``train_rules`` unless
+    named)."""
+    from repro_torch.configs import granite_3_2b, lm_common
+
+    train = granite_3_2b.TRAIN if rules is None else dataclasses.replace(
+        granite_3_2b.TRAIN, train_rules=rules)
+    return lm_common.build_train(
+        cfg, train, batch=GROUP_TRAIN_BATCH, device=device, seed=LM_SEED,
+        depth=granite_3_2b.CFG.n_layers, device_mesh=mesh)
+
+
+def train_state_copy(cell) -> tuple:
+    """A copy of a train cell's (parameters, optimizer state): the step
+    updates them in place."""
+    def copy(x):
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return type(x)(*map(copy, x))
+        return x.clone()
+
+    return copy(cell["params"]), copy(cell["opt_state"])
+
+
+def train_step_on(torch, cell, state, step=None) -> tuple:
+    """One step of ``cell`` (its own step unless ``step``) on ``state``:
+    (params, opt_state, metrics as floats, host ms after a synchronize)."""
+    device_sync(torch)
+    t0 = time.perf_counter()
+    p, o, m = (step or cell["step"])(*state, cell["batch"], cell["lr"])
+    device_sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    return p, o, {k: float(v) for k, v in m.items()}, ms
+
+
+@contextlib.contextmanager
+def counted_collectives(torch, into: dict):
+    """Within the block, every collective of a placed step counted by kind
+    into ``into`` (calls and result bytes): the all-gathers and
+    reduce-scatters of ``launch.mesh`` (host-staged on a gloo group) and
+    every functional all-reduce (DTensor's and ``launch.mesh``'s)."""
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.launch import mesh as PM
+
+    def wrap(owner, name, kind):
+        raw = getattr(owner, name)
+
+        def call(*args, **kwargs):
+            out = raw(*args, **kwargs)
+            got = out.wait() if hasattr(out, "wait") else out
+            c = into.setdefault(kind, dict(calls=0, bytes=0))
+            c["calls"] += 1
+            c["bytes"] += got.numel() * got.element_size()
+            return got
+        return raw, call
+
+    patches = [(PM, "gather_raw", "all-gather"),
+               (PM, "reduce_scatter_raw", "reduce-scatter"),
+               (funcol, "all_reduce", "all-reduce")]
+    saved = []
+    for owner, name, kind in patches:
+        raw, call = wrap(owner, name, kind)
+        saved.append((owner, name, raw))
+        setattr(owner, name, call)
+    try:
+        yield into
+    finally:
+        for owner, name, raw in saved:
+            setattr(owner, name, raw)
+
+
+def lm_train_rank(torch, rank: int, device, work: str) -> dict:
+    """Phase 14's placed train step in one rank of the running group: the
+    (data, model) mesh of GROUP_LM_MESH, granite-3-2b's ``train_4k`` cell
+    placed on it (``group_train_cell``); one step twice from copies of one
+    state (every local shard of parameters and moments required bit-equal,
+    and its collectives counted by kind), GROUP_TRAIN_MORE more steps on
+    the same batch, and one step from the first state under
+    ``RESIDUAL_SP_RULES``; no flash kernel launched. The parameters' local
+    shards after the first step and after the ``residual_sp`` step go to
+    ``train_rank{rank}.pt`` in ``work`` for the parent's bar."""
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.tree import tree_leaves
+
+    t_part = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    cfg = group_lm_cfg()
+    mesh = make_device_mesh(MeshShape(("data", "model"), GROUP_LM_MESH),
+                            device_type=torch.device(device).type)
+    t0 = time.perf_counter()
+    cell = group_train_cell(torch, cfg, device, mesh)
+    state0 = train_state_copy(cell)
+    device_sync(torch)
+    place_s = time.perf_counter() - t0
+    coll: dict = {}
+    with counted_collectives(torch, coll):
+        pa, oa, ma, ms_a = train_step_on(torch, cell, train_state_copy(cell))
+    pb, ob, mb, ms_b = train_step_on(torch, cell, train_state_copy(cell))
+    same = ma == mb and all(
+        torch.equal(a.to_local(), b.to_local())
+        for a, b in zip(tree_leaves((pa, oa)), tree_leaves((pb, ob))))
+    if not same:
+        raise AssertionError(f"14 train rank {rank}: one step twice from one "
+                             f"state differs ({ma} against {mb})")
+    del pb, ob
+    shards = {"step": {q: t.to_local().to("cpu", copy=True) for q, t in
+                       zip(leaf_paths(pa), tree_leaves(pa))}}
+    losses, step_ms, p, o = [ma["loss"]], [ms_a, ms_b], pa, oa
+    for _ in range(GROUP_TRAIN_MORE):
+        p, o, m, ms = train_step_on(torch, cell, (p, o))
+        losses.append(m["loss"])
+        step_ms.append(ms)
+    del p, o, pa, oa
+    from repro_torch.configs import lm_common
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import make_train_step
+
+    sp_step = lm_common.placed_step(make_train_step(
+        functools.partial(T.loss_fn, cfg=cfg), cell["optimizer"],
+        accum_steps=cell["accum"]), mesh, "residual_sp")
+    ps, os_, msp, ms_sp = train_step_on(torch, cell, state0, sp_step)
+    step_ms.append(ms_sp)
+    shards["residual_sp"] = {q: t.to_local().to("cpu", copy=True) for q, t in
+                             zip(leaf_paths(ps), tree_leaves(ps))}
+    placements = {q: [(type(x).__name__, getattr(x, "dim", None))
+                      for x in t.placements]
+                  for q, t in zip(leaf_paths(ps), tree_leaves(ps))}
+    torch.save(dict(shards=shards, placements=placements,
+                    coord=list(mesh.get_coordinate())),
+               os.path.join(work, f"train_rank{rank}.pt"))
+    launches = dict(flash.LAUNCHES)
+    del ps, os_, state0, cell, shards
+    return dict(first=ma, losses=losses, residual_sp=msp, step_ms=step_ms,
+                collectives=coll, launches=launches,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                place_s=place_s, coord=list(mesh.get_coordinate()),
+                seconds=time.perf_counter() - t_part)
+
+
+def leaf_paths(tree) -> list:
+    """The '/'-joined key paths of a parameter tree's leaves, in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [f"{k}/{q}" if q else k for k in sorted(tree)
+                for q in leaf_paths(tree[k])]
+    return [""]
+
+
+def train_rel(torch, pairs) -> float:
+    """sqrt(sum |a - b|^2) / sqrt(sum |b - c|^2) over ``pairs`` of (a, b,
+    c) tensors: the parameters' difference relative to the step's move
+    (c the parameters before it)."""
+    num = den = 0.0
+    for a, b, c in pairs:
+        num += (a.double() - b.double()).square().sum().item()
+        den += (b.double() - c.double()).square().sum().item()
+    return (num / den) ** 0.5 if den else float("inf")
+
+
+def lm_train_reference(torch) -> dict:
+    """Phase 14's placed train step's one-card reference, in the parent
+    while the ranks run: the same cell's step on one card from the same
+    state, and again with its products split as the ranks split them: the
+    row-parallel products over ``model`` (``split_rows``) and each
+    microbatch's rows over ``data`` (one microbatch a data rank's rows, so
+    each weight gradient is the sum of the data ranks' partials); the
+    parameters before, after each (by leaf path), the metrics and the
+    plain step's host ms."""
+    from unittest import mock
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = group_lm_cfg()
+    cell = group_train_cell(torch, cfg, torch.device(DEVICE))
+    before = dict(zip(leaf_paths(cell["params"]),
+                      [t.clone() for t in tree_leaves(cell["params"])]))
+    one_p, _, one, one_ms = train_step_on(torch, cell,
+                                          train_state_copy(cell))
+    # the floor: the products split as the ranks split them, the row-
+    # parallel ones over model (split_rows) and each microbatch's rows over
+    # data (a weight gradient is the sum of the data ranks' partials, each
+    # rounded to the compute dtype)
+    split_step = make_train_step(
+        functools.partial(T.loss_fn, cfg=cfg), cell["optimizer"],
+        accum_steps=cell["accum"] * GROUP_LM_MESH[0])
+    with mock.patch.object(T, "_row_product",
+                           split_rows(torch, GROUP_LM_MESH[1])):
+        split_p, _, split, _ = train_step_on(torch, cell,
+                                             train_state_copy(cell),
+                                             split_step)
+    return dict(before=before, one=one, one_ms=one_ms, split=split,
+                one_p=dict(zip(leaf_paths(one_p), tree_leaves(one_p))),
+                split_p=dict(zip(leaf_paths(split_p),
+                                 tree_leaves(split_p))),
+                n_layers=cfg.n_layers, seconds=time.perf_counter() - t0)
+
+
+def phase_group_lm_train(torch, ranks: list, backend: str, work: str,
+                         ref: dict) -> dict:
+    """Phase 14's placed train step in the parent, after the ranks ended,
+    against its one-card reference ``ref`` (``lm_train_reference``): the
+    floor of each compared value (the loss, ``grad_norm``, the parameters
+    after the step relative to its move, on each rank's shards) is the
+    split run's distance from the plain one, and every rank's default and
+    ``residual_sp`` steps must lie within GROUP_TRAIN_FLOOR_X times it
+    plus GROUP_TRAIN_FLOOR_ADD; the loss and ``grad_norm`` bit-equal
+    across ranks, the first step's twice, the loss finite and lower after
+    the GROUP_TRAIN_MORE more steps than before them (phase 11's
+    criterion), no flash launch."""
+    t_parent = time.perf_counter()
+    dev = torch.device(DEVICE)
+    before, one, split = ref["before"], ref["one"], ref["split"]
+    one_p, split_p, one_ms = ref["one_p"], ref["split_p"], ref["one_ms"]
+    L, reference_s = ref["n_layers"], ref["seconds"]
+    rk = [r["lm_train"] for r in ranks]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def bar(got, floor):
+        return got <= GROUP_TRAIN_FLOOR_X * floor + GROUP_TRAIN_FLOOR_ADD
+
+    floors = {k: rel(split[k], one[k]) for k in ("loss", "grad_norm")}
+    report = []
+    for r, run in enumerate(rk):
+        for k in ("loss", "grad_norm", "ce"):
+            if run["first"][k] != rk[0]["first"][k] or \
+                    run["residual_sp"][k] != rk[0]["residual_sp"][k]:
+                raise AssertionError(f"14 train rank {r}: {k} differs from "
+                                     f"rank 0's")
+        if any(run["launches"].values()):
+            raise AssertionError(f"14 train rank {r}: flash launches "
+                                 f"{run['launches']} in a train step")
+        if not np.isfinite(run["losses"]).all() or \
+                not run["losses"][-1] < run["losses"][0]:
+            raise AssertionError(f"14 train rank {r}: the loss not finite "
+                                 f"and falling over {GROUP_TRAIN_MORE} more "
+                                 f"steps: {run['losses']}")
+        saved = torch.load(os.path.join(work, f"train_rank{r}.pt"))
+        coord = saved["coord"]
+
+        def mine(full, pl):
+            for i, (kind, d) in enumerate(pl):
+                if kind == "Shard":
+                    n = GROUP_LM_MESH[i]
+                    size = full.shape[d] // n
+                    full = full.narrow(d, coord[i] * size, size)
+            return full
+
+        got = {}
+        for name in ("step", "residual_sp"):
+            m = run["first"] if name == "step" else run["residual_sp"]
+            trip = [(saved["shards"][name][q].to(dev),
+                     mine(one_p[q], saved["placements"][q]),
+                     mine(before[q], saved["placements"][q]))
+                    for q in one_p]
+            floor_p = train_rel(torch, [(mine(split_p[q], saved[
+                "placements"][q]), b, c) for (_, b, c), q in zip(trip,
+                                                                  one_p)])
+            got[name] = dict(loss=rel(m["loss"], one["loss"]),
+                             grad_norm=rel(m["grad_norm"], one["grad_norm"]),
+                             params=train_rel(torch, trip),
+                             params_floor=floor_p)
+            for k, f in (("loss", floors["loss"]),
+                         ("grad_norm", floors["grad_norm"]),
+                         ("params", floor_p)):
+                if not bar(got[name][k], f):
+                    raise AssertionError(
+                        f"14 train rank {r} {name}: {k} {got[name][k]:.4g} "
+                        f"from one card's, over {GROUP_TRAIN_FLOOR_X} x the "
+                        f"floor {f:.4g} + {GROUP_TRAIN_FLOOR_ADD}")
+        report.append(got)
+        del saved
+    del one_p, split_p, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_s = time.perf_counter() - t_parent
+    how = ("ranks sharing one card over gloo, not a multi-card speed"
+           if backend == "gloo" else "one card a rank over nccl")
+    for r, run in enumerate(rk):
+        print(f"14 train rank {r} {run['coord']}: step p50 "
+              f"{float(np.median(run['step_ms'][1:])):.1f} ms (steps "
+              f"{[round(x, 1) for x in run['step_ms']]}); peak "
+              f"{run['peak_gb']:.3f} GB; losses {run['losses']}; "
+              f"residual_sp loss {run['residual_sp']['loss']}; collectives "
+              f"a step {run['collectives']}; seconds: place "
+              f"{run['place_s']:.1f}, part {run['seconds']:.1f}", flush=True)
+    print(f"14 train: granite-3-2b train_4k at its published widths, {L} of "
+          f"40 layers, batch {GROUP_TRAIN_BATCH} x 4096 (accum 4), AdamW, "
+          f"placed on a {GROUP_LM_MESH} (data, model) mesh of the {len(rk)} "
+          f"ranks ({how}): one step twice bit-equal on every rank, the loss "
+          f"falling over {GROUP_TRAIN_MORE} more steps, loss and grad_norm "
+          f"bit-equal across ranks, no flash launch; against one card "
+          f"(loss {one['loss']}, grad_norm {one['grad_norm']}, step "
+          f"{one_ms:.1f} ms): rank 0 {report[0]}; floors (split products) "
+          f"{floors}; parent {parent_s:.1f} s", flush=True)
+    return dict(
+        cfg=dict(n_layers=L, mesh=list(GROUP_LM_MESH),
+                 batch=GROUP_TRAIN_BATCH, seq=4096, accum=4, more=GROUP_TRAIN_MORE),
+        per_rank=[dict(coord=run["coord"], step_ms=run["step_ms"],
+                       step_p50_ms=float(np.median(run["step_ms"][1:])),
+                       peak_gb=run["peak_gb"], losses=run["losses"],
+                       first=run["first"], residual_sp=run["residual_sp"],
+                       collectives=run["collectives"],
+                       place_s=run["place_s"], seconds=run["seconds"])
+                  for run in rk],
+        one_card=dict(step_ms=one_ms, **one), split_one_card=split,
+        floors=floors, vs_one_card=report, parent_s=parent_s,
+        reference_s=reference_s, how=how)
+
+
 def nccl_rank(rank: int, work: str) -> None:
     """A 1-rank nccl group on a 1-shard session over a small graph: the
     session on the group (launch counts from 0 over its batches), then the
@@ -3996,6 +4359,8 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
         del one
         ref["ring"] = group_ring(torch, plan, DEVICE)
         ref["reshard"] = group_reshard(torch, plan, DEVICE)
+        # the placed train step's one-card reference
+        train_ref = lm_train_reference(torch)
     finally:
         for th in threads:
             th.join()
@@ -4072,6 +4437,15 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
     nq = phase_group_nequip(torch, ranks, backend)
     # the placed LM cells over the same ranks against one card
     lm = phase_group_lm(torch, ranks, backend)
+    t0 = time.perf_counter()
+    lm_train = phase_group_lm_train(torch, ranks, backend, work, train_ref)
+    del train_ref
+    lm_train["seconds_by_part"] = dict(
+        ranks=max(r["lm_train"]["seconds"] for r in ranks),
+        reference_beside_ranks=lm_train["reference_s"],
+        parent=time.perf_counter() - t0)
+    print(f"14 train seconds by part: {lm_train['seconds_by_part']}",
+          flush=True)
 
     with open(os.path.join(work, "nccl.pkl"), "rb") as f:
         nccl = pickle.load(f)
@@ -4112,7 +4486,7 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
                       read_p50_ms=float(np.median(ref["r_ms"]))),
         nccl=dict(device=g["device"], launches={
             k: g["launches"][k] for k in stacked_keys}),
-        streams=streams, nequip=nq, lm=lm)
+        streams=streams, nequip=nq, lm=lm, lm_train=lm_train)
 
 
 def group_stream_check(ranks: list, ref: dict, r2_want) -> dict:
@@ -4991,21 +5365,125 @@ def bf16_bar(torch, engines32, stream, readers_of_round, depth: int):
     return out
 
 
-def phase_bf16(torch, ops, ref, bases, writers, readers, errs,
-               out_dir) -> dict:
-    """Phase 9 (see the module docstring)."""
+def bf16_compile(bases, path: str) -> None:
+    """Phase 9's plans, compiled on the host in a process of its own while
+    phases 4-8 run: for each of sum, max and count the plan ``EagrEngine``
+    compiles from phase 3's overlay and decisions (headroom 2.0) in bf16
+    mode, and for sum and max the 4-shard partition (seed SEED, headroom
+    2.0) in bf16 mode, as snapshots (``plan_snapshot``) written to
+    ``path``. ``compile_plan`` reads the mode into ``PlanMeta.bf16`` only,
+    so a plan's fp32 twin is its snapshot with that flag cleared. Touches
+    no CUDA device; runs on one thread at a lower priority than the card's
+    phases."""
+    import pickle
+
+    import torch
+
     from repro_torch import WindowSpec
     from repro_torch.core.aggregates import make_aggregate
-    from repro_torch.core.engine import (
-        EagrEngine,
-        plan_from_snapshot,
-        plan_snapshot,
-    )
+    from repro_torch.core.engine import EagrEngine, plan_snapshot
+    from repro_torch.distributed import partition_overlay
+
+    # behind the phases it runs beside: one thread, a lower priority
+    os.nice(10)
+    torch.set_num_threads(1)
+    spec = WindowSpec("tuple", WINDOW)
+    out = {"plans": {}, "stacks": {}}
+    with segagg_bf16(True):
+        for agg in ("sum", "max", "count"):
+            ov, dec = bases[agg]
+            e = EagrEngine(ov, dec, make_aggregate(agg), spec, device="cpu",
+                           headroom=2.0)
+            out["plans"][agg] = plan_snapshot(e.plan)
+        for agg in ("sum", "max"):
+            ov, dec = bases[agg]
+            sh = partition_overlay(ov, dec, SHARDS, seed=SEED, device="cpu",
+                                   headroom=2.0)
+            out["stacks"][agg] = dict(
+                shards=sh.shards, shard_decisions=sh.shard_decisions,
+                reader_shard=sh.reader_shard, writer_rows=sh.writer_rows,
+                plans=[plan_snapshot(q) for q in sh.shard_plans])
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".tmp", path)
+
+
+class Background:
+    """``fn()`` on a thread; ``result()`` waits for it: (its value, the
+    seconds waited), raising its error; ``seconds`` its own run time."""
+
+    def __init__(self, fn):
+        import threading
+
+        self.out, self.seconds = {}, None
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                self.out["value"] = fn()
+            except BaseException as e:  # raised in the caller's thread
+                self.out["error"] = e
+            self.seconds = time.perf_counter() - t0
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self):
+        t0 = time.perf_counter()
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out.get("value"), time.perf_counter() - t0
+
+
+class BackgroundCompile:
+    """``bf16_compile`` in a spawned process (host work beside the card's
+    phases); ``result()`` waits for it and loads its snapshots, raising if
+    the process failed."""
+
+    def __init__(self, bases, path: str):
+        import multiprocessing as mp
+
+        self.path = path
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self.proc = mp.get_context("spawn").Process(
+            target=bf16_compile, args=(bases, path), daemon=True)
+        self.proc.start()
+
+    def result(self) -> tuple[dict, float]:
+        import pickle
+
+        t0 = time.perf_counter()
+        self.proc.join()
+        if self.proc.exitcode != 0:
+            raise RuntimeError(f"phase 9's host compile exited "
+                               f"{self.proc.exitcode}")
+        with open(self.path, "rb") as f:
+            got = pickle.load(f)
+        os.unlink(self.path)
+        return got, time.perf_counter() - t0
+
+
+def snapshot_plan(snap, bf16: bool, device):
+    """The plan of a ``plan_snapshot`` on ``device``, its ``PlanMeta.bf16``
+    set to ``bf16``."""
+    from repro_torch.core.engine import plan_from_snapshot
+
+    arrays, objs = snap
+    objs = dict(objs, meta=dict(objs["meta"], bf16=bf16))
+    return plan_from_snapshot(arrays, objs, device=device)
+
+
+def phase_bf16(torch, ops, ref, bases, compiled, writers, readers, errs,
+               out_dir) -> dict:
+    """Phase 9 (see the module docstring); ``compiled`` the
+    ``BackgroundCompile`` of its plans."""
+    from repro_torch import WindowSpec
+    from repro_torch.core.aggregates import make_aggregate
+    from repro_torch.core.engine import EagrEngine
     from repro_torch.distributed import (
         StackedShardedEngine,
         host_loop_read,
         host_loop_write,
-        partition_overlay,
     )
 
     report: dict = {"seconds_by_part": {}}
@@ -5016,17 +5494,22 @@ def phase_bf16(torch, ops, ref, bases, writers, readers, errs,
         report["seconds_by_part"][part] = now - clock[0]
         clock[0] = now
 
-    # ---- set-up: phase 3's overlay and decisions compiled again, bf16 and
+    # ---- set-up: phase 3's overlay and decisions compiled again (in a
+    # process of their own while phases 4-8 ran: ``compiled``), bf16 and
     # fp32 engines side by side; a 4-shard bf16 stack of sum and of max
+    from repro_torch.distributed.eagr_shard import ShardedOverlay
+
+    compiled, wait_s = compiled.result()
+    report["compile_wait_s"] = wait_s
     spec = WindowSpec("tuple", WINDOW)
     aggs = ("sum", "max", "count")
     eng = {True: {}, False: {}}
     for bf16 in (True, False):
         for agg in aggs:
             ov, dec = bases[agg]
-            with segagg_bf16(bf16):
-                e = EagrEngine(ov, dec, make_aggregate(agg), spec,
-                               device=DEVICE, headroom=2.0)
+            e = EagrEngine(ov, dec, make_aggregate(agg), spec, device=DEVICE,
+                           plan=snapshot_plan(compiled["plans"][agg], bf16,
+                                              DEVICE))
             if e.plan.meta.bf16 is not bf16:
                 raise AssertionError(f"{agg} plan compiled with "
                                      f"EAGR_SEGAGG_BF16={int(bf16)} carries "
@@ -5035,17 +5518,20 @@ def phase_bf16(torch, ops, ref, bases, writers, readers, errs,
     n_base = int(max(writers.max(), readers.max())) + 1
     stk, hosts = {}, {}
     for agg in ("sum", "max"):
-        ov, dec = bases[agg]
-        with segagg_bf16(True):
-            sh = partition_overlay(ov, dec, SHARDS, seed=SEED, device=DEVICE,
-                                   headroom=2.0)
+        got = compiled["stacks"][agg]
+        sh = ShardedOverlay(
+            shards=got["shards"], shard_decisions=got["shard_decisions"],
+            reader_shard=got["reader_shard"],
+            shard_plans=[snapshot_plan(q, True, DEVICE)
+                         for q in got["plans"]],
+            writer_rows=got["writer_rows"])
         stk[agg] = StackedShardedEngine(sh, make_aggregate(agg), spec,
                                         base_capacity=n_base)
         if not stk[agg].meta.bf16:
             raise AssertionError(f"the {agg} stack is not in bf16 mode")
         hosts[agg] = []
-        for s, p in enumerate(sh.shard_plans):
-            plan = plan_from_snapshot(*plan_snapshot(p), device=DEVICE)
+        for s, q in enumerate(got["plans"]):
+            plan = snapshot_plan(q, True, DEVICE)
             if not plan.meta.bf16:
                 raise AssertionError("a snapshot dropped the bf16 flag")
             hosts[agg].append(EagrEngine(sh.shards[s], plan.decision,
@@ -7717,33 +8203,13 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     report: dict = {"args": vars(args)}
 
-    # ---- 1. card and build
+    # ---- 1. card and build: nvcc builds the kernels (one process a
+    # source) while the host builds phase 3's session
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
-    t0 = time.perf_counter()
-    _build.build_all()
-    build_s = time.perf_counter() - t0
-    print(f"build: {len(_build.SOURCES)} CUDA source(s) in {build_s:.2f} s",
-          flush=True)
-    for name, log in _build.BUILD_LOG.items():
-        print(f"  ptxas ({name}):\n" + "\n".join(
-            "    " + ln for ln in log.splitlines() if "registers" in ln
-            or "spill" in ln), flush=True)
-    report.update(card=card, build_s=build_s, build_log=_build.BUILD_LOG)
-
-    # ---- 2a. kernels against their plain version: the shape sweeps
-    errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "prefill_simt": 0.0,
-            "decode": 0.0, "bag": 0.0, "sum_active": 0.0, "max_active": 0.0,
-            "bag_backward": 0.0, "sum_gnn": 0.0, "max_gnn": 0.0,
-            "sum_gnn_bf16": 0.0, "max_gnn_bf16": 0.0}
-    phase_kernels_sweep(torch, ops, ref, errs)
-    report["hub"] = phase_kernels_hub(torch, ops, ref, errs)
-    phase_flash_sweep(torch, errs)
-    flash_rows = phase_flash_serve_shapes(torch, granite_3_2b.CFG,
-                                          args.prompt, args.gen, errs)
-    bag_row = phase_bag(torch, dien_configs.CFG, errs)
-    report.update(flash=flash_rows, embedding_bag=bag_row)
+    t_start = time.perf_counter()
+    build = Background(_build.build_all)
 
     # ---- 3 (set-up). the session of the main path
     t0 = time.perf_counter()
@@ -7775,6 +8241,39 @@ def main(argv=None) -> int:
     bf16_bases = {g.agg.name: (g.engine.overlay,
                                np.array(g.engine.plan.decision))
                   for g in session._groups.values()}
+
+    _, build_wait_s = build.result()
+    build_s = build.seconds
+    print(f"build: {len(_build.SOURCES)} CUDA source(s) in {build_s:.2f} s, "
+          f"beside the session's set-up ({build_wait_s:.2f} s waited after "
+          f"it)", flush=True)
+    for name, log in _build.BUILD_LOG.items():
+        print(f"  ptxas ({name}):\n" + "\n".join(
+            "    " + ln for ln in log.splitlines() if "registers" in ln
+            or "spill" in ln), flush=True)
+    report.update(card=card, build_s=build_s, build_wait_s=build_wait_s,
+                  build_log=_build.BUILD_LOG)
+    seconds_by_phase = {"1 build and 3 set-up": time.perf_counter()
+                        - t_start}
+    clock = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        seconds_by_phase[name] = now - clock[0]
+        clock[0] = now
+
+    # ---- 2a. kernels against their plain version: the shape sweeps
+    errs = {"sum": 0.0, "max": 0.0, "prefill": 0.0, "prefill_simt": 0.0,
+            "decode": 0.0, "bag": 0.0, "sum_active": 0.0, "max_active": 0.0,
+            "bag_backward": 0.0, "sum_gnn": 0.0, "max_gnn": 0.0,
+            "sum_gnn_bf16": 0.0, "max_gnn_bf16": 0.0}
+    phase_kernels_sweep(torch, ops, ref, errs)
+    report["hub"] = phase_kernels_hub(torch, ops, ref, errs)
+    phase_flash_sweep(torch, errs)
+    flash_rows = phase_flash_serve_shapes(torch, granite_3_2b.CFG,
+                                          args.prompt, args.gen, errs)
+    bag_row = phase_bag(torch, dien_configs.CFG, errs)
+    report.update(flash=flash_rows, embedding_bag=bag_row)
 
     # ---- 2b. kernels against their plain version at the main path's shapes
     level_rows = phase_kernels_full(torch, ops, ref, session, errs)
@@ -7832,6 +8331,10 @@ def main(argv=None) -> int:
                                           stream_n[:PROFILE_BATCHES], out_dir)
     # F1: auto against both forced modes on phase 3's stream
     report["f1_gate"] = f1_gate(torch, ops, session, handles, stream)
+    # phase 9's plans compile on the host beside phases 4-8 (after the F1
+    # gate's timings)
+    bf16_compiled = BackgroundCompile(
+        bf16_bases, os.path.join(ROOT, "build", f"phase9-{os.getpid()}.pkl"))
 
     # rates: every event of the run over all the time its calls took, so a
     # stall inside the window lowers them; latencies as quantiles beside them
@@ -7855,6 +8358,7 @@ def main(argv=None) -> int:
     report.update(main_path=metrics, launches=launches,
                   write_ms=w_ms, read_ms=r_ms)
 
+    mark("2 kernels, 3 main path")
     # ---- 4. the LM serve path at granite-3-2b's full width
     lm_cfg = dataclasses.replace(
         granite_3_2b.CFG,
@@ -7878,6 +8382,7 @@ def main(argv=None) -> int:
     check_lm_logits(lm)
     report["serve_lm"] = lm
 
+    mark("4 LM serve")
     # ---- 5. the DIEN serve path at its full CFG, serve_p99
     dien = phase_serve_dien(torch, args.dien_batches, out_dir)
     print(f"DIEN serve on {card}: {dien['batches']} batches of "
@@ -7888,6 +8393,7 @@ def main(argv=None) -> int:
           f"{dien['max_abs_err_vs_plain']:.3g}", flush=True)
     report["serve_dien"] = dien
 
+    mark("5 DIEN serve")
     # ---- 6. the dynamic path on phase 3's session
     t0 = time.perf_counter()
     dynamic = phase_dynamic(torch, ops, ref, session, handles, errs, out_dir)
@@ -7895,6 +8401,7 @@ def main(argv=None) -> int:
     print(f"dynamic path: {dynamic['seconds']:.1f} s", flush=True)
     report["dynamic"] = dynamic
 
+    mark("6 dynamic")
     # ---- 7. the streaming path on phase 3's deployment
     t0 = time.perf_counter()
     streaming = phase_streaming(torch, ops, graph, out_dir)
@@ -7902,6 +8409,7 @@ def main(argv=None) -> int:
     print(f"streaming path: {streaming['seconds']:.1f} s", flush=True)
     report["streaming"] = streaming
 
+    mark("7 streaming")
     # ---- 8. shards and checkpoints on phase 3's graph
     t0 = time.perf_counter()
     shards = phase_shards(torch, ops, ref, graph, metrics, out_dir, errs)
@@ -7909,10 +8417,11 @@ def main(argv=None) -> int:
     print(f"shards and checkpoints: {shards['seconds']:.1f} s", flush=True)
     report["shards"] = shards
 
+    mark("8 shards (14 inside)")
     # ---- 9. bf16 edge values on phase 3's overlay and decisions
     t0 = time.perf_counter()
-    bf16 = phase_bf16(torch, ops, ref, bf16_bases, writers, readers, errs,
-                      out_dir)
+    bf16 = phase_bf16(torch, ops, ref, bf16_bases, bf16_compiled, writers,
+                      readers, errs, out_dir)
     bf16["seconds"] = time.perf_counter() - t0
     print(f"bf16 edge values: {bf16['seconds']:.1f} s", flush=True)
     report["bf16"] = bf16
@@ -8029,6 +8538,7 @@ def main(argv=None) -> int:
             held_ms=row["held_ms"], fp32_held_ms=row["fp32_held_ms"],
             shards=row["shards"]))
 
+    mark("9 bf16 and the kernels line's rows")
     # ---- 10. the rest of the serve path at full width, on a card freed of
     # the EAGr phases' sessions
     del session, handles, finals, bf16_bases
@@ -8060,6 +8570,7 @@ def main(argv=None) -> int:
                 library_device_ms=row["library_device_ms"],
                 shape={k: row[k] for k in ("B", "Hq", "Hkv", "S", "d")}))
 
+    mark("10 serve rest")
     # ---- 11. training, on a card freed of phase 10's models
     gc.collect()
     torch.cuda.empty_cache()
@@ -8085,6 +8596,7 @@ def main(argv=None) -> int:
         device_ms=row["device_ms"], kernel_device_ms=row["kernel_device_ms"],
         library_device_ms=row["library_device_ms"]))
 
+    mark("11 training")
     # ---- 12. the GNNs, on a card freed of phase 11's models
     gc.collect()
     torch.cuda.empty_cache()
@@ -8124,6 +8636,7 @@ def main(argv=None) -> int:
             shape=dict(F=row["F"], edges=row["live"], rows=row["rows"],
                        dtype=row["dtype"])))
 
+    mark("12 GNNs")
     # ---- 13. the cell tools, on a card freed of phase 12's models
     gc.collect()
     torch.cuda.empty_cache()
@@ -8139,6 +8652,12 @@ def main(argv=None) -> int:
     if bad:
         raise AssertionError(f"the port loaded {bad[:5]}")
 
+    mark("13 cell tools")
+    seconds_by_phase["all"] = time.perf_counter() - t_start
+    print(f"seconds by phase: "
+          f"{ {k: round(v, 1) for k, v in seconds_by_phase.items()} }",
+          flush=True)
+    report["seconds_by_phase"] = seconds_by_phase
     report["kernels"] = kernels
     report["profiler_fallbacks"] = PROFILER_FALLBACKS
     print(f"device_ms timed by held CUDA events for want of a profiler "

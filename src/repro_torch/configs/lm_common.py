@@ -68,12 +68,30 @@ def smoke_config(cfg: T.TransformerConfig) -> T.TransformerConfig:
 
 
 def _train_cell(cfg, train: TrainSetting, params, batch: dict, accum: int,
-                lr: float) -> dict:
+                lr: float, opt_state=None, mesh=None) -> dict:
     opt = get_optimizer(train.optimizer)
     step = make_train_step(functools.partial(T.loss_fn, cfg=cfg), opt,
                            accum_steps=accum)
-    return dict(cfg=cfg, params=params, opt_state=opt.init(params),
-                batch=batch, step=step, lr=lr, optimizer=opt, accum=accum)
+    if mesh is not None:
+        step = placed_step(step, mesh, train.train_rules)
+    return dict(cfg=cfg, params=params,
+                opt_state=opt.init(params) if opt_state is None
+                else opt_state, batch=batch, step=step, lr=lr,
+                optimizer=opt, accum=accum, mesh=mesh)
+
+
+def placed_step(step, mesh, rules_name):
+    """``step`` run under ``activation_sharding`` on ``mesh`` with the
+    rule preset ``rules_name`` (None: the default rules)."""
+    from repro_torch.distributed.sharding import (
+        RULE_SETS,
+        activation_sharding,
+    )
+
+    def placed(*args):
+        with activation_sharding(mesh, RULE_SETS[rules_name or "default"]):
+            return step(*args)
+    return placed
 
 
 def _tokens_and_labels(gen, cfg, B: int, S: int) -> dict:
@@ -118,24 +136,48 @@ def build_smoke(cfg: T.TransformerConfig, train: TrainSetting, shape: str,
 
 
 def build_train(cfg: T.TransformerConfig, train: TrainSetting, *,
-                batch: int, device=None, seed: int = 0) -> dict:
-    """The ``train_4k`` cell (seq 4,096) at full width and depth and a
-    global batch of ``batch`` (the assigned 256 cut to what one card
+                batch: int, device=None, seed: int = 0, depth: int | None = None,
+                device_mesh=None) -> dict:
+    """The ``train_4k`` cell (seq 4,096) at ``cfg``'s width and depth and a
+    global batch of ``batch`` (the assigned 256 cut to what the card
     holds), on ``device`` (CUDA unless the caller names another): the
     arch's optimizer, its ``accum`` microbatches and learning rate,
-    parameters drawn from ``seed``. Returns the dict of
-    :func:`build_smoke`'s train cell."""
+    parameters drawn from ``seed`` (with ``depth``, each layer at that
+    depth's scale: ``init_from_specs``). Returns the dict of
+    :func:`build_smoke`'s train cell, plus ``mesh``.
+
+    ``device_mesh``: the cell placed on it by the train cell's logical
+    axes and the arch's ``train_rules`` (``CellPlan.on_mesh``'s
+    placements): each parameter leaf drawn whole, in the one-device
+    order, and sliced to this rank's shard before the next is drawn; the
+    optimizer state made as local zeros; the batch drawn whole after the
+    parameters and sliced; ``step`` runs under ``activation_sharding``.
+    Every rank draws the numbers the one-device build draws."""
+    from repro_torch.models.common import leaf_sources
+
     if batch % train.accum:
         raise ValueError(f"batch {batch} is not a multiple of accum "
                          f"{train.accum}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params = init_from_specs(T.param_specs(cfg), gen)
     S = SHAPE_DEFS["train_4k"]["seq"]
-    return _train_cell(cfg, train, params,
-                       _tokens_and_labels(gen, cfg, batch, S), train.accum,
-                       train.lr)
+    if device_mesh is None:
+        params = init_from_specs(T.param_specs(cfg), gen, depth=depth)
+        return _train_cell(cfg, train, params,
+                           _tokens_and_labels(gen, cfg, batch, S),
+                           train.accum, train.lr)
+    from repro_torch.distributed.sharding import RULE_SETS, place, zeros
+
+    rules = RULE_SETS[train.train_rules or "default"]
+    specs = T.param_specs(cfg)
+    params = place(leaf_sources(specs, gen, depth), specs, device_mesh, rules)
+    o_specs = opt_state_specs(train.optimizer, specs)
+    opt_state = zeros(o_specs, device_mesh, rules, device=dev)
+    data = place(_tokens_and_labels(gen, cfg, batch, S),
+                 TRAIN_BATCH_AXES, device_mesh, rules)
+    return _train_cell(cfg, train, params, data, train.accum, train.lr,
+                       opt_state=opt_state, mesh=device_mesh)
 
 
 # ------------------------------------------------------------ the full cells
@@ -148,6 +190,7 @@ PREFILL_TOKEN_AXES = ("batch", "sequence")
 PREFILL_OUT_AXES = (("batch", "vocab"), (CACHE_AXES, CACHE_AXES))
 DECODE_ARG_AXES = ((CACHE_AXES, CACHE_AXES), ("batch",), ("batch",))
 DECODE_OUT_AXES = (("batch", "vocab"), (CACHE_AXES, CACHE_AXES), ("batch",))
+TRAIN_BATCH_AXES = {"labels": ("batch", None), "tokens": ("batch", None)}
 
 
 def _prefill_fn(params, tokens, cfg):
@@ -207,9 +250,8 @@ def build_cell(cfg: T.TransformerConfig, train: TrainSetting, shape: str,
             cfg.name, shape, step, (params, opt_state, batch, lr),
             kind="train", notes=f"accum={accum} opt={train.optimizer}",
             reduced=reduced, dims=dims,
-            arg_axes=(specs, o_specs, {"labels": ("batch", None),
-                                       "tokens": ("batch", None)}, ()),
-            rules=train.train_rules)
+            arg_axes=(specs, o_specs, TRAIN_BATCH_AXES, ()),
+            out_axes=(specs, o_specs, None), rules=train.train_rules)
     if d["kind"] == "prefill":
         return CellPlan(
             cfg.name, shape, functools.partial(_prefill_fn, cfg=cfg),

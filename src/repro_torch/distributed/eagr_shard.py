@@ -124,8 +124,8 @@ def partition_overlay(overlay: Overlay, decisions: np.ndarray,
     shard_of_reader = {r: int(h) for r, h in zip(
         readers, rng.integers(0, n_shards, len(readers)))}
 
-    out_edges = overlay.out_edges()  # noqa: F841  (kept for clarity)
     shards, shard_decs, plans, writer_rows = [], [], [], []
+    signatures = _decision_signatures(overlay, decisions)
     reader_shard = {}
     for s in range(n_shards):
         keep = np.zeros(overlay.n_nodes, dtype=bool)
@@ -163,7 +163,8 @@ def partition_overlay(overlay: Overlay, decisions: np.ndarray,
         # push nodes whose all-inputs-push invariants must hold; reuse the
         # original decision for surviving nodes by matching origins where
         # possible, defaulting interior nodes to PUSH.
-        shard_decs.append(_project_decisions(overlay, decisions, sub))
+        shard_decs.append(_project_decisions(overlay, decisions, sub,
+                                             signatures))
     # One padded plan shape for all shards: the stack runs every shard's
     # level in one launch (paper §7 on one machine).
     plans = align_shard_plans(shards, shard_decs, device=device,
@@ -174,17 +175,29 @@ def partition_overlay(overlay: Overlay, decisions: np.ndarray,
                           writer_rows=writer_rows)
 
 
-def _project_decisions(full: Overlay, decisions: np.ndarray,
-                       sub: Overlay) -> np.ndarray:
-    """Project dataflow decisions onto a shard's sub-overlay.
-
-    Writers stay PUSH. For interior/reader nodes we match by the node's
-    input-writer set signature (unique within one overlay construction)."""
+def _decision_signatures(full: Overlay,
+                         decisions: np.ndarray) -> dict[frozenset, int]:
+    """Each interior/reader node's decision by its input-writer set
+    signature (unique within one overlay construction; the first node of a
+    signature wins), taken once for every shard's projection."""
     full_sets = full.input_writer_sets()
     sig_dec: dict[frozenset, int] = {}
     for v in range(full.n_nodes):
         if full.kinds[v] != "W":
             sig_dec.setdefault(frozenset(full_sets[v]), int(decisions[v]))
+    return sig_dec
+
+
+def _project_decisions(full: Overlay, decisions: np.ndarray, sub: Overlay,
+                       sig_dec: dict[frozenset, int] | None = None
+                       ) -> np.ndarray:
+    """Project dataflow decisions onto a shard's sub-overlay.
+
+    Writers stay PUSH. For interior/reader nodes we match by the node's
+    input-writer set signature (``_decision_signatures`` of the full
+    overlay, taken here unless the caller passes it)."""
+    if sig_dec is None:
+        sig_dec = _decision_signatures(full, decisions)
     dec = np.zeros(sub.n_nodes, dtype=np.int64)
     sub_sets = sub.input_writer_sets()
     for v in range(sub.n_nodes):

@@ -25,7 +25,11 @@ DTensor and ``constrain`` redistributes it to the rules' placements, the
 collectives GSPMD would insert. ``no_constrain`` turns it off again.
 ``gather_dim`` is the FSDP gather of a weight's ``embed`` dim before its
 use, made explicit so the collectives do not depend on DTensor's choice of
-matrix-product strategy.
+matrix-product strategy. Every placement change ``redistribute`` makes
+carries its gradient (a gather's is a reduce-scatter), and ``constrain``
+holds the cotangent to its placements as JAX transposes a sharding
+constraint, so a placed train step's backward runs the collectives GSPMD
+would, never one DTensor picks.
 
 Divisibility guard: a mesh axis is only applied to a dim it divides evenly,
 otherwise it is dropped (replicated) for that dim, as in the JAX package.
@@ -360,54 +364,245 @@ def place(tree, axes, device_mesh, rules=None):
     if isinstance(tree, dict):   # sorted: sources draw in the tree order
         return {k: place(tree[k], axes[k], device_mesh, rules)
                 for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(place(t, a, device_mesh, rules)
+                            for t, a in zip(tree, axes)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(place(t, a, device_mesh, rules)
                           for t, a in zip(tree, axes))
     raise TypeError(f"cannot place a {type(tree).__name__}")
 
 
+def zeros(spec_tree, device_mesh, rules=None, device=None):
+    """A ``ParamSpec`` tree (dicts, tuples, NamedTuples) as DTensors of
+    zeros placed on ``device_mesh`` by the specs' axes under ``rules``:
+    each rank allocates its local shard only (an optimizer state's
+    ``init`` on placed parameters)."""
+    mesh = mesh_shape_of(device_mesh)
+
+    def one(s: ParamSpec):
+        entries = spec_for(s.shape, s.axes, mesh, rules)
+        local = placement_for(s.shape, s.dtype, s.axes, mesh,
+                              rules).local_shape
+        return from_local(torch.zeros(local, dtype=s.dtype, device=device),
+                          device_mesh, placements_for(entries, device_mesh),
+                          s.shape)
+    return map_specs(one, spec_tree)
+
+
 def redistribute(x, placements):
-    """The DTensor ``x`` with ``placements``: ``x.redistribute``, except
-    that every mesh dim going from ``Shard`` to ``Replicate`` is gathered
-    first by ``launch.mesh.all_gather`` (innermost mesh dim first), the one
-    all-gather of a placed step, which stages it where the group's backend
-    refuses it."""
+    """The DTensor ``x`` with ``placements``, each mesh dim's change made by
+    the collectives of ``launch.mesh``, which carry gradients and stage
+    through the host where the group's backend refuses a collective:
+    ``Shard -> Replicate`` an all-gather (innermost mesh dim first; its
+    gradient reduce-scatters a partial cotangent, or takes this rank's
+    slice of a replicated one), ``Partial -> Shard`` a reduce-scatter (its
+    gradient an all-gather), ``Replicate -> Shard`` this rank's slice (its
+    gradient an all-gather of a sharded cotangent); a mesh dim of one rank
+    only relabels. What is left (``Partial -> Replicate``, an all-reduce
+    whose gradient moves nothing) is ``x.redistribute``'s."""
     from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.launch.mesh import all_gather
+    mesh, placements = x.device_mesh, tuple(placements)
+    pl = list(x.placements)
+    for i, b in enumerate(placements):
+        if mesh.size(i) == 1:
+            pl[i] = b                  # one rank: nothing moves
+    if tuple(pl) != tuple(x.placements):
+        x = _Relabel.apply(x, tuple(pl))
 
-    mesh, pl = x.device_mesh, list(x.placements)
-    gather = [i for i, (a, b) in enumerate(zip(pl, placements))
-              if isinstance(a, Shard) and isinstance(b, Replicate)]
-    for i in [i for i in gather if mesh.size(i) == 1]:
-        pl[i] = Replicate()            # one shard: nothing moves
-    gather = [i for i in gather if mesh.size(i) > 1]
-    if gather or pl != list(x.placements):
-        local = x.to_local()
-        for i in reversed(gather):
-            d = pl[i].dim
-            if any(pl[j] == Shard(d) for j in range(i + 1, len(pl))):
-                raise ValueError(f"mesh dim {i} gathers tensor dim {d} while "
-                                 f"an inner mesh dim still shards it: "
+    def sharded_inside(pl, i, d):
+        return any(pl[j] == Shard(d) for j in range(i + 1, len(pl)))
+
+    for i in reversed(range(len(pl))):
+        a, b = pl[i], placements[i]
+        if isinstance(a, Shard) and isinstance(b, Replicate):
+            if sharded_inside(pl, i, a.dim):
+                raise ValueError(f"mesh dim {i} gathers tensor dim {a.dim} "
+                                 f"while an inner mesh dim still shards it: "
                                  f"{x.placements}")
-            local = all_gather(local, mesh, i, d)
+            x = _GatherDim.apply(x, i)
+            pl[i] = b
+    for i in range(len(pl)):
+        a, b = pl[i], placements[i]
+        if not isinstance(b, Shard) or a == b or sharded_inside(pl, i,
+                                                                b.dim):
+            continue
+        if a.is_partial():
+            x = _ReduceScatterDim.apply(x, i, b.dim)
+        elif a.is_replicate():
+            x = _ScatterDim.apply(x, i, b.dim)
+        else:
+            continue
+        pl[i] = b
+    return x if tuple(x.placements) == placements \
+        else x.redistribute(mesh, placements)
+
+
+def _coord(mesh, i: int) -> int:
+    return mesh.get_coordinate()[i]
+
+
+def _with(x, i: int, p, local):
+    """``local`` as the DTensor of ``x``'s mesh and shape with mesh dim
+    ``i``'s placement ``p``."""
+    pl = list(x.placements)
+    pl[i] = p
+    return from_local(local, x.device_mesh, pl, x.shape)
+
+
+def _slice_of(local, mesh, i: int, d: int):
+    """This rank's slice along ``d`` of a ``local`` replicated over mesh
+    dim ``i``."""
+    n = mesh.size(i)
+    size = local.shape[d] // n
+    return local.narrow(d, _coord(mesh, i) * size, size).contiguous()
+
+
+def _cotangent_gathered(g, i: int):
+    """The cotangent ``g`` with mesh dim ``i`` made whole: gathered where it
+    is sharded, as it is where it is replicated or partial."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import gather_raw
+
+    p = g.placements[i]
+    if not isinstance(p, Shard):
+        return g
+    return _with(g, i, Replicate(), gather_raw(g.to_local(), g.device_mesh,
+                                               i, p.dim))
+
+
+class _Relabel(torch.autograd.Function):
+    """Placements changed on mesh dims of one rank (no data moves)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = tuple(x.placements)
+        return from_local(x.to_local(), x.device_mesh, placements, x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        pl = [b if g.device_mesh.size(i) == 1 else a
+              for i, (a, b) in enumerate(zip(g.placements, ctx.placements))]
+        return from_local(g.to_local(), g.device_mesh, pl, g.shape), None
+
+
+class _GatherDim(torch.autograd.Function):
+    """Mesh dim ``i``: ``Shard(d) -> Replicate`` (an all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, i):
+        from torch.distributed.tensor import Replicate
+
+        from repro_torch.launch.mesh import gather_raw
+
+        d = x.placements[i].dim
+        ctx.i, ctx.d = i, d
+        return _with(x, i, Replicate(), gather_raw(x.to_local(),
+                                                   x.device_mesh, i, d))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Shard
+
+        from repro_torch.launch.mesh import reduce_scatter_raw
+
+        i, d = ctx.i, ctx.d
+        g = _cotangent_gathered(g, i)
+        if any(g.placements[j] == Shard(d)
+               for j in range(i + 1, len(g.placements))):
+            raise ValueError(f"the cotangent {g.placements} shards dim {d} "
+                             f"inside mesh dim {i}")
+        if g.placements[i].is_partial():
+            local = reduce_scatter_raw(g.to_local(), g.device_mesh, i, d)
+        else:
+            local = _slice_of(g.to_local(), g.device_mesh, i, d)
+        return _with(g, i, Shard(d), local), None
+
+
+class _ScatterDim(torch.autograd.Function):
+    """Mesh dim ``i``: ``Replicate -> Shard(d)`` (this rank's slice)."""
+
+    @staticmethod
+    def forward(ctx, x, i, d):
+        from torch.distributed.tensor import Shard
+
+        ctx.i = i
+        return _with(x, i, Shard(d), _slice_of(x.to_local(), x.device_mesh,
+                                               i, d))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cotangent_gathered(g, ctx.i), None, None
+
+
+class _ReduceScatterDim(torch.autograd.Function):
+    """Mesh dim ``i``: ``Partial -> Shard(d)`` (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, i, d):
+        from torch.distributed.tensor import Shard
+
+        from repro_torch.launch.mesh import reduce_scatter_raw
+
+        p = x.placements[i]
+        if getattr(p, "reduce_op", "sum") != "sum":
+            raise ValueError(f"a reduce-scatter of a {p} placement")
+        ctx.i = i
+        return _with(x, i, Shard(d), reduce_scatter_raw(
+            x.to_local(), x.device_mesh, i, d))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
+        i = ctx.i
+        g = _cotangent_gathered(g, i)
+        if g.placements[i].is_partial():
+            pl = list(g.placements)
             pl[i] = Replicate()
-        x = from_local(local, mesh, pl, x.shape)
-    return x if tuple(pl) == tuple(placements) \
-        else x.redistribute(mesh, tuple(placements))
+            g = g.redistribute(g.device_mesh, pl)
+        return g, None, None
 
 
 def redistribute_tree(tree, axes, rules=None):
     """Every DTensor of ``tree`` redistributed to the placements its
-    logical ``axes`` (mirroring ``tree``) give under ``rules``: the JAX
-    package's ``out_shardings``."""
+    logical ``axes`` (mirroring ``tree`` as in :func:`placed_bytes`: a
+    ``ParamSpec`` tree or tuples of names; dicts, tuples and NamedTuples
+    such as an optimizer state's) give under ``rules``: the JAX package's
+    ``out_shardings``. Where ``axes`` is None the subtree is gathered
+    whole on every rank, its DTensors plain tensors (a step's metrics)."""
+    if axes is None:
+        return gathered(tree)
     if is_placed(tree):
         mesh = tree.device_mesh
         return redistribute(tree, placements_for(
             _entries(tree, axes, mesh_shape_of(mesh), rules), mesh))
+    if isinstance(tree, dict):
+        return {k: redistribute_tree(v, axes[k], rules)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(redistribute_tree(t, a, rules)
+                            for t, a in zip(tree, axes)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(redistribute_tree(t, a, rules)
                           for t, a in zip(tree, axes))
+    return tree
+
+
+def gathered(tree):
+    """Every DTensor of ``tree`` (dicts, lists, tuples) gathered whole on
+    every rank, as a plain tensor; other leaves as they are."""
+    if is_placed(tree):
+        from torch.distributed.tensor import Replicate
+
+        return redistribute(tree, [Replicate()] * tree.device_mesh.ndim
+                            ).to_local()
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(gathered(t) for t in tree)
     return tree
 
 
@@ -452,8 +647,8 @@ def current_sharding():
 def constrain(x, axes: tuple[str | None, ...]):
     """The JAX package's ``with_sharding_constraint`` by logical axis
     names: ``x`` itself outside a context; inside one, the DTensor ``x``
-    redistributed to the placements the context's rules give its
-    shape."""
+    redistributed to the placements the context's rules give its shape
+    (:func:`constrain_to`)."""
     ctx = current_sharding()
     if ctx is None:
         return x
@@ -463,7 +658,46 @@ def constrain(x, axes: tuple[str | None, ...]):
                         f"DTensor, got a {type(x).__name__} of shape "
                         f"{tuple(x.shape)}")
     spec = spec_for(tuple(x.shape), axes, mesh_shape_of(mesh), rules)
-    return redistribute(x, placements_for(spec, mesh))
+    return constrain_to(x, placements_for(spec, mesh))
+
+
+def constrain_to(x, placements):
+    """The DTensor ``x`` redistributed to ``placements`` (:func:`
+    redistribute`), its cotangent held to the same placements, as JAX
+    transposes ``with_sharding_constraint`` into a constraint on the
+    cotangent: a partial cotangent is summed there (all-reduced, or
+    reduce-scattered where the placement shards), so no partial sum runs
+    on through the backward into an operation that would have DTensor
+    gather a sharded operand. On a mesh dim that the forward gathers
+    (``Shard -> Replicate``) a partial cotangent is left to the gather's
+    backward, which reduce-scatters it."""
+    from torch.distributed.tensor import Shard
+
+    placements = tuple(placements)
+    keep = tuple(i for i, (a, b) in enumerate(zip(x.placements, placements))
+                 if isinstance(a, Shard) and b.is_replicate())
+    y = redistribute(x, placements)
+    if not torch.is_grad_enabled() or not y.requires_grad:
+        return y
+    return _CotangentAs.apply(y, placements, keep)
+
+
+class _CotangentAs(torch.autograd.Function):
+    """Forward ``x`` as it is; backward the cotangent redistributed to
+    ``placements`` (a partial one left partial on the mesh dims
+    ``keep``)."""
+
+    @staticmethod
+    def forward(ctx, x, placements, keep):
+        ctx.placements, ctx.keep = placements, keep
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        want = tuple(p if i in ctx.keep and p.is_partial() else q
+                     for i, (p, q) in enumerate(zip(g.placements,
+                                                    ctx.placements)))
+        return redistribute(g, want), None, None
 
 
 @contextlib.contextmanager

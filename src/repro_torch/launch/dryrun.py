@@ -31,7 +31,9 @@ cell instead.
 The records keep the JAX package's keys. ``collective_bytes`` is the
 placed step's per-device collective traffic, as the JAX package reads it
 from the partitioned HLO: the CLI (``add_collective_bytes``) places each
-placed cell (``placed``: the dense LM serve cells) on ``--multi-pod``'s
+placed cell (``placed``: the dense LM serve and train cells; a train cell
+steps whole, forward, recompute, backward and optimizer, every
+microbatch) on ``--multi-pod``'s
 production mesh over a fake process group of as many ranks
 (``launch.mesh.fake_group``; meta tensors, nothing allocated, no peer)
 and runs its step once under ``CollectiveBytes``, which sums every
@@ -76,9 +78,9 @@ _NO_TRAFFIC = {torch.ops.aten.empty.memory_format,
 
 
 # the cells placed on a device mesh (DTensor) for their collective bytes:
-# the dense LM archs' serve shapes; the MoE archs, DIEN, the GNNs, the
-# train cells and eagr are not placed yet
-PLACED_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+# the dense LM archs' serve and train shapes; the MoE archs, DIEN, the
+# GNNs and eagr are not placed yet
+PLACED_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 # the JAX package's collective kinds, and the functional collectives that
 # are each (result bytes counted, as the JAX package counts the HLO
 # instruction's result shape)

@@ -22,8 +22,12 @@ backend takes: the rank's CUDA device for ``nccl``, the CPU for ``gloo``.
 ``file://`` store, a timeout on every collective, and a join deadline, so a
 rank that fails or hangs ends the run with an error instead of a hang.
 
-Three collectives carry gradients, as the JAX package's ``shard_map``
-transposes them: ``all_gather_tiled`` (JAX's ``all_gather(..., tiled=True)``;
+On a ``DeviceMesh``, ``all_gather`` (its gradient a reduce-scatter)
+and ``all_reduce_sum`` (its gradient the identity) carry gradients; the
+``*_raw`` functions are the collectives outside autograd, from which
+``distributed.sharding.redistribute`` builds every placement change of
+a placed step as an autograd Function. On a ``ShardMesh``, three collectives
+carry gradients, as the JAX package's ``shard_map`` transposes them: ``all_gather_tiled`` (JAX's ``all_gather(..., tiled=True)``;
 backward: the sum over the ranks of the cotangent's slice for this rank,
 JAX's ``psum_scatter``), ``psum`` (forward: the sum over the ranks; backward:
 the identity, every rank holding the whole cotangent of the replicated
@@ -105,12 +109,101 @@ def make_device_mesh(shape: MeshShape, *, fake: bool = False,
                       mesh_dim_names=tuple(shape.axis_names))
 
 
+def _backend(device_mesh, mesh_dim: int) -> str:
+    import torch.distributed as dist
+
+    return str(dist.get_backend(device_mesh.get_group(mesh_dim)))
+
+
+def host_staged(t: torch.Tensor, device_mesh, mesh_dim: int) -> bool:
+    """Whether a collective of ``t`` over ``device_mesh``'s dim
+    ``mesh_dim`` goes through host memory: CUDA tensors on a gloo
+    group."""
+    return t.device.type == "cuda" and \
+        _backend(device_mesh, mesh_dim) == "gloo"
+
+
+def _wait(out):
+    import torch.distributed._functional_collectives as funcol
+
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+def gather_raw(t: torch.Tensor, device_mesh, mesh_dim: int,
+               dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather`'s forward, outside autograd."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    group = device_mesh.get_group(mesh_dim)
+    if host_staged(t, device_mesh, mesh_dim):
+        host = t.detach().movedim(dim, 0).contiguous().cpu()
+        n = dist.get_world_size(group)
+        out = torch.empty((n * host.shape[0],) + tuple(host.shape[1:]),
+                          dtype=host.dtype)
+        dist.all_gather_into_tensor(out, host, group=group)
+        return out.to(t.device).movedim(0, dim).contiguous()
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor       # the name before torch 2.12
+    return _wait(gather(t.detach().contiguous(), dim,
+                        (device_mesh, mesh_dim)))
+
+
+def reduce_scatter_raw(t: torch.Tensor, device_mesh, mesh_dim: int,
+                       dim: int = 0) -> torch.Tensor:
+    """The reduce-scatter of a placed step, outside autograd: every rank's
+    ``t`` summed, this rank's slice along ``dim``. On a real group one
+    all-to-all (through host memory where :func:`host_staged`), then the
+    ranks' blocks added in rank order (floating types below fp32 in fp32,
+    rounded once); on the dry run's fake group the functional
+    reduce-scatter, which it counts as one."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    group = device_mesh.get_group(mesh_dim)
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {n} ranks")
+    if _backend(device_mesh, mesh_dim) == "fake":
+        return _wait(funcol.reduce_scatter_tensor(
+            t.detach().contiguous(), "sum", dim, (device_mesh, mesh_dim)))
+    x = t.detach().movedim(dim, 0).contiguous()
+    if host_staged(t, device_mesh, mesh_dim):
+        x = x.cpu()
+    got = torch.empty_like(x)
+    dist.all_to_all_single(got, x, group=group)
+    got = got.to(t.device)
+    return _sum_in_order(list(got.chunk(n)), t.dtype).movedim(0, dim) \
+        .contiguous()
+
+
+def all_reduce_raw(t: torch.Tensor, device_mesh, mesh_dims,
+                   op: str = "sum") -> torch.Tensor:
+    """``t`` reduced (``sum`` or ``max``) over each of ``device_mesh``'s
+    dims ``mesh_dims`` in turn, outside autograd: the functional
+    all-reduce (gloo takes CUDA tensors there), every rank the same
+    bits."""
+    import torch.distributed._functional_collectives as funcol
+
+    out = t.detach()
+    for i in mesh_dims:
+        if device_mesh.size(i) > 1:
+            out = _wait(funcol.all_reduce(out.contiguous(), op,
+                                          (device_mesh, i)))
+    return out
+
+
 def all_gather(t: torch.Tensor, device_mesh, mesh_dim: int,
                dim: int = 0) -> torch.Tensor:
     """Every rank's ``t`` along ``device_mesh``'s dim ``mesh_dim``
     concatenated along tensor dim ``dim`` in that mesh dim's rank order:
-    the all-gather of every placed step (DTensor's Shard -> Replicate, the
-    FSDP gathers, the decode partials), a functional collective.
+    the all-gather of every placed step (the FSDP gathers, the sequence
+    gathers of ``residual_sp``, the decode partials), a functional
+    collective. Its gradient reduce-scatters the cotangent
+    (``reduce_scatter_raw``; JAX's ``psum_scatter``, the all-gather's
+    transpose): each rank's cotangent is its own partial.
 
     The one collective that gloo refuses on CUDA tensors: the functional
     all-gather (``_c10d_functional.all_gather_into_tensor``) kills the
@@ -118,24 +211,36 @@ def all_gather(t: torch.Tensor, device_mesh, mesh_dim: int,
     collectives, functional or not, and its non-functional all-gather take
     CUDA tensors). There it is staged through host memory, the
     non-functional all-gather on CPU copies, and the result copied back
-    to ``t``'s device. This is the only place a placed step moves data
-    through the host on purpose."""
-    import torch.distributed as dist
-    import torch.distributed._functional_collectives as funcol
+    to ``t``'s device (:func:`host_staged`)."""
+    return _AllGather.apply(t, device_mesh, mesh_dim, dim)
 
-    group = device_mesh.get_group(mesh_dim)
-    if t.device.type == "cuda" and str(dist.get_backend(group)) == "gloo":
-        host = t.detach().movedim(dim, 0).contiguous().cpu()
-        n = dist.get_world_size(group)
-        out = torch.empty((n * host.shape[0],) + tuple(host.shape[1:]),
-                          dtype=host.dtype)
-        dist.all_gather_into_tensor(out, host, group=group)
-        return out.to(t.device).movedim(0, dim)
-    gather = getattr(funcol, "all_gather_single", None) \
-        or funcol.all_gather_tensor       # the name before torch 2.12
-    out = gather(t.contiguous(), dim, (device_mesh, mesh_dim))
-    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
-        else out
+
+def all_reduce_sum(t: torch.Tensor, device_mesh, mesh_dims) -> torch.Tensor:
+    """The sum of ``t`` over ``device_mesh``'s dims ``mesh_dims``, on every
+    rank (``all_reduce_raw``). Its gradient is the cotangent as it is: the
+    output is the same on every rank, and so is what follows it."""
+    return _AllReduceSum.apply(t, device_mesh, tuple(mesh_dims))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, device_mesh, mesh_dim, dim):
+        ctx.args = (device_mesh, mesh_dim, dim)
+        return gather_raw(t, device_mesh, mesh_dim, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_raw(g, *ctx.args), None, None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, device_mesh, mesh_dims):
+        return all_reduce_raw(t, device_mesh, mesh_dims, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
 
 
 SHARD_AXIS = "shard"

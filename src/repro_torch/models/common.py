@@ -1,7 +1,8 @@
 """Shared model substrate: parameter specs and their seeded init, RMS and
 layer norm, RoPE, the plain blocked attention of the JAX package's
 production path (the one it trains through), and the losses:
-``cross_entropy`` and the chunked, recomputed ``fused_ce_loss``.
+``cross_entropy`` and the chunked, recomputed ``fused_ce_loss`` (on a
+vocab-sharded ``lm_head``, a vocab-parallel cross entropy).
 """
 from __future__ import annotations
 
@@ -222,12 +223,18 @@ def fused_ce_loss(x: torch.Tensor, lm_head: torch.Tensor,
     backward (``torch.utils.checkpoint``, the JAX package's
     ``jax.checkpoint``), so the live logits are (B, chunk, V). Padded vocab
     columns (>= n_valid_vocab) are masked to -inf. x: (B, S, D); lm_head
-    (D, V); labels (B, S). Returns (mean nll, z_loss * mean lse^2)."""
+    (D, V); labels (B, S). Returns (mean nll, z_loss * mean lse^2).
+
+    Placed (``lm_head`` a DTensor): a vocab-parallel cross entropy
+    (:func:`_placed_ce_loss`)."""
     B, S, D = x.shape
     V = lm_head.shape[-1]
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    if getattr(lm_head, "device_mesh", None) is not None:
+        return _placed_ce_loss(x, lm_head, labels, n_valid_vocab, z_loss,
+                               chunk)
     valid = torch.arange(V, device=x.device) < n_valid_vocab
     nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, S, chunk):
@@ -239,5 +246,84 @@ def fused_ce_loss(x: torch.Tensor, lm_head: torch.Tensor,
             nll, z = _ce_chunk(*args)
         nll_sum = nll_sum + nll
         z_sum = z_sum + z
+    n_tok = B * S
+    return nll_sum / n_tok, z_loss * z_sum / n_tok
+
+
+def _placed_ce_chunk(x, labels, lm_head, valid, lo: int, mesh, vocab):
+    """One chunk's (sum of nll, sum of lse^2) on one rank's vocab columns
+    ``[lo, lo + V_local)``: the fp32 projection, the global max (no
+    gradient, as JAX's ``logsumexp`` stops it) and the sum of exp and the
+    label's logit all-reduced over the vocab's mesh dims ``vocab``; every
+    rank of those dims then holds the same lse and nll."""
+    from repro_torch.launch.mesh import all_reduce_raw, all_reduce_sum
+
+    logits = (x.float() @ lm_head.float()).masked_fill(~valid, float("-inf"))
+    m = all_reduce_raw(logits.amax(dim=-1), mesh, vocab, "max")
+    s = all_reduce_sum(torch.exp(logits - m[..., None]).sum(dim=-1), mesh,
+                       vocab)
+    lse = m + torch.log(s)
+    ids = labels.long() - lo
+    hit = (ids >= 0) & (ids < logits.shape[-1])
+    own = logits.gather(-1, ids.clamp(0, logits.shape[-1] - 1)[..., None])
+    ll = all_reduce_sum(own[..., 0].masked_fill(~hit, 0.0), mesh, vocab)
+    return (lse - ll).sum(), (lse * lse).sum()
+
+
+def _placed_ce_loss(x, lm_head, labels, n_valid_vocab: int, z_loss: float,
+                    chunk: int):
+    """``fused_ce_loss`` on DTensors: ``lm_head`` (D, V) gathered over its
+    FSDP (``embed``) axes, its vocab columns sharded over the ``vocab``
+    mesh dims; ``x`` (B, S, D) and ``labels`` batch-sharded. A sequence
+    sharded on the mesh (``residual_sp``) is gathered once, before the
+    chunks, as GSPMD gathers ``rms_norm(x)`` before the projection; the
+    chunks then cut the whole sequence as on one card. Each rank takes
+    its batch rows' logits over its vocab columns (padded ids masked at
+    its vocab offset), the vocab-parallel lse and label logit
+    (:func:`_placed_ce_chunk`); the sums over the batch are all-reduced
+    over the batch's mesh dims. Returns plain tensors, the same on every
+    rank; the gradient reaches ``x`` as a partial over the vocab's mesh
+    dims and ``lm_head`` as a partial over the batch's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import (
+        constrain_to,
+        dim_shard,
+        gather_dim,
+        mesh_dims,
+    )
+    from repro_torch.launch.mesh import all_reduce_sum
+
+    B, S, D = x.shape
+    w = gather_dim(lm_head, 0)
+    x = constrain_to(x, [Replicate() if p in (Shard(1), Shard(2)) else p
+                         for p in x.placements])
+    mesh = w.device_mesh
+    vocab, batch = mesh_dims(w, 1), mesh_dims(x, 0)
+    if set(vocab) & set(batch) or mesh_dims(labels, 0) != batch or any(
+            x.placements[i].is_partial() for i in range(mesh.ndim)):
+        raise ValueError(f"x {x.placements}, labels {labels.placements} and "
+                         f"lm_head {w.placements} do not meet")
+    V_l = w.shape[1] // dim_shard(w, 1)[1]
+    lo = dim_shard(w, 1)[0] * V_l
+    xl = x.to_local(grad_placements=[Partial() if i in vocab else p
+                                     for i, p in enumerate(x.placements)])
+    wl = w.to_local(grad_placements=[Partial() if i in batch else p
+                                     for i, p in enumerate(w.placements)])
+    ll = labels.to_local()
+    valid = torch.arange(V_l, device=wl.device) + lo < n_valid_vocab
+    nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=wl.device)
+    for c0 in range(0, S, chunk):
+        args = (xl[:, c0:c0 + chunk], ll[:, c0:c0 + chunk], wl, valid, lo,
+                mesh, vocab)
+        if torch.is_grad_enabled():
+            nll, z = checkpoint(_placed_ce_chunk, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            nll, z = _placed_ce_chunk(*args)
+        nll_sum = nll_sum + nll
+        z_sum = z_sum + z
+    nll_sum = all_reduce_sum(nll_sum, mesh, batch)
+    z_sum = all_reduce_sum(z_sum, mesh, batch)
     n_tok = B * S
     return nll_sum / n_tok, z_loss * z_sum / n_tok

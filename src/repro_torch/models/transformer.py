@@ -53,20 +53,28 @@ the padded-vocab mask takes the rank's vocab offset, the flash kernels run
 on each rank's local heads (``flash_attention.ops``), a decode step writes
 the new token's k/v on the rank that holds its cache row, and the
 row-parallel products (attention out, FFN down) are all-reduced by the
-``constrain`` that follows them: taken in fp32 on a mesh (GSPMD adds bf16
-partials) and rounded once after the sum, as one card rounds them, so a
-placed step gives one card's numbers up to fp32 reassociation.
+``constrain`` that follows them, their partials in the compute dtype, as
+GSPMD adds them. The training path (``trunk``, ``forward``,
+``loss_fn``) runs placed the same way, with gradients: the lookup
+vocab-parallel, each layer ending on ``_RES_AXES`` (under
+``residual_sp`` the sequence gathered into the layer and
+reduce-scattered out of it), ``blocked_attention`` on each rank's local
+heads, the fused cross entropy vocab-parallel, and a checkpointed layer
+recomputed under the forward's ``activation_sharding``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (
+    activation_sharding,
     constrain,
+    current_sharding,
     dim_shard,
     from_local,
     gather_dim,
@@ -429,13 +437,54 @@ def _attention(x, lp, l: int, cfg: TransformerConfig, cos, sin, *,
 
 def _layer(x, lw, cfg: TransformerConfig, cos, sin):
     """One layer of the training forward on that layer's weights ``lw``:
-    (x, MoE load-balance loss). Attention is ``blocked_attention``."""
+    (x, MoE load-balance loss). Attention is ``blocked_attention``
+    (:func:`_train_attention`). Placed, the normed input is constrained
+    to ``_OUT_AXES`` (under ``residual_sp`` the sequence gathered), each
+    row-parallel product's partials are summed into the residual's
+    placement (under ``residual_sp`` reduce-scattered over the sequence)
+    and the layer ends on ``_RES_AXES``, as the JAX package's ``_layer``
+    does."""
     cdt = cfg.compute_dtype
-    q, kk, vv = _qkv(rms_norm(x, lw["ln1"]), lw, cdt, cos, sin)
-    o = blocked_attention(q, kk, vv, causal=True, q_chunk=cfg.q_chunk)
-    x = x + _out_proj(o, lw["wo"], cdt)
-    f, aux = _layer_ffn(rms_norm(x, lw["ln2"]), lw, cfg)
-    return x + f, aux
+    q, kk, vv = _qkv(constrain(rms_norm(x, lw["ln1"]), _OUT_AXES), lw, cdt,
+                     cos, sin)
+    o = constrain(_train_attention(q, kk, vv, cfg.q_chunk), _O_AXES)
+    x = x + constrain(_out_proj(o, lw["wo"], cdt), _RES_AXES)
+    f, aux = _layer_ffn(constrain(rms_norm(x, lw["ln2"]), _OUT_AXES), lw,
+                        cfg)
+    return constrain(x + constrain(f, _RES_AXES), _RES_AXES), aux
+
+
+def _layer_under(ctx, x, lw, cfg: TransformerConfig, cos, sin):
+    """:func:`_layer` under the ``activation_sharding`` context ``ctx``
+    (``current_sharding()`` of the forward; None: none): the checkpoint
+    recomputes a layer during the backward, which autograd runs on its
+    own thread for CUDA tensors, where the forward's thread-local context
+    is not set."""
+    if ctx is None:
+        return _layer(x, lw, cfg, cos, sin)
+    with activation_sharding(*ctx):
+        return _layer(x, lw, cfg, cos, sin)
+
+
+def _train_attention(q, k, v, q_chunk: int):
+    """``blocked_attention`` (causal) of the training forward. Placed, on
+    each rank's local heads: the kv heads its local query heads read are
+    sliced where the kv heads are replicated (fewer kv heads than the
+    ``model`` ranks), and their gradient is then a partial over those mesh
+    dims, summed where the kv projection's gradient meets the others'."""
+    if not is_placed(q):
+        return blocked_attention(q, k, v, causal=True, q_chunk=q_chunk)
+    from torch.distributed.tensor import Partial, Shard
+
+    flash._check_placed(q, k, v, None, seq_ok=False)
+    heads = flash._local_kv_heads(q, k)
+    kv_grad = [Partial() if p.is_replicate() and qp == Shard(1) else p
+               for p, qp in zip(k.placements, q.placements)]
+    kl, vl = (t.to_local(grad_placements=kv_grad) for t in (k, v))
+    if kl.shape[1] != heads.stop - heads.start:
+        kl, vl = kl[:, heads], vl[:, heads]
+    o = blocked_attention(q.to_local(), kl, vl, causal=True, q_chunk=q_chunk)
+    return from_local(o, q.device_mesh, q.placements, q.shape)
 
 
 def _logits(x, params, cfg: TransformerConfig):
@@ -474,7 +523,7 @@ def _embed(table, tokens, cdt):
     mesh dims (summed by the ``constrain`` that follows)."""
     if not is_placed(table):
         return table[tokens.long()].to(cdt)
-    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor import Partial, Shard
 
     table = gather_dim(table.to(cdt), 1)
     vocab = mesh_dims(table, 0)
@@ -487,7 +536,11 @@ def _embed(table, tokens, cdt):
     lo = dim_shard(table, 0)[0] * V
     ids = tokens.to_local().long() - lo
     hit = (ids >= 0) & (ids < V)
-    rows = table.to_local()[ids.clamp(0, V - 1)]
+    # a rank's rows are looked up by its own tokens: the table's gradient
+    # is a partial over the mesh dims that shard the tokens
+    grad = [Partial() if isinstance(t, Shard) else p
+            for t, p in zip(tokens.placements, table.placements)]
+    rows = table.to_local(grad_placements=grad)[ids.clamp(0, V - 1)]
     rows = rows.masked_fill(~hit[..., None], 0)
     placements = [Partial() if i in vocab else p
                   for i, p in enumerate(tokens.placements)]
@@ -535,9 +588,12 @@ def _write_rows(cache_l, new, pos) -> None:
 def trunk(params, tokens: torch.Tensor, cfg: TransformerConfig):
     """Embedding + all layers + final norm (no vocab projection). tokens
     (B, S) int -> (x (B, S, D) in the compute dtype, mean over layers of
-    the MoE load-balance loss (0 for a dense model))."""
+    the MoE load-balance loss (0 for a dense model)). Placed, the lookup
+    is vocab-parallel (:func:`_embed`) and the residual stream constrained
+    to ``_RES_AXES``."""
     cdt = cfg.compute_dtype
-    x = params["embed"][tokens.long()].to(cdt)
+    _placed_dense(params, cfg, "training")
+    x = constrain(_embed(params["embed"], tokens, cdt), _RES_AXES)
     S = tokens.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=tokens.device),
                            cfg.head_dim, cfg.rope_base)
@@ -545,28 +601,35 @@ def trunk(params, tokens: torch.Tensor, cfg: TransformerConfig):
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer = functools.partial(_layer_under, current_sharding())
     for l in range(cfg.n_layers):
         lw = {k: v[l] for k, v in layers.items()}
         if remat:
-            x, a = checkpoint(_layer, x, lw, cfg, cos, sin,
+            x, a = checkpoint(layer, x, lw, cfg, cos, sin,
                               use_reentrant=False, preserve_rng_state=False)
         else:
-            x, a = _layer(x, lw, cfg, cos, sin)
+            x, a = layer(x, lw, cfg, cos, sin)
         aux = aux + a
     return rms_norm(x, params["final_norm"]), aux / cfg.n_layers
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
     """tokens (B, S) int -> (logits (B, S, V_pad) in the compute dtype,
-    MoE aux loss)."""
+    MoE aux loss). Placed, the sequence is gathered where the residual
+    stream shards it, ``lm_head`` gathered over its FSDP axes and the
+    logits constrained to ``act_vocab`` (each rank its vocab columns)."""
     x, aux = trunk(params, tokens, cfg)
-    return x @ params["lm_head"].to(cfg.compute_dtype), aux
+    x = constrain(x, _OUT_AXES)        # residual_sp: the sequence gathered
+    logits = x @ gather_dim(params["lm_head"].to(cfg.compute_dtype), 0)
+    return constrain(logits, ("act_batch", "act_seq", "act_vocab")), aux
 
 
 def loss_fn(params, batch, cfg: TransformerConfig):
     """Fused vocab projection + CE: the (B, S, V) logits never
     materialize. batch: ``tokens``, ``labels`` (B, S) int. Returns (ce +
-    z-loss + 0.01 * aux, {"ce", "aux"})."""
+    z-loss + 0.01 * aux, {"ce", "aux"}); placed, each a plain tensor
+    with the same value on every rank (``fused_ce_loss``'s
+    vocab-parallel cross entropy)."""
     x, aux = trunk(params, batch["tokens"], cfg)
     ce, zl = fused_ce_loss(
         x, params["lm_head"], batch["labels"], n_valid_vocab=cfg.vocab,
@@ -575,12 +638,12 @@ def loss_fn(params, batch, cfg: TransformerConfig):
 
 
 # ----------------------------------------------------------------- serving
-def _serve_placed(params, cfg: TransformerConfig) -> None:
-    """Placed serving covers the dense archs (the MoE archs' expert
-    placements are not ported)."""
+def _placed_dense(params, cfg: TransformerConfig, what: str) -> None:
+    """Placed serving and training cover the dense archs (the MoE archs'
+    expert placements are not ported)."""
     if cfg.is_moe and is_placed(params["embed"]):
         raise NotImplementedError(
-            f"{cfg.name}: placed serving of an MoE arch (its 'expert' "
+            f"{cfg.name}: placed {what} of an MoE arch (its 'expert' "
             f"placements) is not ported")
 
 
@@ -593,7 +656,7 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     ``(q, k, v, *, causal, lengths) -> out`` of the kernels' layout to call
     instead."""
     cdt = cfg.compute_dtype
-    _serve_placed(params, cfg)
+    _placed_dense(params, cfg, "serving")
     x = constrain(_embed(params["embed"], tokens, cdt), _RES_AXES)
     S = tokens.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=tokens.device),
@@ -626,7 +689,7 @@ def decode_step(params, cache, tokens: torch.Tensor, lengths: torch.Tensor,
     tensors.
     """
     cdt = cfg.compute_dtype
-    _serve_placed(params, cfg)
+    _placed_dense(params, cfg, "serving")
     k_cache, v_cache = cache
     x = constrain(_embed(params["embed"], tokens, cdt)[:, None, :],
                   _OUT_AXES)                                  # (B, 1, D)

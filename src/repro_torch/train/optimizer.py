@@ -19,6 +19,16 @@ cast to fp32 (an fp32 gradient in place), where the JAX package's
 ``grads * scale`` promotes a bf16 gradient to fp32 before the update
 sees it.
 
+Placed parameters (DTensors, ``CellPlan.on_mesh``): every update runs on
+each rank's local shards of the parameters, gradients and state, in
+place. AdamW and SGD are elementwise, so a shard's update is one
+device's on the same entries. Adafactor's statistics over a dim the mesh
+shards (the row and column means of ``g^2``, the mean of the row
+moments, the update's RMS for the relative-step clip) are each rank's
+local sums all-reduced over the mesh dims that shard that dim
+(``_Dims``), the JAX package's partitioned values up to fp32
+reassociation. ``count`` and ``lr`` are replicated.
+
 Memory: elementwise temporaries are taken one leading slice at a time on
 layer-stacked (>= 3-D) leaves, so their size is one layer's (granite-3-2b's
 ``w_gate`` is 2.7 GB in fp32 as a whole, 67 MB a layer). For AdamW and SGD
@@ -46,6 +56,55 @@ class Optimizer:
 
 def _device(params) -> torch.device:
     return tree_leaves(params)[0].device
+
+
+def _local(t):
+    """A DTensor's local shard (a view: in-place updates reach it); any
+    other value as it is."""
+    return t.to_local() if getattr(t, "device_mesh", None) is not None \
+        else t
+
+
+class _Dims:
+    """The mesh dims that shard each dim of a placed leaf (none for a
+    plain tensor), from dim ``lead`` on (a leading slice's dims): the
+    means over a dim sharded on the mesh add the ranks' local sums."""
+
+    def __init__(self, p, lead: int = 0):
+        from torch.distributed.tensor import Shard
+
+        self.mesh = getattr(p, "device_mesh", None)
+        self.shape = tuple(p.shape[lead:])
+        self.dims = [[] for _ in self.shape] if self.mesh is None else [
+            [i for i, q in enumerate(p.placements) if q == Shard(d)]
+            for d in range(lead, p.ndim)]
+
+    def mean(self, t, dim: int, keepdim: bool = False,
+             leaf_dim: int | None = None):
+        """``t.mean(dim)``, ``t``'s dim ``dim`` being the leaf's dim
+        ``leaf_dim`` (``dim`` unless given; both counted from the end when
+        negative), over the whole of that dim."""
+        leaf_dim = dim if leaf_dim is None else leaf_dim
+        over = self.dims[leaf_dim]
+        if not over:
+            return t.mean(dim=dim, keepdim=keepdim)
+        from repro_torch.launch.mesh import all_reduce_raw
+
+        total = all_reduce_raw(t.sum(dim=dim, keepdim=keepdim), self.mesh,
+                               over)
+        return total.div_(self.shape[leaf_dim])
+
+    def mean_all(self, t):
+        """``t.mean()`` over the whole leaf."""
+        over = sorted({i for d in self.dims for i in d})
+        if not over:
+            return t.mean()
+        from repro_torch.launch.mesh import all_reduce_raw
+
+        n = 1
+        for x in self.shape:
+            n *= x
+        return all_reduce_raw(t.sum(), self.mesh, over).div_(n)
 
 
 # AdamW and SGD take a >= 3-D leaf a leading slice at a time only from this
@@ -108,12 +167,14 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads, state: AdamState, params, lr, grad_scale=None):
-        state.count.add_(1)
-        c = state.count.float()
+        count, lr = _local(state.count), _local(lr)
+        count.add_(1)
+        c = count.float()
         bc1 = 1.0 - torch.pow(b1, c)
         bc2 = 1.0 - torch.pow(b2, c)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
                               tree_leaves(state.nu), tree_leaves(params)):
+            g, m, v, p = (_local(t) for t in (g, m, v, p))
             for g, m, v, p in _slices(g, m, v, p, min_numel=_SLICE_NUMEL):
                 g32 = _grad32(g, grad_scale)
                 m32 = _moment(m, b1, torch.mul(g32, 1 - b1))
@@ -163,21 +224,21 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip: float = 1.0,
                            torch.zeros((), dtype=torch.int32,
                                        device=_device(params)))
 
-    def upd_one(g, vr, vc, p, beta, lr, scale):
+    def upd_one(g, vr, vc, p, beta, lr, scale, dims):
         g32 = _grad32(g, scale)
         g2 = torch.mul(g32, g32).add_(eps)
         if _factored(p):
-            vr = _moment(vr, beta, g2.mean(dim=-1).mul_(1 - beta))
-            vc = _moment(vc, beta, g2.mean(dim=-2).mul_(1 - beta))
+            vr = _moment(vr, beta, dims.mean(g2, -1).mul_(1 - beta))
+            vc = _moment(vc, beta, dims.mean(g2, -2).mul_(1 - beta))
             del g2
+            row = dims.mean(vr, -1, keepdim=True, leaf_dim=-2)
             denom = (vr[..., None] * vc[..., None, :]).div_(
-                vr.mean(dim=-1, keepdim=True)[..., None].clamp_min(eps)
-            ).sqrt_()
+                row[..., None].clamp_min(eps)).sqrt_()
         else:
             denom = _moment(vr, beta, g2.mul_(1 - beta)).sqrt()
         step = g32 / denom.clamp_min_(eps)
         del denom
-        rms = torch.sqrt(step.square().mean() + 1e-30)
+        rms = torch.sqrt(dims.mean_all(step.square()) + 1e-30)
         step.div_((rms / clip).clamp_min(1.0))
         if weight_decay:
             step.add_(p.float() * weight_decay)
@@ -185,14 +246,17 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30, clip: float = 1.0,
 
     @torch.no_grad()
     def update(grads, state: FactorState, params, lr, grad_scale=None):
-        state.count.add_(1)
-        beta = 1.0 - torch.pow(state.count.float(), -decay)
+        count, lr = _local(state.count), _local(lr)
+        count.add_(1)
+        beta = 1.0 - torch.pow(count.float(), -decay)
         for g, vr, vc, p in zip(tree_leaves(grads), tree_leaves(state.vr),
                                 tree_leaves(state.vc), tree_leaves(params)):
-            parts = _slices(g, vr, vc, p) if layer_chunked \
-                else [(g, vr, vc, p)]
+            chunked = layer_chunked and p.ndim >= 3
+            dims = _Dims(p, lead=1 if chunked else 0)
+            g, vr, vc, p = (_local(t) for t in (g, vr, vc, p))
+            parts = _slices(g, vr, vc, p) if chunked else [(g, vr, vc, p)]
             for part in parts:
-                upd_one(*part, beta, lr, grad_scale)
+                upd_one(*part, beta, lr, grad_scale, dims)
         return params, state
 
     return Optimizer("adafactor", init, update)
@@ -206,8 +270,10 @@ def sgd(momentum: float = 0.9) -> Optimizer:
 
     @torch.no_grad()
     def update(grads, state, params, lr, grad_scale=None):
+        lr = _local(lr)
         for g, m, p in zip(tree_leaves(grads), tree_leaves(state),
                            tree_leaves(params)):
+            g, m, p = (_local(t) for t in (g, m, p))
             for g, m, p in _slices(g, m, p, min_numel=_SLICE_NUMEL):
                 m.mul_(momentum).add_(_grad32(g, grad_scale))
                 _apply(p, m.clone(), lr)

@@ -14,6 +14,13 @@ microbatch's. The optimizer updates ``params`` and ``opt_state`` in place
 
 The JAX package's ``unroll_accum`` (unrolling XLA's scan over
 microbatches) has no meaning without a compiler and is not taken.
+
+Placed (``CellPlan.on_mesh``: DTensor parameters, optimizer state and a
+batch-sharded batch) the step is the JAX package's partitioned one: the
+microbatches are the JAX package's rows (``_split_placed``), every
+gradient comes back on its parameter's placements, the norm is summed
+over the ranks' shards and the optimizer updates each rank's local
+shards.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.distributed.sharding import is_placed
 from repro_torch.train.optimizer import Optimizer
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -30,10 +38,29 @@ def _split_batch(batch: dict, n: int) -> list[dict]:
         b = x.shape[0]
         if b % n:
             raise ValueError(f"batch {b} not divisible by accum {n}")
-        return x.split(b // n)
+        return _split_placed(x, n) if is_placed(x) else x.split(b // n)
 
     parts = {k: rows(v) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _split_placed(x, n: int) -> list:
+    """A batch-sharded DTensor cut into ``n`` microbatches as the JAX
+    package's ``reshape(n, B / n, ...)`` cuts it: microbatch i the global
+    rows ``[i B / n, (i + 1) B / n)``, each sharded as ``x`` is. The rows
+    are gathered over the batch's mesh dims once and each microbatch
+    sliced from them (no gradient: the batch holds token ids)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import from_local, redistribute
+
+    whole = redistribute(x, [Replicate() if p == Shard(0) else p
+                             for p in x.placements])
+    b = x.shape[0] // n
+    return [redistribute(from_local(part, x.device_mesh, whole.placements,
+                                    (b,) + tuple(x.shape[1:])),
+                         x.placements)
+            for part in whole.to_local().split(b)]
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -41,7 +68,14 @@ def value_and_grad(loss_fn, params, batch):
     loss in every floating leaf of ``params`` (zeros for a leaf the loss
     does not reach, as JAX gives). The leaves enter the graph as detached
     aliases, so the caller's tensors gather no ``.grad``. Returns (loss,
-    metrics, grads) detached, grads in ``tree_leaves(params)`` order."""
+    metrics, grads) detached, grads in ``tree_leaves(params)`` order.
+
+    Placed leaves (DTensors): each gradient comes back on its leaf's
+    placements (a partial one summed: all-reduced, or reduce-scattered
+    where the leaf is sharded), zeros a DTensor like the leaf; a placed
+    loss or metric is returned gathered, a plain tensor."""
+    from repro_torch.distributed.sharding import gathered, redistribute
+
     leaves = tree_leaves(params)
     req = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
     loss, metrics = loss_fn(tree_unflatten(params, req), batch)
@@ -50,18 +84,39 @@ def value_and_grad(loss_fn, params, batch):
     grads = []
     for r in req:
         g = next(got) if r.requires_grad else None
-        grads.append(torch.zeros_like(r) if g is None else g)
-    metrics = {k: (v.detach() if torch.is_tensor(v) else v)
+        if g is None:
+            g = torch.zeros_like(r)
+        elif is_placed(g) and tuple(g.placements) != tuple(r.placements):
+            with torch.no_grad():
+                g = redistribute(g, r.placements)
+        grads.append(g)
+    metrics = {k: (gathered(v.detach()) if torch.is_tensor(v) else v)
                for k, v in metrics.items()}
-    return loss.detach(), metrics, grads
+    return gathered(loss.detach()), metrics, grads
 
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32, without a squared
-    copy of any leaf."""
-    return torch.sqrt(sum(
-        torch.linalg.vector_norm(g, dtype=torch.float32).square()
-        for g in grads))
+    copy of any leaf. Placed leaves: each rank's local sums of squares,
+    grouped by the mesh dims that shard the leaf, each group's sum
+    all-reduced over those dims and the groups added in a fixed order, so
+    the norm is a plain tensor with the same bits on every rank."""
+    sq = [torch.linalg.vector_norm(
+        g.to_local() if is_placed(g) else g, dtype=torch.float32).square()
+        for g in grads]
+    placed = [g for g in grads if is_placed(g)]
+    if not placed:
+        return torch.sqrt(sum(sq))
+    from repro_torch.launch.mesh import all_reduce_raw
+
+    groups: dict = {}
+    for g, s in zip(grads, sq):
+        key = tuple(i for i, p in enumerate(g.placements) if p.is_shard()) \
+            if is_placed(g) else ()
+        groups[key] = groups[key] + s if key in groups else s
+    mesh = placed[0].device_mesh
+    return torch.sqrt(sum(all_reduce_raw(groups[k], mesh, k)
+                          for k in sorted(groups)))
 
 
 def make_train_step(
