@@ -352,7 +352,33 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    the partial and merge entries at a rank's 16,384 rows, each held to
    its plain version and timed beside its bound (the prefill also beside
    SDPA). Prefill ms, decode p50, peak GB and launches a rank printed as
-   ranks sharing one card. Beside the group, a 1-rank ``nccl`` group on a 1-shard session over 3,000 nodes /
+   ranks sharing one card. Then, in the same ranks and on the same mesh,
+   the MoE serve cells placed: dbrx-132b at its published widths (d
+   6,144, 48 / 8 heads, d_ff 10,752, 16 experts top-4, vocab 100,352), 1
+   of its 40 layers drawn at the full depth's scale from phase 10's seed,
+   a leaf at a time (a rank: 8 experts, batch 4, 24 q heads, 4 kv heads;
+   router and experts gathered over ``data`` at each use, the sort
+   dispatch's expert outputs all-gathered over ``model``): the prefill of
+   8 x 2,048, one greedy step, and a B = 1 decode against the same
+   32,768 rows at live length 24,575, counted and timed with every flash
+   call held on the rank's own activations, each routing of the rank's
+   rows taped. In the parent afterwards, the ranks' routing (equal on the
+   ranks that hold the same rows) replayed into every one-card run of the
+   same script (the kernels, ``blocked_attention``, the floor's
+   attention, and ``blocked_attention`` with the attention's out product
+   split as the ranks split it), so no comparison crosses a top-k flip:
+   every rank's logits bit-equal across ranks and within the serve bar of
+   the one-card kernel run's, its launches the script's; the routing
+   itself held by a run that cannot inherit it: the one-card kernel run
+   with the out product split and its own routing must route the prefill
+   as the ranks did, assignment for assignment (that run's prefill is the
+   ranks' bit for bit); the assignments the one-card run's own routing
+   picks otherwise printed (a witness, no bar); then the flash prefill at
+   a rank's local shapes (B 4, Hq 24, Hkv 4, d 128) and the partial and
+   merge entries at a rank's 16,384 rows at d 128, each held to its plain
+   version and timed beside its bound (the partial's device time with L2
+   flushed before each call). Beside the group, a 1-rank ``nccl`` group on
+   a 1-shard session over 3,000 nodes /
    20,000 edges, its stacked-entry launches above 0 and its answers
    bit-equal to the same session without a group. Then, in the same ranks
    and on the same mesh, granite-3-2b's ``train_4k`` step placed on it
@@ -2741,6 +2767,27 @@ GROUP_LM_LONG = (32_768, (24_575, 12_000))
 # bf16 inputs, sums in another order): m in log2 units, l and acc relative
 # to their row's largest
 PARTIAL_RTOL = 1e-4
+# phase 14's placed dbrx-132b: the MoE serve cells on the same mesh (its
+# published widths, GROUP_MOE_LAYERS of its 40 layers each drawn at the full
+# depth's scale, phase 10's seed): the prefill of the LM_BATCH x LM_PROMPT
+# prompts, GROUP_MOE_GEN greedy steps, then the B = 1 decode against
+# GROUP_LM_LONG's rows at GROUP_MOE_LONG's live lengths
+GROUP_MOE_ARCH = "dbrx-132b"
+GROUP_MOE_LAYERS = 1
+GROUP_MOE_GEN = 1
+GROUP_MOE_LONG = (24_575,)
+# phase 14's placed serve parts, by the key of their results: the arch, its
+# layers, greedy steps and B = 1 live lengths; whether a held run of its own
+# comes before the counted one (``warm``) or the counted run is the held
+# one; the seed of the kernel rows at a rank's local shapes and the suffix
+# of their names
+GROUP_SERVE = {
+    "lm": dict(arch="granite-3-2b", layers=GROUP_LM_LAYERS, gen=GROUP_LM_GEN,
+               long=GROUP_LM_LONG[1], warm=True, seed=LM_SEED + 15,
+               suffix=""),
+    "moe": dict(arch=GROUP_MOE_ARCH, layers=GROUP_MOE_LAYERS,
+                gen=GROUP_MOE_GEN, long=GROUP_MOE_LONG, warm=False,
+                seed=LM_SEED + 16, suffix="_d128")}
 # phase 14's placed train step: granite-3-2b's train_4k on the same mesh
 # (its widths, GROUP_LM_LAYERS of 40 layers, the global batch of 256 cut
 # to GROUP_TRAIN_BATCH: accum 4, microbatches of 2 rows, 1 a data rank)
@@ -2991,7 +3038,8 @@ def group_rank(rank: int, world: int, backend: str, work: str) -> None:
             for name, fail in (("fault", GROUP_DRIVER_FAIL), ("clean", ()))}
         out["reshard"] = group_reshard(torch, plan, device)
         out["nequip"] = nequip_rank(torch, rank, device)
-        out["lm"] = lm_rank(torch, rank, device)
+        for part in GROUP_SERVE:
+            out[part] = serve_rank(torch, rank, device, part)
         out["lm_train"] = lm_train_rank(torch, rank, device, work)
         out.update(rank=rank, device=str(meshes[0].device),
                    comm=str(meshes[0].comm), backend=meshes[0].backend,
@@ -3405,10 +3453,11 @@ def group_lm_cfg():
     return dataclasses.replace(granite_3_2b.CFG, n_layers=GROUP_LM_LAYERS)
 
 
-def group_lm_params(torch, cfg, device, mesh=None):
-    """Phase 4's parameters (LM_SEED, each layer at the full depth's
-    scale, cast for serving) at ``cfg``'s depth: on one device, or placed
-    on ``mesh`` a leaf at a time, each rank keeping its shard."""
+def group_lm_params(torch, cfg, device, mesh=None, depth=None):
+    """Phase 4's parameters (LM_SEED, each layer at the scale of ``depth``
+    layers, granite-3-2b's 40 unless given, cast for serving) at ``cfg``'s
+    depth: on one device, or placed on ``mesh`` a leaf at a time, each
+    rank keeping its shard."""
     from repro_torch.configs import granite_3_2b
     from repro_torch.distributed.sharding import place
     from repro_torch.models import transformer as T
@@ -3416,7 +3465,7 @@ def group_lm_params(torch, cfg, device, mesh=None):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(LM_SEED)
-    depth = granite_3_2b.CFG.n_layers
+    depth = depth or granite_3_2b.CFG.n_layers
     if mesh is None:
         return T.serving_params(init_from_specs(T.param_specs(cfg), gen,
                                                 depth=depth), cfg)
@@ -3446,13 +3495,13 @@ def group_lm_inputs(torch, cfg, device):
 
 def lm_serve_run(torch, params, cfg, inputs, *, mesh=None, attention=None,
                  forced=None, n_gen=GROUP_LM_GEN,
-                 long_attention=None) -> dict:
+                 long_attention=None, long_lengths=GROUP_LM_LONG[1]) -> dict:
     """Phase 14's serve script on one device, or placed on ``mesh`` (the
     arguments by the cells' logical axes, the steps under
     ``activation_sharding``): the prefill of the prompts, ``n_gen`` greedy
     decode steps (``forced`` tokens instead where given) against a cache
     grown to the prompt plus ``n_gen`` rows, then the B = 1 decode against
-    GROUP_LM_LONG's cache at each of its live lengths in turn (through
+    GROUP_LM_LONG's cache at each of ``long_lengths`` in turn (through
     ``long_attention`` where given, else ``attention``). Every logits
     gathered to the host; host ms of each part (after a synchronize)."""
     from torch.distributed.tensor import Replicate
@@ -3529,7 +3578,7 @@ def lm_serve_run(torch, params, cfg, inputs, *, mesh=None, attention=None,
         cache = put(long_cache, (CACHE_AXES, CACHE_AXES))
         out["long_placements"] = None if mesh is None else [
             repr(p) for p in cache[0].placements]
-        for n in GROUP_LM_LONG[1]:
+        for n in long_lengths:
             (lg, _, _), ms = timed(lambda: T.decode_step(
                 params, cache, put(tok1, ("batch",)),
                 put(torch.tensor([n], dtype=torch.int32, device=dev),
@@ -3577,47 +3626,77 @@ def split_rows(torch, pieces: int):
     return product
 
 
-def lm_rank(torch, rank: int, device) -> dict:
-    """Phase 14's placed granite-3-2b in one rank of the running group: a
-    (data, model) DeviceMesh of GROUP_LM_MESH over the ranks, the
-    parameters drawn a leaf at a time from phase 4's seed (the rank keeps
-    its shard); ``lm_serve_run`` once with every flash call held on this
-    rank's own activations (``checked_flash``, one decode step; it also
-    warms the path), then once counted (every count set to 0 just before)
-    and timed."""
+def group_serve_cfg(part: str):
+    """Phase 14's placed serve part ``part`` (GROUP_SERVE): (its arch's
+    published widths at the part's layers, the arch's full depth)."""
+    from repro_torch.configs import get_arch
+
+    spec = GROUP_SERVE[part]
+    full = get_arch(spec["arch"]).CFG
+    return dataclasses.replace(full, n_layers=spec["layers"]), \
+        full.n_layers
+
+
+def serve_rank(torch, rank: int, device, part: str) -> dict:
+    """Phase 14's placed serve part ``part`` (GROUP_SERVE) in one rank of
+    the running group: a (data, model) DeviceMesh of GROUP_LM_MESH over
+    the ranks, the parameters drawn a leaf at a time from LM_SEED at the
+    full depth's scale (the rank keeps its shard); ``lm_serve_run`` once
+    counted (every count set to 0 just before) and timed, its collectives
+    counted by kind (``counted_collectives``), every routing of this
+    rank's rows taped (``routing_tape``; a dense model routes none) for
+    the parent to replay. Every flash call is held on this rank's own
+    activations (``checked_flash``): in a run of its own before the
+    counted one (one decode step; it also warms the path) where the part
+    is ``warm``, else in the counted run itself (a dbrx run is seconds of
+    host staging a rank, the checks milliseconds)."""
     from repro_torch.distributed.sharding import MeshShape
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import transformer as T
 
     t_part = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = group_lm_cfg()
+    spec = GROUP_SERVE[part]
+    cfg, depth = group_serve_cfg(part)
     mesh = make_device_mesh(MeshShape(("data", "model"), GROUP_LM_MESH),
                             device_type=torch.device(device).type)
     t0 = time.perf_counter()
-    params = group_lm_params(torch, cfg, device, mesh)
+    params = group_lm_params(torch, cfg, device, mesh, depth=depth)
     device_sync(torch)
     place_s = time.perf_counter() - t0
-    calls = []
-    t0 = time.perf_counter()
-    with checked_flash(torch, calls):
-        lm_serve_run(torch, params, cfg, group_lm_inputs(torch, cfg, device),
-                     mesh=mesh, n_gen=1)
-    held_s = time.perf_counter() - t0
+    place_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kw = dict(mesh=mesh, n_gen=spec["gen"], long_lengths=spec["long"])
+    calls, held_s = [], 0.0
+    if spec["warm"]:
+        t0 = time.perf_counter()
+        with checked_flash(torch, calls):
+            lm_serve_run(torch, params, cfg,
+                         group_lm_inputs(torch, cfg, device),
+                         **dict(kw, n_gen=1))
+        held_s = time.perf_counter() - t0
+    held = contextlib.nullcontext() if spec["warm"] \
+        else checked_flash(torch, calls)
+    tape, coll = [], {}
     torch.cuda.reset_peak_memory_stats()
     flash.reset_launches()
     t0 = time.perf_counter()
-    run = lm_serve_run(torch, params, cfg,
-                       group_lm_inputs(torch, cfg, device), mesh=mesh)
-    launches = dict(flash.LAUNCHES)
-    run.update(run_s=time.perf_counter() - t0, launches=launches,
+    with routing_tape(T, tape, replay=False), \
+            counted_collectives(torch, coll), held:
+        run = lm_serve_run(torch, params, cfg,
+                           group_lm_inputs(torch, cfg, device), **kw)
+    run.update(run_s=time.perf_counter() - t0, launches=dict(flash.LAUNCHES),
+               tape=[t.cpu() for t in tape], collectives=coll,
                calls=calls_summary(calls), n_calls=len(calls),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               place_s=place_s, held_s=held_s,
-               coord=list(mesh.get_coordinate()),
-               seconds=time.perf_counter() - t_part)
+               place_peak_gb=place_peak_gb, place_s=place_s, held_s=held_s,
+               coord=list(mesh.get_coordinate()))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run["seconds"] = time.perf_counter() - t_part
     return run
 
 
@@ -3626,7 +3705,10 @@ def partial_row(torch, rnd, Hq, Hkv, S, d, n) -> dict:
     Hq, d) against (1, Hkv, S, d) rows of which ``n`` live, held to its
     plain version (``partial_check``), bit-equal on a rerun; kernel and
     plain times beside the bound (no library call computes the partial
-    state)."""
+    state). Its device time with L2 flushed before each call: a rank's K
+    and V (16.8 MB at d 64, 33.5 MB at d 128) fit in the H100's 50 MB L2,
+    so back-to-back calls read them from there (kept as
+    ``device_warm_ms``), below the bound's HBM rate."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     q, k, v = rnd(1, Hq, d), rnd(1, Hkv, S, d), rnd(1, Hkv, S, d)
@@ -3641,17 +3723,26 @@ def partial_row(torch, rnd, Hq, Hkv, S, d, n) -> dict:
     k_ms = cuda_ms(torch, lambda: ops.flash_decode_partial(q, k, v, lens))
     p_ms = cuda_ms(torch, lambda: ref.decode_partial_ref(q, k, v, lens),
                    reps=5)
-    k_dev = device_ms(torch, lambda: ops.flash_decode_partial(q, k, v,
-                                                             lens))
+    def call():
+        return ops.flash_decode_partial(q, k, v, lens)
+
+    warm = device_ms(torch, call)
+    # two kernels a call: the chunks' partials and their merge
+    reps = 20
+    cold, cold_n = profiled_ms(torch, call, "flash_decode", DEVICE, reps,
+                               cold=True)
     b_ms, b_by = bound_of_work(ops.decode_partial_cost(1, Hq, Hkv, d, n, 2))
     print(f"  flash decode partial B=1 Hq={Hq} Hkv={Hkv} rows={S} d={d} "
           f"bf16, {n} live: m err {m['m_err']:.3g}, l {m['l_rel']:.3g}, acc "
           f"{m['max_abs_err']:.3g} (relative) vs fp32 plain; kernel "
-          f"{k_ms:.4f} ms (device {k_dev:.4f}), plain {p_ms:.4f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by})", flush=True)
+          f"{k_ms:.4f} ms (device, L2 flushed before each call "
+          f"{ms_or_not(cold)} from {cold_n} of {2 * reps} records; back to "
+          f"back {warm:.5f}), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by})", flush=True)
     return dict(B=1, Hq=Hq, Hkv=Hkv, S=S, d=d, live=n, dtype="bf16",
                 max_abs_err=m["max_abs_err"], ms=k_ms, plain_ms=p_ms,
-                library_ms=None, device_ms=k_dev, bound_ms=b_ms,
+                library_ms=None, device_ms=cold, device_warm_ms=warm,
+                cold_records=cold_n, records_wanted=2 * reps, bound_ms=b_ms,
                 bound_by=b_by, parts=(got, want))
 
 
@@ -3687,22 +3778,62 @@ def merge_row(torch, parts) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_group_lm(torch, ranks: list, backend: str) -> dict:
-    """Phase 14's placed LM part in the parent, after the ranks ended: the
-    one-card runs of the same script on the same parameters and inputs,
-    teacher-forced on rank 0's greedy tokens (the flash kernels, the JAX
-    package's ``blocked_attention``, the floor's exact plain attention in
-    another order: the kernels' plain version a batch row at a time, and
-    at the B = 1 decodes ``split_attention`` over the ranks' row ranges;
-    and ``blocked_attention`` with the row-parallel products split as the
-    ranks split them, ``split_rows``, each logits' floor the larger of the
-    two; and, as a witness, the kernels with those products split);
-    every rank's logits required within
-    the serve bar (``check_lm_logits``) of the one-card kernel run's, the
-    same on every rank bit for bit, its launch counts the script's;
-    then the flash kernels at a rank's local shapes: the prefill (B 4, Hq
-    16, Hkv 4) and the decode's partial and merge entries at a rank's
-    16,384 rows."""
+def group_tape(torch, rk: list, cfg, spec) -> list:
+    """The routing of every call of phase 14's serve script over the whole
+    batch, from the ranks' tapes: the rows of the ranks at each data
+    coordinate in order, or where a rank routed every row (the B = 1
+    decode) its own; [] for a dense model. Raises where two ranks holding
+    the same rows routed them differently."""
+    L = cfg.n_layers if cfg.is_moe else 0
+    batch = [LM_BATCH] * (L * (1 + spec["gen"])) \
+        + [1] * (L * len(spec["long"]))
+    by_rows = {}
+    for r, run in enumerate(rk):
+        first, tape = by_rows.setdefault(run["coord"][0], (r, run["tape"]))
+        if len(run["tape"]) != len(batch):
+            raise AssertionError(f"14 {cfg.name} rank {r}: "
+                                 f"{len(run['tape'])} routings, want "
+                                 f"{len(batch)}")
+        for i, (a, b) in enumerate(zip(run["tape"], tape)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"14 {cfg.name}: rank {r} routed call "
+                                     f"{i} otherwise than rank {first}, "
+                                     f"which holds the same rows")
+    out = []
+    for i, b in enumerate(batch):
+        parts = [by_rows[d][1][i] for d in sorted(by_rows)]
+        out.append(parts[0] if parts[0].shape[0] == b else torch.cat(parts))
+        if out[-1].shape[0] != b:
+            raise AssertionError(f"14 {cfg.name}: call {i} routed "
+                                 f"{out[-1].shape[0]} rows, want {b}")
+    return out
+
+
+def phase_group_serve(torch, ranks: list, backend: str, part: str) -> dict:
+    """Phase 14's placed serve part ``part`` (GROUP_SERVE) in the parent,
+    after the ranks ended: the one-card runs of the same script on the
+    same parameters and inputs, teacher-forced on rank 0's greedy tokens
+    and replaying the ranks' routing (``group_tape``: an MoE comparison
+    never crosses a top-k flip): the flash kernels, the JAX package's
+    ``blocked_attention``, the floor's exact plain attention in another
+    order (the kernels' plain version a batch row at a time, and at the
+    B = 1 decodes ``split_attention`` over the ranks' row ranges); and
+    ``blocked_attention`` with the row-parallel products split as the
+    ranks split them (``split_rows``; for an MoE arch, whose expert
+    outputs are gathered, not summed, the attention's out product alone),
+    each logits' floor the larger of the two; and, as a witness, the
+    kernels with those products split. Every rank's logits required
+    within the serve bar (``check_lm_logits``) of the one-card kernel
+    run's, the same on every rank bit for bit, its launch counts the
+    script's, its flash calls held. An MoE arch's routing is held by a
+    run that cannot take it from the ranks: the kernels with the products
+    split and their own routing (that run's prefill is the ranks' bit for
+    bit) must route the prefill as the ranks did, assignment for
+    assignment; the assignments it and the unsplit kernel run pick
+    otherwise over the whole script are printed (witnesses, no bar). Then
+    the flash kernels at a rank's local shapes: the prefill and the
+    decode's partial and merge entries at a rank's rows of the B = 1
+    cache."""
     from unittest import mock
 
     from repro_torch.kernels.flash_attention import ref
@@ -3710,40 +3841,68 @@ def phase_group_lm(torch, ranks: list, backend: str) -> dict:
     from repro_torch.models.common import blocked_attention
 
     t_parent = time.perf_counter()
-    cfg = group_lm_cfg()
+    spec = GROUP_SERVE[part]
+    cfg, depth = group_serve_cfg(part)
     dev = torch.device(DEVICE)
-    params = group_lm_params(torch, cfg, dev)
-    rk = [r["lm"] for r in ranks]
+    rk = [r[part] for r in ranks]
+    tape = [t.to(dev) for t in group_tape(torch, rk, cfg, spec)]
+    params = group_lm_params(torch, cfg, dev, depth=depth)
     forced = [t.to(dev) for t in rk[0]["tokens"]]
 
-    def serve(attention, long=None, split=False):
+    def serve(attention, long=None, split=False, free=None):
         rows = mock.patch.object(T, "_row_product",
                                  split_rows(torch, GROUP_LM_MESH[1])) \
             if split else contextlib.nullcontext()
-        with rows:
+        route = routing_tape(T, tape, replay=True) if free is None \
+            else routing_tape(T, free, replay=False)
+        with rows, route:
             return lm_serve_run(torch, params, cfg,
                                 group_lm_inputs(torch, cfg, dev),
                                 attention=attention, forced=forced,
-                                long_attention=long)
+                                n_gen=spec["gen"], long_attention=long,
+                                long_lengths=spec["long"])
 
     one, plain = serve(None), serve(blocked_attention)
     floor = serve(per_row(torch, ref.attention_ref),
                   split_attention(torch, GROUP_LM_MESH[0]))
     plain_split = serve(blocked_attention, split=True)
     one_split = serve(None, split=True)
+    L = cfg.n_layers
+    routing = None
+    if cfg.is_moe:
+        free, free_split = [], []
+        serve(None, free=free)
+        serve(None, split=True, free=free_split)
+        moved = [i for i in range(L)
+                 if not torch.equal(free_split[i], tape[i])]
+        if moved:
+            raise AssertionError(
+                f"14 {part}: one card with the products split and its own "
+                f"routing routes the prefill's layers {moved} otherwise "
+                f"than the ranks did")
+
+        def flips(got):
+            return sum(int((a != b).sum()) for a, b in zip(got, tape))
+
+        routing = dict(assignments=sum(t.numel() for t in tape),
+                       prefill_assignments=sum(t.numel() for t in tape[:L]),
+                       free_flips=flips(free),
+                       split_free_flips=flips(free_split))
+        del free, free_split
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
     def logits(run):
-        return dict(prefill=run["prefill_logits"],
-                    first_step=run["step_logits"][0],
-                    last_step=run["step_logits"][-1],
-                    **{f"b1_len{n}": x for n, x in zip(GROUP_LM_LONG[1],
-                                                       run["long_logits"])})
+        out = dict(prefill=run["prefill_logits"],
+                   first_step=run["step_logits"][0])
+        if spec["gen"] > 1:
+            out["last_step"] = run["step_logits"][-1]
+        out.update({f"b1_len{n}": x for n, x in zip(spec["long"],
+                                                    run["long_logits"])})
+        return out
 
-    want, p_l = logits(one), logits(plain)
-    witness = logits(one_split)
+    want, p_l, witness = logits(one), logits(plain), logits(one_split)
     # the floor: the plain path against itself with the attention's sums in
     # another exact order, and with the row-parallel products reassociated
     # as the ranks reassociate them; each logits takes the larger
@@ -3753,21 +3912,20 @@ def phase_group_lm(torch, ranks: list, backend: str) -> dict:
                   for k, x in logits(plain_split).items()}
     floors = {k: {m: max(attn_floor[k][m], rows_floor[k][m])
                   for m in ("max_rel", "l2_rel")} for k in want}
-    L = cfg.n_layers
-    n_long = len(GROUP_LM_LONG[1])
-    need = dict(prefill=L, prefill_wgmma=L, decode=L * GROUP_LM_GEN,
+    n_long = len(spec["long"])
+    need = dict(prefill=L, prefill_wgmma=L, decode=L * spec["gen"],
                 decode_partial=L * n_long, decode_merge=L * n_long)
     bars = {}
     for r, run in enumerate(rk):
         got = logits(run)
         for k, x in got.items():
             if not torch.isfinite(x).all():
-                raise AssertionError(f"14 lm rank {r}: non-finite {k} "
+                raise AssertionError(f"14 {part} rank {r}: non-finite {k} "
                                      f"logits")
             if not torch.equal(x, logits(rk[0])[k]):
-                raise AssertionError(f"14 lm rank {r}: {k} logits differ "
-                                     f"from rank 0's")
-        lm = dict(arch=f"granite-3-2b placed, rank {r}",
+                raise AssertionError(f"14 {part} rank {r}: {k} logits "
+                                     f"differ from rank 0's")
+        lm = dict(arch=f"{spec['arch']} placed, rank {r}",
                   logits_vs_plain={k: lm_compare(torch, got[k], want[k])
                                    for k in want},
                   logits_floor=floors,
@@ -3776,15 +3934,15 @@ def phase_group_lm(torch, ranks: list, backend: str) -> dict:
         check_lm_logits(lm)
         bars[r] = lm
         if run["launches"] != need:
-            raise AssertionError(f"14 lm rank {r}: launches "
+            raise AssertionError(f"14 {part} rank {r}: launches "
                                  f"{run['launches']}, want {need}")
         if not run["calls"].get("decode_partial") or \
                 not run["calls"].get("prefill"):
-            raise AssertionError(f"14 lm rank {r}: held calls "
+            raise AssertionError(f"14 {part} rank {r}: held calls "
                                  f"{run['calls']}")
     # the kernels at a rank's local shapes
     gen = torch.Generator(device=dev)
-    gen.manual_seed(LM_SEED + 15)
+    gen.manual_seed(spec["seed"])
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(
@@ -3805,88 +3963,117 @@ def phase_group_lm(torch, ranks: list, backend: str) -> dict:
     rows["decode_merge"] = merge_row(torch, torch.stack([got_p, second]))
     del want_p
     parent_s = time.perf_counter() - t_parent
+    ranks_s = max(run["seconds"] for run in rk)
     how = ("ranks sharing one card over gloo, not a multi-card speed"
            if backend == "gloo" else "one card a rank over nccl")
-    r0 = rk[0]
-    print(f"14 lm: granite-3-2b at its published widths, {L} of 40 layers, "
-          f"placed on a {GROUP_LM_MESH} (data, model) mesh of the "
-          f"{len(rk)} ranks ({how}): prefill {LM_BATCH} x {LM_PROMPT} "
-          f"(a rank: batch {LM_BATCH // GROUP_LM_MESH[0]}, {Hq} q heads, "
-          f"{Hkv} kv heads), {GROUP_LM_GEN} greedy steps, then B = 1 "
-          f"decodes against {GROUP_LM_LONG[0]} rows (placements "
-          f"{r0['long_placements']}: {rows_local} rows a rank) at "
-          f"lengths {GROUP_LM_LONG[1]}", flush=True)
+    C = T._capacity_sort(cfg, LM_PROMPT) if cfg.is_moe else None
+    moe = (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.is_moe
+           else "")
+    print(f"14 {part}: {spec['arch']} at its published widths (d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}{moe}, vocab {cfg.vocab}), {L} "
+          f"of {depth} layers, placed on a {GROUP_LM_MESH} (data, model) "
+          f"mesh of the {len(rk)} ranks ({how}; a rank: "
+          + (f"{cfg.n_experts // GROUP_LM_MESH[1]} experts, " if cfg.is_moe
+             else "")
+          + f"batch {LM_BATCH // GROUP_LM_MESH[0]}, {Hq} q heads, {Hkv} kv "
+          f"heads): prefill {LM_BATCH} x {LM_PROMPT}"
+          + (f" (capacity {C} a row and expert)" if cfg.is_moe else "")
+          + f", {spec['gen']} greedy step(s), then B = 1 decodes against "
+          f"{GROUP_LM_LONG[0]} rows (placements {rk[0]['long_placements']}: "
+          f"{rows_local} rows a rank) at lengths {spec['long']}", flush=True)
     for r, run in enumerate(rk):
-        print(f"14 lm rank {r} {run['coord']}: prefill "
-              f"{run['prefill_ms']:.1f} ms, decode p50 "
-              f"{float(np.median(run['step_ms'])):.1f} ms (steps "
-              f"{[round(x, 1) for x in run['step_ms']]}), B = 1 decodes "
+        coll = run["collectives"]
+        print(f"14 {part} rank {r} {run['coord']}: prefill "
+              f"{run['prefill_ms']:.1f} ms, decode steps "
+              f"{[round(x, 1) for x in run['step_ms']]} ms, B = 1 decodes "
               f"{[round(x, 1) for x in run['long_ms']]} ms; peak "
-              f"{run['peak_gb']:.3f} GB; launches {run['launches']}; held "
-              f"calls {run['calls']}; seconds: place "
-              f"{run['place_s']:.1f}, held run {run['held_s']:.1f}, counted "
-              f"run {run['run_s']:.1f}, part {run['seconds']:.1f}",
-              flush=True)
-    print(f"14 lm: logits of every rank bit-equal; against one card "
-          f"(prefill {one['prefill_ms']:.1f} ms, decode p50 "
-          f"{float(np.median(one['step_ms'])):.1f} ms): "
+              f"{run['peak_gb']:.3f} GB (placing {run['place_peak_gb']:.3f}"
+              f"); launches {run['launches']}; held calls {run['calls']}; "
+              f"collectives of the counted run (GB by kind) "
+              f"{ {k: round(c['bytes'] / 1e9, 4) for k, c in coll.items()} }; "
+              f"seconds: place {run['place_s']:.1f}, held run "
+              f"{run['held_s']:.1f}, counted run {run['run_s']:.1f}, part "
+              f"{run['seconds']:.1f}", flush=True)
+    if routing:
+        print(f"14 {part}: routing replayed into every one-card run; one "
+              f"card with the products split and its own routing routes the "
+              f"prefill's {routing['prefill_assignments']} assignments as "
+              f"the ranks did, and picks {routing['split_free_flips']} of "
+              f"the script's {routing['assignments']} otherwise; unsplit, "
+              f"{routing['free_flips']}", flush=True)
+    print(f"14 {part}: logits of every rank bit-equal; against one card "
+          f"(prefill {one['prefill_ms']:.1f} ms, decode steps "
+          f"{[round(x, 1) for x in one['step_ms']]} ms, B = 1 "
+          f"{[round(x, 1) for x in one['long_ms']]} ms): "
           f"{fmt_logits(bars[0]['logits_vs_plain'])}; floor "
           f"{fmt_logits(bars[0]['logits_floor'])} (attention "
           f"{fmt_logits(attn_floor)}; split products "
           f"{fmt_logits(rows_floor)}); against one card with the products "
           f"split as the ranks split them: "
-          f"{fmt_logits(bars[0]['logits_vs_split'])}; parent "
-          f"{parent_s:.1f} s", flush=True)
+          f"{fmt_logits(bars[0]['logits_vs_split'])}; ranks {ranks_s:.1f} "
+          f"s, parent {parent_s:.1f} s", flush=True)
     return dict(
-        cfg=dict(n_layers=L, mesh=list(GROUP_LM_MESH), batch=LM_BATCH,
-                 prompt=LM_PROMPT, gen=GROUP_LM_GEN,
-                 long=[GROUP_LM_LONG[0], list(GROUP_LM_LONG[1])]),
+        arch=spec["arch"], suffix=spec["suffix"],
+        cfg=dict(n_layers=L, depth=depth, mesh=list(GROUP_LM_MESH),
+                 batch=LM_BATCH, prompt=LM_PROMPT, gen=spec["gen"],
+                 capacity=C, long=[GROUP_LM_LONG[0], list(spec["long"])]),
         per_rank=[dict(coord=run["coord"], prefill_ms=run["prefill_ms"],
                        decode_p50_ms=float(np.median(run["step_ms"])),
                        step_ms=run["step_ms"], long_ms=run["long_ms"],
-                       peak_gb=run["peak_gb"], launches=run["launches"],
-                       calls=run["calls"], place_s=run["place_s"],
-                       held_s=run["held_s"], run_s=run["run_s"],
-                       seconds=run["seconds"]) for run in rk],
+                       peak_gb=run["peak_gb"],
+                       place_peak_gb=run["place_peak_gb"],
+                       launches=run["launches"], calls=run["calls"],
+                       collectives=run["collectives"],
+                       place_s=run["place_s"], held_s=run["held_s"],
+                       run_s=run["run_s"], seconds=run["seconds"])
+                  for run in rk],
         one_card=dict(prefill_ms=one["prefill_ms"],
                       decode_p50_ms=float(np.median(one["step_ms"])),
-                      long_ms=one["long_ms"]),
+                      step_ms=one["step_ms"], long_ms=one["long_ms"]),
+        routing=routing,
         logits_vs_one_card=bars[0]["logits_vs_plain"],
         logits_floor=bars[0]["logits_floor"], attention_floor=attn_floor,
         split_products_floor=rows_floor,
         logits_vs_split_one_card=bars[0]["logits_vs_split"],
-        long_placements=r0["long_placements"], rows=rows, errs=errs,
-        parent_s=parent_s, how=how)
+        long_placements=rk[0]["long_placements"], rows=rows, errs=errs,
+        ranks_s=ranks_s, parent_s=parent_s, seconds=ranks_s + parent_s,
+        how=how)
 
 
-def group_lm_kernel_rows(glm: dict) -> list:
-    """The kernels line's entries of phase 14's placed LM cells: the flash
-    kernels at a rank's local shapes (prefill B 4 / Hq 16 / Hkv 4; the
-    decode partial at 16,384 rows a rank and the merge of two ranks'
-    partials), timed in the parent; launches from rank 0's counted run
-    (every rank's checked there)."""
+def group_serve_kernel_rows(g: dict) -> list:
+    """The kernels line's entries of a phase 14 placed serve part: the
+    flash kernels at a rank's local shapes (the prefill; the decode
+    partial at a rank's rows of the B = 1 cache, its device time with L2
+    flushed before each call, and the merge of two ranks' partials),
+    timed in the parent; launches from rank 0's counted run (every rank's
+    checked there)."""
     rows = []
     for name, key, count in (
             ("flash_attention_group_rank", "prefill", "prefill_wgmma"),
             ("flash_decode_partial", "decode_partial", "decode_partial"),
             ("flash_decode_merge", "decode_merge", "decode_merge")):
-        row = glm["rows"][key]
+        row = g["rows"][key]
         rows.append(dict(
-            name=name, route="cuda", source=FLASH_SOURCE,
+            name=name + g["suffix"], route="cuda", source=FLASH_SOURCE,
             replaces=FLASH_REPLACES, design=DESIGNS[key],
-            launches=glm["per_rank"][0]["launches"][count],
+            launches=g["per_rank"][0]["launches"][count],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             device_ms=row["device_ms"],
             library_device_ms=row.get("library_device_ms"),
+            device_warm_ms=row.get("device_warm_ms"),
             shape={k: row[k] for k in ("B", "Hq", "Hkv", "S", "d", "R")
                    if k in row},
-            note="4 gloo ranks sharing one card on a (2, 2) (data, model) "
-                 "mesh; " + ("a rank's local heads of the placed prefill; "
-                             "library: SDPA" if key == "prefill" else
-                             "no library call computes a partial state or "
-                             "its merge")))
+            note=f"{g['arch']} on a {tuple(g['cfg']['mesh'])} (data, "
+                 f"model) mesh ({g['how']}); " + (
+                     "a rank's local heads of the placed prefill; library: "
+                     "SDPA" if key == "prefill" else
+                     "device time with L2 flushed before each call (warm: "
+                     "device_warm_ms); no library call computes a partial "
+                     "state" if key == "decode_partial" else
+                     "no library call computes a merge of partials")))
     return rows
 
 
@@ -4436,7 +4623,8 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
     # ended: the card is the parent's)
     nq = phase_group_nequip(torch, ranks, backend)
     # the placed LM cells over the same ranks against one card
-    lm = phase_group_lm(torch, ranks, backend)
+    serve = {part: phase_group_serve(torch, ranks, backend, part)
+             for part in GROUP_SERVE}
     t0 = time.perf_counter()
     lm_train = phase_group_lm_train(torch, ranks, backend, work, train_ref)
     del train_ref
@@ -4486,7 +4674,7 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
                       read_p50_ms=float(np.median(ref["r_ms"]))),
         nccl=dict(device=g["device"], launches={
             k: g["launches"][k] for k in stacked_keys}),
-        streams=streams, nequip=nq, lm=lm, lm_train=lm_train)
+        streams=streams, nequip=nq, lm_train=lm_train, **serve)
 
 
 def group_stream_check(ranks: list, ref: dict, r2_want) -> dict:
@@ -8418,6 +8606,10 @@ def main(argv=None) -> int:
     report["shards"] = shards
 
     mark("8 shards (14 inside)")
+    seconds_by_phase["14 group (in 8)"] = shards["group"]["seconds"]
+    for part in GROUP_SERVE:
+        seconds_by_phase[f"14 {GROUP_SERVE[part]['arch']} serve part "
+                         f"(in 14)"] = shards["group"][part]["seconds"]
     # ---- 9. bf16 edge values on phase 3's overlay and decisions
     t0 = time.perf_counter()
     bf16 = phase_bf16(torch, ops, ref, bf16_bases, bf16_compiled, writers,
@@ -8502,7 +8694,8 @@ def main(argv=None) -> int:
             held_ms=row["held_ms"],
             single_x_S_held_ms=row["single_x_S_held_ms"],
             shards=row["shards"]))
-    kernels += group_lm_kernel_rows(shards["group"]["lm"])
+    for part in GROUP_SERVE:
+        kernels += group_serve_kernel_rows(shards["group"][part])
     missing = {f"{op}_{e}" for op in KERNELS
                for e in ("stacked", "active_stacked")} - \
         {f"{r['op']}_{r['entry']}" for r in shards["kernel"]}

@@ -31,9 +31,9 @@ cell instead.
 The records keep the JAX package's keys. ``collective_bytes`` is the
 placed step's per-device collective traffic, as the JAX package reads it
 from the partitioned HLO: the CLI (``add_collective_bytes``) places each
-placed cell (``placed``: the dense LM serve and train cells; a train cell
-steps whole, forward, recompute, backward and optimizer, every
-microbatch) on ``--multi-pod``'s
+placed cell (``placed``: every LM arch's serve cells and the dense LM
+archs' train cells; a train cell steps whole, forward, recompute,
+backward and optimizer, every microbatch) on ``--multi-pod``'s
 production mesh over a fake process group of as many ranks
 (``launch.mesh.fake_group``; meta tensors, nothing allocated, no peer)
 and runs its step once under ``CollectiveBytes``, which sums every
@@ -78,9 +78,9 @@ _NO_TRAFFIC = {torch.ops.aten.empty.memory_format,
 
 
 # the cells placed on a device mesh (DTensor) for their collective bytes:
-# the dense LM archs' serve and train shapes; the MoE archs, DIEN, the
-# GNNs and eagr are not placed yet
-PLACED_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+# every LM arch's serve shapes and the dense LM archs' train shape; the
+# MoE archs' train shape, DIEN, the GNNs and eagr are not placed yet
+SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
 # the JAX package's collective kinds, and the functional collectives that
 # are each (result bytes counted, as the JAX package counts the HLO
 # instruction's result shape)
@@ -102,8 +102,9 @@ def placed(arch_id: str, shape: str) -> bool:
     from repro_torch.configs import get_arch
 
     mod = get_arch(arch_id)
-    return getattr(mod, "FAMILY", None) == "lm" and \
-        not mod.CFG.is_moe and shape in PLACED_SHAPES
+    return getattr(mod, "FAMILY", None) == "lm" and (
+        shape in SERVE_SHAPES or (shape == "train_4k"
+                                  and not mod.CFG.is_moe))
 
 
 class CollectiveBytes(TorchDispatchMode):

@@ -44,7 +44,7 @@ at use are then no-ops. ``_ffn`` returns the MoE load-balance loss;
 The model calls ``distributed.sharding.constrain`` where the JAX package
 does. Outside ``activation_sharding`` it returns its input, and every
 path above runs as on one card. Inside one (``CellPlan.on_mesh``) the
-dense serve path (``prefill``, ``decode_step``) runs on DTensors placed by
+serve path (``prefill``, ``decode_step``) runs on DTensors placed by
 the sharding rules, as GSPMD partitions the JAX package's: each layer's
 weights are gathered over the FSDP (``embed``) axes once per use
 (``sharding.gather_dim``), the embedding lookup is vocab-parallel (a
@@ -54,9 +54,13 @@ on each rank's local heads (``flash_attention.ops``), a decode step writes
 the new token's k/v on the rank that holds its cache row, and the
 row-parallel products (attention out, FFN down) are all-reduced by the
 ``constrain`` that follows them, their partials in the compute dtype, as
-GSPMD adds them. The training path (``trunk``, ``forward``,
-``loss_fn``) runs placed the same way, with gradients: the lookup
-vocab-parallel, each layer ending on ``_RES_AXES`` (under
+GSPMD adds them; an MoE FFN runs on each rank's local rows and experts
+(``_experts``: router and experts gathered over their FSDP axes, each
+rank's ``expert`` shard of the experts; the sort dispatch all-gathers
+the expert outputs over the experts' mesh dims, the einsum dispatch's
+combine is a partial sum). The dense archs' training path (``trunk``,
+``forward``, ``loss_fn``) runs placed the same way, with gradients: the
+lookup vocab-parallel, each layer ending on ``_RES_AXES`` (under
 ``residual_sp`` the sequence gathered into the layer and
 reduce-scattered out of it), ``blocked_attention`` on each rank's local
 heads, the fused cross entropy vocab-parallel, and a checkpointed layer
@@ -272,22 +276,152 @@ def _dispatch_einsum(gate_idx, gate_vals, E: int, C: int, dtype):
     return disp, comb
 
 
+# the JAX package's constraints on the dispatched tokens and the expert
+# outputs: einsum (E, B, C, D), sort (B, E, C, D)
+_EINSUM_AXES = ("act_expert", "act_batch", None, None)
+_SORT_AXES = ("act_batch", "act_expert", None, None)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Experts:
+    """Where an MoE FFN runs: on one device every expert and every batch
+    row (``mesh`` None); placed, this rank's batch rows (``B`` of them
+    in all, sharded over the mesh dims ``rows``) and its experts ``lo``
+    .. ``lo + n`` (of ``E``, sharded over the mesh dims ``experts``)."""
+
+    mesh: object
+    rows: tuple
+    experts: tuple
+    lo: int
+    n: int
+    B: int
+    E: int
+
+    def _placements(self, batch_dim: int, expert_dim: int | None,
+                    partial: bool = False) -> list:
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        out = []
+        for i in range(self.mesh.ndim):
+            if i in self.rows:
+                out.append(Shard(batch_dim))
+            elif i in self.experts and partial:
+                out.append(Partial())
+            elif i in self.experts and expert_dim is not None:
+                out.append(Shard(expert_dim))
+            else:
+                out.append(Replicate())
+        return out
+
+    def hold(self, t, axes, batch_dim: int, expert_dim: int):
+        """``constrain(t, axes)`` of this rank's local ``t`` (its batch rows
+        at ``batch_dim``, its experts at ``expert_dim``): on one device a
+        no-op; placed, the rules must place the whole tensor where the
+        rank's slice already lies, so nothing moves."""
+        if self.mesh is None:
+            return constrain(t, axes)
+        shape = list(t.shape)
+        shape[batch_dim], shape[expert_dim] = self.B, self.E
+        pl = self._placements(batch_dim, expert_dim)
+        got = constrain(from_local(t, self.mesh, pl, shape), axes)
+        if tuple(got.placements) != tuple(pl):
+            raise NotImplementedError(
+                f"the rules place {axes} on {got.placements}, not where the "
+                f"rank's experts and rows lie ({pl})")
+        return t
+
+    def gathered(self, y, C: int):
+        """The expert outputs ``y`` (this rank's experts, its rows' C slots
+        each, D) with every expert's: all-gathered over the mesh dims that
+        shard the experts, as GSPMD gathers the expert-sharded operand of
+        a per-row gather."""
+        if self.mesh is None or not self.experts:
+            return y
+        return gather_dim(from_local(y, self.mesh, self._placements(1, 0),
+                                     (self.E, self.B * C, y.shape[2])),
+                          0).to_local()
+
+    def out(self, t, partial: bool):
+        """The FFN's output (this rank's rows, S, D) as the caller's
+        tensor: placed, a DTensor on the rows' placements, Partial over
+        the experts' mesh dims where each rank summed its own experts."""
+        if self.mesh is None:
+            return t
+        return from_local(t, self.mesh, self._placements(0, None, partial),
+                          (self.B,) + tuple(t.shape[1:]))
+
+
+def _experts(x, p):
+    """(x, one layer's MoE weights in x's dtype, ``_Experts``) of an MoE
+    FFN. Placed, on this rank's local tensors, as GSPMD partitions the
+    JAX package's FFN: the router gathered over its FSDP (``embed``) axes,
+    the expert weights over theirs (each rank keeping the experts its
+    ``expert`` axes give it; all of them where the divisibility guard
+    replicates them), ``x`` this rank's batch rows (replicated over the
+    other mesh dims, so every rank holding the same rows routes them
+    alike)."""
+    cast = {k: p[k].to(x.dtype) for k in _MOE_LEAVES}
+    E = p["we_gate"].shape[0]
+    if not is_placed(x):
+        return x, cast, _Experts(None, (), (), 0, E, x.shape[0], E)
+    rows = tuple(mesh_dims(x, 0))
+    if any(not (q.is_replicate() or i in rows)
+           for i, q in enumerate(x.placements)):
+        raise NotImplementedError(f"an MoE FFN on {x.placements}: only its "
+                                  f"batch rows placed on the mesh are ported")
+    w = dict(router=gather_dim(cast["router"], 0),
+             we_gate=gather_dim(cast["we_gate"], 1),
+             we_up=gather_dim(cast["we_up"], 1),
+             we_down=gather_dim(cast["we_down"], 2))
+    experts = tuple(mesh_dims(w["we_gate"], 0))
+    for k, t in w.items():
+        held = [i for i, q in enumerate(t.placements) if not q.is_replicate()]
+        want = [] if k == "router" else list(experts)
+        if held != want or mesh_dims(t, 0) != want or set(experts) & set(rows):
+            raise NotImplementedError(
+                f"{k} on {t.placements} with the rows on mesh dims {rows}: "
+                f"only experts sharded apart from the rows are ported")
+    idx, n_shards = dim_shard(w["we_gate"], 0)
+    n = E // n_shards
+    return x.to_local(), {k: t.to_local() for k, t in w.items()}, \
+        _Experts(x.device_mesh, rows, experts, idx * n, n, x.shape[0], E)
+
+
+def _aux(probs, gate_idx, ex: _Experts):
+    """The load-balance loss on one device; None placed (placed serving
+    drops it, and placed training of an MoE arch is refused)."""
+    if ex.mesh is not None:
+        return None
+    E, k = probs.shape[-1], gate_idx.shape[-1]
+    return _load_balance_loss(probs.reshape(-1, E), gate_idx.reshape(-1, k),
+                              E)
+
+
 def _moe_ffn_einsum(x, p, cfg: TransformerConfig):
     """GShard-style group-wise einsum dispatch. x: (B, S, D); p: one
     layer's ``router``, ``we_gate``, ``we_up``, ``we_down``. Returns
-    (out (B, S, D), load-balance loss)."""
+    (out (B, S, D), load-balance loss).
+
+    Placed (:func:`_experts`): each rank dispatches its rows to its own
+    experts (the dispatch and combine tensors sliced to them), and its
+    combine is a partial sum over the experts' mesh dims, which the
+    ``constrain`` after the FFN sums in the compute dtype, as GSPMD
+    does."""
+    x, p, ex = _experts(x, p)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     probs, gate_vals, gate_idx = _route(x, p["router"], k)
     disp, comb = _dispatch_einsum(gate_idx, gate_vals, E,
                                   _capacity_einsum(cfg, S), x.dtype)
-    xd = torch.einsum("gsec,gsd->egcd", disp, x)
-    h = F.silu(torch.einsum("egcd,edf->egcf", xd, p["we_gate"].to(x.dtype)))
-    h = h * torch.einsum("egcd,edf->egcf", xd, p["we_up"].to(x.dtype))
-    y = torch.einsum("egcf,efd->egcd", h, p["we_down"].to(x.dtype))
+    mine = slice(ex.lo, ex.lo + ex.n)
+    disp, comb = disp[:, :, mine], comb[:, :, mine]
+    xd = ex.hold(torch.einsum("gsec,gsd->egcd", disp, x), _EINSUM_AXES, 1, 0)
+    h = F.silu(torch.einsum("egcd,edf->egcf", xd, p["we_gate"]))
+    h = h * torch.einsum("egcd,edf->egcf", xd, p["we_up"])
+    y = ex.hold(torch.einsum("egcf,efd->egcd", h, p["we_down"]),
+                _EINSUM_AXES, 1, 0)
     out = torch.einsum("gsec,egcd->gsd", comb.to(x.dtype), y)
-    aux = _load_balance_loss(probs.reshape(-1, E), gate_idx.reshape(-1, k), E)
-    return out, aux
+    return ex.out(out, partial=True), _aux(probs, gate_idx, ex)
 
 
 def _dispatch_sort(gate_idx, E: int, C: int):
@@ -322,7 +456,14 @@ def _moe_ffn_sort(x, p, cfg: TransformerConfig):
     buffers are one (E * B * C + 1, D) matrix, expert-major: each kept
     assignment writes its own row (kept (expert, row, slot) triples are
     unique), every dropped one the spare last row, which no expert reads
-    (JAX adds zeros at slot 0 for them)."""
+    (JAX adds zeros at slot 0 for them).
+
+    Placed (:func:`_experts`): each rank writes only its own experts'
+    slots of its rows (every other assignment goes to the spare row),
+    runs its experts, and all-gathers their outputs over the experts'
+    mesh dims; the pick and the combine then run as on one device, so the
+    output is whole on every rank that holds the rows."""
+    x, p, ex = _experts(x, p)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity_sort(cfg, S)
@@ -330,19 +471,22 @@ def _moe_ffn_sort(x, p, cfg: TransformerConfig):
     order, e_sorted, slot, keep, slot_sk, keep_sk = _dispatch_sort(
         gate_idx, E, C)
     bidx = torch.arange(B, device=x.device)[:, None]
-    rows = torch.where(keep, e_sorted * (B * C) + bidx * C + slot, E * B * C)
-    buf = x.new_zeros((E * B * C + 1, D))
+    mine = keep & (e_sorted >= ex.lo) & (e_sorted < ex.lo + ex.n)
+    rows = torch.where(mine, (e_sorted - ex.lo) * (B * C) + bidx * C + slot,
+                       ex.n * B * C)
+    buf = x.new_zeros((ex.n * B * C + 1, D))
     buf[rows] = x[bidx, order // k]
-    xe = buf[:-1].view(E, B * C, D)
-    h = F.silu(torch.bmm(xe, p["we_gate"].to(x.dtype))) \
-        * torch.bmm(xe, p["we_up"].to(x.dtype))
-    y = torch.bmm(h, p["we_down"].to(x.dtype)).view(E * B * C, D)
+    xe = buf[:-1].view(ex.n, B * C, D)
+    ex.hold(xe.view(ex.n, B, C, D).transpose(0, 1), _SORT_AXES, 0, 1)
+    h = F.silu(torch.bmm(xe, p["we_gate"])) * torch.bmm(xe, p["we_up"])
+    y = torch.bmm(h, p["we_down"])
+    ex.hold(y.view(ex.n, B, C, D).transpose(0, 1), _SORT_AXES, 0, 1)
+    y = ex.gathered(y, C).reshape(E * B * C, D)
     rows_sk = gate_idx * (B * C) + bidx[..., None] * C \
         + torch.where(keep_sk, slot_sk, 0)
     picked = y[rows_sk].masked_fill(~keep_sk[..., None], 0.0)  # (B,S,k,D)
     out = (picked * gate_vals[..., None].to(x.dtype)).sum(dim=2)
-    aux = _load_balance_loss(probs.reshape(-1, E), gate_idx.reshape(-1, k), E)
-    return out, aux
+    return ex.out(out, partial=False), _aux(probs, gate_idx, ex)
 
 
 def _load_balance_loss(probs, gate_idx, E: int):
@@ -375,7 +519,12 @@ def _layer_ffn(x, lw, cfg: TransformerConfig):
                          f"{sorted(_MOE_IMPLS)}")
     out, aux = _MOE_IMPLS[cfg.moe_impl](x, lw, cfg)
     if cfg.moe_dense_residual:
-        out = out + _dense_ffn(x, lw, cfg.compute_dtype)
+        dense = _dense_ffn(x, lw, cfg.compute_dtype)
+        if is_placed(out) and not any(q.is_partial() for q in out.placements):
+            # placed: the row-parallel partials summed (in the compute
+            # dtype) before they meet the MoE output, whole on each rank
+            dense = constrain(dense, _OUT_AXES)
+        out = out + dense
     return out, aux
 
 
@@ -639,12 +788,12 @@ def loss_fn(params, batch, cfg: TransformerConfig):
 
 # ----------------------------------------------------------------- serving
 def _placed_dense(params, cfg: TransformerConfig, what: str) -> None:
-    """Placed serving and training cover the dense archs (the MoE archs'
-    expert placements are not ported)."""
+    """Placed training covers the dense archs: an MoE arch's placed
+    gradients (through the expert placements) are ROADMAP H3 3b.2."""
     if cfg.is_moe and is_placed(params["embed"]):
         raise NotImplementedError(
-            f"{cfg.name}: placed {what} of an MoE arch (its 'expert' "
-            f"placements) is not ported")
+            f"{cfg.name}: placed {what} of an MoE arch is not ported "
+            f"(ROADMAP H3 3b.2)")
 
 
 def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
@@ -656,7 +805,6 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     ``(q, k, v, *, causal, lengths) -> out`` of the kernels' layout to call
     instead."""
     cdt = cfg.compute_dtype
-    _placed_dense(params, cfg, "serving")
     x = constrain(_embed(params["embed"], tokens, cdt), _RES_AXES)
     S = tokens.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=tokens.device),
@@ -689,7 +837,6 @@ def decode_step(params, cache, tokens: torch.Tensor, lengths: torch.Tensor,
     tensors.
     """
     cdt = cfg.compute_dtype
-    _placed_dense(params, cfg, "serving")
     k_cache, v_cache = cache
     x = constrain(_embed(params["embed"], tokens, cdt)[:, None, :],
                   _OUT_AXES)                                  # (B, 1, D)

@@ -302,7 +302,7 @@ def test_cli_without_a_card_raises():
 
 # ------------------------------------------- placed cells: collective bytes
 PLACED = [(a, s) for a in ("granite-3-2b", "internlm2-1.8b",
-                           "command-r-plus-104b")
+                           "command-r-plus-104b", "dbrx-132b", "arctic-480b")
           for s in ("prefill_32k", "decode_32k", "long_500k")]
 
 
@@ -324,7 +324,7 @@ class _Host(TorchDispatchMode):
 @pytest.mark.parametrize("multi_pod", [False, True])
 @pytest.mark.parametrize("arch_id,shape", PLACED)
 def test_placed_record_carries_collective_bytes(arch_id, shape, multi_pod):
-    """The 18 placed records: built and run on a fake group of the
+    """The 30 placed serve records: built and run on a fake group of the
     production mesh's ranks with meta tensors (nothing allocated but the
     mesh's table of ranks),
     the per-device bytes under the JAX package's collective kinds, every
@@ -352,7 +352,7 @@ def test_placed_record_carries_collective_bytes(arch_id, shape, multi_pod):
 
 
 def test_unplaced_records_say_so():
-    for arch_id, shape in [("dbrx-132b", "decode_32k"),
+    for arch_id, shape in [("gatedgcn", "minibatch_lg"),
                            ("dbrx-132b", "train_4k"),
                            ("arctic-480b", "train_4k"),
                            ("dien", "serve_p99")]:
@@ -369,13 +369,25 @@ def _closed_form(cfg, shape: str, data: int, model: int) -> dict:
     """A placed serve step's collective bytes per device on a (data, model)
     mesh under the default rules, from the shapes alone: the FSDP gathers
     (each weight, cast to the compute dtype, gathered over data to its
-    model shard), the vocab-parallel lookup's sum and two row-parallel
-    all-reduces a layer (partials in the compute dtype, as GSPMD adds
-    them) of the (batch shard, tokens, D) activations, and a
-    decode over a cache whose rows are sharded: the query heads gathered
-    over the rows' mesh dims where those shard them, and each layer's
-    partials (d + 2 fp32 a query row) gathered over them."""
+    model shard), the vocab-parallel lookup's sum and a layer's
+    row-parallel all-reduces (partials in the compute dtype, as GSPMD adds
+    them) of the (batch shard, tokens, D) activations: the attention's
+    out product where ``model`` shards the query heads, the FFN's down
+    product where it shards the FFN columns; and a decode over a cache
+    whose rows are sharded: the query heads gathered over the rows' mesh
+    dims where those shard them, and each layer's partials (d + 2 fp32 a
+    query row) gathered over them.
+
+    An MoE layer gathers its router (D x E) and each rank's experts
+    (3 of div(E, model) x D x Fd) over data, and arctic's dense residual
+    FFN as a dense layer's. The sort dispatch all-gathers the expert
+    outputs over ``model``, B_l x E x C x D with C the per-row capacity
+    of the step's tokens (S at prefill, 1 at decode), and sums nothing:
+    without a dense FFN a layer all-reduces only its attention product.
+    The einsum dispatch's combine is partial over ``model`` and
+    all-reduced in the dense FFN's place."""
     from repro_torch.configs.lm_common import SHAPE_DEFS
+    from repro_torch.models.transformer import _capacity_sort
 
     def div(n, k):
         return n // k if n % k == 0 else n
@@ -385,14 +397,24 @@ def _closed_form(cfg, shape: str, data: int, model: int) -> dict:
     e = torch.empty((), dtype=cfg.compute_dtype).element_size()
     D, Fd, V, L = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.n_layers
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    layer = D * (2 * div(Hq, model) * hd + 2 * div(Hkv, model) * hd
-                 + 3 * div(Fd, model)) * e
+    E = cfg.n_experts
+    dense = not cfg.is_moe or cfg.moe_dense_residual
+    experts_split = cfg.is_moe and E % model == 0
+    layer = D * (2 * div(Hq, model) * hd + 2 * div(Hkv, model) * hd) * e
+    layer += 3 * D * div(Fd, model) * e if dense else 0
+    if cfg.is_moe:
+        layer += D * E * e + 3 * div(E, model) * D * Fd * e
     gather = L * layer + 2 * div(V, model) * D * e
     B_l = div(B, data)
     rows = B_l * (S if d["kind"] == "prefill" else 1)
+    if cfg.is_moe and cfg.moe_impl == "sort" and experts_split:
+        C = _capacity_sort(cfg, S if d["kind"] == "prefill" else 1)
+        gather += L * B_l * E * C * D * e
     # the lookup's sum and the row-parallel products' partials, all in the
     # compute dtype
-    reduce = rows * D * e * (1 + 2 * L)
+    ffn = (Fd % model == 0) if dense else (
+        cfg.moe_impl == "einsum" and experts_split)
+    reduce = rows * D * e * (1 + L * ((Hq % model == 0) + ffn))
     if d["kind"] == "decode":
         # cache_seq takes the axes the batch and the kv heads left
         seq = {ax: n for ax, n, free in (("data", data, B % data),
@@ -431,6 +453,42 @@ def test_smoke_collective_bytes_equal_the_closed_form(shape):
     assert calls["all-gather"] == 7 * 2 + 2 + (2 if shape == "long_500k"
                                                else 0)
     assert calls["all-reduce"] == 2 * 2 + 1
+
+
+MOE_SMOKE = {"sort": ("dbrx-132b", {}),
+             "einsum": ("dbrx-132b", {"moe_impl": "einsum"}),
+             "sort_dense_residual": ("arctic-480b", {})}
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k",
+                                   "long_500k"])
+@pytest.mark.parametrize("dispatch", list(MOE_SMOKE))
+def test_moe_smoke_collective_bytes_equal_the_closed_form(dispatch, shape):
+    """The MoE serve cells at the smoke widths (2 layers, d 64, 4 experts
+    top-2, fp32) at the cells' batch and sequence on a fake (2, 2) group,
+    through each dispatch (dbrx-132b's config, sort and einsum, and
+    arctic-480b's sort with its dense residual FFN): the counted bytes are
+    the closed form's, kind by kind."""
+    import dataclasses
+
+    from repro_torch.configs import lm_common
+    from repro_torch.distributed.sharding import MeshShape
+
+    arch_id, fields = MOE_SMOKE[dispatch]
+    mod = get_arch(arch_id)
+    cfg = dataclasses.replace(lm_common.smoke_config(mod.CFG), **fields)
+    plan = lm_common.build_cell(cfg, mod.TRAIN, shape, device="meta")
+    got, calls = dryrun.collective_bytes(plan, MeshShape(("data", "model"),
+                                                         (2, 2)))
+    assert got == _closed_form(cfg, shape, 2, 2)
+    # the gathers: 4 attention weights, the router and 3 experts a layer
+    # (3 more for a dense FFN), the sort's expert outputs, the table and
+    # the head; B = 1 decode also each layer's partials
+    dense = cfg.moe_dense_residual
+    assert calls["all-gather"] == (8 + 3 * dense + (dispatch != "einsum")) \
+        * 2 + 2 + (2 if shape == "long_500k" else 0)
+    assert calls["all-reduce"] == (1 + (dispatch == "einsum" or dense)) \
+        * 2 + 1
 
 
 # ------------------------------------------ placed train cells: the bytes
