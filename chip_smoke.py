@@ -201,9 +201,10 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    before the first bag and empty bags: bit-equal on a rerun, exact on
    integer inputs, normal sums within n * 2^-24 * sum|x| of fp64; its time
    beside the bound and F.embedding_bag's backward; granite-3-2b's
-   train_4k at full width and depth (fp32 parameters, bf16 compute, AdamW,
-   accum 4, seq 4,096, remat full, fused CE in chunks of 512; global batch
-   cut to 4): one step run twice from copies of one state, bit-equal in
+   train_4k at full width, LM_TRAIN_LAYERS of its 40 layers each drawn at
+   the full depth's scale (fp32 parameters, bf16 compute, AdamW, accum 4,
+   seq 4,096, remat full, fused CE in chunks of 512; global batch cut to
+   4): one step run twice from copies of one state, bit-equal in
    every parameter and moment, the loss finite and falling over 5 steps
    on one batch, no flash launch, step time, tokens/s, peak memory and a
    traced step's busy share; DIEN's train_batch at its full CFG and its
@@ -394,13 +395,40 @@ the kernels from ``src/repro_torch/kernels/*/csrc`` at first use. Phases:
    sequence gathered into each layer and reduce-scattered out of it); no
    flash launch. The parent, while the ranks run, takes the same step on
    one card and again with its products split as the ranks split them
-   (the row-parallel ones over ``model``, ``split_rows``, and each
-   microbatch's rows over ``data``); after the join every rank's loss,
-   ``grad_norm`` and parameters after the step (relative to its move, on
-   the rank's shards), default and ``residual_sp``, must lie within 3x
-   that floor plus 1e-5, the loss and ``grad_norm`` bit-equal across
-   ranks; step p50, peak GB and the collectives a step printed a rank, as
-   ranks sharing one card.
+   (over ``model`` the row-parallel products' bf16 partials,
+   ``split_rows``, and the column-parallel products' input cotangents,
+   ``split_cols``, the CE projection's included, each rank's partial
+   rounded and added in rank order; and each microbatch's rows over
+   ``data``); after the join every rank's loss, ``grad_norm`` and
+   parameters after the step (relative to its move, on the rank's
+   shards), default and ``residual_sp``, must lie within 3x that floor
+   plus 1e-5, the loss and ``grad_norm`` bit-equal across ranks, the
+   ``grad_norm`` margin printed; step p50, peak GB and the collectives a
+   step printed a rank, as ranks sharing one card. Then, in the same
+   ranks and on the same mesh, the MoE train cell placed: dbrx-132b's
+   ``train_4k`` at its published widths, 1 of its 40 layers (phase 11's
+   seed, the full depth's scale), bf16 parameters, Adafactor, the sort
+   dispatch, seq 4,096, the global batch of 256 cut to 2 (one row a data
+   rank) and its accumulation of 8 to 1 (a rank: 8 experts, the router
+   and experts gathered over ``data`` in the forward and the recompute,
+   their gradients reduce-scattered, the expert outputs all-gathered over
+   ``model``, the load-balance loss's sums all-reduced over ``data``):
+   one step with its collectives counted by kind and its routing taped
+   (forward and recompute), its parameters' local shards saved, one more
+   step on the batch. In the parent after the join, the same step on one
+   card replaying the ranks' routing, and the floor: the step with its
+   sums split as the ranks split them (the row-parallel partials, the
+   column-parallel and the dispatch's input cotangents over ``model``,
+   ``split_products``; a data rank's row a microbatch, the load-balance
+   loss taking the whole batch's top-1 fractions), routing on its own:
+   it must route every assignment of the forward and the recompute as
+   the ranks did; every rank's loss, ``aux`` and ``grad_norm`` bit-equal
+   across ranks and, with the parameters after the step on its shards,
+   within 3x their floor plus 1e-5 of one card's; the loss lower after
+   the second step; each rank's collectives of the step, by kind, equal
+   to ``dryrun.train_collective_bytes``'s closed form to the byte; no
+   flash launch; step ms, peak GB and GB staged by kind a rank printed,
+   as ranks sharing one card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -587,18 +615,19 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 8, 2048, 32, 0
 REST_ARCHS = (("dbrx-132b", 4), ("arctic-480b", 1), ("command-r-plus-104b", 5))
 MOE_CHECK = (2, 256, 8.0)  # dbrx's fp32 layer: B, S, capacity factor
 RETRIEVAL_CALLS = 50
-# phase 11: training. granite-3-2b's train_4k at full width and depth
-# with its global batch of 256 cut to 4 (one 4,096-token sequence a
-# microbatch of its accum 4: params, gradients and AdamW's moments take
-# ~52.6 GB of the card's 80); losses over LM_TRAIN_STEPS steps on one
-# batch. DIEN's train_batch at its full CFG and its assigned batch of
+# phase 11: training. granite-3-2b's train_4k at full width, its 40
+# layers cut to LM_TRAIN_LAYERS (each drawn at the full depth's scale; at
+# all 40, params, gradients and AdamW's moments took ~52.6 GB of the card's
+# 80 and the phase ~96 s), with its global batch of 256 cut to 4 (one
+# 4,096-token sequence a microbatch of its accum 4); losses over
+# LM_TRAIN_STEPS steps on one batch. DIEN's train_batch at its full CFG and its assigned batch of
 # 65,536, not cut: the tensors its two 100-step loops save for the backward
 # (a GRU step keeps x @ wx and h @ wh, 324 floats each, and r, z, n, 1 - z
 # and h, 108 each; an AUGRU step as many and its attention weight) come to
 # ~1 MB a user, ~65 GB, within the card's 80; held against CPU copies at
 # DIEN_CHECK_BATCH. The launcher: every trainable arch's reduced cell, a
 # few steps each, and one run with an injected failure
-LM_TRAIN_BATCH, LM_TRAIN_STEPS = 4, 5
+LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_LAYERS = 4, 5, 10
 DIEN_TRAIN_BATCH, DIEN_TRAIN_STEPS, DIEN_CHECK_BATCH = 65536, 5, 512
 TRAIN_ARCHS = ("granite-3-2b", "internlm2-1.8b", "command-r-plus-104b",
                "arctic-480b", "dbrx-132b", "dien")
@@ -2797,6 +2826,12 @@ GROUP_TRAIN_MORE = 3       # steps on the same batch after the first
 # itself with the products split as the ranks split them: the row-parallel
 # ones over model, each microbatch's rows over data) plus 1e-5, relative
 GROUP_TRAIN_FLOOR_X, GROUP_TRAIN_FLOOR_ADD = 3.0, 1e-5
+# phase 14's placed MoE train step: dbrx-132b's train_4k on the same mesh
+# (its published widths, GROUP_MOE_LAYERS of its 40 layers each drawn at the
+# full depth's scale, bf16 parameters, Adafactor, sort dispatch; its global
+# batch of 256 cut to GROUP_MOE_TRAIN_BATCH, one row a data rank, and its
+# accumulation of 8 to 1), held to one card under the same bar
+GROUP_MOE_TRAIN_BATCH = 2
 
 
 def bits_equal(a, b) -> bool:
@@ -3041,6 +3076,7 @@ def group_rank(rank: int, world: int, backend: str, work: str) -> None:
         for part in GROUP_SERVE:
             out[part] = serve_rank(torch, rank, device, part)
         out["lm_train"] = lm_train_rank(torch, rank, device, work)
+        out["moe_train"] = moe_train_rank(torch, rank, device, work)
         out.update(rank=rank, device=str(meshes[0].device),
                    comm=str(meshes[0].comm), backend=meshes[0].backend,
                    restore_s=restore_s, built=sorted(_build.BUILD_LOG))
@@ -3624,6 +3660,104 @@ def split_rows(torch, pieces: int):
             out = out + h[..., i * n:(i + 1) * n] @ w[i * n:(i + 1) * n]
         return out
     return product
+
+
+def split_cols(torch, pieces: int, dtype=None):
+    """``transformer._col_product`` (or, with ``dtype`` fp32, the fused
+    CE's fp32 vocab projection) as the ranks of a mesh whose ``model`` dim
+    has ``pieces`` ranks take it on one card: the forward whole, the
+    input's cotangent the sum of each rank's columns' partial (each
+    rank's heads, FFN columns or vocab columns: ``pieces`` equal
+    contiguous ranges), each rounded to the input's dtype and added in
+    rank order in that dtype (the all-reduce of the partials); the
+    weight's cotangent whole."""
+    class Cols(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(x, w)
+            return (x.to(dtype) @ w.to(dtype)) if dtype else x @ w
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            wd = w.to(dtype or w.dtype)
+            n = w.shape[-1] // pieces
+            gx = None
+            for i in range(pieces):
+                part = (g[..., i * n:(i + 1) * n]
+                        @ wd[:, i * n:(i + 1) * n].T).to(x.dtype)
+                gx = part if gx is None else gx + part
+            gw = x.reshape(-1, x.shape[-1]).to(wd.dtype).T \
+                @ g.reshape(-1, g.shape[-1])
+            return gx, gw.to(w.dtype)
+    return Cols.apply
+
+
+def split_ce_chunk(torch, pieces: int):
+    """``common._ce_chunk`` with its fp32 vocab projection split as the
+    ranks split the vocab columns (:func:`split_cols`)."""
+    cols = split_cols(torch, pieces, torch.float32)
+
+    def chunk(x, labels, lm_head, valid):
+        logits = cols(x, lm_head).masked_fill(~valid, float("-inf"))
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return (lse - ll).sum(), (lse * lse).sum()
+    return chunk
+
+
+def split_dispatched(torch, pieces: int, n_experts: int):
+    """``transformer._dispatched`` as the ranks of a mesh whose ``model``
+    dim shards the experts over ``pieces`` ranks take its cotangent: each
+    rank's experts' assignments summed into its own partial of ``x``'s
+    cotangent, the partials added in rank order in ``x``'s dtype."""
+    per = n_experts // pieces
+
+    class Tokens(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, b, t, e):
+            ctx.save_for_backward(b, t, e)
+            ctx.shape = x.shape
+            return x[b, t]
+
+        @staticmethod
+        def backward(ctx, g):
+            b, t, e = ctx.saved_tensors
+            gx = None
+            for i in range(pieces):
+                mine = (e // per == i)[..., None]
+                part = g.new_zeros(ctx.shape).index_put_(
+                    (b, t), g.masked_fill(~mine, 0), accumulate=True)
+                gx = part if gx is None else gx + part
+            return gx, None, None, None
+    return Tokens.apply
+
+
+@contextlib.contextmanager
+def split_products(torch, pieces: int, n_experts: int = 0):
+    """Within the block, one card's train step reassociates its sums as the
+    ranks of a mesh whose ``model`` dim has ``pieces`` ranks do: the
+    row-parallel products' partials (``split_rows``), the column-parallel
+    products' input cotangents and the CE projection's (``split_cols``),
+    and for an MoE arch whose experts it shards the dispatch's
+    (``split_dispatched``)."""
+    from unittest import mock
+
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(T, "_row_product",
+                                              split_rows(torch, pieces)))
+        stack.enter_context(mock.patch.object(T, "_col_product",
+                                              split_cols(torch, pieces)))
+        stack.enter_context(mock.patch.object(common, "_ce_chunk",
+                                              split_ce_chunk(torch, pieces)))
+        if n_experts:
+            stack.enter_context(mock.patch.object(
+                T, "_dispatched", split_dispatched(torch, pieces,
+                                                   n_experts)))
+        yield
 
 
 def group_serve_cfg(part: str):
@@ -4249,17 +4383,38 @@ def train_rel(torch, pairs) -> float:
     return (num / den) ** 0.5 if den else float("inf")
 
 
+def rel_diff(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def train_bar(got: float, floor: float) -> float:
+    """The placed train bar's margin: GROUP_TRAIN_FLOOR_X times ``floor``
+    plus GROUP_TRAIN_FLOOR_ADD over ``got`` (held where at least 1)."""
+    return (GROUP_TRAIN_FLOOR_X * floor + GROUP_TRAIN_FLOOR_ADD) \
+        / max(got, 1e-30)
+
+
+def rank_slice(full, placements, coord):
+    """A rank's shard of ``full`` on the (data, model) mesh of
+    GROUP_LM_MESH: ``placements`` as (kind, tensor dim) per mesh dim,
+    ``coord`` the rank's coordinates."""
+    for i, (kind, d) in enumerate(placements):
+        if kind == "Shard":
+            size = full.shape[d] // GROUP_LM_MESH[i]
+            full = full.narrow(d, coord[i] * size, size)
+    return full
+
+
 def lm_train_reference(torch) -> dict:
     """Phase 14's placed train step's one-card reference, in the parent
     while the ranks run: the same cell's step on one card from the same
     state, and again with its products split as the ranks split them: the
-    row-parallel products over ``model`` (``split_rows``) and each
-    microbatch's rows over ``data`` (one microbatch a data rank's rows, so
-    each weight gradient is the sum of the data ranks' partials); the
-    parameters before, after each (by leaf path), the metrics and the
-    plain step's host ms."""
-    from unittest import mock
-
+    row-parallel products' partials and the column-parallel inputs'
+    cotangents over ``model`` (``split_products``) and each microbatch's
+    rows over ``data`` (one microbatch a data rank's rows, so each weight
+    gradient is the sum of the data ranks' partials); the parameters
+    before, after each (by leaf path), the metrics and the plain step's
+    host ms."""
     from repro_torch.models import transformer as T
     from repro_torch.train.trainer import make_train_step
     from repro_torch.tree import tree_leaves
@@ -4271,15 +4426,15 @@ def lm_train_reference(torch) -> dict:
                       [t.clone() for t in tree_leaves(cell["params"])]))
     one_p, _, one, one_ms = train_step_on(torch, cell,
                                           train_state_copy(cell))
-    # the floor: the products split as the ranks split them, the row-
-    # parallel ones over model (split_rows) and each microbatch's rows over
-    # data (a weight gradient is the sum of the data ranks' partials, each
-    # rounded to the compute dtype)
+    # the floor: the products split as the ranks split them, over model
+    # the row-parallel products' partials and the column-parallel inputs'
+    # cotangents (split_products), and each microbatch's rows over data (a
+    # weight gradient is the sum of the data ranks' partials, each rounded
+    # to the compute dtype)
     split_step = make_train_step(
         functools.partial(T.loss_fn, cfg=cfg), cell["optimizer"],
         accum_steps=cell["accum"] * GROUP_LM_MESH[0])
-    with mock.patch.object(T, "_row_product",
-                           split_rows(torch, GROUP_LM_MESH[1])):
+    with split_products(torch, GROUP_LM_MESH[1]):
         split_p, _, split, _ = train_step_on(torch, cell,
                                              train_state_copy(cell),
                                              split_step)
@@ -4309,13 +4464,7 @@ def phase_group_lm_train(torch, ranks: list, backend: str, work: str,
     L, reference_s = ref["n_layers"], ref["seconds"]
     rk = [r["lm_train"] for r in ranks]
 
-    def rel(a, b):
-        return abs(a - b) / abs(b)
-
-    def bar(got, floor):
-        return got <= GROUP_TRAIN_FLOOR_X * floor + GROUP_TRAIN_FLOOR_ADD
-
-    floors = {k: rel(split[k], one[k]) for k in ("loss", "grad_norm")}
+    floors = {k: rel_diff(split[k], one[k]) for k in ("loss", "grad_norm")}
     report = []
     for r, run in enumerate(rk):
         for k in ("loss", "grad_norm", "ce"):
@@ -4335,12 +4484,7 @@ def phase_group_lm_train(torch, ranks: list, backend: str, work: str,
         coord = saved["coord"]
 
         def mine(full, pl):
-            for i, (kind, d) in enumerate(pl):
-                if kind == "Shard":
-                    n = GROUP_LM_MESH[i]
-                    size = full.shape[d] // n
-                    full = full.narrow(d, coord[i] * size, size)
-            return full
+            return rank_slice(full, pl, coord)
 
         got = {}
         for name in ("step", "residual_sp"):
@@ -4352,14 +4496,17 @@ def phase_group_lm_train(torch, ranks: list, backend: str, work: str,
             floor_p = train_rel(torch, [(mine(split_p[q], saved[
                 "placements"][q]), b, c) for (_, b, c), q in zip(trip,
                                                                   one_p)])
-            got[name] = dict(loss=rel(m["loss"], one["loss"]),
-                             grad_norm=rel(m["grad_norm"], one["grad_norm"]),
+            got[name] = dict(loss=rel_diff(m["loss"], one["loss"]),
+                             grad_norm=rel_diff(m["grad_norm"],
+                                                one["grad_norm"]),
                              params=train_rel(torch, trip),
                              params_floor=floor_p)
+            got[name]["grad_norm_margin"] = train_bar(
+                got[name]["grad_norm"], floors["grad_norm"])
             for k, f in (("loss", floors["loss"]),
                          ("grad_norm", floors["grad_norm"]),
                          ("params", floor_p)):
-                if not bar(got[name][k], f):
+                if train_bar(got[name][k], f) < 1:
                     raise AssertionError(
                         f"14 train rank {r} {name}: {k} {got[name][k]:.4g} "
                         f"from one card's, over {GROUP_TRAIN_FLOOR_X} x the "
@@ -4387,8 +4534,11 @@ def phase_group_lm_train(torch, ranks: list, backend: str, work: str,
           f"falling over {GROUP_TRAIN_MORE} more steps, loss and grad_norm "
           f"bit-equal across ranks, no flash launch; against one card "
           f"(loss {one['loss']}, grad_norm {one['grad_norm']}, step "
-          f"{one_ms:.1f} ms): rank 0 {report[0]}; floors (split products) "
-          f"{floors}; parent {parent_s:.1f} s", flush=True)
+          f"{one_ms:.1f} ms): rank 0 {report[0]}; floors (split products, "
+          f"the column-parallel cotangents split too) {floors}; grad_norm "
+          f"margin to the bar {report[0]['step']['grad_norm_margin']:.2f}x "
+          f"(PR 30, the row products alone split: 1.19x); parent "
+          f"{parent_s:.1f} s", flush=True)
     return dict(
         cfg=dict(n_layers=L, mesh=list(GROUP_LM_MESH),
                  batch=GROUP_TRAIN_BATCH, seq=4096, accum=4, more=GROUP_TRAIN_MORE),
@@ -4402,6 +4552,298 @@ def phase_group_lm_train(torch, ranks: list, backend: str, work: str,
         one_card=dict(step_ms=one_ms, **one), split_one_card=split,
         floors=floors, vs_one_card=report, parent_s=parent_s,
         reference_s=reference_s, how=how)
+
+
+def group_moe_train_cell(torch, device, mesh=None) -> dict:
+    """Phase 14's dbrx-132b ``train_4k`` cell (GROUP_MOE_TRAIN_BATCH rows
+    of 4,096 tokens, accum 1, phase 11's seed, each layer drawn at the
+    full depth's scale): on one device, or placed on ``mesh`` under the
+    arch's rules (the default ones)."""
+    from repro_torch.configs import dbrx_132b, lm_common
+
+    cfg, depth = group_serve_cfg("moe")
+    return lm_common.build_train(
+        cfg, dataclasses.replace(dbrx_132b.TRAIN, accum=1),
+        batch=GROUP_MOE_TRAIN_BATCH, device=device, seed=LM_SEED,
+        depth=depth, device_mesh=mesh)
+
+
+def moe_train_rank(torch, rank: int, device, work: str) -> dict:
+    """Phase 14's placed MoE train step in one rank of the running group:
+    dbrx-132b's ``train_4k`` cell placed on the (data, model) mesh of
+    GROUP_LM_MESH (``group_moe_train_cell``); one step with its
+    collectives counted by kind and its routing taped (the forward's and
+    the checkpoint's recompute), its parameters' local shards to
+    ``moe_train_rank{rank}.pt`` in ``work`` for the parent's bar, then
+    one more step on the same batch; no flash kernel launched."""
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    t_part = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    mesh = make_device_mesh(MeshShape(("data", "model"), GROUP_LM_MESH),
+                            device_type=torch.device(device).type)
+    t0 = time.perf_counter()
+    cell = group_moe_train_cell(torch, device, mesh)
+    device_sync(torch)
+    place_s = time.perf_counter() - t0
+    coll, tape = {}, []
+    with counted_collectives(torch, coll), \
+            routing_tape(T, tape, replay=False):
+        p, o, first, ms1 = train_step_on(torch, cell, (cell["params"],
+                                                       cell["opt_state"]))
+    t0 = time.perf_counter()
+    torch.save(dict(
+        shards={q: t.to_local().to("cpu", copy=True)
+                for q, t in zip(leaf_paths(p), tree_leaves(p))},
+        placements={q: [(type(x).__name__, getattr(x, "dim", None))
+                        for x in t.placements]
+                    for q, t in zip(leaf_paths(p), tree_leaves(p))}),
+        os.path.join(work, f"moe_train_rank{rank}.pt"))
+    save_s = time.perf_counter() - t0
+    p, o, second, ms2 = train_step_on(torch, cell, (p, o))
+    launches = dict(flash.LAUNCHES)
+    del p, o, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(first=first, second=second,
+                losses=[first["loss"], second["loss"]], step_ms=[ms1, ms2],
+                collectives=coll, tape=[t.cpu() for t in tape],
+                launches=launches,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                place_s=place_s, save_s=save_s,
+                coord=list(mesh.get_coordinate()),
+                seconds=time.perf_counter() - t_part)
+
+
+def moe_train_tapes(torch, rk: list, n_layers: int) -> list:
+    """The ranks' routing of the counted MoE step by data coordinate, in
+    order: each the 2 x ``n_layers`` ``gate_idx`` of its rows (the
+    forward's layers, then the recompute's in reverse). Raises where two
+    ranks holding the same rows routed them differently, or a recompute
+    routed otherwise than its forward."""
+    by_rows = {}
+    for r, run in enumerate(rk):
+        first, tape = by_rows.setdefault(run["coord"][0], (r, run["tape"]))
+        if len(run["tape"]) != 2 * n_layers:
+            raise AssertionError(f"14 moe train rank {r}: "
+                                 f"{len(run['tape'])} routings, want "
+                                 f"{2 * n_layers}")
+        for i, (a, b) in enumerate(zip(run["tape"], tape)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"14 moe train: rank {r} routed call {i} "
+                                     f"otherwise than rank {first}, which "
+                                     f"holds the same rows")
+        for i in range(n_layers):
+            if not torch.equal(run["tape"][i],
+                               run["tape"][2 * n_layers - 1 - i]):
+                raise AssertionError(f"14 moe train rank {r}: the "
+                                     f"recompute routed layer {i} otherwise "
+                                     f"than the forward")
+    return [by_rows[d][1] for d in sorted(by_rows)]
+
+
+def moe_train_reference(torch, tapes: list) -> dict:
+    """Phase 14's placed MoE train step's one-card reference, in the parent
+    after the ranks ended (``tapes``: ``moe_train_tapes``): the same cell's
+    step on one card from the same state, replaying the ranks' routing
+    (a comparison never crosses a top-k flip), and the floor: the step
+    with its sums split as the ranks split them, over ``model`` the
+    row-parallel partials, the column-parallel and the dispatch's input
+    cotangents (``split_products``), and over ``data`` each data rank's
+    rows a microbatch, whose load-balance loss takes the top-1 fractions
+    of the whole batch (from the tapes) and its own rows' mean
+    probabilities, so the mean over the microbatches is the batch's loss
+    and its gradient; that run routes on its own, and must route every
+    assignment as the ranks did. The parameters before, after each (by
+    leaf path), the metrics and the plain step's host ms."""
+    from unittest import mock
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cell = group_moe_train_cell(torch, dev)
+    cfg = cell["cfg"]
+    L, E = cfg.n_layers, cfg.n_experts
+    before = dict(zip(leaf_paths(cell["params"]),
+                      [t.clone() for t in tree_leaves(cell["params"])]))
+    tapes = [[t.to(dev) for t in tape] for tape in tapes]
+    whole = [torch.cat([tape[i] for tape in tapes]) for i in range(2 * L)]
+    with routing_tape(T, whole, replay=True):
+        one_p, one_o, one, one_ms = train_step_on(torch, cell,
+                                                  train_state_copy(cell))
+    one_p = dict(zip(leaf_paths(one_p), tree_leaves(one_p)))
+    del one_o
+    # each routing's top-1 fractions over the whole batch, in the order of
+    # every microbatch's forward and recompute
+    fracs = iter([torch.nn.functional.one_hot(
+        w[..., 0].reshape(-1), E).float().mean(0) for w in whole]
+        * len(tapes))
+
+    def batch_aux(probs, gate_idx, ex, want):
+        f = next(fracs)
+        return E * (f * probs.reshape(-1, E).mean(0)).sum() if want \
+            else None
+
+    auxes = []
+
+    def loss_fn(params, batch):
+        loss, m = T.loss_fn(params, batch, cfg)
+        auxes.append(m["aux"].detach())
+        return loss, m
+
+    free = []
+    split_step = make_train_step(loss_fn, cell["optimizer"],
+                                 accum_steps=len(tapes))
+    with split_products(torch, GROUP_LM_MESH[1], E), \
+            mock.patch.object(T, "_aux", batch_aux), \
+            routing_tape(T, free, replay=False):
+        split_p, _, split, _ = train_step_on(torch, cell,
+                                             train_state_copy(cell),
+                                             split_step)
+    split["aux"] = float(torch.stack(auxes).mean())
+    want = [t for tape in tapes for t in tape]
+    moved = [i for i, (a, b) in enumerate(zip(free, want))
+             if not torch.equal(a, b)]
+    if len(free) != len(want) or moved:
+        raise AssertionError(f"14 moe train: one card with the sums split "
+                             f"and its own routing routes calls {moved} (of "
+                             f"{len(free)}, want {len(want)}) otherwise than "
+                             f"the ranks did")
+    out = dict(before=before, one=one, one_ms=one_ms, split=split,
+               one_p=one_p, split_p=dict(zip(leaf_paths(split_p),
+                                             tree_leaves(split_p))),
+               assignments=sum(t.numel() for t in want), cfg=cfg,
+               seconds=time.perf_counter() - t0)
+    del cell
+    return out
+
+
+def phase_group_moe_train(torch, ranks: list, backend: str,
+                          work: str) -> dict:
+    """Phase 14's placed MoE train step in the parent, after the ranks
+    ended: its one-card reference (``moe_train_reference``, the ranks'
+    routing replayed; the floor's run routes as the ranks did), then the
+    granite train part's bar: every rank's loss, ``ce``, ``aux`` and
+    ``grad_norm`` bit-equal across ranks; the loss, ``aux``,
+    ``grad_norm`` and the parameters after the step on each rank's
+    shards within GROUP_TRAIN_FLOOR_X times their floor plus
+    GROUP_TRAIN_FLOOR_ADD of one card's; the loss finite and lower after
+    one more step on the same batch; each rank's collectives of the step,
+    by kind, the closed form's to the byte
+    (``dryrun.train_collective_bytes``); no flash launch."""
+    from repro_torch.configs import dbrx_132b, lm_common
+    from repro_torch.launch.dryrun import train_collective_bytes
+
+    t_parent = time.perf_counter()
+    dev = torch.device(DEVICE)
+    rk = [r["moe_train"] for r in ranks]
+    cfg, depth = group_serve_cfg("moe")
+    ref = moe_train_reference(torch, moe_train_tapes(torch, rk,
+                                                     cfg.n_layers))
+    before, one, split = ref["before"], ref["one"], ref["split"]
+    one_p, split_p = ref["one_p"], ref["split_p"]
+    assignments, one_ms = ref["assignments"], ref["one_ms"]
+    seq = lm_common.SHAPE_DEFS["train_4k"]["seq"]
+    closed = train_collective_bytes(
+        cfg, dataclasses.replace(dbrx_132b.TRAIN, accum=1),
+        GROUP_MOE_TRAIN_BATCH, seq, *GROUP_LM_MESH)
+
+    floors = {k: rel_diff(split[k], one[k])
+              for k in ("loss", "aux", "grad_norm")}
+    report = []
+    for r, run in enumerate(rk):
+        for k in ("loss", "ce", "aux", "grad_norm"):
+            if run["first"][k] != rk[0]["first"][k]:
+                raise AssertionError(f"14 moe train rank {r}: {k} differs "
+                                     f"from rank 0's")
+        if any(run["launches"].values()):
+            raise AssertionError(f"14 moe train rank {r}: flash launches "
+                                 f"{run['launches']} in a train step")
+        if not np.isfinite(run["losses"]).all() or \
+                not run["losses"][1] < run["losses"][0]:
+            raise AssertionError(f"14 moe train rank {r}: the loss not "
+                                 f"finite and falling over one more step: "
+                                 f"{run['losses']}")
+        counted = {k: float(run["collectives"].get(k, {}).get("bytes", 0))
+                   for k in closed}
+        if counted != closed:
+            raise AssertionError(f"14 moe train rank {r}: collectives "
+                                 f"{counted}, the closed form {closed}")
+        saved = torch.load(os.path.join(work, f"moe_train_rank{r}.pt"))
+        pl, coord = saved["placements"], run["coord"]
+        trip = [(saved["shards"][q].to(dev),
+                 rank_slice(one_p[q], pl[q], coord),
+                 rank_slice(before[q], pl[q], coord)) for q in one_p]
+        got = {k: rel_diff(run["first"][k], one[k])
+               for k in ("loss", "aux", "grad_norm")}
+        got.update(params=train_rel(torch, trip), params_floor=train_rel(
+            torch, [(rank_slice(split_p[q], pl[q], coord), b, c)
+                    for (_, b, c), q in zip(trip, one_p)]))
+        del trip, saved
+        got["margin"] = {k: train_bar(got[k], got["params_floor"]
+                                      if k == "params" else floors[k])
+                         for k in ("loss", "aux", "grad_norm", "params")}
+        for k, margin in got["margin"].items():
+            if margin < 1:
+                raise AssertionError(
+                    f"14 moe train rank {r}: {k} {got[k]:.4g} from one "
+                    f"card's, over {GROUP_TRAIN_FLOOR_X} x its floor + "
+                    f"{GROUP_TRAIN_FLOOR_ADD}")
+        report.append(got)
+    del one_p, split_p, before, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_s = time.perf_counter() - t_parent
+    how = ("ranks sharing one card over gloo, not a multi-card speed"
+           if backend == "gloo" else "one card a rank over nccl")
+    for r, run in enumerate(rk):
+        print(f"14 moe train rank {r} {run['coord']}: steps "
+              f"{[round(x, 1) for x in run['step_ms']]} ms; peak "
+              f"{run['peak_gb']:.3f} GB; losses {run['losses']}; staged "
+              f"a step (GB by kind) "
+              f"{ {k: round(c['bytes'] / 1e9, 4) for k, c in run['collectives'].items()} }"
+              f" (calls {({k: c['calls'] for k, c in run['collectives'].items()})}); "
+              f"seconds: place {run['place_s']:.1f}, save "
+              f"{run['save_s']:.1f}, part {run['seconds']:.1f}", flush=True)
+    print(f"14 moe train: dbrx-132b train_4k at its published widths "
+          f"({cfg.n_experts} experts top-{cfg.top_k}, sort dispatch, bf16 "
+          f"parameters, Adafactor), {cfg.n_layers} of {depth} layers, batch "
+          f"{GROUP_MOE_TRAIN_BATCH} x {seq} (accum 1), placed on a "
+          f"{GROUP_LM_MESH} (data, model) mesh of the {len(rk)} ranks "
+          f"({how}; a rank: {cfg.n_experts // GROUP_LM_MESH[1]} experts, "
+          f"{GROUP_MOE_TRAIN_BATCH // GROUP_LM_MESH[0]} row): loss, aux and "
+          f"grad_norm bit-equal across ranks, the loss falling over one more "
+          f"step, collectives the closed form's "
+          f"({ {k: v for k, v in closed.items() if v} }), no flash launch; "
+          f"one card with the sums split routes all {assignments} "
+          f"assignments as the ranks did; against one card (loss "
+          f"{one['loss']}, aux {one['aux']}, grad_norm {one['grad_norm']}, "
+          f"step {one_ms:.1f} ms): rank 0 {report[0]}; floors (split "
+          f"sums) {floors}; parent {parent_s:.1f} s", flush=True)
+    return dict(
+        cfg=dict(arch=cfg.name, n_layers=cfg.n_layers, depth=depth,
+                 mesh=list(GROUP_LM_MESH), batch=GROUP_MOE_TRAIN_BATCH,
+                 seq=seq, accum=1),
+        per_rank=[dict(coord=run["coord"], step_ms=run["step_ms"],
+                       peak_gb=run["peak_gb"], losses=run["losses"],
+                       first=run["first"], collectives=run["collectives"],
+                       place_s=run["place_s"], save_s=run["save_s"],
+                       seconds=run["seconds"]) for run in rk],
+        one_card=dict(step_ms=one_ms, **one), split_one_card=split,
+        floors=floors, vs_one_card=report, closed_form=closed,
+        assignments=assignments, parent_s=parent_s,
+        ranks_s=max(run["seconds"] for run in rk),
+        seconds=max(run["seconds"] for run in rk) + parent_s, how=how)
 
 
 def nccl_rank(rank: int, work: str) -> None:
@@ -4634,6 +5076,7 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
         parent=time.perf_counter() - t0)
     print(f"14 train seconds by part: {lm_train['seconds_by_part']}",
           flush=True)
+    moe_train = phase_group_moe_train(torch, ranks, backend, work)
 
     with open(os.path.join(work, "nccl.pkl"), "rb") as f:
         nccl = pickle.load(f)
@@ -4674,7 +5117,8 @@ def phase_group(torch, session, handles, ckpt: str, want, sample,
                       read_p50_ms=float(np.median(ref["r_ms"]))),
         nccl=dict(device=g["device"], launches={
             k: g["launches"][k] for k in stacked_keys}),
-        streams=streams, nequip=nq, lm_train=lm_train, **serve)
+        streams=streams, nequip=nq, lm_train=lm_train, moe_train=moe_train,
+        **serve)
 
 
 def group_stream_check(ranks: list, ref: dict, r2_want) -> dict:
@@ -7183,9 +7627,10 @@ def phase_bag_backward(torch, dien_cfg, train_bags, errs) -> dict:
 
 
 def phase_train_lm(torch, card, out_dir) -> dict:
-    """granite-3-2b's train_4k at its published width and depth, fp32
-    parameters drawn from a seed, bf16 compute, AdamW, accum 4, seq
-    4,096, remat full, the fused CE in chunks of 512,
+    """granite-3-2b's train_4k at its published width, LM_TRAIN_LAYERS of
+    its 40 layers, fp32 parameters drawn from a seed at the full depth's
+    scale, bf16 compute, AdamW, accum 4, seq 4,096, remat full, the fused
+    CE in chunks of 512,
     a global batch of LM_TRAIN_BATCH: one step from the drawn state, the
     state after it moved to the host and the drawn state put back on the
     card, the same step again, required bit-equal in every parameter and
@@ -7194,14 +7639,16 @@ def phase_train_lm(torch, card, out_dir) -> dict:
     tokens/s, peak memory, the traced step's busy share; the flash
     kernels' launches required unchanged (training attends through
     blocked_attention)."""
-    from repro_torch.configs import granite_3_2b
+    from repro_torch.configs import granite_3_2b, lm_common
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.train.optimizer import tree_leaves
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cell = granite_3_2b.build_train(batch=LM_TRAIN_BATCH, device=DEVICE,
-                                    seed=LM_SEED)
+    cell = lm_common.build_train(
+        dataclasses.replace(granite_3_2b.CFG, n_layers=LM_TRAIN_LAYERS),
+        granite_3_2b.TRAIN, batch=LM_TRAIN_BATCH, device=DEVICE,
+        seed=LM_SEED, depth=granite_3_2b.CFG.n_layers)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg, step, batch, lr = cell["cfg"], cell["step"], cell["batch"], \
@@ -7282,8 +7729,8 @@ def phase_train_lm(torch, card, out_dir) -> dict:
                tokens_per_s=B * S / (p50 / 1e3), peak_gb=peak_gb,
                losses=losses, grad_norm=first["grad_norm"], trace=trace,
                replay_s=dict(copy=copy_s, swap=swap_s, compare=compare_s))
-    print(f"granite-3-2b train on {card}: full width and depth, "
-          f"{cfg.n_layers} layers ({n_params / 1e9:.3f} B fp32 parameters; "
+    print(f"granite-3-2b train on {card}: full width, {cfg.n_layers} of "
+          f"40 layers ({n_params / 1e9:.3f} B fp32 parameters; "
           f"params + AdamW moments {state_gb:.2f} GB), batch {B} x {S} tokens in "
           f"{out['accum']} microbatches: first step {first_ms:.1f} ms, then "
           f"p50 {p50:.1f} ms = {out['tokens_per_s']:.0f} tokens/s; peak "
@@ -8610,6 +9057,8 @@ def main(argv=None) -> int:
     for part in GROUP_SERVE:
         seconds_by_phase[f"14 {GROUP_SERVE[part]['arch']} serve part "
                          f"(in 14)"] = shards["group"][part]["seconds"]
+    seconds_by_phase[f"14 {GROUP_MOE_ARCH} train part (in 14)"] = \
+        shards["group"]["moe_train"]["seconds"]
     # ---- 9. bf16 edge values on phase 3's overlay and decisions
     t0 = time.perf_counter()
     bf16 = phase_bf16(torch, ops, ref, bf16_bases, bf16_compiled, writers,

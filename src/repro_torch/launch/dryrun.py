@@ -31,8 +31,8 @@ cell instead.
 The records keep the JAX package's keys. ``collective_bytes`` is the
 placed step's per-device collective traffic, as the JAX package reads it
 from the partitioned HLO: the CLI (``add_collective_bytes``) places each
-placed cell (``placed``: every LM arch's serve cells and the dense LM
-archs' train cells; a train cell steps whole, forward, recompute,
+placed cell (``placed``: every LM arch's serve cells and train cells,
+the MoE archs' included; a train cell steps whole, forward, recompute,
 backward and optimizer, every microbatch) on ``--multi-pod``'s
 production mesh over a fake process group of as many ranks
 (``launch.mesh.fake_group``; meta tensors, nothing allocated, no peer)
@@ -78,8 +78,8 @@ _NO_TRAFFIC = {torch.ops.aten.empty.memory_format,
 
 
 # the cells placed on a device mesh (DTensor) for their collective bytes:
-# every LM arch's serve shapes and the dense LM archs' train shape; the
-# MoE archs' train shape, DIEN, the GNNs and eagr are not placed yet
+# every LM arch's serve shapes and train shape (the MoE archs' through
+# both dispatches); DIEN, the GNNs and eagr are not placed yet
 SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
 # the JAX package's collective kinds, and the functional collectives that
 # are each (result bytes counted, as the JAX package counts the HLO
@@ -103,8 +103,7 @@ def placed(arch_id: str, shape: str) -> bool:
 
     mod = get_arch(arch_id)
     return getattr(mod, "FAMILY", None) == "lm" and (
-        shape in SERVE_SHAPES or (shape == "train_4k"
-                                  and not mod.CFG.is_moe))
+        shape in SERVE_SHAPES or shape == "train_4k")
 
 
 class CollectiveBytes(TorchDispatchMode):
@@ -139,6 +138,158 @@ def collective_bytes(plan: CellPlan, mesh: MeshShape) -> tuple[dict, dict]:
         with CollectiveBytes() as cb:
             step.fn(*step.args)
     return cb.bytes, cb.calls
+
+
+def _spec_axes(entry) -> tuple:
+    return () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+def train_collective_bytes(cfg, train, B: int, S: int, data: int,
+                           model: int) -> dict:
+    """A placed LM train step's collective bytes per device by kind (the
+    JAX package's names) on a (data, model) mesh (data > 1) under the
+    arch's rule preset, from the shapes alone: the closed form that
+    :func:`collective_bytes` counts, and that ``chip_smoke.py`` holds a
+    group's counted collectives to. ``cfg`` a ``TransformerConfig``,
+    ``train`` its ``TrainSetting``, a global batch of ``B`` x ``S``.
+
+    Each of the step's n microbatches (b of its rows a data rank): the
+    FSDP gathers of every weight (in the compute dtype; ``lm_head`` in
+    the parameter dtype, as the fused CE reads it) in the forward and
+    again in the recompute of each layer, and their gradients
+    reduce-scattered once; the cross entropy's max, sum of exp and label
+    logit all-reduced over the vocab's mesh dims in the forward and in the
+    recompute of each chunk (fp32), and its two sums over data. Default
+    rules: the lookup's sum and two row-parallel products a layer
+    all-reduced, the recompute's attention product again (the checkpoint
+    stops recomputing after the last saved input), and the partial
+    cotangents at the 2L + 1 places the sequence meets the column-parallel
+    products (each layer's two normed inputs, the CE's input), all
+    all-reduced; the norm gains' gradients all-reduced over data.
+    ``residual_sp``: the sequence gathered at those 2L + 1 places in the
+    forward and at the layers' 2L in the recompute, the lookup and the row
+    products reduce-scattered over it (the recompute's attention product
+    again), each gather's and reduce-scatter's cotangent the other
+    collective; the gains' gradients all-reduced over data and model.
+    Where the kv heads are replicated over ``model`` while the query heads
+    are not, their cotangents are all-reduced.
+
+    An MoE layer gathers (and reduce-scatters the gradients of) its router
+    and its rank's experts in the dense FFN's place, arctic's dense
+    residual FFN beside them. Its load-balance loss all-reduces the rows'
+    2E fp32 sums over data in the forward and the recompute. The sort
+    dispatch all-gathers the expert outputs (b x E x C x D, C the per-row
+    capacity) over ``model`` in the forward and the recompute and sums
+    nothing: without a dense FFN the layer all-reduces no FFN product, and
+    a dense residual's partials are all-reduced where the MoE output is
+    whole (under ``residual_sp`` too, so they are not reduce-scattered).
+    The einsum dispatch's combine is partial and all-reduced in the dense
+    FFN's place, and its router's gradient, partial over ``model``, is
+    all-reduced there after the reduce-scatter.
+
+    Per step: the batch's token ids gathered over data once
+    (accumulating), one 4-byte all-reduce of the global norm per mesh dim
+    of each group of leaves sharded alike, and Adafactor's statistics
+    over sharded dims (:func:`adafactor_bytes`)."""
+    import math
+
+    from repro_torch.distributed.sharding import spec_for
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import _leaves
+
+    def div(n, k):
+        return n // k if n % k == 0 else n
+
+    rules = RULE_SETS[train.train_rules or "default"]
+    mesh = MeshShape(("data", "model"), (data, model))
+    sizes = dict(data=data, model=model)
+    e = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    pe = torch.empty((), dtype=cfg.param_dtype).element_size()
+    n = math.gcd(train.accum, B)
+    b = B // n // data
+    D, Fd, V, L = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.n_layers
+    Hq, Hkv, hd, E = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.n_experts
+    dense = not cfg.is_moe or cfg.moe_dense_residual
+    sort = cfg.is_moe and cfg.moe_impl == "sort"
+    layer = D * (2 * div(Hq, model) * hd + 2 * div(Hkv, model) * hd) * e
+    layer += 3 * D * div(Fd, model) * e if dense else 0
+    if cfg.is_moe:
+        layer += D * E * e + 3 * div(E, model) * D * Fd * e
+    tables = div(V, model) * D * (e + pe)
+    act = b * S * D * e
+    ag = 2 * L * layer + tables
+    rs = (L * layer + tables) // data
+    ar = 6 * b * S * 4 + 2 * 4
+    attn = Hq % model == 0        # the heads split: column / row parallel
+    if Hkv % model and attn:
+        ar += 2 * L * b * S * Hkv * hd * e
+    gains = (2 * L + 1) * D * pe
+    # a layer's partial sums of (b, S, D): the attention's out product in
+    # the forward and the recompute and its input's cotangent where the
+    # heads are split; the FFN's input's cotangent (a dense FFN's columns
+    # or the experts split); its output's partials, summed into the
+    # residual's placement (reduce-scattered under residual_sp) unless the
+    # sort's output is whole, where a dense residual's are all-reduced
+    split = 3 * attn + (dense or E % model == 0)
+    ffn = (not sort or dense)
+    if train.train_rules == "residual_sp":
+        ag += (6 * L + 2) * act
+        rs += (2 + L * (split + ffn * (not sort))) * act // model
+        ar += 2 * gains + L * act * (ffn and sort)
+    else:
+        ar += (2 + L * (split + ffn)) * act + gains
+    if cfg.is_moe:
+        ar += 2 * L * 2 * E * 4
+        if sort and E % model == 0:
+            ag += 2 * L * b * E * T._capacity_sort(cfg, S) * D * e
+        if not sort:
+            ar += L * div(D, data) * E * e
+    out = {"all-gather": n * ag + (2 * B * S * 4 if n > 1 else 0),
+           "all-reduce": n * ar, "reduce-scatter": n * rs,
+           "all-to-all": 0, "collective-permute": 0}
+    specs = T.param_specs(cfg)
+    groups = {tuple(sorted({a for en in spec_for(s.shape, s.axes, mesh, rules)
+                            for a in _spec_axes(en)}))
+              for _, s in _leaves(specs)}
+    out["all-reduce"] += 4 * sum(sum(sizes[a] > 1 for a in k)
+                                 for k in groups)
+    if train.optimizer == "adafactor":
+        out["all-reduce"] += adafactor_bytes(specs, mesh, rules)
+    return {k: float(v) for k, v in out.items()}
+
+
+def adafactor_bytes(specs, mesh: MeshShape, rules) -> int:
+    """Adafactor's all-reduces (fp32) of a placed step on ``mesh``, a layer
+    slice of a layer-stacked leaf at a time: the row means of g^2 where
+    the last dim is sharded, the column means and the row moments' mean
+    where the one before it is (one all-reduce per mesh dim that shards
+    it), and the update's mean square (4 bytes per mesh dim sharding the
+    leaf)."""
+    import math
+
+    from repro_torch.distributed.sharding import spec_for
+    from repro_torch.models.common import _leaves
+
+    sizes = mesh_axis_sizes(mesh)
+    total = 0
+    for _, s in _leaves(specs):
+        ent = spec_for(s.shape, s.axes, mesh, rules)
+        local = [d // math.prod(sizes[a] for a in _spec_axes(en))
+                 for d, en in zip(s.shape, ent)]
+        ranks = [sum(sizes[a] > 1 for a in _spec_axes(en)) for en in ent]
+        slices = 1
+        if len(s.shape) >= 3:
+            slices, local, ranks = s.shape[0], local[1:], ranks[1:]
+        per = 4 * len({a for en in ent for a in _spec_axes(en)
+                       if sizes[a] > 1})
+        if len(local) >= 2:
+            per += 4 * math.prod(local[:-1]) * ranks[-1]
+            per += 4 * math.prod(local[:-2] + local[-1:]) * ranks[-2]
+            per += 4 * math.prod(local[:-2]) * ranks[-2]
+        total += slices * per
+    return total
 
 
 class OperandBytes(TorchDispatchMode):

@@ -58,13 +58,16 @@ GSPMD adds them; an MoE FFN runs on each rank's local rows and experts
 (``_experts``: router and experts gathered over their FSDP axes, each
 rank's ``expert`` shard of the experts; the sort dispatch all-gathers
 the expert outputs over the experts' mesh dims, the einsum dispatch's
-combine is a partial sum). The dense archs' training path (``trunk``,
-``forward``, ``loss_fn``) runs placed the same way, with gradients: the
-lookup vocab-parallel, each layer ending on ``_RES_AXES`` (under
+combine is a partial sum). The training path (``trunk``, ``forward``,
+``loss_fn``) runs placed the same way, with gradients: the lookup
+vocab-parallel, each layer ending on ``_RES_AXES`` (under
 ``residual_sp`` the sequence gathered into the layer and
 reduce-scattered out of it), ``blocked_attention`` on each rank's local
 heads, the fused cross entropy vocab-parallel, and a checkpointed layer
-recomputed under the forward's ``activation_sharding``.
+recomputed under the forward's ``activation_sharding``; an MoE FFN's
+local views carry the gradient placements of their partial sums
+(``_Experts.grads``, ``_Experts.once``), and its load-balance loss is
+the global batch's (``_aux``).
 """
 from __future__ import annotations
 
@@ -78,6 +81,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.distributed.sharding import (
     activation_sharding,
     constrain,
+    constrain_to,
     current_sharding,
     dim_shard,
     from_local,
@@ -213,9 +217,18 @@ def serving_sources(cfg: TransformerConfig, generator: torch.Generator,
 
 # --------------------------------------------------------------------- ffn
 def _swiglu(x, w_gate, w_up, w_down):
-    h = F.silu(x @ w_gate) * (x @ w_up)
+    h = F.silu(_col_product(x, w_gate)) * _col_product(x, w_up)
     h = constrain(h, ("act_batch", "act_seq", "act_mlp"))
     return _row_product(h, w_down)
+
+
+def _col_product(x, w):
+    """``x @ w`` where the mesh shards ``w``'s columns (the attention's
+    q, k, v and the FFN's gate and up products): placed, each rank's
+    cotangent of ``x`` is a partial sum over its columns, which the
+    backward of the ``constrain`` before the product sums in the compute
+    dtype."""
+    return x @ w
 
 
 def _row_product(h, w):
@@ -341,6 +354,29 @@ class _Experts:
                                      (self.E, self.B * C, y.shape[2])),
                           0).to_local()
 
+    def grads(self, t, experts: bool = True) -> list:
+        """The gradient placements of this rank's local view of ``t``
+        (``x``, the router or the experts, placed): its gradient comes from
+        its own rows and, where ``experts``, its own experts, so it is a
+        partial sum over those mesh dims where ``t`` is not sharded
+        there."""
+        from torch.distributed.tensor import Partial
+
+        mine = set(self.rows) | (set(self.experts) if experts else set())
+        return [Partial() if i in mine and not q.is_shard() else q
+                for i, q in enumerate(t.placements)]
+
+    def once(self, t):
+        """``t`` as it is; placed, its cotangent kept on the first rank of
+        the experts' mesh dims and zeroed on the others: a cotangent that
+        every rank there computes alike (the routing's, where the combine
+        is whole on every rank) counted once in a partial sum over those
+        dims."""
+        if self.mesh is None or not self.experts:
+            return t
+        coord = self.mesh.get_coordinate()
+        return _Once.apply(t, any(coord[i] for i in self.experts))
+
     def out(self, t, partial: bool):
         """The FFN's output (this rank's rows, S, D) as the caller's
         tensor: placed, a DTensor on the rows' placements, Partial over
@@ -351,7 +387,20 @@ class _Experts:
                           (self.B,) + tuple(t.shape[1:]))
 
 
-def _experts(x, p):
+class _Once(torch.autograd.Function):
+    """Forward ``t``; backward the cotangent, or zeros where ``zero``."""
+
+    @staticmethod
+    def forward(ctx, t, zero: bool):
+        ctx.zero = zero
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (torch.zeros_like(g) if ctx.zero else g), None
+
+
+def _experts(x, p, router_partial: bool = False):
     """(x, one layer's MoE weights in x's dtype, ``_Experts``) of an MoE
     FFN. Placed, on this rank's local tensors, as GSPMD partitions the
     JAX package's FFN: the router gathered over its FSDP (``embed``) axes,
@@ -359,7 +408,15 @@ def _experts(x, p):
     ``expert`` axes give it; all of them where the divisibility guard
     replicates them), ``x`` this rank's batch rows (replicated over the
     other mesh dims, so every rank holding the same rows routes them
-    alike)."""
+    alike).
+
+    Their gradients (``_Experts.grads``): ``x``'s a partial sum over the
+    experts' mesh dims (each rank dispatches to its own experts; the
+    ``constrain`` before the FFN sums it), every weight's a partial over
+    the rows' mesh dims (the FSDP gathers' backward reduce-scatters it),
+    the router's also over the experts' dims where ``router_partial``
+    (the einsum's gates see only the rank's experts), summed there once
+    the gather's backward has reduce-scattered it."""
     cast = {k: p[k].to(x.dtype) for k in _MOE_LEAVES}
     E = p["we_gate"].shape[0]
     if not is_placed(x):
@@ -369,7 +426,10 @@ def _experts(x, p):
            for i, q in enumerate(x.placements)):
         raise NotImplementedError(f"an MoE FFN on {x.placements}: only its "
                                   f"batch rows placed on the mesh are ported")
-    w = dict(router=gather_dim(cast["router"], 0),
+    router = cast["router"]
+    if router_partial:
+        router = constrain_to(router, router.placements)
+    w = dict(router=gather_dim(router, 0),
              we_gate=gather_dim(cast["we_gate"], 1),
              we_up=gather_dim(cast["we_up"], 1),
              we_down=gather_dim(cast["we_down"], 2))
@@ -383,31 +443,46 @@ def _experts(x, p):
                 f"only experts sharded apart from the rows are ported")
     idx, n_shards = dim_shard(w["we_gate"], 0)
     n = E // n_shards
-    return x.to_local(), {k: t.to_local() for k, t in w.items()}, \
-        _Experts(x.device_mesh, rows, experts, idx * n, n, x.shape[0], E)
+    ex = _Experts(x.device_mesh, rows, experts, idx * n, n, x.shape[0], E)
+    return x.to_local(grad_placements=ex.grads(x)), {
+        k: t.to_local(grad_placements=ex.grads(
+            t, k != "router" or router_partial)) for k, t in w.items()}, ex
 
 
-def _aux(probs, gate_idx, ex: _Experts):
-    """The load-balance loss on one device; None placed (placed serving
-    drops it, and placed training of an MoE arch is refused)."""
-    if ex.mesh is not None:
+def _aux(probs, gate_idx, ex: _Experts, want: bool):
+    """The load-balance loss of the batch (None unless ``want``): on one
+    device its tokens'; placed, the JAX package's means over the global
+    batch: each rank's fp32 sums of its rows' top-1 one-hot counts and
+    probabilities summed over the rows' mesh dims and divided by the
+    global token count, so the loss is the same on every rank and its
+    gradient reaches each rank's probabilities."""
+    if not want:
         return None
     E, k = probs.shape[-1], gate_idx.shape[-1]
-    return _load_balance_loss(probs.reshape(-1, E), gate_idx.reshape(-1, k),
-                              E)
+    if ex.mesh is None:
+        return _load_balance_loss(probs.reshape(-1, E),
+                                  gate_idx.reshape(-1, k), E)
+    from repro_torch.launch.mesh import all_reduce_sum
+
+    counts = F.one_hot(gate_idx[..., 0].reshape(-1), E).float().sum(0)
+    sums = all_reduce_sum(torch.stack([counts, probs.reshape(-1, E).sum(0)]),
+                          ex.mesh, ex.rows)
+    n = ex.B * probs.shape[1]
+    return E * ((sums[0] / n) * (sums[1] / n)).sum()
 
 
-def _moe_ffn_einsum(x, p, cfg: TransformerConfig):
+def _moe_ffn_einsum(x, p, cfg: TransformerConfig, aux: bool = True):
     """GShard-style group-wise einsum dispatch. x: (B, S, D); p: one
     layer's ``router``, ``we_gate``, ``we_up``, ``we_down``. Returns
-    (out (B, S, D), load-balance loss).
+    (out (B, S, D), the load-balance loss; None unless ``aux``).
 
     Placed (:func:`_experts`): each rank dispatches its rows to its own
     experts (the dispatch and combine tensors sliced to them), and its
     combine is a partial sum over the experts' mesh dims, which the
     ``constrain`` after the FFN sums in the compute dtype, as GSPMD
-    does."""
-    x, p, ex = _experts(x, p)
+    does. In the backward the gates' cotangent is then a partial over
+    those dims too, the load-balance loss's counted once there."""
+    x, p, ex = _experts(x, p, router_partial=True)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     probs, gate_vals, gate_idx = _route(x, p["router"], k)
@@ -421,7 +496,8 @@ def _moe_ffn_einsum(x, p, cfg: TransformerConfig):
     y = ex.hold(torch.einsum("egcf,efd->egcd", h, p["we_down"]),
                 _EINSUM_AXES, 1, 0)
     out = torch.einsum("gsec,egcd->gsd", comb.to(x.dtype), y)
-    return ex.out(out, partial=True), _aux(probs, gate_idx, ex)
+    return ex.out(out, partial=True), _aux(ex.once(probs), gate_idx, ex,
+                                           aux)
 
 
 def _dispatch_sort(gate_idx, E: int, C: int):
@@ -447,7 +523,7 @@ def _dispatch_sort(gate_idx, E: int, C: int):
             keep.gather(1, inv).reshape(B, S, k))
 
 
-def _moe_ffn_sort(x, p, cfg: TransformerConfig):
+def _moe_ffn_sort(x, p, cfg: TransformerConfig, aux: bool = True):
     """Per-row sort-based dispatch: no (B, S, E, C) dispatch tensors.
     x: (B, S, D); p as in :func:`_moe_ffn_einsum`.
 
@@ -462,12 +538,16 @@ def _moe_ffn_sort(x, p, cfg: TransformerConfig):
     slots of its rows (every other assignment goes to the spare row),
     runs its experts, and all-gathers their outputs over the experts'
     mesh dims; the pick and the combine then run as on one device, so the
-    output is whole on every rank that holds the rows."""
+    output is whole on every rank that holds the rows. In the backward
+    every rank of the experts' dims computes the routing's cotangent
+    alike (``_Experts.once`` counts it once in ``x``'s partial sum), the
+    router's gradient is whole there, and the gathered outputs'
+    cotangent is each rank's slice."""
     x, p, ex = _experts(x, p)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity_sort(cfg, S)
-    probs, gate_vals, gate_idx = _route(x, p["router"], k)
+    probs, gate_vals, gate_idx = _route(ex.once(x), p["router"], k)
     order, e_sorted, slot, keep, slot_sk, keep_sk = _dispatch_sort(
         gate_idx, E, C)
     bidx = torch.arange(B, device=x.device)[:, None]
@@ -475,7 +555,7 @@ def _moe_ffn_sort(x, p, cfg: TransformerConfig):
     rows = torch.where(mine, (e_sorted - ex.lo) * (B * C) + bidx * C + slot,
                        ex.n * B * C)
     buf = x.new_zeros((ex.n * B * C + 1, D))
-    buf[rows] = x[bidx, order // k]
+    buf[rows] = _dispatched(x, bidx.expand_as(order), order // k, e_sorted)
     xe = buf[:-1].view(ex.n, B * C, D)
     ex.hold(xe.view(ex.n, B, C, D).transpose(0, 1), _SORT_AXES, 0, 1)
     h = F.silu(torch.bmm(xe, p["we_gate"])) * torch.bmm(xe, p["we_up"])
@@ -486,7 +566,15 @@ def _moe_ffn_sort(x, p, cfg: TransformerConfig):
         + torch.where(keep_sk, slot_sk, 0)
     picked = y[rows_sk].masked_fill(~keep_sk[..., None], 0.0)  # (B,S,k,D)
     out = (picked * gate_vals[..., None].to(x.dtype)).sum(dim=2)
-    return ex.out(out, partial=False), _aux(probs, gate_idx, ex)
+    return ex.out(out, partial=False), _aux(probs, gate_idx, ex, aux)
+
+
+def _dispatched(x, b, t, e):
+    """``x[b, t]``: the tokens of the sort's assignments (batch row ``b``,
+    token ``t``, expert ``e``). Placed, a rank's cotangent of ``x`` sums
+    its own experts' assignments only, a partial over the experts' mesh
+    dims."""
+    return x[b, t]
 
 
 def _load_balance_loss(probs, gate_idx, E: int):
@@ -509,15 +597,15 @@ def _layer_weights(lp, l: int) -> dict:
     return {k: v[l] for k, v in lp.items()}
 
 
-def _layer_ffn(x, lw, cfg: TransformerConfig):
+def _layer_ffn(x, lw, cfg: TransformerConfig, aux: bool = True):
     """One layer's FFN on that layer's weights ``lw``: (out, load-balance
-    loss; 0.0 for a dense FFN)."""
+    loss; 0.0 for a dense FFN, None for an MoE one unless ``aux``)."""
     if not cfg.is_moe:
         return _dense_ffn(x, lw, cfg.compute_dtype), 0.0
     if cfg.moe_impl not in _MOE_IMPLS:
         raise ValueError(f"moe_impl {cfg.moe_impl!r} not in "
                          f"{sorted(_MOE_IMPLS)}")
-    out, aux = _MOE_IMPLS[cfg.moe_impl](x, lw, cfg)
+    out, aux = _MOE_IMPLS[cfg.moe_impl](x, lw, cfg, aux)
     if cfg.moe_dense_residual:
         dense = _dense_ffn(x, lw, cfg.compute_dtype)
         if is_placed(out) and not any(q.is_partial() for q in out.placements):
@@ -528,10 +616,10 @@ def _layer_ffn(x, lw, cfg: TransformerConfig):
     return out, aux
 
 
-def _ffn(x, lp, l: int, cfg: TransformerConfig):
+def _ffn(x, lp, l: int, cfg: TransformerConfig, aux: bool = True):
     """Layer ``l``'s FFN from the layer-stacked leaves ``lp``: (out,
-    load-balance loss; 0.0 for a dense FFN)."""
-    return _layer_ffn(x, _layer_weights(lp, l), cfg)
+    load-balance loss as :func:`_layer_ffn` gives it)."""
+    return _layer_ffn(x, _layer_weights(lp, l), cfg, aux)
 
 
 # ------------------------------------------------------------------- layer
@@ -540,7 +628,7 @@ def _project(x, w, cdt):
     over its FSDP axes when placed)."""
     D, H, hd = w.shape
     w = gather_dim(w.to(cdt), 0)
-    return (x @ w.reshape(D, H * hd)).unflatten(-1, (H, hd))
+    return _col_product(x, w.reshape(D, H * hd)).unflatten(-1, (H, hd))
 
 
 def _out_proj(o, wo, cdt):
@@ -741,7 +829,6 @@ def trunk(params, tokens: torch.Tensor, cfg: TransformerConfig):
     is vocab-parallel (:func:`_embed`) and the residual stream constrained
     to ``_RES_AXES``."""
     cdt = cfg.compute_dtype
-    _placed_dense(params, cfg, "training")
     x = constrain(_embed(params["embed"], tokens, cdt), _RES_AXES)
     S = tokens.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=tokens.device),
@@ -787,15 +874,6 @@ def loss_fn(params, batch, cfg: TransformerConfig):
 
 
 # ----------------------------------------------------------------- serving
-def _placed_dense(params, cfg: TransformerConfig, what: str) -> None:
-    """Placed training covers the dense archs: an MoE arch's placed
-    gradients (through the expert placements) are ROADMAP H3 3b.2."""
-    if cfg.is_moe and is_placed(params["embed"]):
-        raise NotImplementedError(
-            f"{cfg.name}: placed {what} of an MoE arch is not ported "
-            f"(ROADMAP H3 3b.2)")
-
-
 def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
             attention=None):
     """tokens (B, S) int -> (last-token logits (B, V_pad) in the compute
@@ -815,7 +893,7 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         a, (kk, vv) = _attention(rms_norm(x, lp["ln1"][l]), lp, l, cfg, cos,
                                  sin, attention=attention)
         x = x + a
-        f = _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)[0]
+        f = _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg, aux=False)[0]
         x = constrain(x + constrain(f, _OUT_AXES).to(cdt), _RES_AXES)
         ks.append(constrain(kk, _CACHE_AXES))
         vs.append(constrain(vv, _CACHE_AXES))
@@ -860,6 +938,6 @@ def decode_step(params, cache, tokens: torch.Tensor, lengths: torch.Tensor,
             o = attention(q, k_l, v_l, causal=False, lengths=live)
         o = constrain(o, _O_AXES)
         x = x + constrain(_out_proj(o, lp["wo"][l], cdt), _OUT_AXES).to(cdt)
-        f = _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg)[0]
+        f = _ffn(rms_norm(x, lp["ln2"][l]), lp, l, cfg, aux=False)[0]
         x = constrain(x + constrain(f, _OUT_AXES).to(cdt), _OUT_AXES)
     return _logits(x[:, 0], params, cfg), cache, live

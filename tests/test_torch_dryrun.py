@@ -353,8 +353,8 @@ def test_placed_record_carries_collective_bytes(arch_id, shape, multi_pod):
 
 def test_unplaced_records_say_so():
     for arch_id, shape in [("gatedgcn", "minibatch_lg"),
-                           ("dbrx-132b", "train_4k"),
-                           ("arctic-480b", "train_4k"),
+                           ("gat-cora", "full_graph_sm"),
+                           ("dien", "train_batch"),
                            ("dien", "serve_p99")]:
         assert not dryrun.placed(arch_id, shape)
         mesh = make_production_mesh()
@@ -492,133 +492,24 @@ def test_moe_smoke_collective_bytes_equal_the_closed_form(dispatch, shape):
 
 
 # ------------------------------------------ placed train cells: the bytes
-def _spec_axes(entry) -> tuple:
-    return () if entry is None else (
-        entry if isinstance(entry, tuple) else (entry,))
-
-
-def _train_closed_form(cfg, train, B: int, S: int, data: int,
-                       model: int) -> dict:
-    """A placed train step's collective bytes per device on a (data,
-    model) mesh (data > 1) under the arch's rule preset, from the shapes
-    alone. Each of the step's n microbatches (b of its rows a data rank):
-    the FSDP gathers of every weight (in the compute dtype; ``lm_head``
-    in the parameter dtype, as the fused CE reads it) in the forward and
-    again in the recompute of each layer, and their gradients
-    reduce-scattered once; the cross entropy's max, sum of exp and label
-    logit all-reduced over the vocab's mesh dims in the forward and in
-    the recompute of each chunk (fp32), and its two sums over data.
-    Default rules: the lookup's sum and two row-parallel products a layer
-    all-reduced, the recompute's attention product again (the checkpoint
-    stops recomputing after the last saved input), and the partial
-    cotangents at the 2L + 1 places the sequence meets the column-parallel
-    products (each layer's two normed inputs, the CE's input), all
-    all-reduced; the norm gains' gradients all-reduced over data.
-    ``residual_sp``: the sequence gathered at those 2L + 1 places in the
-    forward and at the layers' 2L in the recompute, the lookup and the row
-    products reduce-scattered over it (the recompute's attention product
-    again), each gather's and reduce-scatter's cotangent the other
-    collective; the gains' gradients all-reduced over data and model.
-    Where the kv heads are replicated over ``model`` while the query heads
-    are not, their cotangents are all-reduced. Per step: the batch's
-    token ids gathered over data once (accumulating), one 4-byte
-    all-reduce of the global norm per mesh dim of each group of leaves
-    sharded alike, and Adafactor's statistics over sharded dims
-    (:func:`_adafactor_bytes`)."""
-    import math
-
-    from repro_torch.configs.cell import opt_state_specs  # noqa: F401
-    from repro_torch.distributed.sharding import RULE_SETS, MeshShape
-    from repro_torch.distributed.sharding import spec_for
-    from repro_torch.models import transformer as T
-    from repro_torch.models.common import _leaves
-
-    def div(n, k):
-        return n // k if n % k == 0 else n
-
-    rules = RULE_SETS[train.train_rules or "default"]
-    mesh = MeshShape(("data", "model"), (data, model))
-    sizes = dict(data=data, model=model)
-    e = torch.empty((), dtype=cfg.compute_dtype).element_size()
-    pe = torch.empty((), dtype=cfg.param_dtype).element_size()
-    n = math.gcd(train.accum, B)
-    b = B // n // data
-    D, Fd, V, L = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.n_layers
-    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    layer = D * (2 * div(Hq, model) * hd + 2 * div(Hkv, model) * hd
-                 + 3 * div(Fd, model)) * e
-    tables = div(V, model) * D * (e + pe)
-    act = b * S * D * e
-    ag = 2 * L * layer + tables
-    rs = (L * layer + tables) // data
-    ar = 6 * b * S * 4 + 2 * 4
-    if Hkv % model:
-        ar += 2 * L * b * S * Hkv * hd * e
-    gains = (2 * L + 1) * D * pe
-    if train.train_rules == "residual_sp":
-        ag += (6 * L + 2) * act
-        rs += (5 * L + 2) * act // model
-        ar += 2 * gains
-    else:
-        ar += (5 * L + 2) * act + gains
-    out = {"all-gather": n * ag + (2 * B * S * 4 if n > 1 else 0),
-           "all-reduce": n * ar, "reduce-scatter": n * rs,
-           "all-to-all": 0, "collective-permute": 0}
-    specs = T.param_specs(cfg)
-    groups = {tuple(sorted({a for en in spec_for(s.shape, s.axes, mesh, rules)
-                            for a in _spec_axes(en)}))
-              for _, s in _leaves(specs)}
-    out["all-reduce"] += 4 * sum(sum(sizes[a] > 1 for a in k)
-                                 for k in groups)
-    if train.optimizer == "adafactor":
-        out["all-reduce"] += _adafactor_bytes(specs, mesh, rules, sizes)
-    return {k: float(v) for k, v in out.items()}
-
-
-def _adafactor_bytes(specs, mesh, rules, sizes) -> int:
-    """Adafactor's all-reduces (fp32) on a mesh, a layer slice of a
-    layer-stacked leaf at a time: the row means of g^2 where the last dim
-    is sharded, the column means and the row moments' mean where the one
-    before it is (one all-reduce per mesh dim that shards it), and the
-    update's mean square (4 bytes per mesh dim sharding the leaf)."""
-    import math
-
-    from repro_torch.distributed.sharding import spec_for
-    from repro_torch.models.common import _leaves
-
-    total = 0
-    for _, s in _leaves(specs):
-        ent = spec_for(s.shape, s.axes, mesh, rules)
-        local = [d // math.prod(sizes[a] for a in _spec_axes(en))
-                 for d, en in zip(s.shape, ent)]
-        ranks = [sum(sizes[a] > 1 for a in _spec_axes(en)) for en in ent]
-        slices = 1
-        if len(s.shape) >= 3:
-            slices, local, ranks = s.shape[0], local[1:], ranks[1:]
-        per = 4 * len({a for en in ent for a in _spec_axes(en)
-                       if sizes[a] > 1})
-        if len(local) >= 2:
-            per += 4 * math.prod(local[:-1]) * ranks[-1]
-            per += 4 * math.prod(local[:-2] + local[-1:]) * ranks[-2]
-            per += 4 * math.prod(local[:-2]) * ranks[-2]
-        total += slices * per
-    return total
-
-
-TRAIN_PLACED = ("granite-3-2b", "internlm2-1.8b", "command-r-plus-104b")
+TRAIN_PLACED = ("granite-3-2b", "internlm2-1.8b", "command-r-plus-104b",
+                "dbrx-132b", "arctic-480b")
 
 
 @pytest.mark.parametrize("widths", ["smoke", "published"])
 @pytest.mark.parametrize("arch_id", TRAIN_PLACED)
 def test_train_collective_bytes_equal_the_closed_form(arch_id, widths):
-    """The dense ``train_4k`` cells (batch 256, seq 4,096, the arch's
+    """The ``train_4k`` cells (batch 256, seq 4,096, the arch's
     accumulation, optimizer and rule preset) placed on a fake group and
     stepped whole on meta tensors (forward, recompute, backward,
     optimizer, every microbatch): at the smoke widths on (2, 2), and at
     the published widths cut to 2 layers on (16, 16) (bf16 compute;
     command-r-plus-104b's bf16 parameters, ``residual_sp``, Adafactor and
-    kv heads replicated over ``model``), the counted bytes are the closed
-    form's, kind by kind: the backward's reduce-scatters are counted."""
+    kv heads replicated over ``model``; dbrx-132b's sort dispatch and
+    arctic-480b's with its dense residual under ``residual_sp``, their
+    routers, experts, expert outputs and load-balance sums), the counted
+    bytes are the closed form's (``dryrun.train_collective_bytes``), kind
+    by kind: the backward's reduce-scatters are counted."""
     import dataclasses
 
     from repro_torch.configs import lm_common
@@ -633,8 +524,29 @@ def test_train_collective_bytes_equal_the_closed_form(arch_id, widths):
     plan = lm_common.build_cell(cfg, mod.TRAIN, "train_4k", device="meta")
     got, calls = dryrun.collective_bytes(plan, MeshShape(("data", "model"),
                                                          mesh))
-    assert got == _train_closed_form(cfg, mod.TRAIN, 256, 4096, *mesh)
+    assert got == dryrun.train_collective_bytes(cfg, mod.TRAIN, 256, 4096,
+                                                *mesh)
     assert got["reduce-scatter"] > 0 and calls["reduce-scatter"] > 0
+
+
+def test_einsum_train_collective_bytes_equal_the_closed_form():
+    """dbrx-132b's ``train_4k`` at the smoke widths on (2, 2) through the
+    einsum dispatch: its combine's partials all-reduced in the dense FFN's
+    place and its router's gradient, partial over ``model``, all-reduced
+    there; the counted bytes are the closed form's, kind by kind."""
+    import dataclasses
+
+    from repro_torch.configs import lm_common
+    from repro_torch.distributed.sharding import MeshShape
+
+    mod = get_arch("dbrx-132b")
+    cfg = dataclasses.replace(lm_common.smoke_config(mod.CFG),
+                              moe_impl="einsum")
+    plan = lm_common.build_cell(cfg, mod.TRAIN, "train_4k", device="meta")
+    got, _ = dryrun.collective_bytes(plan, MeshShape(("data", "model"),
+                                                     (2, 2)))
+    assert got == dryrun.train_collective_bytes(cfg, mod.TRAIN, 256, 4096,
+                                                2, 2)
 
 
 def test_train_record_on_both_production_meshes():
@@ -658,3 +570,28 @@ def test_train_record_on_both_production_meshes():
         assert "step_multiplier" not in plan.notes
         assert roofline.analyze([rec])[0]["t_collective_s"] == \
             sum(cb.values()) / roofline.NVLINK_BW
+
+
+@pytest.mark.parametrize("arch_id", ["dbrx-132b", "arctic-480b"])
+def test_moe_train_records_on_both_production_meshes(arch_id):
+    """The MoE archs' ``train_4k`` is placed: its record (cut to 2 layers)
+    on (16, 16) and (2, 16, 16) carries every collective kind of a placed
+    train step, the sort's expert-output gathers among the all-gathers,
+    and the roofline reads the bytes once."""
+    from repro_torch.configs import lm_common
+
+    mod = get_arch(arch_id)
+    assert dryrun.placed(arch_id, "train_4k")
+    plan = lm_common.build_cell(mod.CFG, mod.TRAIN, "train_4k",
+                                device="meta", reduced={"n_layers": 2})
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        cb, calls = dryrun.collective_bytes(plan, mesh)
+        assert cb["all-gather"] > 0 and cb["all-reduce"] > 0
+        assert cb["reduce-scatter"] > 0 and calls["reduce-scatter"] > 0
+        rec = dict(arch=arch_id, shape="train_4k",
+                   mesh=dict(zip(mesh.axis_names, mesh.shape)),
+                   collective_bytes=cb, notes=plan.notes, flops=None)
+        assert roofline.analyze([rec])[0]["t_collective_s"] == \
+            sum(cb.values()) / roofline.NVLINK_BW
+

@@ -26,8 +26,8 @@ the ranks that hold the same rows, and the ranks' rows together the
 one-device step's; every output bit-equal on all ranks; in bf16 on (2, 2)
 dbrx's sort prefill bit-equal to one device's with the attention's
 row-parallel product split as the ranks split it
-(``chip_smoke.split_rows``; the MoE output is gathered, not summed);
-placed training of an MoE arch still refused; no rank loads ``jax``; the
+(``chip_smoke.split_rows``; the MoE output is gathered, not summed); no
+rank loads ``jax``; the
 port's collective bytes a device printed beside the JAX package's
 compiled step's (``pytest -s -k beside``).
 
@@ -160,8 +160,8 @@ def _routing(tape: list):
 # ------------------------------------------------------------- the group
 def _rank(rank: int, work: str) -> None:
     """One rank: every config and step on both meshes (placed arguments'
-    local shards, outputs, routing), dbrx's bf16 prefill on (2, 2) and
-    the placed training refusal; to ``rank{rank}.pkl``."""
+    local shards, outputs, routing) and dbrx's bf16 prefill on (2, 2); to
+    ``rank{rank}.pkl``."""
     import torch.distributed as dist
     from test_torch_placed_train import _card_like
 
@@ -208,12 +208,6 @@ def _rank(rank: int, work: str) -> None:
                     (type(x).__name__, getattr(x, "dim", None))
                     for x in t.placements], mesh).float().numpy()
                     for p, t in _leaves(res)}
-                try:
-                    T.loss_fn(placed.args[0], {"tokens": None,
-                                               "labels": None}, _cfg(BF16[0])[0])
-                    out["train"] = None
-                except NotImplementedError as e:
-                    out["train"] = str(e)
         finally:
             dist.destroy_process_group()
     out["modules"] = [k for k in sys.modules if k == "jax"
@@ -492,11 +486,6 @@ def test_bf16_sort_prefill_is_one_device_with_split_row_products(runs):
             np.testing.assert_array_equal(got[p], want[p],
                                           err_msg=f"rank {r} {p}")
     assert not np.array_equal(want["/0"], runs["one"][("bf16", False)]["/0"])
-
-
-def test_placed_training_of_an_moe_arch_is_refused(runs):
-    for out in runs["ranks"]:
-        assert out["train"] is not None and "3b.2" in out["train"]
 
 
 def test_no_rank_loads_jax(runs):
